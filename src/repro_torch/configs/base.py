@@ -1,0 +1,129 @@
+"""Model configuration schema (the port's copy of ``repro.configs.base``).
+
+One ``ModelConfig`` describes an architecture.  The port keeps the JAX
+package's fields for the dense decoder and the analog read, under the
+same names; the fields of the other families and of training arrive with
+the slices that read them (``ROADMAP.md``).  The port keeps its own copy
+because it imports nothing of ``repro``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+
+class AnalogMode(enum.Enum):
+    """Validated execution mode of the analog-crossbar path.
+
+    ``cfg.analog_mode`` stays a plain string field (the config dataclass
+    must remain frozen/hashable and trivially serialisable for
+    checkpoint metadata); this enum is the *resolution* layer every
+    consumer goes through via :func:`resolve_analog_mode` instead of
+    comparing raw strings.
+    """
+
+    DIGITAL = "digital"      # analog path fully off: plain matmuls
+    FAKEQUANT = "fakequant"  # QAT-style I/O quantisation, no device state
+    DEVICE = "device"        # projections programmed onto tiled crossbars
+
+
+def resolve_analog_mode(cfg: "ModelConfig") -> AnalogMode:
+    """THE central analog-mode resolution point.
+
+    Raises loudly on unknown strings and on incoherent combinations:
+
+    * ``analog=False`` + ``analog_mode="device"`` — device state exists
+      but the flag claims the analog path is off; every historical bug
+      in this area came from one of the two fields being stale.  Use
+      :meth:`ModelConfig.digital` to switch a device config off.
+    * ``analog=True`` + ``analog_mode="digital"`` — the inverse
+      contradiction.
+
+    ``analog=False`` with the (default) ``"fakequant"`` string resolves
+    to :attr:`AnalogMode.DIGITAL`: the master switch is off and the mode
+    string is merely unused, not contradictory.
+    """
+    try:
+        mode = AnalogMode(cfg.analog_mode)
+    except ValueError:
+        raise ValueError(
+            f"unknown analog_mode {cfg.analog_mode!r}; expected one of "
+            f"{[m.value for m in AnalogMode]}") from None
+    if not cfg.analog:
+        if mode is AnalogMode.DEVICE:
+            raise ValueError(
+                "incoherent config: analog=False but analog_mode='device' "
+                "(programmed crossbar state with the analog path switched "
+                "off).  Use cfg.digital() to derive a digital view of a "
+                "device config.")
+        return AnalogMode.DIGITAL
+    if mode is AnalogMode.DIGITAL:
+        raise ValueError(
+            "incoherent config: analog=True but analog_mode='digital'; "
+            "pick 'fakequant' or 'device', or set analog=False.")
+    return mode
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # only "dense" is ported
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0              # 0 -> d_model // n_heads
+    act: str = "silu"              # silu | gelu
+    gated: bool = True             # GLU-style FFN (SwiGLU/GeGLU)
+    norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+
+    # --- analog-crossbar execution (the paper's technique) -------------------
+    analog: bool = False           # run projections through the crossbar sim
+    # Stored as the string value of an AnalogMode member; validated and
+    # resolved exclusively through resolve_analog_mode() — do not compare
+    # this field against raw strings.
+    # "fakequant": QAT-style I/O quantisation inside a fused digital matmul
+    #              (scalable LM integration, no device state).
+    # "device":    projections are *programmed* onto tiled crossbars —
+    #              forward=VMM, backward=MVM through the same conductances,
+    #              updates via the nonlinear device model (in-situ training).
+    # "digital":   explicit off (equivalent to analog=False; what
+    #              cfg.digital() writes so the pair stays coherent).
+    analog_mode: str = "fakequant"
+    analog_device: str = "taox"    # key into core.DEVICE_MODELS
+    analog_rows: int = 1024
+    analog_cols: int = 1024
+    analog_in_bits: int = 8
+    analog_out_bits: int = 8
+    analog_sat_sigmas: float = 4.0  # integrator range, sigmas of col charge
+    # Periodic carry (paper §V.C / §VI.B): every container gains a second
+    # "g_carry" crossbar holding the LSB significance level, which the
+    # read sees at 1/analog_carry_base drive (core.tiled_analog.effective_g).
+    analog_carry: bool = False
+    analog_carry_base: float = 4.0
+
+    @property
+    def resolved_analog_mode(self) -> AnalogMode:
+        return resolve_analog_mode(self)
+
+    def digital(self) -> "ModelConfig":
+        """Digital-execution view of this config (analog path fully off).
+
+        Rewrites *both* fields so the result passes resolve_analog_mode
+        — a bare ``replace(analog=False)`` on a device config is the
+        incoherent combination that resolution rejects.
+        """
+        return self.replace(analog=False,
+                            analog_mode=AnalogMode.DIGITAL.value)
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,129 @@
+"""Mixed-signal periphery: input temporal coding (DAC) and ramp ADC.
+
+Port of ``repro.core.adc``.  Digital inputs are encoded into pulse trains
+(one pulse per magnitude bit, the sign selects polarity), so the charge
+on each column is the integer dot product ``q_j = sum_i x_int_i G_ij``.
+The integrator saturates at a finite range and the ramp ADC digitises to
+``out_bits`` levels.  All quantisers are symmetric mid-tread, so zero is
+exactly representable.  Rounding is round-half-to-even (``torch.round``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+Tensor = torch.Tensor
+
+
+def _clip(x: Tensor, lo, hi) -> Tensor:
+    """``min(max(x, lo), hi)``, with float or tensor bounds (float bounds
+    make no tensor, so nothing is copied to the device)."""
+    if isinstance(lo, Tensor):
+        return torch.minimum(torch.maximum(x, lo), hi)
+    return torch.clamp(x, lo, hi)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdcConfig:
+    """Static configuration of the crossbar I/O path.
+
+    ``in_bits``/``out_bits``: 8/8, 4/4 or 2/2 in the paper's variants (one
+    input bit is the sign).  ``sat_frac``: integrator saturation as a
+    fraction of the worst-case column charge ``in_levels * n_rows *
+    g_max`` (``range_mode="fixed"``).  ``range_mode="dynamic"`` sets the
+    range to ``sat_sigmas`` times the rms of the column charge per tile.
+    ``stochastic_round`` is the reference's training-time option; the
+    port's forward read rejects it (see ``ROADMAP.md``).
+    """
+
+    in_bits: int = 8
+    out_bits: int = 8
+    sat_frac: float = 0.03
+    range_mode: str = "dynamic"
+    sat_sigmas: float = 4.0
+    stochastic_round: bool = False
+
+    @property
+    def in_levels(self) -> int:
+        return 2 ** (self.in_bits - 1) - 1  # magnitude levels (sign separate)
+
+    @property
+    def out_levels(self) -> int:
+        return 2 ** (self.out_bits - 1) - 1
+
+
+def _round(x: Tensor) -> Tensor:
+    """Round half to even, as ``lax.round(TO_NEAREST_EVEN)``."""
+    return torch.round(x)
+
+
+def _deterministic(cfg: AdcConfig) -> None:
+    if cfg.stochastic_round:
+        raise NotImplementedError(
+            "stochastic rounding waits for the training slice of the port "
+            "(ROADMAP.md)")
+
+
+def fixed_saturation(cfg: AdcConfig, n_rows: int, g_max: float) -> float:
+    """The ``fixed``-mode integrator bound, in Python doubles, rounded to
+    float32 once (``repro.core.adc.integrator_saturation``)."""
+    return float(np.float32(cfg.sat_frac * (cfg.in_levels * n_rows * g_max)))
+
+
+def quantize_input(x: Tensor, cfg: AdcConfig,
+                   scale: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Quantise activations to signed integers for temporal coding.
+
+    Returns ``(x_int, scale)`` with ``x ≈ x_int * scale`` and ``x_int`` in
+    ``[-L, L]``, ``L = 2^{in_bits-1} - 1``.  ``scale`` defaults to the
+    per-call full scale ``max|x| / L``.
+    """
+    _deterministic(cfg)
+    levels = cfg.in_levels
+    if scale is None:
+        scale = torch.clamp(x.abs().amax(), min=1e-12) / levels
+    x_int = _round(x / scale)
+    return _clip(x_int, float(-levels), float(levels)), scale
+
+
+def integrator_saturation(q: Tensor, cfg: AdcConfig, n_rows: int,
+                          g_max: float = 1.0,
+                          reduce_axes: Optional[Tuple[int, ...]] = None
+                          ) -> Tuple[Tensor, Tensor]:
+    """Clip accumulated column charge to the integrator dynamic range.
+
+    ``reduce_axes``: axes of ``q`` sharing one range in ``dynamic`` mode
+    (batch and columns of a tile).  The rms is taken over the non-zero
+    entries only, so zero padding at a matrix edge does not shrink it.
+    Returns ``(q_clipped, sat)``; ``sat`` broadcasts against ``q``.
+    """
+    if cfg.range_mode == "fixed":
+        sat = torch.tensor(fixed_saturation(cfg, n_rows, g_max),
+                           dtype=q.dtype, device=q.device)
+    else:
+        if reduce_axes is None:
+            reduce_axes = tuple(range(q.ndim))
+        sumsq = torch.sum(q * q, dim=reduce_axes, keepdim=True)
+        nz = torch.sum((q != 0).to(q.dtype), dim=reduce_axes, keepdim=True)
+        rms = torch.sqrt(sumsq / torch.clamp(nz, min=1.0))
+        sat = torch.clamp(cfg.sat_sigmas * rms, min=1e-6).to(q.dtype)
+    return _clip(q, -sat, sat), sat
+
+
+def adc_quantize(q: Tensor, sat: Tensor, cfg: AdcConfig) -> Tensor:
+    """Ramp ADC: uniform quantisation of ``[-sat, sat]`` to ``out_bits``
+    levels, returned in charge units (``lsb * round(q / lsb)``)."""
+    _deterministic(cfg)
+    lsb = sat / cfg.out_levels
+    code = _clip(_round(q / lsb), float(-cfg.out_levels),
+                 float(cfg.out_levels))
+    return code * lsb
+
+
+def quantize_dequantize(x: Tensor, cfg: AdcConfig) -> Tensor:
+    """Round-trip input quantisation."""
+    x_int, scale = quantize_input(x, cfg)
+    return x_int * scale

@@ -1,0 +1,318 @@
+"""Transformer building blocks (port of ``repro.models.layers``, dense
+self-attention and gated FFN).
+
+Conventions, as in the reference:
+  * params are nested dicts of float32 tensors; compute casts to the
+    config's dtype,
+  * every function takes (params, inputs, cfg),
+  * attention is computed in plain tensor ops that mirror the
+    reference's einsums (q-chunked prefill, kv-chunked flash-decoding for
+    one token, cached attention for chunked prefill).
+
+KV caches are updated in place: ``attention`` writes the new keys and
+values into the cache tensors it is given and returns them with the new
+lengths (the reference returns fresh arrays and its engines donate the
+old ones).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import (AnalogMode, ModelConfig,
+                                      resolve_analog_mode)
+from repro_torch.core.tiled_analog import (analog_project,
+                                           crossbar_from_model,
+                                           is_analog_container,
+                                           program_stacked, readout)
+
+Tensor = torch.Tensor
+
+# Number of kv chunks of the flash-decoding attention (reference value).
+DECODE_KV_CHUNKS = 16
+# Query chunk for the chunked prefill attention.
+Q_CHUNK = 512
+
+
+def cdtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# --------------------------------------------------------------------------
+# Initialisers (torch.Generator draws; not the reference's jax.random draws)
+# --------------------------------------------------------------------------
+
+def _trunc_normal(shape, generator: torch.Generator, device) -> Tensor:
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    return torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                       generator=generator)
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               device=None) -> Tensor:
+    return _trunc_normal((d_in, d_out), generator, device) / np.sqrt(d_in)
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int,
+               device=None) -> Tensor:
+    return _trunc_normal((vocab, d), generator, device)
+
+
+def proj_from_weights(w: Tensor, cfg: ModelConfig) -> dict:
+    """Wrap explicit weights as projection params: a digital ``{"w"}``
+    dict, or in device mode the weights programmed onto a crossbar
+    container (one tile grid and calibration per stacked matrix)."""
+    if resolve_analog_mode(cfg) is AnalogMode.DEVICE:
+        return program_stacked(w, crossbar_from_model(cfg))
+    return {"w": w}
+
+
+def proj_init(generator: torch.Generator, d_in: int, d_out: int,
+              cfg: ModelConfig, device=None) -> dict:
+    return proj_from_weights(dense_init(generator, d_in, d_out, device), cfg)
+
+
+def proj_readout(p: dict, cfg: ModelConfig) -> dict:
+    """Digital serial read of a projection back to a weight dict."""
+    if is_analog_container(p):
+        return {"w": readout(p, crossbar_from_model(cfg))}
+    return p
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, device=None) -> dict:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm(p: dict, x: Tensor, eps: float = 1e-5) -> Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * p["scale"]).to(dt)
+
+
+# --------------------------------------------------------------------------
+# Projection
+# --------------------------------------------------------------------------
+
+def project(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """Linear layer.  A crossbar container is read in-array (VMM through
+    the fused read); a digital ``{"w"}`` dict is a plain matmul."""
+    if is_analog_container(p):
+        return analog_project(p, x, crossbar_from_model(cfg))
+    if resolve_analog_mode(cfg) is not AnalogMode.DIGITAL:
+        raise NotImplementedError(
+            "fakequant projections are not ported yet (ROADMAP.md)")
+    return x @ p["w"].to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Rotary embeddings
+# --------------------------------------------------------------------------
+
+def rope_freqs(dim: int, theta: float, device=None) -> Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                         device=device) / dim))
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    dt = x.dtype
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None].float() * freqs
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(dt)
+
+
+# --------------------------------------------------------------------------
+# Attention
+# --------------------------------------------------------------------------
+
+def attn_init(generator: torch.Generator, cfg: ModelConfig,
+              device=None) -> dict:
+    """Self-attention projections with q/k/v on one column-concatenated
+    ``wqkv`` (one crossbar sweep drives all three)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    w = torch.cat([dense_init(generator, d, cfg.n_heads * hd, device),
+                   dense_init(generator, d, cfg.n_kv_heads * hd, device),
+                   dense_init(generator, d, cfg.n_kv_heads * hd, device)],
+                  dim=1)
+    wo = proj_init(generator, cfg.n_heads * hd, cfg.d_model, cfg, device)
+    return {"wqkv": proj_from_weights(w, cfg), "wo": wo}
+
+
+def _split_heads(x: Tensor, n: int) -> Tensor:
+    return x.reshape(*x.shape[:-1], n, x.shape[-1] // n)
+
+
+def _chunked_sdpa(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                  q_offset: int = 0) -> Tensor:
+    """Softmax attention over query chunks.  q: (B, Sq, H, hd); k/v:
+    (B, Skv, KVH, hd); the head group folds into the einsum (GQA)."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    scale = 1.0 / np.sqrt(hd)
+    qg = q.reshape(b, sq, kvh, group, hd)
+    n_chunks = max(1, sq // Q_CHUNK) if sq % Q_CHUNK == 0 else 1
+    cq = sq // n_chunks
+    kv_pos = torch.arange(skv, device=q.device)
+    k32, v32 = k.float(), v.float()
+    outs = []
+    for idx in range(n_chunks):
+        qi = qg[:, idx * cq:(idx + 1) * cq].float()
+        s = torch.einsum("bqkgd,bskd->bqkgs", qi, k32) * scale
+        if causal:
+            q_pos = q_offset + idx * cq + torch.arange(cq, device=q.device)
+            mask = kv_pos[None, :] <= q_pos[:, None]
+            s = s.masked_fill(~mask[None, :, None, None, :], -1e30)
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bqkgs,bskd->bqkgd", p, v32))
+    out = torch.cat(outs, dim=1).reshape(b, sq, h, v.shape[-1])
+    return out.to(q.dtype)
+
+
+def _decode_sdpa(q: Tensor, k: Tensor, v: Tensor, kv_len: Tensor) -> Tensor:
+    """One-token attention against the cache, flash-decoding style: the
+    cache is viewed as DECODE_KV_CHUNKS chunks whose partial softmax
+    statistics combine exactly.  q: (B, 1, H, hd); k/v: (B, S, KVH, hd)."""
+    b, _, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    scale = 1.0 / np.sqrt(hd)
+    c = DECODE_KV_CHUNKS if s % DECODE_KV_CHUNKS == 0 else 1
+    sl = s // c
+    kc = k.reshape(b, c, sl, kvh, hd)
+    vc = v.reshape(b, c, sl, kvh, v.shape[-1])
+    qg = q.reshape(b, kvh, group, hd)
+    scores = torch.einsum("bkgd,bcskd->bckgs", qg.float(),
+                          kc.float()) * scale
+    pos = torch.arange(s, device=q.device).reshape(c, sl)
+    valid = pos[None, :, :] < kv_len[:, None, None]           # (b, c, sl)
+    scores = scores.masked_fill(~valid[:, :, None, None, :], -1e30)
+    m_c = torch.amax(scores, dim=-1)                           # (b,c,kvh,g)
+    e = torch.exp(scores - m_c[..., None])
+    l_c = torch.sum(e, dim=-1)
+    o_c = torch.einsum("bckgs,bcskd->bckgd", e, vc.float())
+    m = torch.amax(m_c, dim=1, keepdim=True)                   # (b,1,kvh,g)
+    w = torch.exp(m_c - m) * l_c                               # (b,c,kvh,g)
+    o = torch.sum(o_c * torch.exp(m_c - m)[..., None], dim=1) \
+        / torch.clamp(torch.sum(w, dim=1), min=1e-30)[..., None]
+    return o.reshape(b, 1, h, v.shape[-1]).to(q.dtype)
+
+
+def _cached_sdpa(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor) -> Tensor:
+    """Chunk attention against a partially filled cache (chunked
+    prefill).  Cache slot s is visible to the query at position p iff
+    s <= p.  q: (B, Sq, H, hd); k/v: (B, S, KVH, hd); q_pos: (B, Sq)."""
+    b, sq, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    scale = 1.0 / np.sqrt(hd)
+    qg = q.reshape(b, sq, kvh, group, hd)
+    scores = torch.einsum("bqkgd,bskd->bqkgs", qg.float(), k.float()) * scale
+    mask = torch.arange(s, device=q.device)[None, None, :] \
+        <= q_pos[:, :, None]                                   # (b, sq, s)
+    scores = scores.masked_fill(~mask[:, :, None, None, :], -1e30)
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bqkgs,bskd->bqkgd", p, v.float())
+    return o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+def attention(p: dict, x: Tensor, cfg: ModelConfig, *,
+              positions: Optional[Tensor] = None,
+              cache: Optional[dict] = None) -> Tuple[Tensor, Optional[dict]]:
+    """Causal self-attention with rotary embeddings and an optional KV
+    cache.
+
+    cache = {"k": (B, S, KVH, hd), "v": ..., "len": (B,)}.  Append mode
+    (one token, or a chunk with explicit ``positions``) writes the new
+    keys and values at each row's ``len`` and attends to the filled
+    prefix.  A cache with ``positions=None`` and sq > 1 is a fresh full
+    prefill, which overwrites the cache from position 0.
+    """
+    hd = cfg.resolved_head_dim
+    b, sq = x.shape[0], x.shape[1]
+    append = cache is not None and (sq == 1 or positions is not None)
+    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    qkv = project(p["wqkv"], x, cfg)
+    q = _split_heads(qkv[..., :nq], cfg.n_heads)
+    k = _split_heads(qkv[..., nq:nq + nkv], cfg.n_kv_heads)
+    v = _split_heads(qkv[..., nq + nkv:], cfg.n_kv_heads)
+    if positions is None:
+        positions = torch.arange(sq, device=x.device).expand(b, sq)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    new_cache = None
+    if append:
+        idx = cache["len"]
+        rows = torch.arange(b, device=x.device)[:, None]
+        slots = idx.long()[:, None] + torch.arange(sq, device=x.device)
+        cache["k"][rows, slots] = k.to(cache["k"].dtype)
+        cache["v"][rows, slots] = v.to(cache["v"].dtype)
+        if sq == 1:
+            o = _decode_sdpa(q, cache["k"], cache["v"], idx + 1)
+        else:
+            o = _cached_sdpa(q, cache["k"], cache["v"], positions)
+        new_cache = {"k": cache["k"], "v": cache["v"], "len": idx + sq}
+    else:
+        o = _chunked_sdpa(q, k, v, causal=True)
+        if cache is not None:  # prefill fills the cache
+            cache["k"][:, :sq] = k.to(cache["k"].dtype)
+            cache["k"][:, sq:] = 0
+            cache["v"][:, :sq] = v.to(cache["v"].dtype)
+            cache["v"][:, sq:] = 0
+            new_cache = {"k": cache["k"], "v": cache["v"],
+                         "len": torch.full((b,), sq, dtype=torch.int32,
+                                           device=x.device)}
+    out = project(p["wo"], o.reshape(b, sq, -1), cfg)
+    return out, new_cache
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    hd = cfg.resolved_head_dim
+    shape = (batch, max_len, cfg.n_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=cdtype(cfg), device=device),
+            "v": torch.zeros(shape, dtype=cdtype(cfg), device=device),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+# --------------------------------------------------------------------------
+# FFN
+# --------------------------------------------------------------------------
+
+def ffn_init(generator: torch.Generator, cfg: ModelConfig,
+             device=None) -> dict:
+    """Gated FFNs lay up and gate out on one column-concatenated
+    ``w_upgate`` (both halves share the row drives)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.gated:
+        up = dense_init(generator, d, ff, device)
+        down = proj_init(generator, ff, d, cfg, device)
+        gate = dense_init(generator, d, ff, device)
+        return {"w_upgate": proj_from_weights(torch.cat([up, gate], dim=1),
+                                              cfg),
+                "w_down": down}
+    return {"w_up": proj_init(generator, d, ff, cfg, device),
+            "w_down": proj_init(generator, ff, d, cfg, device)}
+
+
+def ffn(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+    act = (lambda t: F.gelu(t, approximate="tanh")) if cfg.act == "gelu" \
+        else F.silu
+    if "w_upgate" in p:
+        up, gate = torch.chunk(project(p["w_upgate"], x, cfg), 2, dim=-1)
+        up = act(gate) * up
+    else:
+        up = act(project(p["w_up"], x, cfg))
+    return project(p["w_down"], up, cfg)

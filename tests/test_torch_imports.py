@@ -1,0 +1,50 @@
+"""The port stands alone: importing every ``repro_torch`` module loads
+neither ``jax`` nor anything of the JAX package ``repro``, and
+``chip_smoke.py`` imports neither."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+"""
+
+
+def test_port_modules_import_without_jax_or_repro():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", PROBE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.split(" ", 1)
+    assert int(n) >= 15 and bad.strip() == "[]", out.stdout
+
+
+def _imported_roots(path: Path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_sources_and_chip_smoke_import_no_jax_or_repro():
+    files = [ROOT / "chip_smoke.py",
+             *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
+    for f in files:
+        roots = _imported_roots(f)
+        assert not roots & {"jax", "jaxlib", "repro"}, (f, roots)

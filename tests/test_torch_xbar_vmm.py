@@ -1,0 +1,157 @@
+"""The port's fused read (plain version and dispatch) against the JAX
+package's read chain and its interpret-mode Pallas kernel.
+
+Parity classes (the reference's contract, ``repro/kernels/xbar_vmm.py``):
+
+  * fixed ADC range with a power-of-two lsb — bit-equal: every ADC output
+    is an exact multiple of a power of two and every partial sum is exact;
+  * dynamic range — the per-tile range is a float reduction summed in a
+    different order, so ``rtol = atol = 1e-5`` (as the reference's own
+    interpret-vs-chain test, ``tests/test_read_fusion.py``).
+
+The inputs are made with numpy from a seed and handed to both packages.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import AdcConfig as JAdc
+from repro.core import CrossbarConfig as JXbar
+from repro.core import IDEAL as J_IDEAL
+from repro.core.xbar_ops import vmm as jax_vmm
+from repro_torch.core import IDEAL, AdcConfig, CrossbarConfig
+from repro_torch.core.xbar_ops import vmm as torch_vmm
+from repro_torch.kernels import xbar_vmm as K
+
+POW2_ADC = dict(in_bits=8, out_bits=8, range_mode="fixed", sat_frac=0.03125)
+SHAPES = [(16, 16, 4), (40, 24, 6), (64, 48, 8)]
+
+
+def _operands(k, n, b, lead=(), seed=0):
+    """Conductances programmed from normal weights (window [0, 1], ref at
+    the midpoint) and normal activations, as float32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((*lead, k, n)) / np.sqrt(k)
+    w_max = np.abs(w).max(axis=(-2, -1), keepdims=True)
+    g = (0.5 + w * (0.5 / w_max)).astype(np.float32)
+    ref = np.full(g.shape, 0.5, np.float32)
+    ws = np.asarray(0.5 / w_max[..., 0, 0], np.float32)
+    x = rng.standard_normal((*lead, b, k)).astype(np.float32)
+    return x, g, ref, ws
+
+
+def _configs(adc, tile=16):
+    return (JXbar(rows=tile, cols=tile, device=J_IDEAL, adc=JAdc(**adc)),
+            CrossbarConfig(rows=tile, cols=tile, device=IDEAL,
+                           adc=AdcConfig(**adc)))
+
+
+def _both(x, g, ref, ws, adc, jimpl, tile=16):
+    jcfg, tcfg = _configs(adc, tile)
+    y_jax = np.asarray(jax_vmm(jnp.asarray(x), jnp.asarray(g),
+                               jnp.asarray(ref), jnp.asarray(ws), jcfg,
+                               impl=jimpl))
+    y_port = torch_vmm(torch.from_numpy(x), torch.from_numpy(g),
+                       torch.from_numpy(ref), torch.from_numpy(ws), tcfg,
+                       impl="eager").numpy()
+    return y_jax, y_port
+
+
+@pytest.mark.parametrize("jimpl", ["chain", "interpret"])
+@pytest.mark.parametrize("k,n,b", SHAPES)
+def test_plain_read_bitwise_fixed_pow2(jimpl, k, n, b):
+    y_jax, y_port = _both(*_operands(k, n, b), POW2_ADC, jimpl)
+    np.testing.assert_array_equal(y_port, y_jax)
+
+
+@pytest.mark.parametrize("jimpl", ["chain", "interpret"])
+@pytest.mark.parametrize("k,n,b", SHAPES)
+def test_plain_read_dynamic_close(jimpl, k, n, b):
+    y_jax, y_port = _both(*_operands(k, n, b, seed=1),
+                          {"range_mode": "dynamic"}, jimpl)
+    np.testing.assert_allclose(y_port, y_jax, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("range_mode", ["fixed", "dynamic"])
+def test_plain_read_lead_dims(range_mode):
+    """A scan-stacked (L, K, N) container: one DAC scale per matrix."""
+    adc = POW2_ADC if range_mode == "fixed" else {"range_mode": "dynamic"}
+    y_jax, y_port = _both(*_operands(40, 24, 5, lead=(3,), seed=2), adc,
+                          "chain")
+    assert y_port.shape == (3, 5, 24)
+    if range_mode == "fixed":
+        np.testing.assert_array_equal(y_port, y_jax)
+    else:
+        np.testing.assert_allclose(y_port, y_jax, rtol=1e-5, atol=1e-5)
+
+
+def test_port_chain_equals_plain_read():
+    """The port's own oracle (``impl="chain"``) and the kernel's plain
+    version compute the same function."""
+    x, g, ref, ws = (torch.from_numpy(a) for a in _operands(40, 24, 6))
+    _, tcfg = _configs({"range_mode": "dynamic"})
+    y_chain = torch_vmm(x, g, ref, ws, tcfg, impl="chain")
+    y_plain = torch_vmm(x, g, ref, ws, tcfg, impl="eager")
+    torch.testing.assert_close(y_plain, y_chain, rtol=1e-6, atol=1e-6)
+
+
+def test_dispatch_cpu_tensor_takes_plain_version():
+    x, g, ref, ws = (torch.from_numpy(a) for a in _operands(16, 16, 4))
+    _, tcfg = _configs(POW2_ADC)
+    before = dict(K.LAUNCHES)
+    y_auto = K.xbar_fused_read(x, g, ref, ws, tcfg)
+    y_eager = K.xbar_fused_read(x, g, ref, ws, tcfg, impl="eager")
+    torch.testing.assert_close(y_auto, y_eager, rtol=0, atol=0)
+    assert K.LAUNCHES == before
+
+
+def test_cuda_impl_on_cpu_tensor_raises():
+    """No fallback: asking for the kernel without CUDA tensors raises."""
+    x, g, ref, ws = (torch.from_numpy(a) for a in _operands(16, 16, 4))
+    _, tcfg = _configs(POW2_ADC)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.xbar_fused_read(x, g, ref, ws, tcfg, impl="cuda")
+    with pytest.raises(ValueError, match="impl"):
+        K.xbar_fused_read(x, g, ref, ws, tcfg, impl="pallas")
+
+
+def test_kernel_operand_checks_reject_cpu_tensors():
+    x, g, ref, _ = (torch.from_numpy(a) for a in _operands(16, 16, 4))
+    sc = torch.ones((1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        K._read_cuda(x[None], g[None], ref[None], sc,
+                     _configs(POW2_ADC)[1])
+
+
+def test_kernel_source_is_built_for_hopper():
+    """The build line targets sm_90a and keeps IEEE division and sqrt."""
+    assert "arch=compute_90a,code=sm_90a" in K.NVCC_FLAGS
+    assert "--use_fast_math" not in K.NVCC_FLAGS
+    assert K.SOURCE.exists()
+    src = K.SOURCE.read_text()
+    assert "_fused_vmm_kernel" in src and "__fdiv_rn" in src
+
+
+@pytest.mark.parametrize("adc", [POW2_ADC, {"range_mode": "dynamic"}],
+                         ids=["fixed_pow2", "dynamic"])
+def test_carry_container_read_matches_reference(adc):
+    """A container with a periodic-carry array reads ``g + (g_carry -
+    ref) / carry_base`` in both packages (``effective_g``)."""
+    from repro.core.tiled_analog import analog_project as jax_project
+    from repro_torch.core.tiled_analog import analog_project
+
+    x, g, ref, ws = _operands(40, 24, 6)
+    rng = np.random.default_rng(1)
+    g_carry = (ref + rng.uniform(-0.25, 0.25, ref.shape)).astype(np.float32)
+    jcfg, tcfg = _configs(adc)
+    jcfg = jcfg.replace(carry=True, carry_base=4.0)
+    tcfg = tcfg.replace(carry=True, carry_base=4.0)
+    leaves = {"g": g, "ref": ref, "w_scale": ws, "g_carry": g_carry}
+    y_jax = np.asarray(jax_project(
+        {k: jnp.asarray(v) for k, v in leaves.items()}, jnp.asarray(x),
+        jcfg))
+    y_port = analog_project({k: torch.from_numpy(v)
+                             for k, v in leaves.items()},
+                            torch.from_numpy(x), tcfg).numpy()
+    np.testing.assert_allclose(y_port, y_jax, rtol=1e-5, atol=1e-5)
