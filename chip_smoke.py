@@ -3,29 +3,30 @@
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
-Builds the fused analog read kernel (``src/repro_torch/kernels/csrc/
-xbar_vmm.cu``) with nvcc, then runs four phases and exits non-zero if
-any of the first three fails:
+Builds the port's CUDA kernels (``src/repro_torch/kernels/csrc/
+xbar_vmm.cu``: the forward and transpose reads; ``xbar_update.cu``: the
+rank-k write) with one nvcc per source, all started together, then runs
+these phases and exits non-zero if any gate fails:
 
-1. kernel vs plain version on the card, at the shapes of lm100m's four
-   crossbar containers (64x64 tiles) at decode (B=4) and prefill-chunk
-   (B=16) batch sizes, plus a ragged case, a 128x128-tile case and a
-   large-batch case that takes the kernel's scratch path.  Two parity
+1. forward read vs plain version on the card, at the shapes of lm100m's
+   four crossbar containers (64x64 tiles) at decode (B=4) and
+   prefill-chunk (B=16) batch sizes, plus a ragged case, 128x128,
+   256x256 and 1024x1024 tiles and a large-batch case.  Two parity
    classes:
      * fixed ADC range with a power-of-two lsb on conductances on the
        device's 1/256 pulse grid: every tile charge is an exact float32
        sum, so the kernel must be bit-equal to the plain version;
-     * dynamic ADC range on arbitrary conductances (the serving path's
-       class): the tile charges are float32 sums taken in another order,
-       so an ADC code may flip by one level where a charge sits within
-       rounding of a code boundary.  Every element must lie within one
-       lsb per K tile (times the output scale) of the plain version, and
-       fewer than 1% of the elements may differ by more than 1e-5
-       relative.
-   Full-width cases are timed (kernel device time from torch.profiler,
-   or back-to-back CUDA-event time where the profiler records no kernel;
-   conductances cycled through copies so each read misses L2) against
-   their byte bound.
+     * dynamic ADC range on arbitrary conductances (the serving and
+       training class): the tile charges are float32 sums taken in
+       another order, so an ADC code may flip by one level where a charge
+       sits within rounding of a code boundary.  Every element must lie
+       within one lsb per reduction tile (times the output scale) of the
+       plain version, and fewer than 1% of the elements may differ by
+       more than 1e-5 relative.
+   Full-width decode cases are timed (kernel device time from
+   torch.profiler, or back-to-back CUDA-event time where the profiler
+   records no kernel; conductances cycled through copies so each read
+   misses L2) against their byte bound.
 2. lm100m at full width served from programmed TaOx crossbars (random
    weights from torch.Generator seed 0) by the continuous scheduler: 4
    slots, prefill chunk 16, 4 prompts of 8-16 tokens, 32 greedy tokens.
@@ -35,21 +36,44 @@ any of the first three fails:
 3. the same weights and tokens on the card and on the CPU (the plain
    version): prefill logits and 4 decode steps fed the card's greedy
    tokens.  Gates: every read of the card's run against the plain version
-   on the CPU fed the card's own read operands, with phase 1's bound (a
-   read that skipped the ADC would be off by up to half an lsb per tile
-   on nearly every element, far above the 1% share); the card's logits
-   against the CPU's with the card's read results replayed into the CPU
-   run, within 1e-3 (only float32 rounding of attention, norms, embedding
-   and logits remains); and, as a gross check only, the free-running CPU
-   within twice the analog read's own error (analog vs float32 digital
-   logits): there, 8-bit ADC codes that flip at a rounding boundary
-   cascade through the layers.
+   on the CPU fed the card's own read operands, with phase 1's bound; the
+   card's logits against the CPU's with the card's read results replayed
+   into the CPU run, within 1e-3; and, as a gross check only, the
+   free-running CPU within twice the analog read's own error (analog vs
+   float32 digital logits): there, 8-bit ADC codes that flip at a
+   rounding boundary cascade through the layers.
 4. a torch.profiler trace of 4 decode steps, reported only.
+   Then a prefill and one decode step at the config's default 1024x1024
+   tiles, every read against the plain version (phase 1's bound).
+5. transpose read vs plain version on the card: the four containers at
+   training (B = T = 2048, timed against the FP32 bound) and B = 16, a
+   ragged case, 128x128 and 1024x1024 tiles; the same two classes, the
+   dynamic one within one lsb per N tile.
+6. rank-k write vs plain version on the card at each container's
+   (12, K, N) with T = 2048: (a) ideal device, no noise, power-of-two
+   operand grids, where every product and sum is exact: bit-equal;
+   (b) TaOx with counter-PRNG noise and (c) TaOx with a host noise field:
+   within 4 float32 ulp plus 1e-5 of each cell's move (a wrong hash moves
+   a cell by a write-noise sigma).  Timed against the FP32 bound, beside
+   torch.bmm of the accumulate alone (not the same function).
+7. lm100m at full width trained in device mode (TaOx, 64x64 tiles, 8-bit
+   DAC/ADC, lr 0.1): ``init_state`` from torch.Generator seed 0 and 4
+   steps of ``make_analog_sgd_step`` on 8 x 256-token batches of the
+   synthetic Markov stream.  Gates: 48 forward reads, 48 transpose reads
+   (each with its tile-order sum) and 4 update launches per step; every
+   launch of step 1 against its plain version on the card on its own
+   operands (phases 1, 5 and 6's bounds); the digital leaves after step 1
+   against a CPU run of the step that replays the card's read and write
+   results, within 1e-3 of each leaf's move plus 1e-6; finite losses and
+   conductances inside the window.  Only step 1 records its launches: the
+   step time, tokens/s and peak memory come from steps 2-4, which run the
+   kernels bare.
 
 The second-to-last line is a JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.  Details
 go to ``chiprun_out/chip_smoke.json``.
 """
+import contextlib
 import json
 import math
 import subprocess
@@ -135,21 +159,59 @@ def make_operands(k, n, b, gen, grid, device):
     return x, g[None].contiguous(), ref[None].contiguous(), (0.5 / w_max)[None]
 
 
-def tile_lsb(x, g, ref, sc, cfg):
-    """Per-(K tile, N tile) ADC lsb of the read, from the plain pieces."""
+def tile_lsb(x, g, ref, sc, cfg, transpose=False):
+    """Per-(reduction tile, output tile) ADC lsb of a read, from the plain
+    pieces: (K tiles, N tiles) forward, (N tiles, K tiles) transposed."""
     from repro_torch.core.adc import _clip, _round, integrator_saturation
     lv = float(cfg.adc.in_levels)
     xi = _clip(_round(x / sc[:, 0, None, None]), -lv, lv)[0]
     k, n = g.shape[-2:]
     diff = torch.nn.functional.pad(g[0] - ref[0], (0, (-n) % cfg.cols,
                                                    0, (-k) % cfg.rows))
-    xi = torch.nn.functional.pad(xi, (0, diff.shape[0] - k))
-    tk, tn = diff.shape[0] // cfg.rows, diff.shape[1] // cfg.cols
-    q = torch.einsum("btr,trnc->btnc", xi.reshape(-1, tk, cfg.rows),
-                     diff.reshape(tk, cfg.rows, tn, cfg.cols))
-    _, sat = integrator_saturation(q, cfg.adc, cfg.rows, cfg.device.gmax,
+    rows, cols = cfg.rows, cfg.cols
+    if transpose:
+        rows, cols, diff = cols, rows, diff.T
+    xi = torch.nn.functional.pad(xi, (0, diff.shape[0] - xi.shape[1]))
+    tr, to = diff.shape[0] // rows, diff.shape[1] // cols
+    q = torch.einsum("btr,trnc->btnc", xi.reshape(-1, tr, rows),
+                     diff.reshape(tr, rows, to, cols))
+    _, sat = integrator_saturation(q, cfg.adc, rows, cfg.device.gmax,
                                    reduce_axes=(0, 3))
-    return sat[0, :, :, 0] / cfg.adc.out_levels          # (tk, tn)
+    return sat[0, :, :, 0] / cfg.adc.out_levels
+
+
+@contextlib.contextmanager
+def recording_reads(K, reads):
+    """Record every read the kernels run, with its operands and result:
+    ``(x, g, ref, sc, cfg, y, transpose)``."""
+    read_cuda = K._read_cuda
+
+    def recorded(x, g, ref, sc, cfg, transpose=False):
+        y = read_cuda(x, g, ref, sc, cfg, transpose)
+        reads.append((x.clone(), g, ref, sc.clone(), cfg, y.clone(),
+                      transpose))
+        return y
+
+    K._read_cuda = recorded
+    try:
+        yield
+    finally:
+        K._read_cuda = read_cuda
+
+
+def read_agrees(y_k, y_p, x, g, ref, sc, cfg, transpose=False):
+    """The dynamic-class bound: every element within one ADC lsb per
+    reduction tile (times the output scale) of the plain version, and
+    under 1% of the elements more than 1e-5 relative off.  Returns (ok,
+    max abs err, largest err / bound, flip share)."""
+    err = (y_k - y_p).abs()
+    lsb = tile_lsb(x, g, ref, sc, cfg, transpose)
+    width = cfg.rows if transpose else cfg.cols
+    per_col = lsb.sum(0).repeat_interleave(width)[:y_p.shape[-1]]
+    bound = per_col * sc[0, 1].abs() + 1e-5 * y_p.abs()
+    share = (err > 1e-5 * y_p.abs().amax()).float().mean().item()
+    ok = bool((err <= bound).all()) and share < 0.01
+    return ok, err.max().item(), (err / bound).max().item(), share
 
 
 def phase_kernel(K, cfg_of, report):
@@ -160,7 +222,8 @@ def phase_kernel(K, cfg_of, report):
     full = [(768, 2304), (768, 768), (768, 6144), (3072, 768)]
     cases = [(k, n, b, 64, True) for b in (4, 16) for k, n in full]
     cases += [(200, 72, 37, 64, False), (768, 2304, 16, 128, False),
-              (768, 768, 384, 128, False)]
+              (768, 768, 384, 128, False), (768, 2304, 16, 256, False),
+              (768, 2304, 16, 1024, False)]
     rows = []
     for k, n, b, tile, timed in cases:
         for cls in ("pow2", "dynamic"):
@@ -176,12 +239,8 @@ def phase_kernel(K, cfg_of, report):
             if cls == "pow2":
                 ok = torch.equal(y_k, y_p)
             else:
-                lsb = tile_lsb(x, g, ref, sc, cfg)            # (tk, tn)
-                per_col = lsb.sum(0).repeat_interleave(tile)[:n]
-                bound = per_col * sc[0, 1].abs() + 1e-5 * y_p.abs()
-                share = (err > 1e-5 * y_p.abs().amax()).float().mean().item()
-                row["flip_share"] = share
-                ok = bool((err <= bound).all()) and share < 0.01
+                ok, _, _, row["flip_share"] = read_agrees(
+                    y_k, y_p, x, g, ref, sc, cfg)
             row["ok"] = ok
             if timed and cls == "dynamic":
                 row.update(time_read(K, x, g, ref, sc, cfg))
@@ -192,30 +251,33 @@ def phase_kernel(K, cfg_of, report):
     return rows
 
 
-def time_read(K, x, g, ref, sc, cfg):
+def time_read(K, x, g, ref, sc, cfg, transpose=False):
     """CUDA-event times of the kernel and the plain version, cycling over
     copies of the conductances so each launch finds them out of L2."""
-    b, k = x.shape[1:]
-    n = g.shape[2]
+    b, d = x.shape[1:]
+    k, n = g.shape[1:]
     pair = 2 * g.numel() * 4
     copies = max(2, min(64, math.ceil(3 * L2_BYTES / pair)))
     gs = [g.clone() for _ in range(copies)]
     rs = [ref.clone() for _ in range(copies)]
     sync = torch.cuda.synchronize
-    iters = max(50, copies)
+    flops = 2 * b * k * n
+    iters = max(copies, 50 if flops < 1e10 else 5)
+
     def kern(i):
-        return K._read_cuda(x, gs[i % copies], rs[i % copies], sc, cfg)
+        return K._read_cuda(x, gs[i % copies], rs[i % copies], sc, cfg,
+                            transpose)
 
     def plain(i):
-        return K._read_plain(x, gs[i % copies], rs[i % copies], sc, cfg)
+        return K._read_plain(x, gs[i % copies], rs[i % copies], sc, cfg,
+                             transpose)
     launch_ms = cuda_ms(kern, iters, sync)
     ms, plain_ms = device_ms(kern, iters), device_ms(plain, iters)
     timing = "profiler"
     if ms is None or plain_ms is None:  # host-bound event times instead
         ms, plain_ms = launch_ms, cuda_ms(plain, iters, sync)
         timing = "events"
-    n_bytes = 4 * (b * k + 2 * k * n + 2 + b * n)
-    flops = 2 * b * k * n
+    n_bytes = 4 * (b * d + 2 * k * n + 2 + b * (k + n - d))
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     bound_ms = 1e3 * max(t_bytes, t_ops)
     return {"ms": ms, "plain_ms": plain_ms, "launch_ms": launch_ms,
@@ -305,39 +367,36 @@ def max_diff(a, b):
     return max((x - y).abs().max().item() for x, y in zip(a, b))
 
 
-def check_reads(K, reads):
-    """Every read the card ran, held against the plain version on the CPU
-    fed the same operands: within one ADC lsb per K tile per element, and
-    under 1% of the elements more than 1e-5 relative off (phase 1's
-    bound).  A read that skipped the ADC or returned a float product would
-    be off by up to half an lsb per tile on nearly every element."""
-    host = {}
+def check_reads(K, reads, where="cpu"):
+    """Every read the card ran, held against the plain version fed the
+    same operands, on the CPU (``where="cpu"``) or on the card: within one
+    ADC lsb per reduction tile per element, and under 1% of the elements
+    more than 1e-5 relative off (phase 1's bound).  A read that skipped
+    the ADC or returned a float product would be off by up to half an lsb
+    per tile on nearly every element."""
+    moved = {}
 
-    def on_cpu(t):
+    def to(t):
         key = (t.data_ptr(), tuple(t.shape))
-        if key not in host:
-            host[key] = t.cpu()
-        return host[key]
+        if key not in moved:
+            moved[key] = t.to(where)
+        return moved[key]
 
     worst = {"max_abs_err": 0.0, "max_err_over_bound": 0.0,
              "max_flip_share": 0.0}
-    for x, g, ref, sc, cfg, y in reads:
-        x, g, ref, sc = x.cpu(), on_cpu(g), on_cpu(ref), sc.cpu()
-        y_p = K._read_plain(x, g, ref, sc, cfg)
-        err = (y.cpu() - y_p).abs()
-        lsb = tile_lsb(x, g, ref, sc, cfg)
-        per_col = lsb.sum(0).repeat_interleave(cfg.cols)[:g.shape[2]]
-        bound = per_col * sc[0, 1].abs() + 1e-5 * y_p.abs()
-        share = (err > 1e-5 * y_p.abs().amax()).float().mean().item()
-        worst["max_abs_err"] = max(worst["max_abs_err"], err.max().item())
-        worst["max_err_over_bound"] = max(worst["max_err_over_bound"],
-                                          (err / bound).max().item())
+    for x, g, ref, sc, cfg, y, transpose in reads:
+        x, g, ref, sc = x.to(where), to(g), to(ref), sc.to(where)
+        y_p = K._read_plain(x, g, ref, sc, cfg, transpose)
+        ok, err, over, share = read_agrees(y.to(where), y_p, x, g, ref, sc,
+                                           cfg, transpose)
+        worst["max_abs_err"] = max(worst["max_abs_err"], err)
+        worst["max_err_over_bound"] = max(worst["max_err_over_bound"], over)
         worst["max_flip_share"] = max(worst["max_flip_share"], share)
-        if not (bool((err <= bound).all()) and share < 0.01):
-            fail(f"a read of the full-width run disagrees with the plain "
-                 f"version on its operands: x {tuple(x.shape)} g "
-                 f"{tuple(g.shape)}, max err {err.max().item()}, flip "
-                 f"share {share}")
+        if not ok:
+            fail(f"a read disagrees with the plain version on its "
+                 f"operands: x {tuple(x.shape)} g {tuple(g.shape)} "
+                 f"transpose {transpose}, max err {err}, err/bound {over}, "
+                 f"flip share {share}")
     return worst
 
 
@@ -361,24 +420,15 @@ def phase_card_vs_cpu(M, K, acfg, params, aparams, report):
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, acfg.vocab, (4, 12)))
 
-    reads, read_cuda, read_plain = [], K._read_cuda, K._read_plain
-
-    def recorded(x, g, ref, sc, cfg):
-        y = read_cuda(x, g, ref, sc, cfg)
-        reads.append((x.clone(), g, ref, sc.clone(), cfg, y.clone()))
-        return y
-
-    K._read_cuda = recorded
-    try:
+    reads, read_plain = [], K._read_plain
+    with recording_reads(K, reads):
         card, fed = run_steps(M, aparams, acfg, toks, None)
-    finally:
-        K._read_cuda = read_cuda
     dig, _ = run_steps(M, params, acfg.digital(), toks, fed)
     cpu, _ = run_steps(M, cpu_params, acfg, toks, fed)
     replay = iter(reads)
 
-    def replayed(x, g, ref, sc, cfg):
-        y = next(replay)[-1]
+    def replayed(x, g, ref, sc, cfg, transpose=False):
+        y = next(replay)[5]
         if y.shape != (x.shape[0], x.shape[1], g.shape[2]):
             fail(f"replayed read of shape {tuple(y.shape)} for x "
                  f"{tuple(x.shape)} g {tuple(g.shape)}")
@@ -456,7 +506,7 @@ def phase_profile(M, acfg, aparams, report):
               if e.device_type != DeviceType.CPU]
     total = kernel_us(prof)
     read = sum(dev_us(e) for e in events
-               if "fused_vmm_tile" in e.key or "reduce_tiles" in e.key)
+               if "fused_read_tile" in e.key or "reduce_tiles" in e.key)
     top = sorted(events, key=dev_us, reverse=True)[:8]
     res = {"wall_ms_per_step": 1e3 * wall / 4,
            "profiled_wall_ms_per_step": 1e3 * prof_wall / 4,
@@ -477,6 +527,447 @@ def phase_profile(M, acfg, aparams, report):
         print("profile: the profiler recorded no device time (not measured)")
 
 
+def phase_default_tiles(M, K, acfg, params, report):
+    """One prefill and one decode step from crossbars at the config's
+    default 1024x1024 tiles (the paper's array size): every read against
+    the plain version on its own operands (phase 1's bound)."""
+    cfg = acfg.replace(analog_rows=1024, analog_cols=1024)
+    aparams = M.program_digital(params, cfg)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (4, 12))).cuda()
+    reads = []
+    for name in K.LAUNCHES:
+        K.LAUNCHES[name] = 0
+    with recording_reads(K, reads), torch.no_grad():
+        logits, cache = M.prefill(aparams, {"tokens": toks}, cfg, 32)
+        logits, cache = M.decode_step(aparams, cache, logits.argmax(-1), cfg)
+        torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    if launches["fused_vmm"] != 2 * 4 * cfg.n_layers \
+            or not torch.isfinite(logits).all():
+        fail(f"1024x1024 tiles: {launches} launches, finite logits "
+             f"{bool(torch.isfinite(logits).all())}")
+    worst = check_reads(K, reads)
+    res = {"tile": 1024, "reads_checked": len(reads), "launches": launches,
+           **worst}
+    report(res)
+    print(f"1024x1024 tiles: prefill + 1 decode step, {len(reads)} reads "
+          f"({launches}) within the plain version's bound (max abs err "
+          f"{worst['max_abs_err']:.3g}, flip share at most "
+          f"{worst['max_flip_share']:.2g})")
+    return res
+
+
+TRAIN_SHAPES = [("wqkv", 768, 2304), ("wo", 768, 768),
+                ("w_upgate", 768, 6144), ("w_down", 3072, 768)]
+
+
+def phase_mvm(K, cfg_of, report):
+    """The transpose read against its plain version on the card: the four
+    containers at training (B = T = 2048) and prefill-chunk (B = 16) batch
+    sizes, a ragged case and 128x128 / 1024x1024 tiles; pow2 class
+    bit-equal, dynamic class within one lsb per N tile."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    cases = [(k, n, b, 64, b == 2048) for b in (2048, 16)
+             for _, k, n in TRAIN_SHAPES]
+    cases += [(200, 72, 37, 64, False), (768, 2304, 16, 128, False),
+              (768, 2304, 16, 1024, False)]
+    rows = []
+    for k, n, b, tile, timed in cases:
+        for cls in ("pow2", "dynamic"):
+            cfg = cfg_of(tile, cls)
+            _, g, ref, ws = make_operands(k, n, 1, gen, cls == "pow2", dev)
+            d = torch.randn((1, b, n), generator=gen, device=dev)
+            sc = K.read_scales(d, ws, cfg.adc.in_levels)
+            y_k = K._read_cuda(d, g, ref, sc, cfg, True)
+            torch.cuda.synchronize()
+            y_p = K._read_plain(d, g, ref, sc, cfg, True)
+            row = {"K": k, "N": n, "B": b, "tile": tile, "class": cls,
+                   "max_abs_err": (y_k - y_p).abs().max().item()}
+            if cls == "pow2":
+                ok = torch.equal(y_k, y_p)
+            else:
+                ok, _, _, row["flip_share"] = read_agrees(
+                    y_k, y_p, d, g, ref, sc, cfg, True)
+            row["ok"] = ok
+            if timed and cls == "dynamic":
+                row.update(time_read(K, d, g, ref, sc, cfg, True))
+            rows.append(row)
+            report(row)
+            if not ok:
+                fail(f"transpose read disagrees with its plain version: "
+                     f"{row}")
+    for r in rows:
+        if "ms" in r:
+            print(f"  MVM K={r['K']} N={r['N']} B={r['B']}: kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
+                  f"({r['timing']}), bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}, {100 * r['bound_share']:.1f}% of "
+                  f"bound), max abs err {r['max_abs_err']:.3g}")
+    print(f"phase 5: {len(rows)} transpose-read cases agree")
+    return rows
+
+
+def update_bound(g_p, g_old):
+    """Kernel vs plain version of a noisy write: 4 float32 ulp of the new
+    conductance (in [0, 1]) plus 1e-5 of the cell's move.  The
+    accumulate's float32 sums are taken in another order; the epilogue's
+    operations are the same, with another libm's exp/log/cos/sin.  A
+    wrong hash moves a cell by a write-noise sigma, orders of magnitude
+    more."""
+    return 4 * 2.0 ** -24 + 1e-5 * (g_p - g_old).abs()
+
+
+def update_operands(lyr, k, n, t, gen, pow2):
+    dev = gen.device
+    xi = torch.randint(-127, 128, (lyr, t, k), generator=gen, device=dev)
+    di = torch.randint(-7, 8, (lyr, t, n), generator=gen, device=dev)
+    if pow2:   # max|x| = 127 * 2^-7, max|d| = 7 * 2^-14: exact sums
+        x_q, d_q = xi.float() * 2.0 ** -7, di.float() * 2.0 ** -14
+        scale = torch.full((lyr,), -2.0 ** -4, device=dev)
+    else:      # lm100m's training regime: lr 0.1, w_scale about 1.7
+        x_q, d_q = xi.float() * (3.0 / 127), di.float() * (2e-4 / 7)
+        scale = -0.1 * (1.5 + 0.5 * torch.rand((lyr,), generator=gen,
+                                               device=dev))
+    g = 0.5 + 0.1 * torch.randn((lyr, k, n), generator=gen, device=dev)
+    return g.clamp(0, 1), x_q, d_q, scale
+
+
+def phase_update(U, TAOX, CrossbarConfig, xcfg_of, report):
+    """The rank-k write against its plain version on the card, at each
+    container's (12, K, N) with T = 2048: (a) ideal device, no noise,
+    power-of-two operands — bit-equal; (b) TaOx, counter-PRNG noise and
+    (c) TaOx, host noise field — within ``update_bound``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    rows = []
+    sync = torch.cuda.synchronize
+    for name, k, n in TRAIN_SHAPES:
+        for case in ("ideal", "kernel", "host"):
+            cfg = xcfg_of(case)
+            g, x_q, d_q, scale = update_operands(12, k, n, 2048, gen,
+                                                 case == "ideal")
+            noise = torch.randn(g.shape, generator=gen, device="cuda") \
+                if case == "host" else None
+            seed = 0x9E3779B9 if case == "kernel" else None
+            mode = {"ideal": "none"}.get(case, case)
+            g_k = U.xbar_outer_update(g, x_q, d_q, scale, cfg, noise=noise,
+                                      seed=seed, noise_mode=mode)
+            sync()
+            g_p = U._update_plain(g, x_q, d_q, scale, noise, seed, cfg,
+                                  mode)
+            err = (g_k - g_p).abs()
+            row = {"container": name, "L": 12, "K": k, "N": n, "T": 2048,
+                   "case": case, "max_abs_err": err.max().item(),
+                   "max_move": (g_p - g).abs().max().item()}
+            if case == "ideal":
+                ok = torch.equal(g_k, g_p)
+            else:
+                ok = bool((err <= update_bound(g_p, g)).all())
+            row["ok"] = ok
+
+            def kern(i):
+                return U.xbar_outer_update(g, x_q, d_q, scale, cfg,
+                                           noise=noise, seed=seed,
+                                           noise_mode=mode)
+
+            def plain(i):
+                return U._update_plain(g, x_q, d_q, scale, noise, seed, cfg,
+                                       mode)
+            row["ms"] = cuda_ms(kern, 5, sync)
+            row["plain_ms"] = cuda_ms(plain, 3, sync)
+            flops = 2 * 12 * 2048 * k * n
+            n_bytes = 4 * (12 * 2048 * (k + n) + 12
+                           + 12 * k * n * (3 if case == "host" else 2))
+            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+            row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            if case == "kernel":
+                xt, dt = x_q.transpose(1, 2).contiguous(), d_q
+                row["accumulate_bmm_ms_not_the_same_function"] = cuda_ms(
+                    lambda i: torch.bmm(xt, dt), 5, sync)
+            rows.append(row)
+            report(row)
+            print(f"  update {name} (12, {k}, {n}) T=2048 {case}: kernel "
+                  f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+                  f"bound {row['bound_ms']:.3f} ms "
+                  f"({100 * row['bound_share']:.1f}%), max abs err "
+                  f"{row['max_abs_err']:.3g} (cells moved up to "
+                  f"{row['max_move']:.3g})"
+                  + (f", torch.bmm of the accumulate alone (not the same "
+                     f"function) "
+                     f"{row['accumulate_bmm_ms_not_the_same_function']:.3f}"
+                     f" ms" if case == "kernel" else ""))
+            if not ok:
+                fail(f"update kernel disagrees with its plain version: {row}")
+    # the epilogue's general TaOx branch (separate SET/RESET factors, a
+    # linear SET side) and odd tile widths (one Box-Muller draw per cell)
+    for name, dev, tile in (
+            ("asym", TAOX.replace(nu_set=3.0, nu_reset=6.0, gain_set=1.2,
+                                  gain_reset=0.8), (48, 63)),
+            ("linear_set", TAOX.replace(nu_set=0.0), (64, 15))):
+        cfg = CrossbarConfig(rows=tile[0], cols=tile[1], device=dev)
+        g, x_q, d_q, scale = update_operands(2, 200, 72, 37, gen, False)
+        g_k = U.xbar_outer_update(g, x_q, d_q, scale, cfg, seed=7)
+        sync()
+        g_p = U._update_plain(g, x_q, d_q, scale, None, 7, cfg, "kernel")
+        err = (g_k - g_p).abs()
+        row = {"case": name, "tile": tile, "max_abs_err": err.max().item(),
+               "ok": bool((err <= update_bound(g_p, g)).all())}
+        rows.append(row)
+        report(row)
+        if not row["ok"]:
+            fail(f"update kernel disagrees with its plain version: {row}")
+    print(f"phase 6: {len(rows)} update cases agree")
+    return rows
+
+
+def tree_to(t, dev):
+    if isinstance(t, dict):
+        return {k: tree_to(v, dev) for k, v in t.items()}
+    return t.to(dev)
+
+
+def tree_leaves(t, path=()):
+    if isinstance(t, dict):
+        for k, v in t.items():
+            yield from tree_leaves(v, path + (k,))
+    else:
+        yield path, t
+
+
+def check_step1(K, U, reads, writes):
+    """Every launch of train step 1 against its plain version on the card,
+    on that launch's own operands: reads with phase 1's bound, writes with
+    ``update_bound``.  Returns (worst read stats, write max abs err, write
+    max err / bound)."""
+    worst = check_reads(K, reads, where="cuda")
+    upd_err, upd_over = 0.0, 0.0
+    for (g, x_q, d_q, scale, noise, seed, cfg, mode), out in writes:
+        g_p = U._update_plain(g, x_q, d_q, scale, noise, seed, cfg, mode)
+        err = (out - g_p).abs()
+        over = (err / update_bound(g_p, g)).max().item()
+        upd_err, upd_over = max(upd_err, err.max().item()), max(upd_over,
+                                                                 over)
+        if over > 1:
+            fail(f"a write of train step 1 disagrees with the plain "
+                 f"version: g {tuple(g.shape)}, max err {err.max().item()}")
+    return worst, upd_err, upd_over
+
+
+def phase_train(K, U, TA, M, syn, tcfg, report):
+    """lm100m at full width trained in device mode: ``init_state`` from
+    torch.Generator seed 0, 4 steps of ``make_analog_sgd_step`` (lr 0.1,
+    TaOx, counter-PRNG write noise) on batches of 8 x 256 tokens.
+
+    Gates: each step launches 48 forward reads, 48 transpose reads (each
+    with its tile-order sum) and 4 updates; every launch of step 1 agrees
+    with its plain version on the card on its own operands (phases 1, 5
+    and 6's bounds); the digital leaves after step 1 agree with a CPU run
+    of the step that replays the card's read and write results, within
+    1e-3 of each leaf's own move plus 1e-6 (float32 rounding of attention,
+    norms, embedding, logits and their gradients remains); the loss is
+    finite and the conductances stay in the window."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = TA.init_state(gen, tcfg, device="cuda")
+    step = TA.make_analog_sgd_step(tcfg, lr=0.1)
+    stream = syn.make_token_stream(200_000, tcfg.vocab, seed=0)
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(1)
+    state0_cpu = tree_to(state, "cpu")
+    n_layers = tcfg.n_layers
+    expect = {"fused_vmm": 4 * n_layers, "reduce_tiles": 4 * n_layers,
+              "fused_mvm": 4 * n_layers, "reduce_tiles_mvm": 4 * n_layers,
+              "outer_update": 4}
+    reads, writes = [], []
+    update_cuda = U._update_cuda
+
+    def rec_write(g, x_q, d_q, scale, noise, seed, cfg, mode):
+        out = update_cuda(g, x_q, d_q, scale, noise, seed, cfg, mode)
+        writes.append(((g, x_q.clone(), d_q.clone(), scale.clone(), noise,
+                        seed, cfg, mode), out.clone()))
+        return out
+
+    losses, rails, step_ms, launches, seeds = [], [], [], [], []
+    for i in range(4):
+        x, y = syn.batch_tokens(stream, 8, 256, i)
+        batch = {"tokens": torch.from_numpy(x).long().cuda(),
+                 "labels": torch.from_numpy(y).long().cuda()}
+        seed_base = int(torch.randint(0, 2 ** 32, (), generator=rng,
+                                      device="cuda"))
+        seeds.append(seed_base)
+        for name in K.LAUNCHES:
+            K.LAUNCHES[name] = 0
+        U.LAUNCHES["outer_update"] = 0
+        # only step 1 records its launches; steps 2-4, which give the
+        # step time, tokens/s and peak memory, run the kernels bare
+        record = recording_reads(K, reads) if i == 0 \
+            else contextlib.nullcontext()
+        U._update_cuda = rec_write if i == 0 else update_cuda
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with record:
+                state, mets = step(state, batch, seed_base)
+                torch.cuda.synchronize()
+        finally:
+            U._update_cuda = update_cuda
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        got = {**K.LAUNCHES, **U.LAUNCHES}
+        launches.append(got)
+        losses.append(float(mets["loss"]))
+        rails.append(float(mets["g_rail_frac"]))
+        print(f"  train step {i + 1}: loss {losses[-1]:.5f}, g_rail_frac "
+              f"{rails[-1]:.3g}, {step_ms[-1]:.1f} ms, launches {got}")
+        if got != expect:
+            fail(f"train step {i + 1} launched {got}; expected {expect}")
+        if not math.isfinite(losses[-1]):
+            fail(f"train step {i + 1}: loss {losses[-1]}")
+        if i == 0:
+            params1 = tree_to(state["params"], "cpu")
+            checked = check_step1(K, U, reads, writes)
+            # keep only the results the CPU replay needs, off the card
+            replay_reads = [r[5].cpu() for r in reads]
+            replay_writes = [w[1].cpu() for w in writes]
+            n_reads, n_writes = len(reads), len(writes)
+            reads.clear()
+            writes.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = profile_train_step(K, U, syn, step, state, stream, rng,
+                                 expect)
+    for path, g in tree_leaves(state["params"]):
+        if path[-1] == "g" and not (g.min() >= 0 and g.max() <= 1):
+            fail(f"conductances of {path} left the window")
+    worst, upd_err, upd_over = checked
+
+    # the digital leaves: a CPU run of step 1 replaying the card's reads
+    # and writes
+    replay_r = iter(replay_reads)
+    replay_w = iter(replay_writes)
+    read_plain, update_plain = K._read_plain, U._update_plain
+
+    def rep_read(x, g, ref, sc, cfg, transpose=False):
+        return next(replay_r).cpu()
+
+    def rep_write(g, *args):
+        return next(replay_w).cpu()
+
+    x, y = syn.batch_tokens(stream, 8, 256, 0)
+    K._read_plain, U._update_plain = rep_read, rep_write
+    try:
+        cpu_state, cpu_mets = TA.make_analog_sgd_step(tcfg, lr=0.1)(
+            state0_cpu, {"tokens": torch.from_numpy(x).long(),
+                         "labels": torch.from_numpy(y).long()}, seeds[0])
+    finally:
+        K._read_plain, U._update_plain = read_plain, update_plain
+    if next(replay_r, None) is not None or next(replay_w, None) is not None:
+        fail("the CPU replay of train step 1 made fewer reads or writes")
+    digital_over, digital_err = 0.0, 0.0
+    init = dict(tree_leaves(state0_cpu["params"]))
+    card = dict(tree_leaves(params1))
+    for path, p_cpu in tree_leaves(cpu_state["params"]):
+        if path[-1] in ("g", "ref", "w_scale"):
+            continue
+        move = (p_cpu - init[path]).abs()
+        err = (card[path] - p_cpu).abs()
+        bound = 1e-3 * move.max() + 1e-6
+        digital_err = max(digital_err, err.max().item())
+        digital_over = max(digital_over, (err.max() / bound).item())
+        if (err > bound).any():
+            fail(f"digital leaf {path} after train step 1: card vs CPU "
+                 f"replay differ by {err.max().item()} (bound "
+                 f"{bound.item()})")
+    loss_diff = abs(float(cpu_mets["loss"]) - losses[0])
+
+    tokens = 8 * 256
+    warm = step_ms[1:]
+    res = {"losses": losses, "g_rail_frac": rails, "step_ms": step_ms,
+           "tokens_per_step": tokens,
+           "tokens_per_s": tokens / (sum(warm) / len(warm) / 1e3),
+           "launches_per_step": launches, "peak_memory_gb": peak_gb,
+           "profile_step5": profile,
+           "step1_reads_checked": n_reads, **{
+               f"step1_reads_{k}": v for k, v in worst.items()},
+           "step1_writes_checked": n_writes,
+           "step1_write_max_abs_err": upd_err,
+           "step1_write_max_err_over_bound": upd_over,
+           "digital_leaves_max_abs_err_vs_cpu_replay": digital_err,
+           "digital_leaves_max_err_over_bound": digital_over,
+           "loss_card_vs_cpu_replay": loss_diff}
+    report(res)
+    print(f"phase 7: lm100m trained 4 steps at full width: losses "
+          f"{[round(v, 5) for v in losses]}, g_rail_frac {rails[-1]:.3g}, "
+          f"{sum(warm) / len(warm):.1f} ms per warm step = "
+          f"{res['tokens_per_s']:.0f} tokens/s, peak memory {peak_gb:.2f} "
+          f"GB (steps 2-4, unrecorded); step 1: {n_reads} reads (worst "
+          f"{worst['max_err_over_bound']:.3f} of the bound, flip share at "
+          f"most {worst['max_flip_share']:.2g}) and {n_writes} writes "
+          f"({upd_over:.3f} of the bound) agree with the plain versions; "
+          f"digital leaves vs CPU replay {digital_err:.3g} "
+          f"({digital_over:.3f} of the bound), loss differs by "
+          f"{loss_diff:.3g}")
+    return res
+
+
+def profile_train_step(K, U, syn, step, state, stream, rng, expect):
+    """Device time of one more training step (the fifth) by kernel, from
+    torch.profiler, against its wall time: reported only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x, y = syn.batch_tokens(stream, 8, 256, 4)
+    batch = {"tokens": torch.from_numpy(x).long().cuda(),
+             "labels": torch.from_numpy(y).long().cuda()}
+    seed_base = int(torch.randint(0, 2 ** 32, (), generator=rng,
+                                  device="cuda"))
+    for name in K.LAUNCHES:
+        K.LAUNCHES[name] = 0
+    U.LAUNCHES["outer_update"] = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, seed_base)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if {**K.LAUNCHES, **U.LAUNCHES} != expect:
+        fail(f"profiled train step launched {K.LAUNCHES} {U.LAUNCHES}")
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    groups = {"forward read tiles": "fused_read_tile_kernel<false",
+              "transpose read tiles": "fused_read_tile_kernel<true",
+              "tile-order sums": "reduce_tiles_kernel",
+              "rank-k writes": "outer_update_kernel"}
+    by = {g: 0.0 for g in groups}
+    by["other (digital ops)"] = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        g = next((g for g, key in groups.items() if key in e.key),
+                 "other (digital ops)")
+        by[g] += dev_us(e) / 1e3
+    busy = sum(by.values())
+    res = {"wall_ms": 1e3 * wall, "device_ms": busy,
+           "idle_share": 1 - busy / (1e3 * wall) if busy else None,
+           "device_ms_by_group": by}
+    if busy:
+        print("  profiled train step 5: " + ", ".join(
+            f"{g} {v:.2f} ms" for g, v in by.items())
+              + f"; device busy {busy:.1f} of {1e3 * wall:.1f} ms wall "
+              f"(idle {100 * res['idle_share']:.1f}%)")
+    else:
+        print("  profiled train step 5: the profiler recorded no device "
+              "time (not measured)")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is false")
@@ -484,10 +975,15 @@ def main():
         fail(f"the port's package is missing under {ROOT / 'src'}")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
-    from repro_torch.core import AdcConfig, CrossbarConfig, TAOX_NONOISE
+    from repro_torch.core import (IDEAL, TAOX, TAOX_NONOISE, AdcConfig,
+                                  CrossbarConfig)
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import _nvcc
+    from repro_torch.kernels import xbar_update as U
     from repro_torch.kernels import xbar_vmm as K
     from repro_torch.models import model as M
     from repro_torch.serve import SamplingParams, make_engine
+    from repro_torch.train import analog_lm as TA
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -506,12 +1002,15 @@ def main():
         return details["phases"][name].append
 
     t0 = time.perf_counter()
-    K.build()
+    _nvcc.build([K.SOURCE, U.SOURCE])     # one nvcc per source, together
     K._library()
+    U._library()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in K.BUILD_LOG.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"built {K.SOURCE.name} in {build_s:.1f} s; " + " | ".join(ptxas))
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, log in _nvcc.BUILD_LOGS.items()}
+    print(f"built {K.SOURCE.name} and {U.SOURCE.name} in {build_s:.1f} s; "
+          + " | ".join(f"{n}: " + "; ".join(v) for n, v in ptxas.items()))
     details["build"] = {"seconds": build_s, "ptxas": ptxas}
 
     def cfg_of(tile, cls):
@@ -541,32 +1040,81 @@ def main():
         reporter("serve"))
     phase_card_vs_cpu(M, K, acfg, params, aparams, reporter("card_cpu"))
     phase_profile(M, acfg, aparams, reporter("profile"))
+    phase_default_tiles(M, K, acfg, params, reporter("default_tiles"))
+    mvm_rows = phase_mvm(K, cfg_of, reporter("mvm"))
 
+    def xcfg_of(case):
+        return CrossbarConfig(rows=64, cols=64,
+                              device=IDEAL if case == "ideal" else TAOX)
+    upd_rows = phase_update(U, TAOX, CrossbarConfig, xcfg_of,
+                            reporter("update"))
+    tcfg = get_config("lm100m").replace(
+        dtype="float32", analog=True, analog_mode="device",
+        analog_device="taox", analog_rows=64, analog_cols=64)
+    train = phase_train(K, U, TA, M, syn, tcfg, reporter("train"))
+
+    def total(launches, name):
+        return sum(step[name] for step in launches)
     decode = [r for r in rows if r.get("B") == 4 and "ms" in r]
-    kernel = {
+    t_mvm = [r for r in mvm_rows if r.get("B") == 2048 and "ms" in r]
+    t_upd = [r for r in upd_rows if r["case"] == "kernel"]
+    tl = train["launches_per_step"]
+    kernels = [{
         "name": "xbar_fused_vmm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_vmm.cu",
         "replaces": "src/repro/kernels/xbar_vmm.py:148",
         "launches": serve["launches"],
-        "launches_by_kernel": {"fused_vmm_tile_kernel": serve["launches"],
+        "launches_by_kernel": {"fused_read_tile_kernel": serve["launches"],
                                "reduce_tiles_kernel":
                                    serve["reduce_launches"]},
+        "launches_train": total(tl, "fused_vmm"),
         "max_abs_err": max(r["max_abs_err"] for r in decode),
         "ms": sum(r["ms"] for r in decode),
         "plain_ms": sum(r["plain_ms"] for r in decode),
         "bound_ms": sum(r["bound_ms"] for r in decode),
-        "bound_by": "bytes", "library_ms": None}
+        "bound_by": "bytes", "library_ms": None}, {
+        "name": "xbar_fused_mvm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/xbar_vmm.cu",
+        "replaces": "src/repro/kernels/xbar_vmm.py:171",
+        "launches": total(tl, "fused_mvm"),
+        "launches_by_kernel": {
+            "fused_read_tile_kernel": total(tl, "fused_mvm"),
+            "reduce_tiles_kernel": total(tl, "reduce_tiles_mvm")},
+        "max_abs_err": max(r["max_abs_err"] for r in t_mvm),
+        "ms": sum(r["ms"] for r in t_mvm),
+        "plain_ms": sum(r["plain_ms"] for r in t_mvm),
+        "bound_ms": sum(r["bound_ms"] for r in t_mvm),
+        "bound_by": "operations", "library_ms": None}, {
+        "name": "xbar_outer_update", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
+        "replaces": "src/repro/kernels/xbar_update.py:281",
+        "launches": total(tl, "outer_update"),
+        "max_abs_err": max(r["max_abs_err"] for r in t_upd),
+        "ms": sum(r["ms"] for r in t_upd),
+        "plain_ms": sum(r["plain_ms"] for r in t_upd),
+        "bound_ms": sum(r["bound_ms"] for r in t_upd),
+        "bound_by": "operations", "library_ms": None,
+        "accumulate_bmm_ms_not_the_same_function": sum(
+            r["accumulate_bmm_ms_not_the_same_function"] for r in t_upd)}]
     details["kernels_line_note"] = (
-        "launches counts reads: each read launches the tile kernel and the "
-        "K-order sum (launches_by_kernel); "
-        "ms, plain_ms and bound_ms sum one lm100m layer's four reads at "
-        "decode (B=4, 64x64 tiles); max_abs_err is the largest at those "
-        "shapes in the dynamic-range class; no single PyTorch call "
-        "computes the fused read, so library_ms is null")
+        "xbar_fused_vmm: launches counts the serving run's reads (each "
+        "launches the tile kernel and the K-order sum, launches_by_kernel), "
+        "launches_train the 4 training steps'; ms, plain_ms and bound_ms "
+        "sum one lm100m layer's four reads at decode (B=4, 64x64 tiles). "
+        "xbar_fused_mvm: launches counts the 4 training steps' transpose "
+        "reads; ms, plain_ms and bound_ms sum one layer's four transpose "
+        "reads at training (B=T=2048). xbar_outer_update: launches counts "
+        "the 4 training steps' writes; ms, plain_ms and bound_ms sum the "
+        "four containers' (12, K, N) writes at T=2048 with counter-PRNG "
+        "noise. max_abs_err is the largest at those shapes (dynamic ADC "
+        "range for the reads). No single PyTorch call computes any of the "
+        "three functions, so library_ms is null; torch.bmm of the write's "
+        "accumulate alone is given as "
+        "accumulate_bmm_ms_not_the_same_function")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1))
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

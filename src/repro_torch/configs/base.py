@@ -2,8 +2,9 @@
 
 One ``ModelConfig`` describes an architecture.  The port keeps the JAX
 package's fields for the dense decoder and the analog read, under the
-same names; the fields of the other families and of training arrive with
-the slices that read them (``ROADMAP.md``).  The port keeps its own copy
+same names; the fields of the other families, of the periodic-carry
+sweep and of fakequant training arrive with the slices that read them
+(``ROADMAP.md``).  The port keeps its own copy
 because it imports nothing of ``repro``.
 """
 from __future__ import annotations
@@ -106,6 +107,10 @@ class ModelConfig:
     # read sees at 1/analog_carry_base drive (core.tiled_analog.effective_g).
     analog_carry: bool = False
     analog_carry_base: float = 4.0
+    # Update execution (``kernels.xbar_update.UPDATE_MODES``): "outer" is
+    # the rank-k parallel write; "pulse_train" (sign-decomposed 4-phase
+    # SET/RESET trains) is not ported yet and raises (ROADMAP.md).
+    analog_update_mode: str = "outer"
 
     @property
     def resolved_analog_mode(self) -> AnalogMode:

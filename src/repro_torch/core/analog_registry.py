@@ -1,14 +1,19 @@
-"""Analog parameter registry, dense family (port of the parts of
-``repro.core.analog_registry`` the serving slice needs).
+"""Analog parameter registry, dense family (port of
+``repro.core.analog_registry``).
 
 It owns the mapping from a parameter path to whether the matrix there
-lives on crossbar tiles and which consumer kind it is.  Expert stacks,
-tape routes, update views and sharding layouts follow with the families
-and the training slice that need them (``ROADMAP.md``).
+lives on crossbar tiles, which consumer kind it is, how its tapes are
+shaped (:func:`tape_lead`), how its leaves lay out on a mesh
+(:func:`leaf_layout`) and how the rank-k write views it
+(:func:`flatten_lead`).  Expert stacks, the hybrid shared block and the
+cross-attention streams follow with the families that need them
+(``ROADMAP.md``): their rows raise here.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
+
+import torch
 
 #: Producer: activations drive the rows, output columns split under TP.
 COLUMN_PARALLEL = "column_parallel"
@@ -77,6 +82,109 @@ def classify_param(path: Sequence) -> Optional[str]:
     if proj is None:
         return None
     return ROW_PARALLEL if proj in ROW_PARALLEL_KEYS else COLUMN_PARALLEL
+
+
+def _dense_rows_only(what: str, kind: Optional[str] = None, cfg=None):
+    if kind == EXPERT_BATCHED:
+        raise NotImplementedError(f"{what} for expert-batched containers "
+                                  "is not ported yet (ROADMAP.md)")
+    if cfg is not None and cfg.family != "dense":
+        raise NotImplementedError(f"{what} for the {cfg.family!r} family "
+                                  "is not ported yet (ROADMAP.md)")
+
+
+def tape_lead(path: Sequence, cfg, n_tokens: int,
+              batch_shape: Optional[Tuple[int, ...]] = None
+              ) -> Tuple[int, ...]:
+    """Shape of one container's tape slots between the container's own
+    lead dims and the operand feature dim: ``(T,)`` for a container the
+    dense family applies once per step to all T tokens."""
+    _dense_rows_only("tape_lead", classify(path), cfg)
+    return (n_tokens,)
+
+
+def leaf_layout(kind: str, ndim: int, leaf: str, rows: int, cols: int
+                ) -> Tuple[Tuple[Optional[str], int], ...]:
+    """Per-dim ``(logical_axis, granularity)`` of one container leaf.
+
+    Logical axes: ``"fsdp"`` (the data axes) and ``"tp"`` (the model
+    axis); granularity is the tile size the dim may only split at (1 for
+    untiled dims); ``None`` is replicated.  The layer dim of a stacked
+    container is never sharded; ``w_scale`` follows its container's lead
+    dims.
+    """
+    _dense_rows_only("leaf_layout", kind)
+    lead = ndim if leaf == "w_scale" else ndim - 2
+    roles = [(None, 1)] * lead
+    if leaf == "w_scale":
+        return tuple(roles)
+    if kind == ROW_PARALLEL:
+        r, c = ("tp", rows), ("fsdp", cols)
+    else:
+        r, c = ("fsdp", rows), ("tp", cols)
+    if leaf in ("g", "ref", "g_carry"):
+        return (*roles, r, c)
+    if leaf == "x_tape":
+        return (*roles, (None, 1), r)
+    if leaf == "d_tape":
+        return (*roles, (None, 1), c)
+    raise KeyError(f"unknown container leaf {leaf!r}")
+
+
+def flatten_lead(kind: str, g, x_tape, d_tape, scale):
+    """Collapse a container's lead dims onto the kernel's single layer
+    axis (and any tape-rep dims into the token axis).
+
+    ``g``: (lead..., K, N); tapes: (lead..., T, K|N); ``scale``:
+    (lead...,).  Returns ``(g3, x3, d3, scale1, unflatten)`` with
+    ``g3`` (Lflat, K, N) and ``unflatten`` mapping the updated conductances
+    back to the container's layout.  2-D containers pass through.
+    """
+    _dense_rows_only("flatten_lead", kind)
+    lead = g.ndim - 2
+    if lead == 0:
+        x3 = x_tape.reshape(-1, x_tape.shape[-1])
+        d3 = d_tape.reshape(-1, d_tape.shape[-1])
+        return g, x3, d3, scale, lambda gg: gg
+    g_shape = g.shape
+    lflat = 1
+    for d in g_shape[:lead]:
+        lflat *= d
+    g3 = g.reshape(lflat, *g_shape[lead:])
+    x3 = x_tape.reshape(lflat, -1, x_tape.shape[-1])
+    d3 = d_tape.reshape(lflat, -1, d_tape.shape[-1])
+    s1 = torch.broadcast_to(scale, g_shape[:lead]).reshape(lflat)
+    return g3, x3, d3, s1, lambda gg: gg.reshape(g_shape)
+
+
+def validate_device_params(params, cfg) -> None:
+    """Fail loudly if a device-mode parameter tree carries a projection
+    matrix that is not a crossbar container: it would train digitally
+    while claiming to be analog."""
+    from .tiled_analog import is_analog_container
+    bad = []
+
+    def walk(p, path):
+        if is_analog_container(p):
+            return
+        if isinstance(p, dict):
+            for k, v in p.items():
+                walk(v, path + (str(k),))
+            return
+        if getattr(p, "ndim", 0) < 2:
+            return
+        kind = classify_param(path)
+        if kind in KINDS:
+            bad.append("/".join(path))
+        elif kind is None:
+            bad.append("/".join(path) + " (unclassified)")
+
+    walk(params, ())
+    if bad:
+        raise ValueError(
+            "device-mode parameter tree has projection matrices that are "
+            "not crossbar containers (they would train digitally while "
+            f"claiming analog): {bad}")
 
 
 def container_paths(params) -> Tuple[Tuple[str, ...], ...]:

@@ -24,9 +24,11 @@ Tensor = torch.Tensor
 class CrossbarConfig:
     """Static description of the analog tile and its I/O path.
 
-    The reference's fields for the read; ``carry`` containers are read
-    through :func:`core.tiled_analog.effective_g`.  The update's fields
-    arrive with the training slice.
+    The reference's fields for the read and the rank-k write; ``carry``
+    containers are read through :func:`core.tiled_analog.effective_g`.
+    ``upd_col_bits`` is the voltage-coding precision of the column write
+    driver (paper §IV.C: 3 magnitude bits + sign in the 8-bit variant);
+    ``update_mode`` is ``"outer"`` (``"pulse_train"`` is not ported yet).
     """
 
     rows: int = 1024
@@ -34,6 +36,8 @@ class CrossbarConfig:
     adc: AdcConfig = dataclasses.field(default_factory=AdcConfig)
     device: DeviceConfig = dataclasses.field(default_factory=lambda: TAOX)
     ref_sigma: float = 0.0
+    upd_col_bits: int = 4
+    update_mode: str = "outer"
     carry: bool = False
     carry_base: float = 4.0
 

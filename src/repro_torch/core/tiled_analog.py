@@ -1,16 +1,28 @@
 """Tiled-crossbar parameter containers for whole-model analog execution.
 
-Port of ``repro.core.tiled_analog`` (serving slice: forward read only).
-Any projection matrix of the transformer is *programmed* onto a grid of
-physical ``rows x cols`` crossbar tiles.  The container is a plain dict
-that rides inside the parameter tree, stacked per layer or not:
+Port of ``repro.core.tiled_analog`` (dense family).  Any projection matrix
+of the transformer is *programmed* onto a grid of physical ``rows x cols``
+crossbar tiles and executed with the paper's three kernels:
+
+    forward   = VMM   (parallel read,   Fig. 3a)
+    backward  = MVM   (transpose read of the SAME conductances, Fig. 3b)
+    update    = rank-k outer-product write (Fig. 3c)
+
+The container is a plain dict that rides inside the parameter tree,
+stacked per layer or not:
 
     {"g": (..., K, N) conductances, "ref": (..., K, N) reference,
      "w_scale": (...) weight scale}
 
-``analog_project`` reads it in-array (VMM, paper Fig. 3a).  The taped
-backward pass and the rank-k write belong to the training slice
-(``ROADMAP.md``).
+In-situ training needs the drive operands of the outer-product write —
+the quantised activations x_q and errors d_q — not a (K, N) gradient.
+``analog_project`` therefore runs through :class:`TapedMatmul`, an
+autograd Function whose backward computes ``dx`` by the transpose read
+and writes (x_q, d_q) into the container's tape slots (``x_tape`` /
+``d_tape``, see :func:`make_tapes`); ``g``, ``ref`` and ``w_scale`` never
+require grad, so no dense (K, N) gradient is ever formed, not even a
+zeros fill.  The train step hands the tapes to the rank-k write kernel
+(``kernels.xbar_update``).
 """
 from __future__ import annotations
 
@@ -22,7 +34,7 @@ import torch
 from .adc import AdcConfig
 from .crossbar import CrossbarConfig, make_reference, weights_to_conductance
 from .device import IDEAL, LINEARIZED, TAOX, TAOX_NONOISE, DeviceConfig
-from .xbar_ops import vmm
+from .xbar_ops import mvm, quantize_update_operands, vmm
 
 Tensor = torch.Tensor
 
@@ -57,6 +69,7 @@ def crossbar_from_model(cfg) -> CrossbarConfig:
         adc=AdcConfig(in_bits=cfg.analog_in_bits,
                       out_bits=cfg.analog_out_bits,
                       sat_sigmas=cfg.analog_sat_sigmas),
+        update_mode=cfg.analog_update_mode,
         carry=cfg.analog_carry, carry_base=cfg.analog_carry_base)
 
 
@@ -109,10 +122,137 @@ def readout(p: dict, cfg: CrossbarConfig) -> Tensor:
     return (effective_g(p, cfg) - p["ref"]) / w_scale
 
 
+class TapedMatmul(torch.autograd.Function):
+    """The in-situ training primitive: ``y = vmm(x)`` forward; backward
+    ``dx = mvm(dy)`` through the same conductances, and the write drivers'
+    operands ``quantize_update_operands(x, dy)`` written into the tape
+    slots (when the container carries them).  Only ``x`` gets a gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, x, g, ref, w_scale, cfg, x_tape, d_tape):
+        ctx.save_for_backward(x, g, ref, w_scale)
+        ctx.cfg, ctx.tapes = cfg, (x_tape, d_tape)
+        return vmm(x, g, ref, w_scale, cfg)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g, ref, w_scale = ctx.saved_tensors
+        cfg = ctx.cfg
+        dy32 = dy.float()
+        # Error backprop: transpose read of the SAME (quantised, saturated,
+        # ADC'd) conductances the forward pass saw.
+        dx = mvm(dy32, g, ref, w_scale, cfg)
+        x_tape, d_tape = ctx.tapes
+        if x_tape is not None:
+            x_q, d_q = quantize_update_operands(x.float(), dy32, cfg)
+            x_tape.copy_(x_q)
+            d_tape.copy_(d_q)
+        return dx.to(x.dtype), None, None, None, None, None, None
+
+
 def analog_project(p: dict, x: Tensor, cfg: CrossbarConfig) -> Tensor:
     """Apply a programmed (K, N) container to activations (..., K): one
-    fused read over all tokens, returned in ``x.dtype``."""
+    fused read over all tokens, returned in ``x.dtype``.
+
+    If the container carries ``x_tape``/``d_tape`` slots (put there by the
+    train step), the backward pass deposits the quantised update operands
+    in them.  Each container must be applied at most once per
+    differentiated step: a second application would overwrite its tapes,
+    and the summed outer product of two applications is not the outer
+    product of their summed operands.  Dense transformer stacks apply each
+    projection exactly once per token batch.
+    """
+    for leaf in ("g", "ref", "w_scale"):
+        if getattr(p[leaf], "requires_grad", False):
+            raise ValueError(f"container leaf {leaf!r} requires grad: the "
+                             "conductances are written by the rank-k "
+                             "update, never by autograd")
     k, n = p["g"].shape
-    y = vmm(x.reshape(-1, k).float(), effective_g(p, cfg), p["ref"],
-            p["w_scale"], cfg)
+    xb = x.reshape(-1, k).float()
+    y = TapedMatmul.apply(xb, effective_g(p, cfg), p["ref"],
+                          torch.as_tensor(p["w_scale"]), cfg,
+                          p.get("x_tape"), p.get("d_tape"))
     return y.reshape(*x.shape[:-1], n).to(x.dtype)
+
+
+def make_tapes(p: dict, n_tokens) -> dict:
+    """Zero tape slots for one container, shapes (lead..., T, K) and
+    (lead..., T, N).  ``n_tokens`` may be a tuple: the operand-row shape
+    between the container's lead dims and the feature dim
+    (``analog_registry.tape_lead``).  The backward pass of
+    :class:`TapedMatmul` overwrites them with (x_q, d_q) and the rank-k
+    write consumes them: one allocation site, one writer, one consumer.
+    """
+    g = p["g"]
+    k, n = g.shape[-2:]
+    lead = g.shape[:-2]
+    rows = n_tokens if isinstance(n_tokens, tuple) else (n_tokens,)
+    return {"x_tape": torch.zeros((*lead, *rows, k), dtype=torch.float32,
+                                  device=g.device),
+            "d_tape": torch.zeros((*lead, *rows, n), dtype=torch.float32,
+                                  device=g.device)}
+
+
+def split_tapes(params, n_tokens, tokens_for=None, path=()):
+    """Partition a parameter tree for the hoisted analog gradient.
+
+    Returns ``(diff, frozen)``: ``diff`` carries every digital leaf plus,
+    for each analog container, only its tape slots; ``frozen`` mirrors the
+    tree with each container's g/ref/w_scale (``None`` elsewhere).
+    ``tokens_for(path, g_shape)`` optionally resolves a container's
+    operand-row shape (``analog_registry.tape_lead``).
+    """
+    if is_analog_container(params):
+        rows = tokens_for(path, params["g"].shape) if tokens_for \
+            else n_tokens
+        return (make_tapes(params, rows),
+                {k: params[k] for k in ("g", "ref", "w_scale", "g_carry")
+                 if k in params})
+    if isinstance(params, dict):
+        split = {k: split_tapes(v, n_tokens, tokens_for, path + (k,))
+                 for k, v in params.items()}
+        return ({k: v[0] for k, v in split.items()},
+                {k: v[1] for k, v in split.items()})
+    return params, None
+
+
+def merge_tapes(diff, frozen):
+    """Inverse of :func:`split_tapes`: the tree the model consumes (each
+    analog container regains its g/ref/w_scale next to its tapes)."""
+    if frozen is None:
+        return diff
+    if isinstance(frozen, dict) and "g" in frozen:
+        return {**frozen, **diff}
+    return {k: merge_tapes(diff[k], frozen[k]) for k in diff}
+
+
+def pop_tapes(params):
+    """Strip the tape leaves off every container in a (sub)tree.
+
+    Returns ``(clean, tapes, found)``: ``clean`` is the tree without
+    x_tape/d_tape, ``tapes`` mirrors it with ``{"x_tape", "d_tape"}``
+    dicts at container sites (empty dicts elsewhere), ``found`` says
+    whether any tape leaf existed.
+    """
+    if is_analog_container(params):
+        tapes = {k: params[k] for k in ("x_tape", "d_tape") if k in params}
+        clean = {k: v for k, v in params.items()
+                 if k not in ("x_tape", "d_tape")}
+        return clean, tapes, bool(tapes)
+    if isinstance(params, dict):
+        out = {k: pop_tapes(v) for k, v in params.items()}
+        return ({k: v[0] for k, v in out.items()},
+                {k: v[1] for k, v in out.items()},
+                any(v[2] for v in out.values()))
+    return params, {}, False
+
+
+def push_tapes(params, tapes):
+    """Inverse of :func:`pop_tapes`: re-inject tape leaves next to their
+    containers."""
+    if is_analog_container(params):
+        return {**params, **tapes}
+    if isinstance(params, dict):
+        return {k: push_tapes(v, tapes.get(k, {})) for k, v in params.items()}
+    return params

@@ -1,20 +1,27 @@
-"""The paper's forward read as eager torch ops (port of
+"""The paper's three crossbar operations as eager torch ops (port of
 ``repro.core.xbar_ops``).
 
-``vmm`` is the parallel read ``y = x @ W`` (paper Fig. 3a):
+  1. ``vmm``          — parallel read        y = x @ W      (paper Fig. 3a)
+  2. ``mvm``          — transpose read       y = d @ W.T    (paper Fig. 3b)
+  3. ``outer_update`` — rank-k parallel write W += sum outer (paper Fig. 3c)
+
+Semantics per op (matching the circuit):
 
   * inputs are DAC-quantised to ``in_bits`` (temporal coding),
   * every ``rows x cols`` tile integrates its own column charge,
     saturates at the integrator range and is ADC-quantised to
     ``out_bits``,
-  * tile partial sums are accumulated digitally.
+  * tile partial sums are accumulated digitally,
+  * the update quantises rows to ``in_bits`` (temporal) and columns to
+    ``upd_col_bits`` (voltage coding) and pushes the outer product
+    through the nonlinear, stochastic device.
 
-``vmm`` dispatches to the fused read in ``kernels.xbar_vmm`` (the CUDA
-kernel for tensors on the card, its plain torch version for tensors on
-the CPU).  ``impl="chain"`` pins the unfused quantise → pad → tiled
+``vmm``/``mvm`` dispatch to the fused read in ``kernels.xbar_vmm`` (the
+CUDA kernel for tensors on the card, its plain torch version for tensors
+on the CPU).  ``impl="chain"`` pins the unfused quantise → pad → tiled
 einsum → rescale chain below on CPU tensors: the port's own oracle for
-the kernel's plain version.  The transpose read (MVM) and the rank-k
-write belong to the training slice (``ROADMAP.md``).
+the kernel's plain version.  ``outer_update`` is the write's unfused
+oracle; the train step writes through ``kernels.xbar_update``.
 """
 from __future__ import annotations
 
@@ -22,20 +29,30 @@ from typing import Optional
 
 import torch
 
-from .adc import adc_quantize, integrator_saturation, quantize_input
+from .adc import (AdcConfig, adc_quantize, integrator_saturation,
+                  quantize_input)
 from .crossbar import CrossbarConfig, pad_to_tiles
+from .device import DeviceConfig, apply_update
 
 Tensor = torch.Tensor
 
 
-def _tiled_read(x_int: Tensor, diff: Tensor, cfg: CrossbarConfig) -> Tensor:
+def _tiled_read(x_int: Tensor, diff: Tensor, cfg: CrossbarConfig,
+                transpose: bool = False) -> Tensor:
     """Per-tile integrate + saturate + ADC, summed over reduction tiles.
 
     ``x_int``: (..., B, K) integer drive levels; ``diff``: (..., Kp, Np)
     signed conductance ``G - G_ref`` padded to tile multiples, with the
-    same lead dims as ``x_int``.  Returns (..., B, Np).
+    same lead dims as ``x_int``.  Returns (..., B, Np).  ``transpose``
+    reads the array column-driven (the MVM of Fig. 3b): ``x_int`` is
+    (..., B, Np), the reduction runs over the stored tile's columns and
+    the result is (..., B, Kp).
     """
     rows, cols = cfg.rows, cfg.cols
+    if transpose:
+        # Drive columns, integrate rows: the tile sizes swap roles.
+        rows, cols = cols, rows
+        diff = diff.transpose(-1, -2)
     kp, np_ = diff.shape[-2:]
     lead = diff.shape[:-2]
     b = x_int.shape[-2]
@@ -57,20 +74,38 @@ def _tiled_read(x_int: Tensor, diff: Tensor, cfg: CrossbarConfig) -> Tensor:
 
 
 def _chain_read(x: Tensor, g: Tensor, g_ref: Tensor, w_scale,
-                cfg: CrossbarConfig) -> Tensor:
+                cfg: CrossbarConfig, transpose: bool = False) -> Tensor:
     """The unfused read chain, one matrix at a time over lead dims:
     quantise → pad → per-tile einsum + integrator/ADC → crop → rescale."""
     if g.ndim > 2:
         ws = torch.broadcast_to(torch.as_tensor(w_scale, dtype=torch.float32,
                                                 device=g.device),
                                 g.shape[:-2])
-        return torch.stack([_chain_read(x[i], g[i], g_ref[i], ws[i], cfg)
+        return torch.stack([_chain_read(x[i], g[i], g_ref[i], ws[i], cfg,
+                                        transpose)
                             for i in range(g.shape[0])])
     in_dtype = x.dtype
     x_int, x_scale = quantize_input(x.float(), cfg.adc)
     diff = pad_to_tiles(g - g_ref, cfg.rows, cfg.cols)
-    q = _tiled_read(x_int, diff, cfg)[:, :g.shape[1]]
+    out_dim = g.shape[0] if transpose else g.shape[1]
+    q = _tiled_read(x_int, diff, cfg, transpose)[:, :out_dim]
     return (q * (x_scale / w_scale)).to(in_dtype)
+
+
+def _read(x: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
+          impl: Optional[str], transpose: bool) -> Tensor:
+    if cfg.device.read_noise > 0.0:
+        raise NotImplementedError(
+            "read noise draws per read; it waits for its own parity plan "
+            "(ROADMAP.md)")
+    if impl == "chain":
+        if x.is_cuda:
+            raise ValueError("impl='chain' on a CUDA tensor: tensors on the "
+                             "card are read by the CUDA kernel")
+        return _chain_read(x, g, g_ref, w_scale, cfg, transpose)
+    from repro_torch.kernels.xbar_vmm import xbar_fused_read
+    return xbar_fused_read(x, g, g_ref, w_scale, cfg, impl=impl,
+                           transpose=transpose)
 
 
 def vmm(x: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
@@ -83,14 +118,38 @@ def vmm(x: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
     (``kernels.xbar_vmm.READ_IMPLS``, default by the tensors' device);
     ``"chain"``, the unfused oracle, takes CPU tensors only.
     """
-    if cfg.device.read_noise > 0.0:
-        raise NotImplementedError(
-            "read noise draws per read; it waits for its own parity plan "
-            "(ROADMAP.md)")
-    if impl == "chain":
-        if x.is_cuda:
-            raise ValueError("impl='chain' on a CUDA tensor: tensors on the "
-                             "card are read by the CUDA kernel")
-        return _chain_read(x, g, g_ref, w_scale, cfg)
-    from repro_torch.kernels.xbar_vmm import xbar_fused_read
-    return xbar_fused_read(x, g, g_ref, w_scale, cfg, impl=impl)
+    return _read(x, g, g_ref, w_scale, cfg, impl, transpose=False)
+
+
+def mvm(d: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
+        impl: Optional[str] = None) -> Tensor:
+    """Analog transpose read: ``y ≈ d @ W.T`` (same array, columns
+    driven).  ``d``: (..., B, N); returns (..., B, K)."""
+    return _read(d, g, g_ref, w_scale, cfg, impl, transpose=True)
+
+
+def quantize_update_operands(x: Tensor, d: Tensor, cfg: CrossbarConfig):
+    """Quantise the outer-product operands as the write drivers do.
+
+    Rows (x) use the temporal coder (``in_bits``); columns (d) use the
+    voltage coder (``upd_col_bits``).  Returns dequantised (x_q, d_q).
+    """
+    x_int, x_scale = quantize_input(x, cfg.adc)
+    col_cfg = AdcConfig(in_bits=cfg.upd_col_bits, out_bits=cfg.adc.out_bits)
+    d_int, d_scale = quantize_input(d, col_cfg)
+    return x_int * x_scale, d_int * d_scale
+
+
+def outer_update(g: Tensor, x: Tensor, d: Tensor, lr, w_scale,
+                 cfg: CrossbarConfig, noise: Optional[Tensor] = None,
+                 device: Optional[DeviceConfig] = None) -> Tensor:
+    """Rank-k outer-product update: ``G <- device(G, -lr x^T d w_scale)``.
+
+    ``x``: (B, K) forward activations, ``d``: (B, N) backprop errors;
+    ``noise`` is the write-noise field of ``g``'s shape (see
+    ``core.device.apply_update``).
+    """
+    device = device or cfg.device
+    x_q, d_q = quantize_update_operands(x.float(), d.float(), cfg)
+    dw = -lr * torch.einsum("bk,bn->kn", x_q, d_q)
+    return apply_update(g, dw * w_scale, device, noise)

@@ -1,0 +1,396 @@
+"""Rank-k crossbar write: the CUDA kernel, its plain torch version and the
+dispatch between them.
+
+Port of ``repro.kernels.xbar_update`` (``update_mode="outer"``).  The
+kernel in ``csrc/xbar_update.cu`` replaces the TPU kernel
+``_update_kernel``: per lead matrix it accumulates the outer product
+``acc = sum_t x_q[t] (outer) d_q[t]`` over the token batch, scales it by
+the folded ``-lr * w_scale`` and pushes ``dg_req = scale * acc`` through
+the device epilogue (:func:`_device_epilogue`: the TaOx SET/RESET factors,
+the random-walk write noise and the clip to the conductance window).
+
+Write noise (``noise_mode``):
+
+* ``"none"`` — noiseless devices;
+* ``"host"`` — a standard-normal field of ``g``'s shape rides in;
+* ``"kernel"`` — the counter PRNG: murmur fmix32 of (seed, layer, k-tile,
+  n-tile) per tile and one 16-bit Box–Muller draw per pair of adjacent
+  columns (:func:`field_normals`).  Its hash words are bit-identical to
+  the reference's.  torch has no full uint32 arithmetic, so the plain
+  version computes them in int64 masked to 32 bits after every operation,
+  each 32 x 32-bit multiply split into 16-bit halves so that no product
+  leaves int64's range.
+
+Paths (``impl``) as for the read (``kernels.xbar_vmm``): ``"cuda"`` for
+tensors on the card, ``"eager"`` (:func:`_update_plain`) for tensors on
+the CPU, ``"auto"``/``None`` by the tensors' device; an explicit path on
+the wrong device raises, and there is no fallback.  ``cfg.update_mode=
+"pulse_train"`` is not ported yet and raises.  ``LAUNCHES["outer_update"]``
+counts the kernel's launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.crossbar import CrossbarConfig
+from repro_torch.core.device import DeviceConfig
+
+from . import _nvcc
+
+Tensor = torch.Tensor
+
+NOISE_MODES = ("none", "host", "kernel")
+UPDATE_IMPLS = ("auto", "cuda", "eager")
+
+#: Launches of the update kernel; only the wrapper adds to it.
+LAUNCHES = {"outer_update": 0}
+
+SOURCE = _nvcc.CSRC / "xbar_update.cu"
+
+_M32 = 0xFFFFFFFF
+
+
+# --------------------------------------------------------------------------
+# Counter-based PRNG (uint32 arithmetic in int64)
+# --------------------------------------------------------------------------
+
+def _u32(x, device=None) -> Tensor:
+    """A uint32 value (int or tensor) as an int64 tensor in [0, 2^32)."""
+    return torch.as_tensor(x, dtype=torch.int64, device=device) & _M32
+
+
+def _mul32(a, b):
+    """``a * b mod 2^32`` for operands in [0, 2^32): ``a`` split into
+    16-bit halves keeps every product below 2^48."""
+    lo = (a & 0xFFFF) * b
+    hi = (((a >> 16) * b) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x: Tensor) -> Tensor:
+    """murmur3 fmix32: a bijective 32-bit finaliser with full avalanche."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def _tile_seed(seed, layer, tile_k, tile_n) -> Tensor:
+    """Decorrelated per-(layer, tile) seed from one scalar base seed."""
+    h = _mix32(_u32(seed) ^ 0x9E3779B9)
+    h = _mix32((h + _mul32(_u32(layer), 0x9E3779B1)) & _M32)
+    h = _mix32((h + _mul32(_u32(tile_k), 0x85EBCA77)) & _M32)
+    return _mix32((h + _mul32(_u32(tile_n), 0xC2B2AE3D)) & _M32)
+
+
+def _pair_normals(h: Tensor):
+    """Both Box–Muller outputs of one hashed word (16 bits per uniform;
+    u1 in (0, 1] keeps the log finite)."""
+    u1 = ((h >> 16).to(torch.float32) + 1.0) * (1.0 / (1 << 16))
+    u2 = (h & 0xFFFF).to(torch.float32) * (1.0 / (1 << 16))
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    a = (2.0 * np.pi) * u2
+    return r * torch.cos(a), r * torch.sin(a)
+
+
+def _tile_normals(seed: Tensor, rows: int, cols: int) -> Tensor:
+    """(..., rows, cols) standard normals for tiles of seeds (..., 1, 1).
+
+    Pairs interleave along the column axis — (r, 2j) and (r, 2j + 1)
+    share one Box–Muller draw; an odd ``cols`` spends a full draw per cell
+    and keeps only the cosine leg.
+    """
+    dev = seed.device
+    r = torch.arange(rows, dtype=torch.int64, device=dev)[:, None]
+    if cols % 2 == 0:
+        half = cols // 2
+        pid = (r * half + torch.arange(half, dtype=torch.int64,
+                                       device=dev)) & _M32
+        z0, z1 = _pair_normals(_mix32(pid ^ seed))
+        z = torch.stack([z0, z1], dim=-1)
+        return z.reshape(*z.shape[:-2], cols)
+    idx = (r * cols + torch.arange(cols, dtype=torch.int64,
+                                   device=dev)) & _M32
+    return _pair_normals(_mix32(idx ^ seed))[0]
+
+
+def field_normals(seed, shape, cfg: CrossbarConfig,
+                  device=None) -> Tensor:
+    """(L, K, N) standard-normal field, bit-identical in its hash words to
+    what the kernel generates per (layer, tile)."""
+    lyr, k, n = shape
+    rows, cols = cfg.rows, cfg.cols
+    tk, tn = -(-k // rows), -(-n // cols)
+
+    def axis(size, dim):
+        a = torch.arange(size, dtype=torch.int64, device=device)
+        return a.reshape([size if i == dim else 1 for i in range(3)])
+    seeds = _tile_seed(_u32(seed, device), axis(lyr, 0), axis(tk, 1),
+                       axis(tn, 2))
+    z = _tile_normals(seeds[..., None, None], rows, cols)
+    z = z.permute(0, 1, 3, 2, 4).reshape(lyr, tk * rows, tn * cols)
+    return z[:, :k, :n]
+
+
+# --------------------------------------------------------------------------
+# Device epilogue (elementwise; mirrors core.device.apply_update)
+# --------------------------------------------------------------------------
+
+def _factor_consts(nu: float):
+    """``exp(-nu)`` and the centre normaliser, in Python doubles."""
+    e = np.exp(-nu)
+    return e, (np.exp(-0.5 * nu) - e) / (1.0 - e)
+
+
+def _updown_factors(g: Tensor, dev: DeviceConfig):
+    """State-dependent SET/RESET step factors (see core.device)."""
+    x = (g - dev.gmin) / (dev.gmax - dev.gmin)
+
+    def factor(xx, nu):
+        if nu < 1e-6:
+            return 2.0 * (1.0 - xx)
+        e, mid = _factor_consts(nu)
+        return (torch.exp(-nu * xx) - e) / (1.0 - e) / mid
+
+    if dev.nu_set == dev.nu_reset and dev.nu_set >= 1e-6:
+        # exp(-nu (1-x)) = e^{-nu} / exp(-nu x): one exp serves both
+        nu = dev.nu_set
+        e, mid = _factor_consts(nu)
+        s = torch.exp(-nu * x)
+        e32 = torch.tensor(e, dtype=torch.float32, device=g.device)
+        up = dev.gain_set * ((s - e) / ((1.0 - e) * mid))
+        # a tensor numerator: torch's ``scalar / tensor`` multiplies by the
+        # reciprocal, the reference divides
+        dn = dev.gain_reset * ((e32 / s - e) / ((1.0 - e) * mid))
+    else:
+        up = dev.gain_set * factor(x, dev.nu_set)
+        dn = dev.gain_reset * factor(1.0 - x, dev.nu_reset)
+    return up, dn
+
+
+def _device_epilogue(g: Tensor, dg_req: Tensor, noise: Optional[Tensor],
+                     dev: DeviceConfig) -> Tensor:
+    """Elementwise device model (mirrors core.device.apply_update)."""
+    if dev.kind in ("ideal", "linearized"):
+        dg = dg_req
+    else:
+        up, dn = _updown_factors(g, dev)
+        dg = torch.where(dg_req >= 0, dg_req * up, dg_req * dn)
+    if dev.write_noise > 0.0 and noise is not None:
+        n_pulses = torch.abs(dg_req) / dev.pulse_dg
+        sigma = dev.write_noise * dev.pulse_dg * torch.sqrt(n_pulses)
+        dg = dg + sigma * noise
+    return torch.clamp(g + dg, dev.gmin, dev.gmax)
+
+
+# --------------------------------------------------------------------------
+# The plain version
+# --------------------------------------------------------------------------
+
+def _update_plain(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
+                  noise: Optional[Tensor], seed: Optional[int],
+                  cfg: CrossbarConfig, noise_mode: str) -> Tensor:
+    """The kernel's function in plain torch (the reference's
+    ``_fused_update``): one layer-batched einsum and the epilogue, with
+    the counter PRNG's field in kernel-noise mode."""
+    acc = torch.einsum("lbk,lbn->lkn", x_q, d_q)
+    if noise_mode == "kernel":
+        noise = field_normals(seed, g.shape, cfg, device=g.device)
+    elif noise_mode == "none":
+        noise = None
+    return _device_epilogue(g, scale[:, None, None] * acc, noise,
+                            cfg.device)
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernel
+# --------------------------------------------------------------------------
+
+_INT_FIELDS = ("kind", "noise_mode", "lin_set", "lin_reset")
+_PARAM_FIELDS = ("kind", "noise_mode", "gmin", "gmax", "span", "neg_nu",
+                 "e", "emid", "gain_set", "gain_reset", "lin_set",
+                 "lin_reset", "neg_nu_set", "e_set", "ome_set", "mid_set",
+                 "neg_nu_reset", "e_reset", "ome_reset", "mid_reset",
+                 "pulse_dg", "sigma_scale", "two_pi")
+
+
+class _DeviceParams(ctypes.Structure):
+    """``DeviceParams`` of ``csrc/xbar_update.cu``, field for field."""
+    _fields_ = [(n, ctypes.c_int if n in _INT_FIELDS else ctypes.c_float)
+                for n in _PARAM_FIELDS]
+
+
+def device_params(dev: DeviceConfig, noise_mode: str) -> _DeviceParams:
+    """The kernel's constants, formed in Python doubles as the reference
+    forms them and rounded to float32 once (by ctypes)."""
+    p = _DeviceParams()
+    if dev.kind in ("ideal", "linearized"):
+        p.kind = 0
+    elif dev.nu_set == dev.nu_reset and dev.nu_set >= 1e-6:
+        p.kind = 1
+        e, mid = _factor_consts(dev.nu_set)
+        p.neg_nu, p.e, p.emid = -dev.nu_set, e, (1.0 - e) * mid
+    else:
+        p.kind = 2
+        for side, nu in (("set", dev.nu_set), ("reset", dev.nu_reset)):
+            lin = nu < 1e-6
+            e, mid = _factor_consts(nu) if not lin else (0.0, 1.0)
+            setattr(p, f"lin_{side}", int(lin))
+            setattr(p, f"neg_nu_{side}", -nu)
+            setattr(p, f"e_{side}", e)
+            setattr(p, f"ome_{side}", 1.0 - e)
+            setattr(p, f"mid_{side}", mid)
+    p.gmin, p.gmax, p.span = dev.gmin, dev.gmax, dev.gmax - dev.gmin
+    p.gain_set, p.gain_reset = dev.gain_set, dev.gain_reset
+    p.noise_mode = (NOISE_MODES.index(noise_mode)
+                    if dev.write_noise > 0.0 else 0)
+    p.pulse_dg = dev.pulse_dg
+    p.sigma_scale = dev.write_noise * dev.pulse_dg
+    p.two_pi = 2.0 * np.pi
+    return p
+
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = _nvcc.load(SOURCE)
+        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+        lib.xbar_outer_update.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                          u, _DeviceParams, p]
+        lib.xbar_outer_update.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _update_cuda(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
+                 noise: Optional[Tensor], seed: Optional[int],
+                 cfg: CrossbarConfig, noise_mode: str) -> Tensor:
+    """Launch the rank-k write on (L, K, N) / (L, T, K) / (L, T, N) /
+    (L,); returns the new conductances (a new tensor)."""
+    tensors = {"g": g, "x_q": x_q, "d_q": d_q, "scale": scale}
+    if noise is not None:
+        tensors["noise"] = noise
+    for name, t in tensors.items():
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 CUDA "
+                             f"tensor, got {t.dtype} on {t.device}")
+        if t.device != g.device:
+            raise ValueError(f"{name} is on {t.device}, g on {g.device}")
+    lyr, k, n = g.shape
+    t_tok = x_q.shape[1]
+    if x_q.shape != (lyr, t_tok, k) or d_q.shape != (lyr, t_tok, n) \
+            or scale.shape != (lyr,) \
+            or (noise is not None and noise.shape != g.shape):
+        raise ValueError(f"operand shapes g {tuple(g.shape)} x_q "
+                         f"{tuple(x_q.shape)} d_q {tuple(d_q.shape)} scale "
+                         f"{tuple(scale.shape)} do not match")
+    lib = _library()
+    out = torch.empty_like(g)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+    err = lib.xbar_outer_update(
+        g.data_ptr(), x_q.data_ptr(), d_q.data_ptr(), scale.data_ptr(),
+        noise.data_ptr() if noise is not None else None, out.data_ptr(),
+        lyr, t_tok, k, n, cfg.rows, cfg.cols,
+        int(seed or 0) & _M32, device_params(cfg.device, noise_mode),
+        stream)
+    if err != 0:
+        raise RuntimeError(f"xbar_outer_update launch failed: CUDA error "
+                           f"{err} (g {tuple(g.shape)}, T {t_tok}, tile "
+                           f"{cfg.rows}x{cfg.cols})")
+    LAUNCHES["outer_update"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# Dispatch
+# --------------------------------------------------------------------------
+
+def _resolve_impl(impl: Optional[str], g: Tensor) -> str:
+    if impl not in (None, *UPDATE_IMPLS):
+        raise ValueError(f"impl must be one of {UPDATE_IMPLS}, got {impl!r}")
+    if impl in (None, "auto"):
+        return "cuda" if g.is_cuda else "eager"
+    if impl == "eager" and g.is_cuda:
+        raise ValueError("impl='eager' on a CUDA tensor: tensors on the card "
+                         "are written by the CUDA kernel")
+    if impl == "cuda" and not g.is_cuda:
+        raise ValueError("impl='cuda' needs CUDA tensors; a CPU tensor is "
+                         "written by the plain version (impl='eager')")
+    return impl
+
+
+def xbar_outer_update(g: Tensor, x_q: Tensor, d_q: Tensor, scale,
+                      cfg: CrossbarConfig, *, noise: Optional[Tensor] = None,
+                      seed=None, noise_mode: Optional[str] = None,
+                      impl: Optional[str] = None) -> Tensor:
+    """``G <- device(G, scale * sum_t outer(x_q_t, d_q_t))``, layer-batched.
+
+    ``g``: (K, N) or scan-stacked (L, K, N) conductances; ``x_q``: (T, K)
+    or (L, T, K) row drives; ``d_q``: (T, N) or (L, T, N) column drives
+    (already quantised by the write drivers); ``scale`` folds
+    ``-lr * w_scale``, a scalar or (L,).
+
+    Write noise: ``seed`` (a uint32) for the counter PRNG
+    (``noise_mode="kernel"``), or an N(0, 1) ``noise`` field of ``g``'s
+    shape (``noise_mode="host"``); ``noise_mode`` defaults as in the
+    reference (``"none"`` for a noiseless device).  The write mode is
+    ``cfg.update_mode``; only ``"outer"`` is ported.  Returns new
+    conductances in ``g.dtype``.
+    """
+    if cfg.update_mode == "pulse_train":
+        raise NotImplementedError(
+            "update_mode='pulse_train' is not ported yet; see ROADMAP.md")
+    if cfg.update_mode != "outer":
+        raise ValueError(f"update_mode must be 'outer' or 'pulse_train', "
+                         f"got {cfg.update_mode!r}")
+    dev = cfg.device
+    if dev.kind not in ("ideal", "linearized", "taox"):
+        raise NotImplementedError(
+            f"device kind {dev.kind!r} is not ported yet (ROADMAP.md)")
+    impl = _resolve_impl(impl, g)
+    if noise_mode is None:
+        if dev.write_noise <= 0.0:
+            noise_mode = "none"
+        elif noise is not None:
+            noise_mode = "host"
+        elif seed is not None:
+            noise_mode = "kernel"
+        else:
+            raise ValueError(
+                "stochastic device model requires a noise field "
+                "(noise_mode='host') or a scalar seed (noise_mode='kernel')")
+    if noise_mode not in NOISE_MODES:
+        raise ValueError(f"noise_mode must be one of {NOISE_MODES}")
+    if noise_mode == "host" and noise is None:
+        raise ValueError("noise_mode='host' requires a noise field")
+    if noise_mode == "kernel" and seed is None:
+        raise ValueError("noise_mode='kernel' requires a scalar seed")
+    if noise_mode != "host":
+        noise = None
+    seed = int(seed) & _M32 if noise_mode == "kernel" else None
+
+    squeeze = g.ndim == 2
+    in_dtype = g.dtype
+    if squeeze:
+        g, x_q, d_q = g[None], x_q[None], d_q[None]
+        noise = noise[None] if noise is not None else None
+    lyr = g.shape[0]
+    g = g.float().contiguous()
+    x_q = x_q.float().contiguous()
+    d_q = d_q.float().contiguous()
+    noise = noise.float().contiguous() if noise is not None else None
+    scale = torch.broadcast_to(torch.as_tensor(
+        scale, dtype=torch.float32, device=g.device).reshape(-1),
+        (lyr,)).contiguous()
+    fn = _update_cuda if impl == "cuda" else _update_plain
+    out = fn(g, x_q, d_q, scale, noise, seed, cfg, noise_mode)
+    return (out[0] if squeeze else out).to(in_dtype)

@@ -1,21 +1,22 @@
-"""Fused analog crossbar read: the CUDA kernel, its plain torch version and
-the dispatch between them.
+"""Fused analog crossbar reads: the CUDA kernels, their plain torch
+version and the dispatch between them.
 
-Port of ``repro.kernels.xbar_vmm`` (forward read only).  The kernel in
-``csrc/xbar_vmm.cu`` replaces the TPU kernel ``_fused_vmm_kernel``: per
-lead matrix it quantises the activations against the per-matrix DAC
-scale, subtracts the reference array on the tile, forms each
-``rows x cols`` tile's column charge, applies integrator saturation and
-the ramp ADC per tile (one range per tile over the whole batch in
-``dynamic`` mode), accumulates the tiles digitally and rescales by
-``x_scale / w_scale``.  ``max|x|`` and the ``(L, 2)`` scale operand
-``[x_scale, x_scale / w_scale]`` are computed outside the kernel, as in
-the reference.
+Port of ``repro.kernels.xbar_vmm`` (the device-mode reads).  The kernels in
+``csrc/xbar_vmm.cu`` replace the TPU kernels ``_fused_vmm_kernel`` (the
+forward read) and ``_fused_mvm_kernel`` (the transpose read): per lead
+matrix they quantise the drives against the per-matrix DAC scale,
+subtract the reference array on the tile, form each ``rows x cols``
+tile's charge (the transpose read contracts the stored tile's column
+dim), apply integrator saturation and the ramp ADC per tile (one range
+per tile over the whole batch in ``dynamic`` mode), accumulate the tiles
+digitally and rescale by ``x_scale / w_scale``.  ``max|x|`` and the
+``(L, 2)`` scale operand ``[x_scale, x_scale / w_scale]`` are computed
+outside the kernels, as in the reference.
 
 Paths (``impl``):
 
-* ``"cuda"`` — the hand-written kernel, for tensors on the card;
-* ``"eager"`` — :func:`_read_plain`, the kernel's plain torch version,
+* ``"cuda"`` — the hand-written kernels, for tensors on the card;
+* ``"eager"`` — :func:`_read_plain`, the kernels' plain torch version,
   for tensors on the CPU;
 * ``"auto"``/``None`` — ``"cuda"`` for CUDA tensors, ``"eager"`` for CPU
   tensors.  There is no fallback: a CUDA tensor launches the kernel or
@@ -24,21 +25,16 @@ Paths (``impl``):
 ``"chain"`` names the unfused oracle in ``core.xbar_ops``; it is resolved
 there and never dispatches into this module.
 
-The kernel is built at first use from ``csrc/xbar_vmm.cu`` with ``nvcc``
-into ``build/repro_torch/`` at the repository root (a plain C interface
-loaded with ``ctypes``).  A read launches the tile kernel, and, when K
+The kernels are built at first use from ``csrc/xbar_vmm.cu`` (see
+``kernels._nvcc``).  A forward read launches the tile kernel and, when K
 spans more than one tile, the kernel that sums the tile partials in K
 order: ``LAUNCHES["fused_vmm"]`` and ``LAUNCHES["reduce_tiles"]`` count
-them.
+them.  A transpose read does the same over the N tiles:
+``LAUNCHES["fused_mvm"]`` and ``LAUNCHES["reduce_tiles_mvm"]``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional
 
 import torch
@@ -48,21 +44,17 @@ from repro_torch.core.adc import (_clip, _deterministic, _round,
 from repro_torch.core.crossbar import CrossbarConfig
 from repro_torch.core.xbar_ops import _tiled_read
 
+from . import _nvcc
+
 Tensor = torch.Tensor
 
 READ_IMPLS = ("auto", "chain", "cuda", "eager")
 
 #: Launches of each kernel of this module; only the wrapper adds to it.
-LAUNCHES = {"fused_vmm": 0, "reduce_tiles": 0}
+LAUNCHES = {"fused_vmm": 0, "reduce_tiles": 0, "fused_mvm": 0,
+            "reduce_tiles_mvm": 0}
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "xbar_vmm.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_lib = None
-#: Compiler output of the build (``-Xptxas -v``: registers, spills).
-BUILD_LOG = ""
+SOURCE = _nvcc.CSRC / "xbar_vmm.cu"
 
 
 def resolve_read_impl(impl: Optional[str], x: Tensor) -> str:
@@ -89,70 +81,47 @@ def resolve_read_impl(impl: Optional[str], x: Tensor) -> str:
 # --------------------------------------------------------------------------
 
 def _read_plain(x: Tensor, g: Tensor, ref: Tensor, sc: Tensor,
-                cfg: CrossbarConfig) -> Tensor:
-    """The kernel's function in plain torch, on the kernel's operands.
+                cfg: CrossbarConfig, transpose: bool = False) -> Tensor:
+    """The kernels' function in plain torch, on the kernels' operands.
 
     ``x`` (L, B, K), ``g``/``ref`` (L, K, N), ``sc`` (L, 2) float32 →
     (L, B, N): quantise by ``sc[:, 0]`` → pad → per-tile einsum →
     saturation → ADC → sum over K tiles → ``× sc[:, 1]`` (the steps of
-    the reference's ``_read_one_jnp`` / ``_tiled_read_twin``).
+    the reference's ``_read_one_jnp`` / ``_tiled_read_twin``).  With
+    ``transpose``, ``x`` is (L, B, N) and the result (L, B, K).
     """
     levels = float(cfg.adc.in_levels)
     xi = _clip(_round(x / sc[:, 0, None, None]), -levels, levels)
     k, n = g.shape[-2:]
     diff = torch.nn.functional.pad(g - ref, (0, (-n) % cfg.cols,
                                              0, (-k) % cfg.rows))
-    q = _tiled_read(xi, diff, cfg)[..., :n]
+    q = _tiled_read(xi, diff, cfg, transpose)[..., :k if transpose else n]
     return q * sc[:, 1, None, None]
 
 
 # --------------------------------------------------------------------------
-# The CUDA kernel
+# The CUDA kernels
 # --------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA kernel is built from "
-                           f"{SOURCE} on a machine with the CUDA toolkit")
-    return nvcc
-
-
-def build() -> Path:
-    """Compile ``csrc/xbar_vmm.cu`` (once per source content) and return
-    the shared library's path."""
-    global BUILD_LOG
-    digest = hashlib.sha1(SOURCE.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libxbar_vmm_{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{BUILD_LOG}")
-    os.replace(tmp, out)
-    return out
+_lib = None
 
 
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = _nvcc.load(SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.xbar_vmm_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                         i, f, f, f, f, p]
-        lib.xbar_vmm_forward.restype = ctypes.c_int
-        lib.xbar_vmm_scratch_floats.argtypes = [i, i, i, i, i, i]
-        lib.xbar_vmm_scratch_floats.restype = ctypes.c_longlong
+        lib.xbar_read.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                  f, f, f, f, p]
+        lib.xbar_read.restype = ctypes.c_int
+        lib.xbar_read_scratch_floats.argtypes = [i, i, i, i, i, i, i]
+        lib.xbar_read_scratch_floats.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 
 
-def _check_operands(x: Tensor, g: Tensor, ref: Tensor, sc: Tensor) -> None:
+def _check_operands(x: Tensor, g: Tensor, ref: Tensor, sc: Tensor,
+                    transpose: bool) -> None:
     tensors = {"x": x, "g": g, "ref": ref, "sc": sc}
     for name, t in tensors.items():
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
@@ -160,43 +129,50 @@ def _check_operands(x: Tensor, g: Tensor, ref: Tensor, sc: Tensor) -> None:
                              f"tensor, got {t.dtype} on {t.device}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    lyr, b, k = x.shape
-    if g.shape != (lyr, k, g.shape[2]) or ref.shape != g.shape \
-            or sc.shape != (lyr, 2):
+    lyr, b, d = x.shape
+    drive = g.shape[2] if transpose else g.shape[1]
+    if g.ndim != 3 or g.shape[0] != lyr or d != drive \
+            or ref.shape != g.shape or sc.shape != (lyr, 2):
         raise ValueError(f"operand shapes x {tuple(x.shape)} g "
                          f"{tuple(g.shape)} ref {tuple(ref.shape)} sc "
                          f"{tuple(sc.shape)} do not match")
 
 
 def _read_cuda(x: Tensor, g: Tensor, ref: Tensor, sc: Tensor,
-               cfg: CrossbarConfig) -> Tensor:
-    """Launch the fused read kernel on (L, B, K) / (L, K, N) / (L, 2)."""
-    _check_operands(x, g, ref, sc)
+               cfg: CrossbarConfig, transpose: bool = False) -> Tensor:
+    """Launch a fused read on (L, B, K|N) / (L, K, N) / (L, 2): the
+    forward read, or with ``transpose`` the transpose read."""
+    _check_operands(x, g, ref, sc, transpose)
     lib = _library()
-    lyr, b, k = x.shape
-    n = g.shape[2]
+    lyr, b, _ = x.shape
+    k, n = g.shape[1:]
     adc = cfg.adc
-    y = torch.empty((lyr, b, n), dtype=torch.float32, device=x.device)
-    n_scratch = lib.xbar_vmm_scratch_floats(lyr, b, k, n, cfg.rows,
-                                            cfg.cols)
+    y = torch.empty((lyr, b, k if transpose else n), dtype=torch.float32,
+                    device=x.device)
+    n_scratch = lib.xbar_read_scratch_floats(lyr, b, k, n, cfg.rows,
+                                             cfg.cols, int(transpose))
     scratch = torch.empty((n_scratch,), dtype=torch.float32,
                           device=x.device) if n_scratch else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-    err = lib.xbar_vmm_forward(
+    n_rows = cfg.cols if transpose else cfg.rows
+    err = lib.xbar_read(
         x.data_ptr(), g.data_ptr(), ref.data_ptr(), sc.data_ptr(),
         y.data_ptr(), scratch.data_ptr() if scratch is not None else None,
-        lyr, b, k, n, cfg.rows, cfg.cols, int(adc.range_mode != "fixed"),
-        float(adc.in_levels), float(adc.out_levels),
-        fixed_saturation(adc, cfg.rows, cfg.device.gmax),
+        lyr, b, k, n, cfg.rows, cfg.cols, int(transpose),
+        int(adc.range_mode != "fixed"), float(adc.in_levels),
+        float(adc.out_levels),
+        fixed_saturation(adc, n_rows, cfg.device.gmax),
         float(adc.sat_sigmas), stream)
     if err != 0:
-        raise RuntimeError(f"xbar_vmm_forward launch failed: CUDA error "
-                           f"{err} (x {tuple(x.shape)}, g {tuple(g.shape)}, "
-                           f"tile {cfg.rows}x{cfg.cols})")
-    LAUNCHES["fused_vmm"] += 1
-    if k > cfg.rows:
-        LAUNCHES["reduce_tiles"] += 1
+        raise RuntimeError(f"xbar_read launch failed: CUDA error {err} "
+                           f"(x {tuple(x.shape)}, g {tuple(g.shape)}, tile "
+                           f"{cfg.rows}x{cfg.cols}, transpose={transpose})")
+    tile, reduce = (("fused_mvm", "reduce_tiles_mvm") if transpose
+                    else ("fused_vmm", "reduce_tiles"))
+    LAUNCHES[tile] += 1
+    if n_scratch:  # more than one reduction tile: the tile-order sum ran
+        LAUNCHES[reduce] += 1
     return y
 
 
@@ -212,15 +188,17 @@ def read_scales(x: Tensor, w_scale: Tensor, in_levels: int) -> Tensor:
 
 
 def xbar_fused_read(x: Tensor, g: Tensor, ref: Tensor, w_scale,
-                    cfg: CrossbarConfig, *,
-                    impl: Optional[str] = None) -> Tensor:
+                    cfg: CrossbarConfig, *, impl: Optional[str] = None,
+                    transpose: bool = False) -> Tensor:
     """``y ≈ x @ (g - ref) / w_scale`` with the full DAC / per-tile
-    integrator + ADC / digital-accumulate semantics of ``core.xbar_ops``.
+    integrator + ADC / digital-accumulate semantics of ``core.xbar_ops``;
+    with ``transpose``, ``y ≈ x @ ((g - ref) / w_scale).T``.
 
-    ``x``: (..., B, K); ``g``/``ref``: (..., K, N) with matching lead dims
-    (none for a plain matrix, (L,) for a scan-stacked container);
-    ``w_scale`` broadcasts over the lead dims.  Each lead matrix has its
-    own DAC full scale.  Returns (..., B, N) in ``x.dtype``.
+    ``x``: (..., B, K), or (..., B, N) transposed; ``g``/``ref``:
+    (..., K, N) with matching lead dims (none for a plain matrix, (L,) for
+    a scan-stacked container); ``w_scale`` broadcasts over the lead dims.
+    Each lead matrix has its own DAC full scale.  Returns (..., B, N), or
+    (..., B, K) transposed, in ``x.dtype``.
     """
     impl = resolve_read_impl(impl, x)
     _deterministic(cfg.adc)
@@ -228,8 +206,9 @@ def xbar_fused_read(x: Tensor, g: Tensor, ref: Tensor, w_scale,
     if ref.shape != g.shape:
         raise ValueError(f"ref {tuple(ref.shape)} does not match g "
                          f"{tuple(g.shape)}")
+    drive = g.shape[-1] if transpose else g.shape[-2]
     if x.ndim != len(lead) + 2 or x.shape[:len(lead)] != lead \
-            or x.shape[-1] != g.shape[-2]:
+            or x.shape[-1] != drive:
         raise ValueError(f"x {tuple(x.shape)} does not match container "
                          f"g {tuple(g.shape)}")
     in_dtype = x.dtype
@@ -243,7 +222,7 @@ def xbar_fused_read(x: Tensor, g: Tensor, ref: Tensor, w_scale,
                                             device=x.device), lead)
     sc = read_scales(xf, ws.reshape(lyr), cfg.adc.in_levels)
     if impl == "cuda":
-        y = _read_cuda(xf, gf, rf, sc, cfg)
+        y = _read_cuda(xf, gf, rf, sc, cfg, transpose)
     else:
-        y = _read_plain(xf, gf, rf, sc, cfg)
+        y = _read_plain(xf, gf, rf, sc, cfg, transpose)
     return y.reshape(*lead, *y.shape[1:]).to(in_dtype)

@@ -1,6 +1,7 @@
 """Model API, dense decoder family (port of ``repro.models.model``).
 
     params         = init_params(cfg, generator, device="cuda")
+    loss, metrics  = loss_fn(params, batch, cfg)
     logits, cache  = prefill(params, batch, cfg, max_len)
     logits, cache  = decode_step(params, cache, tokens, cfg)
     logits, cache  = prefill_chunk(params, cache, tokens, cfg)
@@ -89,6 +90,20 @@ def forward(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig,
     _dense_only(cfg)
     return tf.decoder_apply(params, batch["tokens"], cfg, caches=caches,
                             positions=positions)
+
+
+def loss_fn(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig):
+    """Mean next-token cross-entropy plus ``0.01 * aux`` (the dense family
+    has no auxiliary loss: ``aux`` is 0).  Returns ``(total, {"ce",
+    "aux"})``; cross-entropy is logsumexp minus the true logit."""
+    logits, _ = forward(params, batch, cfg)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    true_logit = torch.gather(logits, -1,
+                              batch["labels"].long()[..., None])[..., 0]
+    loss = torch.mean(lse - true_logit)
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
 # --------------------------------------------------------------------------
@@ -209,6 +224,7 @@ def params_device(params) -> torch.device:
 
 
 __all__ = ["init_params", "readout_digital", "program_digital", "forward",
+           "loss_fn",
            "init_cache", "prefill", "decode_step", "prefill_chunk",
            "cache_lens", "cache_with_lens", "cache_batch_axes",
            "cache_insert", "cache_reset_row", "params_device"]

@@ -1,0 +1,179 @@
+"""In-situ analog training of a device-mode transformer, on one device
+(port of ``repro.train.analog_lm``, dense family, no mesh).
+
+One ``AnalogTrainStep`` call is the whole training rule:
+
+  1. the parameter tree is split (``core.tiled_analog.split_tapes``): the
+     digital leaves become autograd leaves, every container keeps its
+     g/ref/w_scale frozen and gains zero tape slots;
+  2. forward = VMM, backward = MVM through the same conductances
+     (``core.tiled_analog.TapedMatmul``); the backward writes the
+     quantised write-driver operands (x_q, d_q) into the tapes, and no
+     (K, N) weight gradient is formed;
+  3. every container's update is the paper's rank-k parallel write: its
+     (L, T, K) / (L, T, N) tapes go into ONE launch of the layer-batched
+     update kernel (``kernels.xbar_update.xbar_outer_update``) with
+     ``scale = -lr * w_scale``, write noise from the in-kernel counter
+     PRNG keyed by ``_mix32(seed_base ^ crc32(path))``;
+  4. the digital leaves (embedding, norms) take plain SGD.
+
+The conductances are never updated in place: the step returns a new
+state.  The sharded step, periodic carry, pulse-train writes and the
+step's hardware cost roll-up (``step.cost``, which waits for the
+``hwmodel`` port) are not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import zlib
+from typing import Dict, Union
+
+import torch
+
+from repro_torch.configs.base import (AnalogMode, ModelConfig,
+                                      resolve_analog_mode)
+from repro_torch.core import analog_registry as registry
+from repro_torch.core.tiled_analog import (crossbar_from_model,
+                                           is_analog_container, merge_tapes,
+                                           split_tapes)
+from repro_torch.kernels.xbar_update import _mix32, _u32, xbar_outer_update
+from repro_torch.models import model as M
+
+Tensor = torch.Tensor
+
+
+def init_state(generator: Union[torch.Generator, int], cfg: ModelConfig,
+               device="cuda") -> dict:
+    """A fresh train state: random parameters from ``generator`` (see
+    ``models.model.init_params``) and a step counter."""
+    return {"params": M.init_params(cfg, generator, device),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def container_seed(seed_base: int, path) -> int:
+    """Per-container write-noise seed, keyed on the tree path as the
+    reference keys it: ``_mix32(seed_base ^ crc32("/".join(path)))``."""
+    crc = zlib.crc32("/".join(path).encode())
+    return int(_mix32(_u32((int(seed_base) ^ crc) & 0xFFFFFFFF)))
+
+
+def _trainable(diff, frozen):
+    """The digital leaves of a split tree as fresh autograd leaves (tape
+    slots stay plain buffers)."""
+    if frozen is not None and "g" in frozen:
+        return diff
+    if isinstance(diff, dict):
+        return {k: _trainable(diff[k], frozen[k] if frozen else None)
+                for k in diff}
+    return diff.detach().requires_grad_(True)
+
+
+class AnalogTrainStep:
+    """Analog-SGD step: ``state, metrics = step(state, batch, rng)``.
+
+    ``batch`` holds ``tokens`` and ``labels`` (B, S).  ``rng`` keys the
+    step's write noise: a ``torch.Generator`` (``seed_base`` is drawn from
+    it), or the integer ``seed_base`` itself (a test feeds the reference's
+    ``jax.random.bits`` draw).  Noiseless devices need none.
+
+    ``mesh``, ``analog_carry`` and ``update_mode="pulse_train"`` are not
+    ported yet and raise.
+    """
+
+    def __init__(self, cfg: ModelConfig, lr: float, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the sharded analog step is not ported yet; see ROADMAP.md")
+        if resolve_analog_mode(cfg) is not AnalogMode.DEVICE:
+            raise ValueError(
+                f"AnalogTrainStep needs a device-mode config (resolved "
+                f"{resolve_analog_mode(cfg).value!r}); set analog=True, "
+                f"analog_mode={AnalogMode.DEVICE.value!r}")
+        if cfg.analog_carry:
+            raise NotImplementedError(
+                "periodic carry (analog_carry=True) is not ported yet; see "
+                "ROADMAP.md")
+        if cfg.analog_update_mode == "pulse_train":
+            raise NotImplementedError(
+                "update_mode='pulse_train' is not ported yet; see "
+                "ROADMAP.md")
+        self.cfg = cfg
+        self.lr = lr
+        self.xcfg = crossbar_from_model(cfg)
+        self._validated = False
+
+    def __call__(self, state: dict, batch: Dict[str, Tensor], rng=None):
+        cfg = self.cfg
+        params = state["params"]
+        if not self._validated:
+            registry.validate_device_params(params, cfg)
+            self._validated = True
+        tokens = batch["tokens"]
+        n_tokens = tokens.numel()
+        diff, frozen = split_tapes(
+            params, n_tokens,
+            tokens_for=lambda path, shape: registry.tape_lead(
+                path, cfg, n_tokens, tuple(tokens.shape)))
+        diff = _trainable(diff, frozen)
+        loss, metrics = M.loss_fn(merge_tapes(diff, frozen), batch, cfg)
+        loss.backward()
+
+        seed_base = None
+        if self.xcfg.device.write_noise > 0.0:
+            if isinstance(rng, torch.Generator):
+                seed_base = int(torch.randint(
+                    0, 2 ** 32, (), generator=rng, device=rng.device))
+            elif rng is None:
+                raise ValueError("a noisy device needs rng: a "
+                                 "torch.Generator or an integer seed_base")
+            else:
+                seed_base = int(rng) & 0xFFFFFFFF
+        rail = []
+        with torch.no_grad():
+            new_params = self._update(params, diff, seed_base, (), rail)
+        if not rail:
+            raise ValueError(
+                f"no analog containers in params for family {cfg.family!r}; "
+                "was the state built with analog_mode='device'?")
+        out = {"loss": loss.detach(), "ce": metrics["ce"].detach(),
+               "aux": metrics["aux"]}
+        # fraction of devices pinned at the conductance rails — the leading
+        # indicator of window exhaustion (paper §V.A)
+        out["g_rail_frac"] = sum(rail) / len(rail)
+        return {"params": new_params, "step": state["step"] + 1}, out
+
+    def _update(self, p, d, seed_base, path, rail):
+        if is_analog_container(p):
+            return self._update_container(p, d, seed_base, path, rail)
+        if isinstance(p, dict):
+            return {k: self._update(p[k], d[k], seed_base, path + (k,), rail)
+                    for k in p}
+        if d.grad is None:  # a leaf the loss does not reach
+            return p
+        return p - self.lr * d.grad.to(p.dtype)
+
+    def _update_container(self, p, tapes, seed_base, path, rail):
+        """The paper's Fig. 3c parallel write: one kernel launch per
+        container over its (L, tiles) grid, its write noise from the
+        counter PRNG."""
+        kind = registry.classify(path)
+        dev = self.xcfg.device
+        seed = None if seed_base is None else container_seed(seed_base, path)
+        mode = "none" if seed is None else "kernel"
+        scale = torch.tensor(-self.lr, dtype=torch.float32,
+                             device=p["g"].device) * p["w_scale"].float()
+        g3, x3, d3, s1, unflatten = registry.flatten_lead(
+            kind, p["g"], tapes["x_tape"], tapes["d_tape"], scale)
+        g_new = unflatten(xbar_outer_update(
+            g3, x3, d3, s1, self.xcfg, seed=seed, noise_mode=mode))
+        span = dev.gmax - dev.gmin
+        railed = (g_new <= dev.gmin + 1e-3 * span) \
+            | (g_new >= dev.gmax - 1e-3 * span)
+        rail.append(railed.sum().to(torch.float32) / railed.numel())
+        return {**p, "g": g_new}
+
+
+def make_analog_sgd_step(cfg: ModelConfig, lr: float,
+                         mesh=None) -> AnalogTrainStep:
+    """The analog-SGD training step for a device-mode transformer config
+    (see :class:`AnalogTrainStep`)."""
+    return AnalogTrainStep(cfg, lr, mesh=mesh)

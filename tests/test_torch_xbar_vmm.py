@@ -1,5 +1,6 @@
-"""The port's fused read (plain version and dispatch) against the JAX
-package's read chain and its interpret-mode Pallas kernel.
+"""The port's fused reads — forward (VMM) and transpose (MVM) — (plain
+version and dispatch) against the JAX package's read chain and its
+interpret-mode Pallas kernels.
 
 Parity classes (the reference's contract, ``repro/kernels/xbar_vmm.py``):
 
@@ -19,8 +20,10 @@ import torch
 from repro.core import AdcConfig as JAdc
 from repro.core import CrossbarConfig as JXbar
 from repro.core import IDEAL as J_IDEAL
+from repro.core.xbar_ops import mvm as jax_mvm
 from repro.core.xbar_ops import vmm as jax_vmm
 from repro_torch.core import IDEAL, AdcConfig, CrossbarConfig
+from repro_torch.core.xbar_ops import mvm as torch_mvm
 from repro_torch.core.xbar_ops import vmm as torch_vmm
 from repro_torch.kernels import xbar_vmm as K
 
@@ -126,8 +129,9 @@ def test_kernel_operand_checks_reject_cpu_tensors():
 
 def test_kernel_source_is_built_for_hopper():
     """The build line targets sm_90a and keeps IEEE division and sqrt."""
-    assert "arch=compute_90a,code=sm_90a" in K.NVCC_FLAGS
-    assert "--use_fast_math" not in K.NVCC_FLAGS
+    from repro_torch.kernels import _nvcc
+    assert "arch=compute_90a,code=sm_90a" in _nvcc.NVCC_FLAGS
+    assert "--use_fast_math" not in _nvcc.NVCC_FLAGS
     assert K.SOURCE.exists()
     src = K.SOURCE.read_text()
     assert "_fused_vmm_kernel" in src and "__fdiv_rn" in src
@@ -155,3 +159,75 @@ def test_carry_container_read_matches_reference(adc):
                              for k, v in leaves.items()},
                             torch.from_numpy(x), tcfg).numpy()
     np.testing.assert_allclose(y_port, y_jax, rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# The transpose read (MVM)
+# --------------------------------------------------------------------------
+
+MVM_SHAPES = [((), 16, 16, 4), ((), 40, 24, 6), ((3,), 40, 36, 5),
+              ((2,), 64, 48, 8)]
+
+
+def _both_mvm(lead, k, n, b, adc, jimpl, seed):
+    """The transpose read of (lead, B, N) errors through (lead, K, N)
+    conductances in both packages."""
+    x, g, ref, ws = _operands(k, n, b, lead=lead, seed=seed)
+    d = np.random.default_rng(seed + 10).standard_normal(
+        (*lead, b, n)).astype(np.float32)
+    jcfg, tcfg = _configs(adc)
+    y_jax = np.asarray(jax_mvm(jnp.asarray(d), jnp.asarray(g),
+                               jnp.asarray(ref), jnp.asarray(ws), jcfg,
+                               impl=jimpl))
+    y_port = torch_mvm(torch.from_numpy(d), torch.from_numpy(g),
+                       torch.from_numpy(ref), torch.from_numpy(ws), tcfg,
+                       impl="eager").numpy()
+    assert y_port.shape == (*lead, b, k)
+    return y_jax, y_port
+
+
+@pytest.mark.parametrize("jimpl", ["chain", "interpret"])
+@pytest.mark.parametrize("lead,k,n,b", MVM_SHAPES)
+def test_plain_transpose_read_bitwise_fixed_pow2(jimpl, lead, k, n, b):
+    y_jax, y_port = _both_mvm(lead, k, n, b, POW2_ADC, jimpl, seed=3)
+    np.testing.assert_array_equal(y_port, y_jax)
+
+
+@pytest.mark.parametrize("jimpl", ["chain", "interpret"])
+@pytest.mark.parametrize("lead,k,n,b", MVM_SHAPES)
+def test_plain_transpose_read_dynamic_close(jimpl, lead, k, n, b):
+    y_jax, y_port = _both_mvm(lead, k, n, b, {"range_mode": "dynamic"},
+                              jimpl, seed=4)
+    np.testing.assert_allclose(y_port, y_jax, rtol=1e-5, atol=1e-5)
+
+
+def test_port_chain_equals_plain_transpose_read():
+    x, g, ref, ws = (torch.from_numpy(a) for a in _operands(40, 24, 6))
+    d = torch.randn((6, 24), generator=torch.Generator().manual_seed(0))
+    _, tcfg = _configs({"range_mode": "dynamic"})
+    y_chain = torch_mvm(d, g, ref, ws, tcfg, impl="chain")
+    y_plain = torch_mvm(d, g, ref, ws, tcfg, impl="eager")
+    torch.testing.assert_close(y_plain, y_chain, rtol=1e-6, atol=1e-6)
+
+
+def test_transpose_dispatch_cpu_takes_plain_version_and_cuda_raises():
+    x, g, ref, ws = (torch.from_numpy(a) for a in _operands(16, 16, 4))
+    _, tcfg = _configs(POW2_ADC)
+    before = dict(K.LAUNCHES)
+    y = K.xbar_fused_read(x, g, ref, ws, tcfg, transpose=True)
+    assert y.shape == (4, 16) and K.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA"):
+        K.xbar_fused_read(x, g, ref, ws, tcfg, impl="cuda", transpose=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        K._read_cuda(x[None], g[None], ref[None], torch.ones((1, 2)),
+                     tcfg, transpose=True)
+    with pytest.raises(ValueError, match="does not match"):
+        K.xbar_fused_read(torch.ones((4, 24)), g, ref, ws, tcfg,
+                          transpose=True)
+
+
+def test_transpose_kernel_source_contracts_the_stored_columns():
+    src = K.SOURCE.read_text()
+    assert "_fused_mvm_kernel" in src and "kTranspose" in src
+    assert set(K.LAUNCHES) == {"fused_vmm", "reduce_tiles", "fused_mvm",
+                               "reduce_tiles_mvm"}
