@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels (``src/repro_torch/kernels/csrc/
 xbar_vmm.cu``: the forward and transpose reads; ``xbar_update.cu``: the
-rank-k write) with one nvcc per source, all started together, then runs
-these phases and exits non-zero if any gate fails:
+rank-k write; ``xbar_fakequant.cu``: the fakequant read;
+``flash_attention.cu``) with one nvcc per source, all started together,
+then runs these phases and exits non-zero if any gate fails:
 
 1. forward read vs plain version on the card, at the shapes of lm100m's
    four crossbar containers (64x64 tiles) at decode (B=4) and
@@ -69,6 +70,36 @@ these phases and exits non-zero if any gate fails:
    step time, tokens/s and peak memory come from steps 2-4, which run the
    kernels bare.
 
+8. fakequant read vs plain version on the card: lm100m's four projections
+   at T = 4 (decode), 16 and 2048 (prefill) with 1024-row tiles (the
+   config default) and 64-row tiles, and a ragged case.  Two classes:
+     * exact: integer drives with max|x| = 127 (DAC scale 1) and sparse
+       {-1, 0, 1} weights, so every partial product and per-tile sum of
+       squares is an exact float32 integer: bit-equal;
+     * float32 normal operands: every element within one ADC lsb per row
+       tile (the token's own) of the plain version, and under 1% of the
+       elements more than 1e-5 relative off.
+   T = 4 is timed against the byte bound and T = 2048 against the FP32
+   bound (1024-row tiles), beside torch.matmul of the product alone (not
+   the same function).
+9. lm100m at full width in fakequant mode (analog=True, the default 1024
+   rows, 8-bit DAC/ADC, random weights from torch.Generator seed 0)
+   served from its digital tree with phase 2's settings.  Gates: 48
+   fakequant reads per model call (each a partial-product and an epilogue
+   launch) and no call of a plain version; tokens/s and one profiled
+   decode step's device time are reported.
+10. the fakequant model on the card and on the CPU, as phase 3: every read
+   against the plain version on the CPU fed the card's own operands
+   (phase 8's bound); logits with the card's reads replayed into the CPU
+   run within 1e-3; the free-running CPU a gross check only.
+11. flash attention at the registry's attention shapes (lm100m 12/12
+   heads of 64, starcoder2-3b 24/2 of 128, gemma-2b 8/1 of 256 at
+   S = 1024, causal; a full Sq 512 x Skv 2048 case), each in float32
+   (within 1e-4 of the plain version) and bfloat16 (3e-2), every case
+   through ``flash_attention`` with the count set to 0 first; timed
+   against the operations bound (FP32 rate for float32, bf16 tensor-core
+   rate for bfloat16) beside scaled_dot_product_attention.
+
 The second-to-last line is a JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.  Details
 go to ``chiprun_out/chip_smoke.json``.
@@ -106,10 +137,12 @@ def kernel_us(prof):
                if e.device_type != DeviceType.CPU)
 
 
-def device_ms(fn, n_iter):
+def device_ms(fn, n_iter, split=None):
     """Kernel time per call of ``fn`` on the card, from torch.profiler
     (the launches' host overhead is left out); None if the profiler
-    recorded no kernel."""
+    recorded no kernel.  With ``split`` (names), also the time per call of
+    the kernels whose names contain each name: ``(ms, {name: ms})``."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(0)
     torch.cuda.synchronize()
@@ -119,7 +152,15 @@ def device_ms(fn, n_iter):
             fn(i)
         torch.cuda.synchronize()
     us = kernel_us(prof)
-    return us / n_iter / 1e3 if us > 0 else None
+    ms = us / n_iter / 1e3 if us > 0 else None
+    if split is None:
+        return ms
+    parts = {name: sum(getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+                       for e in prof.key_averages()
+                       if e.device_type != DeviceType.CPU and name in e.key)
+             / n_iter / 1e3 for name in split}
+    return ms, parts
 
 
 def profiler_warmup():
@@ -782,7 +823,7 @@ def phase_train(K, U, TA, M, syn, tcfg, report):
     n_layers = tcfg.n_layers
     expect = {"fused_vmm": 4 * n_layers, "reduce_tiles": 4 * n_layers,
               "fused_mvm": 4 * n_layers, "reduce_tiles_mvm": 4 * n_layers,
-              "outer_update": 4}
+              "fakequant": 0, "fakequant_epilogue": 0, "outer_update": 4}
     reads, writes = [], []
     update_cuda = U._update_cuda
 
@@ -968,6 +1009,477 @@ def profile_train_step(K, U, syn, step, state, stream, rng, expect):
     return res
 
 
+# --------------------------------------------------------------------------
+# Phases 8-10: the fakequant read and fakequant serving
+# --------------------------------------------------------------------------
+
+def fq_exact_operands(t, k, n, gen):
+    """Integer drives in [-2, 2] with max|x| = 127 (the DAC scale is then
+    exactly 1) and weights in {-1, 0, 1}, seven in eight zero, the row the
+    127 drives zero: every partial product and every per-tile sum of
+    squares is an exact float32 integer below 2^24 (checked)."""
+    dev = gen.device
+    x = torch.randint(-2, 3, (t, k), generator=gen, device=dev).float()
+    x[0, 0] = 127.0
+    w = torch.randint(-1, 2, (k, n), generator=gen, device=dev).float()
+    w *= (torch.rand((k, n), generator=gen, device=dev) < 0.125).float()
+    w[0] = 0.0
+    return x, w
+
+
+def fq_tile_lsb(x, w, sc, adc, rows):
+    """(T, tiles) ADC lsb of a fakequant read, from the plain pieces."""
+    from repro_torch.core.adc import _clip, _round
+    k = w.shape[0]
+    lv = float(adc.in_levels)
+    xq = _clip(_round(x / sc), -lv, lv) * sc
+    lsbs = []
+    for i in range(0, k, rows):
+        q = xq[:, i:i + rows] @ w[i:i + rows]
+        ms = (q * q).sum(-1) / w.shape[1]
+        lsbs.append(adc.sat_sigmas * torch.sqrt(ms + 1e-12) / adc.out_levels)
+    return torch.stack(lsbs, dim=1)
+
+
+def fq_exact_ok(x, w, rows):
+    """The exact class's premise: per-tile sums of squares below 2^24."""
+    xd, wd = x.double(), w.double()
+    worst = max(((xd[:, i:i + rows] @ wd[i:i + rows]) ** 2).sum(-1).max()
+                .item() for i in range(0, w.shape[0], rows))
+    return worst < 2 ** 24
+
+
+def fq_agrees(y_k, y_p, x, w, sc, adc, rows):
+    """The float class's bound: every element within one lsb per row tile
+    (the token's own) of the plain version, and under 1% of the elements
+    more than 1e-5 relative off.  Returns (ok, max abs err, largest err /
+    bound, flip share)."""
+    err = (y_k - y_p).abs()
+    bound = fq_tile_lsb(x, w, sc, adc, rows).sum(1, keepdim=True) \
+        + 1e-5 * y_p.abs()
+    share = (err > 1e-5 * y_p.abs().amax()).float().mean().item()
+    ok = bool((err <= bound).all()) and share < 0.01
+    return ok, err.max().item(), (err / bound).max().item(), share
+
+
+def time_fakequant(K, x, w, sc, adc, rows):
+    """Device times of the kernel, its plain version and torch.matmul of
+    the product ``xq @ W`` alone (not the same function), cycling over
+    copies of the weights so each launch finds them out of L2."""
+    t, k = x.shape
+    n = w.shape[1]
+    copies = max(2, min(64, math.ceil(3 * L2_BYTES / (4 * w.numel()))))
+    ws = [w.clone() for _ in range(copies)]
+    from repro_torch.core.adc import _clip, _round
+    lv = float(adc.in_levels)
+    xq = _clip(_round(x / sc), -lv, lv) * sc
+    flops = 2 * t * k * n
+    iters = max(copies, 50 if flops < 1e10 else 5)
+    sync = torch.cuda.synchronize
+
+    def kern(i):
+        return K._fakequant_cuda(x, ws[i % copies], sc, adc, rows)
+
+    def plain(i):
+        return K._fakequant_plain(x, ws[i % copies], sc, adc, rows)
+
+    def matmul(i):
+        return torch.matmul(xq, ws[i % copies])
+    ms, parts = device_ms(kern, iters, ("fakequant_partial",
+                                        "fakequant_epilogue"))
+    res = {"ms": ms, "plain_ms": device_ms(plain, iters),
+           "matmul_ms_not_the_same_function": device_ms(matmul, iters),
+           "partial_ms": parts["fakequant_partial"],
+           "epilogue_ms": parts["fakequant_epilogue"], "timing": "profiler"}
+    if any(v is None for v in res.values()):
+        fns = {"ms": kern, "plain_ms": plain,
+               "matmul_ms_not_the_same_function": matmul}
+        res = {name: cuda_ms(fn, iters, sync) for name, fn in fns.items()}
+        res["timing"] = "events"
+    n_bytes = 4 * (t * k + k * n + t * n + 1)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    res["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+    res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    return res
+
+
+def phase_fq_kernel(K, AdcConfig, report):
+    """The fakequant read against its plain version on the card: lm100m's
+    four projections at T = 4, 16 and 2048 with 1024- and 64-row tiles,
+    and a ragged case.  Exact class bit-equal; float class within one lsb
+    per row tile.  T = 4 and T = 2048 at 1024 rows are timed."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    adc = AdcConfig(in_bits=8, out_bits=8)
+    cases = [(name, t, k, n, rows) for rows in (1024, 64)
+             for t in (4, 16, 2048) for name, k, n in TRAIN_SHAPES]
+    cases.append(("ragged", 37, 200, 72, 64))
+    rows_out = []
+    for name, t, k, n, tile in cases:
+        for cls in ("exact", "float"):
+            if cls == "exact":
+                x, w = fq_exact_operands(t, k, n, gen)
+                if not fq_exact_ok(x, w, tile):
+                    fail(f"exact-class operands out of range: {name} T={t}")
+            else:
+                x = torch.randn((t, k), generator=gen, device="cuda")
+                w = torch.randn((k, n), generator=gen, device="cuda") \
+                    / math.sqrt(k)
+            sc = K.fakequant_scale(x, adc.in_levels)
+            if cls == "exact" and sc.item() != 1.0:
+                fail(f"exact class: DAC scale {sc.item()} is not 1")
+            y_k = K._fakequant_cuda(x, w, sc, adc, tile)
+            torch.cuda.synchronize()
+            y_p = K._fakequant_plain(x, w, sc, adc, tile)
+            row = {"projection": name, "T": t, "K": k, "N": n, "rows": tile,
+                   "class": cls,
+                   "max_abs_err": (y_k - y_p).abs().max().item()}
+            if cls == "exact":
+                ok = torch.equal(y_k, y_p)
+            else:
+                ok, _, row["err_over_bound"], row["flip_share"] = fq_agrees(
+                    y_k, y_p, x, w, sc, adc, tile)
+                if tile == 1024 and t in (4, 2048) and name != "ragged":
+                    row.update(time_fakequant(K, x, w, sc, adc, tile))
+            row["ok"] = ok
+            rows_out.append(row)
+            report(row)
+            if not ok:
+                fail(f"fakequant read disagrees with its plain version: "
+                     f"{row}")
+    for r in rows_out:
+        if "ms" in r:
+            print(f"  fakequant {r['projection']} K={r['K']} N={r['N']} "
+                  f"T={r['T']}: kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, torch.matmul of the product "
+                  f"alone (not the same function) "
+                  f"{r['matmul_ms_not_the_same_function']:.4f} ms "
+                  f"({r['timing']}"
+                  + (f"; partial products {r['partial_ms']:.4f}, epilogue "
+                     f"{r['epilogue_ms']:.4f}" if "partial_ms" in r else "")
+                  + f"), bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}, {100 * r['bound_share']:.1f}% of "
+                  f"bound), max abs err {r['max_abs_err']:.3g}")
+    print(f"phase 8: {len(rows_out)} fakequant-read cases agree")
+    return rows_out
+
+
+@contextlib.contextmanager
+def counting_plain(K, OPS, calls):
+    """Count calls of the fakequant read's plain versions (the kernel's
+    and the projection's jnp-path twin)."""
+    plain, eager = K._fakequant_plain, OPS._fakequant_eager
+
+    def count_plain(*args):
+        calls.append("kernel plain version")
+        return plain(*args)
+
+    def count_eager(*args):
+        calls.append("projection plain path")
+        return eager(*args)
+    K._fakequant_plain, OPS._fakequant_eager = count_plain, count_eager
+    try:
+        yield
+    finally:
+        K._fakequant_plain, OPS._fakequant_eager = plain, eager
+
+
+def phase_fq_serve(M, K, OPS, make_engine, SamplingParams, fcfg, prompts,
+                   report):
+    """lm100m at full width in fakequant mode (1024-row tiles, 8-bit
+    DAC/ADC, random weights from torch.Generator seed 0), served from its
+    digital tree by the continuous scheduler with phase 2's settings.
+    Gates: 48 fakequant reads per model call, each the partial-product
+    kernel and the epilogue, and no call of a plain version."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = M.init_params(fcfg, gen, device="cuda")
+    engine = make_engine(fcfg, params, n_slots=4, prefill_chunk=16,
+                         max_len=64)
+    if engine.backend != "digital":
+        fail(f"fakequant engine on backend {engine.backend!r}")
+    engine.generate(prompts[:1], SamplingParams(max_new_tokens=2))  # warm-up
+    torch.cuda.synchronize()
+    plain_calls = []
+    for name in K.LAUNCHES:
+        K.LAUNCHES[name] = 0
+    with counting_plain(K, OPS, plain_calls):
+        t0 = time.perf_counter()
+        outs = engine.generate(prompts, SamplingParams(max_new_tokens=32))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    m = engine.stream.metrics
+    calls = m["prefill_chunks"] + m["decode_steps"]
+    launches = dict(K.LAUNCHES)
+    n_tok = sum(len(o) for o in outs)
+    per_call = 4 * fcfg.n_layers
+    res = {"tokens": n_tok, "seconds": dt, "tokens_per_s": n_tok / dt,
+           "model_calls": calls, "prefill_chunks": m["prefill_chunks"],
+           "decode_steps": m["decode_steps"], "launches": launches,
+           "plain_calls": len(plain_calls)}
+    print(f"fakequant serving: {n_tok} tokens in {dt:.3f} s = "
+          f"{n_tok / dt:.1f} tokens/s ({calls} model calls, "
+          f"{launches['fakequant']} fakequant reads, each a partial-product "
+          f"and an epilogue launch; {len(plain_calls)} plain-version calls)")
+    if launches["fakequant"] != per_call * calls or calls == 0 \
+            or launches["fakequant_epilogue"] != launches["fakequant"]:
+        fail(f"fakequant serving launched {launches} for {calls} model "
+             f"calls; expected {per_call * calls} reads")
+    if any(v for name, v in launches.items() if "fakequant" not in name):
+        fail(f"fakequant serving launched crossbar reads: {launches}")
+    if plain_calls:
+        fail(f"fakequant serving on the card called a plain version "
+             f"{len(plain_calls)} times")
+    if [len(o) for o in outs] != [32] * 4 or \
+            not all(0 <= t < fcfg.vocab for o in outs for t in o):
+        fail(f"bad fakequant outputs {outs}")
+    res["profile"] = profile_decode_step(M, fcfg, params)
+    report(res)
+    return params, res
+
+
+def profile_decode_step(M, cfg, params):
+    """Device time of one decode step (B = 4) by kernel, from
+    torch.profiler, beside its unprofiled wall time: reported only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (4, 12))).cuda()
+    with torch.no_grad():
+        logits, cache = M.prefill(params, {"tokens": toks}, cfg, 32)
+        tok = logits.argmax(-1)
+        for _ in range(2):
+            logits, cache = M.decode_step(params, cache, tok, cfg)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = M.decode_step(params, cache, tok, cfg)
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            logits, cache = M.decode_step(params, cache, tok, cfg)
+            torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    events = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU]
+    total = kernel_us(prof)
+    read = sum(dev_us(e) for e in events if "fakequant_" in e.key)
+    res = {"wall_ms": 1e3 * wall, "device_ms": total / 1e3,
+           "fakequant_read_ms": read / 1e3,
+           "idle_share": (1 - total / 1e6 / wall) if total else None}
+    if total:
+        print(f"  profiled fakequant decode step (B=4): device "
+              f"{res['device_ms']:.3f} ms ({res['fakequant_read_ms']:.3f} "
+              f"in the fakequant read) of {res['wall_ms']:.3f} ms wall, "
+              f"idle {100 * res['idle_share']:.1f}%")
+    else:
+        print("  profiled fakequant decode step: the profiler recorded no "
+              "device time (not measured)")
+    return res
+
+
+@contextlib.contextmanager
+def recording_fq(K, reads):
+    """Record every fakequant read the kernels run: ``(x, w, sc, adc,
+    rows, y)``."""
+    fq_cuda = K._fakequant_cuda
+
+    def recorded(x, w, sc, adc, rows):
+        y = fq_cuda(x, w, sc, adc, rows)
+        reads.append((x.clone(), w, sc.clone(), adc, rows, y.clone()))
+        return y
+
+    K._fakequant_cuda = recorded
+    try:
+        yield
+    finally:
+        K._fakequant_cuda = fq_cuda
+
+
+def phase_fq_card_vs_cpu(M, K, OPS, fcfg, params, report):
+    """The fakequant model's weights and tokens on the card and the CPU:
+    prefill of a (4, 12) batch and 4 greedy decode steps.  Gates: (a)
+    every read of the card's run against the kernel's plain version on
+    the CPU fed the card's own operands (phase 8's bound); (b) the card's
+    logits against the CPU's with the card's read results replayed into
+    the CPU run, within 1e-3; (c) the free-running CPU, a gross check
+    within twice the fakequant read's own error (fakequant vs float32
+    digital logits)."""
+    cpu_params = tree_to(params, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, fcfg.vocab, (4, 12)))
+    reads = []
+    with recording_fq(K, reads):
+        card, fed = run_steps(M, params, fcfg, toks, None)
+    dig, _ = run_steps(M, params, fcfg.digital(), toks, fed)
+    cpu, _ = run_steps(M, cpu_params, fcfg, toks, fed)
+    replay = iter(reads)
+    eager = OPS._fakequant_eager
+
+    def replayed(x, w, adc, rows):
+        y = next(replay)[5]
+        want = (x.reshape(-1, x.shape[-1]).shape[0], w.shape[1])
+        if tuple(y.shape) != want:
+            fail(f"replayed fakequant read of shape {tuple(y.shape)} for x "
+                 f"{tuple(x.shape)} w {tuple(w.shape)}")
+        return y.cpu().reshape(*x.shape[:-1], w.shape[1])
+
+    OPS._fakequant_eager = replayed
+    try:
+        forced, _ = run_steps(M, cpu_params, fcfg, toks, fed)
+    finally:
+        OPS._fakequant_eager = eager
+    if next(replay, None) is not None:
+        fail("the CPU run made fewer fakequant reads than the card's")
+    moved = {}
+    worst = {"max_abs_err": 0.0, "max_err_over_bound": 0.0,
+             "max_flip_share": 0.0}
+    for x, w, sc, adc, rows, y in reads:
+        key = (w.data_ptr(), tuple(w.shape))
+        if key not in moved:
+            moved[key] = w.cpu()
+        x, w, sc = x.cpu(), moved[key], sc.cpu()
+        y_p = K._fakequant_plain(x, w, sc, adc, rows)
+        ok, err, over, share = fq_agrees(y.cpu(), y_p, x, w, sc, adc, rows)
+        worst["max_abs_err"] = max(worst["max_abs_err"], err)
+        worst["max_err_over_bound"] = max(worst["max_err_over_bound"], over)
+        worst["max_flip_share"] = max(worst["max_flip_share"], share)
+        if not ok:
+            fail(f"a fakequant read of the card's run disagrees with the "
+                 f"plain version on its operands: x {tuple(x.shape)} w "
+                 f"{tuple(w.shape)}, max err {err}, err/bound {over}, flip "
+                 f"share {share}")
+    gap = max_diff(card, dig)
+    res = {"reads_checked": len(reads), **worst,
+           "forced_max_abs_logit_diff": max_diff(card, forced),
+           "forced_bound": 1e-3,
+           "max_abs_logit": max(t.abs().max().item() for t in card),
+           "max_abs_logit_diff": max_diff(card, cpu),
+           "fakequant_vs_digital": gap, "bound": 2 * gap,
+           "greedy_agree": [torch.equal(a.argmax(-1), b.argmax(-1))
+                            for a, b in zip(card, cpu)]}
+    report(res)
+    print(f"fakequant card vs CPU: {len(reads)} reads agree with the plain "
+          f"version on their operands (max abs err "
+          f"{worst['max_abs_err']:.3g}, {worst['max_err_over_bound']:.3f} of "
+          f"the one-lsb-per-tile bound, flip share at most "
+          f"{worst['max_flip_share']:.2g}); replayed logits differ by "
+          f"{res['forced_max_abs_logit_diff']:.3g} (bound 1e-3, logits up to "
+          f"{res['max_abs_logit']:.3g}); free-running CPU "
+          f"{res['max_abs_logit_diff']:.6f} (gross bound {2 * gap:.6f}); "
+          f"greedy tokens agree per step {res['greedy_agree']}")
+    if len(reads) != 5 * 4 * fcfg.n_layers:
+        fail(f"{len(reads)} fakequant reads in a prefill and 4 decode steps")
+    if not res["forced_max_abs_logit_diff"] <= 1e-3:
+        fail(f"fakequant card and CPU logits differ with the reads "
+             f"replayed: {res}")
+    if not res["max_abs_logit_diff"] <= 2 * gap:
+        fail(f"fakequant card and CPU logits differ beyond the bound: {res}")
+    return res
+
+
+# --------------------------------------------------------------------------
+# Phase 11: flash attention
+# --------------------------------------------------------------------------
+
+BF16_FLOPS = 989e12     # H100 SXM data sheet, dense bf16 tensor cores
+# name, B, Sq, Skv, H, KVH, hd, causal: the registry's attention shapes
+FA_CASES = [("lm100m", 1, 2048, 2048, 12, 12, 64, True),
+            ("starcoder2-3b", 1, 2048, 2048, 24, 2, 128, True),
+            ("gemma-2b", 1, 1024, 1024, 8, 1, 256, True),
+            ("lm100m_full_cross", 1, 512, 2048, 12, 12, 64, False)]
+FA_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def time_attention(FA, q, k, v, causal):
+    """Device times of the kernel, the plain version and
+    scaled_dot_product_attention (the same function: the library yardstick,
+    never called by the port)."""
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sync = torch.cuda.synchronize
+    fns = {"ms": lambda i: FA._flash_cuda(q, k, v, causal),
+           "plain_ms": lambda i: FA.flash_attention_ref(q, k, v, causal),
+           "library_ms": lambda i: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=causal, enable_gqa=True)}
+    res = {name: device_ms(fn, 10) for name, fn in fns.items()}
+    res["timing"] = "profiler"
+    if any(t is None for t in res.values()):
+        res = {name: cuda_ms(fn, 10, sync) for name, fn in fns.items()}
+        res["timing"] = "events"
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    flops = 4 * b * h * sq * skv * hd * (0.5 if causal else 1.0)
+    n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    rate = FP32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / rate
+    res["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+    res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    return res
+
+
+def phase_flash(FA, report):
+    """Flash attention at the registry's attention shapes, in float32 and
+    bfloat16.  The path is the function itself (nothing on the model path
+    calls it, as in the reference): every case runs through the public
+    ``flash_attention`` with the count set to 0 first; then each output is
+    held against the plain version on the card (1e-4 float32, 3e-2
+    bfloat16, the reference test's tolerances), and the kernel, the plain
+    version and scaled_dot_product_attention are timed."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    inputs = []
+    for case in FA_CASES:
+        name, b, sq, skv, h, kvh, hd, causal = case
+        base = [torch.randn(shape, generator=gen, device="cuda")
+                for shape in ((b, sq, h, hd), (b, skv, kvh, hd),
+                              (b, skv, kvh, hd))]
+        for dtype in (torch.float32, torch.bfloat16):
+            inputs.append((case, dtype, [t.to(dtype) for t in base]))
+    FA.LAUNCHES["flash_attention"] = 0
+    outs = [FA.flash_attention(*qkv, causal=case[-1])
+            for case, _, qkv in inputs]
+    torch.cuda.synchronize()
+    launches = FA.LAUNCHES["flash_attention"]
+    if launches != len(inputs):
+        fail(f"flash attention launched {launches} times for "
+             f"{len(inputs)} calls")
+    rows = []
+    for (case, dtype, (q, k, v)), out in zip(inputs, outs):
+        name, b, sq, skv, h, kvh, hd, causal = case
+        ref = FA.flash_attention_ref(q, k, v, causal).float()
+        err = (out.float() - ref).abs()
+        tol = FA_TOL[dtype]
+        ok = out.dtype == dtype and bool(torch.isfinite(out).all()) \
+            and bool((err <= tol + tol * ref.abs()).all())
+        row = {"case": name, "B": b, "Sq": sq, "Skv": skv, "H": h,
+               "KVH": kvh, "hd": hd, "causal": causal,
+               "dtype": str(dtype).replace("torch.", ""),
+               "max_abs_err": err.max().item(), "tol": tol, "ok": ok}
+        row.update(time_attention(FA, q, k, v, causal))
+        rows.append(row)
+        report(row)
+        print(f"  flash attention {name} {row['dtype']} (B={b}, Sq={sq}, "
+              f"Skv={skv}, H={h}, KVH={kvh}, hd={hd}, causal={causal}): "
+              f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+              f"sdpa {row['library_ms']:.4f} ms ({row['timing']}), bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+              f"{100 * row['bound_share']:.2f}% of bound), max abs err "
+              f"{row['max_abs_err']:.3g} (tol {tol})")
+        if not ok:
+            fail(f"flash attention disagrees with its plain version: {row}")
+    print(f"phase 11: {len(rows)} flash-attention cases agree "
+          f"({launches} launches through flash_attention)")
+    return rows, launches
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is false")
@@ -979,6 +1491,8 @@ def main():
                                   CrossbarConfig)
     from repro_torch.data import synthetic as syn
     from repro_torch.kernels import _nvcc
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops as OPS
     from repro_torch.kernels import xbar_update as U
     from repro_torch.kernels import xbar_vmm as K
     from repro_torch.models import model as M
@@ -1002,14 +1516,17 @@ def main():
         return details["phases"][name].append
 
     t0 = time.perf_counter()
-    _nvcc.build([K.SOURCE, U.SOURCE])     # one nvcc per source, together
+    sources = [K.SOURCE, U.SOURCE, K.FAKEQUANT_SOURCE, FA.SOURCE]
+    _nvcc.build(sources)                  # one nvcc per source, together
     K._library()
     U._library()
+    K._fakequant_library()
+    FA._library()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in _nvcc.BUILD_LOGS.items()}
-    print(f"built {K.SOURCE.name} and {U.SOURCE.name} in {build_s:.1f} s; "
+    print(f"built {', '.join(s.name for s in sources)} in {build_s:.1f} s; "
           + " | ".join(f"{n}: " + "; ".join(v) for n, v in ptxas.items()))
     details["build"] = {"seconds": build_s, "ptxas": ptxas}
 
@@ -1053,12 +1570,29 @@ def main():
         analog_device="taox", analog_rows=64, analog_cols=64)
     train = phase_train(K, U, TA, M, syn, tcfg, reporter("train"))
 
+    fq_rows = phase_fq_kernel(K, AdcConfig, reporter("fakequant_kernel"))
+    fcfg = get_config("lm100m").replace(dtype="float32", analog=True,
+                                        analog_mode="fakequant")
+    fparams, fq_serve = phase_fq_serve(M, K, OPS, make_engine,
+                                       SamplingParams, fcfg, prompts,
+                                       reporter("fakequant_serve"))
+    print(f"serving tokens/s in this run: fakequant "
+          f"{fq_serve['tokens_per_s']:.1f}, device mode (phase 2) "
+          f"{serve['tokens_per_s']:.1f}")
+    phase_fq_card_vs_cpu(M, K, OPS, fcfg, fparams,
+                         reporter("fakequant_card_cpu"))
+    del fparams
+    fa_rows, fa_launches = phase_flash(FA, reporter("flash_attention"))
+
     def total(launches, name):
         return sum(step[name] for step in launches)
     decode = [r for r in rows if r.get("B") == 4 and "ms" in r]
     t_mvm = [r for r in mvm_rows if r.get("B") == 2048 and "ms" in r]
     t_upd = [r for r in upd_rows if r["case"] == "kernel"]
     tl = train["launches_per_step"]
+    fq_decode = [r for r in fq_rows if r["T"] == 4 and "ms" in r]
+    fa_main = next(r for r in fa_rows
+                   if r["case"] == "lm100m" and r["dtype"] == "float32")
     kernels = [{
         "name": "xbar_fused_vmm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_vmm.cu",
@@ -1095,7 +1629,30 @@ def main():
         "bound_ms": sum(r["bound_ms"] for r in t_upd),
         "bound_by": "operations", "library_ms": None,
         "accumulate_bmm_ms_not_the_same_function": sum(
-            r["accumulate_bmm_ms_not_the_same_function"] for r in t_upd)}]
+            r["accumulate_bmm_ms_not_the_same_function"] for r in t_upd)}, {
+        "name": "xbar_fakequant_read", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/xbar_fakequant.cu",
+        "replaces": "src/repro/kernels/xbar_vmm.py:247",
+        "launches": fq_serve["launches"]["fakequant"],
+        "launches_by_kernel": {
+            "fakequant_partial_kernel": fq_serve["launches"]["fakequant"],
+            "fakequant_epilogue_kernel":
+                fq_serve["launches"]["fakequant_epilogue"]},
+        "max_abs_err": max(r["max_abs_err"] for r in fq_decode),
+        "ms": sum(r["ms"] for r in fq_decode),
+        "plain_ms": sum(r["plain_ms"] for r in fq_decode),
+        "bound_ms": sum(r["bound_ms"] for r in fq_decode),
+        "bound_by": "bytes", "library_ms": None,
+        "matmul_ms_not_the_same_function": sum(
+            r["matmul_ms_not_the_same_function"] for r in fq_decode)}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:29",
+        "launches": fa_launches,
+        "max_abs_err": fa_main["max_abs_err"], "ms": fa_main["ms"],
+        "plain_ms": fa_main["plain_ms"], "bound_ms": fa_main["bound_ms"],
+        "bound_by": fa_main["bound_by"],
+        "library_ms": fa_main["library_ms"]}]
     details["kernels_line_note"] = (
         "xbar_fused_vmm: launches counts the serving run's reads (each "
         "launches the tile kernel and the K-order sum, launches_by_kernel), "
@@ -1110,7 +1667,16 @@ def main():
         "range for the reads). No single PyTorch call computes any of the "
         "three functions, so library_ms is null; torch.bmm of the write's "
         "accumulate alone is given as "
-        "accumulate_bmm_ms_not_the_same_function")
+        "accumulate_bmm_ms_not_the_same_function. xbar_fakequant_read: "
+        "launches counts the fakequant serving run's reads (each a "
+        "partial-product and an epilogue launch); ms, plain_ms and bound_ms "
+        "sum one lm100m layer's four reads at decode (T=4, 1024-row tiles); "
+        "no PyTorch call computes the function, so library_ms is null; "
+        "torch.matmul of the product alone is "
+        "matmul_ms_not_the_same_function. flash_attention: launches counts "
+        "the calls of flash_attention in phase 11 (eight cases); ms, "
+        "plain_ms, bound_ms and library_ms (scaled_dot_product_attention) "
+        "are lm100m's heads, float32, causal, S=2048")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1))

@@ -1,0 +1,77 @@
+"""The fakequant projection (port of ``repro.kernels.ops``, the fakequant
+part).
+
+``fakequant_project`` is the matmul of ``analog_mode="fakequant"``: a DAC
+round trip on the activations, the digital product tiled at the crossbar
+row pitch, a per-token output-ADC fake quant per row tile and the digital
+sum of the tiles.
+
+Paths (``impl``):
+
+* ``"eager"`` — the reference's jnp path in plain torch (the single-tile
+  ``xq @ w`` or the padded multi-tile einsum summed over the tile axis),
+  for tensors on the CPU; it is differentiable, as QAT needs;
+* ``"cuda"`` — the fused read, :func:`repro_torch.kernels.xbar_vmm.
+  fakequant_read`, whose CUDA kernels run on the card.  Like the
+  reference's Pallas kernel it has no backward: a call on the card while
+  autograd needs a gradient of ``x`` or ``w`` raises;
+* ``"auto"``/``None`` — ``"cuda"`` for CUDA tensors, ``"eager"`` for CPU
+  tensors.  A CUDA tensor never takes the plain path.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.adc import AdcConfig, quantize_dequantize
+
+from .xbar_vmm import fakequant_read, resolve_impl
+
+Tensor = torch.Tensor
+
+
+def _adc_fake_quant(q: Tensor, adc: AdcConfig) -> Tensor:
+    """Per-token output-ADC fake quantisation (QAT epilogue): one range per
+    (token, row tile), ``sat_sigmas`` times the token's rms partial over
+    the output width."""
+    sat = adc.sat_sigmas * torch.sqrt(
+        torch.mean(q * q, dim=-1, keepdim=True) + 1e-12)
+    lsb = sat / adc.out_levels
+    return torch.clamp(torch.round(q / lsb), -adc.out_levels,
+                       adc.out_levels) * lsb
+
+
+def _fakequant_eager(x: Tensor, w: Tensor, adc: AdcConfig,
+                     rows: int) -> Tensor:
+    """The reference's jnp branch of ``fakequant_project``, step for step."""
+    xq = quantize_dequantize(x, adc)
+    k = w.shape[0]
+    n_tiles = max(1, -(-k // rows))
+    if n_tiles == 1:
+        return _adc_fake_quant(xq @ w, adc)
+    pad = (-k) % rows
+    xp = torch.nn.functional.pad(xq, (0, pad))
+    wp = torch.nn.functional.pad(w, (0, 0, 0, pad))
+    xt = xp.reshape(*x.shape[:-1], n_tiles, rows)
+    wt = wp.reshape(n_tiles, rows, w.shape[1])
+    q = torch.einsum("...tk,tkn->...tn", xt, wt)
+    return _adc_fake_quant(q, adc).sum(dim=-2)
+
+
+def fakequant_project(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
+                      impl: Optional[str] = None) -> Tensor:
+    """Fakequant (QAT) projection of ``x`` (..., K) through ``w`` (K, N):
+    (..., N) float32.  ``rows`` is the crossbar row pitch; ``impl`` as in
+    the module docstring."""
+    impl = resolve_impl(impl, x)
+    if impl == "eager":
+        return _fakequant_eager(x, w, adc, rows)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "the fakequant read kernel is forward only (as the reference's "
+            "Pallas kernel); QAT training on the card comes with the port of "
+            "train/train_loop.py and train/optimizer.py (ROADMAP.md)")
+    lead = x.shape[:-1]
+    y = fakequant_read(x.reshape(-1, x.shape[-1]), w, adc, rows)
+    return y.reshape(*lead, w.shape[1])

@@ -25,6 +25,14 @@ Paths (``impl``):
 ``"chain"`` names the unfused oracle in ``core.xbar_ops``; it is resolved
 there and never dispatches into this module.
 
+The fakequant read (:func:`fakequant_read`, the read of
+``analog_mode="fakequant"``: digital weights behind the crossbar's DAC and
+per-token ADC) dispatches by the device of its input, with the same
+rules.  Its kernels in ``csrc/xbar_fakequant.cu`` replace the
+TPU kernel ``_fakequant_kernel``; each read launches the partial-product
+kernel and the epilogue: ``LAUNCHES["fakequant"]`` and
+``LAUNCHES["fakequant_epilogue"]`` count them.
+
 The kernels are built at first use from ``csrc/xbar_vmm.cu`` (see
 ``kernels._nvcc``).  A forward read launches the tile kernel and, when K
 spans more than one tile, the kernel that sums the tile partials in K
@@ -39,7 +47,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.adc import (_clip, _deterministic, _round,
+from repro_torch.core.adc import (AdcConfig, _clip, _deterministic, _round,
                                   fixed_saturation)
 from repro_torch.core.crossbar import CrossbarConfig
 from repro_torch.core.xbar_ops import _tiled_read
@@ -52,9 +60,12 @@ READ_IMPLS = ("auto", "chain", "cuda", "eager")
 
 #: Launches of each kernel of this module; only the wrapper adds to it.
 LAUNCHES = {"fused_vmm": 0, "reduce_tiles": 0, "fused_mvm": 0,
-            "reduce_tiles_mvm": 0}
+            "reduce_tiles_mvm": 0, "fakequant": 0, "fakequant_epilogue": 0}
 
 SOURCE = _nvcc.CSRC / "xbar_vmm.cu"
+FAKEQUANT_SOURCE = _nvcc.CSRC / "xbar_fakequant.cu"
+FAKEQUANT_MAX_COLUMNS = 8192   # kMaxColumns of the source
+KERNEL_IMPLS = ("auto", "cuda", "eager")
 
 
 def resolve_read_impl(impl: Optional[str], x: Tensor) -> str:
@@ -64,6 +75,16 @@ def resolve_read_impl(impl: Optional[str], x: Tensor) -> str:
     if impl == "chain":
         raise ValueError("impl='chain' is the unfused reference path; call "
                          "core.xbar_ops.vmm, which owns it")
+    return resolve_impl(impl, x)
+
+
+def resolve_impl(impl: Optional[str], x: Tensor) -> str:
+    """``"cuda"`` or ``"eager"`` for a kernel's input ``x``: ``None`` /
+    ``"auto"`` follow the tensor's device; an explicit choice that does
+    not fit it raises."""
+    if impl not in (None, *KERNEL_IMPLS):
+        raise ValueError(f"impl must be one of {KERNEL_IMPLS}, got "
+                         f"{impl!r}")
     on_card = x.is_cuda
     if impl in (None, "auto"):
         return "cuda" if on_card else "eager"
@@ -226,3 +247,118 @@ def xbar_fused_read(x: Tensor, g: Tensor, ref: Tensor, w_scale,
     else:
         y = _read_plain(xf, gf, rf, sc, cfg, transpose)
     return y.reshape(*lead, *y.shape[1:]).to(in_dtype)
+
+
+# --------------------------------------------------------------------------
+# The fakequant read (digital weights, crossbar I/O quantisation)
+# --------------------------------------------------------------------------
+
+def _fakequant_plain(x: Tensor, w: Tensor, sc: Tensor, adc: AdcConfig,
+                     rows: int) -> Tensor:
+    """The fakequant kernel's function in plain torch, on its operands.
+
+    ``x`` (T, K), ``w`` (K, N), ``sc`` (1,) float32 → (T, N): pad K to
+    whole row tiles; the DAC round trip ``clip(round(x / sc)) * sc``; per
+    row tile ``q = xq @ w_tile`` and the per-token ADC fake quant over all
+    N columns (``sat = sat_sigmas * sqrt(sum q² / N + 1e-12)``); the tiles
+    summed in tile order from 0 (the steps of ``_fakequant_kernel``).
+    Divisors are tensors on ``x``'s device, so that on the card, too, each
+    division is a division and not a product with a reciprocal.
+    """
+    t, k = x.shape
+    n = w.shape[1]
+    in_lv, out_lv = float(adc.in_levels), float(adc.out_levels)
+    pad = (-k) % rows
+    xq = _clip(_round(torch.nn.functional.pad(x, (0, pad)) / sc),
+               -in_lv, in_lv) * sc
+    wp = torch.nn.functional.pad(w, (0, 0, 0, pad))
+    n_cols = torch.full((), float(n), device=x.device)
+    levels = torch.full((), out_lv, device=x.device)
+    y = torch.zeros((t, n), dtype=torch.float32, device=x.device)
+    for i in range(0, k + pad, rows):
+        q = xq[:, i:i + rows] @ wp[i:i + rows]
+        ms = torch.sum(q * q, dim=-1, keepdim=True) / n_cols
+        lsb = adc.sat_sigmas * torch.sqrt(ms + 1e-12) / levels
+        y = y + _clip(_round(q / lsb), -out_lv, out_lv) * lsb
+    return y
+
+
+_fq_lib = None
+
+
+def _fakequant_library():
+    global _fq_lib
+    if _fq_lib is None:
+        lib = _nvcc.load(FAKEQUANT_SOURCE)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.xbar_fakequant.argtypes = [p, p, p, p, p, i, i, i, i, f, f, f, p]
+        lib.xbar_fakequant.restype = ctypes.c_int
+        lib.xbar_fakequant_scratch_floats.argtypes = [i, i, i, i]
+        lib.xbar_fakequant_scratch_floats.restype = ctypes.c_longlong
+        _fq_lib = lib
+    return _fq_lib
+
+
+def _fakequant_cuda(x: Tensor, w: Tensor, sc: Tensor, adc: AdcConfig,
+                    rows: int) -> Tensor:
+    """Launch a fakequant read of x (T, K) through w (K, N) with the DAC
+    scale ``sc`` (1,): the partial-product kernel, then the epilogue."""
+    for name, t in {"x": x, "w": w, "sc": sc}.items():
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 CUDA "
+                             f"tensor, got {t.dtype} on {t.device}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0] \
+            or sc.shape != (1,):
+        raise ValueError(f"operand shapes x {tuple(x.shape)} w "
+                         f"{tuple(w.shape)} sc {tuple(sc.shape)} do not "
+                         "match")
+    if w.shape[1] > FAKEQUANT_MAX_COLUMNS:
+        raise ValueError(f"the fakequant kernel reads at most "
+                         f"{FAKEQUANT_MAX_COLUMNS} output columns (one "
+                         f"token's outputs in registers), got {w.shape[1]}")
+    lib = _fakequant_library()
+    (t, k), n = x.shape, w.shape[1]
+    y = torch.empty((t, n), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((lib.xbar_fakequant_scratch_floats(t, k, n, rows),),
+                          dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+    err = lib.xbar_fakequant(
+        x.data_ptr(), w.data_ptr(), sc.data_ptr(), y.data_ptr(),
+        scratch.data_ptr(), t, k, n, rows, float(adc.in_levels),
+        float(adc.out_levels), float(adc.sat_sigmas), stream)
+    if err != 0:
+        raise RuntimeError(f"xbar_fakequant launch failed: CUDA error {err} "
+                           f"(x {tuple(x.shape)}, w {tuple(w.shape)}, rows "
+                           f"{rows})")
+    LAUNCHES["fakequant"] += 1
+    LAUNCHES["fakequant_epilogue"] += 1
+    return y
+
+
+def fakequant_scale(x: Tensor, in_levels: int) -> Tensor:
+    """The DAC full scale ``max(max|x|, 1e-12) / in_levels``, shape (1,)."""
+    return (torch.clamp(x.abs().amax(), min=1e-12) / in_levels).reshape(1)
+
+
+def fakequant_read(x: Tensor, w: Tensor, adc: AdcConfig,
+                   rows: int) -> Tensor:
+    """Fused fakequant projection (port of ``fakequant_read_pallas``):
+    x (T, K), w (K, N) → (T, N) float32, forward only.
+
+    One DAC scale for all of ``x``, computed here as in the reference's
+    wrapper; ``rows`` is the crossbar row pitch (the ADC's tile).  A CUDA
+    tensor launches the kernels; a CPU tensor takes
+    :func:`_fakequant_plain`.
+    """
+    _deterministic(adc)
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} are not "
+                         "(T, K) and (K, N)")
+    xf, wf = x.float().contiguous(), w.float().contiguous()
+    sc = fakequant_scale(xf, adc.in_levels)
+    if x.is_cuda:
+        return _fakequant_cuda(xf, wf, sc, adc, rows)
+    return _fakequant_plain(xf, wf, sc, adc, rows)

@@ -1,5 +1,6 @@
 """Transformer building blocks (port of ``repro.models.layers``, dense
-self-attention and gated FFN).
+self-attention and gated FFN, with digital, fakequant and device-mode
+projections).
 
 Conventions, as in the reference:
   * params are nested dicts of float32 tensors; compute casts to the
@@ -24,10 +25,13 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import (AnalogMode, ModelConfig,
                                       resolve_analog_mode)
+from repro_torch.core.adc import AdcConfig
 from repro_torch.core.tiled_analog import (analog_project,
                                            crossbar_from_model,
                                            is_analog_container,
                                            program_stacked, readout)
+from repro_torch.kernels.ops import _adc_fake_quant as _kernels_adc_fake_quant
+from repro_torch.kernels.ops import fakequant_project
 
 Tensor = torch.Tensor
 
@@ -103,13 +107,23 @@ def rmsnorm(p: dict, x: Tensor, eps: float = 1e-5) -> Tensor:
 
 def project(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
     """Linear layer.  A crossbar container is read in-array (VMM through
-    the fused read); a digital ``{"w"}`` dict is a plain matmul."""
+    the fused read); a digital ``{"w"}`` dict is a plain matmul, or in
+    fakequant mode the matmul with the crossbar's I/O quantisation (the
+    fakequant read: the CUDA kernel on the card)."""
     if is_analog_container(p):
         return analog_project(p, x, crossbar_from_model(cfg))
-    if resolve_analog_mode(cfg) is not AnalogMode.DIGITAL:
-        raise NotImplementedError(
-            "fakequant projections are not ported yet (ROADMAP.md)")
-    return x @ p["w"].to(x.dtype)
+    w = p["w"].to(x.dtype)
+    if resolve_analog_mode(cfg) is AnalogMode.DIGITAL:
+        return x @ w
+    adc = AdcConfig(in_bits=cfg.analog_in_bits,
+                    out_bits=cfg.analog_out_bits)
+    y = fakequant_project(x.float(), w.float(), adc, cfg.analog_rows)
+    return y.to(x.dtype)
+
+
+# The fakequant math lives with the kernels (``kernels.ops``); the
+# reference keeps this name as an alias.
+_adc_fake_quant = _kernels_adc_fake_quant
 
 
 # --------------------------------------------------------------------------

@@ -1,0 +1,201 @@
+"""The port's fakequant projection (``kernels.ops.fakequant_project``) and
+fakequant read (``kernels.xbar_vmm.fakequant_read``, the plain version of
+its CUDA kernel) against the JAX package's jnp path and its interpret-mode
+Pallas kernel (``repro.kernels.ops.fakequant_project``).
+
+Parity classes:
+
+  * float32 operands from a normal draw — within ``rtol = atol = 1e-5``:
+    the products and the per-token ranges are float32 sums taken in other
+    orders, and XLA contracts multiply-adds into FMAs where torch does
+    not; an ADC code that sits at a rounding boundary may flip, which no
+    case here hits;
+  * the exact class — integer-valued operands with ``max|x| = in_levels``
+    (DAC scale 1), small enough that every partial product and every sum
+    of squares is an exact float32 integer, and N a power of two (so the
+    reference's mean, a product with ``1/N``, is exact too): bit-equal
+    to the jnp path, and for one row tile to the interpret-mode kernel.
+    With several tiles the interpreted kernel's ``o += code * lsb`` is
+    contracted into an FMA by XLA, so there it is held within 1e-5.
+
+The inputs are made with numpy from a seed and handed to both packages.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.adc import AdcConfig as JAdc
+from repro.kernels.ops import fakequant_project as jax_fakequant
+from repro_torch.core.adc import AdcConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels import xbar_vmm as K
+from repro_torch.models import layers
+
+# lead, T, K, N, rows: one tile, several tiles, ragged T and K, lead dims
+CASES = [((), 8, 16, 24, 16), ((), 8, 64, 24, 16), ((), 7, 40, 24, 16),
+         ((2, 3), 5, 37, 20, 16), ((), 33, 100, 48, 32)]
+EXACT_CASES = [((), 8, 16, 32, 16), ((), 8, 40, 64, 16),
+               ((2, 3), 5, 37, 16, 16), ((), 33, 100, 128, 32)]
+
+
+def _float_operands(lead, t, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((*lead, t, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    return x, w
+
+
+def _exact_operands(lead, t, k, n, seed=0):
+    """Drives in [-2, 2] with one at 127 (the scale is then 1), weights in
+    {-1, 0, 1} with three in four zero."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-2, 3, (*lead, t, k)).astype(np.float32)
+    x.reshape(-1)[0] = 127.0
+    w = (rng.integers(-1, 2, (k, n))
+         * (rng.random((k, n)) < 0.25)).astype(np.float32)
+    q = np.abs(x.reshape(-1, k)).astype(np.float64) @ np.abs(w)
+    assert (q * q).sum(-1).max() < 2 ** 24
+    return x, w
+
+
+def _reference(x, w, rows, jimpl, **adc):
+    return np.asarray(jax_fakequant(jnp.asarray(x), jnp.asarray(w),
+                                    JAdc(**adc), rows, impl=jimpl))
+
+
+def _port(x, w, rows, **adc):
+    return ops.fakequant_project(torch.from_numpy(x), torch.from_numpy(w),
+                                 AdcConfig(**adc), rows).numpy()
+
+
+def _port_read(x, w, rows, **adc):
+    """The kernel's plain version, on the (T, K) view of x."""
+    y = K.fakequant_read(torch.from_numpy(x.reshape(-1, x.shape[-1])),
+                         torch.from_numpy(w), AdcConfig(**adc), rows)
+    return y.numpy().reshape(*x.shape[:-1], w.shape[1])
+
+
+@pytest.mark.parametrize("jimpl", ["jnp", "interpret"])
+@pytest.mark.parametrize("lead,t,k,n,rows", CASES)
+def test_plain_fakequant_matches_reference(jimpl, lead, t, k, n, rows):
+    x, w = _float_operands(lead, t, k, n)
+    want = _reference(x, w, rows, jimpl)
+    np.testing.assert_allclose(_port(x, w, rows), want, rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(_port_read(x, w, rows), want, rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("bits", [4, 2])
+def test_plain_fakequant_low_bits(bits):
+    x, w = _float_operands((), 9, 40, 24, seed=1)
+    want = _reference(x, w, 16, "jnp", in_bits=bits, out_bits=bits)
+    got = _port(x, w, 16, in_bits=bits, out_bits=bits)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("lead,t,k,n,rows", EXACT_CASES)
+def test_exact_class_is_bit_equal(lead, t, k, n, rows):
+    x, w = _exact_operands(lead, t, k, n)
+    jnp_path = _reference(x, w, rows, "jnp")
+    got, got_read = _port(x, w, rows), _port_read(x, w, rows)
+    np.testing.assert_array_equal(got, jnp_path)
+    np.testing.assert_array_equal(got_read, got)
+    interp = _reference(x, w, rows, "interpret")
+    if k <= rows:
+        np.testing.assert_array_equal(got_read, interp)
+    else:
+        np.testing.assert_allclose(got_read, interp, rtol=1e-5, atol=1e-5)
+
+
+def test_adc_fake_quant_alias_matches_reference():
+    from repro.kernels.ops import _adc_fake_quant as jax_adc_fake_quant
+    q = np.random.default_rng(2).standard_normal((6, 3, 40)).astype(
+        np.float32)
+    want = np.asarray(jax_adc_fake_quant(jnp.asarray(q), JAdc()))
+    got = layers._adc_fake_quant(torch.from_numpy(q), AdcConfig()).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert layers._adc_fake_quant is ops._adc_fake_quant
+
+
+def test_dispatch_cpu_tensor_takes_plain_version():
+    x, w = (torch.from_numpy(a) for a in _float_operands((), 8, 40, 24))
+    before = dict(K.LAUNCHES)
+    y_auto = ops.fakequant_project(x, w, AdcConfig(), 16)
+    y_eager = ops.fakequant_project(x, w, AdcConfig(), 16, impl="eager")
+    torch.testing.assert_close(y_auto, y_eager, rtol=0, atol=0)
+    K.fakequant_read(x, w, AdcConfig(), 16)
+    assert K.LAUNCHES == before
+
+
+def test_cuda_impl_on_cpu_tensor_raises():
+    """No fallback: asking for the kernel without CUDA tensors raises."""
+    x, w = (torch.from_numpy(a) for a in _float_operands((), 8, 40, 24))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fakequant_project(x, w, AdcConfig(), 16, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        K._fakequant_cuda(x, w, torch.ones((1,)), AdcConfig(), 16)
+    with pytest.raises(ValueError, match="impl"):
+        ops.fakequant_project(x, w, AdcConfig(), 16, impl="pallas")
+    with pytest.raises(ValueError, match="impl"):
+        ops.fakequant_project(x, w, AdcConfig(), 16, impl="chain")
+
+
+def test_autograd_on_the_kernel_path_raises(monkeypatch):
+    """The kernel has no backward: a call that would launch it while
+    autograd needs a gradient raises and names the roadmap; it never takes
+    the plain version instead.  (On the CPU the kernel path is reached by
+    resolving ``impl`` to ``"cuda"``.)"""
+    monkeypatch.setattr(ops, "resolve_impl", lambda impl, x: "cuda")
+    x, w = (torch.from_numpy(a) for a in _float_operands((), 8, 40, 24))
+    launched = []
+
+    def fake_read(x2, w2, *args, **kw):
+        launched.append(1)
+        return torch.zeros((x2.shape[0], w2.shape[1]))
+    monkeypatch.setattr(ops, "fakequant_read", fake_read)
+    for xg, wg in ((True, False), (False, True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ops.fakequant_project(x.clone().requires_grad_(xg),
+                                  w.clone().requires_grad_(wg),
+                                  AdcConfig(), 16)
+    with torch.no_grad():
+        ops.fakequant_project(x.requires_grad_(), w, AdcConfig(), 16)
+    assert launched == [1]
+
+
+def test_eager_path_is_differentiable_on_cpu():
+    """QAT on the CPU trains through the plain path, as the reference's
+    jnp path: the rounding passes no gradient, the range does."""
+    x, w = (torch.from_numpy(a) for a in _float_operands((), 8, 40, 24))
+    w = w.clone().requires_grad_()
+    ops.fakequant_project(x, w, AdcConfig(), 16).sum().backward()
+    assert w.grad is not None and torch.isfinite(w.grad).all()
+
+
+def test_stochastic_rounding_raises():
+    x, w = (torch.from_numpy(a) for a in _float_operands((), 8, 40, 24))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.fakequant_project(x, w, AdcConfig(stochastic_round=True), 16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        K.fakequant_read(x, w, AdcConfig(stochastic_round=True), 16)
+
+
+def test_fakequant_read_rejects_bad_shapes():
+    with pytest.raises(ValueError, match="not"):
+        K.fakequant_read(torch.ones((4, 8)), torch.ones((6, 3)),
+                         AdcConfig(), 16)
+
+
+def test_kernel_source_is_built_for_hopper():
+    """The build line targets sm_90a and keeps IEEE division and sqrt; the
+    source names the TPU kernel it replaces and uses no library GEMM."""
+    from repro_torch.kernels import _nvcc
+    assert "arch=compute_90a,code=sm_90a" in _nvcc.NVCC_FLAGS
+    assert "--use_fast_math" not in _nvcc.NVCC_FLAGS
+    src = K.FAKEQUANT_SOURCE.read_text()
+    assert "xbar_vmm.py:247" in src and "_fakequant_kernel" in src
+    assert "__fdiv_rn" in src and "__fsqrt_rn" in src
+    assert "#include <cublas" not in src
+    assert {"fakequant", "fakequant_epilogue"} <= set(K.LAUNCHES)

@@ -48,3 +48,16 @@ def test_port_sources_and_chip_smoke_import_no_jax_or_repro():
     for f in files:
         roots = _imported_roots(f)
         assert not roots & {"jax", "jaxlib", "repro"}, (f, roots)
+
+
+def test_probe_walks_the_kernel_modules():
+    """The probe above imports every kernel module of the port, the
+    fakequant projection and flash attention among them."""
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.kernels.ops", "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.xbar_vmm", "repro_torch.kernels.xbar_update",
+            "repro_torch.models.layers"} <= names

@@ -6,9 +6,16 @@ The JAX package initialises and programs the model (``taox-nonoise``,
 ADC range); ``params_from_numpy`` carries the tree across, and both
 packages run it on the CPU.
 
+The fakequant model (``analog_mode="fakequant"``, 16-row tiles, 8-bit
+DAC/ADC) serves the same digital weights through the fakequant
+projection: on the CPU the port's plain path, against the reference's jnp
+path and its interpret-mode Pallas kernel (``read_impl``).
+
 Tolerances:
   * logits vs the reference evaluated op by op (``jax.disable_jit``):
-    atol 1e-5 — the same float32 operations, summed in other orders;
+    atol 1e-5 — the same float32 operations, summed in other orders (for
+    the fakequant model no 8-bit ADC code of these inputs sits close
+    enough to a rounding boundary to flip);
   * logits vs the reference's jitted forward: XLA compiles the scanned
     block into another float32 program, which on this model moves the
     analog logits by up to ~7e-2 from the reference's own op-by-op
@@ -38,6 +45,10 @@ J_ACFG = jax_config("lm100m", smoke=True).replace(**DEVICE_MODE)
 J_DCFG = jax_config("lm100m", smoke=True)          # bf16 digital serving
 ACFG = get_config("lm100m", smoke=True).replace(**DEVICE_MODE)
 DCFG = get_config("lm100m", smoke=True)
+FAKEQUANT = dict(dtype="float32", analog=True, analog_mode="fakequant",
+                 analog_rows=16)
+J_FCFG = jax_config("lm100m", smoke=True).replace(**FAKEQUANT)
+FCFG = get_config("lm100m", smoke=True).replace(**FAKEQUANT)
 
 J_PARAMS = JM.init_params(jax.random.PRNGKey(0), J_ACFG.digital())
 J_APARAMS = JM.program_digital(J_PARAMS, J_ACFG)
@@ -56,7 +67,8 @@ PROMPTS = [[int(t) for t in _rng.integers(0, DCFG.vocab, n)]
            for n in (6, 3, 9)]
 CASES = {"analog": (J_ACFG, J_APARAMS, ACFG, APARAMS),
          "digital": (J_DCFG, J_PARAMS, DCFG, PARAMS),
-         "digital_f32": (J_ACFG.digital(), J_PARAMS, ACFG.digital(), PARAMS)}
+         "digital_f32": (J_ACFG.digital(), J_PARAMS, ACFG.digital(), PARAMS),
+         "fakequant": (J_FCFG, J_PARAMS, FCFG, PARAMS)}
 
 
 def _port_logits(params, cfg, tokens):
@@ -75,9 +87,9 @@ def op_by_op():
     op; the float32 digital model's compiled program already agrees with
     its op-by-op result to float32 rounding, so it runs as compiled."""
     out = {}
-    for case in ("analog", "digital_f32"):
+    for case in ("analog", "digital_f32", "fakequant"):
         jcfg, jp, _, _ = CASES[case]
-        with jax.disable_jit(case == "analog"):
+        with jax.disable_jit(case != "digital_f32"):
             cache = JM.init_cache(jcfg, TOKENS.shape[0], 32)
             logits, caches, _, _ = JM.forward(
                 jp, {"tokens": jnp.asarray(TOKENS)}, jcfg, caches=cache[0])
@@ -89,7 +101,7 @@ def op_by_op():
     return out
 
 
-@pytest.mark.parametrize("case", ["analog", "digital_f32"])
+@pytest.mark.parametrize("case", ["analog", "digital_f32", "fakequant"])
 def test_forward_logits_match_reference_op_by_op(case, op_by_op):
     _, _, cfg, p = CASES[case]
     np.testing.assert_allclose(_port_logits(p, cfg, TOKENS),
@@ -115,7 +127,7 @@ def test_digital_bf16_logits_close():
                                atol=0.05)
 
 
-@pytest.mark.parametrize("case", ["analog", "digital_f32"])
+@pytest.mark.parametrize("case", ["analog", "digital_f32", "fakequant"])
 def test_prefill_and_decode_match_reference_op_by_op(case, op_by_op):
     """The cached path: prefill, then decode steps appending to the cache
     at each row's length."""
@@ -150,6 +162,73 @@ def test_greedy_tokens_match_reference_engines(backend, scheduler):
         PROMPTS, SamplingParams(max_new_tokens=6))
     assert got == want
     assert [len(o) for o in got] == [6, 6, 6]
+
+
+@pytest.mark.parametrize("scheduler", ["continuous", "static"])
+@pytest.mark.parametrize("read_impl", ["auto", "interpret"])
+def test_fakequant_greedy_tokens_match_reference_engines(read_impl,
+                                                         scheduler):
+    """The fakequant model served from its digital tree: the reference
+    engine through its jnp path (``auto`` on the CPU) and through the
+    interpret-mode Pallas kernel give the port's greedy tokens."""
+    kw = dict(scheduler=scheduler, max_len=32, prefill_chunk=4, n_slots=2)
+    want = jax_engine(J_FCFG, J_PARAMS, read_impl=read_impl, **kw).generate(
+        PROMPTS, JaxSampling(max_new_tokens=6))
+    eng = make_engine(FCFG, PARAMS, **kw)
+    assert eng.backend == "digital"
+    got = eng.generate(PROMPTS, SamplingParams(max_new_tokens=6))
+    assert got == want
+    assert [len(o) for o in got] == [6, 6, 6]
+
+
+def test_fakequant_config_and_tree():
+    """A fakequant config resolves like the reference's, initialises and
+    converts to a digital ``{"w"}`` tree, and serves it on the digital
+    backend."""
+    from repro_torch.configs import AnalogMode
+    assert FCFG.resolved_analog_mode is AnalogMode.FAKEQUANT
+    assert get_config("lm100m").replace(analog=True).analog_mode == \
+        "fakequant" == J_FCFG.analog_mode
+    for field in ("analog_in_bits", "analog_out_bits", "analog_rows",
+                  "analog_sat_sigmas"):
+        assert getattr(FCFG, field) == getattr(J_FCFG, field)
+    tree = M.init_params(FCFG, 0, device="cpu")
+    wqkv = tree["layers"]["attn"]["wqkv"]
+    assert set(wqkv) == {"w"} and wqkv["w"].shape == (2, 64, 192)
+    assert make_serve_state(FCFG, PARAMS).backend == "digital"
+    assert make_serve_state(FCFG, tree, backend="digital").backend == \
+        "digital"
+    with pytest.raises(ValueError, match="programmed"):
+        make_serve_state(FCFG, PARAMS, backend="analog")
+
+
+def test_fakequant_bf16_rounds_weights_first():
+    """At bfloat16 the weights round to bfloat16 before the fake quant,
+    and the projection returns bfloat16 (the reference's casts): exactly
+    the float32 projection of the bfloat16-rounded operands, and within
+    1e-2 of the reference (outputs of order 1, whose bfloat16 rounding is
+    2^-8 relative and may go either way in the two frameworks)."""
+    from repro.models.layers import project as jax_project
+    from repro_torch.models.layers import project
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((3, 64)).astype(np.float32)
+    w = (rng.standard_normal((64, 48)) / 8).astype(np.float32)
+    jcfg, cfg = (c.replace(dtype="bfloat16") for c in (J_FCFG, FCFG))
+    want = jax_project({"w": jnp.asarray(w)},
+                       jnp.asarray(x, jnp.bfloat16), jcfg)
+    got = project({"w": torch.from_numpy(w)},
+                  torch.from_numpy(x).to(torch.bfloat16), cfg)
+    assert got.dtype == torch.bfloat16
+    from repro_torch.core.adc import AdcConfig
+    from repro_torch.kernels.ops import fakequant_project
+    by_hand = fakequant_project(
+        torch.from_numpy(x).to(torch.bfloat16).float(),
+        torch.from_numpy(w).to(torch.bfloat16).float(), AdcConfig(),
+        cfg.analog_rows).to(torch.bfloat16)
+    torch.testing.assert_close(got, by_hand, rtol=0, atol=0)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=1e-2,
+                               atol=1e-2)
 
 
 def test_continuous_engine_counts_model_calls():

@@ -230,4 +230,5 @@ def test_transpose_kernel_source_contracts_the_stored_columns():
     src = K.SOURCE.read_text()
     assert "_fused_mvm_kernel" in src and "kTranspose" in src
     assert set(K.LAUNCHES) == {"fused_vmm", "reduce_tiles", "fused_mvm",
-                               "reduce_tiles_mvm"}
+                               "reduce_tiles_mvm", "fakequant",
+                               "fakequant_epilogue"}
