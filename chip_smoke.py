@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels (``src/repro_torch/kernels/csrc/
 xbar_vmm.cu``: the forward and transpose reads; ``xbar_update.cu``: the
-rank-k write; ``xbar_fakequant.cu``: the fakequant read;
+rank-k write, outer and pulse-train; ``xbar_fakequant.cu``: the fakequant
+read;
 ``flash_attention.cu``) with one nvcc per source, all started together,
 then runs these phases and exits non-zero if any gate fails:
 
@@ -99,6 +100,31 @@ then runs these phases and exits non-zero if any gate fails:
    through ``flash_attention`` with the count set to 0 first; timed
    against the operations bound (FP32 rate for float32, bf16 tensor-core
    rate for bfloat16) beside scaled_dot_product_attention.
+12. pulse-train write vs plain version on the card at each container's
+   (12, K, N) with T = 2048 and 64x64 tiles: (a) ideal device, no noise,
+   power-of-two operands: bit-equal; (b) TaOx with counter-PRNG noise and
+   (c) with a host field: the float class — every cell within 4 float32
+   ulp plus 1e-5 of its move, or, where a rail's count sits at a tie
+   (mag / pulse_dg within 1e-4 relative of a half-integer) and the
+   accumulators' float32 order flips it, within one event plus the sigma
+   change, under 1e-3 of the cells; a ragged case (asymmetric TaOx,
+   skewed drives) and 1024x1024 tiles.  (b) timed by CUDA events, as
+   phase 6, against the operations bound (4 T K N flops per layer),
+   beside torch.bmm of the two accumulates alone (not the same function).
+13. (a) lm100m at full width trained with periodic carry (period 2, base
+   4) and pulse-train writes, phase 7's settings, 4 steps.  Gates: 48
+   forward and 48 transpose reads and 4 pulse-train writes per step, no
+   outer write and no plain-version call; every write of step 1 against
+   its plain version on its own operands (phase 12's float class); step
+   1 leaves every primary array untouched and step 2's sweep moves it;
+   the card's sweep against the CPU's on the card's own pre-sweep
+   containers (bit-equal or one ADC code apart under 1e-3 of the cells),
+   effective conductances conserved within 1e-6; finite losses,
+   conductances in the window.  (b) the reference's nonideality point,
+   write noise x64, carry period 4: numeric (``train_loop``, sgd 0.1,
+   clip 1), no_carry, carry and carry_pulse_train, 30 steps each from
+   one init on the same batches; mean loss of the last 5 steps,
+   gap_vs_numeric and gap_closed_by_carry reported, finite losses gated.
 
 The second-to-last line is a JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.  Details
@@ -823,7 +849,8 @@ def phase_train(K, U, TA, M, syn, tcfg, report):
     n_layers = tcfg.n_layers
     expect = {"fused_vmm": 4 * n_layers, "reduce_tiles": 4 * n_layers,
               "fused_mvm": 4 * n_layers, "reduce_tiles_mvm": 4 * n_layers,
-              "fakequant": 0, "fakequant_epilogue": 0, "outer_update": 4}
+              "fakequant": 0, "fakequant_epilogue": 0, "outer_update": 4,
+              "pulse_update": 0}
     reads, writes = [], []
     update_cuda = U._update_cuda
 
@@ -841,9 +868,7 @@ def phase_train(K, U, TA, M, syn, tcfg, report):
         seed_base = int(torch.randint(0, 2 ** 32, (), generator=rng,
                                       device="cuda"))
         seeds.append(seed_base)
-        for name in K.LAUNCHES:
-            K.LAUNCHES[name] = 0
-        U.LAUNCHES["outer_update"] = 0
+        reset_launches(K, U)
         # only step 1 records its launches; steps 2-4, which give the
         # step time, tokens/s and peak memory, run the kernels bare
         record = recording_reads(K, reads) if i == 0 \
@@ -956,28 +981,38 @@ def phase_train(K, U, TA, M, syn, tcfg, report):
     return res
 
 
-def profile_train_step(K, U, syn, step, state, stream, rng, expect):
-    """Device time of one more training step (the fifth) by kernel, from
-    torch.profiler, against its wall time: reported only."""
+def reset_launches(K, U):
+    for counts in (K.LAUNCHES, U.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def profile_train_step(K, U, syn, step, state, stream, rng, expect,
+                       n_steps=1):
+    """Device time of ``n_steps`` more training steps (from the fifth) by
+    kernel, from torch.profiler, against their wall time, per step:
+    reported only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    x, y = syn.batch_tokens(stream, 8, 256, 4)
-    batch = {"tokens": torch.from_numpy(x).long().cuda(),
-             "labels": torch.from_numpy(y).long().cuda()}
-    seed_base = int(torch.randint(0, 2 ** 32, (), generator=rng,
-                                  device="cuda"))
-    for name in K.LAUNCHES:
-        K.LAUNCHES[name] = 0
-    U.LAUNCHES["outer_update"] = 0
+    batches = []
+    for i in range(n_steps):
+        x, y = syn.batch_tokens(stream, 8, 256, 4 + i)
+        batches.append(({"tokens": torch.from_numpy(x).long().cuda(),
+                         "labels": torch.from_numpy(y).long().cuda()},
+                        int(torch.randint(0, 2 ** 32, (), generator=rng,
+                                          device="cuda"))))
+    reset_launches(K, U)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, batch, seed_base)
+        for batch, seed_base in batches:
+            state, _ = step(state, batch, seed_base)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    if {**K.LAUNCHES, **U.LAUNCHES} != expect:
-        fail(f"profiled train step launched {K.LAUNCHES} {U.LAUNCHES}")
+        wall = (time.perf_counter() - t0) / n_steps
+    got = {**K.LAUNCHES, **U.LAUNCHES}
+    if got != {k: n_steps * v for k, v in expect.items()}:
+        fail(f"profiled train steps launched {got}")
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -985,7 +1020,8 @@ def profile_train_step(K, U, syn, step, state, stream, rng, expect):
     groups = {"forward read tiles": "fused_read_tile_kernel<false",
               "transpose read tiles": "fused_read_tile_kernel<true",
               "tile-order sums": "reduce_tiles_kernel",
-              "rank-k writes": "outer_update_kernel"}
+              "rank-k writes": "update_kernel<false",
+              "pulse-train writes": "update_kernel<true"}
     by = {g: 0.0 for g in groups}
     by["other (digital ops)"] = 0.0
     for e in prof.key_averages():
@@ -993,19 +1029,21 @@ def profile_train_step(K, U, syn, step, state, stream, rng, expect):
             continue
         g = next((g for g, key in groups.items() if key in e.key),
                  "other (digital ops)")
-        by[g] += dev_us(e) / 1e3
+        by[g] += dev_us(e) / 1e3 / n_steps
     busy = sum(by.values())
-    res = {"wall_ms": 1e3 * wall, "device_ms": busy,
+    res = {"steps": n_steps, "wall_ms": 1e3 * wall, "device_ms": busy,
            "idle_share": 1 - busy / (1e3 * wall) if busy else None,
            "device_ms_by_group": by}
+    what = f"profiled train step{'s' if n_steps > 1 else ''} 5" + (
+        f"-{4 + n_steps}, per step" if n_steps > 1 else "")
     if busy:
-        print("  profiled train step 5: " + ", ".join(
-            f"{g} {v:.2f} ms" for g, v in by.items())
+        print(f"  {what}: " + ", ".join(
+            f"{g} {v:.2f} ms" for g, v in by.items() if v)
               + f"; device busy {busy:.1f} of {1e3 * wall:.1f} ms wall "
               f"(idle {100 * res['idle_share']:.1f}%)")
     else:
-        print("  profiled train step 5: the profiler recorded no device "
-              "time (not measured)")
+        print(f"  {what}: the profiler recorded no device time (not "
+              f"measured)")
     return res
 
 
@@ -1480,6 +1518,466 @@ def phase_flash(FA, report):
     return rows, launches
 
 
+# --------------------------------------------------------------------------
+# Phases 12-13: pulse-train writes, periodic carry, the nonideality point
+# --------------------------------------------------------------------------
+
+def pulse_agrees(g_k, g_p, g, x_q, d_q, scale, cfg, z):
+    """The float class of a pulse-train write: every cell of ``g_k``
+    within 4 float32 ulp plus 1e-5 of its own move of ``g_p`` (the plain
+    version), or a tie cell — a rail's ``mag / pulse_dg``, recomputed by
+    the plain version, within 1e-4 relative of a half-integer — within
+    one event (``pulse_dg * max(up, dn)``) plus the sigma change plus that
+    slack; under 1e-3 of the cells use the tie allowance.  ``z`` is the
+    write's standard-normal field (None if noiseless).  A count off by
+    one away from a tie, a swapped rail or a wrong hash fail.  Returns
+    (ok, max abs err, largest err / 4-ulp bound among the cells within
+    it, share of cells that used the tie allowance)."""
+    from repro_torch.kernels.xbar_update import _updown_factors
+    dev = cfg.device
+    m = scale[:, None, None]
+    acc = torch.einsum("lbk,lbn->lkn", x_q, d_q)
+    a_abs = torch.einsum("lbk,lbn->lkn", x_q.abs(), d_q.abs())
+    tie = torch.zeros_like(g, dtype=torch.bool)
+    n = torch.zeros_like(g)
+    for sgn in (1.0, -1.0):
+        v = (0.5 * (a_abs * m.abs() + sgn * acc * m)).clamp(min=0) \
+            / dev.pulse_dg
+        tie |= (v - torch.floor(v) - 0.5).abs() <= 1e-4 * v.abs()
+        n += torch.round(v)
+    del acc, a_abs
+    if dev.kind in ("ideal", "linearized"):
+        event = torch.full_like(g, dev.pulse_dg)
+    else:
+        up, dn = _updown_factors(g, dev)
+        event = dev.pulse_dg * torch.maximum(up, dn)
+    slack = 4 * 2.0 ** -24 + 1e-5 * (g_p - g).abs()
+    err = (g_k - g_p).abs()
+    close = err <= slack
+    tie_bound = event + slack
+    if z is not None:
+        dsig = dev.write_noise * dev.pulse_dg * torch.maximum(
+            torch.sqrt(n + 1) - torch.sqrt(n),
+            torch.sqrt(n) - torch.sqrt(torch.clamp(n - 1, min=0)))
+        tie_bound = tie_bound + dsig * z.abs()
+    flips = ~close
+    share = flips.float().mean().item()
+    ok = bool((close | (tie & (err <= tie_bound))).all()) and share < 1e-3
+    over = (err[close] / slack[close]).max().item() if close.any() else 0.0
+    return ok, err.max().item(), over, share
+
+
+def profiled_kernel(fn, n_iter, name):
+    """torch.profiler's device time per call of the kernels whose names
+    contain ``name`` (None if it recorded none) and how many such kernel
+    events it recorded in ``n_iter`` calls of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n_iter):
+            fn(i)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU and name in e.key]
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in events)
+    return (us / n_iter / 1e3 if us > 0 else None,
+            sum(e.count for e in events))
+
+
+def pulse_operands(lyr, k, n, t, gen, case):
+    """Operands of a pulse-train write: ``update_operands`` (power-of-two
+    grids in the exact class, lm100m's regime otherwise), with the row
+    drives leaning positive and the column drives negative in the
+    ``skewed`` case, so that the SET and RESET rails differ."""
+    g, x_q, d_q, scale = update_operands(lyr, k, n, t, gen,
+                                         case == "ideal")
+    if case == "ideal":   # several events per cell: m = -2^-2, still exact
+        scale = torch.full_like(scale, -0.25)
+    if case == "skewed":
+        x_q, d_q = x_q + 1.0, d_q - 1e-4
+    return g, x_q, d_q, scale
+
+
+def phase_pulse_update(U, TAOX, IDEAL, CrossbarConfig, report):
+    """The pulse-train write against its plain version on the card, at
+    each container's (12, K, N) with T = 2048 and 64x64 tiles: (a) ideal
+    device, no noise, power-of-two operands — bit-equal; (b) TaOx,
+    counter-PRNG noise and (c) TaOx, host noise field — the float class
+    (``pulse_agrees``); then a ragged case (asymmetric TaOx, skewed
+    drives, 48x63 tiles) and a 1024x1024-tile case.  The (b) cases are
+    timed against the operations bound (two accumulates, 4 T K N flops
+    per layer), beside torch.bmm of the two accumulates alone (not the
+    same function); by CUDA events, as phase 6 times the outer write."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    sync = torch.cuda.synchronize
+    asym = TAOX.replace(nu_set=3.0, nu_reset=6.0, gain_set=1.3,
+                        gain_reset=0.7)
+    cases = [(name, 12, k, n, 2048, case, 64, 64,
+              IDEAL if case == "ideal" else TAOX)
+             for name, k, n in TRAIN_SHAPES
+             for case in ("ideal", "kernel", "host")]
+    cases += [("ragged", 2, 200, 72, 37, "skewed", 48, 63, asym),
+              ("tile1024", 12, 768, 2304, 2048, "kernel", 1024, 1024, TAOX)]
+    rows = []
+    for name, lyr, k, n, t, case, tr, tc, dev in cases:
+        cfg = CrossbarConfig(rows=tr, cols=tc, device=dev,
+                             update_mode="pulse_train")
+        g, x_q, d_q, scale = pulse_operands(lyr, k, n, t, gen, case)
+        noise = torch.randn(g.shape, generator=gen, device="cuda") \
+            if case == "host" else None
+        seed = None if case in ("ideal", "host") else 0x5EED1234
+        mode = {"ideal": "none", "host": "host"}.get(case, "kernel")
+        g_k = U.xbar_outer_update(g, x_q, d_q, scale, cfg, noise=noise,
+                                  seed=seed, noise_mode=mode)
+        sync()
+        g_p = U._update_plain(g, x_q, d_q, scale, noise, seed, cfg, mode)
+        row = {"container": name, "L": lyr, "K": k, "N": n, "T": t,
+               "tile": [tr, tc], "case": case,
+               "max_abs_err": (g_k - g_p).abs().max().item(),
+               "max_move": (g_p - g).abs().max().item()}
+        if case == "ideal":
+            ok = torch.equal(g_k, g_p)
+        else:
+            z = noise if mode == "host" else U.field_normals(
+                seed, g.shape, cfg, device="cuda")
+            ok, _, row["max_err_over_ulp_bound"], row["tie_share"] = \
+                pulse_agrees(g_k, g_p, g, x_q, d_q, scale, cfg, z)
+        row["ok"] = ok = ok and row["max_move"] > dev.pulse_dg
+        if case == "kernel" and tr == 64:
+            def kern(i):
+                return U.xbar_outer_update(g, x_q, d_q, scale, cfg,
+                                           seed=seed, noise_mode=mode)
+
+            def plain(i):
+                return U._update_plain(g, x_q, d_q, scale, None, seed, cfg,
+                                       mode)
+            # CUDA events, as phase 6 times the outer write; the profiler's
+            # kernel time and its count of kernel events (5 expected)
+            # beside it
+            row["ms"] = cuda_ms(kern, 5, sync)
+            row["profiler_ms"], row["profiler_kernel_events"] = \
+                profiled_kernel(kern, 5, "update_kernel<true")
+            row["plain_ms"] = cuda_ms(plain, 3, sync)
+            flops = 4 * lyr * t * k * n
+            n_bytes = 4 * (lyr * t * (k + n) + lyr + 2 * lyr * k * n)
+            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+            row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            xt = x_q.transpose(1, 2).contiguous()
+            xa, da = xt.abs(), d_q.abs()
+            row["accumulates_bmm_ms_not_the_same_function"] = cuda_ms(
+                lambda i: (torch.bmm(xt, d_q), torch.bmm(xa, da)), 5, sync)
+            print(f"  pulse update {name} (12, {k}, {n}) T=2048: kernel "
+                  f"{row['ms']:.3f} ms (events; profiler "
+                  f"{row['profiler_ms']} ms over "
+                  f"{row['profiler_kernel_events']} kernel events), plain "
+                  f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+                  f"({100 * row['bound_share']:.1f}%), torch.bmm of the two "
+                  f"accumulates alone (not the same function) "
+                  f"{row['accumulates_bmm_ms_not_the_same_function']:.3f} "
+                  f"ms; max abs err {row['max_abs_err']:.3g}, tie share "
+                  f"{row['tie_share']:.2g}")
+        rows.append(row)
+        report(row)
+        if not ok:
+            fail(f"pulse-train write disagrees with its plain version: "
+                 f"{row}")
+    print(f"phase 12: {len(rows)} pulse-train write cases agree")
+    return rows
+
+
+@contextlib.contextmanager
+def counting_calls(module, names, calls):
+    """Count calls of ``module``'s functions ``names`` (the plain versions)
+    while the block runs."""
+    saved = {name: getattr(module, name) for name in names}
+
+    def counted(name):
+        def fn(*args, **kw):
+            calls.append(name)
+            return saved[name](*args, **kw)
+        return fn
+    for name in names:
+        setattr(module, name, counted(name))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def carry_cfg(tcfg, period, mode):
+    return tcfg.replace(analog_carry=True, carry_period=period,
+                        analog_carry_base=4.0, analog_update_mode=mode)
+
+
+def sweep_agrees(card, cpu, xcfg):
+    """The carry-sweep class, per container: the card's swept ``g`` and
+    ``g_carry`` bit-equal to the CPU's sweep of the same pre-sweep
+    containers, or one ADC code apart (``w_swing / out_levels`` on the
+    carry array, a quarter of it on the primary) where ``v / lsb`` sits at
+    a rounding boundary, under 1e-3 of the cells.  Returns (ok, max abs
+    err, share of cells that differ)."""
+    lsb = xcfg.w_swing / xcfg.adc.out_levels
+    worst, moved, cells = 0.0, 0, 0
+    ok = True
+    for path, c in tree_leaves(card):
+        if path[-1] not in ("g", "g_carry"):
+            continue
+        want = dict(tree_leaves(cpu))[path]
+        err = (c.cpu() - want).abs()
+        code = lsb / xcfg.carry_base if path[-1] == "g" else lsb
+        ok &= bool((err <= code + 4 * 2.0 ** -24).all())
+        worst = max(worst, err.max().item())
+        moved += int((err > 0).sum())
+        cells += err.numel()
+    return ok and moved < 1e-3 * cells, worst, moved / cells
+
+
+def phase_carry_train(K, U, TA, M, syn, tcfg, report):
+    """lm100m at full width trained with periodic carry (period 2, base
+    4) and pulse-train writes: ``init_state`` from torch.Generator seed 0,
+    4 steps on phase 7's batches.
+
+    Gates: 48 forward and 48 transpose reads and 4 pulse-train writes per
+    step, no outer write and no call of a plain version; every write of
+    step 1 against its plain version on the card on its own operands
+    (``pulse_agrees``); step 1 leaves every primary array untouched and
+    step 2's sweep moves it; the card's sweep at step 2 against the CPU's
+    sweep of the card's own pre-sweep containers (``sweep_agrees``), with
+    ``effective_g`` conserved within 1e-6; finite losses and conductances
+    in the window.  The step time, tokens/s and peak memory come from
+    steps 3-4; two more steps (5, and 6 with a sweep) are profiled."""
+    from repro_torch.core.tiled_analog import effective_g
+    cfg = carry_cfg(tcfg, 2, "pulse_train")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = TA.init_state(gen, cfg, device="cuda")
+    init = dict(tree_leaves(state["params"]))
+    step = TA.make_analog_sgd_step(cfg, lr=0.1)
+    xcfg = step.xcfg
+    stream = syn.make_token_stream(200_000, cfg.vocab, seed=0)
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(1)
+    n_layers = cfg.n_layers
+    expect = {"fused_vmm": 4 * n_layers, "reduce_tiles": 4 * n_layers,
+              "fused_mvm": 4 * n_layers, "reduce_tiles_mvm": 4 * n_layers,
+              "fakequant": 0, "fakequant_epilogue": 0, "outer_update": 0,
+              "pulse_update": 4}
+    writes, swept, plain_calls = [], [], []
+    update_cuda, sweep = U._update_cuda, step._carry_sweep
+
+    def rec_write(g, x_q, d_q, scale, noise, seed, wcfg, mode):
+        out = update_cuda(g, x_q, d_q, scale, noise, seed, wcfg, mode)
+        writes.append(((g, x_q.clone(), d_q.clone(), scale.clone(), noise,
+                        seed, wcfg, mode), out.clone()))
+        return out
+
+    def rec_sweep(p):
+        swept.append(p)
+        return sweep(p)
+    step._carry_sweep = rec_sweep
+
+    losses, step_ms, launches = [], [], []
+    for i in range(4):
+        x, y = syn.batch_tokens(stream, 8, 256, i)
+        batch = {"tokens": torch.from_numpy(x).long().cuda(),
+                 "labels": torch.from_numpy(y).long().cuda()}
+        seed_base = int(torch.randint(0, 2 ** 32, (), generator=rng,
+                                      device="cuda"))
+        reset_launches(K, U)
+        U._update_cuda = rec_write if i == 0 else update_cuda
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with counting_calls(U, ["_update_plain"], plain_calls), \
+                    counting_calls(K, ["_read_plain"], plain_calls):
+                state, mets = step(state, batch, seed_base)
+                torch.cuda.synchronize()
+        finally:
+            U._update_cuda = update_cuda
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        got = {**K.LAUNCHES, **U.LAUNCHES}
+        launches.append(got)
+        losses.append(float(mets["loss"]))
+        print(f"  carry+pulse train step {i + 1}: loss {losses[-1]:.5f}, "
+              f"g_rail_frac {float(mets['g_rail_frac']):.3g}, "
+              f"{step_ms[-1]:.1f} ms, launches {got}")
+        if got != expect:
+            fail(f"carry+pulse train step {i + 1} launched {got}; expected "
+                 f"{expect}")
+        if plain_calls:
+            fail(f"carry+pulse train step {i + 1} called plain versions: "
+                 f"{sorted(set(plain_calls))}")
+        if not math.isfinite(losses[-1]):
+            fail(f"carry+pulse train step {i + 1}: loss {losses[-1]}")
+        params = state["params"]
+        g_moved = max((leaf - init[path]).abs().max().item()
+                      for path, leaf in tree_leaves(params)
+                      if path[-1] == "g")
+        if i == 0:
+            if swept or g_moved != 0.0:
+                fail("step 1 of the carry run moved a primary array")
+            worst = {"max_abs_err": 0.0, "max_err_over_ulp_bound": 0.0,
+                     "max_tie_share": 0.0}
+            for (g, x_q, d_q, scale, noise, seed, wcfg, mode), out in writes:
+                g_p = U._update_plain(g, x_q, d_q, scale, noise, seed, wcfg,
+                                      mode)
+                z = U.field_normals(seed, g.shape, wcfg, device="cuda")
+                ok, err, over, share = pulse_agrees(out, g_p, g, x_q, d_q,
+                                                    scale, wcfg, z)
+                worst["max_abs_err"] = max(worst["max_abs_err"], err)
+                worst["max_err_over_ulp_bound"] = max(
+                    worst["max_err_over_ulp_bound"], over)
+                worst["max_tie_share"] = max(worst["max_tie_share"], share)
+                if not ok:
+                    fail(f"a pulse-train write of step 1 disagrees with "
+                         f"its plain version: g {tuple(g.shape)}, max err "
+                         f"{err}, tie share {share}")
+            n_writes = len(writes)
+            writes.clear()
+        if i == 1:
+            if len(swept) != 1 or g_moved == 0.0:
+                fail(f"step 2 of the carry run: {len(swept)} sweeps, "
+                     f"primaries moved by {g_moved}")
+            pre = swept[0]
+            cpu_sweep = TA.make_analog_sgd_step(cfg, lr=0.1)._carry_sweep(
+                tree_to(pre, "cpu"))
+            sw_ok, sw_err, sw_share = sweep_agrees(params, cpu_sweep, xcfg)
+            del cpu_sweep
+            eff_err = 0.0
+            for blk, name in (("attn", "wqkv"), ("attn", "wo"),
+                              ("ffn", "w_upgate"), ("ffn", "w_down")):
+                before = effective_g(pre["layers"][blk][name], xcfg)
+                after = effective_g(params["layers"][blk][name], xcfg)
+                eff_err = max(eff_err, (after - before).abs().max().item())
+            swept.clear()
+            del pre
+            if not sw_ok or eff_err > 1e-6:
+                fail(f"carry sweep of step 2: card vs CPU max err {sw_err}, "
+                     f"share {sw_share}; effective_g moved by {eff_err}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for path, g in tree_leaves(state["params"]):
+        if path[-1] in ("g", "g_carry") and not (g.min() >= 0
+                                                 and g.max() <= 1):
+            fail(f"conductances of {path} left the window")
+    profile = profile_train_step(K, U, syn, step, state, stream, rng,
+                                 expect, n_steps=2)
+    step._carry_sweep = sweep
+    tokens = 8 * 256
+    warm = step_ms[2:]
+    res = {"losses": losses, "step_ms": step_ms, "tokens_per_step": tokens,
+           "tokens_per_s": tokens / (sum(warm) / len(warm) / 1e3),
+           "launches_per_step": launches, "peak_memory_gb": peak_gb,
+           "profile_steps5_6": profile, "step1_writes_checked": n_writes,
+           **{f"step1_writes_{k}": v for k, v in worst.items()},
+           "sweep_card_vs_cpu_max_abs_err": sw_err,
+           "sweep_card_vs_cpu_differing_share": sw_share,
+           "sweep_effective_g_max_change": eff_err}
+    report(res)
+    print(f"phase 13(a): lm100m trained 4 steps with carry (period 2) and "
+          f"pulse-train writes: losses {[round(v, 5) for v in losses]}, "
+          f"{sum(warm) / len(warm):.1f} ms per step = "
+          f"{res['tokens_per_s']:.0f} tokens/s, peak memory {peak_gb:.2f} "
+          f"GB (steps 3-4); step 1: {n_writes} writes agree with the plain "
+          f"version (tie share at most {worst['max_tie_share']:.2g}); the "
+          f"sweep of step 2 vs the CPU's: max err {sw_err:.3g}, "
+          f"{sw_share:.2g} of the cells differ; effective_g conserved "
+          f"within {eff_err:.3g}")
+    return res
+
+
+def phase_nonideality(U, K, TA, TL, TO, M, syn, tcfg, report, steps):
+    """The reference's nonideality study at one point, write noise x64
+    (``taox:wn64``), carry period 4 and base 4: the numeric run
+    (``cfg.digital()`` from ``readout_digital`` of the analog init,
+    ``train_loop`` with ``sgd(0.1)`` and clip 1.0) and the analog
+    variants no_carry, carry and carry_pulse_train, each ``steps`` steps
+    from the same init (torch.Generator seed 0) on the same batches and
+    write-noise seeds.  Reports each variant's mean loss over the last 5
+    steps, ``gap_vs_numeric`` and ``gap_closed_by_carry`` as the
+    reference computes them, and each variant's median step time.  Gates
+    only finite losses."""
+    base = tcfg.replace(analog_device="taox:wn64")
+    variants = {"no_carry": base,
+                "carry": carry_cfg(base, 4, "outer"),
+                "carry_pulse_train": carry_cfg(base, 4, "pulse_train")}
+    stream = syn.make_token_stream(200_000, base.vocab, seed=0)
+    batches = []
+    for i in range(steps):
+        x, y = syn.batch_tokens(stream, 8, 256, i)
+        batches.append({"tokens": torch.from_numpy(x).long().cuda(),
+                        "labels": torch.from_numpy(y).long().cuda()})
+
+    def run(step, state, with_rng):
+        rng = torch.Generator(device="cuda")
+        rng.manual_seed(1)
+        losses, walls = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if with_rng:
+                state, mets = step(state, batch, rng)
+            else:
+                state, mets = step(state, batch)
+            losses.append(float(mets["loss"]))
+            walls.append(time.perf_counter() - t0)
+            if not math.isfinite(losses[-1]):
+                fail(f"nonideality run: loss {losses[-1]}")
+        warm = sorted(walls[1:]) or walls
+        return {"loss": losses, "final_loss": float(np.mean(losses[-5:])),
+                "median_step_ms": 1e3 * warm[len(warm) // 2]}
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    dig = base.digital()
+    params = M.readout_digital(M.init_params(base, gen, "cuda"), base)
+    opt = TO.sgd(0.1)
+    numeric = run(TL.make_train_step(dig, opt, clip_norm=1.0),
+                  {"params": params, "opt": opt.init(params),
+                   "step": torch.zeros((), dtype=torch.int32,
+                                       device="cuda"), "err_fb": ()},
+                  False)
+    del params
+    res = {"device": "taox:wn64", "steps": steps, "lr": 0.1,
+           "carry_period": 4, "carry_base": 4.0, "numeric": numeric}
+    for name, cfg in variants.items():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        reset_launches(K, U)
+        res[name] = run(TA.make_analog_sgd_step(cfg, lr=0.1),
+                        TA.init_state(gen, cfg, device="cuda"), True)
+        res[name]["launches"] = {**K.LAUNCHES, **U.LAUNCHES}
+        torch.cuda.empty_cache()
+    gap = res["no_carry"]["final_loss"] - numeric["final_loss"]
+    res["gap_vs_numeric"] = gap
+    res["gap_closed_by_carry"] = (
+        (res["no_carry"]["final_loss"] - res["carry"]["final_loss"]) / gap
+        if abs(gap) > 1e-9 else None)
+    res["reference_cpu_smoke_gap_closed_by_carry"] = 0.85
+    report(res)
+    closed = res["gap_closed_by_carry"]
+    print(f"phase 13(b): write noise x64, {steps} steps: final loss "
+          f"(mean of the last 5) numeric {numeric['final_loss']:.4f}, "
+          + ", ".join(f"{n} {res[n]['final_loss']:.4f}" for n in variants)
+          + f"; gap vs numeric {gap:+.4f}, closed by carry "
+          + (f"{closed:.3f}" if closed is not None else "n/a")
+          + " (the reference's CPU smoke-size run: 0.85, not a gate); "
+          "median step ms: "
+          + ", ".join(f"{n} {res[n]['median_step_ms']:.1f}"
+                      for n in ("numeric", *variants)))
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is false")
@@ -1498,6 +1996,8 @@ def main():
     from repro_torch.models import model as M
     from repro_torch.serve import SamplingParams, make_engine
     from repro_torch.train import analog_lm as TA
+    from repro_torch.train import optimizer as TO
+    from repro_torch.train import train_loop as TL
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1583,6 +2083,11 @@ def main():
                          reporter("fakequant_card_cpu"))
     del fparams
     fa_rows, fa_launches = phase_flash(FA, reporter("flash_attention"))
+    pulse_rows = phase_pulse_update(U, TAOX, IDEAL, CrossbarConfig,
+                                    reporter("pulse_update"))
+    carry = phase_carry_train(K, U, TA, M, syn, tcfg, reporter("carry_train"))
+    phase_nonideality(U, K, TA, TL, TO, M, syn, tcfg, reporter("nonideality"),
+                      steps=30)
 
     def total(launches, name):
         return sum(step[name] for step in launches)
@@ -1593,6 +2098,7 @@ def main():
     fq_decode = [r for r in fq_rows if r["T"] == 4 and "ms" in r]
     fa_main = next(r for r in fa_rows
                    if r["case"] == "lm100m" and r["dtype"] == "float32")
+    t_pulse = [r for r in pulse_rows if "ms" in r]
     kernels = [{
         "name": "xbar_fused_vmm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_vmm.cu",
@@ -1652,7 +2158,19 @@ def main():
         "max_abs_err": fa_main["max_abs_err"], "ms": fa_main["ms"],
         "plain_ms": fa_main["plain_ms"], "bound_ms": fa_main["bound_ms"],
         "bound_by": fa_main["bound_by"],
-        "library_ms": fa_main["library_ms"]}]
+        "library_ms": fa_main["library_ms"]}, {
+        "name": "xbar_pulse_update", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
+        "replaces": "src/repro/kernels/xbar_update.py:281 "
+                    "(update_mode=\"pulse_train\")",
+        "launches": total(carry["launches_per_step"], "pulse_update"),
+        "max_abs_err": max(r["max_abs_err"] for r in t_pulse),
+        "ms": sum(r["ms"] for r in t_pulse),
+        "plain_ms": sum(r["plain_ms"] for r in t_pulse),
+        "bound_ms": sum(r["bound_ms"] for r in t_pulse),
+        "bound_by": "operations", "library_ms": None,
+        "accumulates_bmm_ms_not_the_same_function": sum(
+            r["accumulates_bmm_ms_not_the_same_function"] for r in t_pulse)}]
     details["kernels_line_note"] = (
         "xbar_fused_vmm: launches counts the serving run's reads (each "
         "launches the tile kernel and the K-order sum, launches_by_kernel), "
@@ -1676,7 +2194,13 @@ def main():
         "matmul_ms_not_the_same_function. flash_attention: launches counts "
         "the calls of flash_attention in phase 11 (eight cases); ms, "
         "plain_ms, bound_ms and library_ms (scaled_dot_product_attention) "
-        "are lm100m's heads, float32, causal, S=2048")
+        "are lm100m's heads, float32, causal, S=2048. xbar_pulse_update: "
+        "launches counts the pulse-train writes of phase 13(a)'s 4 training "
+        "steps; ms, plain_ms and bound_ms sum the four containers' (12, K, "
+        "N) pulse-train writes at T=2048 with counter-PRNG noise (phase "
+        "12(b)); no PyTorch call computes the function, so library_ms is "
+        "null; torch.bmm of its two accumulates alone is "
+        "accumulates_bmm_ms_not_the_same_function")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1))

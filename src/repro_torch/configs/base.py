@@ -2,9 +2,8 @@
 
 One ``ModelConfig`` describes an architecture.  The port keeps the JAX
 package's fields for the dense decoder and the analog read, under the
-same names; the fields of the other families, of the periodic-carry
-sweep and of fakequant training arrive with the slices that read them
-(``ROADMAP.md``).  The port keeps its own copy
+same names; the fields of the other families and of fakequant training
+arrive with the slices that read them (``ROADMAP.md``).  The port keeps its own copy
 because it imports nothing of ``repro``.
 """
 from __future__ import annotations
@@ -103,13 +102,21 @@ class ModelConfig:
     analog_out_bits: int = 8
     analog_sat_sigmas: float = 4.0  # integrator range, sigmas of col charge
     # Periodic carry (paper §V.C / §VI.B): every container gains a second
-    # "g_carry" crossbar holding the LSB significance level, which the
-    # read sees at 1/analog_carry_base drive (core.tiled_analog.effective_g).
+    # "g_carry" crossbar holding the LSB significance level.  Updates land
+    # on the carry array scaled by analog_carry_base (so each requested
+    # step is a base-times-larger conductance move far from the rails),
+    # the read sees it at 1/analog_carry_base drive
+    # (core.tiled_analog.effective_g), and every carry_period steps a
+    # serial sweep folds the ADC-quantised carry deviation into the
+    # primary array (core.periodic_carry.carry_fold, scheduled by
+    # train.analog_lm.AnalogTrainStep).
     analog_carry: bool = False
+    carry_period: int = 0          # steps between carry sweeps (0 = never)
     analog_carry_base: float = 4.0
     # Update execution (``kernels.xbar_update.UPDATE_MODES``): "outer" is
-    # the rank-k parallel write; "pulse_train" (sign-decomposed 4-phase
-    # SET/RESET trains) is not ported yet and raises (ROADMAP.md).
+    # the rank-k parallel write; "pulse_train" sign-decomposes the outer
+    # product into 4-phase SET/RESET pulse trains with integer
+    # clock-cycle event counts (Gokmen & Vlasov, arXiv 1603.07341).
     analog_update_mode: str = "outer"
 
     @property

@@ -4,11 +4,14 @@ into the port.
 The reference's parameter trees are nested dicts of arrays: digital
 ``{"w"}`` projections, the embedding and the norm scales, and crossbar
 containers ``{"g", "ref", "w_scale"}`` (scan-stacked as (L, K, N) and
-(L,)).  Its analog train state is ``{"params": tree, "step": int32}``.
-The port uses the same structures with torch tensors, so a tree handed
-over as numpy arrays (``jax.tree.map(np.asarray, state)``) maps leaf for
-leaf.  This module takes numpy only and imports nothing of the JAX
-package.
+(L,)), with a ``g_carry`` leaf under periodic carry.  Its analog train
+state is ``{"params": tree, "step": int32}``, and its numeric one
+(``train_loop``) ``{"params", "opt", "step", "err_fb": ()}``, where
+``opt`` is the optimizer's state: ``()`` for plain SGD, a parameter tree
+of velocities with momentum, ``{"m", "v", "t"}`` for AdamW.  The port
+uses the same structures with torch tensors, so a tree handed over as
+numpy arrays (``jax.tree.map(np.asarray, state)``) maps leaf for leaf.
+This module takes numpy only and imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -17,12 +20,15 @@ import torch
 
 
 def params_from_numpy(tree, device="cuda"):
-    """Nested dicts of numpy arrays (a parameter tree or a train state
-    ``{"params", "step"}``) -> the same dicts of torch tensors on
+    """Nested dicts (and tuples) of numpy arrays — a parameter tree, an
+    analog train state ``{"params", "step"}`` or a numeric one with its
+    optimizer state — -> the same structure of torch tensors on
     ``device`` (float32 leaves stay float32, the int32 step stays int32;
-    copies, never views)."""
+    copies, never views; an empty tuple stays an empty tuple)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(params_from_numpy(v, device) for v in tree)
     arr = np.asarray(tree)
     if arr.dtype.kind not in "fiub" or arr.dtype.itemsize > 8:
         raise TypeError(f"unsupported parameter leaf of dtype {arr.dtype}")

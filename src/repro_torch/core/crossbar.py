@@ -28,7 +28,9 @@ class CrossbarConfig:
     containers are read through :func:`core.tiled_analog.effective_g`.
     ``upd_col_bits`` is the voltage-coding precision of the column write
     driver (paper §IV.C: 3 magnitude bits + sign in the 8-bit variant);
-    ``update_mode`` is ``"outer"`` (``"pulse_train"`` is not ported yet).
+    ``update_mode`` is ``"outer"`` (one aggregate write per cell) or
+    ``"pulse_train"`` (sign-decomposed SET/RESET trains with integer event
+    counts, ``kernels.xbar_update._pulse_epilogue``).
     """
 
     rows: int = 1024

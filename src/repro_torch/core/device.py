@@ -2,8 +2,10 @@
 
 Port of ``repro.core.device``: the configuration, its presets and the
 aggregate write (``apply_update``), the host twin of the update kernel's
-epilogue (``kernels.xbar_update._device_epilogue``).  The pulse-train
-write and the lookup-table device wait for their slice (``ROADMAP.md``).
+epilogue (``kernels.xbar_update._device_epilogue``), and the pulse-train
+write (``pulse_train_counts``, ``apply_pulse_train``), the host twin of
+its ``update_mode="pulse_train"`` epilogue.  The lookup-table device
+waits for its slice (``ROADMAP.md``).
 Conductances are normalised: ``g`` in ``[0, 1]`` maps onto the physical
 window.
 
@@ -109,4 +111,62 @@ def apply_update(g: Tensor, dg_req: Tensor, cfg: DeviceConfig,
             raise ValueError("stochastic device model requires a noise "
                              "field")
         dg = dg + write_noise_sigma(dg_req, cfg) * noise
+    return torch.clamp(g + dg, cfg.gmin, cfg.gmax)
+
+
+# ---------------------------------------------------------------------------
+# Pulse-train writes (sign-decomposed 4-phase stochastic update).
+#
+# For the signed outer product ``acc = sum_b x_b d_b``, its magnitude twin
+# ``A = sum_b |x_b| |d_b|`` and a signed learning-rate scale ``m``, the
+# per-cell SET / RESET magnitudes
+#
+#     S = (A |m| + acc m) / 2 >= 0,   R = (A |m| - acc m) / 2 >= 0
+#
+# satisfy S - R = acc m (the requested update) and S + R = A |m| (the
+# total pulse count that drives the random-walk write noise).  Magnitudes
+# are quantised to integer event counts n = round(S / pulse_dg), the clock
+# cycles the column driver holds its enable line.
+# ---------------------------------------------------------------------------
+
+def pulse_train_counts(set_mag: Tensor, reset_mag: Tensor,
+                       cfg: DeviceConfig):
+    """Integer SET/RESET clock-cycle event counts for the requested
+    per-cell magnitudes (both >= 0, in normalised conductance units),
+    rounded half to even."""
+    n_set = torch.round(set_mag / cfg.pulse_dg)
+    n_reset = torch.round(reset_mag / cfg.pulse_dg)
+    return n_set, n_reset
+
+
+def apply_pulse_train(g: Tensor, set_mag: Tensor, reset_mag: Tensor,
+                      cfg: DeviceConfig,
+                      noise: Optional[Tensor] = None) -> Tensor:
+    """Apply a 4-phase pulse-train write through the device model.
+
+    The SET and RESET phases fire separately: ``n_set`` pulses through the
+    state-dependent SET slope and ``n_reset`` through the RESET slope, each
+    an integer number of ``pulse_dg`` events, and the write noise
+    accumulates over ``n_set + n_reset`` pulses (a cell whose phases cancel
+    still random-walks).  ``noise`` is the standard-normal field, as in
+    :func:`apply_update`.
+    """
+    n_set, n_reset = pulse_train_counts(set_mag, reset_mag, cfg)
+    if cfg.kind in ("ideal", "linearized"):
+        up = torch.ones_like(g)
+        dn = torch.ones_like(g)
+    elif cfg.kind == "taox":
+        x = _norm_state(g, cfg)
+        up = cfg.gain_set * set_factor(x, cfg.nu_set)
+        dn = cfg.gain_reset * reset_factor(x, cfg.nu_reset)
+    else:
+        raise NotImplementedError(
+            f"device kind {cfg.kind!r} is not ported yet (ROADMAP.md)")
+    dg = cfg.pulse_dg * (n_set * up - n_reset * dn)
+    if cfg.write_noise > 0.0:
+        if noise is None:
+            raise ValueError("stochastic device model requires a noise "
+                             "field")
+        sigma = cfg.write_noise * cfg.pulse_dg * torch.sqrt(n_set + n_reset)
+        dg = dg + sigma * noise
     return torch.clamp(g + dg, cfg.gmin, cfg.gmax)

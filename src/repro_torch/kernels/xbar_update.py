@@ -1,13 +1,21 @@
 """Rank-k crossbar write: the CUDA kernel, its plain torch version and the
 dispatch between them.
 
-Port of ``repro.kernels.xbar_update`` (``update_mode="outer"``).  The
-kernel in ``csrc/xbar_update.cu`` replaces the TPU kernel
-``_update_kernel``: per lead matrix it accumulates the outer product
-``acc = sum_t x_q[t] (outer) d_q[t]`` over the token batch, scales it by
-the folded ``-lr * w_scale`` and pushes ``dg_req = scale * acc`` through
-the device epilogue (:func:`_device_epilogue`: the TaOx SET/RESET factors,
-the random-walk write noise and the clip to the conductance window).
+Port of ``repro.kernels.xbar_update``.  The kernel in
+``csrc/xbar_update.cu`` replaces the TPU kernel ``_update_kernel`` in
+both update modes (``cfg.update_mode``):
+
+* ``"outer"`` — per lead matrix it accumulates the outer product
+  ``acc = sum_t x_q[t] (outer) d_q[t]`` over the token batch, scales it
+  by the folded ``-lr * w_scale`` and pushes ``dg_req = scale * acc``
+  through the device epilogue (:func:`_device_epilogue`: the TaOx
+  SET/RESET factors, the random-walk write noise and the clip to the
+  conductance window);
+* ``"pulse_train"`` — it also accumulates ``a_abs = sum_t |x_q[t]|
+  (outer) |d_q[t]|`` and fires the request as integer SET and RESET
+  event counts, each event answered by the device's slope at the cell's
+  state, with write noise over the total event count
+  (:func:`_pulse_epilogue`).
 
 Write noise (``noise_mode``):
 
@@ -24,9 +32,9 @@ Write noise (``noise_mode``):
 Paths (``impl``) as for the read (``kernels.xbar_vmm``): ``"cuda"`` for
 tensors on the card, ``"eager"`` (:func:`_update_plain`) for tensors on
 the CPU, ``"auto"``/``None`` by the tensors' device; an explicit path on
-the wrong device raises, and there is no fallback.  ``cfg.update_mode=
-"pulse_train"`` is not ported yet and raises.  ``LAUNCHES["outer_update"]``
-counts the kernel's launches.
+the wrong device raises, and there is no fallback.
+``LAUNCHES["outer_update"]`` and ``LAUNCHES["pulse_update"]`` count the
+kernel's launches in each mode.
 """
 from __future__ import annotations
 
@@ -44,10 +52,12 @@ from . import _nvcc
 Tensor = torch.Tensor
 
 NOISE_MODES = ("none", "host", "kernel")
+UPDATE_MODES = ("outer", "pulse_train")
 UPDATE_IMPLS = ("auto", "cuda", "eager")
 
-#: Launches of the update kernel; only the wrapper adds to it.
-LAUNCHES = {"outer_update": 0}
+#: Launches of the update kernel, by update mode; only the wrapper adds
+#: to them.
+LAUNCHES = {"outer_update": 0, "pulse_update": 0}
 
 SOURCE = _nvcc.CSRC / "xbar_update.cu"
 
@@ -188,6 +198,40 @@ def _device_epilogue(g: Tensor, dg_req: Tensor, noise: Optional[Tensor],
     return torch.clamp(g + dg, dev.gmin, dev.gmax)
 
 
+def _pulse_epilogue(g: Tensor, acc: Tensor, a_abs: Tensor, m: Tensor,
+                    noise: Optional[Tensor], dev: DeviceConfig) -> Tensor:
+    """Pulse-train write (mirrors core.device.apply_pulse_train).
+
+    ``acc = sum_b x_b d_b`` is the signed outer-product accumulator and
+    ``a_abs = sum_b |x_b| |d_b|`` its magnitude twin.  The four drive
+    phases of the sign-decomposed update (++/-- on the SET rail, +-/-+ on
+    the RESET rail) partition the event mass so that
+
+        S = (a_abs |m| + acc m) / 2      R = (a_abs |m| - acc m) / 2
+
+    with ``S - R = m acc`` (the requested update) and ``S + R = |m| a_abs``
+    (the total fired charge).  Each rail fires an integer number of
+    events ``n = round(mag / pulse_dg)`` (half to even); the device answers
+    every SET event with ``pulse_dg * up`` and every RESET event with
+    ``pulse_dg * dn``, and the write noise scales with
+    ``sqrt(n_set + n_reset)``.
+    """
+    s_mag = 0.5 * (a_abs * torch.abs(m) + acc * m)
+    r_mag = 0.5 * (a_abs * torch.abs(m) - acc * m)
+    n_set = torch.round(torch.clamp(s_mag, min=0.0) / dev.pulse_dg)
+    n_reset = torch.round(torch.clamp(r_mag, min=0.0) / dev.pulse_dg)
+    if dev.kind in ("ideal", "linearized"):
+        up = torch.ones_like(g)
+        dn = torch.ones_like(g)
+    else:
+        up, dn = _updown_factors(g, dev)
+    dg = dev.pulse_dg * (n_set * up - n_reset * dn)
+    if dev.write_noise > 0.0 and noise is not None:
+        sigma = dev.write_noise * dev.pulse_dg * torch.sqrt(n_set + n_reset)
+        dg = dg + sigma * noise
+    return torch.clamp(g + dg, dev.gmin, dev.gmax)
+
+
 # --------------------------------------------------------------------------
 # The plain version
 # --------------------------------------------------------------------------
@@ -196,13 +240,18 @@ def _update_plain(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
                   noise: Optional[Tensor], seed: Optional[int],
                   cfg: CrossbarConfig, noise_mode: str) -> Tensor:
     """The kernel's function in plain torch (the reference's
-    ``_fused_update``): one layer-batched einsum and the epilogue, with
-    the counter PRNG's field in kernel-noise mode."""
+    ``_fused_update``): one layer-batched einsum (two in pulse-train mode)
+    and the epilogue, with the counter PRNG's field in kernel-noise
+    mode."""
     acc = torch.einsum("lbk,lbn->lkn", x_q, d_q)
     if noise_mode == "kernel":
         noise = field_normals(seed, g.shape, cfg, device=g.device)
     elif noise_mode == "none":
         noise = None
+    if cfg.update_mode == "pulse_train":
+        a_abs = torch.einsum("lbk,lbn->lkn", torch.abs(x_q), torch.abs(d_q))
+        return _pulse_epilogue(g, acc, a_abs, scale[:, None, None], noise,
+                               cfg.device)
     return _device_epilogue(g, scale[:, None, None] * acc, noise,
                             cfg.device)
 
@@ -263,9 +312,10 @@ def _library():
     if _lib is None:
         lib = _nvcc.load(SOURCE)
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        lib.xbar_outer_update.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                          u, _DeviceParams, p]
-        lib.xbar_outer_update.restype = ctypes.c_int
+        for fn in (lib.xbar_outer_update, lib.xbar_pulse_update):
+            fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, u,
+                           _DeviceParams, p]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -273,8 +323,9 @@ def _library():
 def _update_cuda(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
                  noise: Optional[Tensor], seed: Optional[int],
                  cfg: CrossbarConfig, noise_mode: str) -> Tensor:
-    """Launch the rank-k write on (L, K, N) / (L, T, K) / (L, T, N) /
-    (L,); returns the new conductances (a new tensor)."""
+    """Launch the rank-k write (in ``cfg.update_mode``) on (L, K, N) /
+    (L, T, K) / (L, T, N) / (L,); returns the new conductances (a new
+    tensor)."""
     tensors = {"g": g, "x_q": x_q, "d_q": d_q, "scale": scale}
     if noise is not None:
         tensors["noise"] = noise
@@ -292,21 +343,22 @@ def _update_cuda(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
         raise ValueError(f"operand shapes g {tuple(g.shape)} x_q "
                          f"{tuple(x_q.shape)} d_q {tuple(d_q.shape)} scale "
                          f"{tuple(scale.shape)} do not match")
+    pulse = cfg.update_mode == "pulse_train"
     lib = _library()
+    fn = lib.xbar_pulse_update if pulse else lib.xbar_outer_update
     out = torch.empty_like(g)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
-    err = lib.xbar_outer_update(
-        g.data_ptr(), x_q.data_ptr(), d_q.data_ptr(), scale.data_ptr(),
-        noise.data_ptr() if noise is not None else None, out.data_ptr(),
-        lyr, t_tok, k, n, cfg.rows, cfg.cols,
-        int(seed or 0) & _M32, device_params(cfg.device, noise_mode),
-        stream)
+    err = fn(g.data_ptr(), x_q.data_ptr(), d_q.data_ptr(), scale.data_ptr(),
+             noise.data_ptr() if noise is not None else None, out.data_ptr(),
+             lyr, t_tok, k, n, cfg.rows, cfg.cols,
+             int(seed or 0) & _M32, device_params(cfg.device, noise_mode),
+             stream)
     if err != 0:
-        raise RuntimeError(f"xbar_outer_update launch failed: CUDA error "
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error "
                            f"{err} (g {tuple(g.shape)}, T {t_tok}, tile "
                            f"{cfg.rows}x{cfg.cols})")
-    LAUNCHES["outer_update"] += 1
+    LAUNCHES["pulse_update" if pulse else "outer_update"] += 1
     return out
 
 
@@ -343,15 +395,12 @@ def xbar_outer_update(g: Tensor, x_q: Tensor, d_q: Tensor, scale,
     (``noise_mode="kernel"``), or an N(0, 1) ``noise`` field of ``g``'s
     shape (``noise_mode="host"``); ``noise_mode`` defaults as in the
     reference (``"none"`` for a noiseless device).  The write mode is
-    ``cfg.update_mode``; only ``"outer"`` is ported.  Returns new
+    ``cfg.update_mode``: ``"outer"`` or ``"pulse_train"``.  Returns new
     conductances in ``g.dtype``.
     """
-    if cfg.update_mode == "pulse_train":
-        raise NotImplementedError(
-            "update_mode='pulse_train' is not ported yet; see ROADMAP.md")
-    if cfg.update_mode != "outer":
-        raise ValueError(f"update_mode must be 'outer' or 'pulse_train', "
-                         f"got {cfg.update_mode!r}")
+    if cfg.update_mode not in UPDATE_MODES:
+        raise ValueError(f"update_mode must be one of {UPDATE_MODES}, got "
+                         f"{cfg.update_mode!r}")
     dev = cfg.device
     if dev.kind not in ("ideal", "linearized", "taox"):
         raise NotImplementedError(

@@ -14,13 +14,19 @@ One ``AnalogTrainStep`` call is the whole training rule:
      (L, T, K) / (L, T, N) tapes go into ONE launch of the layer-batched
      update kernel (``kernels.xbar_update.xbar_outer_update``) with
      ``scale = -lr * w_scale``, write noise from the in-kernel counter
-     PRNG keyed by ``_mix32(seed_base ^ crc32(path))``;
-  4. the digital leaves (embedding, norms) take plain SGD.
+     PRNG keyed by ``_mix32(seed_base ^ crc32(path))``, in the config's
+     update mode (``analog_update_mode``: the aggregate ``"outer"`` write
+     or ``"pulse_train"``, integer SET/RESET event counts);
+  4. the digital leaves (embedding, norms) take plain SGD;
+  5. with periodic carry (``analog_carry``), the writes land on each
+     container's ``g_carry`` array at ``carry_base`` times the scale, and
+     every ``carry_period`` steps a serial sweep folds the carry arrays
+     into their primaries (:meth:`AnalogTrainStep._carry_sweep`).
 
 The conductances are never updated in place: the step returns a new
-state.  The sharded step, periodic carry, pulse-train writes and the
-step's hardware cost roll-up (``step.cost``, which waits for the
-``hwmodel`` port) are not ported yet (ROADMAP.md).
+state.  The sharded step and the step's hardware cost roll-up
+(``step.cost``, which waits for the ``hwmodel`` port) are not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ import torch
 from repro_torch.configs.base import (AnalogMode, ModelConfig,
                                       resolve_analog_mode)
 from repro_torch.core import analog_registry as registry
+from repro_torch.core.adc import adc_quantize
+from repro_torch.core.periodic_carry import carry_fold
 from repro_torch.core.tiled_analog import (crossbar_from_model,
                                            is_analog_container, merge_tapes,
                                            split_tapes)
@@ -75,8 +83,7 @@ class AnalogTrainStep:
     it), or the integer ``seed_base`` itself (a test feeds the reference's
     ``jax.random.bits`` draw).  Noiseless devices need none.
 
-    ``mesh``, ``analog_carry`` and ``update_mode="pulse_train"`` are not
-    ported yet and raise.
+    ``mesh`` is not ported yet and raises.
     """
 
     def __init__(self, cfg: ModelConfig, lr: float, mesh=None):
@@ -88,14 +95,6 @@ class AnalogTrainStep:
                 f"AnalogTrainStep needs a device-mode config (resolved "
                 f"{resolve_analog_mode(cfg).value!r}); set analog=True, "
                 f"analog_mode={AnalogMode.DEVICE.value!r}")
-        if cfg.analog_carry:
-            raise NotImplementedError(
-                "periodic carry (analog_carry=True) is not ported yet; see "
-                "ROADMAP.md")
-        if cfg.analog_update_mode == "pulse_train":
-            raise NotImplementedError(
-                "update_mode='pulse_train' is not ported yet; see "
-                "ROADMAP.md")
         self.cfg = cfg
         self.lr = lr
         self.xcfg = crossbar_from_model(cfg)
@@ -130,6 +129,12 @@ class AnalogTrainStep:
         rail = []
         with torch.no_grad():
             new_params = self._update(params, diff, seed_base, (), rail)
+            if self.xcfg.carry and cfg.carry_period > 0 \
+                    and (int(state["step"]) + 1) % cfg.carry_period == 0:
+                # Periodic carry (paper §VI.B): every carry_period steps a
+                # serial closed-loop pass folds each container's carry
+                # (LSB) array into its primary one significance level up.
+                new_params = self._carry_sweep(new_params)
         if not rail:
             raise ValueError(
                 f"no analog containers in params for family {cfg.family!r}; "
@@ -159,17 +164,57 @@ class AnalogTrainStep:
         dev = self.xcfg.device
         seed = None if seed_base is None else container_seed(seed_base, path)
         mode = "none" if seed is None else "kernel"
-        scale = torch.tensor(-self.lr, dtype=torch.float32,
-                             device=p["g"].device) * p["w_scale"].float()
+        f32 = dict(dtype=torch.float32, device=p["g"].device)
+        scale = torch.tensor(-self.lr, **f32) * p["w_scale"].float()
+        # Periodic carry: every training write lands on the carry (LSB)
+        # array, one significance level below the primary, as a
+        # carry_base-times larger conductance move (the effective read
+        # divides by carry_base).  The primary moves only in the sweeps.
+        leaf = "g_carry" if "g_carry" in p else "g"
+        if leaf == "g_carry":
+            scale = scale * torch.tensor(self.xcfg.carry_base, **f32)
         g3, x3, d3, s1, unflatten = registry.flatten_lead(
-            kind, p["g"], tapes["x_tape"], tapes["d_tape"], scale)
+            kind, p[leaf], tapes["x_tape"], tapes["d_tape"], scale)
         g_new = unflatten(xbar_outer_update(
             g3, x3, d3, s1, self.xcfg, seed=seed, noise_mode=mode))
         span = dev.gmax - dev.gmin
         railed = (g_new <= dev.gmin + 1e-3 * span) \
             | (g_new >= dev.gmax - 1e-3 * span)
         rail.append(railed.sum().to(torch.float32) / railed.numel())
-        return {**p, "g": g_new}
+        return {**p, leaf: g_new}
+
+    def _carry_readout(self, v: Tensor) -> Tensor:
+        """Serial readout of a carry cell's signed value through the ADC
+        transfer (range ``w_swing``), as the reference's.  The range is a
+        tensor on ``v``'s device, so that ``v / lsb`` divides there (torch
+        multiplies by the reciprocal of a Python scalar on the card)."""
+        sat = torch.tensor(self.xcfg.w_swing, dtype=v.dtype, device=v.device)
+        return adc_quantize(v, sat, self.xcfg.adc)
+
+    def _carry_sweep(self, p):
+        """One serial carry pass (paper §VI.B): read each carry cell
+        through the ADC, fold the transferable amount into the primary
+        array one significance level up (closed-loop writes are exact),
+        and leave the residual (clamp leftovers and sub-lsb mass) in the
+        carry cell, where the effective read still sees it.
+        Elementwise."""
+        cfg = self.xcfg
+        dev = cfg.device
+
+        def sweep(q):
+            if is_analog_container(q):
+                if "g_carry" not in q:
+                    return q
+                t, inc = carry_fold(q["g_carry"], q["g"], q["ref"],
+                                    cfg.carry_base, cfg,
+                                    quantize=self._carry_readout)
+                g = torch.clamp(q["g"] + inc, dev.gmin, dev.gmax)
+                gc = torch.clamp(q["g_carry"] - t, dev.gmin, dev.gmax)
+                return {**q, "g": g, "g_carry": gc}
+            if isinstance(q, dict):
+                return {k: sweep(v) for k, v in q.items()}
+            return q
+        return sweep(p)
 
 
 def make_analog_sgd_step(cfg: ModelConfig, lr: float,

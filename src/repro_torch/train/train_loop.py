@@ -1,0 +1,74 @@
+"""Train-step builders for the digital (numeric) model.
+
+Port of ``repro.train.train_loop``: the float32 SGD baseline that the
+analog runs are measured against.  ``TrainState`` is a plain dict
+``{"params", "opt", "step", "err_fb"}``; the step returns a new state.
+Gradients come from ``torch.autograd`` through ``models.model.loss_fn``.
+Int8 gradient compression (``grad_compress``, ``train/compress.py``)
+is not ported yet (``ROADMAP.md``, multi-device queue).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple, Union
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+
+from .optimizer import Optimizer, clip_by_global_norm, tree_map
+
+Tensor = torch.Tensor
+
+
+def init_state(generator: Union[torch.Generator, int], cfg: ModelConfig,
+               optimizer: Optimizer, device="cuda") -> dict:
+    """A fresh train state: random parameters from ``generator`` (see
+    ``models.model.init_params``), the optimizer's state and a step
+    counter."""
+    params = M.init_params(cfg, generator, device)
+    return {"params": params, "opt": optimizer.init(params),
+            "step": torch.zeros((), dtype=torch.int32, device=device),
+            "err_fb": ()}
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
+                    clip_norm: float = 1.0,
+                    grad_compress: bool = False) -> Callable:
+    """``state, metrics = step(state, batch)``: the loss and its gradients,
+    the gradients clipped to ``clip_norm`` in global 2-norm, then the
+    optimizer's update.  ``metrics`` holds ``loss``, ``grad_norm`` (before
+    clipping), ``ce`` and ``aux``."""
+    if grad_compress:
+        raise NotImplementedError(
+            "int8 gradient compression (train/compress.py) is not ported "
+            "yet; see ROADMAP.md")
+
+    def train_step(state: dict, batch: Dict[str, Tensor]
+                   ) -> Tuple[dict, Dict[str, Tensor]]:
+        params = tree_map(lambda p: p.detach().requires_grad_(True),
+                          state["params"])
+        loss, metrics = M.loss_fn(params, batch, cfg)
+        loss.backward()
+        grads = tree_map(lambda p: p.grad if p.grad is not None
+                         else torch.zeros_like(p), params)
+        with torch.no_grad():
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+            new_params, opt = optimizer.update(
+                grads, state["opt"], tree_map(torch.Tensor.detach, params))
+        new_state = {"params": new_params, "opt": opt,
+                     "step": state["step"] + 1, "err_fb": state["err_fb"]}
+        out = {"loss": loss.detach(), "grad_norm": gnorm,
+               **{k: v.detach() for k, v in metrics.items()}}
+        return new_state, out
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig) -> Callable:
+    """``metrics = eval_step(params, batch)``: the loss without
+    gradients."""
+    def eval_step(params, batch):
+        with torch.no_grad():
+            loss, metrics = M.loss_fn(params, batch, cfg)
+        return {"loss": loss, **metrics}
+    return eval_step

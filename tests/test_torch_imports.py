@@ -52,7 +52,8 @@ def test_port_sources_and_chip_smoke_import_no_jax_or_repro():
 
 def test_probe_walks_the_kernel_modules():
     """The probe above imports every kernel module of the port, the
-    fakequant projection and flash attention among them."""
+    fakequant projection and flash attention among them, and the carry
+    and numeric-training modules."""
     import pkgutil
 
     import repro_torch
@@ -60,4 +61,6 @@ def test_probe_walks_the_kernel_modules():
                                                    "repro_torch.")}
     assert {"repro_torch.kernels.ops", "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.xbar_vmm", "repro_torch.kernels.xbar_update",
-            "repro_torch.models.layers"} <= names
+            "repro_torch.models.layers", "repro_torch.core.periodic_carry",
+            "repro_torch.train.optimizer",
+            "repro_torch.train.train_loop"} <= names

@@ -401,8 +401,6 @@ def test_container_seed_matches_reference_mix():
 
 @pytest.mark.parametrize("change,match", [
     (dict(mesh="2x4"), "sharded"),
-    (dict(analog_carry=True), "carry"),
-    (dict(analog_update_mode="pulse_train"), "pulse_train"),
 ])
 def test_unported_training_options_raise(change, match):
     mesh = change.pop("mesh", None)

@@ -109,6 +109,51 @@ def test_apply_update_matches_reference(name):
 
 
 @pytest.mark.parametrize("name", list(DEVICES))
+def test_pulse_epilogue_matches_reference(name):
+    """``_pulse_epilogue`` on the same accumulators: the rails, the event
+    counts (``pulse_dg`` is a power of two, so ``mag / pulse_dg`` is
+    exact) and the device's response, within 4 float32 ulp."""
+    jd, td = _dev(name)
+    rng = np.random.default_rng(10)
+    g, _, noise = _g_and_request(seed=10)
+    acc = (rng.standard_normal(g.shape) * 0.05).astype(np.float32)
+    a_abs = (np.abs(acc) + rng.uniform(0, 0.05, g.shape)).astype(np.float32)
+    m = np.float32(-0.6)
+    ref = np.asarray(JU._pulse_epilogue(
+        jnp.asarray(g), jnp.asarray(acc), jnp.asarray(a_abs), jnp.asarray(m),
+        jnp.asarray(noise), jd))
+    port = U._pulse_epilogue(
+        torch.from_numpy(g), torch.from_numpy(acc), torch.from_numpy(a_abs),
+        torch.tensor(m), torch.from_numpy(noise), td).numpy()
+    np.testing.assert_allclose(port, ref, rtol=0, atol=ULP4)
+    assert np.abs(port - g).max() > 4 * td.pulse_dg
+
+
+def test_pulse_update_dispatch_counts_and_source():
+    """``cfg.update_mode="pulse_train"`` dispatches as the outer mode does:
+    CPU tensors run the plain version and count no launch, the CUDA path
+    refuses them; the kernel source exports the pulse launcher and rounds
+    the counts half to even (``rintf``)."""
+    g, x_q, d_q, scale = (torch.from_numpy(a) for a in
+                          _update_operands(2, 5, 20, 12, False, seed=11))
+    cfg = CrossbarConfig(rows=16, cols=16, update_mode="pulse_train")
+    assert U.UPDATE_MODES == JU.UPDATE_MODES
+    before = dict(U.LAUNCHES)
+    out = U.xbar_outer_update(g, x_q, d_q, scale, cfg, seed=1)
+    assert set(U.LAUNCHES) == {"outer_update", "pulse_update"}
+    assert U.LAUNCHES == before and out.shape == g.shape
+    assert not torch.equal(out, U.xbar_outer_update(
+        g, x_q, d_q, scale, cfg.replace(update_mode="outer"), seed=1))
+    with pytest.raises(ValueError, match="CUDA"):
+        U.xbar_outer_update(g, x_q, d_q, scale, cfg, seed=1, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        U._update_cuda(g, x_q, d_q, scale, None, 1, cfg, "kernel")
+    src = U.SOURCE.read_text()
+    assert "xbar_pulse_update" in src and "rintf(" in src
+    assert "roundf" not in src
+
+
+@pytest.mark.parametrize("name", list(DEVICES))
 def test_device_epilogue_matches_reference(name):
     jd, td = _dev(name)
     g, dg, noise = _g_and_request(seed=1)
@@ -234,9 +279,6 @@ def test_update_dispatch_and_argument_checks_raise():
         U.xbar_outer_update(g, x_q, d_q, scale, cfg)   # noisy, no seed
     with pytest.raises(ValueError, match="noise field"):
         U.xbar_outer_update(g, x_q, d_q, scale, cfg, noise_mode="host")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        U.xbar_outer_update(g, x_q, d_q, scale,
-                            cfg.replace(update_mode="pulse_train"), seed=1)
     with pytest.raises(ValueError, match="update_mode"):
         U.xbar_outer_update(g, x_q, d_q, scale,
                             cfg.replace(update_mode="outr"), seed=1)
