@@ -8,12 +8,16 @@ xbar_vmm.cu``: the forward and transpose reads; ``xbar_update.cu``: the
 rank-k write, outer and pulse-train; ``xbar_fakequant.cu``: the fakequant
 read;
 ``flash_attention.cu``) with one nvcc per source, all started together,
-then runs these phases and exits non-zero if any gate fails:
+checks in ``cuobjdump -sass`` that the tensor-core read kernels and every
+flash-attention instance issue HMMA (tensor-core) instructions, then runs
+these phases and exits non-zero if any gate fails:
 
 1. forward read vs plain version on the card, at the shapes of lm100m's
-   four crossbar containers (64x64 tiles) at decode (B=4) and
-   prefill-chunk (B=16) batch sizes, plus a ragged case, 128x128,
-   256x256 and 1024x1024 tiles and a large-batch case.  Two parity
+   four crossbar containers (64x64 tiles) at decode (B=4), prefill-chunk
+   (B=16) and training (B=2048) batch sizes, plus a ragged case, 128x128,
+   256x256 and 1024x1024 tiles and a large-batch case on the FP32
+   instance (B <= 16) and the tensor-core one (B > 16; also 48x48 tiles),
+   and a 12-bit DAC case (the FP32 instance at B > 16).  Two parity
    classes:
      * fixed ADC range with a power-of-two lsb on conductances on the
        device's 1/256 pulse grid: every tile charge is an exact float32
@@ -25,16 +29,21 @@ then runs these phases and exits non-zero if any gate fails:
        within one lsb per reduction tile (times the output scale) of the
        plain version, and fewer than 1% of the elements may differ by
        more than 1e-5 relative.
-   Full-width decode cases are timed (kernel device time from
-   torch.profiler, or back-to-back CUDA-event time where the profiler
-   records no kernel; conductances cycled through copies so each read
-   misses L2) against their byte bound.
+   Full-width decode and training cases are timed (kernel device time
+   from torch.profiler, and back-to-back CUDA-event time beside it, which
+   stands in where the profiler records no kernel; conductances cycled
+   through copies so each read misses L2) against the FP32 bound (bytes
+   at decode, operations at B=2048), beside the tensor-core instance's
+   own bound.
 2. lm100m at full width served from programmed TaOx crossbars (random
    weights from torch.Generator seed 0) by the continuous scheduler: 4
    slots, prefill chunk 16, 4 prompts of 8-16 tokens, 32 greedy tokens.
    The read count must be 48 (4 containers x 12 layers) per model call;
-   each read launches the tile kernel and the kernel that sums the tile
-   partials in K order.  One digital-backend request follows.
+   each read launches its read kernel and either the kernel that sums the
+   tile partials in K order (FP32 instance) or the pre-pass (DAC codes,
+   split conductance pair) and
+   the range pass (tensor-core instance).  One digital-backend request
+   follows.
 3. the same weights and tokens on the card and on the CPU (the plain
    version): prefill logits and 4 decode steps fed the card's greedy
    tokens.  Gates: every read of the card's run against the plain version
@@ -48,8 +57,9 @@ then runs these phases and exits non-zero if any gate fails:
    Then a prefill and one decode step at the config's default 1024x1024
    tiles, every read against the plain version (phase 1's bound).
 5. transpose read vs plain version on the card: the four containers at
-   training (B = T = 2048, timed against the FP32 bound) and B = 16, a
-   ragged case, 128x128 and 1024x1024 tiles; the same two classes, the
+   training (B = T = 2048, timed as phase 1) and B = 16, a ragged case,
+   128x128 and 1024x1024 tiles, and on the tensor-core instance 48x48
+   tiles and 128/256/1024 tiles at B = 64; the same two classes, the
    dynamic one within one lsb per N tile.
 6. rank-k write vs plain version on the card at each container's
    (12, K, N) with T = 2048: (a) ideal device, no noise, power-of-two
@@ -62,7 +72,8 @@ then runs these phases and exits non-zero if any gate fails:
    DAC/ADC, lr 0.1): ``init_state`` from torch.Generator seed 0 and 4
    steps of ``make_analog_sgd_step`` on 8 x 256-token batches of the
    synthetic Markov stream.  Gates: 48 forward reads, 48 transpose reads
-   (each with its tile-order sum) and 4 update launches per step; every
+   (each on the tensor-core instance, with its pre-pass and range
+   launches; no tile-order sum) and 4 update launches per step; every
    launch of step 1 against its plain version on the card on its own
    operands (phases 1, 5 and 6's bounds); the digital leaves after step 1
    against a CPU run of the step that replays the card's read and write
@@ -97,9 +108,10 @@ then runs these phases and exits non-zero if any gate fails:
    heads of 64, starcoder2-3b 24/2 of 128, gemma-2b 8/1 of 256 at
    S = 1024, causal; a full Sq 512 x Skv 2048 case), each in float32
    (within 1e-4 of the plain version) and bfloat16 (3e-2), every case
-   through ``flash_attention`` with the count set to 0 first; timed
-   against the operations bound (FP32 rate for float32, bf16 tensor-core
-   rate for bfloat16) beside scaled_dot_product_attention.
+   through ``flash_attention`` with the count set to 0 first; timed by
+   the profiler and by CUDA events against the operations bound (FP32
+   rate for float32, bf16 tensor-core rate for bfloat16) beside
+   scaled_dot_product_attention.
 12. pulse-train write vs plain version on the card at each container's
    (12, K, N) with T = 2048 and 64x64 tiles: (a) ideal device, no noise,
    power-of-two operands: bit-equal; (b) TaOx with counter-PRNG noise and
@@ -144,6 +156,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOPS = 67e12            # H100 SXM data sheet, FP32 outside tensor cores
+BF16_FLOPS = 989e12           # H100 SXM data sheet, dense bf16 tensor cores
+TF32_FLOPS = 495e12           # H100 SXM data sheet, dense TF32 tensor cores
 L2_BYTES = 50e6
 
 
@@ -163,11 +177,24 @@ def kernel_us(prof):
                if e.device_type != DeviceType.CPU)
 
 
+def per_call_us(events, n_iter):
+    """Device time per call, in µs, of the kernel events ``events`` a
+    profiler run of ``n_iter`` calls recorded: each kernel's mean event
+    time times its launches per call, taken as ceil(count / n_iter).  The
+    profiler drops a kernel event now and then (3 of 5 recorded in PR 14's
+    phase 12), and a total divided by ``n_iter`` would then read short."""
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               / e.count * math.ceil(e.count / n_iter)
+               for e in events if e.count)
+
+
 def device_ms(fn, n_iter, split=None):
     """Kernel time per call of ``fn`` on the card, from torch.profiler
-    (the launches' host overhead is left out); None if the profiler
-    recorded no kernel.  With ``split`` (names), also the time per call of
-    the kernels whose names contain each name: ``(ms, {name: ms})``."""
+    (the launches' host overhead is left out; see :func:`per_call_us`);
+    None if the profiler recorded no kernel.  With ``split`` (names), also
+    the time per call of the kernels whose names contain each name:
+    ``(ms, {name: ms})``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(0)
@@ -177,15 +204,14 @@ def device_ms(fn, n_iter, split=None):
         for i in range(n_iter):
             fn(i)
         torch.cuda.synchronize()
-    us = kernel_us(prof)
-    ms = us / n_iter / 1e3 if us > 0 else None
+    kernels = [e for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU]
+    us = per_call_us(kernels, n_iter)
+    ms = us / 1e3 if us > 0 else None
     if split is None:
         return ms
-    parts = {name: sum(getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
-                       for e in prof.key_averages()
-                       if e.device_type != DeviceType.CPU and name in e.key)
-             / n_iter / 1e3 for name in split}
+    parts = {name: per_call_us([e for e in kernels if name in e.key],
+                               n_iter) / 1e3 for name in split}
     return ms, parts
 
 
@@ -281,46 +307,103 @@ def read_agrees(y_k, y_p, x, g, ref, sc, cfg, transpose=False):
     return ok, err.max().item(), (err / bound).max().item(), share
 
 
+#: Kernels that must issue tensor-core MMAs (HMMA in their SASS), by the
+#: source they are built from.
+TENSOR_CORE_KERNELS = {"xbar_vmm.cu": ("tc_range_kernel", "tc_read_kernel"),
+                       "flash_attention.cu": ("flash_attention_kernel",)}
+
+
+def tensor_core_check(nvcc, K, FA):
+    """HMMA instructions per kernel function in ``cuobjdump -sass`` of the
+    built libraries; fails if a tensor-core kernel has none."""
+    counts = {}
+    for source in (K.SOURCE, FA.SOURCE):
+        sass = subprocess.run(
+            ["/usr/local/cuda/bin/cuobjdump", "-sass",
+             str(nvcc.library_path(source))], capture_output=True,
+            text=True, timeout=120).stdout
+        func, first = None, {}
+        for line in sass.splitlines():
+            if "Function :" in line:
+                func = line.split("Function :")[1].strip()
+                counts[func] = 0
+            elif "HMMA" in line and func is not None:
+                counts[func] += 1
+                first.setdefault(func, line.split(";")[0].split("*/")[-1]
+                                 .strip())
+        for name in TENSOR_CORE_KERNELS[source.name]:
+            funcs = [f for f in counts if name in f]
+            if not funcs or not all(counts[f] for f in funcs):
+                fail(f"{name} in {source.name}: no HMMA in its SASS "
+                     f"({ {f: counts[f] for f in funcs} })")
+            print(f"{source.name} {name}: HMMA in all {len(funcs)} "
+                  f"instances, e.g. {first[funcs[0]]}")
+    return counts
+
+
 def phase_kernel(K, cfg_of, report):
     """Kernel vs plain version at the slice's shapes; returns the rows."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     full = [(768, 2304), (768, 768), (768, 6144), (3072, 768)]
-    cases = [(k, n, b, 64, True) for b in (4, 16) for k, n in full]
+    cases = [(k, n, b, 64, True) for b in (4, 16, 2048) for k, n in full]
     cases += [(200, 72, 37, 64, False), (768, 2304, 16, 128, False),
               (768, 768, 384, 128, False), (768, 2304, 16, 256, False),
-              (768, 2304, 16, 1024, False)]
+              (768, 2304, 16, 1024, False),
+              # the tensor-core instance at the other tile sizes, and
+              # 48-line tiles (padded lines, blocks across output tiles)
+              (200, 72, 37, 48, False), (768, 2304, 64, 256, False),
+              (768, 2304, 64, 1024, False)]
     rows = []
     for k, n, b, tile, timed in cases:
         for cls in ("pow2", "dynamic"):
-            cfg = cfg_of(tile, cls)
-            x, g, ref, ws = make_operands(k, n, b, gen, cls == "pow2", dev)
-            sc = K.read_scales(x, ws, cfg.adc.in_levels)
-            y_k = K._read_cuda(x, g, ref, sc, cfg)
-            torch.cuda.synchronize()
-            y_p = K._read_plain(x, g, ref, sc, cfg)
-            err = (y_k - y_p).abs()
-            row = {"K": k, "N": n, "B": b, "tile": tile, "class": cls,
-                   "max_abs_err": err.max().item()}
-            if cls == "pow2":
-                ok = torch.equal(y_k, y_p)
-            else:
-                ok, _, _, row["flip_share"] = read_agrees(
-                    y_k, y_p, x, g, ref, sc, cfg)
-            row["ok"] = ok
-            if timed and cls == "dynamic":
-                row.update(time_read(K, x, g, ref, sc, cfg))
-            rows.append(row)
-            report(row)
-            if not ok:
-                fail(f"kernel disagrees with its plain version: {row}")
+            rows.append(kernel_case(K, cfg_of(tile, cls), k, n, b, tile, cls,
+                                    timed and cls == "dynamic", gen, report))
+    # a 12-bit DAC: codes not exact in bf16, so the FP32 instance at B > 16
+    cfg = cfg_of(64, "dac12")
+    if K.read_instance(64, cfg.adc.in_levels) != "fp32":
+        fail("a 12-bit DAC read would take the tensor-core instance")
+    rows.append(kernel_case(K, cfg, 768, 2304, 64, 64, "dac12", False, gen,
+                            report))
     return rows
 
 
+def kernel_case(K, cfg, k, n, b, tile, cls, timed, gen, report):
+    """One forward read against its plain version: bit-equal in the pow2
+    class, the one-lsb-per-tile bound otherwise."""
+    x, g, ref, ws = make_operands(k, n, b, gen, cls == "pow2", "cuda")
+    sc = K.read_scales(x, ws, cfg.adc.in_levels)
+    y_k = K._read_cuda(x, g, ref, sc, cfg)
+    torch.cuda.synchronize()
+    y_p = K._read_plain(x, g, ref, sc, cfg)
+    err = (y_k - y_p).abs()
+    row = {"K": k, "N": n, "B": b, "tile": tile, "class": cls,
+           "instance": K.read_instance(b, cfg.adc.in_levels),
+           "max_abs_err": err.max().item()}
+    if cls == "pow2":
+        ok = torch.equal(y_k, y_p)
+    else:
+        ok, _, _, row["flip_share"] = read_agrees(y_k, y_p, x, g, ref, sc,
+                                                  cfg)
+    row["ok"] = ok
+    if timed:
+        row.update(time_read(K, x, g, ref, sc, cfg))
+    report(row)
+    if not ok:
+        fail(f"kernel disagrees with its plain version: {row}")
+    return row
+
+
 def time_read(K, x, g, ref, sc, cfg, transpose=False):
-    """CUDA-event times of the kernel and the plain version, cycling over
-    copies of the conductances so each launch finds them out of L2."""
+    """Times of the kernel and the plain version, by torch.profiler and by
+    CUDA events (back to back, host launch cost included), cycling over
+    copies of the conductances so each launch finds them out of L2.  The
+    bound is the FP32 one (the function's flops at 67 TFLOP/s, or its
+    bytes).  Beside it, for the tensor-core instance: the function's
+    tensor-core floor (one pass of the three bf16 parts at 989 TFLOP/s)
+    and the design's own cost (twice that in dynamic range mode, whose
+    range pass recomputes the products), which is not a bound."""
     b, d = x.shape[1:]
     k, n = g.shape[1:]
     pair = 2 * g.numel() * 4
@@ -338,20 +421,40 @@ def time_read(K, x, g, ref, sc, cfg, transpose=False):
     def plain(i):
         return K._read_plain(x, gs[i % copies], rs[i % copies], sc, cfg,
                              transpose)
-    launch_ms = cuda_ms(kern, iters, sync)
+    events_ms = cuda_ms(kern, iters, sync)
+    events_plain_ms = cuda_ms(plain, iters, sync)
     ms, plain_ms = device_ms(kern, iters), device_ms(plain, iters)
     timing = "profiler"
-    if ms is None or plain_ms is None:  # host-bound event times instead
-        ms, plain_ms = launch_ms, cuda_ms(plain, iters, sync)
-        timing = "events"
+    if ms is None or plain_ms is None:  # the profiler saw no kernel
+        ms, plain_ms, timing = events_ms, events_plain_ms, "events"
     n_bytes = 4 * (b * d + 2 * k * n + 2 + b * (k + n - d))
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     bound_ms = 1e3 * max(t_bytes, t_ops)
-    return {"ms": ms, "plain_ms": plain_ms, "launch_ms": launch_ms,
-            "timing": timing,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_share": bound_ms / ms}
+    res = {"ms": ms, "plain_ms": plain_ms, "events_ms": events_ms,
+           "events_plain_ms": events_plain_ms, "timing": timing,
+           "bound_ms": bound_ms,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_share": bound_ms / ms}
+    if K.read_instance(b, cfg.adc.in_levels) == "tensor_core":
+        passes = 2 if cfg.adc.range_mode != "fixed" else 1
+        t_tc = 3 * flops / BF16_FLOPS
+        res["tc_floor_ms"] = 1e3 * max(t_bytes, t_tc)
+        res["tc_floor_share"] = res["tc_floor_ms"] / ms
+        res["tc_design_ms"] = 1e3 * max(t_bytes, passes * t_tc)
+    return res
+
+
+def print_read_time(what, r):
+    tc = (f", tensor-core floor {r['tc_floor_ms']:.4f} ms "
+          f"({100 * r['tc_floor_share']:.1f}% of it; the design's two "
+          f"passes {r['tc_design_ms']:.4f} ms)"
+          if "tc_floor_ms" in r else "")
+    print(f"  {what} K={r['K']} N={r['N']} B={r['B']} ({r['instance']}): "
+          f"kernel {r['ms']:.4f} ms ({r['timing']}; events "
+          f"{r['events_ms']:.4f}), plain {r['plain_ms']:.4f} ms (events "
+          f"{r['events_plain_ms']:.4f}), FP32 bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}, {100 * r['bound_share']:.1f}% of bound){tc}, "
+          f"max abs err {r['max_abs_err']:.3g}")
 
 
 def phase_serve(M, K, make_engine, SamplingParams, acfg, dcfg,
@@ -378,27 +481,36 @@ def phase_serve(M, K, make_engine, SamplingParams, acfg, dcfg,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = K.LAUNCHES["fused_vmm"]
-    reduces = K.LAUNCHES["reduce_tiles"]
+    by_kernel = read_kernel_launches([K.LAUNCHES], "vmm")
+    transposed = read_kernel_launches([K.LAUNCHES], "mvm")
+    tiles, reduces = (by_kernel["fused_read_tile_kernel"],
+                      by_kernel["reduce_tiles_kernel"])
+    tc_reads, preps, ranges = (by_kernel["tc_read_kernel"],
+                               by_kernel["read_prepare_kernel"],
+                               by_kernel["tc_range_kernel"])
     m = stream.metrics
     calls = m["prefill_chunks"] + m["decode_steps"]
     n_tok = sum(len(o) for o in outs)
     res = {"tokens": n_tok, "seconds": dt, "tokens_per_s": n_tok / dt,
            "model_calls": calls, "prefill_chunks": m["prefill_chunks"],
            "decode_steps": m["decode_steps"], "launches": launches,
-           "reduce_launches": reduces,
+           "launches_by_kernel": by_kernel,
            "prompt_lens": [len(p) for p in prompts]}
     report(res)
     print(f"analog serving: {n_tok} tokens in {dt:.3f} s = "
           f"{n_tok / dt:.1f} tokens/s ({calls} model calls, {launches} "
-          f"fused reads = {launches} tile-kernel + {reduces} K-order-sum "
-          f"launches)")
+          f"fused reads: {by_kernel})")
     per_call = 4 * acfg.n_layers      # wqkv, wo, w_upgate, w_down per layer
-    # every lm100m read spans several 64-row K tiles, so each read also
-    # launches the K-order sum
-    if launches != per_call * calls or reduces != launches or calls == 0:
-        fail(f"fused read launched {launches} tile and {reduces} sum "
-             f"kernels for {calls} model calls; expected "
-             f"{per_call * calls} of each")
+    # every lm100m read spans several 64-row K tiles, so an FP32 read also
+    # launches the K-order sum, and a tensor-core read (dynamic range) its
+    # pre-pass and range pass; serving makes no transpose read
+    if launches != per_call * calls or tiles + tc_reads != launches \
+            or reduces != tiles or preps != tc_reads or ranges != tc_reads \
+            or any(transposed.values()) or calls == 0:
+        fail(f"fused read launched {by_kernel} (transposed {transposed}) "
+             f"for {launches} reads in {calls} model calls; expected "
+             f"{per_call * calls} reads, each a tile launch with one sum or "
+             f"a tensor-core read with one pre-pass and one range launch")
     if [len(o) for o in outs] != [32] * 4 or \
             not all(0 <= t < acfg.vocab for o in outs for t in o):
         fail(f"bad analog outputs {outs}")
@@ -573,7 +685,7 @@ def phase_profile(M, acfg, aparams, report):
               if e.device_type != DeviceType.CPU]
     total = kernel_us(prof)
     read = sum(dev_us(e) for e in events
-               if "fused_read_tile" in e.key or "reduce_tiles" in e.key)
+               if any(name in e.key for name in READ_KERNELS))
     top = sorted(events, key=dev_us, reverse=True)[:8]
     res = {"wall_ms_per_step": 1e3 * wall / 4,
            "profiled_wall_ms_per_step": 1e3 * prof_wall / 4,
@@ -625,6 +737,35 @@ def phase_default_tiles(M, K, acfg, params, report):
     return res
 
 
+#: The read's kernels, as the profiler names them, and their launch counts
+#: in ``kernels.xbar_vmm.LAUNCHES`` (one per direction: ``{count}_vmm``,
+#: ``{count}_mvm``).
+READ_KERNEL_COUNTS = {"fused_read_tile_kernel": "read_tile",
+                      "reduce_tiles_kernel": "reduce_tiles",
+                      "read_prepare_kernel": "read_prepare",
+                      "tc_range_kernel": "read_range",
+                      "tc_read_kernel": "tc_read"}
+READ_KERNELS = tuple(READ_KERNEL_COUNTS)
+
+
+def read_kernel_launches(steps, direction):
+    """Launches of each of the read's kernels in one direction (``vmm`` or
+    ``mvm``), summed over ``steps`` (dicts of the wrappers' counts)."""
+    return {kernel: sum(step[f"{count}_{direction}"] for step in steps)
+            for kernel, count in READ_KERNEL_COUNTS.items()}
+
+
+def tensor_core_train_expect(n_layers, **others):
+    """A training step's expected launch counts: 4 forward and 4 transpose
+    reads per layer, each on the tensor-core instance with its pre-pass and
+    range pass, nothing on the FP32 instance; ``others`` the rest."""
+    reads = 4 * n_layers
+    expect = {"fused_vmm": reads, "fused_mvm": reads, **others}
+    for d in ("vmm", "mvm"):
+        for count in READ_KERNEL_COUNTS.values():
+            expect[f"{count}_{d}"] = 0 if count in ("read_tile",
+                                                   "reduce_tiles") else reads
+    return expect
 TRAIN_SHAPES = [("wqkv", 768, 2304), ("wo", 768, 768),
                 ("w_upgate", 768, 6144), ("w_down", 3072, 768)]
 
@@ -632,15 +773,19 @@ TRAIN_SHAPES = [("wqkv", 768, 2304), ("wo", 768, 768),
 def phase_mvm(K, cfg_of, report):
     """The transpose read against its plain version on the card: the four
     containers at training (B = T = 2048) and prefill-chunk (B = 16) batch
-    sizes, a ragged case and 128x128 / 1024x1024 tiles; pow2 class
-    bit-equal, dynamic class within one lsb per N tile."""
+    sizes, a ragged case and 128x128 / 1024x1024 tiles (FP32 instance),
+    and, on the tensor-core instance, 48x48 tiles and 128/256/1024 tiles at
+    B = 64; pow2 class bit-equal, dynamic class within one lsb per N
+    tile."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     cases = [(k, n, b, 64, b == 2048) for b in (2048, 16)
              for _, k, n in TRAIN_SHAPES]
     cases += [(200, 72, 37, 64, False), (768, 2304, 16, 128, False),
-              (768, 2304, 16, 1024, False)]
+              (768, 2304, 16, 1024, False), (200, 72, 37, 48, False),
+              (768, 2304, 64, 128, False), (768, 2304, 64, 256, False),
+              (768, 2304, 64, 1024, False)]
     rows = []
     for k, n, b, tile, timed in cases:
         for cls in ("pow2", "dynamic"):
@@ -652,6 +797,7 @@ def phase_mvm(K, cfg_of, report):
             torch.cuda.synchronize()
             y_p = K._read_plain(d, g, ref, sc, cfg, True)
             row = {"K": k, "N": n, "B": b, "tile": tile, "class": cls,
+                   "instance": K.read_instance(b, cfg.adc.in_levels),
                    "max_abs_err": (y_k - y_p).abs().max().item()}
             if cls == "pow2":
                 ok = torch.equal(y_k, y_p)
@@ -668,11 +814,7 @@ def phase_mvm(K, cfg_of, report):
                      f"{row}")
     for r in rows:
         if "ms" in r:
-            print(f"  MVM K={r['K']} N={r['N']} B={r['B']}: kernel "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
-                  f"({r['timing']}), bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']}, {100 * r['bound_share']:.1f}% of "
-                  f"bound), max abs err {r['max_abs_err']:.3g}")
+            print_read_time("MVM", r)
     print(f"phase 5: {len(rows)} transpose-read cases agree")
     return rows
 
@@ -831,7 +973,8 @@ def phase_train(K, U, TA, M, syn, tcfg, report):
     TaOx, counter-PRNG write noise) on batches of 8 x 256 tokens.
 
     Gates: each step launches 48 forward reads, 48 transpose reads (each
-    with its tile-order sum) and 4 updates; every launch of step 1 agrees
+    on the tensor-core instance: a pre-pass and a range launch beside it,
+    no tile-order sum) and 4 updates; every launch of step 1 agrees
     with its plain version on the card on its own operands (phases 1, 5
     and 6's bounds); the digital leaves after step 1 agree with a CPU run
     of the step that replays the card's read and write results, within
@@ -847,10 +990,9 @@ def phase_train(K, U, TA, M, syn, tcfg, report):
     rng.manual_seed(1)
     state0_cpu = tree_to(state, "cpu")
     n_layers = tcfg.n_layers
-    expect = {"fused_vmm": 4 * n_layers, "reduce_tiles": 4 * n_layers,
-              "fused_mvm": 4 * n_layers, "reduce_tiles_mvm": 4 * n_layers,
-              "fakequant": 0, "fakequant_epilogue": 0, "outer_update": 4,
-              "pulse_update": 0}
+    expect = tensor_core_train_expect(
+        n_layers, fakequant=0, fakequant_epilogue=0, outer_update=4,
+        pulse_update=0)
     reads, writes = [], []
     update_cuda = U._update_cuda
 
@@ -1017,17 +1159,23 @@ def profile_train_step(K, U, syn, step, state, stream, rng, expect,
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
-    groups = {"forward read tiles": "fused_read_tile_kernel<false",
-              "transpose read tiles": "fused_read_tile_kernel<true",
-              "tile-order sums": "reduce_tiles_kernel",
-              "rank-k writes": "update_kernel<false",
-              "pulse-train writes": "update_kernel<true"}
+    groups = {"forward reads": ("tc_read_kernel<false",
+                                "tc_range_kernel<false",
+                                "fused_read_tile_kernel<false"),
+              "transpose reads": ("tc_read_kernel<true",
+                                  "tc_range_kernel<true",
+                                  "fused_read_tile_kernel<true"),
+              "read pre-passes": ("read_prepare_kernel",),
+              "tile-order sums": ("reduce_tiles_kernel",),
+              "rank-k writes": ("update_kernel<false",),
+              "pulse-train writes": ("update_kernel<true",)}
     by = {g: 0.0 for g in groups}
     by["other (digital ops)"] = 0.0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CPU:
             continue
-        g = next((g for g, key in groups.items() if key in e.key),
+        g = next((g for g, keys in groups.items()
+                  if any(key in e.key for key in keys)),
                  "other (digital ops)")
         by[g] += dev_us(e) / 1e3 / n_steps
     busy = sum(by.values())
@@ -1426,7 +1574,6 @@ def phase_fq_card_vs_cpu(M, K, OPS, fcfg, params, report):
 # Phase 11: flash attention
 # --------------------------------------------------------------------------
 
-BF16_FLOPS = 989e12     # H100 SXM data sheet, dense bf16 tensor cores
 # name, B, Sq, Skv, H, KVH, hd, causal: the registry's attention shapes
 FA_CASES = [("lm100m", 1, 2048, 2048, 12, 12, 64, True),
             ("starcoder2-3b", 1, 2048, 2048, 24, 2, 128, True),
@@ -1438,7 +1585,7 @@ FA_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 def time_attention(FA, q, k, v, causal):
     """Device times of the kernel, the plain version and
     scaled_dot_product_attention (the same function: the library yardstick,
-    never called by the port)."""
+    never called by the port), by torch.profiler and by CUDA events."""
     F = torch.nn.functional
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sync = torch.cuda.synchronize
@@ -1446,11 +1593,13 @@ def time_attention(FA, q, k, v, causal):
            "plain_ms": lambda i: FA.flash_attention_ref(q, k, v, causal),
            "library_ms": lambda i: F.scaled_dot_product_attention(
                qt, kt, vt, is_causal=causal, enable_gqa=True)}
+    events = {name: cuda_ms(fn, 10, sync) for name, fn in fns.items()}
     res = {name: device_ms(fn, 10) for name, fn in fns.items()}
     res["timing"] = "profiler"
-    if any(t is None for t in res.values()):
-        res = {name: cuda_ms(fn, 10, sync) for name, fn in fns.items()}
+    if any(t is None for t in res.values()):  # the profiler saw no kernel
+        res = dict(events)
         res["timing"] = "events"
+    res.update({f"events_{name}": t for name, t in events.items()})
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     flops = 4 * b * h * sq * skv * hd * (0.5 if causal else 1.0)
@@ -1460,6 +1609,12 @@ def time_attention(FA, q, k, v, causal):
     res["bound_ms"] = 1e3 * max(t_bytes, t_ops)
     res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     res["bound_share"] = res["bound_ms"] / res["ms"]
+    # the tensor-core floor: bf16 products at their rate, float32 ones as
+    # the kernel's three TF32 products
+    t_tc = flops / BF16_FLOPS if q.dtype == torch.bfloat16 \
+        else 3 * flops / TF32_FLOPS
+    res["tc_floor_ms"] = 1e3 * max(t_bytes, t_tc)
+    res["tc_floor_share"] = res["tc_floor_ms"] / res["ms"]
     return res
 
 
@@ -1507,9 +1662,13 @@ def phase_flash(FA, report):
         print(f"  flash attention {name} {row['dtype']} (B={b}, Sq={sq}, "
               f"Skv={skv}, H={h}, KVH={kvh}, hd={hd}, causal={causal}): "
               f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-              f"sdpa {row['library_ms']:.4f} ms ({row['timing']}), bound "
+              f"sdpa {row['library_ms']:.4f} ms ({row['timing']}; events "
+              f"kernel {row['events_ms']:.4f}, sdpa "
+              f"{row['events_library_ms']:.4f}), bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
-              f"{100 * row['bound_share']:.2f}% of bound), max abs err "
+              f"{100 * row['bound_share']:.2f}% of bound), tensor-core "
+              f"floor {row['tc_floor_ms']:.4f} ms "
+              f"({100 * row['tc_floor_share']:.2f}% of it), max abs err "
               f"{row['max_abs_err']:.3g} (tol {tol})")
         if not ok:
             fail(f"flash attention disagrees with its plain version: {row}")
@@ -1582,11 +1741,8 @@ def profiled_kernel(fn, n_iter, name):
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type != DeviceType.CPU and name in e.key]
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in events)
-    return (us / n_iter / 1e3 if us > 0 else None,
-            sum(e.count for e in events))
+    us = per_call_us(events, n_iter)
+    return (us / 1e3 if us > 0 else None, sum(e.count for e in events))
 
 
 def pulse_operands(lyr, k, n, t, gen, case):
@@ -1767,10 +1923,9 @@ def phase_carry_train(K, U, TA, M, syn, tcfg, report):
     rng = torch.Generator(device="cuda")
     rng.manual_seed(1)
     n_layers = cfg.n_layers
-    expect = {"fused_vmm": 4 * n_layers, "reduce_tiles": 4 * n_layers,
-              "fused_mvm": 4 * n_layers, "reduce_tiles_mvm": 4 * n_layers,
-              "fakequant": 0, "fakequant_epilogue": 0, "outer_update": 0,
-              "pulse_update": 4}
+    expect = tensor_core_train_expect(
+        n_layers, fakequant=0, fakequant_epilogue=0, outer_update=0,
+        pulse_update=4)
     writes, swept, plain_calls = [], [], []
     update_cuda, sweep = U._update_cuda, step._carry_sweep
 
@@ -2028,11 +2183,13 @@ def main():
              for name, log in _nvcc.BUILD_LOGS.items()}
     print(f"built {', '.join(s.name for s in sources)} in {build_s:.1f} s; "
           + " | ".join(f"{n}: " + "; ".join(v) for n, v in ptxas.items()))
-    details["build"] = {"seconds": build_s, "ptxas": ptxas}
+    details["build"] = {"seconds": build_s, "ptxas": ptxas,
+                        "hmma": tensor_core_check(_nvcc, K, FA)}
 
     def cfg_of(tile, cls):
-        adc = (AdcConfig(range_mode="fixed", sat_frac=0.03125)
-               if cls == "pow2" else AdcConfig(range_mode="dynamic"))
+        adc = {"pow2": AdcConfig(range_mode="fixed", sat_frac=0.03125),
+               "dynamic": AdcConfig(range_mode="dynamic"),
+               "dac12": AdcConfig(in_bits=12, range_mode="dynamic")}[cls]
         return CrossbarConfig(rows=tile, cols=tile, adc=adc,
                               device=TAOX_NONOISE)
 
@@ -2040,12 +2197,7 @@ def main():
     rows = phase_kernel(K, cfg_of, reporter("kernel"))
     for r in rows:
         if "ms" in r:
-            print(f"  K={r['K']} N={r['N']} B={r['B']}: kernel {r['ms']:.4f} "
-                  f"ms, plain {r['plain_ms']:.4f} ms ({r['timing']}; "
-                  f"{r['launch_ms']:.4f} ms per back-to-back launch), byte "
-                  f"bound "
-                  f"{r['bound_ms']:.4f} ms ({100 * r['bound_share']:.1f}% "
-                  f"of bound), max abs err {r['max_abs_err']:.3g}")
+            print_read_time("VMM", r)
     print(f"phase 1: {len(rows)} kernel-vs-plain cases agree")
 
     acfg = get_config("lm100m").replace(
@@ -2098,33 +2250,42 @@ def main():
     fq_decode = [r for r in fq_rows if r["T"] == 4 and "ms" in r]
     fa_main = next(r for r in fa_rows
                    if r["case"] == "lm100m" and r["dtype"] == "float32")
+    fa_bf16 = next(r for r in fa_rows
+                   if r["case"] == "lm100m" and r["dtype"] == "bfloat16")
     t_pulse = [r for r in pulse_rows if "ms" in r]
+    t_vmm = [r for r in rows if r.get("B") == 2048 and "ms" in r]
+
+    n_vmm, n_mvm = total(tl, "fused_vmm"), total(tl, "fused_mvm")
     kernels = [{
         "name": "xbar_fused_vmm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_vmm.cu",
         "replaces": "src/repro/kernels/xbar_vmm.py:148",
         "launches": serve["launches"],
-        "launches_by_kernel": {"fused_read_tile_kernel": serve["launches"],
-                               "reduce_tiles_kernel":
-                                   serve["reduce_launches"]},
-        "launches_train": total(tl, "fused_vmm"),
+        "launches_by_kernel": serve["launches_by_kernel"],
+        "launches_train": n_vmm,
+        "launches_by_kernel_train": read_kernel_launches(tl, "vmm"),
         "max_abs_err": max(r["max_abs_err"] for r in decode),
         "ms": sum(r["ms"] for r in decode),
         "plain_ms": sum(r["plain_ms"] for r in decode),
         "bound_ms": sum(r["bound_ms"] for r in decode),
-        "bound_by": "bytes", "library_ms": None}, {
+        "bound_by": "bytes", "library_ms": None,
+        "train_ms": sum(r["ms"] for r in t_vmm),
+        "train_plain_ms": sum(r["plain_ms"] for r in t_vmm),
+        "train_bound_ms": sum(r["bound_ms"] for r in t_vmm),
+        "train_tc_floor_ms": sum(r["tc_floor_ms"] for r in t_vmm),
+        "train_tc_design_ms": sum(r["tc_design_ms"] for r in t_vmm)}, {
         "name": "xbar_fused_mvm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_vmm.cu",
         "replaces": "src/repro/kernels/xbar_vmm.py:171",
-        "launches": total(tl, "fused_mvm"),
-        "launches_by_kernel": {
-            "fused_read_tile_kernel": total(tl, "fused_mvm"),
-            "reduce_tiles_kernel": total(tl, "reduce_tiles_mvm")},
+        "launches": n_mvm,
+        "launches_by_kernel": read_kernel_launches(tl, "mvm"),
         "max_abs_err": max(r["max_abs_err"] for r in t_mvm),
         "ms": sum(r["ms"] for r in t_mvm),
         "plain_ms": sum(r["plain_ms"] for r in t_mvm),
         "bound_ms": sum(r["bound_ms"] for r in t_mvm),
-        "bound_by": "operations", "library_ms": None}, {
+        "bound_by": "operations", "library_ms": None,
+        "tc_floor_ms": sum(r["tc_floor_ms"] for r in t_mvm),
+        "tc_design_ms": sum(r["tc_design_ms"] for r in t_mvm)}, {
         "name": "xbar_outer_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
         "replaces": "src/repro/kernels/xbar_update.py:281",
@@ -2158,7 +2319,11 @@ def main():
         "max_abs_err": fa_main["max_abs_err"], "ms": fa_main["ms"],
         "plain_ms": fa_main["plain_ms"], "bound_ms": fa_main["bound_ms"],
         "bound_by": fa_main["bound_by"],
-        "library_ms": fa_main["library_ms"]}, {
+        "library_ms": fa_main["library_ms"],
+        "tc_floor_ms": fa_main["tc_floor_ms"],
+        "bf16": {key: fa_bf16[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
+            "tc_floor_ms")}}, {
         "name": "xbar_pulse_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
         "replaces": "src/repro/kernels/xbar_update.py:281 "
@@ -2172,13 +2337,21 @@ def main():
         "accumulates_bmm_ms_not_the_same_function": sum(
             r["accumulates_bmm_ms_not_the_same_function"] for r in t_pulse)}]
     details["kernels_line_note"] = (
-        "xbar_fused_vmm: launches counts the serving run's reads (each "
-        "launches the tile kernel and the K-order sum, launches_by_kernel), "
-        "launches_train the 4 training steps'; ms, plain_ms and bound_ms "
-        "sum one lm100m layer's four reads at decode (B=4, 64x64 tiles). "
+        "xbar_fused_vmm: launches counts the serving run's reads (each one "
+        "read-kernel launch: on the FP32 instance with its K-order sum, on "
+        "the tensor-core instance with its pre-pass and range "
+        "pass; launches_by_kernel), launches_train the 4 training steps'; "
+        "ms, plain_ms and bound_ms sum one lm100m layer's four reads at "
+        "decode (B=4, 64x64 tiles), train_* at training (B=T=2048, FP32 "
+        "bound; train_tc_floor_ms the function's tensor-core floor, one "
+        "pass of three bf16 parts; train_tc_design_ms the two-pass design's "
+        "own cost, not a bound). "
         "xbar_fused_mvm: launches counts the 4 training steps' transpose "
         "reads; ms, plain_ms and bound_ms sum one layer's four transpose "
-        "reads at training (B=T=2048). xbar_outer_update: launches counts "
+        "reads at training (B=T=2048; tc_floor_ms and tc_design_ms as "
+        "train_tc_*). launches_by_kernel counts each of the read's kernels "
+        "as the wrapper counted its launches. xbar_outer_update: launches "
+        "counts "
         "the 4 training steps' writes; ms, plain_ms and bound_ms sum the "
         "four containers' (12, K, N) writes at T=2048 with counter-PRNG "
         "noise. max_abs_err is the largest at those shapes (dynamic ADC "
@@ -2194,7 +2367,9 @@ def main():
         "matmul_ms_not_the_same_function. flash_attention: launches counts "
         "the calls of flash_attention in phase 11 (eight cases); ms, "
         "plain_ms, bound_ms and library_ms (scaled_dot_product_attention) "
-        "are lm100m's heads, float32, causal, S=2048. xbar_pulse_update: "
+        "are lm100m's heads, float32, causal, S=2048; bf16 the same in "
+        "bfloat16; tc_floor_ms the tensor-core floor (3xTF32 at 495 "
+        "TFLOP/s for float32, bf16 at 989). xbar_pulse_update: "
         "launches counts the pulse-train writes of phase 13(a)'s 4 training "
         "steps; ms, plain_ms and bound_ms sum the four containers' (12, K, "
         "N) pulse-train writes at T=2048 with counter-PRNG noise (phase "

@@ -5,9 +5,15 @@ Port of ``repro.kernels.flash_attention``.  The kernel in
 ``csrc/flash_attention.cu`` replaces the TPU kernel ``_fa_kernel``: online
 softmax over key/value blocks with the running max, sum and accumulator
 in float32, masked scores at -1e30 (top-left causal alignment), the
-result ``acc / max(l, 1e-30)`` in q's dtype.  Like the reference, nothing
-on the model path calls it: ``models.layers.attention`` computes its own
-attention in plain tensor ops.
+result ``acc / max(l, 1e-30)`` in q's dtype.  Its products run on the
+tensor cores (``mma.sync``): bf16 for bfloat16 inputs, with P rounded to
+bf16 for ``P @ V`` as the reference's own default-precision dot does on
+the TPU; 3xTF32 for float32 inputs (each operand split into ``hi =
+tf32(x)`` and ``lo = tf32(x - hi)``, each product formed as ``a_lo b_hi +
+a_hi b_lo + a_hi b_hi``).  Like the
+reference, nothing on the model path calls it:
+``models.layers.attention`` computes its own attention in plain tensor
+ops.
 
 A CUDA tensor launches the kernel or the call raises; a CPU tensor takes
 the plain version, :func:`flash_attention_ref`.

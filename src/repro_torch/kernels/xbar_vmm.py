@@ -34,11 +34,18 @@ kernel and the epilogue: ``LAUNCHES["fakequant"]`` and
 ``LAUNCHES["fakequant_epilogue"]`` count them.
 
 The kernels are built at first use from ``csrc/xbar_vmm.cu`` (see
-``kernels._nvcc``).  A forward read launches the tile kernel and, when K
-spans more than one tile, the kernel that sums the tile partials in K
-order: ``LAUNCHES["fused_vmm"]`` and ``LAUNCHES["reduce_tiles"]`` count
-them.  A transpose read does the same over the N tiles:
-``LAUNCHES["fused_mvm"]`` and ``LAUNCHES["reduce_tiles_mvm"]``.
+``kernels._nvcc``).  :func:`read_instance` picks one of its two instances
+from the operands.  Every read adds one to ``LAUNCHES["fused_vmm"]``
+(forward) or ``LAUNCHES["fused_mvm"]`` (transpose) when its read pass
+launches.  Each kernel also has a count per direction,
+``LAUNCHES[f"{kernel}_{direction}"]`` with ``direction`` ``vmm`` or
+``mvm``, taken from the launch record the launcher fills as it launches:
+``tc_read`` (the tensor-core instance's read pass), ``read_prepare`` (its
+pre-pass, which quantises the drives and splits the conductance pair once
+per read), ``read_range`` (its range pass, dynamic range only),
+``read_tile`` (the FP32 instance's tile kernel) and ``reduce_tiles`` (the
+FP32 instance's tile-order sum, when the reduction spans more than one
+tile).
 """
 from __future__ import annotations
 
@@ -58,13 +65,20 @@ Tensor = torch.Tensor
 
 READ_IMPLS = ("auto", "chain", "cuda", "eager")
 
-#: Launches of each kernel of this module; only the wrapper adds to it.
-LAUNCHES = {"fused_vmm": 0, "reduce_tiles": 0, "fused_mvm": 0,
-            "reduce_tiles_mvm": 0, "fakequant": 0, "fakequant_epilogue": 0}
+#: The read's kernels, in the order of the launcher's launch record.
+READ_KERNEL_COUNTS = ("read_tile", "reduce_tiles", "read_prepare",
+                      "read_range", "tc_read")
+#: Launches of each kernel of this module; only the wrappers add to it.
+LAUNCHES = {"fused_vmm": 0, "fused_mvm": 0,
+            **{f"{name}_{d}": 0 for d in ("vmm", "mvm")
+               for name in READ_KERNEL_COUNTS},
+            "fakequant": 0, "fakequant_epilogue": 0}
 
 SOURCE = _nvcc.CSRC / "xbar_vmm.cu"
 FAKEQUANT_SOURCE = _nvcc.CSRC / "xbar_fakequant.cu"
 FAKEQUANT_MAX_COLUMNS = 8192   # kMaxColumns of the source
+TC_MIN_BATCH = 17              # the tensor-core instance from this batch
+TC_MAX_LEVELS = 256            # kTcMaxLevels: DAC codes exact in bf16
 KERNEL_IMPLS = ("auto", "cuda", "eager")
 
 
@@ -124,7 +138,21 @@ def _read_plain(x: Tensor, g: Tensor, ref: Tensor, sc: Tensor,
 # The CUDA kernels
 # --------------------------------------------------------------------------
 
+def read_instance(batch: int, in_levels: int) -> str:
+    """The kernel instance a read of ``batch`` rows takes.
+
+    ``"tensor_core"`` for training batches and prefill (``batch`` > 16)
+    when the DAC codes are exact in bf16 (``in_levels`` <= 256: DACs of up
+    to 9 bits); ``"fp32"`` otherwise: decode and small prefill chunks,
+    where the bytes of the conductances bound the read, and wider DACs.
+    """
+    if batch >= TC_MIN_BATCH and in_levels <= TC_MAX_LEVELS:
+        return "tensor_core"
+    return "fp32"
+
+
 _lib = None
+_sms = {}   # device index -> SM count, after the device's one-time setup
 
 
 def _library():
@@ -133,9 +161,11 @@ def _library():
         lib = _nvcc.load(SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.xbar_read.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                  f, f, f, f, p]
+                                  i, f, f, f, f, i, p, p]
         lib.xbar_read.restype = ctypes.c_int
-        lib.xbar_read_scratch_floats.argtypes = [i, i, i, i, i, i, i]
+        lib.xbar_read_setup.argtypes = [ctypes.POINTER(i)]
+        lib.xbar_read_setup.restype = ctypes.c_int
+        lib.xbar_read_scratch_floats.argtypes = [i, i, i, i, i, i, i, i]
         lib.xbar_read_scratch_floats.restype = ctypes.c_longlong
         _lib = lib
     return _lib
@@ -170,30 +200,39 @@ def _read_cuda(x: Tensor, g: Tensor, ref: Tensor, sc: Tensor,
     adc = cfg.adc
     y = torch.empty((lyr, b, k if transpose else n), dtype=torch.float32,
                     device=x.device)
+    tc = read_instance(b, adc.in_levels) == "tensor_core"
     n_scratch = lib.xbar_read_scratch_floats(lyr, b, k, n, cfg.rows,
-                                             cfg.cols, int(transpose))
+                                             cfg.cols, int(transpose),
+                                             int(tc))
     scratch = torch.empty((n_scratch,), dtype=torch.float32,
                           device=x.device) if n_scratch else None
+    dev = x.device.index
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        if dev not in _sms:
+            sms = ctypes.c_int(0)
+            err = lib.xbar_read_setup(ctypes.byref(sms))
+            if err != 0:
+                raise RuntimeError(f"xbar_read_setup failed: CUDA error "
+                                   f"{err} on {x.device}")
+            _sms[dev] = sms.value
     n_rows = cfg.cols if transpose else cfg.rows
+    launched = (ctypes.c_int * len(READ_KERNEL_COUNTS))()
     err = lib.xbar_read(
         x.data_ptr(), g.data_ptr(), ref.data_ptr(), sc.data_ptr(),
         y.data_ptr(), scratch.data_ptr() if scratch is not None else None,
-        lyr, b, k, n, cfg.rows, cfg.cols, int(transpose),
+        lyr, b, k, n, cfg.rows, cfg.cols, int(transpose), int(tc),
         int(adc.range_mode != "fixed"), float(adc.in_levels),
-        float(adc.out_levels),
-        fixed_saturation(adc, n_rows, cfg.device.gmax),
-        float(adc.sat_sigmas), stream)
+        float(adc.out_levels), fixed_saturation(adc, n_rows, cfg.device.gmax),
+        float(adc.sat_sigmas), _sms[dev], stream, launched)
+    direction = "mvm" if transpose else "vmm"
+    for name, count in zip(READ_KERNEL_COUNTS, launched):
+        LAUNCHES[f"{name}_{direction}"] += count
+    LAUNCHES[f"fused_{direction}"] += launched[0] + launched[-1]
     if err != 0:
         raise RuntimeError(f"xbar_read launch failed: CUDA error {err} "
                            f"(x {tuple(x.shape)}, g {tuple(g.shape)}, tile "
                            f"{cfg.rows}x{cfg.cols}, transpose={transpose})")
-    tile, reduce = (("fused_mvm", "reduce_tiles_mvm") if transpose
-                    else ("fused_vmm", "reduce_tiles"))
-    LAUNCHES[tile] += 1
-    if n_scratch:  # more than one reduction tile: the tile-order sum ran
-        LAUNCHES[reduce] += 1
     return y
 
 

@@ -116,3 +116,99 @@ def test_kernel_source_is_built_for_hopper():
     for hd in FA.HEAD_DIMS:
         assert f"case {hd}:" in src
     assert set(FA.LAUNCHES) == {"flash_attention"}
+
+
+# --------------------------------------------------------------------------
+# The tensor-core kernel's arithmetic (what it computes on the card,
+# checked here in plain torch)
+# --------------------------------------------------------------------------
+
+def _attention(q, k, v, causal, qk, pv):
+    """The plain version's steps with the two products given: ``qk(q, k)``
+    the scores, ``pv(p, v)`` the output (float32 (B, S, H, hd))."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    kr = k.repeat_interleave(h // kvh, dim=2)
+    vr = v.repeat_interleave(h // kvh, dim=2)
+    s = qk(q.transpose(1, 2), kr.transpose(1, 2)) / np.sqrt(hd)
+    if causal:
+        mask = torch.tril(torch.ones((sq, k.shape[1]), dtype=torch.bool))
+        s = s.masked_fill(~mask, FA.NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return pv(p, vr.transpose(1, 2)).transpose(1, 2)
+
+
+def _mm(a, b):
+    return a @ b.transpose(-1, -2)
+
+
+def test_bf16_rounded_p_stays_within_bf16_tolerance():
+    """lm100m's heads (12 of 64), causal, S = 256: rounding P to bf16 before
+    ``P @ V`` (the bf16 kernel, and the reference's default-precision dot
+    on the TPU) stays within the 3e-2 bfloat16 tolerance of float32."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float()
+               for a in _inputs(1, 256, 256, 12, 12, 64, seed=3))
+    full = FA.flash_attention_ref(q, k, v, True)
+    rounded = _attention(
+        q, k, v, True, _mm,
+        lambda p, vv: p.to(torch.bfloat16).float() @ vv)
+    torch.testing.assert_close(rounded, full, rtol=3e-2, atol=3e-2)
+    assert (rounded - full).abs().max() > 0  # the rounding did something
+
+
+def _split_tf32(x):
+    """The float32 kernel's operand split (as it forms it on the card):
+    ``hi = tf32(x)``, ``lo = tf32(x - hi)`` (``cvt.rna``: round to nearest,
+    ties away from zero), both returned in float32."""
+    def tf32(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    hi = tf32(x.float())
+    return hi, tf32(x.float() - hi)
+
+
+def test_3xtf32_split_reproduces_float32_products():
+    """a_lo b_hi + a_hi b_lo + a_hi b_hi is within 1e-6 relative of a b,
+    and hi + lo rebuilds x within 2^-21 relative."""
+    rng = np.random.default_rng(4)
+    a, b = (torch.from_numpy(rng.standard_normal(100_000).astype(np.float32)
+                             * 10.0 ** rng.uniform(-3, 3, 100_000)
+                             .astype(np.float32)) for _ in range(2))
+    (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(b)
+    for x, (hi, lo) in ((a, (ah, al)), (b, (bh, bl))):
+        assert torch.equal(_split_tf32(hi)[0], hi)  # 10-bit mantissas
+        assert torch.equal(_split_tf32(lo)[0], lo)
+        rel = ((hi.double() + lo.double() - x.double()).abs()
+               / x.double().abs())
+        assert rel.max() <= 2.0 ** -21
+    prod = (al.double() * bh.double() + ah.double() * bl.double()
+            + ah.double() * bh.double())
+    exact = a.double() * b.double()
+    assert ((prod - exact).abs() / exact.abs()).max() <= 1e-6
+
+
+def _mm_3xtf32(a, b):
+    (ah, al), (bh, bl) = _split_tf32(a), _split_tf32(b)
+    return (_mm(al, bh) + _mm(ah, bl)) + _mm(ah, bh)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_attention_within_float32_tolerance(causal):
+    """Both products of the float32 kernel in 3xTF32 stay within the 1e-4
+    float32 tolerance of the plain version (GQA, hd 80)."""
+    q, k, v = (torch.from_numpy(a)
+               for a in _inputs(1, 128, 128, 4, 2, 80, seed=5))
+    got = _attention(q, k, v, causal, _mm_3xtf32,
+                     lambda p, vv: _mm_3xtf32(p, vv.transpose(-1, -2)))
+    torch.testing.assert_close(got, FA.flash_attention_ref(q, k, v, causal),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_kernel_source_uses_tensor_cores():
+    """bf16 inputs on m16n8k16 bf16 mma.sync, float32 on m16n8k8 TF32 in
+    three products, V through ldmatrix.trans, K/V copied with cp.async."""
+    src = FA.SOURCE.read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    assert "cvt.rna.tf32.f32" in src and "ldmatrix" in src
+    assert "cp.async" in src

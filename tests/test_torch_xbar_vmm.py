@@ -229,6 +229,150 @@ def test_transpose_dispatch_cpu_takes_plain_version_and_cuda_raises():
 def test_transpose_kernel_source_contracts_the_stored_columns():
     src = K.SOURCE.read_text()
     assert "_fused_mvm_kernel" in src and "kTranspose" in src
-    assert set(K.LAUNCHES) == {"fused_vmm", "reduce_tiles", "fused_mvm",
-                               "reduce_tiles_mvm", "fakequant",
-                               "fakequant_epilogue"}
+    assert set(K.LAUNCHES) == {
+        "fused_vmm", "fused_mvm", "fakequant", "fakequant_epilogue",
+        *(f"{name}_{d}" for d in ("vmm", "mvm")
+          for name in ("read_tile", "reduce_tiles", "read_prepare",
+                       "read_range", "tc_read"))}
+
+
+# --------------------------------------------------------------------------
+# The tensor-core instance's arithmetic (what the kernel computes on the
+# card, checked here in plain torch)
+# --------------------------------------------------------------------------
+
+def _pairs(kind, seed=5):
+    """Conductance pairs (g, ref) as float32 tensors."""
+    rng = np.random.default_rng(seed)
+    if kind == "taox_window":       # random pairs in the [0, 1] window
+        g = rng.uniform(0.0, 1.0, 4096)
+        ref = rng.uniform(0.0, 1.0, 4096)
+    elif kind == "near_zero":       # g within a few float32 ulp of ref
+        ref = rng.uniform(0.25, 0.75, 4096).astype(np.float32)
+        ulps = rng.integers(-40, 41, 4096)
+        g = ref.astype(np.float32).view(np.int32) + ulps
+        g = g.astype(np.int32).view(np.float32)
+    elif kind == "both_signs":      # wide magnitudes of either sign
+        mag = 10.0 ** rng.uniform(-6, 0, 4096)
+        ref = np.full(4096, 0.5)
+        g = ref + np.where(rng.random(4096) < 0.5, -1, 1) * mag * 0.5
+    else:                           # the device's 1/256 pulse grid
+        g = rng.integers(0, 257, 4096) / 256.0
+        ref = np.full(4096, 0.5)
+    return (torch.from_numpy(np.asarray(g, np.float32)),
+            torch.from_numpy(np.asarray(ref, np.float32)))
+
+
+def _split_bf16x3(d):
+    """The tensor-core instance's split of float32 ``d`` (as its pre-pass
+    forms it on the card): ``hi = bf16(d)``, ``mid = bf16(d - hi)``, ``lo =
+    bf16(d - hi - mid)``, each returned in float32."""
+    hi = d.to(torch.bfloat16).float()
+    r1 = d - hi
+    mid = r1.to(torch.bfloat16).float()
+    lo = (r1 - mid).to(torch.bfloat16).float()
+    return hi, mid, lo
+
+
+@pytest.mark.parametrize("kind", ["taox_window", "near_zero", "both_signs",
+                                  "pulse_grid"])
+def test_bf16x3_split_reconstructs_the_pair_exactly(kind):
+    """hi + mid + lo == g - ref bit for bit, each part a bf16 value; on the
+    pulse grid mid and lo are zero (the exact class)."""
+    g, ref = _pairs(kind)
+    d = g - ref
+    hi, mid, lo = _split_bf16x3(d)
+    for part in (hi, mid, lo):
+        assert torch.equal(part.to(torch.bfloat16).float(), part)
+    np.testing.assert_array_equal(
+        (hi.double() + mid.double() + lo.double()).numpy(),
+        d.double().numpy())
+    assert torch.equal((hi + mid) + lo, d)
+    if kind == "pulse_grid":
+        assert not mid.any() and not lo.any()
+
+
+@pytest.mark.parametrize("bits", range(2, 10))
+def test_code_times_part_products_are_exact(bits):
+    """Every product of a DAC code (|code| <= in_levels) and a bf16 part is
+    exact in float32, so the tensor cores' products equal the float64
+    ones."""
+    levels = AdcConfig(in_bits=bits).in_levels
+    g, ref = _pairs("taox_window", seed=bits)
+    parts = torch.cat(_split_bf16x3(g - ref))
+    codes = torch.arange(-levels, levels + 1, dtype=torch.float32)
+    prod32 = codes[:, None] * parts[None, :]
+    prod64 = codes.double()[:, None] * parts.double()[None, :]
+    np.testing.assert_array_equal(prod32.double().numpy(), prod64.numpy())
+    assert torch.equal(codes.to(torch.bfloat16).float(), codes)
+
+
+@pytest.mark.parametrize("batch,bits,instance", [
+    (1, 8, "fp32"), (4, 8, "fp32"), (16, 8, "fp32"), (17, 8, "tensor_core"),
+    (2048, 8, "tensor_core"), (2048, 2, "tensor_core"),
+    (2048, 9, "tensor_core"), (2048, 10, "fp32"), (2048, 12, "fp32")])
+def test_read_instance_is_chosen_from_batch_and_dac_levels(batch, bits,
+                                                           instance):
+    levels = AdcConfig(in_bits=bits).in_levels
+    assert K.read_instance(batch, levels) == instance
+
+
+def _tensor_core_read(x, g, ref, sc, cfg, transpose=False):
+    """The tensor-core instance's algorithm in plain torch: DAC codes once,
+    each tile's charge as the sum of the three bf16 parts' products, the
+    tile's range from its charges, ADC per tile, tiles summed in order."""
+    from repro_torch.core.adc import adc_quantize, integrator_saturation
+    levels = float(cfg.adc.in_levels)
+    codes = torch.clamp(torch.round(x / sc[:, 0, None, None]),
+                        -levels, levels)[0]
+    diff = (g - ref)[0]
+    rows, cols = cfg.rows, cfg.cols
+    if transpose:
+        rows, cols, diff = cols, rows, diff.T
+    n_red, n_out = diff.shape
+    y = None
+    for r0 in range(0, n_red, rows):
+        charges = torch.zeros((codes.shape[0], n_out))
+        for part in _split_bf16x3(diff[r0:r0 + rows]):
+            charges = charges + codes[:, r0:r0 + rows] @ part
+        p = torch.empty_like(charges)
+        for c0 in range(0, n_out, cols):
+            q, sat = integrator_saturation(
+                charges[:, c0:c0 + cols], cfg.adc, rows, cfg.device.gmax)
+            p[:, c0:c0 + cols] = adc_quantize(q, sat, cfg.adc)
+        y = p if y is None else y + p
+    return (y * sc[0, 1])[None]
+
+
+@pytest.mark.parametrize("transpose", [False, True], ids=["vmm", "mvm"])
+@pytest.mark.parametrize("cls", ["pow2", "dynamic"])
+def test_tensor_core_algorithm_matches_plain_read(cls, transpose):
+    """Exact class bit-equal; float class within the reference's 1e-5
+    (ragged 40 x 36 with 16-line tiles, 24 rows)."""
+    adc = POW2_ADC if cls == "pow2" else {"range_mode": "dynamic"}
+    _, tcfg = _configs(adc)
+    x, g, ref, ws = (torch.from_numpy(a)
+                     for a in _operands(40, 36, 24, lead=(1,), seed=6))
+    if cls == "pow2":
+        g = torch.round(g * 256.0) / 256.0
+    if transpose:
+        x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+            (1, 24, 36)).astype(np.float32))
+    sc = K.read_scales(x, ws, tcfg.adc.in_levels)
+    y_tc = _tensor_core_read(x, g, ref, sc, tcfg, transpose)
+    y_plain = K._read_plain(x, g, ref, sc, tcfg, transpose)
+    if cls == "pow2":
+        assert torch.equal(y_tc, y_plain)
+    else:
+        torch.testing.assert_close(y_tc, y_plain, rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_sources_use_tensor_cores():
+    """The large-batch read issues bf16 mma.sync products on three parts,
+    and keeps its FP32 instance for decode and wide DACs."""
+    src = K.SOURCE.read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    for name in ("read_prepare_kernel", "tc_range_kernel", "tc_read_kernel",
+                 "fused_read_tile_kernel", "reduce_tiles_kernel"):
+        assert name in src
+    assert f"kTcMaxLevels = {K.TC_MAX_LEVELS}" in src
