@@ -8,9 +8,10 @@ xbar_vmm.cu``: the forward and transpose reads; ``xbar_update.cu``: the
 rank-k write, outer and pulse-train; ``xbar_fakequant.cu``: the fakequant
 read;
 ``flash_attention.cu``) with one nvcc per source, all started together,
-checks in ``cuobjdump -sass`` that the tensor-core read kernels and every
-flash-attention instance issue HMMA (tensor-core) instructions, then runs
-these phases and exits non-zero if any gate fails:
+checks in ``cuobjdump -sass`` that the tensor-core read kernels, both
+tensor-core write instances and every flash-attention instance issue HMMA
+(tensor-core) instructions, then runs these phases and exits non-zero if
+any gate fails:
 
 1. forward read vs plain version on the card, at the shapes of lm100m's
    four crossbar containers (64x64 tiles) at decode (B=4), prefill-chunk
@@ -62,20 +63,30 @@ these phases and exits non-zero if any gate fails:
    tiles and 128/256/1024 tiles at B = 64; the same two classes, the
    dynamic one within one lsb per N tile.
 6. rank-k write vs plain version on the card at each container's
-   (12, K, N) with T = 2048: (a) ideal device, no noise, power-of-two
-   operand grids, where every product and sum is exact: bit-equal;
+   (12, K, N) with T = 2048, on the tensor-core instance (operands that
+   are integer codes times per-layer scales, with the scales): its
+   pre-pass bit-equal to its plain twin; (a) ideal device, no noise,
+   power-of-two scales, where every product and sum is exact: bit-equal;
    (b) TaOx with counter-PRNG noise and (c) TaOx with a host noise field:
    within 4 float32 ulp plus 1e-5 of each cell's move (a wrong hash moves
-   a cell by a write-noise sigma).  Timed against the FP32 bound, beside
-   torch.bmm of the accumulate alone (not the same function).
+   a cell by a write-noise sigma) of the plain twin of its own arithmetic
+   (exact sums) everywhere, and of the plain version everywhere but the
+   sum-rounding ties (``tc_write_agrees``).  The FP32 instance runs (b),
+   two ragged cases (48x63 and 64x15 tiles) and 1024x1024 tiles, held to
+   the same bound; the tensor-core instance runs them too.  (b) is timed
+   on both instances against the function's floor (bytes) and the FP32
+   bound, beside the pre-pass and torch.bmm of the accumulate alone (not
+   the same function).
 7. lm100m at full width trained in device mode (TaOx, 64x64 tiles, 8-bit
    DAC/ADC, lr 0.1): ``init_state`` from torch.Generator seed 0 and 4
    steps of ``make_analog_sgd_step`` on 8 x 256-token batches of the
    synthetic Markov stream.  Gates: 48 forward reads, 48 transpose reads
    (each on the tensor-core instance, with its pre-pass and range
-   launches; no tile-order sum) and 4 update launches per step; every
-   launch of step 1 against its plain version on the card on its own
-   operands (phases 1, 5 and 6's bounds); the digital leaves after step 1
+   launches; no tile-order sum) and 4 writes per step (each on the
+   tensor-core instance with its pre-pass; none on the FP32 instance);
+   every launch of step 1 against its plain version on the card on its
+   own operands (phases 1, 5 and 6's bounds; each write's operands are
+   codes times the scales it came with); the digital leaves after step 1
    against a CPU run of the step that replays the card's read and write
    results, within 1e-3 of each leaf's move plus 1e-6; finite losses and
    conductances inside the window.  Only step 1 records its launches: the
@@ -113,21 +124,25 @@ these phases and exits non-zero if any gate fails:
    rate for float32, bf16 tensor-core rate for bfloat16) beside
    scaled_dot_product_attention.
 12. pulse-train write vs plain version on the card at each container's
-   (12, K, N) with T = 2048 and 64x64 tiles: (a) ideal device, no noise,
-   power-of-two operands: bit-equal; (b) TaOx with counter-PRNG noise and
-   (c) with a host field: the float class — every cell within 4 float32
-   ulp plus 1e-5 of its move, or, where a rail's count sits at a tie
-   (mag / pulse_dg within 1e-4 relative of a half-integer) and the
-   accumulators' float32 order flips it, within one event plus the sigma
-   change, under 1e-3 of the cells; a ragged case (asymmetric TaOx,
-   skewed drives) and 1024x1024 tiles.  (b) timed by CUDA events, as
-   phase 6, against the operations bound (4 T K N flops per layer),
-   beside torch.bmm of the two accumulates alone (not the same function).
+   (12, K, N) with T = 2048 and 64x64 tiles, on the tensor-core instance:
+   (a) ideal device, no noise, power-of-two scales: bit-equal; (b) TaOx
+   with counter-PRNG noise and (c) with a host field: the float class —
+   every cell within 4 float32 ulp plus 1e-5 of its move, or, where a
+   rail's count sits at a tie (mag / pulse_dg within 1e-4 relative of a
+   half-integer) and the accumulators' float32 order flips it, within one
+   event plus the sigma change, under 1e-3 of the cells — and within 4
+   ulp plus 1e-5 of the move of its own arithmetic's plain twin; the FP32
+   instance on (b), a ragged case (asymmetric TaOx, skewed float drives:
+   FP32 only) and 1024x1024 tiles (both).  (b) timed by CUDA events on
+   both instances, as phase 6, against the floor (4 T K N flops per
+   layer) and the FP32 bound, beside torch.bmm of the two accumulates
+   alone (not the same function).
 13. (a) lm100m at full width trained with periodic carry (period 2, base
    4) and pulse-train writes, phase 7's settings, 4 steps.  Gates: 48
-   forward and 48 transpose reads and 4 pulse-train writes per step, no
+   forward and 48 transpose reads and 4 pulse-train writes per step, each
+   on the tensor-core instance with its pre-pass, no FP32-instance or
    outer write and no plain-version call; every write of step 1 against
-   its plain version on its own operands (phase 12's float class); step
+   its plain versions on its own operands (phase 12's float class); step
    1 leaves every primary array untouched and step 2's sweep moves it;
    the card's sweep against the CPU's on the card's own pre-sweep
    containers (bit-equal or one ADC code apart under 1e-3 of the cells),
@@ -310,14 +325,16 @@ def read_agrees(y_k, y_p, x, g, ref, sc, cfg, transpose=False):
 #: Kernels that must issue tensor-core MMAs (HMMA in their SASS), by the
 #: source they are built from.
 TENSOR_CORE_KERNELS = {"xbar_vmm.cu": ("tc_range_kernel", "tc_read_kernel"),
+                       "xbar_update.cu": ("tc_update_kernel",),
                        "flash_attention.cu": ("flash_attention_kernel",)}
 
 
-def tensor_core_check(nvcc, K, FA):
+def tensor_core_check(nvcc, sources):
     """HMMA instructions per kernel function in ``cuobjdump -sass`` of the
-    built libraries; fails if a tensor-core kernel has none."""
+    built libraries of ``sources``; fails if a tensor-core kernel has
+    none."""
     counts = {}
-    for source in (K.SOURCE, FA.SOURCE):
+    for source in sources:
         sass = subprocess.run(
             ["/usr/local/cuda/bin/cuobjdump", "-sass",
              str(nvcc.library_path(source))], capture_output=True,
@@ -830,107 +847,252 @@ def update_bound(g_p, g_old):
 
 
 def update_operands(lyr, k, n, t, gen, pow2):
+    """Operands of a write as the write drivers form them: integer codes
+    (8-bit rows, 4-bit columns) times one scale per layer.  Returns (g,
+    x_q, d_q, scale, x_scale, d_scale)."""
     dev = gen.device
     xi = torch.randint(-127, 128, (lyr, t, k), generator=gen, device=dev)
     di = torch.randint(-7, 8, (lyr, t, n), generator=gen, device=dev)
     if pow2:   # max|x| = 127 * 2^-7, max|d| = 7 * 2^-14: exact sums
-        x_q, d_q = xi.float() * 2.0 ** -7, di.float() * 2.0 ** -14
+        xs = torch.full((lyr,), 2.0 ** -7, device=dev)
+        ds = torch.full((lyr,), 2.0 ** -14, device=dev)
         scale = torch.full((lyr,), -2.0 ** -4, device=dev)
     else:      # lm100m's training regime: lr 0.1, w_scale about 1.7
-        x_q, d_q = xi.float() * (3.0 / 127), di.float() * (2e-4 / 7)
+        xs = torch.full((lyr,), 3.0 / 127, device=dev)
+        ds = torch.full((lyr,), 2e-4 / 7, device=dev)
         scale = -0.1 * (1.5 + 0.5 * torch.rand((lyr,), generator=gen,
                                                device=dev))
     g = 0.5 + 0.1 * torch.randn((lyr, k, n), generator=gen, device=dev)
-    return g.clamp(0, 1), x_q, d_q, scale
+    return (g.clamp(0, 1), xi.float() * xs[:, None, None],
+            di.float() * ds[:, None, None], scale, xs, ds)
+
+
+#: Under this share of the cells, a tensor-core write may use the
+#: sum-rounding allowance of ``tc_write_agrees`` (as ``pulse_agrees``
+#: allows count flips at ties).
+SUM_TIE_SHARE = 1e-3
+
+
+def tc_write_agrees(g_k, g_p, g_x, g, x_q, d_q, scale, cfg, z):
+    """The float class of a tensor-core write ``g_k`` on codes times scales.
+
+    Against ``g_x``, the plain twin of its own arithmetic
+    (``_update_tc_plain``: the same exact integer sums, ``fl(sum) *
+    fl(x_scale d_scale)`` and the same epilogue): ``update_bound`` on
+    every cell.  Against ``g_p``, the plain version (the reference's
+    float32 sum of ``x_q d_q``): pulse-train, ``pulse_agrees``; outer,
+    ``update_bound`` on every cell but the sum-rounding ties, cells where
+    the two plain versions already differ by more than ``update_bound``
+    (a float32 sum that cancels to its own rounding residual where the
+    exact sum is zero, magnified by sigma ~ sqrt|dg_req|), under
+    ``SUM_TIE_SHARE`` of the cells.  ``z`` is the write's normal field.
+    Returns (ok, max abs err vs g_p, largest err / bound vs g_x, share
+    of cells that used an allowance)."""
+    err_x = (g_k - g_x).abs()
+    over_x = (err_x / update_bound(g_x, g)).max().item()
+    if cfg.update_mode == "pulse_train":
+        ok, err, _, share = pulse_agrees(g_k, g_p, g, x_q, d_q, scale, cfg,
+                                         z)
+    else:
+        bound = update_bound(g_p, g)
+        tie = (g_x - g_p).abs() > bound
+        share = tie.float().mean().item()
+        err_p = (g_k - g_p).abs()
+        ok = bool(((err_p <= bound) | tie).all()) and share < SUM_TIE_SHARE
+        err = err_p.max().item()
+    return ok and over_x <= 1.0, err, over_x, share
+
+
+def codes_contract_ok(U, x_q, d_q, xs, ds, cfg):
+    """Whether the operands really are codes times their scales: the
+    pre-pass's plain twin, scaled back, gives x_q and d_q bit for bit."""
+    t_tok, k = x_q.shape[1:]
+    px, pd = U._update_codes_plain(x_q, d_q, xs, ds, cfg)
+    return (torch.equal(px[:, :t_tok, :k].float() * xs[:, None, None], x_q)
+            and torch.equal(pd[:, :t_tok, :d_q.shape[2]].float()
+                            * ds[:, None, None], d_q))
+
+
+def write_bounds(U, lyr, t, k, n, pulse, host):
+    """Times (ms) that bound one write: the function's floor (its tapes
+    read once, G in and out, and host noise, at the HBM rate; its products
+    at the bf16 tensor-core rate) and what bounds it, its bound on the
+    FP32 cores, the tensor-core design's own (plus the bf16 code planes
+    written and read once) and the pre-pass's (bytes)."""
+    flops = (4 if pulse else 2) * lyr * t * k * n
+    n_bytes = 4 * (lyr * t * (k + n) + 3 * lyr
+                   + lyr * k * n * (3 if host else 2))
+    tp, kp, np_ = U.update_code_dims(t, k, n)
+    planes = 2 * lyr * tp * (kp + np_)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_tc, t_fp = flops / BF16_FLOPS, flops / FP32_FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_tc),
+            "bound_by": "bytes" if t_bytes >= t_tc else "operations",
+            "bytes_ms": 1e3 * t_bytes, "tc_operations_ms": 1e3 * t_tc,
+            "fp32_bound_ms": 1e3 * max(t_bytes, t_fp),
+            "design_ms": 1e3 * max(t_bytes + 2 * planes / HBM_BYTES_PER_S,
+                                   t_tc),
+            "prepass_bound_ms": 1e3 * (4 * lyr * t * (k + n) + 8 * lyr
+                                       + planes) / HBM_BYTES_PER_S}
+
+
+def write_case(U, g, x_q, d_q, scale, xs, ds, noise, seed, mode, cfg,
+               exact, fp32, timed):
+    """One write against its plain versions on the card.  With the scales
+    ``xs``/``ds`` (codes times scales): the tensor-core instance, its
+    pre-pass bit-equal to the plain twin, the write bit-equal to the plain
+    version in the ``exact`` class, else ``tc_write_agrees``.  With
+    ``fp32`` (or no scales), the FP32 instance on the float operands:
+    bit-equal if ``exact``, else ``update_bound`` (outer) or
+    ``pulse_agrees`` (pulse-train).  ``timed``: CUDA-event times of each
+    instance, the pre-pass, the plain version and torch.bmm of the
+    accumulate(s) alone (not the same function), beside the bounds.
+    Returns the report row; fails on a disagreement."""
+    sync = torch.cuda.synchronize
+    pulse = cfg.update_mode == "pulse_train"
+    lyr, k, n = g.shape
+    t = x_q.shape[1]
+    g_p = U._update_plain(g, x_q, d_q, scale, noise, seed, cfg, mode)
+    z = None
+    if not exact:
+        z = noise if mode == "host" else U.field_normals(seed, g.shape, cfg,
+                                                         device="cuda")
+    row = {"max_move": (g_p - g).abs().max().item()}
+
+    def kern(i, scaled=True):
+        return U.xbar_outer_update(g, x_q, d_q, scale, cfg, noise=noise,
+                                   seed=seed, noise_mode=mode,
+                                   x_scale=xs if scaled else None,
+                                   d_scale=ds if scaled else None)
+    if xs is not None:
+        if not codes_contract_ok(U, x_q, d_q, xs, ds, cfg):
+            fail("write operands are not codes times their scales")
+        before = dict(U.LAUNCHES)
+        g_k = kern(0)
+        codes = U._update_prepare_cuda(x_q, d_q, xs, ds, cfg)
+        sync()
+        if (U.LAUNCHES["update_tc"] - before["update_tc"],
+                U.LAUNCHES["update_fp32"] - before["update_fp32"]) != (1, 0):
+            fail(f"a scaled write did not take the tensor-core instance: "
+                 f"{U.LAUNCHES}")
+        px, pd = U._update_codes_plain(x_q, d_q, xs, ds, cfg)
+        cx, cd = U.code_planes(codes, lyr, t, k, n)
+        row["prepass_ok"] = torch.equal(cx, px) and torch.equal(cd, pd)
+        del codes, cx, cd, px, pd
+        row["max_abs_err"] = (g_k - g_p).abs().max().item()
+        if exact:
+            ok = torch.equal(g_k, g_p)
+        else:
+            g_x = U._update_tc_plain(g, x_q, d_q, scale, noise, seed, cfg,
+                                     mode, xs, ds)
+            ok, _, row["max_err_over_twin_bound"], row["allowance_share"] = \
+                tc_write_agrees(g_k, g_p, g_x, g, x_q, d_q, scale, cfg, z)
+            del g_x
+        row["ok"] = ok and row["prepass_ok"]
+        del g_k
+        if not row["ok"]:
+            fail(f"tensor-core write disagrees with its plain versions: "
+                 f"{row}")
+    if fp32 or xs is None:
+        g_f = kern(0, scaled=False)
+        sync()
+        row["fp32_max_abs_err"] = (g_f - g_p).abs().max().item()
+        if exact:
+            ok = torch.equal(g_f, g_p)
+        elif pulse:
+            ok, _, _, row["fp32_tie_share"] = pulse_agrees(
+                g_f, g_p, g, x_q, d_q, scale, cfg, z)
+        else:
+            ok = bool(((g_f - g_p).abs() <= update_bound(g_p, g)).all())
+        row["fp32_ok"] = ok
+        del g_f
+        if not ok:
+            fail(f"FP32 write disagrees with its plain version: {row}")
+    if timed:
+        row["ms"] = cuda_ms(kern, 5, sync)
+        row["prepass_ms"] = cuda_ms(
+            lambda i: U._update_prepare_cuda(x_q, d_q, xs, ds, cfg), 5, sync)
+        row["prepass_plain_ms"] = cuda_ms(
+            lambda i: U._update_codes_plain(x_q, d_q, xs, ds, cfg), 3, sync)
+        row["fp32_ms"] = cuda_ms(lambda i: kern(i, scaled=False), 3, sync)
+        row["plain_ms"] = cuda_ms(
+            lambda i: U._update_plain(g, x_q, d_q, scale, noise, seed, cfg,
+                                      mode), 3, sync)
+        row.update(write_bounds(U, lyr, t, k, n, pulse, noise is not None))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["fp32_bound_share"] = row["fp32_bound_ms"] / row["fp32_ms"]
+        xt = x_q.transpose(1, 2).contiguous()
+        if pulse:
+            xa, da = xt.abs(), d_q.abs()
+            row["accumulates_bmm_ms_not_the_same_function"] = cuda_ms(
+                lambda i: (torch.bmm(xt, d_q), torch.bmm(xa, da)), 5, sync)
+        else:
+            row["accumulate_bmm_ms_not_the_same_function"] = cuda_ms(
+                lambda i: torch.bmm(xt, d_q), 5, sync)
+        del xt
+    return row
+
+
+def print_write(what, row):
+    bmm = row.get("accumulate_bmm_ms_not_the_same_function",
+                  row.get("accumulates_bmm_ms_not_the_same_function"))
+    print(f"  {what} (L {row['L']}, K {row['K']}, N {row['N']}) T="
+          f"{row['T']}: tensor cores {row['ms']:.3f} ms (pre-pass "
+          f"{row['prepass_ms']:.3f}), {100 * row['bound_share']:.1f}% of the "
+          f"floor {row['bound_ms']:.3f} ms ({row['bound_by']}; the design's "
+          f"own {row['design_ms']:.3f}); FP32 instance {row['fp32_ms']:.3f} "
+          f"ms, {100 * row['fp32_bound_share']:.1f}% of its bound "
+          f"{row['fp32_bound_ms']:.3f}; plain {row['plain_ms']:.3f} ms; "
+          f"torch.bmm of the accumulate(s) alone (not the same function) "
+          f"{bmm:.3f} ms; max abs err {row['max_abs_err']:.3g} (cells moved "
+          f"up to {row['max_move']:.3g}), allowance share "
+          f"{row.get('allowance_share', 0.0):.2g}")
 
 
 def phase_update(U, TAOX, CrossbarConfig, xcfg_of, report):
-    """The rank-k write against its plain version on the card, at each
-    container's (12, K, N) with T = 2048: (a) ideal device, no noise,
-    power-of-two operands — bit-equal; (b) TaOx, counter-PRNG noise and
-    (c) TaOx, host noise field — within ``update_bound``."""
+    """The rank-k write against its plain versions on the card, at each
+    container's (12, K, N) with T = 2048, through the tensor-core instance
+    (codes and scales from ``update_operands``): (a) ideal device, no
+    noise, power-of-two scales, bit-equal; (b) TaOx, counter-PRNG noise
+    and (c) TaOx, host noise field, ``tc_write_agrees``.  The FP32
+    instance runs the (b) cases too (``update_bound``), the ragged cases
+    and 1024x1024 tiles; both instances are timed on (b)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     rows = []
-    sync = torch.cuda.synchronize
-    for name, k, n in TRAIN_SHAPES:
-        for case in ("ideal", "kernel", "host"):
-            cfg = xcfg_of(case)
-            g, x_q, d_q, scale = update_operands(12, k, n, 2048, gen,
-                                                 case == "ideal")
-            noise = torch.randn(g.shape, generator=gen, device="cuda") \
-                if case == "host" else None
-            seed = 0x9E3779B9 if case == "kernel" else None
-            mode = {"ideal": "none"}.get(case, case)
-            g_k = U.xbar_outer_update(g, x_q, d_q, scale, cfg, noise=noise,
-                                      seed=seed, noise_mode=mode)
-            sync()
-            g_p = U._update_plain(g, x_q, d_q, scale, noise, seed, cfg,
-                                  mode)
-            err = (g_k - g_p).abs()
-            row = {"container": name, "L": 12, "K": k, "N": n, "T": 2048,
-                   "case": case, "max_abs_err": err.max().item(),
-                   "max_move": (g_p - g).abs().max().item()}
-            if case == "ideal":
-                ok = torch.equal(g_k, g_p)
-            else:
-                ok = bool((err <= update_bound(g_p, g)).all())
-            row["ok"] = ok
-
-            def kern(i):
-                return U.xbar_outer_update(g, x_q, d_q, scale, cfg,
-                                           noise=noise, seed=seed,
-                                           noise_mode=mode)
-
-            def plain(i):
-                return U._update_plain(g, x_q, d_q, scale, noise, seed, cfg,
-                                       mode)
-            row["ms"] = cuda_ms(kern, 5, sync)
-            row["plain_ms"] = cuda_ms(plain, 3, sync)
-            flops = 2 * 12 * 2048 * k * n
-            n_bytes = 4 * (12 * 2048 * (k + n) + 12
-                           + 12 * k * n * (3 if case == "host" else 2))
-            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-            row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-            row["bound_share"] = row["bound_ms"] / row["ms"]
-            if case == "kernel":
-                xt, dt = x_q.transpose(1, 2).contiguous(), d_q
-                row["accumulate_bmm_ms_not_the_same_function"] = cuda_ms(
-                    lambda i: torch.bmm(xt, dt), 5, sync)
-            rows.append(row)
-            report(row)
-            print(f"  update {name} (12, {k}, {n}) T=2048 {case}: kernel "
-                  f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
-                  f"bound {row['bound_ms']:.3f} ms "
-                  f"({100 * row['bound_share']:.1f}%), max abs err "
-                  f"{row['max_abs_err']:.3g} (cells moved up to "
-                  f"{row['max_move']:.3g})"
-                  + (f", torch.bmm of the accumulate alone (not the same "
-                     f"function) "
-                     f"{row['accumulate_bmm_ms_not_the_same_function']:.3f}"
-                     f" ms" if case == "kernel" else ""))
-            if not ok:
-                fail(f"update kernel disagrees with its plain version: {row}")
+    cases = [(name, 12, k, n, 2048, case, (64, 64), xcfg_of(case).device)
+             for name, k, n in TRAIN_SHAPES
+             for case in ("ideal", "kernel", "host")]
     # the epilogue's general TaOx branch (separate SET/RESET factors, a
     # linear SET side) and odd tile widths (one Box-Muller draw per cell)
-    for name, dev, tile in (
-            ("asym", TAOX.replace(nu_set=3.0, nu_reset=6.0, gain_set=1.2,
-                                  gain_reset=0.8), (48, 63)),
-            ("linear_set", TAOX.replace(nu_set=0.0), (64, 15))):
+    cases += [("asym", 2, 200, 72, 37, "kernel", (48, 63),
+               TAOX.replace(nu_set=3.0, nu_reset=6.0, gain_set=1.2,
+                            gain_reset=0.8)),
+              ("linear_set", 2, 200, 72, 37, "kernel", (64, 15),
+               TAOX.replace(nu_set=0.0)),
+              ("tile1024", 12, 768, 2304, 2048, "kernel", (1024, 1024),
+               TAOX)]
+    for name, lyr, k, n, t, case, tile, dev in cases:
         cfg = CrossbarConfig(rows=tile[0], cols=tile[1], device=dev)
-        g, x_q, d_q, scale = update_operands(2, 200, 72, 37, gen, False)
-        g_k = U.xbar_outer_update(g, x_q, d_q, scale, cfg, seed=7)
-        sync()
-        g_p = U._update_plain(g, x_q, d_q, scale, None, 7, cfg, "kernel")
-        err = (g_k - g_p).abs()
-        row = {"case": name, "tile": tile, "max_abs_err": err.max().item(),
-               "ok": bool((err <= update_bound(g_p, g)).all())}
+        g, x_q, d_q, scale, xs, ds = update_operands(lyr, k, n, t, gen,
+                                                     case == "ideal")
+        noise = torch.randn(g.shape, generator=gen, device="cuda") \
+            if case == "host" else None
+        seed = 0x9E3779B9 if case == "kernel" else None
+        mode = {"ideal": "none"}.get(case, case)
+        row = {"container": name, "L": lyr, "K": k, "N": n, "T": t,
+               "tile": list(tile), "case": case}
+        row.update(write_case(
+            U, g, x_q, d_q, scale, xs, ds, noise, seed, mode, cfg,
+            exact=case == "ideal", fp32=case == "kernel",
+            timed=case == "kernel" and tile == (64, 64)))
         rows.append(row)
         report(row)
-        if not row["ok"]:
-            fail(f"update kernel disagrees with its plain version: {row}")
-    print(f"phase 6: {len(rows)} update cases agree")
+        if "ms" in row:
+            print_write(f"update {name}", row)
+        del g, x_q, d_q, noise
+    print(f"phase 6: {len(rows)} update cases agree (tensor-core instance "
+          f"in all, FP32 instance in {sum('fp32_ok' in r for r in rows)})")
     return rows
 
 
@@ -948,23 +1110,60 @@ def tree_leaves(t, path=()):
         yield path, t
 
 
+def recording_writes(U, writes):
+    """A stand-in for ``U._update_cuda`` that records every write with its
+    operands (scales included) and result."""
+    update_cuda = U._update_cuda
+
+    def rec_write(g, x_q, d_q, scale, noise, seed, cfg, mode, x_scale=None,
+                  d_scale=None):
+        out = update_cuda(g, x_q, d_q, scale, noise, seed, cfg, mode,
+                          x_scale, d_scale)
+        writes.append(((g, x_q.clone(), d_q.clone(), scale.clone(), noise,
+                        seed, cfg, mode,
+                        None if x_scale is None else x_scale.clone(),
+                        None if d_scale is None else d_scale.clone()),
+                       out.clone()))
+        return out
+    return rec_write
+
+
+def check_writes(U, writes, what):
+    """Every recorded write of a training step against its plain versions
+    on its own operands: the operands are codes times the scales they came
+    with, and the write is in ``tc_write_agrees``'s class.  Returns the
+    worst figures."""
+    worst = {"max_abs_err": 0.0, "max_err_over_twin_bound": 0.0,
+             "max_allowance_share": 0.0}
+    for (g, x_q, d_q, scale, noise, seed, cfg, mode, xs, ds), out in writes:
+        if xs is None or not codes_contract_ok(U, x_q, d_q, xs, ds, cfg):
+            fail(f"a write of {what} came without scales that make its "
+                 f"operands codes times scales: g {tuple(g.shape)}")
+        g_p = U._update_plain(g, x_q, d_q, scale, noise, seed, cfg, mode)
+        g_x = U._update_tc_plain(g, x_q, d_q, scale, noise, seed, cfg, mode,
+                                 xs, ds)
+        z = U.field_normals(seed, g.shape, cfg, device="cuda") \
+            if mode == "kernel" else noise
+        ok, err, over, share = tc_write_agrees(out, g_p, g_x, g, x_q, d_q,
+                                               scale, cfg, z)
+        worst["max_abs_err"] = max(worst["max_abs_err"], err)
+        worst["max_err_over_twin_bound"] = max(
+            worst["max_err_over_twin_bound"], over)
+        worst["max_allowance_share"] = max(worst["max_allowance_share"],
+                                           share)
+        if not ok:
+            fail(f"a write of {what} disagrees with its plain versions: g "
+                 f"{tuple(g.shape)}, max err {err}, {over} of the twin's "
+                 f"bound, allowance share {share}")
+    return worst
+
+
 def check_step1(K, U, reads, writes):
     """Every launch of train step 1 against its plain version on the card,
     on that launch's own operands: reads with phase 1's bound, writes with
-    ``update_bound``.  Returns (worst read stats, write max abs err, write
-    max err / bound)."""
-    worst = check_reads(K, reads, where="cuda")
-    upd_err, upd_over = 0.0, 0.0
-    for (g, x_q, d_q, scale, noise, seed, cfg, mode), out in writes:
-        g_p = U._update_plain(g, x_q, d_q, scale, noise, seed, cfg, mode)
-        err = (out - g_p).abs()
-        over = (err / update_bound(g_p, g)).max().item()
-        upd_err, upd_over = max(upd_err, err.max().item()), max(upd_over,
-                                                                 over)
-        if over > 1:
-            fail(f"a write of train step 1 disagrees with the plain "
-                 f"version: g {tuple(g.shape)}, max err {err.max().item()}")
-    return worst, upd_err, upd_over
+    ``check_writes``.  Returns (worst read stats, worst write stats)."""
+    return check_reads(K, reads, where="cuda"), check_writes(
+        U, writes, "train step 1")
 
 
 def phase_train(K, U, TA, M, syn, tcfg, report):
@@ -974,9 +1173,11 @@ def phase_train(K, U, TA, M, syn, tcfg, report):
 
     Gates: each step launches 48 forward reads, 48 transpose reads (each
     on the tensor-core instance: a pre-pass and a range launch beside it,
-    no tile-order sum) and 4 updates; every launch of step 1 agrees
+    no tile-order sum) and 4 writes, each on the tensor-core instance with
+    its pre-pass, none on the FP32 instance; every launch of step 1 agrees
     with its plain version on the card on its own operands (phases 1, 5
-    and 6's bounds); the digital leaves after step 1 agree with a CPU run
+    and 6's bounds; the writes' operands are codes times the scales they
+    come with); the digital leaves after step 1 agree with a CPU run
     of the step that replays the card's read and write results, within
     1e-3 of each leaf's own move plus 1e-6 (float32 rounding of attention,
     norms, embedding, logits and their gradients remains); the loss is
@@ -992,15 +1193,10 @@ def phase_train(K, U, TA, M, syn, tcfg, report):
     n_layers = tcfg.n_layers
     expect = tensor_core_train_expect(
         n_layers, fakequant=0, fakequant_epilogue=0, outer_update=4,
-        pulse_update=0)
+        pulse_update=0, update_tc=4, update_prepare=4, update_fp32=0)
     reads, writes = [], []
     update_cuda = U._update_cuda
-
-    def rec_write(g, x_q, d_q, scale, noise, seed, cfg, mode):
-        out = update_cuda(g, x_q, d_q, scale, noise, seed, cfg, mode)
-        writes.append(((g, x_q.clone(), d_q.clone(), scale.clone(), noise,
-                        seed, cfg, mode), out.clone()))
-        return out
+    rec_write = recording_writes(U, writes)
 
     losses, rails, step_ms, launches, seeds = [], [], [], [], []
     for i in range(4):
@@ -1052,7 +1248,7 @@ def phase_train(K, U, TA, M, syn, tcfg, report):
     for path, g in tree_leaves(state["params"]):
         if path[-1] == "g" and not (g.min() >= 0 and g.max() <= 1):
             fail(f"conductances of {path} left the window")
-    worst, upd_err, upd_over = checked
+    worst, upd = checked
 
     # the digital leaves: a CPU run of step 1 replaying the card's reads
     # and writes
@@ -1102,9 +1298,8 @@ def phase_train(K, U, TA, M, syn, tcfg, report):
            "profile_step5": profile,
            "step1_reads_checked": n_reads, **{
                f"step1_reads_{k}": v for k, v in worst.items()},
-           "step1_writes_checked": n_writes,
-           "step1_write_max_abs_err": upd_err,
-           "step1_write_max_err_over_bound": upd_over,
+           "step1_writes_checked": n_writes, **{
+               f"step1_writes_{k}": v for k, v in upd.items()},
            "digital_leaves_max_abs_err_vs_cpu_replay": digital_err,
            "digital_leaves_max_err_over_bound": digital_over,
            "loss_card_vs_cpu_replay": loss_diff}
@@ -1116,7 +1311,9 @@ def phase_train(K, U, TA, M, syn, tcfg, report):
           f"GB (steps 2-4, unrecorded); step 1: {n_reads} reads (worst "
           f"{worst['max_err_over_bound']:.3f} of the bound, flip share at "
           f"most {worst['max_flip_share']:.2g}) and {n_writes} writes "
-          f"({upd_over:.3f} of the bound) agree with the plain versions; "
+          f"({upd['max_err_over_twin_bound']:.3f} of the twin's bound, "
+          f"allowance share at most {upd['max_allowance_share']:.2g}) agree "
+          f"with the plain versions; "
           f"digital leaves vs CPU replay {digital_err:.3g} "
           f"({digital_over:.3f} of the bound), loss differs by "
           f"{loss_diff:.3g}")
@@ -1159,6 +1356,7 @@ def profile_train_step(K, U, syn, step, state, stream, rng, expect,
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
+    # the first group whose key a kernel's name contains takes it
     groups = {"forward reads": ("tc_read_kernel<false",
                                 "tc_range_kernel<false",
                                 "fused_read_tile_kernel<false"),
@@ -1167,8 +1365,11 @@ def profile_train_step(K, U, syn, step, state, stream, rng, expect,
                                   "fused_read_tile_kernel<true"),
               "read pre-passes": ("read_prepare_kernel",),
               "tile-order sums": ("reduce_tiles_kernel",),
-              "rank-k writes": ("update_kernel<false",),
-              "pulse-train writes": ("update_kernel<true",)}
+              "write pre-passes": ("update_prepare_kernel",),
+              "rank-k writes": ("tc_update_kernel<false",),
+              "pulse-train writes": ("tc_update_kernel<true",),
+              "rank-k writes (FP32 instance)": ("update_kernel<false",),
+              "pulse-train writes (FP32 instance)": ("update_kernel<true",)}
     by = {g: 0.0 for g in groups}
     by["other (digital ops)"] = 0.0
     for e in prof.key_averages():
@@ -1747,31 +1948,34 @@ def profiled_kernel(fn, n_iter, name):
 
 def pulse_operands(lyr, k, n, t, gen, case):
     """Operands of a pulse-train write: ``update_operands`` (power-of-two
-    grids in the exact class, lm100m's regime otherwise), with the row
+    scales in the exact class, lm100m's regime otherwise), with the row
     drives leaning positive and the column drives negative in the
-    ``skewed`` case, so that the SET and RESET rails differ."""
-    g, x_q, d_q, scale = update_operands(lyr, k, n, t, gen,
-                                         case == "ideal")
+    ``skewed`` case, so that the SET and RESET rails differ: float
+    operands, no longer codes times scales (their scales are None)."""
+    g, x_q, d_q, scale, xs, ds = update_operands(lyr, k, n, t, gen,
+                                                 case == "ideal")
     if case == "ideal":   # several events per cell: m = -2^-2, still exact
         scale = torch.full_like(scale, -0.25)
     if case == "skewed":
-        x_q, d_q = x_q + 1.0, d_q - 1e-4
-    return g, x_q, d_q, scale
+        x_q, d_q, xs, ds = x_q + 1.0, d_q - 1e-4, None, None
+    return g, x_q, d_q, scale, xs, ds
 
 
 def phase_pulse_update(U, TAOX, IDEAL, CrossbarConfig, report):
-    """The pulse-train write against its plain version on the card, at
-    each container's (12, K, N) with T = 2048 and 64x64 tiles: (a) ideal
-    device, no noise, power-of-two operands — bit-equal; (b) TaOx,
-    counter-PRNG noise and (c) TaOx, host noise field — the float class
-    (``pulse_agrees``); then a ragged case (asymmetric TaOx, skewed
-    drives, 48x63 tiles) and a 1024x1024-tile case.  The (b) cases are
-    timed against the operations bound (two accumulates, 4 T K N flops
-    per layer), beside torch.bmm of the two accumulates alone (not the
-    same function); by CUDA events, as phase 6 times the outer write."""
+    """The pulse-train write against its plain versions on the card, at
+    each container's (12, K, N) with T = 2048 and 64x64 tiles, through the
+    tensor-core instance: (a) ideal device, no noise, power-of-two scales,
+    bit-equal; (b) TaOx, counter-PRNG noise and (c) TaOx, host noise
+    field, ``tc_write_agrees`` (``pulse_agrees`` against the plain
+    version).  The FP32 instance runs the (b) cases (``pulse_agrees``), a
+    ragged case (asymmetric TaOx, skewed float drives, 48x63 tiles: FP32
+    only) and 1024x1024 tiles (both).  The (b) cases are timed by CUDA
+    events, as phase 6, against the floors (two accumulates, 4 T K N
+    flops per layer), beside torch.bmm of the two accumulates alone (not
+    the same function); the profiler's time of the tensor-core kernel and
+    its count of kernel events beside them."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
-    sync = torch.cuda.synchronize
     asym = TAOX.replace(nu_set=3.0, nu_reset=6.0, gain_set=1.3,
                         gain_reset=0.7)
     cases = [(name, 12, k, n, 2048, case, 64, 64,
@@ -1784,68 +1988,35 @@ def phase_pulse_update(U, TAOX, IDEAL, CrossbarConfig, report):
     for name, lyr, k, n, t, case, tr, tc, dev in cases:
         cfg = CrossbarConfig(rows=tr, cols=tc, device=dev,
                              update_mode="pulse_train")
-        g, x_q, d_q, scale = pulse_operands(lyr, k, n, t, gen, case)
+        g, x_q, d_q, scale, xs, ds = pulse_operands(lyr, k, n, t, gen, case)
         noise = torch.randn(g.shape, generator=gen, device="cuda") \
             if case == "host" else None
         seed = None if case in ("ideal", "host") else 0x5EED1234
         mode = {"ideal": "none", "host": "host"}.get(case, "kernel")
-        g_k = U.xbar_outer_update(g, x_q, d_q, scale, cfg, noise=noise,
-                                  seed=seed, noise_mode=mode)
-        sync()
-        g_p = U._update_plain(g, x_q, d_q, scale, noise, seed, cfg, mode)
+        timed = case == "kernel" and tr == 64
         row = {"container": name, "L": lyr, "K": k, "N": n, "T": t,
-               "tile": [tr, tc], "case": case,
-               "max_abs_err": (g_k - g_p).abs().max().item(),
-               "max_move": (g_p - g).abs().max().item()}
-        if case == "ideal":
-            ok = torch.equal(g_k, g_p)
-        else:
-            z = noise if mode == "host" else U.field_normals(
-                seed, g.shape, cfg, device="cuda")
-            ok, _, row["max_err_over_ulp_bound"], row["tie_share"] = \
-                pulse_agrees(g_k, g_p, g, x_q, d_q, scale, cfg, z)
-        row["ok"] = ok = ok and row["max_move"] > dev.pulse_dg
-        if case == "kernel" and tr == 64:
-            def kern(i):
-                return U.xbar_outer_update(g, x_q, d_q, scale, cfg,
-                                           seed=seed, noise_mode=mode)
-
-            def plain(i):
-                return U._update_plain(g, x_q, d_q, scale, None, seed, cfg,
-                                       mode)
-            # CUDA events, as phase 6 times the outer write; the profiler's
-            # kernel time and its count of kernel events (5 expected)
-            # beside it
-            row["ms"] = cuda_ms(kern, 5, sync)
+               "tile": [tr, tc], "case": case}
+        row.update(write_case(U, g, x_q, d_q, scale, xs, ds, noise, seed,
+                              mode, cfg, exact=case == "ideal",
+                              fp32=case == "kernel", timed=timed))
+        if row["max_move"] <= dev.pulse_dg:
+            fail(f"pulse-train write case moved no cell by an event: {row}")
+        if timed:
             row["profiler_ms"], row["profiler_kernel_events"] = \
-                profiled_kernel(kern, 5, "update_kernel<true")
-            row["plain_ms"] = cuda_ms(plain, 3, sync)
-            flops = 4 * lyr * t * k * n
-            n_bytes = 4 * (lyr * t * (k + n) + lyr + 2 * lyr * k * n)
-            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-            row["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-            row["bound_share"] = row["bound_ms"] / row["ms"]
-            xt = x_q.transpose(1, 2).contiguous()
-            xa, da = xt.abs(), d_q.abs()
-            row["accumulates_bmm_ms_not_the_same_function"] = cuda_ms(
-                lambda i: (torch.bmm(xt, d_q), torch.bmm(xa, da)), 5, sync)
-            print(f"  pulse update {name} (12, {k}, {n}) T=2048: kernel "
-                  f"{row['ms']:.3f} ms (events; profiler "
-                  f"{row['profiler_ms']} ms over "
-                  f"{row['profiler_kernel_events']} kernel events), plain "
-                  f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
-                  f"({100 * row['bound_share']:.1f}%), torch.bmm of the two "
-                  f"accumulates alone (not the same function) "
-                  f"{row['accumulates_bmm_ms_not_the_same_function']:.3f} "
-                  f"ms; max abs err {row['max_abs_err']:.3g}, tie share "
-                  f"{row['tie_share']:.2g}")
+                profiled_kernel(
+                    lambda i: U.xbar_outer_update(
+                        g, x_q, d_q, scale, cfg, seed=seed, noise_mode=mode,
+                        x_scale=xs, d_scale=ds),
+                    5, "tc_update_kernel<true")
+            print_write(f"pulse update {name}", row)
+            print(f"    profiler: {row['profiler_ms']} ms over "
+                  f"{row['profiler_kernel_events']} kernel events")
         rows.append(row)
         report(row)
-        if not ok:
-            fail(f"pulse-train write disagrees with its plain version: "
-                 f"{row}")
-    print(f"phase 12: {len(rows)} pulse-train write cases agree")
+        del g, x_q, d_q, noise
+    print(f"phase 12: {len(rows)} pulse-train write cases agree "
+          f"(tensor-core instance in {sum('prepass_ok' in r for r in rows)},"
+          f" FP32 instance in {sum('fp32_ok' in r for r in rows)})")
     return rows
 
 
@@ -1903,9 +2074,11 @@ def phase_carry_train(K, U, TA, M, syn, tcfg, report):
     4 steps on phase 7's batches.
 
     Gates: 48 forward and 48 transpose reads and 4 pulse-train writes per
-    step, no outer write and no call of a plain version; every write of
-    step 1 against its plain version on the card on its own operands
-    (``pulse_agrees``); step 1 leaves every primary array untouched and
+    step (each on the tensor-core instance with its pre-pass, none on the
+    FP32 instance), no outer write and no call of a plain version; every
+    write of step 1 against its plain versions on the card on its own
+    operands, scales included (``check_writes``: ``pulse_agrees`` against
+    the plain version); step 1 leaves every primary array untouched and
     step 2's sweep moves it; the card's sweep at step 2 against the CPU's
     sweep of the card's own pre-sweep containers (``sweep_agrees``), with
     ``effective_g`` conserved within 1e-6; finite losses and conductances
@@ -1925,15 +2098,10 @@ def phase_carry_train(K, U, TA, M, syn, tcfg, report):
     n_layers = cfg.n_layers
     expect = tensor_core_train_expect(
         n_layers, fakequant=0, fakequant_epilogue=0, outer_update=0,
-        pulse_update=4)
+        pulse_update=4, update_tc=4, update_prepare=4, update_fp32=0)
     writes, swept, plain_calls = [], [], []
     update_cuda, sweep = U._update_cuda, step._carry_sweep
-
-    def rec_write(g, x_q, d_q, scale, noise, seed, wcfg, mode):
-        out = update_cuda(g, x_q, d_q, scale, noise, seed, wcfg, mode)
-        writes.append(((g, x_q.clone(), d_q.clone(), scale.clone(), noise,
-                        seed, wcfg, mode), out.clone()))
-        return out
+    rec_write = recording_writes(U, writes)
 
     def rec_sweep(p):
         swept.append(p)
@@ -1952,7 +2120,8 @@ def phase_carry_train(K, U, TA, M, syn, tcfg, report):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
-            with counting_calls(U, ["_update_plain"], plain_calls), \
+            with counting_calls(U, ["_update_plain", "_update_tc_plain",
+                                    "_update_codes_plain"], plain_calls), \
                     counting_calls(K, ["_read_plain"], plain_calls):
                 state, mets = step(state, batch, seed_base)
                 torch.cuda.synchronize()
@@ -1980,22 +2149,7 @@ def phase_carry_train(K, U, TA, M, syn, tcfg, report):
         if i == 0:
             if swept or g_moved != 0.0:
                 fail("step 1 of the carry run moved a primary array")
-            worst = {"max_abs_err": 0.0, "max_err_over_ulp_bound": 0.0,
-                     "max_tie_share": 0.0}
-            for (g, x_q, d_q, scale, noise, seed, wcfg, mode), out in writes:
-                g_p = U._update_plain(g, x_q, d_q, scale, noise, seed, wcfg,
-                                      mode)
-                z = U.field_normals(seed, g.shape, wcfg, device="cuda")
-                ok, err, over, share = pulse_agrees(out, g_p, g, x_q, d_q,
-                                                    scale, wcfg, z)
-                worst["max_abs_err"] = max(worst["max_abs_err"], err)
-                worst["max_err_over_ulp_bound"] = max(
-                    worst["max_err_over_ulp_bound"], over)
-                worst["max_tie_share"] = max(worst["max_tie_share"], share)
-                if not ok:
-                    fail(f"a pulse-train write of step 1 disagrees with "
-                         f"its plain version: g {tuple(g.shape)}, max err "
-                         f"{err}, tie share {share}")
+            worst = check_writes(U, writes, "carry+pulse train step 1")
             n_writes = len(writes)
             writes.clear()
         if i == 1:
@@ -2044,7 +2198,8 @@ def phase_carry_train(K, U, TA, M, syn, tcfg, report):
           f"{sum(warm) / len(warm):.1f} ms per step = "
           f"{res['tokens_per_s']:.0f} tokens/s, peak memory {peak_gb:.2f} "
           f"GB (steps 3-4); step 1: {n_writes} writes agree with the plain "
-          f"version (tie share at most {worst['max_tie_share']:.2g}); the "
+          f"versions (tie share at most {worst['max_allowance_share']:.2g}, "
+          f"{worst['max_err_over_twin_bound']:.3f} of the twin's bound); the "
           f"sweep of step 2 vs the CPU's: max err {sw_err:.3g}, "
           f"{sw_share:.2g} of the cells differ; effective_g conserved "
           f"within {eff_err:.3g}")
@@ -2133,6 +2288,36 @@ def phase_nonideality(U, K, TA, TL, TO, M, syn, tcfg, report, steps):
     return res
 
 
+def write_entry(rows, launches):
+    """The kernels-line figures of a write's tensor-core instance, summed
+    over ``rows`` (the four containers' timed writes), with its FP32
+    instance's beside them (``fp32_instance``: run by phases 6 and 12
+    only, so its launches on the main path are 0)."""
+    def tot(key):
+        return sum(r[key] for r in rows)
+    bmm = ("accumulates_bmm_ms_not_the_same_function"
+           if "accumulates_bmm_ms_not_the_same_function" in rows[0]
+           else "accumulate_bmm_ms_not_the_same_function")
+    return {
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": tot("ms"), "plain_ms": tot("plain_ms"),
+        "bound_ms": tot("bound_ms"),
+        "bound_by": "bytes" if tot("bytes_ms") >= tot("tc_operations_ms")
+        else "operations",
+        "library_ms": None,
+        "design_ms": tot("design_ms"), "fp32_bound_ms": tot("fp32_bound_ms"),
+        bmm: tot(bmm),
+        "fp32_instance": {
+            "name": "update_kernel (FP32 cores)", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
+            "launches": 0,
+            "max_abs_err": max(r["fp32_max_abs_err"] for r in rows),
+            "ms": tot("fp32_ms"), "plain_ms": tot("plain_ms"),
+            "bound_ms": tot("fp32_bound_ms"), "bound_by": "operations",
+            "library_ms": None}}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is false")
@@ -2184,7 +2369,8 @@ def main():
     print(f"built {', '.join(s.name for s in sources)} in {build_s:.1f} s; "
           + " | ".join(f"{n}: " + "; ".join(v) for n, v in ptxas.items()))
     details["build"] = {"seconds": build_s, "ptxas": ptxas,
-                        "hmma": tensor_core_check(_nvcc, K, FA)}
+                        "hmma": tensor_core_check(
+                            _nvcc, (K.SOURCE, U.SOURCE, FA.SOURCE))}
 
     def cfg_of(tile, cls):
         adc = {"pow2": AdcConfig(range_mode="fixed", sat_frac=0.03125),
@@ -2245,7 +2431,7 @@ def main():
         return sum(step[name] for step in launches)
     decode = [r for r in rows if r.get("B") == 4 and "ms" in r]
     t_mvm = [r for r in mvm_rows if r.get("B") == 2048 and "ms" in r]
-    t_upd = [r for r in upd_rows if r["case"] == "kernel"]
+    t_upd = [r for r in upd_rows if "ms" in r]
     tl = train["launches_per_step"]
     fq_decode = [r for r in fq_rows if r["T"] == 4 and "ms" in r]
     fa_main = next(r for r in fa_rows
@@ -2289,14 +2475,21 @@ def main():
         "name": "xbar_outer_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
         "replaces": "src/repro/kernels/xbar_update.py:281",
-        "launches": total(tl, "outer_update"),
-        "max_abs_err": max(r["max_abs_err"] for r in t_upd),
-        "ms": sum(r["ms"] for r in t_upd),
-        "plain_ms": sum(r["plain_ms"] for r in t_upd),
-        "bound_ms": sum(r["bound_ms"] for r in t_upd),
-        "bound_by": "operations", "library_ms": None,
-        "accumulate_bmm_ms_not_the_same_function": sum(
-            r["accumulate_bmm_ms_not_the_same_function"] for r in t_upd)}, {
+        "instance": "tensor_core (tc_update_kernel<false>, mma.sync "
+                    "m16n8k16 bf16)",
+        **write_entry(t_upd, total(tl, "update_tc"))}, {
+        "name": "xbar_update_prepare", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
+        "replaces": "src/repro/kernels/xbar_update.py:281 (the operands "
+                    "_update_kernel stages; pre-pass of the tensor-core "
+                    "write)",
+        "launches": total(tl, "update_prepare"),
+        "max_abs_err": 0.0 if all(r["prepass_ok"] for r in t_upd)
+        else None,
+        "ms": sum(r["prepass_ms"] for r in t_upd),
+        "plain_ms": sum(r["prepass_plain_ms"] for r in t_upd),
+        "bound_ms": sum(r["prepass_bound_ms"] for r in t_upd),
+        "bound_by": "bytes", "library_ms": None}, {
         "name": "xbar_fakequant_read", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_fakequant.cu",
         "replaces": "src/repro/kernels/xbar_vmm.py:247",
@@ -2328,14 +2521,10 @@ def main():
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
         "replaces": "src/repro/kernels/xbar_update.py:281 "
                     "(update_mode=\"pulse_train\")",
-        "launches": total(carry["launches_per_step"], "pulse_update"),
-        "max_abs_err": max(r["max_abs_err"] for r in t_pulse),
-        "ms": sum(r["ms"] for r in t_pulse),
-        "plain_ms": sum(r["plain_ms"] for r in t_pulse),
-        "bound_ms": sum(r["bound_ms"] for r in t_pulse),
-        "bound_by": "operations", "library_ms": None,
-        "accumulates_bmm_ms_not_the_same_function": sum(
-            r["accumulates_bmm_ms_not_the_same_function"] for r in t_pulse)}]
+        "instance": "tensor_core (tc_update_kernel<true>, mma.sync "
+                    "m16n8k16 bf16, two accumulates)",
+        **write_entry(t_pulse, total(carry["launches_per_step"],
+                                     "update_tc"))}]
     details["kernels_line_note"] = (
         "xbar_fused_vmm: launches counts the serving run's reads (each one "
         "read-kernel launch: on the FP32 instance with its K-order sum, on "
@@ -2350,11 +2539,20 @@ def main():
         "reads; ms, plain_ms and bound_ms sum one layer's four transpose "
         "reads at training (B=T=2048; tc_floor_ms and tc_design_ms as "
         "train_tc_*). launches_by_kernel counts each of the read's kernels "
-        "as the wrapper counted its launches. xbar_outer_update: launches "
-        "counts "
-        "the 4 training steps' writes; ms, plain_ms and bound_ms sum the "
-        "four containers' (12, K, N) writes at T=2048 with counter-PRNG "
-        "noise. max_abs_err is the largest at those shapes (dynamic ADC "
+        "as the wrapper counted its launches. xbar_outer_update: the "
+        "tensor-core instance; launches counts its launches in the 4 "
+        "training steps (phase 7); ms (the whole write, pre-pass included), "
+        "plain_ms and bound_ms sum the four containers' (12, K, N) writes "
+        "at T=2048 with counter-PRNG noise (phase 6(b)); bound_ms is the "
+        "function's floor (tapes read once and G in and out at the HBM "
+        "rate, products at the bf16 rate), design_ms the tensor-core "
+        "design's own (plus the bf16 code planes written and read), "
+        "fp32_bound_ms the bound on the FP32 cores; fp32_instance the same "
+        "write on the FP32 instance (run only by phases 6 and 12). "
+        "xbar_update_prepare: the tensor-core write's pre-pass (bf16 code "
+        "planes), launches in phase 7, ms and plain_ms (its plain twin) at "
+        "phase 6(b)'s shapes, max_abs_err 0.0 when bit-equal. "
+        "max_abs_err is the largest at those shapes (dynamic ADC "
         "range for the reads). No single PyTorch call computes any of the "
         "three functions, so library_ms is null; torch.bmm of the write's "
         "accumulate alone is given as "
@@ -2369,9 +2567,11 @@ def main():
         "plain_ms, bound_ms and library_ms (scaled_dot_product_attention) "
         "are lm100m's heads, float32, causal, S=2048; bf16 the same in "
         "bfloat16; tc_floor_ms the tensor-core floor (3xTF32 at 495 "
-        "TFLOP/s for float32, bf16 at 989). xbar_pulse_update: "
-        "launches counts the pulse-train writes of phase 13(a)'s 4 training "
-        "steps; ms, plain_ms and bound_ms sum the four containers' (12, K, "
+        "TFLOP/s for float32, bf16 at 989). xbar_pulse_update: the "
+        "tensor-core instance; launches counts its launches in phase "
+        "13(a)'s 4 training steps; ms, plain_ms, bound_ms, design_ms, "
+        "fp32_bound_ms and fp32_instance as for xbar_outer_update, over the "
+        "four containers' (12, K, "
         "N) pulse-train writes at T=2048 with counter-PRNG noise (phase "
         "12(b)); no PyTorch call computes the function, so library_ms is "
         "null; torch.bmm of its two accumulates alone is "

@@ -24,8 +24,13 @@ EXPERT_BATCHED = "expert_batched"
 
 KINDS = (COLUMN_PARALLEL, ROW_PARALLEL, EXPERT_BATCHED)
 
-#: Leaf names of a tiled-crossbar container (plus the training tape slots).
-ANALOG_LEAVES = ("g", "ref", "w_scale", "g_carry", "x_tape", "d_tape")
+#: Leaf names of a tiled-crossbar container (plus the training tape slots
+#: and their scales).
+ANALOG_LEAVES = ("g", "ref", "w_scale", "g_carry", "x_tape", "d_tape",
+                 "x_tape_scale", "d_tape_scale")
+
+#: Leaves with only the container's lead dims.
+_LEAD_ONLY_LEAVES = ("w_scale", "x_tape_scale", "d_tape_scale")
 
 ROW_PARALLEL_KEYS = frozenset({"wo", "w_down", "out_proj"})
 COLUMN_PARALLEL_KEYS = frozenset({
@@ -110,13 +115,13 @@ def leaf_layout(kind: str, ndim: int, leaf: str, rows: int, cols: int
     Logical axes: ``"fsdp"`` (the data axes) and ``"tp"`` (the model
     axis); granularity is the tile size the dim may only split at (1 for
     untiled dims); ``None`` is replicated.  The layer dim of a stacked
-    container is never sharded; ``w_scale`` follows its container's lead
-    dims.
+    container is never sharded; ``w_scale`` and the tape scales follow
+    their container's lead dims.
     """
     _dense_rows_only("leaf_layout", kind)
-    lead = ndim if leaf == "w_scale" else ndim - 2
+    lead = ndim if leaf in _LEAD_ONLY_LEAVES else ndim - 2
     roles = [(None, 1)] * lead
-    if leaf == "w_scale":
+    if leaf in _LEAD_ONLY_LEAVES:
         return tuple(roles)
     if kind == ROW_PARALLEL:
         r, c = ("tp", rows), ("fsdp", cols)
@@ -131,21 +136,23 @@ def leaf_layout(kind: str, ndim: int, leaf: str, rows: int, cols: int
     raise KeyError(f"unknown container leaf {leaf!r}")
 
 
-def flatten_lead(kind: str, g, x_tape, d_tape, scale):
+def flatten_lead(kind: str, g, x_tape, d_tape, scale, *lead_scales):
     """Collapse a container's lead dims onto the kernel's single layer
     axis (and any tape-rep dims into the token axis).
 
-    ``g``: (lead..., K, N); tapes: (lead..., T, K|N); ``scale``:
-    (lead...,).  Returns ``(g3, x3, d3, scale1, unflatten)`` with
-    ``g3`` (Lflat, K, N) and ``unflatten`` mapping the updated conductances
-    back to the container's layout.  2-D containers pass through.
+    ``g``: (lead..., K, N); tapes: (lead..., T, K|N); ``scale`` and any
+    ``lead_scales`` (the tape scales): (lead...,).  Returns ``(g3, x3, d3,
+    scale1, *lead_scales1, unflatten)`` with ``g3`` (Lflat, K, N), each
+    scale flattened alike to (Lflat,), and ``unflatten`` mapping the
+    updated conductances back to the container's layout.  2-D containers
+    pass through.
     """
     _dense_rows_only("flatten_lead", kind)
     lead = g.ndim - 2
     if lead == 0:
         x3 = x_tape.reshape(-1, x_tape.shape[-1])
         d3 = d_tape.reshape(-1, d_tape.shape[-1])
-        return g, x3, d3, scale, lambda gg: gg
+        return (g, x3, d3, scale, *lead_scales, lambda gg: gg)
     g_shape = g.shape
     lflat = 1
     for d in g_shape[:lead]:
@@ -153,8 +160,9 @@ def flatten_lead(kind: str, g, x_tape, d_tape, scale):
     g3 = g.reshape(lflat, *g_shape[lead:])
     x3 = x_tape.reshape(lflat, -1, x_tape.shape[-1])
     d3 = d_tape.reshape(lflat, -1, d_tape.shape[-1])
-    s1 = torch.broadcast_to(scale, g_shape[:lead]).reshape(lflat)
-    return g3, x3, d3, s1, lambda gg: gg.reshape(g_shape)
+    s1 = [torch.broadcast_to(s, g_shape[:lead]).reshape(lflat)
+          for s in (scale, *lead_scales)]
+    return (g3, x3, d3, *s1, lambda gg: gg.reshape(g_shape))
 
 
 def validate_device_params(params, cfg) -> None:

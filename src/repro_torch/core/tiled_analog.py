@@ -19,7 +19,9 @@ the quantised activations x_q and errors d_q — not a (K, N) gradient.
 ``analog_project`` therefore runs through :class:`TapedMatmul`, an
 autograd Function whose backward computes ``dx`` by the transpose read
 and writes (x_q, d_q) into the container's tape slots (``x_tape`` /
-``d_tape``, see :func:`make_tapes`); ``g``, ``ref`` and ``w_scale`` never
+``d_tape``, see :func:`make_tapes`), with the write drivers' per-call
+scales beside them (``x_tape_scale`` / ``d_tape_scale``: ``x_q`` is
+integer codes times ``x_tape_scale``); ``g``, ``ref`` and ``w_scale`` never
 require grad, so no dense (K, N) gradient is ever formed, not even a
 zeros fill.  The train step hands the tapes to the rank-k write kernel
 (``kernels.xbar_update``).
@@ -34,9 +36,12 @@ import torch
 from .adc import AdcConfig
 from .crossbar import CrossbarConfig, make_reference, weights_to_conductance
 from .device import IDEAL, LINEARIZED, TAOX, TAOX_NONOISE, DeviceConfig
-from .xbar_ops import mvm, quantize_update_operands, vmm
+from .xbar_ops import mvm, quantize_update_codes, vmm
 
 Tensor = torch.Tensor
+
+#: A container's tape slots: the write drivers' operands and their scales.
+TAPE_LEAVES = ("x_tape", "d_tape", "x_tape_scale", "d_tape_scale")
 
 #: Device models selectable from a ModelConfig (``analog_device``).
 DEVICE_MODELS: Dict[str, DeviceConfig] = {
@@ -126,13 +131,16 @@ class TapedMatmul(torch.autograd.Function):
     """The in-situ training primitive: ``y = vmm(x)`` forward; backward
     ``dx = mvm(dy)`` through the same conductances, and the write drivers'
     operands ``quantize_update_operands(x, dy)`` written into the tape
-    slots (when the container carries them).  Only ``x`` gets a gradient.
+    slots, their scales into the scale slots (when the container carries
+    them).  Only ``x`` gets a gradient.
     """
 
     @staticmethod
-    def forward(ctx, x, g, ref, w_scale, cfg, x_tape, d_tape):
+    def forward(ctx, x, g, ref, w_scale, cfg, x_tape, d_tape, x_tape_scale,
+                d_tape_scale):
         ctx.save_for_backward(x, g, ref, w_scale)
-        ctx.cfg, ctx.tapes = cfg, (x_tape, d_tape)
+        ctx.cfg = cfg
+        ctx.tapes = (x_tape, d_tape, x_tape_scale, d_tape_scale)
         return vmm(x, g, ref, w_scale, cfg)
 
     @staticmethod
@@ -143,12 +151,16 @@ class TapedMatmul(torch.autograd.Function):
         # Error backprop: transpose read of the SAME (quantised, saturated,
         # ADC'd) conductances the forward pass saw.
         dx = mvm(dy32, g, ref, w_scale, cfg)
-        x_tape, d_tape = ctx.tapes
+        x_tape, d_tape, x_tape_scale, d_tape_scale = ctx.tapes
         if x_tape is not None:
-            x_q, d_q = quantize_update_operands(x.float(), dy32, cfg)
-            x_tape.copy_(x_q)
-            d_tape.copy_(d_q)
-        return dx.to(x.dtype), None, None, None, None, None, None
+            x_int, x_scale, d_int, d_scale = quantize_update_codes(
+                x.float(), dy32, cfg)
+            x_tape.copy_(x_int * x_scale)
+            d_tape.copy_(d_int * d_scale)
+            if x_tape_scale is not None:
+                x_tape_scale.copy_(x_scale)
+                d_tape_scale.copy_(d_scale)
+        return dx.to(x.dtype), *(None,) * 8
 
 
 def analog_project(p: dict, x: Tensor, cfg: CrossbarConfig) -> Tensor:
@@ -172,26 +184,28 @@ def analog_project(p: dict, x: Tensor, cfg: CrossbarConfig) -> Tensor:
     xb = x.reshape(-1, k).float()
     y = TapedMatmul.apply(xb, effective_g(p, cfg), p["ref"],
                           torch.as_tensor(p["w_scale"]), cfg,
-                          p.get("x_tape"), p.get("d_tape"))
+                          *(p.get(leaf) for leaf in TAPE_LEAVES))
     return y.reshape(*x.shape[:-1], n).to(x.dtype)
 
 
 def make_tapes(p: dict, n_tokens) -> dict:
-    """Zero tape slots for one container, shapes (lead..., T, K) and
-    (lead..., T, N).  ``n_tokens`` may be a tuple: the operand-row shape
-    between the container's lead dims and the feature dim
-    (``analog_registry.tape_lead``).  The backward pass of
-    :class:`TapedMatmul` overwrites them with (x_q, d_q) and the rank-k
-    write consumes them: one allocation site, one writer, one consumer.
+    """Tape slots for one container: zero operands, shapes (lead..., T, K)
+    and (lead..., T, N), and their scales, (lead...,) ones.  ``n_tokens``
+    may be a tuple: the operand-row shape between the container's lead
+    dims and the feature dim (``analog_registry.tape_lead``).  The
+    backward pass of :class:`TapedMatmul` overwrites them with (x_q, d_q)
+    and the write drivers' scales, and the rank-k write consumes them: one
+    allocation site, one writer, one consumer.
     """
     g = p["g"]
     k, n = g.shape[-2:]
     lead = g.shape[:-2]
     rows = n_tokens if isinstance(n_tokens, tuple) else (n_tokens,)
-    return {"x_tape": torch.zeros((*lead, *rows, k), dtype=torch.float32,
-                                  device=g.device),
-            "d_tape": torch.zeros((*lead, *rows, n), dtype=torch.float32,
-                                  device=g.device)}
+    f32 = dict(dtype=torch.float32, device=g.device)
+    return {"x_tape": torch.zeros((*lead, *rows, k), **f32),
+            "d_tape": torch.zeros((*lead, *rows, n), **f32),
+            "x_tape_scale": torch.ones(lead, **f32),
+            "d_tape_scale": torch.ones(lead, **f32)}
 
 
 def split_tapes(params, n_tokens, tokens_for=None, path=()):
@@ -231,14 +245,13 @@ def pop_tapes(params):
     """Strip the tape leaves off every container in a (sub)tree.
 
     Returns ``(clean, tapes, found)``: ``clean`` is the tree without
-    x_tape/d_tape, ``tapes`` mirrors it with ``{"x_tape", "d_tape"}``
-    dicts at container sites (empty dicts elsewhere), ``found`` says
-    whether any tape leaf existed.
+    the :data:`TAPE_LEAVES`, ``tapes`` mirrors it with dicts of them at
+    container sites (empty dicts elsewhere), ``found`` says whether any
+    tape leaf existed.
     """
     if is_analog_container(params):
-        tapes = {k: params[k] for k in ("x_tape", "d_tape") if k in params}
-        clean = {k: v for k, v in params.items()
-                 if k not in ("x_tape", "d_tape")}
+        tapes = {k: params[k] for k in TAPE_LEAVES if k in params}
+        clean = {k: v for k, v in params.items() if k not in TAPE_LEAVES}
         return clean, tapes, bool(tapes)
     if isinstance(params, dict):
         out = {k: pop_tapes(v) for k, v in params.items()}

@@ -128,15 +128,24 @@ def mvm(d: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
     return _read(d, g, g_ref, w_scale, cfg, impl, transpose=True)
 
 
+def quantize_update_codes(x: Tensor, d: Tensor, cfg: CrossbarConfig):
+    """The write drivers' codes and scales: ``(x_int, x_scale, d_int,
+    d_scale)``, rows (x) by the temporal coder (``in_bits``), columns (d)
+    by the voltage coder (``upd_col_bits``); the scales are 0-d tensors."""
+    x_int, x_scale = quantize_input(x, cfg.adc)
+    col_cfg = AdcConfig(in_bits=cfg.upd_col_bits, out_bits=cfg.adc.out_bits)
+    d_int, d_scale = quantize_input(d, col_cfg)
+    return x_int, x_scale, d_int, d_scale
+
+
 def quantize_update_operands(x: Tensor, d: Tensor, cfg: CrossbarConfig):
     """Quantise the outer-product operands as the write drivers do.
 
     Rows (x) use the temporal coder (``in_bits``); columns (d) use the
-    voltage coder (``upd_col_bits``).  Returns dequantised (x_q, d_q).
+    voltage coder (``upd_col_bits``).  Returns dequantised (x_q, d_q)
+    (:func:`quantize_update_codes` gives the codes and scales).
     """
-    x_int, x_scale = quantize_input(x, cfg.adc)
-    col_cfg = AdcConfig(in_bits=cfg.upd_col_bits, out_bits=cfg.adc.out_bits)
-    d_int, d_scale = quantize_input(d, col_cfg)
+    x_int, x_scale, d_int, d_scale = quantize_update_codes(x, d, cfg)
     return x_int * x_scale, d_int * d_scale
 
 

@@ -33,8 +33,19 @@ Paths (``impl``) as for the read (``kernels.xbar_vmm``): ``"cuda"`` for
 tensors on the card, ``"eager"`` (:func:`_update_plain`) for tensors on
 the CPU, ``"auto"``/``None`` by the tensors' device; an explicit path on
 the wrong device raises, and there is no fallback.
-``LAUNCHES["outer_update"]`` and ``LAUNCHES["pulse_update"]`` count the
-kernel's launches in each mode.
+
+On the card the write takes one of two instances of the kernel, chosen by
+:func:`update_instance` from the operands, as the read's
+``read_instance`` chooses: the tensor-core instance when the caller
+states the write drivers' scales (``x_q = codes * x_scale``, ``d_q =
+codes * d_scale``, as the training step's tapes are), the codes fit bf16
+exactly and every sum of code products stays below 2^24; the FP32
+instance otherwise (float operands).  The tensor-core instance launches
+a pre-pass (the bf16 code planes, scratch of ``update_code_dims``) and
+the write.  ``LAUNCHES["outer_update"]`` and ``LAUNCHES["pulse_update"]``
+count every write by mode; ``LAUNCHES["update_tc"]``,
+``LAUNCHES["update_prepare"]`` and ``LAUNCHES["update_fp32"]`` count the
+launches of each kernel.
 """
 from __future__ import annotations
 
@@ -44,6 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.adc import AdcConfig
 from repro_torch.core.crossbar import CrossbarConfig
 from repro_torch.core.device import DeviceConfig
 
@@ -55,11 +67,16 @@ NOISE_MODES = ("none", "host", "kernel")
 UPDATE_MODES = ("outer", "pulse_train")
 UPDATE_IMPLS = ("auto", "cuda", "eager")
 
-#: Launches of the update kernel, by update mode; only the wrapper adds
-#: to them.
-LAUNCHES = {"outer_update": 0, "pulse_update": 0}
+#: Writes on the card by update mode, and launches of each of the write's
+#: kernels; only the wrappers add to them.
+LAUNCHES = {"outer_update": 0, "pulse_update": 0, "update_tc": 0,
+            "update_prepare": 0, "update_fp32": 0}
 
 SOURCE = _nvcc.CSRC / "xbar_update.cu"
+TC_BLOCK = 128         # kTcBlock of the source: the code planes' feature pad
+TC_TOKENS = 32         # kTcTok: the code planes' token pad
+TC_MAX_LEVELS = 256    # kTcMaxLevels: codes exact in bf16
+TC_MAX_SUM = 2 ** 24   # sums of code products exact in float32 below this
 
 _M32 = 0xFFFFFFFF
 
@@ -256,9 +273,82 @@ def _update_plain(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
                             cfg.device)
 
 
+def update_levels(cfg: CrossbarConfig):
+    """Magnitude levels of the write drivers' codes: rows (the temporal
+    coder, ``in_bits``) and columns (the voltage coder,
+    ``upd_col_bits``)."""
+    col = AdcConfig(in_bits=cfg.upd_col_bits, out_bits=cfg.adc.out_bits)
+    return cfg.adc.in_levels, col.in_levels
+
+
+def update_code_dims(t_tok: int, k: int, n: int):
+    """(Tp, Kp, Np): the code planes' padded token and feature dims."""
+    def up(v, m):
+        return -(-v // m) * m
+    return up(t_tok, TC_TOKENS), up(k, TC_BLOCK), up(n, TC_BLOCK)
+
+
+def _update_codes_plain(x_q: Tensor, d_q: Tensor, x_scale: Tensor,
+                        d_scale: Tensor, cfg: CrossbarConfig):
+    """The pre-pass in plain torch: bf16 code planes (L, Tp, Kp) and
+    (L, Tp, Np), ``clip(round(x_q / x_scale))`` per lead matrix (round
+    half to even, as ``rintf``), zero in the padding."""
+    lx, ld = update_levels(cfg)
+    tp, kp, np_ = update_code_dims(*x_q.shape[1:], d_q.shape[2])
+
+    def plane(v, s, lv, width):
+        c = torch.clamp(torch.round(v / s[:, None, None]), -lv, lv)
+        return torch.nn.functional.pad(
+            c, (0, width - v.shape[2], 0, tp - v.shape[1])).to(torch.bfloat16)
+    return plane(x_q, x_scale, lx, kp), plane(d_q, d_scale, ld, np_)
+
+
+def _update_tc_plain(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
+                     noise: Optional[Tensor], seed: Optional[int],
+                     cfg: CrossbarConfig, noise_mode: str, x_scale: Tensor,
+                     d_scale: Tensor) -> Tensor:
+    """The tensor-core instance's arithmetic in plain torch: the codes of
+    the pre-pass, their sums taken exactly (in float64, exact below
+    2^53), then ``acc = fl(sum) * fl(x_scale d_scale)`` and the same
+    epilogue as :func:`_update_plain`.  Where the plain version's float32
+    sum of ``x_q d_q`` is exact the two agree bit for bit; elsewhere they
+    differ by that sum's rounding."""
+    t_tok, k = x_q.shape[1:]
+    cx, cd = (c[:, :t_tok, :f].double() for c, f in zip(
+        _update_codes_plain(x_q, d_q, x_scale, d_scale, cfg),
+        (k, d_q.shape[2])))
+    sxd = (x_scale * d_scale)[:, None, None]
+    acc = torch.einsum("lbk,lbn->lkn", cx, cd).float() * sxd
+    if noise_mode == "kernel":
+        noise = field_normals(seed, g.shape, cfg, device=g.device)
+    elif noise_mode == "none":
+        noise = None
+    if cfg.update_mode == "pulse_train":
+        a_abs = torch.einsum("lbk,lbn->lkn", cx.abs(), cd.abs()).float() * sxd
+        return _pulse_epilogue(g, acc, a_abs, scale[:, None, None], noise,
+                               cfg.device)
+    return _device_epilogue(g, scale[:, None, None] * acc, noise,
+                            cfg.device)
+
+
 # --------------------------------------------------------------------------
-# The CUDA kernel
+# The CUDA kernels
 # --------------------------------------------------------------------------
+
+def update_instance(t_tok: int, cfg: CrossbarConfig, scaled: bool) -> str:
+    """The kernel instance a write over ``t_tok`` tokens takes on the card.
+
+    ``"tensor_core"`` when the operands come with their scales
+    (``scaled``), both coders' codes are exact in bf16 (at most 256
+    levels) and every sum of code products is exact in float32
+    (``t_tok * levels_x * levels_d < 2^24``); ``"fp32"`` otherwise.
+    """
+    lx, ld = update_levels(cfg)
+    if scaled and max(lx, ld) <= TC_MAX_LEVELS \
+            and t_tok * lx * ld < TC_MAX_SUM:
+        return "tensor_core"
+    return "fp32"
+
 
 _INT_FIELDS = ("kind", "noise_mode", "lin_set", "lin_reset")
 _PARAM_FIELDS = ("kind", "noise_mode", "gmin", "gmax", "span", "neg_nu",
@@ -311,54 +401,157 @@ def _library():
     global _lib
     if _lib is None:
         lib = _nvcc.load(SOURCE)
-        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+        p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, \
+            ctypes.c_float
         for fn in (lib.xbar_outer_update, lib.xbar_pulse_update):
             fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, u,
                            _DeviceParams, p]
             fn.restype = ctypes.c_int
+        lib.xbar_update_prepare.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                            i, f, f, p]
+        lib.xbar_update_prepare.restype = ctypes.c_int
+        lib.xbar_tc_update.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i,
+                                       i, i, i, i, i, u, _DeviceParams, p]
+        lib.xbar_tc_update.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _update_cuda(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
-                 noise: Optional[Tensor], seed: Optional[int],
-                 cfg: CrossbarConfig, noise_mode: str) -> Tensor:
-    """Launch the rank-k write (in ``cfg.update_mode``) on (L, K, N) /
-    (L, T, K) / (L, T, N) / (L,); returns the new conductances (a new
-    tensor)."""
-    tensors = {"g": g, "x_q": x_q, "d_q": d_q, "scale": scale}
-    if noise is not None:
-        tensors["noise"] = noise
+def _check_cuda(tensors: dict, device) -> None:
     for name, t in tensors.items():
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 CUDA "
                              f"tensor, got {t.dtype} on {t.device}")
-        if t.device != g.device:
-            raise ValueError(f"{name} is on {t.device}, g on {g.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, not on {device}")
+
+
+def _stream(device) -> int:
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def _update_prepare_cuda(x_q: Tensor, d_q: Tensor, x_scale: Tensor,
+                         d_scale: Tensor, cfg: CrossbarConfig) -> Tensor:
+    """Launch the pre-pass: one bf16 buffer holding the code planes (L,
+    Tp, Kp) and then (L, Tp, Np) (see :func:`_update_codes_plain`)."""
+    _check_cuda({"x_q": x_q, "d_q": d_q, "x_scale": x_scale,
+                 "d_scale": d_scale}, x_q.device)
+    lyr, t_tok, k = x_q.shape
+    n = d_q.shape[2]
+    if d_q.shape[:2] != (lyr, t_tok) or x_scale.shape != (lyr,) \
+            or d_scale.shape != (lyr,):
+        raise ValueError(f"operand shapes x_q {tuple(x_q.shape)} d_q "
+                         f"{tuple(d_q.shape)} x_scale {tuple(x_scale.shape)} "
+                         f"d_scale {tuple(d_scale.shape)} do not match")
+    tp, kp, np_ = update_code_dims(t_tok, k, n)
+    codes = torch.empty((lyr * tp * (kp + np_),), dtype=torch.bfloat16,
+                        device=x_q.device)
+    lx, ld = update_levels(cfg)
+    err = _library().xbar_update_prepare(
+        x_q.data_ptr(), d_q.data_ptr(), x_scale.data_ptr(),
+        d_scale.data_ptr(), codes.data_ptr(), lyr, t_tok, k, n, tp, kp, np_,
+        float(lx), float(ld), _stream(x_q.device))
+    if err != 0:
+        raise RuntimeError(f"xbar_update_prepare launch failed: CUDA error "
+                           f"{err} (L {lyr}, T {t_tok}, K {k}, N {n})")
+    LAUNCHES["update_prepare"] += 1
+    return codes
+
+
+def code_planes(codes: Tensor, lyr: int, t_tok: int, k: int, n: int):
+    """The two planes of a pre-pass buffer, as (L, Tp, Kp) / (L, Tp, Np)
+    views."""
+    tp, kp, np_ = update_code_dims(t_tok, k, n)
+    return (codes[:lyr * tp * kp].view(lyr, tp, kp),
+            codes[lyr * tp * kp:].view(lyr, tp, np_))
+
+
+def _update_tc_cuda(g: Tensor, codes: Tensor, t_tok: int, scale: Tensor,
+                    x_scale: Tensor, d_scale: Tensor, noise: Optional[Tensor],
+                    seed: Optional[int], cfg: CrossbarConfig,
+                    noise_mode: str) -> Tensor:
+    """Launch the tensor-core write from the pre-pass's code planes."""
+    lyr, k, n = g.shape
+    tp, kp, np_ = update_code_dims(t_tok, k, n)
+    if codes.dtype != torch.bfloat16 or codes.device != g.device \
+            or codes.numel() != lyr * tp * (kp + np_):
+        raise ValueError(f"codes must be the pre-pass's bf16 buffer of "
+                         f"{lyr * tp * (kp + np_)} on {g.device}")
+    out = torch.empty_like(g)
+    err = _library().xbar_tc_update(
+        int(cfg.update_mode == "pulse_train"), g.data_ptr(),
+        codes.data_ptr(), scale.data_ptr(), x_scale.data_ptr(),
+        d_scale.data_ptr(), noise.data_ptr() if noise is not None else None,
+        out.data_ptr(), lyr, t_tok, k, n, tp, kp, np_, cfg.rows, cfg.cols,
+        int(seed or 0) & _M32, device_params(cfg.device, noise_mode),
+        _stream(g.device))
+    if err != 0:
+        raise RuntimeError(f"xbar_tc_update launch failed: CUDA error {err} "
+                           f"(g {tuple(g.shape)}, T {t_tok}, tile "
+                           f"{cfg.rows}x{cfg.cols})")
+    LAUNCHES["update_tc"] += 1
+    return out
+
+
+def _update_fp32_cuda(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
+                      noise: Optional[Tensor], seed: Optional[int],
+                      cfg: CrossbarConfig, noise_mode: str) -> Tensor:
+    """Launch the FP32 instance on the float operands."""
     lyr, k, n = g.shape
     t_tok = x_q.shape[1]
-    if x_q.shape != (lyr, t_tok, k) or d_q.shape != (lyr, t_tok, n) \
-            or scale.shape != (lyr,) \
-            or (noise is not None and noise.shape != g.shape):
-        raise ValueError(f"operand shapes g {tuple(g.shape)} x_q "
-                         f"{tuple(x_q.shape)} d_q {tuple(d_q.shape)} scale "
-                         f"{tuple(scale.shape)} do not match")
-    pulse = cfg.update_mode == "pulse_train"
     lib = _library()
-    fn = lib.xbar_pulse_update if pulse else lib.xbar_outer_update
+    fn = lib.xbar_pulse_update if cfg.update_mode == "pulse_train" \
+        else lib.xbar_outer_update
     out = torch.empty_like(g)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
     err = fn(g.data_ptr(), x_q.data_ptr(), d_q.data_ptr(), scale.data_ptr(),
              noise.data_ptr() if noise is not None else None, out.data_ptr(),
              lyr, t_tok, k, n, cfg.rows, cfg.cols,
              int(seed or 0) & _M32, device_params(cfg.device, noise_mode),
-             stream)
+             _stream(g.device))
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error "
                            f"{err} (g {tuple(g.shape)}, T {t_tok}, tile "
                            f"{cfg.rows}x{cfg.cols})")
-    LAUNCHES["pulse_update" if pulse else "outer_update"] += 1
+    LAUNCHES["update_fp32"] += 1
+    return out
+
+
+def _update_cuda(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
+                 noise: Optional[Tensor], seed: Optional[int],
+                 cfg: CrossbarConfig, noise_mode: str,
+                 x_scale: Optional[Tensor] = None,
+                 d_scale: Optional[Tensor] = None) -> Tensor:
+    """The rank-k write (in ``cfg.update_mode``) on the card, on (L, K, N)
+    / (L, T, K) / (L, T, N) / (L,) operands and, when stated, the (L,)
+    scales of the codes: the instance :func:`update_instance` picks.
+    Returns the new conductances (a new tensor)."""
+    tensors = {"g": g, "x_q": x_q, "d_q": d_q, "scale": scale}
+    if noise is not None:
+        tensors["noise"] = noise
+    scaled = x_scale is not None
+    if scaled:
+        tensors.update(x_scale=x_scale, d_scale=d_scale)
+    _check_cuda(tensors, g.device)
+    lyr, k, n = g.shape
+    t_tok = x_q.shape[1]
+    if x_q.shape != (lyr, t_tok, k) or d_q.shape != (lyr, t_tok, n) \
+            or scale.shape != (lyr,) \
+            or (noise is not None and noise.shape != g.shape) \
+            or (scaled and (x_scale.shape != (lyr,)
+                            or d_scale.shape != (lyr,))):
+        raise ValueError(f"operand shapes g {tuple(g.shape)} x_q "
+                         f"{tuple(x_q.shape)} d_q {tuple(d_q.shape)} scale "
+                         f"{tuple(scale.shape)} do not match")
+    if update_instance(t_tok, cfg, scaled) == "tensor_core":
+        codes = _update_prepare_cuda(x_q, d_q, x_scale, d_scale, cfg)
+        out = _update_tc_cuda(g, codes, t_tok, scale, x_scale, d_scale,
+                              noise, seed, cfg, noise_mode)
+    else:
+        out = _update_fp32_cuda(g, x_q, d_q, scale, noise, seed, cfg,
+                                noise_mode)
+    LAUNCHES["pulse_update" if cfg.update_mode == "pulse_train"
+             else "outer_update"] += 1
     return out
 
 
@@ -383,13 +576,21 @@ def _resolve_impl(impl: Optional[str], g: Tensor) -> str:
 def xbar_outer_update(g: Tensor, x_q: Tensor, d_q: Tensor, scale,
                       cfg: CrossbarConfig, *, noise: Optional[Tensor] = None,
                       seed=None, noise_mode: Optional[str] = None,
-                      impl: Optional[str] = None) -> Tensor:
+                      impl: Optional[str] = None, x_scale=None,
+                      d_scale=None) -> Tensor:
     """``G <- device(G, scale * sum_t outer(x_q_t, d_q_t))``, layer-batched.
 
     ``g``: (K, N) or scan-stacked (L, K, N) conductances; ``x_q``: (T, K)
     or (L, T, K) row drives; ``d_q``: (T, N) or (L, T, N) column drives
     (already quantised by the write drivers); ``scale`` folds
     ``-lr * w_scale``, a scalar or (L,).
+
+    ``x_scale``/``d_scale`` (both or neither; each a scalar or (L,))
+    state that ``x_q = codes * x_scale`` and ``d_q = codes * d_scale``
+    per lead matrix, with the codes inside the coders' levels
+    (:func:`update_levels`).  On the card they let the write take the
+    tensor-core instance (:func:`update_instance`); the plain version
+    ignores them.
 
     Write noise: ``seed`` (a uint32) for the counter PRNG
     (``noise_mode="kernel"``), or an N(0, 1) ``noise`` field of ``g``'s
@@ -427,6 +628,9 @@ def xbar_outer_update(g: Tensor, x_q: Tensor, d_q: Tensor, scale,
         noise = None
     seed = int(seed) & _M32 if noise_mode == "kernel" else None
 
+    if (x_scale is None) != (d_scale is None):
+        raise ValueError("x_scale and d_scale come together")
+
     squeeze = g.ndim == 2
     in_dtype = g.dtype
     if squeeze:
@@ -437,9 +641,23 @@ def xbar_outer_update(g: Tensor, x_q: Tensor, d_q: Tensor, scale,
     x_q = x_q.float().contiguous()
     d_q = d_q.float().contiguous()
     noise = noise.float().contiguous() if noise is not None else None
+
     scale = torch.broadcast_to(torch.as_tensor(
         scale, dtype=torch.float32, device=g.device).reshape(-1),
         (lyr,)).contiguous()
-    fn = _update_cuda if impl == "cuda" else _update_plain
-    out = fn(g, x_q, d_q, scale, noise, seed, cfg, noise_mode)
+
+    def code_scale(v, name):
+        v = torch.as_tensor(v, dtype=torch.float32, device=g.device)
+        if v.ndim > 1 or v.numel() not in (1, lyr):
+            raise ValueError(f"{name} must be a scalar or ({lyr},), got "
+                             f"shape {tuple(v.shape)}")
+        return torch.broadcast_to(v.reshape(-1), (lyr,)).contiguous()
+    if x_scale is not None:
+        x_scale = code_scale(x_scale, "x_scale")
+        d_scale = code_scale(d_scale, "d_scale")
+    if impl == "cuda":
+        out = _update_cuda(g, x_q, d_q, scale, noise, seed, cfg, noise_mode,
+                           x_scale, d_scale)
+    else:
+        out = _update_plain(g, x_q, d_q, scale, noise, seed, cfg, noise_mode)
     return (out[0] if squeeze else out).to(in_dtype)

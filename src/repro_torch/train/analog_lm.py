@@ -8,15 +8,17 @@ One ``AnalogTrainStep`` call is the whole training rule:
      g/ref/w_scale frozen and gains zero tape slots;
   2. forward = VMM, backward = MVM through the same conductances
      (``core.tiled_analog.TapedMatmul``); the backward writes the
-     quantised write-driver operands (x_q, d_q) into the tapes, and no
-     (K, N) weight gradient is formed;
+     quantised write-driver operands (x_q, d_q) and their scales into the
+     tapes, and no (K, N) weight gradient is formed;
   3. every container's update is the paper's rank-k parallel write: its
      (L, T, K) / (L, T, N) tapes go into ONE launch of the layer-batched
      update kernel (``kernels.xbar_update.xbar_outer_update``) with
-     ``scale = -lr * w_scale``, write noise from the in-kernel counter
-     PRNG keyed by ``_mix32(seed_base ^ crc32(path))``, in the config's
-     update mode (``analog_update_mode``: the aggregate ``"outer"`` write
-     or ``"pulse_train"``, integer SET/RESET event counts);
+     ``scale = -lr * w_scale`` and the tapes' scales (which put the write
+     on the card's tensor-core instance), write noise from the in-kernel
+     counter PRNG keyed by ``_mix32(seed_base ^ crc32(path))``, in the
+     config's update mode (``analog_update_mode``: the aggregate
+     ``"outer"`` write or ``"pulse_train"``, integer SET/RESET event
+     counts);
   4. the digital leaves (embedding, norms) take plain SGD;
   5. with periodic carry (``analog_carry``), the writes land on each
      container's ``g_carry`` array at ``carry_base`` times the scale, and
@@ -173,10 +175,15 @@ class AnalogTrainStep:
         leaf = "g_carry" if "g_carry" in p else "g"
         if leaf == "g_carry":
             scale = scale * torch.tensor(self.xcfg.carry_base, **f32)
-        g3, x3, d3, s1, unflatten = registry.flatten_lead(
-            kind, p[leaf], tapes["x_tape"], tapes["d_tape"], scale)
+        code_scales = [tapes[k] for k in ("x_tape_scale", "d_tape_scale")
+                       if k in tapes]
+        g3, x3, d3, s1, *code_scales, unflatten = registry.flatten_lead(
+            kind, p[leaf], tapes["x_tape"], tapes["d_tape"], scale,
+            *code_scales)
+        xs, ds = code_scales if code_scales else (None, None)
         g_new = unflatten(xbar_outer_update(
-            g3, x3, d3, s1, self.xcfg, seed=seed, noise_mode=mode))
+            g3, x3, d3, s1, self.xcfg, seed=seed, noise_mode=mode,
+            x_scale=xs, d_scale=ds))
         span = dev.gmax - dev.gmin
         railed = (g_new <= dev.gmin + 1e-3 * span) \
             | (g_new >= dev.gmax - 1e-3 * span)

@@ -302,12 +302,14 @@ def test_split_merge_pop_push_tapes_round_trip():
                                               J_CFG)), "cpu")
     diff, frozen = TT.split_tapes(tp, 16)
     wqkv = diff["layers"]["attn"]["wqkv"]
-    assert set(wqkv) == {"x_tape", "d_tape"}
+    assert set(wqkv) == {"x_tape", "d_tape", "x_tape_scale", "d_tape_scale"}
     assert wqkv["x_tape"].shape == (CFG.n_layers, 16, CFG.d_model)
+    assert wqkv["x_tape_scale"].shape == (CFG.n_layers,)
     assert frozen["embed"] is None and "g" in frozen["layers"]["ffn"]["w_down"]
     merged = TT.merge_tapes(diff, frozen)
     clean, tapes, found = TT.pop_tapes(merged)
-    assert found and "x_tape" not in clean["layers"]["attn"]["wo"]
+    assert found and not set(TT.TAPE_LEAVES) & set(
+        clean["layers"]["attn"]["wo"])
     back = TT.push_tapes(clean, tapes)
     assert back["layers"]["attn"]["wo"]["d_tape"] is \
         merged["layers"]["attn"]["wo"]["d_tape"]

@@ -140,7 +140,8 @@ def test_pulse_update_dispatch_counts_and_source():
     assert U.UPDATE_MODES == JU.UPDATE_MODES
     before = dict(U.LAUNCHES)
     out = U.xbar_outer_update(g, x_q, d_q, scale, cfg, seed=1)
-    assert set(U.LAUNCHES) == {"outer_update", "pulse_update"}
+    assert set(U.LAUNCHES) == {"outer_update", "pulse_update", "update_tc",
+                               "update_prepare", "update_fp32"}
     assert U.LAUNCHES == before and out.shape == g.shape
     assert not torch.equal(out, U.xbar_outer_update(
         g, x_q, d_q, scale, cfg.replace(update_mode="outer"), seed=1))
