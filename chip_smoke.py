@@ -6,10 +6,10 @@
 Builds the port's CUDA kernels (``src/repro_torch/kernels/csrc/
 xbar_vmm.cu``: the forward and transpose reads; ``xbar_update.cu``: the
 rank-k write, outer and pulse-train; ``xbar_fakequant.cu``: the fakequant
-read;
-``flash_attention.cu``) with one nvcc per source, all started together,
-checks in ``cuobjdump -sass`` that the tensor-core read kernels, both
-tensor-core write instances and every flash-attention instance issue HMMA
+read, FP32 and tensor-core instances; ``flash_attention.cu``) with one
+nvcc per source, all started together, checks in ``cuobjdump -sass`` that
+the tensor-core read kernels, both tensor-core write instances, the
+tensor-core fakequant read and every flash-attention instance issue HMMA
 (tensor-core) instructions, then runs these phases and exits non-zero if
 any gate fails:
 
@@ -93,28 +93,44 @@ any gate fails:
    step time, tokens/s and peak memory come from steps 2-4, which run the
    kernels bare.
 
-8. fakequant read vs plain version on the card: lm100m's four projections
-   at T = 4 (decode), 16 and 2048 (prefill) with 1024-row tiles (the
-   config default) and 64-row tiles, and a ragged case.  Two classes:
+8. fakequant read vs plain version on the card, on both instances (the
+   FP32 one, decode's; the tensor-core one, prefill's): lm100m's four
+   projections at T = 4 (decode), 16 and 2048 (prefill) with 1024-row
+   tiles (the config default) and 64-row tiles, and at the instance
+   threshold (``FQ_TC_MIN_TOKENS``, 144) with 1024-row tiles, two ragged
+   cases (one with N = 70, 48-row tiles), and gemma-2b's w_upgate widths
+   (K = 2048, N = 32768) at T = 4 and 2048.
+   Two classes:
      * exact: integer drives with max|x| = 127 (DAC scale 1) and sparse
        {-1, 0, 1} weights, so every partial product and per-tile sum of
        squares is an exact float32 integer: bit-equal;
      * float32 normal operands: every element within one ADC lsb per row
-       tile (the token's own) of the plain version, and under 1% of the
-       elements more than 1e-5 relative off.
-   T = 4 is timed against the byte bound and T = 2048 against the FP32
-   bound (1024-row tiles), beside torch.matmul of the product alone (not
-   the same function).
+       tile (the token's own) of the plain version plus 1e-5 of the
+       larger of the two values, and under 1% of the elements more than
+       1e-5 relative off.
+   The tensor-core instance is also held to its plain twin
+   (``_fakequant_tc_plain``) in the same classes, and every read's DAC
+   scale, computed by its pre-pass, must equal ``fakequant_scale``.  At
+   T = 4, 144 and 2048 (1024-row tiles) both instances are timed, kernel by
+   kernel, against the byte bound, the FP32 bound and the tensor-core
+   floor, beside the plain version and torch.matmul of the product alone
+   (not the same function).
 9. lm100m at full width in fakequant mode (analog=True, the default 1024
    rows, 8-bit DAC/ADC, random weights from torch.Generator seed 0)
    served from its digital tree with phase 2's settings.  Gates: 48
-   fakequant reads per model call (each a partial-product and an epilogue
-   launch) and no call of a plain version; tokens/s and one profiled
-   decode step's device time are reported.
-10. the fakequant model on the card and on the CPU, as phase 3: every read
-   against the plain version on the CPU fed the card's own operands
+   fakequant reads per model call, each three counted launches (the FP32
+   instance's scale and product kernels, the epilogue; none of the
+   tensor-core instance) and no call of a plain version; tokens/s and one
+   profiled decode step's device time, the reads' share of it, are
+   reported.
+10. (a) the fakequant model on the card and on the CPU, as phase 3: every
+   read against the plain version on the CPU fed the card's own operands
    (phase 8's bound); logits with the card's reads replayed into the CPU
-   run within 1e-3; the free-running CPU a gross check only.
+   run within 1e-3; the free-running CPU a gross check only.  (b) one
+   full-width fakequant forward of 1 x 2048 tokens through
+   ``model.forward``: 48 reads, all on the tensor-core instance, each
+   against the plain version on its own operands (phase 8's bound); the
+   logits within 1e-3 of a CPU forward with the card's reads replayed.
 11. flash attention at the registry's attention shapes (lm100m 12/12
    heads of 64, starcoder2-3b 24/2 of 128, gemma-2b 8/1 of 256 at
    S = 1024, causal; a full Sq 512 x Skv 2048 case), each in float32
@@ -326,6 +342,7 @@ def read_agrees(y_k, y_p, x, g, ref, sc, cfg, transpose=False):
 #: source they are built from.
 TENSOR_CORE_KERNELS = {"xbar_vmm.cu": ("tc_range_kernel", "tc_read_kernel"),
                        "xbar_update.cu": ("tc_update_kernel",),
+                       "xbar_fakequant.cu": ("fakequant_tc_kernel",),
                        "flash_attention.cu": ("flash_attention_kernel",)}
 
 
@@ -1192,7 +1209,8 @@ def phase_train(K, U, TA, M, syn, tcfg, report):
     state0_cpu = tree_to(state, "cpu")
     n_layers = tcfg.n_layers
     expect = tensor_core_train_expect(
-        n_layers, fakequant=0, fakequant_epilogue=0, outer_update=4,
+        n_layers, fakequant=0, **dict.fromkeys(FQ_KERNELS.values(), 0),
+        outer_update=4,
         pulse_update=0, update_tc=4, update_prepare=4, update_fp32=0)
     reads, writes = [], []
     update_cuda = U._update_cuda
@@ -1438,21 +1456,52 @@ def fq_exact_ok(x, w, rows):
 
 def fq_agrees(y_k, y_p, x, w, sc, adc, rows):
     """The float class's bound: every element within one lsb per row tile
-    (the token's own) of the plain version, and under 1% of the elements
-    more than 1e-5 relative off.  Returns (ok, max abs err, largest err /
-    bound, flip share)."""
+    (the token's own) of the plain version, plus 1e-5 of the larger of the
+    two values, and under 1% of the elements more than 1e-5 relative off.
+    The kernel's lsb is the plain version's up to the float32 rounding of
+    the range sum, taken in another order; the relative term covers that
+    difference, and it is taken of both values so that it also covers a
+    code that flips between 0 and +-1, where the plain value is 0 and the
+    kernel's is one lsb of its own.  Returns (ok, max abs err, largest err
+    / bound, flip share)."""
     err = (y_k - y_p).abs()
     bound = fq_tile_lsb(x, w, sc, adc, rows).sum(1, keepdim=True) \
-        + 1e-5 * y_p.abs()
+        + 1e-5 * torch.maximum(y_p.abs(), y_k.abs())
     share = (err > 1e-5 * y_p.abs().amax()).float().mean().item()
     ok = bool((err <= bound).all()) and share < 0.01
     return ok, err.max().item(), (err / bound).max().item(), share
 
 
-def time_fakequant(K, x, w, sc, adc, rows):
-    """Device times of the kernel, its plain version and torch.matmul of
-    the product ``xq @ W`` alone (not the same function), cycling over
-    copies of the weights so each launch finds them out of L2."""
+#: The fakequant read's kernels (profiler names) by launch count.
+FQ_KERNELS = {"fakequant_scale_kernel": "fakequant_scale",
+              "fakequant_prepare_kernel": "fakequant_prepare",
+              "fakequant_fp32_kernel": "fakequant_fp32",
+              "fakequant_tc_kernel": "fakequant_tc",
+              "fakequant_epilogue_kernel": "fakequant_epilogue"}
+
+
+def fq_bounds(t, k, n):
+    """A fakequant read's bounds, in ms: the bytes (x and W read once, y
+    written once) at the HBM rate; the FP32 bound (the larger of the bytes
+    and 2 T K N flops at the FP32 rate); the tensor-core floor (three bf16
+    products at the bf16 rate, or the bytes)."""
+    n_bytes = 4 * (t * k + k * n + t * n)
+    flops = 2 * t * k * n
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / FP32_FLOPS
+    return {"bytes_ms": 1e3 * t_bytes,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "tc_floor_ms": 1e3 * max(t_bytes, 3 * flops / BF16_FLOPS)}
+
+
+def time_fakequant(K, x, w, sc, adc, rows, instance):
+    """Device times of one instance of the kernel (whole, and each of its
+    three kernels), its plain version and torch.matmul of the product
+    ``xq @ W`` alone (not the same function), cycling over copies of the
+    weights so each launch finds them out of L2; beside them the CUDA-event
+    time of the read back to back (host launch cost included) and the
+    bounds (:func:`fq_bounds`)."""
     t, k = x.shape
     n = w.shape[1]
     copies = max(2, min(64, math.ceil(3 * L2_BYTES / (4 * w.numel()))))
@@ -1465,90 +1514,136 @@ def time_fakequant(K, x, w, sc, adc, rows):
     sync = torch.cuda.synchronize
 
     def kern(i):
-        return K._fakequant_cuda(x, ws[i % copies], sc, adc, rows)
+        return K._fakequant_cuda(x, ws[i % copies], adc, rows, instance)
 
     def plain(i):
         return K._fakequant_plain(x, ws[i % copies], sc, adc, rows)
 
     def matmul(i):
         return torch.matmul(xq, ws[i % copies])
-    ms, parts = device_ms(kern, iters, ("fakequant_partial",
-                                        "fakequant_epilogue"))
-    res = {"ms": ms, "plain_ms": device_ms(plain, iters),
+    pre, product = ("fakequant_prepare", "fakequant_tc") \
+        if instance == "tensor_core" else ("fakequant_scale", "fakequant_fp32")
+    ms, parts = device_ms(kern, iters, (pre, product, "fakequant_epilogue"))
+    res = {"instance": instance, "ms": ms,
+           "plain_ms": device_ms(plain, iters),
            "matmul_ms_not_the_same_function": device_ms(matmul, iters),
-           "partial_ms": parts["fakequant_partial"],
-           "epilogue_ms": parts["fakequant_epilogue"], "timing": "profiler"}
+           "prepass_ms": parts[pre],
+           "product_ms": parts[product],
+           "epilogue_ms": parts["fakequant_epilogue"], "timing": "profiler",
+           "events_ms": cuda_ms(kern, iters, sync)}
     if any(v is None for v in res.values()):
         fns = {"ms": kern, "plain_ms": plain,
                "matmul_ms_not_the_same_function": matmul}
-        res = {name: cuda_ms(fn, iters, sync) for name, fn in fns.items()}
+        res.update({name: cuda_ms(fn, iters, sync)
+                    for name, fn in fns.items()})
         res["timing"] = "events"
-    n_bytes = 4 * (t * k + k * n + t * n + 1)
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    res["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-    res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    res.update(fq_bounds(t, k, n))
     res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["tc_floor_share"] = res["tc_floor_ms"] / res["ms"]
     return res
 
 
+# the wide case: gemma-2b's w_upgate (d_model 2048, 2 x 16384 columns)
+FQ_WIDE = ("gemma-2b w_upgate", 2048, 32768)
+
+
+def fq_case(K, name, t, k, n, tile, cls, gen, adc, timed):
+    """One fakequant case on both instances: the exact class bit-equal to
+    the plain version (and the tensor-core instance to its plain twin),
+    the float class within ``fq_agrees``; the pre-pass's DAC scale
+    bit-equal to ``fakequant_scale``.  Returns one row per instance."""
+    if cls == "exact":
+        x, w = fq_exact_operands(t, k, n, gen)
+        if not fq_exact_ok(x, w, tile):
+            fail(f"exact-class operands out of range: {name} T={t}")
+    else:
+        x = torch.randn((t, k), generator=gen, device="cuda")
+        w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    sc = K.fakequant_scale(x, adc.in_levels)
+    if cls == "exact" and sc.item() != 1.0:
+        fail(f"exact class: DAC scale {sc.item()} is not 1")
+    y_p = K._fakequant_plain(x, w, sc, adc, tile)
+    rows = []
+    for instance in ("fp32", "tensor_core"):
+        y_k, sc_k = K._fakequant_cuda(x, w, adc, tile, instance)
+        torch.cuda.synchronize()
+        row = {"projection": name, "T": t, "K": k, "N": n, "rows": tile,
+               "class": cls, "instance": instance,
+               "scale_equal": torch.equal(sc_k, sc),
+               "max_abs_err": (y_k - y_p).abs().max().item()}
+        if cls == "exact":
+            ok = torch.equal(y_k, y_p)
+        else:
+            ok, _, row["err_over_bound"], row["flip_share"] = fq_agrees(
+                y_k, y_p, x, w, sc, adc, tile)
+        if instance == "tensor_core":
+            y_t = K._fakequant_tc_plain(x, w, sc, adc, tile)
+            row["twin_max_abs_err"] = (y_k - y_t).abs().max().item()
+            if cls == "exact":
+                row["twin_ok"] = torch.equal(y_k, y_t)
+            else:
+                row["twin_ok"], _, row["twin_err_over_bound"], _ = \
+                    fq_agrees(y_k, y_t, x, w, sc, adc, tile)
+            ok = ok and row["twin_ok"]
+        row["ok"] = ok and row["scale_equal"]
+        if timed and cls == "float":
+            row.update(time_fakequant(K, x, w, sc, adc, tile, instance))
+        rows.append(row)
+        if not row["ok"]:
+            fail(f"fakequant read disagrees with its plain version: {row}")
+    return rows
+
+
 def phase_fq_kernel(K, AdcConfig, report):
-    """The fakequant read against its plain version on the card: lm100m's
-    four projections at T = 4, 16 and 2048 with 1024- and 64-row tiles,
-    and a ragged case.  Exact class bit-equal; float class within one lsb
-    per row tile.  T = 4 and T = 2048 at 1024 rows are timed."""
+    """The fakequant read against its plain versions on the card, on both
+    instances: lm100m's four projections at T = 4, 16 and 2048 with 1024-
+    and 64-row tiles and at the instance threshold with 1024-row tiles, two
+    ragged cases, and gemma-2b's w_upgate widths (K = 2048, N = 32768) at T
+    = 4 and 2048.  Exact class bit-equal; float class within one lsb per
+    row tile.  T = 4, the threshold and T = 2048 at 1024 rows are timed on
+    both instances."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     adc = AdcConfig(in_bits=8, out_bits=8)
     cases = [(name, t, k, n, rows) for rows in (1024, 64)
              for t in (4, 16, 2048) for name, k, n in TRAIN_SHAPES]
-    cases.append(("ragged", 37, 200, 72, 64))
+    # the instance threshold, where the two instances cross
+    cross = K.FQ_TC_MIN_TOKENS
+    cases += [(name, cross, k, n, 1024) for name, k, n in TRAIN_SHAPES]
+    # ragged: T, K, N and the tiles; N = 70 takes the FP32 instance's
+    # scalar loads (N not a multiple of 4), 48-row tiles padded lines
+    cases += [("ragged", 37, 200, 72, 64), ("ragged", 5, 200, 70, 48)]
+    cases += [(FQ_WIDE[0], t, FQ_WIDE[1], FQ_WIDE[2], 1024) for t in (4, 2048)]
     rows_out = []
     for name, t, k, n, tile in cases:
+        timed = tile == 1024 and t in (4, cross, 2048) and name != "ragged"
         for cls in ("exact", "float"):
-            if cls == "exact":
-                x, w = fq_exact_operands(t, k, n, gen)
-                if not fq_exact_ok(x, w, tile):
-                    fail(f"exact-class operands out of range: {name} T={t}")
-            else:
-                x = torch.randn((t, k), generator=gen, device="cuda")
-                w = torch.randn((k, n), generator=gen, device="cuda") \
-                    / math.sqrt(k)
-            sc = K.fakequant_scale(x, adc.in_levels)
-            if cls == "exact" and sc.item() != 1.0:
-                fail(f"exact class: DAC scale {sc.item()} is not 1")
-            y_k = K._fakequant_cuda(x, w, sc, adc, tile)
-            torch.cuda.synchronize()
-            y_p = K._fakequant_plain(x, w, sc, adc, tile)
-            row = {"projection": name, "T": t, "K": k, "N": n, "rows": tile,
-                   "class": cls,
-                   "max_abs_err": (y_k - y_p).abs().max().item()}
-            if cls == "exact":
-                ok = torch.equal(y_k, y_p)
-            else:
-                ok, _, row["err_over_bound"], row["flip_share"] = fq_agrees(
-                    y_k, y_p, x, w, sc, adc, tile)
-                if tile == 1024 and t in (4, 2048) and name != "ragged":
-                    row.update(time_fakequant(K, x, w, sc, adc, tile))
-            row["ok"] = ok
-            rows_out.append(row)
-            report(row)
-            if not ok:
-                fail(f"fakequant read disagrees with its plain version: "
-                     f"{row}")
+            for row in fq_case(K, name, t, k, n, tile, cls, gen, adc, timed):
+                rows_out.append(row)
+                report(row)
     for r in rows_out:
         if "ms" in r:
             print(f"  fakequant {r['projection']} K={r['K']} N={r['N']} "
-                  f"T={r['T']}: kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, torch.matmul of the product "
-                  f"alone (not the same function) "
-                  f"{r['matmul_ms_not_the_same_function']:.4f} ms "
-                  f"({r['timing']}"
-                  + (f"; partial products {r['partial_ms']:.4f}, epilogue "
-                     f"{r['epilogue_ms']:.4f}" if "partial_ms" in r else "")
-                  + f"), bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']}, {100 * r['bound_share']:.1f}% of "
-                  f"bound), max abs err {r['max_abs_err']:.3g}")
-    print(f"phase 8: {len(rows_out)} fakequant-read cases agree")
+                  f"T={r['T']} ({r['instance']}): kernel {r['ms']:.4f} ms "
+                  f"({r['timing']}; pre-pass {r['prepass_ms']:.4f}, product "
+                  f"{r['product_ms']:.4f}, epilogue {r['epilogue_ms']:.4f}; "
+                  f"events {r['events_ms']:.4f}), plain {r['plain_ms']:.4f} "
+                  f"ms, torch.matmul of the product alone (not the same "
+                  f"function) {r['matmul_ms_not_the_same_function']:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                  f"{100 * r['bound_share']:.1f}% of it), tensor-core floor "
+                  f"{r['tc_floor_ms']:.4f} ms ({100 * r['tc_floor_share']:.1f}"
+                  f"%), max abs err {r['max_abs_err']:.3g}")
+    for t in (4, cross, 2048):
+        for inst in ("fp32", "tensor_core"):
+            lay = fq_rows_of(rows_out, t, inst)
+            print(f"  one lm100m layer's four fakequant reads at T={t} "
+                  f"({inst}): {sum(r['ms'] for r in lay):.4f} ms, plain "
+                  f"{sum(r['plain_ms'] for r in lay):.4f} ms, bound "
+                  f"{sum(r['bound_ms'] for r in lay):.4f} ms, tensor-core "
+                  f"floor {sum(r['tc_floor_ms'] for r in lay):.4f} ms")
+    print(f"phase 8: {len(rows_out)} fakequant-read cases agree (both "
+          f"instances, each of {len(cases)} shapes in two classes)")
     return rows_out
 
 
@@ -1577,8 +1672,9 @@ def phase_fq_serve(M, K, OPS, make_engine, SamplingParams, fcfg, prompts,
     """lm100m at full width in fakequant mode (1024-row tiles, 8-bit
     DAC/ADC, random weights from torch.Generator seed 0), served from its
     digital tree by the continuous scheduler with phase 2's settings.
-    Gates: 48 fakequant reads per model call, each the partial-product
-    kernel and the epilogue, and no call of a plain version."""
+    Gates: 48 fakequant reads per model call, each three counted launches
+    (the FP32 instance's scale and product, the epilogue) and none of the
+    tensor-core instance, and no call of a plain version."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     params = M.init_params(fcfg, gen, device="cuda")
@@ -1605,14 +1701,23 @@ def phase_fq_serve(M, K, OPS, make_engine, SamplingParams, fcfg, prompts,
            "model_calls": calls, "prefill_chunks": m["prefill_chunks"],
            "decode_steps": m["decode_steps"], "launches": launches,
            "plain_calls": len(plain_calls)}
+    reads = launches["fakequant"]
+    by_kernel = {name: launches[count] for name, count in FQ_KERNELS.items()}
+    res["launches_by_kernel"] = by_kernel
+    res["launches_per_read"] = sum(by_kernel.values()) / max(reads, 1)
     print(f"fakequant serving: {n_tok} tokens in {dt:.3f} s = "
-          f"{n_tok / dt:.1f} tokens/s ({calls} model calls, "
-          f"{launches['fakequant']} fakequant reads, each a partial-product "
-          f"and an epilogue launch; {len(plain_calls)} plain-version calls)")
-    if launches["fakequant"] != per_call * calls or calls == 0 \
-            or launches["fakequant_epilogue"] != launches["fakequant"]:
+          f"{n_tok / dt:.1f} tokens/s ({calls} model calls, {reads} "
+          f"fakequant reads; launches by kernel {by_kernel}, "
+          f"{res['launches_per_read']:.2f} a read; {len(plain_calls)} "
+          f"plain-version calls)")
+    # every read: the FP32 instance's scale and product (decode and
+    # 16-token prefill chunks) and the epilogue, each counted at its launch
+    want = {"fakequant_scale_kernel": reads, "fakequant_prepare_kernel": 0,
+            "fakequant_fp32_kernel": reads, "fakequant_tc_kernel": 0,
+            "fakequant_epilogue_kernel": reads}
+    if reads != per_call * calls or calls == 0 or by_kernel != want:
         fail(f"fakequant serving launched {launches} for {calls} model "
-             f"calls; expected {per_call * calls} reads")
+             f"calls; expected {per_call * calls} reads, each {want}")
     if any(v for name, v in launches.items() if "fakequant" not in name):
         fail(f"fakequant serving launched crossbar reads: {launches}")
     if plain_calls:
@@ -1674,13 +1779,13 @@ def profile_decode_step(M, cfg, params):
 @contextlib.contextmanager
 def recording_fq(K, reads):
     """Record every fakequant read the kernels run: ``(x, w, sc, adc,
-    rows, y)``."""
+    rows, y)``, ``sc`` the scale the pre-pass computed."""
     fq_cuda = K._fakequant_cuda
 
-    def recorded(x, w, sc, adc, rows):
-        y = fq_cuda(x, w, sc, adc, rows)
+    def recorded(x, w, adc, rows, instance=None):
+        y, sc = fq_cuda(x, w, adc, rows, instance)
         reads.append((x.clone(), w, sc.clone(), adc, rows, y.clone()))
-        return y
+        return y, sc
 
     K._fakequant_cuda = recorded
     try:
@@ -1732,6 +1837,8 @@ def phase_fq_card_vs_cpu(M, K, OPS, fcfg, params, report):
         if key not in moved:
             moved[key] = w.cpu()
         x, w, sc = x.cpu(), moved[key], sc.cpu()
+        if not torch.equal(sc, K.fakequant_scale(x, adc.in_levels)):
+            fail(f"the card's DAC scale {sc} differs from the CPU's")
         y_p = K._fakequant_plain(x, w, sc, adc, rows)
         ok, err, over, share = fq_agrees(y.cpu(), y_p, x, w, sc, adc, rows)
         worst["max_abs_err"] = max(worst["max_abs_err"], err)
@@ -1768,6 +1875,102 @@ def phase_fq_card_vs_cpu(M, K, OPS, fcfg, params, report):
              f"replayed: {res}")
     if not res["max_abs_logit_diff"] <= 2 * gap:
         fail(f"fakequant card and CPU logits differ beyond the bound: {res}")
+    return res
+
+
+def phase_fq_prefill(M, K, OPS, fcfg, params, report):
+    """Phase 10(b): one full-width lm100m fakequant forward on the card at
+    batch 1 x 2048 tokens, through ``M.forward`` (not the engine).  Gates:
+    48 reads, each three counted launches with the product on the
+    tensor-core instance (none on the FP32 one); every read against the
+    plain version on the card on its own operands (phase 8's bound), its
+    DAC scale bit-equal to ``fakequant_scale``; the card's logits against
+    a CPU forward with the card's read results replayed, within 1e-3.  A
+    second, unrecorded forward gives the wall time; a third, profiled,
+    the device time and the reads' share of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, fcfg.vocab, (1, 2048)))
+    batch = {"tokens": toks.cuda()}
+    reads = []
+    for name in K.LAUNCHES:
+        K.LAUNCHES[name] = 0
+    with torch.no_grad():
+        with recording_fq(K, reads):
+            card, _ = M.forward(params, batch, fcfg)
+        torch.cuda.synchronize()
+        launches = {name: K.LAUNCHES[count]
+                    for name, count in FQ_KERNELS.items()}
+        n_reads = K.LAUNCHES["fakequant"]
+        t0 = time.perf_counter()
+        M.forward(params, batch, fcfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            M.forward(params, batch, fcfg)
+            torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU]
+    read_ms = per_call_us([e for e in events if "fakequant_" in e.key],
+                          1) / 1e3
+    device = kernel_us(prof) / 1e3
+    per = 4 * fcfg.n_layers
+    want = {"fakequant_scale_kernel": 0, "fakequant_prepare_kernel": per,
+            "fakequant_fp32_kernel": 0, "fakequant_tc_kernel": per,
+            "fakequant_epilogue_kernel": per}
+    if n_reads != per or len(reads) != per or launches != want:
+        fail(f"the 2048-token fakequant forward made {n_reads} reads "
+             f"({len(reads)} recorded), launches {launches}; expected {want}")
+    worst = {"max_abs_err": 0.0, "max_err_over_bound": 0.0,
+             "max_flip_share": 0.0}
+    for x, w, sc, adc, rows, y in reads:
+        if not torch.equal(sc, K.fakequant_scale(x, adc.in_levels)):
+            fail("a prefill read's DAC scale differs from fakequant_scale")
+        y_p = K._fakequant_plain(x, w, sc, adc, rows)
+        ok, err, over, share = fq_agrees(y, y_p, x, w, sc, adc, rows)
+        worst["max_abs_err"] = max(worst["max_abs_err"], err)
+        worst["max_err_over_bound"] = max(worst["max_err_over_bound"], over)
+        worst["max_flip_share"] = max(worst["max_flip_share"], share)
+        if not ok:
+            fail(f"a prefill fakequant read disagrees with the plain "
+                 f"version on its operands: x {tuple(x.shape)} w "
+                 f"{tuple(w.shape)}, max err {err}, err/bound {over}, flip "
+                 f"share {share}")
+    replay = iter(reads)
+    eager = OPS._fakequant_eager
+
+    def replayed(x, w, adc, rows):
+        y = next(replay)[5]
+        return y.cpu().reshape(*x.shape[:-1], w.shape[1])
+
+    OPS._fakequant_eager = replayed
+    try:
+        with torch.no_grad():
+            cpu, _ = M.forward(tree_to(params, "cpu"), {"tokens": toks},
+                               fcfg)
+    finally:
+        OPS._fakequant_eager = eager
+    if next(replay, None) is not None:
+        fail("the CPU forward made fewer fakequant reads than the card's")
+    diff = (card.cpu() - cpu).abs().max().item()
+    res = {"tokens": 2048, "reads": n_reads, "launches_by_kernel": launches,
+           **worst, "forced_max_abs_logit_diff": diff, "forced_bound": 1e-3,
+           "max_abs_logit": card.abs().max().item(),
+           "finite": bool(torch.isfinite(card).all()), "wall_ms": 1e3 * wall,
+           "device_ms": device, "fakequant_read_ms": read_ms}
+    report(res)
+    print(f"phase 10(b): lm100m fakequant forward, 1 x 2048 tokens: "
+          f"{n_reads} reads on the tensor-core instance (launches "
+          f"{launches}) agree with the plain version on their operands (max "
+          f"abs err {worst['max_abs_err']:.3g}, "
+          f"{worst['max_err_over_bound']:.3f} of the bound, flip share at "
+          f"most {worst['max_flip_share']:.2g}); logits vs the CPU replay "
+          f"{diff:.3g} (bound 1e-3); {1e3 * wall:.2f} ms wall, device "
+          f"{device:.3f} ms of which the reads {read_ms:.3f} ms")
+    if not res["finite"] or not diff <= 1e-3:
+        fail(f"the 2048-token fakequant forward's logits: {res}")
     return res
 
 
@@ -2097,7 +2300,8 @@ def phase_carry_train(K, U, TA, M, syn, tcfg, report):
     rng.manual_seed(1)
     n_layers = cfg.n_layers
     expect = tensor_core_train_expect(
-        n_layers, fakequant=0, fakequant_epilogue=0, outer_update=0,
+        n_layers, fakequant=0, **dict.fromkeys(FQ_KERNELS.values(), 0),
+        outer_update=0,
         pulse_update=4, update_tc=4, update_prepare=4, update_fp32=0)
     writes, swept, plain_calls = [], [], []
     update_cuda, sweep = U._update_cuda, step._carry_sweep
@@ -2318,6 +2522,31 @@ def write_entry(rows, launches):
             "library_ms": None}}
 
 
+def fq_rows_of(rows, t, instance):
+    """The timed fakequant rows of one lm100m layer's four projections at
+    ``t`` tokens on ``instance``."""
+    names = {name for name, _, _ in TRAIN_SHAPES}
+    return [r for r in rows if r["T"] == t and "ms" in r
+            and r["instance"] == instance and r["projection"] in names]
+
+
+def fq_entry(rows):
+    """The kernels-line figures of a fakequant instance, summed over one
+    layer's four reads (``rows``)."""
+    def tot(key):
+        return sum(r[key] for r in rows)
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": tot("ms"), "plain_ms": tot("plain_ms"),
+            "bound_ms": tot("bound_ms"),
+            "bound_by": "bytes" if tot("bytes_ms") >= tot("bound_ms")
+            else "operations",
+            "tc_floor_ms": tot("tc_floor_ms"),
+            "matmul_ms_not_the_same_function": tot(
+                "matmul_ms_not_the_same_function"),
+            "prepass_ms": tot("prepass_ms"), "product_ms": tot("product_ms"),
+            "epilogue_ms": tot("epilogue_ms")}
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: torch.cuda.is_available() is false")
@@ -2370,7 +2599,8 @@ def main():
           + " | ".join(f"{n}: " + "; ".join(v) for n, v in ptxas.items()))
     details["build"] = {"seconds": build_s, "ptxas": ptxas,
                         "hmma": tensor_core_check(
-                            _nvcc, (K.SOURCE, U.SOURCE, FA.SOURCE))}
+                            _nvcc, (K.SOURCE, U.SOURCE, K.FAKEQUANT_SOURCE,
+                                    FA.SOURCE))}
 
     def cfg_of(tile, cls):
         adc = {"pow2": AdcConfig(range_mode="fixed", sat_frac=0.03125),
@@ -2419,6 +2649,8 @@ def main():
           f"{serve['tokens_per_s']:.1f}")
     phase_fq_card_vs_cpu(M, K, OPS, fcfg, fparams,
                          reporter("fakequant_card_cpu"))
+    fq_prefill = phase_fq_prefill(M, K, OPS, fcfg, fparams,
+                                  reporter("fakequant_prefill"))
     del fparams
     fa_rows, fa_launches = phase_flash(FA, reporter("flash_attention"))
     pulse_rows = phase_pulse_update(U, TAOX, IDEAL, CrossbarConfig,
@@ -2433,7 +2665,7 @@ def main():
     t_mvm = [r for r in mvm_rows if r.get("B") == 2048 and "ms" in r]
     t_upd = [r for r in upd_rows if "ms" in r]
     tl = train["launches_per_step"]
-    fq_decode = [r for r in fq_rows if r["T"] == 4 and "ms" in r]
+    fq_decode = fq_rows_of(fq_rows, 4, "fp32")
     fa_main = next(r for r in fa_rows
                    if r["case"] == "lm100m" and r["dtype"] == "float32")
     fa_bf16 = next(r for r in fa_rows
@@ -2494,17 +2726,33 @@ def main():
         "source": "src/repro_torch/kernels/csrc/xbar_fakequant.cu",
         "replaces": "src/repro/kernels/xbar_vmm.py:247",
         "launches": fq_serve["launches"]["fakequant"],
-        "launches_by_kernel": {
-            "fakequant_partial_kernel": fq_serve["launches"]["fakequant"],
-            "fakequant_epilogue_kernel":
-                fq_serve["launches"]["fakequant_epilogue"]},
-        "max_abs_err": max(r["max_abs_err"] for r in fq_decode),
-        "ms": sum(r["ms"] for r in fq_decode),
-        "plain_ms": sum(r["plain_ms"] for r in fq_decode),
-        "bound_ms": sum(r["bound_ms"] for r in fq_decode),
-        "bound_by": "bytes", "library_ms": None,
-        "matmul_ms_not_the_same_function": sum(
-            r["matmul_ms_not_the_same_function"] for r in fq_decode)}, {
+        "launches_by_kernel": fq_serve["launches_by_kernel"],
+        "launches_prefill": fq_prefill["reads"],
+        "launches_by_kernel_prefill": fq_prefill["launches_by_kernel"],
+        **fq_entry(fq_decode), "library_ms": None,
+        "instances": [{
+            "name": "fp32 (fakequant_scale_kernel, fakequant_fp32_kernel, "
+                    "fakequant_epilogue_kernel)", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/xbar_fakequant.cu",
+            "replaces": "src/repro/kernels/xbar_vmm.py:247 (decode)",
+            "launches": fq_serve["launches_by_kernel"]
+            ["fakequant_fp32_kernel"],
+            **fq_entry(fq_decode), "library_ms": None,
+            "threshold": fq_entry(fq_rows_of(fq_rows, K.FQ_TC_MIN_TOKENS,
+                                             "fp32")),
+            "prefill": fq_entry(fq_rows_of(fq_rows, 2048, "fp32"))}, {
+            "name": "tensor_core (fakequant_prepare_kernel, "
+                    "fakequant_tc_kernel: mma.sync m16n8k16 bf16, "
+                    "fakequant_epilogue_kernel)", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/xbar_fakequant.cu",
+            "replaces": "src/repro/kernels/xbar_vmm.py:247 (prefill)",
+            "launches": fq_prefill["launches_by_kernel"]
+            ["fakequant_tc_kernel"],
+            **fq_entry(fq_rows_of(fq_rows, 2048, "tensor_core")),
+            "library_ms": None,
+            "threshold": fq_entry(fq_rows_of(fq_rows, K.FQ_TC_MIN_TOKENS,
+                                             "tensor_core")),
+            "decode": fq_entry(fq_rows_of(fq_rows, 4, "tensor_core"))}]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:29",
@@ -2557,11 +2805,18 @@ def main():
         "three functions, so library_ms is null; torch.bmm of the write's "
         "accumulate alone is given as "
         "accumulate_bmm_ms_not_the_same_function. xbar_fakequant_read: "
-        "launches counts the fakequant serving run's reads (each a "
-        "partial-product and an epilogue launch); ms, plain_ms and bound_ms "
-        "sum one lm100m layer's four reads at decode (T=4, 1024-row tiles); "
-        "no PyTorch call computes the function, so library_ms is null; "
-        "torch.matmul of the product alone is "
+        "launches counts the fakequant serving run's reads (phase 9; each "
+        "three launches, launches_by_kernel as counted), launches_prefill "
+        "the 2048-token forward's (phase 10(b), on the tensor-core "
+        "instance); ms, plain_ms, bound_ms (bytes, or the FP32 rate) and "
+        "tc_floor_ms (three bf16 products at 989 TFLOP/s) sum one lm100m "
+        "layer's four reads (1024-row tiles) at decode (T=4) on the FP32 "
+        "instance, its main path; instances lists both instances, each "
+        "with the same figures at its own main path's T (fp32: T=4, "
+        "tensor_core: T=2048) and the other T beside them (prefill, "
+        "decode); prepass_ms, product_ms and epilogue_ms split ms by "
+        "kernel. No PyTorch call computes the function, so library_ms is "
+        "null; torch.matmul of the product alone is "
         "matmul_ms_not_the_same_function. flash_attention: launches counts "
         "the calls of flash_attention in phase 11 (eight cases); ms, "
         "plain_ms, bound_ms and library_ms (scaled_dot_product_attention) "

@@ -70,8 +70,9 @@ def fakequant_project(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise NotImplementedError(
             "the fakequant read kernel is forward only (as the reference's "
-            "Pallas kernel); QAT training on the card comes with the port of "
-            "train/train_loop.py and train/optimizer.py (ROADMAP.md)")
+            "Pallas kernel) and has no backward: QAT training on the card "
+            "needs one, or autograd routed to the plain path as the "
+            "reference's auto does (ROADMAP.md section 1, item 3)")
     lead = x.shape[:-1]
     y = fakequant_read(x.reshape(-1, x.shape[-1]), w, adc, rows)
     return y.reshape(*lead, w.shape[1])

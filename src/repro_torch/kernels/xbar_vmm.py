@@ -28,10 +28,16 @@ there and never dispatches into this module.
 The fakequant read (:func:`fakequant_read`, the read of
 ``analog_mode="fakequant"``: digital weights behind the crossbar's DAC and
 per-token ADC) dispatches by the device of its input, with the same
-rules.  Its kernels in ``csrc/xbar_fakequant.cu`` replace the
-TPU kernel ``_fakequant_kernel``; each read launches the partial-product
-kernel and the epilogue: ``LAUNCHES["fakequant"]`` and
-``LAUNCHES["fakequant_epilogue"]`` count them.
+rules.  Its kernels in ``csrc/xbar_fakequant.cu`` replace the TPU kernel
+``_fakequant_kernel``; each read launches three, in one of two
+instances :func:`fakequant_instance` picks from the operands: below
+:data:`FQ_TC_MIN_TOKENS` tokens (decode, prefill chunks, short prompts)
+the FP32 instance (``fakequant_scale``, the DAC scale; ``fakequant_fp32``,
+the product), from there the tensor-core one (``fakequant_prepare``, the
+scale, the DAC codes and W's three bf16 planes; ``fakequant_tc``); then
+the shared per-token ADC ``fakequant_epilogue``.  ``LAUNCHES["fakequant"]``
+counts reads and ``LAUNCHES[name]`` each kernel's launches, from the
+launch record the launcher fills.
 
 The kernels are built at first use from ``csrc/xbar_vmm.cu`` (see
 ``kernels._nvcc``).  :func:`read_instance` picks one of its two instances
@@ -68,16 +74,23 @@ READ_IMPLS = ("auto", "chain", "cuda", "eager")
 #: The read's kernels, in the order of the launcher's launch record.
 READ_KERNEL_COUNTS = ("read_tile", "reduce_tiles", "read_prepare",
                       "read_range", "tc_read")
+#: The fakequant read's kernels, in the order of its launch record.
+FQ_KERNEL_COUNTS = ("fakequant_scale", "fakequant_prepare", "fakequant_fp32",
+                    "fakequant_tc", "fakequant_epilogue")
 #: Launches of each kernel of this module; only the wrappers add to it.
 LAUNCHES = {"fused_vmm": 0, "fused_mvm": 0,
             **{f"{name}_{d}": 0 for d in ("vmm", "mvm")
                for name in READ_KERNEL_COUNTS},
-            "fakequant": 0, "fakequant_epilogue": 0}
+            "fakequant": 0, **{name: 0 for name in FQ_KERNEL_COUNTS}}
 
 SOURCE = _nvcc.CSRC / "xbar_vmm.cu"
 FAKEQUANT_SOURCE = _nvcc.CSRC / "xbar_fakequant.cu"
-FAKEQUANT_MAX_COLUMNS = 8192   # kMaxColumns of the source
 TC_MIN_BATCH = 17              # the tensor-core instance from this batch
+# The fakequant read's tensor-core instance from this many tokens: the
+# measured crossover of one lm100m layer's reads on an H100 (the two tie
+# from 96 to 128 tokens, the tensor cores lead from 144;
+# tools/fakequant_crossover.py).
+FQ_TC_MIN_TOKENS = 144
 TC_MAX_LEVELS = 256            # kTcMaxLevels: DAC codes exact in bf16
 KERNEL_IMPLS = ("auto", "cuda", "eager")
 
@@ -322,7 +335,72 @@ def _fakequant_plain(x: Tensor, w: Tensor, sc: Tensor, adc: AdcConfig,
     return y
 
 
+def split_bf16x3(w: Tensor) -> tuple:
+    """``(hi, mid, lo)``: float32 tensors holding bf16 values (round to
+    nearest even), ``hi = bf16(w)``, ``mid = bf16(w - hi)``, ``lo =
+    bf16(w - hi - mid)``; their sum is ``w`` exactly for ``|w| >= 2^-110``
+    and 0 (below that the tail lost is under 2^-133, bf16's least
+    subnormal).  The split the tensor-core instance's pre-pass writes."""
+    hi = w.to(torch.bfloat16).float()
+    r1 = w - hi
+    mid = r1.to(torch.bfloat16).float()
+    return hi, mid, (r1 - mid).to(torch.bfloat16).float()
+
+
+def fakequant_codes(x: Tensor, sc: Tensor, in_levels: int) -> Tensor:
+    """The DAC codes ``clip(round(x / sc), +-in_levels)`` (float32
+    integers), as the tensor-core instance's pre-pass writes them."""
+    lv = float(in_levels)
+    return _clip(_round(x / sc), -lv, lv)
+
+
+def _fakequant_tc_plain(x: Tensor, w: Tensor, sc: Tensor, adc: AdcConfig,
+                        rows: int) -> Tensor:
+    """The plain twin of the tensor-core instance's arithmetic, on the
+    kernel's operands: the DAC codes (:func:`fakequant_codes`), W split
+    into three bf16 parts (:func:`split_bf16x3`), per row tile ``q = sc *
+    (codes @ hi + codes @ mid + codes @ lo)`` (every product exact in
+    float32; the sums' order is the kernel's own business), then the
+    per-token ADC and tile sum of :func:`_fakequant_plain`.  Used by the
+    tests and ``chip_smoke.py``, never by the main path on a card."""
+    t, k = x.shape
+    n = w.shape[1]
+    out_lv = float(adc.out_levels)
+    pad = (-k) % rows
+    codes = fakequant_codes(torch.nn.functional.pad(x, (0, pad)), sc,
+                            adc.in_levels)
+    hi, mid, lo = split_bf16x3(torch.nn.functional.pad(w, (0, 0, 0, pad)))
+    n_cols = torch.full((), float(n), device=x.device)
+    levels = torch.full((), out_lv, device=x.device)
+    y = torch.zeros((t, n), dtype=torch.float32, device=x.device)
+    for i in range(0, k + pad, rows):
+        c = codes[:, i:i + rows]
+        s = c @ hi[i:i + rows] + c @ mid[i:i + rows] + c @ lo[i:i + rows]
+        q = sc * s
+        ms = torch.sum(q * q, dim=-1, keepdim=True) / n_cols
+        lsb = adc.sat_sigmas * torch.sqrt(ms + 1e-12) / levels
+        y = y + _clip(_round(q / lsb), -out_lv, out_lv) * lsb
+    return y
+
+
+def fakequant_instance(tokens: int, in_levels: int) -> str:
+    """The kernel instance a fakequant read of ``tokens`` rows takes.
+
+    ``"tensor_core"`` for long prefills (``tokens`` >=
+    :data:`FQ_TC_MIN_TOKENS`) when the DAC codes are exact in bf16
+    (``in_levels`` <= 256: DACs of up to 9 bits); ``"fp32"`` otherwise:
+    decode, prefill chunks and short prompts, where streaming W once per
+    16 tokens costs less than the tensor cores' pre-pass over all of W
+    and their 128-token padding, and wider DACs.
+    """
+    if tokens >= FQ_TC_MIN_TOKENS and in_levels <= TC_MAX_LEVELS:
+        return "tensor_core"
+    return "fp32"
+
+
 _fq_lib = None
+# device index -> (SM count, pre-pass CTAs that fit at once)
+_fq_dev = {}
 
 
 def _fakequant_library():
@@ -330,56 +408,82 @@ def _fakequant_library():
     if _fq_lib is None:
         lib = _nvcc.load(FAKEQUANT_SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.xbar_fakequant.argtypes = [p, p, p, p, p, i, i, i, i, f, f, f, p]
+        lib.xbar_fakequant.argtypes = [p, p, p, p, i, i, i, i, i, f, f, f,
+                                       i, i, p, p]
         lib.xbar_fakequant.restype = ctypes.c_int
-        lib.xbar_fakequant_scratch_floats.argtypes = [i, i, i, i]
+        lib.xbar_fakequant_setup.argtypes = [ctypes.POINTER(i)]
+        lib.xbar_fakequant_setup.restype = ctypes.c_int
+        lib.xbar_fakequant_scratch_floats.argtypes = [i] * 7
         lib.xbar_fakequant_scratch_floats.restype = ctypes.c_longlong
         _fq_lib = lib
     return _fq_lib
 
 
-def _fakequant_cuda(x: Tensor, w: Tensor, sc: Tensor, adc: AdcConfig,
-                    rows: int) -> Tensor:
-    """Launch a fakequant read of x (T, K) through w (K, N) with the DAC
-    scale ``sc`` (1,): the partial-product kernel, then the epilogue."""
-    for name, t in {"x": x, "w": w, "sc": sc}.items():
+def _fakequant_cuda(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
+                    instance: Optional[str] = None):
+    """Launch a fakequant read of x (T, K) through w (K, N): the pre-pass
+    and the product of ``instance`` (default :func:`fakequant_instance`),
+    then the epilogue.  Returns ``(y, sc)``: the (T, N) result and the
+    (1,) DAC scale the pre-pass computed.  Everything a read counts or
+    keeps on the card lies in its own scratch (a pre-pass that counts its
+    CTAs has the count zeroed on the current stream first), so reads may
+    run together on several streams."""
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"operand shapes x {tuple(x.shape)} w "
+                         f"{tuple(w.shape)} do not match")
+    instance = instance or fakequant_instance(x.shape[0], adc.in_levels)
+    if instance not in ("fp32", "tensor_core"):
+        raise ValueError(f"unknown fakequant instance {instance!r}")
+    tc = instance == "tensor_core"
+    if tc and adc.in_levels > TC_MAX_LEVELS:
+        raise ValueError(f"the tensor-core instance takes DAC codes of at "
+                         f"most {TC_MAX_LEVELS} levels, got {adc.in_levels}")
+    for name, t in {"x": x, "w": w}.items():
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 CUDA "
                              f"tensor, got {t.dtype} on {t.device}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0] \
-            or sc.shape != (1,):
-        raise ValueError(f"operand shapes x {tuple(x.shape)} w "
-                         f"{tuple(w.shape)} sc {tuple(sc.shape)} do not "
-                         "match")
-    if w.shape[1] > FAKEQUANT_MAX_COLUMNS:
-        raise ValueError(f"the fakequant kernel reads at most "
-                         f"{FAKEQUANT_MAX_COLUMNS} output columns (one "
-                         f"token's outputs in registers), got {w.shape[1]}")
     lib = _fakequant_library()
     (t, k), n = x.shape, w.shape[1]
-    y = torch.empty((t, n), dtype=torch.float32, device=x.device)
-    scratch = torch.empty((lib.xbar_fakequant_scratch_floats(t, k, n, rows),),
-                          dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    dev = x.device
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        if dev.index not in _fq_dev:
+            info = (ctypes.c_int * 2)()
+            err = lib.xbar_fakequant_setup(info)
+            if err != 0:
+                raise RuntimeError(f"xbar_fakequant_setup failed: CUDA "
+                                   f"error {err} on {dev}")
+            _fq_dev[dev.index] = (info[0], info[1])
+    sms, cap = _fq_dev[dev.index]
+    n_scratch = lib.xbar_fakequant_scratch_floats(t, k, n, rows, int(tc),
+                                                  sms, cap)
+    y = torch.empty((t, n), dtype=torch.float32, device=dev)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev)
+    launched = (ctypes.c_int * len(FQ_KERNEL_COUNTS))()
     err = lib.xbar_fakequant(
-        x.data_ptr(), w.data_ptr(), sc.data_ptr(), y.data_ptr(),
-        scratch.data_ptr(), t, k, n, rows, float(adc.in_levels),
-        float(adc.out_levels), float(adc.sat_sigmas), stream)
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), scratch.data_ptr(),
+        t, k, n, rows, int(tc),
+        float(adc.in_levels), float(adc.out_levels), float(adc.sat_sigmas),
+        sms, cap, stream, launched)
+    for name, count in zip(FQ_KERNEL_COUNTS, launched):
+        LAUNCHES[name] += count
+    LAUNCHES["fakequant"] += launched[0] + launched[1]
     if err != 0:
         raise RuntimeError(f"xbar_fakequant launch failed: CUDA error {err} "
                            f"(x {tuple(x.shape)}, w {tuple(w.shape)}, rows "
-                           f"{rows})")
-    LAUNCHES["fakequant"] += 1
-    LAUNCHES["fakequant_epilogue"] += 1
-    return y
+                           f"{rows}, {instance} instance)")
+    return y, scratch[:1]
 
 
 def fakequant_scale(x: Tensor, in_levels: int) -> Tensor:
-    """The DAC full scale ``max(max|x|, 1e-12) / in_levels``, shape (1,)."""
-    return (torch.clamp(x.abs().amax(), min=1e-12) / in_levels).reshape(1)
+    """The DAC full scale ``max(max|x|, 1e-12) / in_levels``, shape (1,).
+    The divisor is a tensor: on the card, torch turns a division by a
+    Python number into a product with its reciprocal, which is not the
+    reference's (nor the kernels') division."""
+    levels = torch.full((), float(in_levels), device=x.device)
+    return (torch.clamp(x.abs().amax(), min=1e-12) / levels).reshape(1)
 
 
 def fakequant_read(x: Tensor, w: Tensor, adc: AdcConfig,
@@ -387,17 +491,17 @@ def fakequant_read(x: Tensor, w: Tensor, adc: AdcConfig,
     """Fused fakequant projection (port of ``fakequant_read_pallas``):
     x (T, K), w (K, N) → (T, N) float32, forward only.
 
-    One DAC scale for all of ``x``, computed here as in the reference's
-    wrapper; ``rows`` is the crossbar row pitch (the ADC's tile).  A CUDA
-    tensor launches the kernels; a CPU tensor takes
-    :func:`_fakequant_plain`.
+    One DAC scale for all of ``x``, as in the reference's wrapper; ``rows``
+    is the crossbar row pitch (the ADC's tile).  A CUDA tensor launches the
+    kernels (the scale is computed by the first of them); a CPU tensor
+    takes :func:`fakequant_scale` and :func:`_fakequant_plain`.
     """
     _deterministic(adc)
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} are not "
                          "(T, K) and (K, N)")
     xf, wf = x.float().contiguous(), w.float().contiguous()
-    sc = fakequant_scale(xf, adc.in_levels)
     if x.is_cuda:
-        return _fakequant_cuda(xf, wf, sc, adc, rows)
-    return _fakequant_plain(xf, wf, sc, adc, rows)
+        return _fakequant_cuda(xf, wf, adc, rows)[0]
+    return _fakequant_plain(xf, wf, fakequant_scale(xf, adc.in_levels), adc,
+                            rows)

@@ -135,7 +135,7 @@ def test_cuda_impl_on_cpu_tensor_raises():
     with pytest.raises(ValueError, match="CUDA"):
         ops.fakequant_project(x, w, AdcConfig(), 16, impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
-        K._fakequant_cuda(x, w, torch.ones((1,)), AdcConfig(), 16)
+        K._fakequant_cuda(x, w, AdcConfig(), 16)
     with pytest.raises(ValueError, match="impl"):
         ops.fakequant_project(x, w, AdcConfig(), 16, impl="pallas")
     with pytest.raises(ValueError, match="impl"):

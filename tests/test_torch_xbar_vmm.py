@@ -230,7 +230,9 @@ def test_transpose_kernel_source_contracts_the_stored_columns():
     src = K.SOURCE.read_text()
     assert "_fused_mvm_kernel" in src and "kTranspose" in src
     assert set(K.LAUNCHES) == {
-        "fused_vmm", "fused_mvm", "fakequant", "fakequant_epilogue",
+        "fused_vmm", "fused_mvm", "fakequant", "fakequant_scale",
+        "fakequant_prepare", "fakequant_fp32", "fakequant_tc",
+        "fakequant_epilogue",
         *(f"{name}_{d}" for d in ("vmm", "mvm")
           for name in ("read_tile", "reduce_tiles", "read_prepare",
                        "read_range", "tc_read"))}
@@ -263,17 +265,6 @@ def _pairs(kind, seed=5):
             torch.from_numpy(np.asarray(ref, np.float32)))
 
 
-def _split_bf16x3(d):
-    """The tensor-core instance's split of float32 ``d`` (as its pre-pass
-    forms it on the card): ``hi = bf16(d)``, ``mid = bf16(d - hi)``, ``lo =
-    bf16(d - hi - mid)``, each returned in float32."""
-    hi = d.to(torch.bfloat16).float()
-    r1 = d - hi
-    mid = r1.to(torch.bfloat16).float()
-    lo = (r1 - mid).to(torch.bfloat16).float()
-    return hi, mid, lo
-
-
 @pytest.mark.parametrize("kind", ["taox_window", "near_zero", "both_signs",
                                   "pulse_grid"])
 def test_bf16x3_split_reconstructs_the_pair_exactly(kind):
@@ -281,7 +272,7 @@ def test_bf16x3_split_reconstructs_the_pair_exactly(kind):
     pulse grid mid and lo are zero (the exact class)."""
     g, ref = _pairs(kind)
     d = g - ref
-    hi, mid, lo = _split_bf16x3(d)
+    hi, mid, lo = K.split_bf16x3(d)
     for part in (hi, mid, lo):
         assert torch.equal(part.to(torch.bfloat16).float(), part)
     np.testing.assert_array_equal(
@@ -299,7 +290,7 @@ def test_code_times_part_products_are_exact(bits):
     ones."""
     levels = AdcConfig(in_bits=bits).in_levels
     g, ref = _pairs("taox_window", seed=bits)
-    parts = torch.cat(_split_bf16x3(g - ref))
+    parts = torch.cat(K.split_bf16x3(g - ref))
     codes = torch.arange(-levels, levels + 1, dtype=torch.float32)
     prod32 = codes[:, None] * parts[None, :]
     prod64 = codes.double()[:, None] * parts.double()[None, :]
@@ -333,7 +324,7 @@ def _tensor_core_read(x, g, ref, sc, cfg, transpose=False):
     y = None
     for r0 in range(0, n_red, rows):
         charges = torch.zeros((codes.shape[0], n_out))
-        for part in _split_bf16x3(diff[r0:r0 + rows]):
+        for part in K.split_bf16x3(diff[r0:r0 + rows]):
             charges = charges + codes[:, r0:r0 + rows] @ part
         p = torch.empty_like(charges)
         for c0 in range(0, n_out, cols):
