@@ -169,6 +169,28 @@ any gate fails:
    one init on the same batches; mean loss of the last 5 steps,
    gap_vs_numeric and gap_closed_by_carry reported, finite losses gated.
 
+14. the paper's MLP (784-300-10, batch 10, 1024x1024 tiles, 8-bit
+   DAC/ADC, dynamic range) through ``train.mlp_analog``: (a) 20 steps of
+   numeric, analog on ideal, taox-nonoise and taox, and pc on taox, each
+   step replayed on the CPU from the card's pre-step parameters with the
+   card's noise fields and read results.  Gates: per step 2 forward and
+   1 transpose read (analog) or 6 and 3 (pc), all on the FP32 instance
+   with no tile-order sum; every read against the plain version on its
+   own operands (phase 1's bound) and its DAC scale the float32 division
+   bit for bit; each layer's update within 10% (2-norm) of the replay's;
+   one evaluation of the 2000 test digits, 2 (analog) or 6 (pc) reads on
+   the tensor-core instance, checked alike, its accuracy equal to the
+   replay's.  The B = 10 reads are timed against their byte bound.  (b)
+   the six runs of ``launch.accuracy`` (Figs. 14 and 15) at the
+   ``MLPRun`` defaults through ``train_mlp``: per-epoch accuracy beside
+   the reference's documented figures, wall seconds, steps/s, profiled
+   device ms per step and the reads' share; each run's launches counted
+   and gated; the paper's claim lines printed, not gated.  (c) the port's
+   ``hwmodel`` headline and phase 7's projected pJ per MAC.
+
+Every read's DAC scale (phases 1, 3, 4, 7, 14) must equal the float32
+division ``max|x| / in_levels`` bit for bit.
+
 The second-to-last line is a JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.  Details
 go to ``chiprun_out/chip_smoke.json``.
@@ -325,17 +347,33 @@ def recording_reads(K, reads):
 
 def read_agrees(y_k, y_p, x, g, ref, sc, cfg, transpose=False):
     """The dynamic-class bound: every element within one ADC lsb per
-    reduction tile (times the output scale) of the plain version, and
-    under 1% of the elements more than 1e-5 relative off.  Returns (ok,
-    max abs err, largest err / bound, flip share)."""
+    reduction tile (times the output scale) of the plain version, plus
+    1e-5 of the larger of the two values, and under 1% of the elements
+    more than 1e-5 relative off.  The relative term is taken of both
+    values, as in :func:`fq_agrees`, so that it also covers a code that
+    flips between 0 and +-1, where the plain value is 0 and the kernel's
+    is one lsb of its own (its range sum taken in another order).
+    Returns (ok, max abs err, largest err / bound, flip share)."""
     err = (y_k - y_p).abs()
     lsb = tile_lsb(x, g, ref, sc, cfg, transpose)
     width = cfg.rows if transpose else cfg.cols
     per_col = lsb.sum(0).repeat_interleave(width)[:y_p.shape[-1]]
-    bound = per_col * sc[0, 1].abs() + 1e-5 * y_p.abs()
+    bound = per_col * sc[0, 1].abs() \
+        + 1e-5 * torch.maximum(y_p.abs(), y_k.abs())
     share = (err > 1e-5 * y_p.abs().amax()).float().mean().item()
     ok = bool((err <= bound).all()) and share < 0.01
     return ok, err.max().item(), (err / bound).max().item(), share
+
+
+def dac_scale_ok(x, sc, in_levels):
+    """Every lead matrix's DAC scale ``sc[:, 0]`` equals the float32
+    division ``max(max|x|, 1e-12) / in_levels`` bit for bit (numpy's
+    IEEE float32 division on the host).  On the card torch computes a
+    division by a Python number as a product with its reciprocal, which
+    can sit an ulp off and move a DAC code."""
+    m = x.detach().abs().amax(dim=tuple(range(1, x.ndim))).cpu().numpy()
+    want = np.maximum(m, np.float32(1e-12)) / np.float32(in_levels)
+    return bool(np.array_equal(sc[:, 0].detach().cpu().numpy(), want))
 
 
 #: Kernels that must issue tensor-core MMAs (HMMA in their SASS), by the
@@ -408,6 +446,9 @@ def kernel_case(K, cfg, k, n, b, tile, cls, timed, gen, report):
     class, the one-lsb-per-tile bound otherwise."""
     x, g, ref, ws = make_operands(k, n, b, gen, cls == "pow2", "cuda")
     sc = K.read_scales(x, ws, cfg.adc.in_levels)
+    if not dac_scale_ok(x, sc, cfg.adc.in_levels):
+        fail(f"read_scales on the card is not the float32 division "
+             f"max|x| / {cfg.adc.in_levels}: {sc[:, 0].tolist()}")
     y_k = K._read_cuda(x, g, ref, sc, cfg)
     torch.cuda.synchronize()
     y_p = K._read_plain(x, g, ref, sc, cfg)
@@ -586,7 +627,9 @@ def check_reads(K, reads, where="cpu"):
     ADC lsb per reduction tile per element, and under 1% of the elements
     more than 1e-5 relative off (phase 1's bound).  A read that skipped
     the ADC or returned a float product would be off by up to half an lsb
-    per tile on nearly every element."""
+    per tile on nearly every element.  Every read's DAC scale must also
+    be the float32 division ``max|x| / in_levels`` bit for bit
+    (:func:`dac_scale_ok`)."""
     moved = {}
 
     def to(t):
@@ -598,6 +641,10 @@ def check_reads(K, reads, where="cpu"):
     worst = {"max_abs_err": 0.0, "max_err_over_bound": 0.0,
              "max_flip_share": 0.0}
     for x, g, ref, sc, cfg, y, transpose in reads:
+        if not dac_scale_ok(x, sc, cfg.adc.in_levels):
+            fail(f"a read's DAC scale {sc[:, 0].tolist()} is not the "
+                 f"float32 division max|x| / {cfg.adc.in_levels} (x "
+                 f"{tuple(x.shape)}, transpose {transpose})")
         x, g, ref, sc = x.to(where), to(g), to(ref), sc.to(where)
         y_p = K._read_plain(x, g, ref, sc, cfg, transpose)
         ok, err, over, share = read_agrees(y.to(where), y_p, x, g, ref, sc,
@@ -1116,6 +1163,10 @@ def phase_update(U, TAOX, CrossbarConfig, xcfg_of, report):
 def tree_to(t, dev):
     if isinstance(t, dict):
         return {k: tree_to(v, dev) for k, v in t.items()}
+    if isinstance(t, tuple):
+        return tuple(tree_to(v, dev) for v in t)
+    if isinstance(t, float):
+        return t
     return t.to(dev)
 
 
@@ -1320,7 +1371,8 @@ def phase_train(K, U, TA, M, syn, tcfg, report):
                f"step1_writes_{k}": v for k, v in upd.items()},
            "digital_leaves_max_abs_err_vs_cpu_replay": digital_err,
            "digital_leaves_max_err_over_bound": digital_over,
-           "loss_card_vs_cpu_replay": loss_diff}
+           "loss_card_vs_cpu_replay": loss_diff,
+           "cost": step.cost}
     report(res)
     print(f"phase 7: lm100m trained 4 steps at full width: losses "
           f"{[round(v, 5) for v in losses]}, g_rail_frac {rails[-1]:.3g}, "
@@ -2492,6 +2544,473 @@ def phase_nonideality(U, K, TA, TL, TO, M, syn, tcfg, report, steps):
     return res
 
 
+# --------------------------------------------------------------------------
+# Phase 14: the paper's MLP (784-300-10) trained on the crossbar
+# --------------------------------------------------------------------------
+
+#: (mode, device) of phase 14(a); (b) runs ``launch.accuracy``'s six.
+MLP_CHECK_RUNS = [("numeric", "taox"), ("analog", "ideal"),
+                  ("analog", "taox-nonoise"), ("analog", "taox"),
+                  ("pc", "taox")]
+#: The accuracies ``benchmarks/accuracy.py`` documents for the full
+#: protocol (the reference's own figures; accuracies, not speeds).
+MLP_REFERENCE_ACC = {"numeric": 0.990, "analog-ideal": 0.971,
+                     "analog-linearized": 0.969, "analog-taox": 0.575,
+                     "analog-taox-nonoise": 0.582,
+                     "periodic-carry-taox": 0.985}
+#: A layer's update on the card against the CPU replay of the same step:
+#: the 2-norm of the difference over the 2-norm of the replay's update.
+#: The replay takes the card's read results, noise fields and write-driver
+#: codes and scales, so only the digital ops and the device model's
+#: float32 rounding differ: 2e-6 to 6e-6 on the card, where an update
+#: formed from the replay's own codes moved by 0.9-1.1% at one flipped
+#: code.  A sample or the bias row left out of an update, or a wrong
+#: sign, learning rate or noise field, moves it by several percent or
+#: more.
+MLP_STEP_BOUND = 1e-4
+#: The write drivers' codes (8-bit rows, 4-bit columns) the card forms in
+#: one step against those the replay forms from the same operands: an ulp
+#: of difference in an activation can put one code across a rounding
+#: boundary (one code of 279,200 in a 20-step run on the card), so a code
+#: may differ by one level, at most this many codes a step ...
+MLP_MAX_CODE_FLIPS = 4
+#: ... and a scale (``max|x| / levels``) by a few float32 ulp.
+MLP_SCALE_RTOL = 1e-6
+
+
+def mlp_reads_per_step(mode):
+    """(forward, transpose) reads of one training step: the analog MLP
+    reads both layers forward and the second transposed (the first
+    layer's input is data); pc reads each of its 3 cells."""
+    return {"numeric": (0, 0), "analog": (2, 1), "pc": (6, 3)}[mode]
+
+
+def mlp_expect(mode, steps, evals):
+    """Every read-kernel count after ``steps`` training steps (B = 10: the
+    FP32 instance, one tile, so no tile-order sum) and ``evals``
+    evaluations (B = 2000: the tensor-core instance, dynamic range)."""
+    fwd, bwd = mlp_reads_per_step(mode)
+    # an evaluation reads what a step reads forward
+    return {"fused_vmm": fwd * (steps + evals), "fused_mvm": bwd * steps,
+            "read_tile_vmm": fwd * steps, "read_tile_mvm": bwd * steps,
+            "read_prepare_vmm": fwd * evals, "read_range_vmm": fwd * evals,
+            "tc_read_vmm": fwd * evals}
+
+
+def mlp_check_counts(K, U, want, what):
+    """Every count of the read, write and fakequant kernels since the last
+    reset against ``want`` (absent names 0); returns the non-zero ones."""
+    got = {**K.LAUNCHES, **U.LAUNCHES}
+    want = {**dict.fromkeys(got, 0), **want}
+    if got != want:
+        fail(f"{what}: launched {got}; expected {want}")
+    return {k: v for k, v in got.items() if v}
+
+
+class RecordingDraws:
+    """A trainer's draws (``train.mlp_analog.Draws``) that keeps each one,
+    for the CPU replay of the same step."""
+
+    def __init__(self, MLP, seed):
+        self.inner = MLP.Draws(seed, "cuda")
+        self.kept = {}
+
+    def normal(self, site, shape):
+        z = self.inner.normal(site, shape)
+        self.kept[site] = z
+        return z
+
+
+class ReplayDraws:
+    """The card's draws, site for site, on the CPU."""
+
+    def __init__(self, recording):
+        self.recording = recording
+
+    def normal(self, site, shape):
+        z = self.recording.kept.pop(site)
+        if tuple(z.shape) != tuple(shape):
+            fail(f"replayed draw {site} of shape {tuple(z.shape)}")
+        return z.cpu()
+
+
+@contextlib.contextmanager
+def replaying_reads(K, results):
+    """The plain read returns the card's results, in order."""
+    read_plain = K._read_plain
+    replay = iter(results)
+
+    def replayed(x, g, ref, sc, cfg, transpose=False):
+        y = next(replay, None)
+        want = (x.shape[0], x.shape[1], g.shape[1] if transpose
+                else g.shape[2])
+        if y is None or tuple(y.shape) != want:
+            fail(f"the CPU replay read x {tuple(x.shape)} g "
+                 f"{tuple(g.shape)} transpose {transpose} with no card "
+                 f"read of that shape to replay")
+        return y.cpu()
+
+    K._read_plain = replayed
+    try:
+        yield replay
+    finally:
+        K._read_plain = read_plain
+
+
+@contextlib.contextmanager
+def recording_codes(XO, kept, given=None):
+    """Record the write drivers' codes and scales ``(x_int, x_scale,
+    d_int, d_scale)`` of every update the MLP forms
+    (``core.xbar_ops.quantize_update_codes``, which the analog layer's
+    backward and ``pc_update`` reach through
+    ``quantize_update_operands``).  With ``given`` (the card's records of
+    the same step), each update writes the card's codes and scales, in
+    order, in place of those recorded here."""
+    real = XO.quantize_update_codes
+    card = iter(given) if given is not None else None
+
+    def recorded(x, d, cfg):
+        out = real(x, d, cfg)
+        kept.append(tuple(t.detach().cpu() for t in out))
+        if card is None:
+            return out
+        theirs = next(card, None)
+        if theirs is None or [t.shape for t in theirs] != [t.shape
+                                                           for t in out]:
+            fail("the CPU replay formed an update with no card update of "
+                 "its shapes to replay")
+        return theirs
+
+    XO.quantize_update_codes = recorded
+    try:
+        yield
+    finally:
+        XO.quantize_update_codes = real
+
+
+def code_flips(card, cpu):
+    """``(codes that differ, codes compared, largest difference in levels,
+    scales that differ, largest relative difference of a scale)`` between
+    the write drivers' operands of the card's step and those the CPU
+    replay forms from the same operands."""
+    if len(card) != len(cpu):
+        fail(f"the card formed {len(card)} updates, the replay {len(cpu)}")
+    codes = scales = total = 0
+    levels = scale_rel = 0.0
+    for a, b in zip(card, cpu):
+        for i in (0, 2):
+            diff = (a[i] - b[i]).abs()
+            codes += int((diff != 0).sum())
+            total += a[i].numel()
+            levels = max(levels, float(diff.max()))
+        for i in (1, 3):
+            scales += int(not torch.equal(a[i], b[i]))
+            scale_rel = max(scale_rel, float((a[i] - b[i]).abs()
+                                             / b[i].abs().clamp_min(1e-30)))
+    return codes, total, levels, scales, scale_rel
+
+
+def mlp_layers(params):
+    """The trained arrays of an MLP parameter tuple: ``w`` (numeric) or
+    ``g`` (a crossbar layer, a pc stack)."""
+    return [p["g"] if isinstance(p, dict) else p for p in params]
+
+
+def phase_mlp_check(K, U, MLP, syn, mode, device, steps, report):
+    """Phase 14(a) for one (mode, device): ``steps`` training steps of the
+    full-width MLP on the card (the paper's 784-300-10, batch 10, 1024x1024
+    tiles, 8-bit DAC/ADC), each replayed on the CPU from the card's
+    pre-step parameters with the card's noise fields and read results.
+
+    Gates: each step's counted launches (:func:`mlp_expect`); every read
+    of the step against the plain version on the card on its own operands
+    (``read_agrees``, the DAC scale bit for bit); the write drivers' codes
+    and scales against the replay's (:data:`MLP_MAX_CODE_FLIPS` codes a
+    step one level apart, scales within :data:`MLP_SCALE_RTOL`); each
+    layer's update, the replay writing the card's codes, within
+    :data:`MLP_STEP_BOUND` of the replay's; one evaluation of the
+    2000 test digits on the tensor-core instance, its reads checked the
+    same way and counted; finite parameters."""
+    run = MLP.MLPRun(mode=mode, device=device)
+    draws = RecordingDraws(MLP, run.seed)
+    card = MLP.MLPTrainer(run, "cuda", draws)
+    cpu = MLP.MLPTrainer(run, "cpu", ReplayDraws(draws))
+    xtr, ytr = syn.make_digits(run.n_train, seed=run.seed)
+    xte, yte = syn.make_digits(run.n_test, seed=run.seed + 1)
+    params = card.init()
+    cpu.init()                      # consumes the init draws
+    worst, n_reads, checked, per_step = 0.0, 0, {}, []
+    flips = n_codes = scale_diffs = 0
+    worst_level = worst_scale = 0.0
+    from repro_torch.core import xbar_ops as XO
+    for i in range(steps):
+        sl = slice(i * run.batch, (i + 1) * run.batch)
+        x, y = torch.from_numpy(xtr[sl]), torch.from_numpy(ytr[sl]).long()
+        pre = tree_to(params, "cpu")
+        reads, ops_card, ops_cpu = [], [], []
+        reset_launches(K, U)
+        with recording_reads(K, reads), recording_codes(XO, ops_card):
+            params = card.step(params, x.cuda(), y.cuda())
+            if mode == "pc" and (i + 1) % run.carry_every == 0:
+                params = card.carry(params)
+            torch.cuda.synchronize()
+        mlp_check_counts(K, U, mlp_expect(mode, 1, 0),
+                         f"MLP {mode}/{device} step {i + 1}")
+        if reads:
+            w = check_reads(K, reads, where="cuda")
+            for key, v in w.items():
+                checked[key] = max(checked.get(key, 0.0), v)
+        n_reads += len(reads)
+        with replaying_reads(K, [r[5] for r in reads]) as rest, \
+                recording_codes(XO, ops_cpu, ops_card):
+            rep = cpu.step(pre, x, y)
+            if mode == "pc" and (i + 1) % run.carry_every == 0:
+                rep = cpu.carry(rep)
+            if next(rest, None) is not None:
+                fail(f"MLP {mode}/{device} step {i + 1}: the CPU replay "
+                     f"made fewer reads than the card")
+        n_diff, n_ops, level, n_sc, sc_rel = code_flips(ops_card, ops_cpu)
+        flips += n_diff
+        n_codes += n_ops
+        scale_diffs += n_sc
+        worst_level = max(worst_level, level)
+        worst_scale = max(worst_scale, sc_rel)
+        if (level > 1 or n_diff > MLP_MAX_CODE_FLIPS
+                or sc_rel > MLP_SCALE_RTOL):
+            fail(f"MLP {mode}/{device} step {i + 1}: {n_diff} write-driver "
+                 f"codes differ from the replay's, by up to {level:g} "
+                 f"levels, scales by up to {sc_rel:.3g} (allowed "
+                 f"{MLP_MAX_CODE_FLIPS} codes by 1 level, scales "
+                 f"{MLP_SCALE_RTOL})")
+        per_step.append([n_diff])
+        for li, (a, b, p0) in enumerate(zip(mlp_layers(params),
+                                            mlp_layers(rep),
+                                            mlp_layers(pre)), 1):
+            a = a.cpu()
+            if not torch.isfinite(a).all():
+                fail(f"MLP {mode}/{device} step {i + 1}: layer {li} is "
+                     f"not finite")
+            move = (b - p0).norm().item()
+            rel = (a - b).norm().item() / max(move, 1e-30)
+            worst = max(worst, rel)
+            per_step[-1].append(rel)
+            if rel > MLP_STEP_BOUND:
+                fail(f"MLP {mode}/{device} step {i + 1}, layer {li}: the "
+                     f"card's update is {rel:.3g} of the replay's off "
+                     f"(bound {MLP_STEP_BOUND})")
+    # one evaluation of the test set: B = 2000 on the tensor-core instance
+    reads = []
+    reset_launches(K, U)
+    with recording_reads(K, reads):
+        acc = card.accuracy(params, torch.from_numpy(xte).cuda(),
+                            torch.from_numpy(yte).long().cuda())
+        torch.cuda.synchronize()
+    mlp_check_counts(K, U, mlp_expect(mode, 0, 1),
+                     f"MLP {mode}/{device} evaluation")
+    ev = check_reads(K, reads, where="cuda") if reads else {}
+    with replaying_reads(K, [r[5] for r in reads]):
+        acc_cpu = cpu.accuracy(tree_to(params, "cpu"), torch.from_numpy(xte),
+                               torch.from_numpy(yte).long())
+    res = {"mode": mode, "device": device, "steps": steps,
+           "reads_checked": n_reads, **{f"reads_{k}": v
+                                        for k, v in checked.items()},
+           "max_update_diff_over_replay_update": worst,
+           "per_step_code_flips_and_update_diffs": per_step,
+           "write_code_flips": flips, "write_codes_compared": n_codes,
+           "write_scales_differing": scale_diffs,
+           "max_code_level_diff": worst_level,
+           "max_scale_rel_diff": worst_scale,
+           "max_code_flips_per_step": MLP_MAX_CODE_FLIPS,
+           "bound": MLP_STEP_BOUND, "eval_reads": len(reads),
+           **{f"eval_reads_{k}": v for k, v in ev.items()},
+           "accuracy_after": float(acc),
+           "accuracy_cpu_replay": float(acc_cpu)}
+    report(res)
+    print(f"  MLP {mode}/{device}: {steps} steps on the card, {n_reads} "
+          f"B=10 reads agree with the plain version"
+          + (f" (worst {checked['max_err_over_bound']:.3f} of the bound)"
+             if checked else "")
+          + f"; updates vs the CPU replay at most {worst:.3g} of the "
+          f"replay's (bound {MLP_STEP_BOUND}, the replay writing the "
+          f"card's codes; {flips} of {n_codes} write-driver codes differ "
+          f"by up to {worst_level:g} level, {scale_diffs} scales by up to "
+          f"{worst_scale:.3g}); "
+          f"evaluation: {len(reads)} "
+          f"B=2000 tensor-core reads agree, accuracy {float(acc):.4f} "
+          f"(CPU replay {float(acc_cpu):.4f})")
+    if abs(float(acc) - float(acc_cpu)) > 1e-3:
+        fail(f"MLP {mode}/{device}: evaluation accuracy {float(acc)} on the "
+             f"card, {float(acc_cpu)} on the CPU with its reads replayed")
+    return res
+
+
+def profile_mlp_step(K, U, MLP, syn, run, n_steps=50):
+    """Device time of one training step of ``run`` on the card, by
+    torch.profiler (:func:`device_ms`, corrected per launch), and the
+    reads' share of it; the wall time of the same steps unprofiled."""
+    trainer = MLP.MLPTrainer(run, "cuda")
+    xtr, ytr = syn.make_digits(n_steps * run.batch, seed=run.seed)
+    xtr = torch.from_numpy(xtr).cuda()
+    ytr = torch.from_numpy(ytr).long().cuda()
+    state = {"p": trainer.init()}
+
+    def one(i):
+        j = i % n_steps
+        sl = slice(j * run.batch, (j + 1) * run.batch)
+        state["p"] = trainer.step(state["p"], xtr[sl], ytr[sl])
+
+    one(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        one(i)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n_steps
+    reads = ("fused_read_tile_kernel", "reduce_tiles_kernel",
+             "read_prepare_kernel", "tc_range_kernel", "tc_read_kernel")
+    got = device_ms(one, n_steps, split=reads)
+    if got is None or got[0] is None:
+        return {"wall_ms": 1e3 * wall, "device_ms": None}
+    ms, parts = got
+    read_ms = sum(parts.values())
+    return {"wall_ms": 1e3 * wall, "device_ms": ms, "read_ms": read_ms,
+            "read_share": read_ms / ms, "idle_share": 1 - ms / (1e3 * wall),
+            "read_ms_by_kernel": parts}
+
+
+def phase_mlp_protocol(K, U, MLP, ACC, syn, report, fast):
+    """Phase 14(b): the six runs of ``launch.accuracy`` (Figs. 14 and 15)
+    through ``train_mlp`` on the card at the ``MLPRun`` defaults (or
+    ``--fast``'s protocol): per-epoch test accuracy, wall seconds (the
+    digits' generation included), steps/s, device ms per step and the
+    reads' share; the claim lines as ``launch.accuracy`` words them.
+    Gates: every run completes with finite accuracies and the counted
+    launches of its steps and evaluations (:func:`mlp_expect`); a claim
+    that fails is reported, not gated."""
+    runs = list(ACC.FIG14_MODES) + [ACC.FIG15]
+    results, rows = {}, []
+    for name, run in runs:
+        if fast:
+            run = ACC.fast(run)
+        steps = run.epochs * (run.n_train // run.batch)
+        reset_launches(K, U)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = MLP.train_mlp(run, log=None, device="cuda")
+        wall = time.perf_counter() - t0
+        launches = mlp_check_counts(K, U, mlp_expect(run.mode, steps,
+                                                     run.epochs),
+                                    f"MLP run {name}")
+        if not all(math.isfinite(a) for a in out["acc"]):
+            fail(f"MLP run {name}: accuracies {out['acc']}")
+        prof = profile_mlp_step(K, U, MLP, syn, run)
+        row = {"name": name, "mode": run.mode, "device": run.device,
+               "epochs": run.epochs, "n_train": run.n_train,
+               "n_test": run.n_test, "steps": steps, "acc": out["acc"],
+               "final": out["final"],
+               "reference_documented_acc": MLP_REFERENCE_ACC[name],
+               "wall_s": wall, "steps_per_s": steps / wall,
+               "launches": launches, "profile": prof}
+        rows.append(row)
+        report(row)
+        results[name] = out["final"]
+        dev = (f"{prof['device_ms']:.3f} ms device per step, reads "
+               f"{prof['read_ms']:.3f} ms ({100 * prof['read_share']:.0f}%)"
+               if prof.get("device_ms") else "device time not measured")
+        print(f"  accuracy/{name}: per epoch "
+              f"{'/'.join(f'{a:.4f}' for a in out['acc'])} (the reference "
+              f"documents {MLP_REFERENCE_ACC[name]:.3f}); {wall:.1f} s, "
+              f"{steps / wall:.0f} steps/s; {dev}, "
+              f"{prof['wall_ms']:.3f} ms wall per step")
+    claims = ACC.claims(results, carry=True, fast_run=fast)
+    for name, ok in claims:
+        print(f"claim/{name},0,{'PASS' if ok else 'FAIL'}")
+    report({"claims": {n: ok for n, ok in claims}})
+    return rows, claims
+
+
+def read_entry_mlp(K, cfg_of_mlp):
+    """Times of the MLP's B = 10 reads (the FP32 instance, one 1024x1024
+    tile) against the byte bound, as phase 1 times its reads: layer 1's
+    forward (785 x 300), layer 2's forward and transpose (301 x 10)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    out = {}
+    for name, k, n, transpose in (("l1_vmm", 785, 300, False),
+                                  ("l2_vmm", 301, 10, False),
+                                  ("l2_mvm", 301, 10, True)):
+        x, g, ref, ws = make_operands(k, n, 10, gen, False, "cuda")
+        if transpose:
+            x = torch.randn((1, 10, n), generator=gen, device="cuda")
+        sc = K.read_scales(x, ws, cfg_of_mlp.adc.in_levels)
+        y_k = K._read_cuda(x, g, ref, sc, cfg_of_mlp, transpose)
+        torch.cuda.synchronize()
+        y_p = K._read_plain(x, g, ref, sc, cfg_of_mlp, transpose)
+        ok, err, over, _ = read_agrees(y_k, y_p, x, g, ref, sc, cfg_of_mlp,
+                                       transpose)
+        if not ok:
+            fail(f"MLP read {name} disagrees with its plain version")
+        out[name] = {"K": k, "N": n, "B": 10, "transpose": transpose,
+                     "instance": K.read_instance(
+                         10, cfg_of_mlp.adc.in_levels),
+                     "max_abs_err": err, "err_over_bound": over,
+                     **time_read(K, x, g, ref, sc, cfg_of_mlp, transpose)}
+    return out
+
+
+def phase_mlp(K, U, MLP, ACC, CMP, syn, report, train, fast=False,
+              steps=20):
+    """Phase 14: (a) card vs CPU replay per mode, (b) the paper's
+    protocol, (c) the port's ``hwmodel`` headline and phase 7's projected
+    pJ per MAC.  Returns the figures the kernels line takes."""
+    checks = [phase_mlp_check(K, U, MLP, syn, mode, device, steps, report)
+              for mode, device in MLP_CHECK_RUNS]
+    print(f"phase 14(a): the MLP at full width, {steps} steps of each of "
+          f"{len(checks)} runs on the card against the CPU replay: "
+          f"{sum(c['reads_checked'] + c['eval_reads'] for c in checks)} "
+          f"reads checked, updates within "
+          f"{max(c['max_update_diff_over_replay_update'] for c in checks):.3g}"
+          f" of the replay's (bound {MLP_STEP_BOUND})")
+    reads = read_entry_mlp(K, MLP.MLPRun().crossbar())
+    for name, r in reads.items():
+        print_read_time(f"MLP {name}", r)
+    rows, claims = phase_mlp_protocol(K, U, MLP, ACC, syn, report, fast)
+    print(f"phase 14(b): the paper's protocol "
+          f"({'--fast' if fast else 'full: 4 epochs, 8000/2000 digits'}), "
+          f"{len(rows)} runs complete; claims "
+          + ", ".join(f"{n}: {'PASS' if ok else 'FAIL'}" for n, ok in claims))
+    head = CMP.headline()
+    print(f"phase 14(c): hwmodel headline (the port's copy) "
+          + ", ".join(f"{k} {v:.6g}" for k, v in head.items())
+          + "; lm100m training step (phase 7) projected pJ per MAC "
+          + ", ".join(f"{k} {v:.6g}"
+                      for k, v in train["cost"]["pj_per_mac"].items()))
+    report({"hwmodel_headline": head,
+            "lm100m_step_pj_per_mac": train["cost"]["pj_per_mac"]})
+    return {"checks": checks, "reads": reads, "runs": rows,
+            "claims": claims}
+
+
+def mlp_read_entry(mlp, direction, names):
+    """The kernels-line figures of the MLP's reads in one direction: the
+    launches of phase 14(b)'s six runs (each kernel counted) and the
+    B = 10 read times (phase 14, summed over ``names``: one training
+    step's reads in that direction, one of each layer)."""
+    by = {}
+    for row in mlp["runs"]:
+        for key, v in row["launches"].items():
+            if key.endswith(f"_{direction}"):
+                by[key] = by.get(key, 0) + v
+    reads = [mlp["reads"][n] for n in names]
+    return {"launches_mlp": by.get(f"fused_{direction}", 0),
+            "launches_by_kernel_mlp": by,
+            "mlp_b10_max_abs_err": max(r["max_abs_err"] for r in reads),
+            "mlp_b10_ms": sum(r["ms"] for r in reads),
+            "mlp_b10_plain_ms": sum(r["plain_ms"] for r in reads),
+            "mlp_b10_bound_ms": sum(r["bound_ms"] for r in reads),
+            "mlp_b10_bound_by": "bytes"}
+
+
 def write_entry(rows, launches):
     """The kernels-line figures of a write's tensor-core instance, summed
     over ``rows`` (the four containers' timed writes), with its FP32
@@ -2564,7 +3083,10 @@ def main():
     from repro_torch.kernels import xbar_vmm as K
     from repro_torch.models import model as M
     from repro_torch.serve import SamplingParams, make_engine
+    from repro_torch.hwmodel import compare as CMP
+    from repro_torch.launch import accuracy as ACC
     from repro_torch.train import analog_lm as TA
+    from repro_torch.train import mlp_analog as MLP
     from repro_torch.train import optimizer as TO
     from repro_torch.train import train_loop as TL
 
@@ -2658,6 +3180,7 @@ def main():
     carry = phase_carry_train(K, U, TA, M, syn, tcfg, reporter("carry_train"))
     phase_nonideality(U, K, TA, TL, TO, M, syn, tcfg, reporter("nonideality"),
                       steps=30)
+    mlp = phase_mlp(K, U, MLP, ACC, CMP, syn, reporter("mlp"), train)
 
     def total(launches, name):
         return sum(step[name] for step in launches)
@@ -2691,7 +3214,8 @@ def main():
         "train_plain_ms": sum(r["plain_ms"] for r in t_vmm),
         "train_bound_ms": sum(r["bound_ms"] for r in t_vmm),
         "train_tc_floor_ms": sum(r["tc_floor_ms"] for r in t_vmm),
-        "train_tc_design_ms": sum(r["tc_design_ms"] for r in t_vmm)}, {
+        "train_tc_design_ms": sum(r["tc_design_ms"] for r in t_vmm),
+        **mlp_read_entry(mlp, "vmm", ("l1_vmm", "l2_vmm"))}, {
         "name": "xbar_fused_mvm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_vmm.cu",
         "replaces": "src/repro/kernels/xbar_vmm.py:171",
@@ -2703,7 +3227,8 @@ def main():
         "bound_ms": sum(r["bound_ms"] for r in t_mvm),
         "bound_by": "operations", "library_ms": None,
         "tc_floor_ms": sum(r["tc_floor_ms"] for r in t_mvm),
-        "tc_design_ms": sum(r["tc_design_ms"] for r in t_mvm)}, {
+        "tc_design_ms": sum(r["tc_design_ms"] for r in t_mvm),
+        **mlp_read_entry(mlp, "mvm", ("l2_mvm",))}, {
         "name": "xbar_outer_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
         "replaces": "src/repro/kernels/xbar_update.py:281",
@@ -2830,7 +3355,15 @@ def main():
         "N) pulse-train writes at T=2048 with counter-PRNG noise (phase "
         "12(b)); no PyTorch call computes the function, so library_ms is "
         "null; torch.bmm of its two accumulates alone is "
-        "accumulates_bmm_ms_not_the_same_function")
+        "accumulates_bmm_ms_not_the_same_function. The MLP (phase 14): "
+        "launches_mlp counts the reads of phase 14(b)'s six runs of the "
+        "paper's protocol (training steps at B=10 on the FP32 instance, "
+        "evaluations at B=2000 on the tensor-core one; "
+        "launches_by_kernel_mlp by kernel); mlp_b10_ms, mlp_b10_plain_ms "
+        "and mlp_b10_bound_ms (bytes at the HBM rate) sum one training "
+        "step's B=10 reads in that direction, one per layer: layer 1 "
+        "(785x300) and layer 2 (301x10) forward, layer 2 transposed; "
+        "1024x1024 tiles, 8-bit DAC/ADC, dynamic range")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1))

@@ -11,6 +11,10 @@ state is ``{"params": tree, "step": int32}``, and its numeric one
 of velocities with momentum, ``{"m", "v", "t"}`` for AdamW.  The port
 uses the same structures with torch tensors, so a tree handed over as
 numpy arrays (``jax.tree.map(np.asarray, state)``) maps leaf for leaf.
+The paper's MLP carries a tuple of two layers: ``(w1, w2)`` (numeric),
+two crossbar layers ``{"g", "ref", "w_scale"}`` (analog) or two
+periodic-carry stacks, whose ``"base"`` is a Python float and stays one
+(hand the stack over as it is, or with its arrays as numpy arrays).
 This module takes numpy only and imports nothing of the JAX package.
 """
 from __future__ import annotations
@@ -24,12 +28,29 @@ def params_from_numpy(tree, device="cuda"):
     analog train state ``{"params", "step"}`` or a numeric one with its
     optimizer state — -> the same structure of torch tensors on
     ``device`` (float32 leaves stay float32, the int32 step stays int32;
-    copies, never views; an empty tuple stays an empty tuple)."""
+    copies, never views; an empty tuple stays an empty tuple; a Python
+    number, such as a periodic-carry stack's ``"base"``, stays a Python
+    number)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return tuple(params_from_numpy(v, device) for v in tree)
+    if isinstance(tree, (int, float)):
+        return tree
     arr = np.asarray(tree)
     if arr.dtype.kind not in "fiub" or arr.dtype.itemsize > 8:
         raise TypeError(f"unsupported parameter leaf of dtype {arr.dtype}")
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def params_to_numpy(tree):
+    """The inverse of :func:`params_from_numpy`: the same structure with
+    every tensor as a numpy array (a copy on the host); Python numbers
+    stay Python numbers."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(params_to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy().copy()
+    return tree

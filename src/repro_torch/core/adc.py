@@ -55,6 +55,23 @@ class AdcConfig:
         return 2 ** (self.out_bits - 1) - 1
 
 
+_DIVISORS = {}   # (value, dtype, device) -> 0-d tensor
+
+
+def divisor(value: float, like: Tensor) -> Tensor:
+    """``value`` as a 0-d tensor of ``like``'s dtype on its device, made
+    once per device.  Quantiser scales divide by it, not by the Python
+    number: on the card torch computes a division by a Python number as
+    a product with its reciprocal, which can sit an ulp off the
+    reference's division and move a code at a rounding boundary (on the
+    CPU the two are the same division)."""
+    key = (float(value), like.dtype, like.device)
+    if key not in _DIVISORS:
+        _DIVISORS[key] = torch.full((), float(value), dtype=like.dtype,
+                                    device=like.device)
+    return _DIVISORS[key]
+
+
 def _round(x: Tensor) -> Tensor:
     """Round half to even, as ``lax.round(TO_NEAREST_EVEN)``."""
     return torch.round(x)
@@ -84,7 +101,7 @@ def quantize_input(x: Tensor, cfg: AdcConfig,
     _deterministic(cfg)
     levels = cfg.in_levels
     if scale is None:
-        scale = torch.clamp(x.abs().amax(), min=1e-12) / levels
+        scale = torch.clamp(x.abs().amax(), min=1e-12) / divisor(levels, x)
     x_int = _round(x / scale)
     return _clip(x_int, float(-levels), float(levels)), scale
 
@@ -117,7 +134,7 @@ def adc_quantize(q: Tensor, sat: Tensor, cfg: AdcConfig) -> Tensor:
     """Ramp ADC: uniform quantisation of ``[-sat, sat]`` to ``out_bits``
     levels, returned in charge units (``lsb * round(q / lsb)``)."""
     _deterministic(cfg)
-    lsb = sat / cfg.out_levels
+    lsb = sat / divisor(cfg.out_levels, sat)
     code = _clip(_round(q / lsb), float(-cfg.out_levels),
                  float(cfg.out_levels))
     return code * lsb

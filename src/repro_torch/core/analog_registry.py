@@ -42,6 +42,10 @@ PROJECTION_KEYS = ROW_PARALLEL_KEYS | COLUMN_PARALLEL_KEYS
 #: The dict key under which MoE stacks its per-expert matrices.
 EXPERT_STACK_KEY = "experts"
 
+#: The hybrid family's shared block: one weight set applied at every group
+#: boundary.
+SHARED_BLOCK_KEYS = frozenset({"shared_in", "shared_attn", "shared_ffn"})
+
 #: Matrix-shaped parameters the paper keeps on the digital core.
 DIGITAL_CORE_KEYS = frozenset({
     "embed", "lm_head", "router", "enc_pos", "conv_w", "conv_b",
@@ -106,6 +110,19 @@ def tape_lead(path: Sequence, cfg, n_tokens: int,
     dense family applies once per step to all T tokens."""
     _dense_rows_only("tape_lead", classify(path), cfg)
     return (n_tokens,)
+
+
+def tape_reps(path: Sequence, cfg) -> int:
+    """How many times the container at ``path`` is applied per step: the
+    hybrid shared block once per group boundary (``n_layers //
+    attn_every``), every other container once.  The cost roll-up
+    (``hwmodel.arch_cost``) reads it; the dense family has no shared
+    block, so there it is 1."""
+    keys = _keys(path)
+    if getattr(cfg, "attn_every", 0) and \
+            any(k in SHARED_BLOCK_KEYS for k in keys):
+        return cfg.n_layers // cfg.attn_every
+    return 1
 
 
 def leaf_layout(kind: str, ndim: int, leaf: str, rows: int, cols: int

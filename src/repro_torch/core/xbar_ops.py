@@ -92,12 +92,24 @@ def _chain_read(x: Tensor, g: Tensor, g_ref: Tensor, w_scale,
     return (q * (x_scale / w_scale)).to(in_dtype)
 
 
-def _read(x: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
-          impl: Optional[str], transpose: bool) -> Tensor:
+def _read_conductance(g: Tensor, cfg: CrossbarConfig,
+                      eps: Optional[Tensor]) -> Tensor:
+    """Multiplicative read noise (paper §V.A), if configured:
+    ``g (1 + read_noise eps)``.  ``eps`` is the standard-normal field of
+    ``g``'s shape: the reference draws it from its key, the port takes it
+    as an input (on the card, drawn from an explicit ``torch.Generator``),
+    so both can be fed the same field."""
     if cfg.device.read_noise > 0.0:
-        raise NotImplementedError(
-            "read noise draws per read; it waits for its own parity plan "
-            "(ROADMAP.md)")
+        if eps is None:
+            raise ValueError("read_noise > 0 requires a noise field eps")
+        g = g * (1.0 + cfg.device.read_noise * eps)
+    return g
+
+
+def _read(x: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
+          impl: Optional[str], transpose: bool,
+          eps: Optional[Tensor] = None) -> Tensor:
+    g = _read_conductance(g, cfg, eps)
     if impl == "chain":
         if x.is_cuda:
             raise ValueError("impl='chain' on a CUDA tensor: tensors on the "
@@ -109,23 +121,26 @@ def _read(x: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
 
 
 def vmm(x: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
-        impl: Optional[str] = None) -> Tensor:
+        impl: Optional[str] = None, eps: Optional[Tensor] = None) -> Tensor:
     """Analog vector-matrix multiply: ``y ≈ x @ W`` for
     ``W = (g - g_ref) / w_scale``.
 
     ``x``: (..., B, K) float activations; ``g``/``g_ref``: (..., K, N)
     conductances with matching lead dims.  ``impl`` picks the read path
     (``kernels.xbar_vmm.READ_IMPLS``, default by the tensors' device);
-    ``"chain"``, the unfused oracle, takes CPU tensors only.
+    ``"chain"``, the unfused oracle, takes CPU tensors only.  ``eps`` is
+    the read-noise field (:func:`_read_conductance`), needed only when the
+    device has read noise; the noisy ``g`` goes through the same read.
     """
-    return _read(x, g, g_ref, w_scale, cfg, impl, transpose=False)
+    return _read(x, g, g_ref, w_scale, cfg, impl, transpose=False, eps=eps)
 
 
 def mvm(d: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
-        impl: Optional[str] = None) -> Tensor:
+        impl: Optional[str] = None, eps: Optional[Tensor] = None) -> Tensor:
     """Analog transpose read: ``y ≈ d @ W.T`` (same array, columns
-    driven).  ``d``: (..., B, N); returns (..., B, K)."""
-    return _read(d, g, g_ref, w_scale, cfg, impl, transpose=True)
+    driven).  ``d``: (..., B, N); returns (..., B, K).  ``eps`` as in
+    :func:`vmm`."""
+    return _read(d, g, g_ref, w_scale, cfg, impl, transpose=True, eps=eps)
 
 
 def quantize_update_codes(x: Tensor, d: Tensor, cfg: CrossbarConfig):

@@ -61,7 +61,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.adc import (AdcConfig, _clip, _deterministic, _round,
-                                  fixed_saturation)
+                                  divisor, fixed_saturation)
 from repro_torch.core.crossbar import CrossbarConfig
 from repro_torch.core.xbar_ops import _tiled_read
 
@@ -255,8 +255,12 @@ def _read_cuda(x: Tensor, g: Tensor, ref: Tensor, sc: Tensor,
 
 def read_scales(x: Tensor, w_scale: Tensor, in_levels: int) -> Tensor:
     """The (L, 2) operand ``[x_scale, x_scale / w_scale]`` per matrix:
-    the DAC full scale ``max|x| / in_levels`` and the folded rescale."""
-    x_scale = torch.clamp(x.abs().amax(dim=(1, 2)), min=1e-12) / in_levels
+    the DAC full scale ``max|x| / in_levels`` and the folded rescale.
+    The divisor is a tensor (``core.adc.divisor``): on the card, torch
+    turns a division by a Python number into a product with its
+    reciprocal, which can sit an ulp off the reference's division."""
+    x_scale = torch.clamp(x.abs().amax(dim=(1, 2)), min=1e-12) \
+        / divisor(in_levels, x)
     return torch.stack([x_scale, x_scale / w_scale], dim=1).contiguous()
 
 

@@ -26,9 +26,10 @@ One ``AnalogTrainStep`` call is the whole training rule:
      into their primaries (:meth:`AnalogTrainStep._carry_sweep`).
 
 The conductances are never updated in place: the step returns a new
-state.  The sharded step and the step's hardware cost roll-up
-(``step.cost``, which waits for the ``hwmodel`` port) are not ported yet
-(ROADMAP.md).
+state.  On its first call the step also records its projected hardware
+cost on the paper's accelerator (``step.cost``, from
+``hwmodel.arch_cost.train_step_cost``).  The sharded step is not ported
+yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ from repro_torch.core.periodic_carry import carry_fold
 from repro_torch.core.tiled_analog import (crossbar_from_model,
                                            is_analog_container, merge_tapes,
                                            split_tapes)
+from repro_torch.hwmodel.arch_cost import train_step_cost
 from repro_torch.kernels.xbar_update import _mix32, _u32, xbar_outer_update
 from repro_torch.models import model as M
 
@@ -85,10 +87,13 @@ class AnalogTrainStep:
     it), or the integer ``seed_base`` itself (a test feeds the reference's
     ``jax.random.bits`` draw).  Noiseless devices need none.
 
-    ``mesh`` is not ported yet and raises.
+    ``step.cost`` is the step's projected cost on the paper's accelerator
+    at ``bits``-bit I/O (``hwmodel.arch_cost.train_step_cost``), set on
+    the first call.  ``mesh`` is not ported yet and raises.
     """
 
-    def __init__(self, cfg: ModelConfig, lr: float, mesh=None):
+    def __init__(self, cfg: ModelConfig, lr: float, mesh=None,
+                 bits: int = 8):
         if mesh is not None:
             raise NotImplementedError(
                 "the sharded analog step is not ported yet; see ROADMAP.md")
@@ -100,6 +105,8 @@ class AnalogTrainStep:
         self.cfg = cfg
         self.lr = lr
         self.xcfg = crossbar_from_model(cfg)
+        self.bits = bits
+        self.cost = None
         self._validated = False
 
     def __call__(self, state: dict, batch: Dict[str, Tensor], rng=None):
@@ -110,6 +117,10 @@ class AnalogTrainStep:
             self._validated = True
         tokens = batch["tokens"]
         n_tokens = tokens.numel()
+        if self.cost is None:
+            self.cost = train_step_cost(cfg, n_tokens=n_tokens,
+                                        bits=self.bits,
+                                        ctx_len=tokens.shape[-1])
         diff, frozen = split_tapes(
             params, n_tokens,
             tokens_for=lambda path, shape: registry.tape_lead(
@@ -224,8 +235,8 @@ class AnalogTrainStep:
         return sweep(p)
 
 
-def make_analog_sgd_step(cfg: ModelConfig, lr: float,
-                         mesh=None) -> AnalogTrainStep:
+def make_analog_sgd_step(cfg: ModelConfig, lr: float, mesh=None,
+                         bits: int = 8) -> AnalogTrainStep:
     """The analog-SGD training step for a device-mode transformer config
     (see :class:`AnalogTrainStep`)."""
-    return AnalogTrainStep(cfg, lr, mesh=mesh)
+    return AnalogTrainStep(cfg, lr, mesh=mesh, bits=bits)

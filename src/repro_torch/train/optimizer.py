@@ -1,16 +1,19 @@
 """Optimizers: SGD (with momentum) and AdamW, over parameter trees.
 
-Port of ``repro.train.optimizer`` without ``analog_sgd`` (it comes with
-the paper's MLP, ``ROADMAP.md``).  Each optimizer is an ``(init,
+Port of ``repro.train.optimizer``.  Each optimizer is an ``(init,
 update)`` pair over nested dicts of tensors: ``update(grads, state,
 params)`` returns ``(new_params, new_state)`` and changes nothing in
-place, as the reference's pure functions do.
+place, as the reference's pure functions do.  ``analog_sgd`` pushes the
+crossbar layers' gradients through the device model.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.core.crossbar import CrossbarConfig
+from repro_torch.core.device import apply_update
 
 Tensor = torch.Tensor
 
@@ -98,3 +101,50 @@ def clip_by_global_norm(tree, max_norm: float):
                                      device=norm.device) / (norm + 1e-9),
                         max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), tree), norm
+
+
+# --------------------------------------------------------------------------
+# Analog SGD: the paper's outer-product update through the device model.
+# --------------------------------------------------------------------------
+
+def _is_analog_leaf_container(d: Any) -> bool:
+    return isinstance(d, dict) and set(d) >= {"g", "ref", "w_scale"}
+
+
+def analog_sgd(lr: float, cfg: CrossbarConfig) -> Optimizer:
+    """SGD where conductance leaves update through the device model.
+
+    Expects analog layers shaped ``{"g", "ref", "w_scale"}`` whose
+    gradients arrive in weight units (``core.analog_linear``); each gets
+    ``apply_update(g, -lr * dg * w_scale)``.  Other leaves take plain
+    SGD.  A noisy device needs its write-noise fields as input:
+    ``noise=``, a dict from ``"/".join(path)`` to a standard-normal field
+    of ``g``'s shape.  (The reference folds ``hash(path) % 2**31`` into
+    its key, and a tuple of strings hashes differently in every Python
+    process, so the port takes the fields instead of a key.)
+    """
+
+    def init(params):
+        return ()
+
+    def update(grads, state, params, noise: Optional[Dict] = None, **_):
+        def field(path):
+            if cfg.device.write_noise == 0.0:
+                return None
+            name = "/".join(path)
+            if noise is None or name not in noise:
+                raise ValueError("analog_sgd with a noisy device requires "
+                                 f"noise[{name!r}]")
+            return noise[name]
+
+        def walk(p, g, path=()):
+            if _is_analog_leaf_container(p):
+                dg_req = -lr * g["g"] * p["w_scale"]
+                return {**p, "g": apply_update(p["g"], dg_req, cfg.device,
+                                               field(path))}
+            if isinstance(p, dict):
+                return {k: walk(p[k], g[k], path + (k,)) for k in p}
+            return p - lr * g.to(p.dtype)
+
+        return walk(params, grads), state
+    return Optimizer(init, update)
