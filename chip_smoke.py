@@ -188,19 +188,62 @@ any gate fails:
    and gated; the paper's claim lines printed, not gated.  (c) the port's
    ``hwmodel`` headline and phase 7's projected pJ per MAC.
 
-Every read's DAC scale (phases 1, 3, 4, 7, 14) must equal the float32
-division ``max|x| / in_levels`` bit for bit.
+15. gemma-2b at full size (all 18 layers, full widths: 1.98 B cells in
+   each of ``g`` and ``ref``, 34 GB resident with ``g_target`` and the
+   tied embedding) programmed from random weights (torch.Generator seed
+   0) onto ``taox-nonoise`` 64x64 tiles, 8-bit DAC/ADC, dynamic range,
+   and served by the continuous scheduler (4 slots, prefill chunk 16, 4
+   prompts of 8-16 tokens, 32 greedy tokens) under
+   ``RetentionSpec(nu=0.05, nu_sigma=0.5)``: serve; ``advance_clock(3
+   days)`` (the drift timed alone) and serve; ``start_recalibration()``
+   drained through serving ticks while a request decodes; serve.  Gates:
+   4 reads a layer per model call in every serve, all on the FP32
+   instance with its K-order sum; every read of a prefill and a decode
+   call against its plain version on its own operands (phase 1's bound);
+   layer 0 of ``wo`` drifted on the card within 1e-6 relative of the same
+   drift on the CPU; the drifted tokens or logits differ from the first
+   serve's; the sweep takes one tick per container (4), restores every
+   ``g`` and ``ref`` to ``g_target`` bit for bit, bills pulses and resets
+   the ages, and the restored tokens equal the first serve's exactly.
+   Tokens/s, the profiled decode step, drift and sweep ms, peak memory
+   and the energy per token are reported.
+16. (a) stablelm-3b and granite-20b at full width cut to 2 layers, served
+   with phase 15's settings (8 new tokens): phase 15's read gates.  (b)
+   starcoder2-3b at full width cut to 2 layers, one device-mode training
+   step (TaOx, lr 0.1, 8 x 256 tokens): 8 forward and 8 transpose reads
+   on the tensor-core instance, 4 tensor-core writes with their
+   pre-passes; every launch against its plain version on its own
+   operands (phase 7's classes).
+17. QAT: lm100m at full width in fakequant mode (1024-row tiles, 8-bit),
+   4 steps of ``train_loop.make_train_step(cfg, adamw(3e-4))`` on 8 x 256
+   tokens.  Gates: each step launches the tensor-core fakequant read 48
+   times (with its pre-pass and epilogue, nothing of the FP32 instance),
+   runs no plain version forward, and recomputes the eager expression 48
+   times in the backward (``kernels.ops.FakequantRead``); on step 1's
+   state every read against the plain version on its own operands
+   (phase 8's bound) and the loss gradient within 1e-4 relative in
+   2-norm per leaf of the eager graph's carrying the kernel's forward
+   values; finite losses.  The gradient of the free-running eager
+   forward and the code flips between the two forwards are reported:
+   the reference's gradient has no straight-through estimator, so an
+   activation's gradient reaches it only through the DAC scale's argmax
+   element, and one flip moves a whole leaf's gradient.
+
+Every read's DAC scale (phases 1, 3, 4, 7, 14, 15, 16) must equal the
+float32 division ``max|x| / in_levels`` bit for bit.
 
 The second-to-last line is a JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.  Details
 go to ``chiprun_out/chip_smoke.json``.
 """
+import collections
 import contextlib
 import json
 import math
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -1783,9 +1826,12 @@ def phase_fq_serve(M, K, OPS, make_engine, SamplingParams, fcfg, prompts,
     return params, res
 
 
-def profile_decode_step(M, cfg, params):
+def profile_decode_step(M, cfg, params, what="fakequant",
+                        keys=("fakequant_",)):
     """Device time of one decode step (B = 4) by kernel, from
-    torch.profiler, beside its unprofiled wall time: reported only."""
+    torch.profiler, beside its unprofiled wall time, and the share of the
+    kernels whose names contain one of ``keys`` (``what``): reported
+    only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     toks = torch.from_numpy(np.random.default_rng(2).integers(
@@ -1813,17 +1859,17 @@ def profile_decode_step(M, cfg, params):
     events = [e for e in prof.key_averages()
               if e.device_type != DeviceType.CPU]
     total = kernel_us(prof)
-    read = sum(dev_us(e) for e in events if "fakequant_" in e.key)
+    read = sum(dev_us(e) for e in events if any(k in e.key for k in keys))
     res = {"wall_ms": 1e3 * wall, "device_ms": total / 1e3,
-           "fakequant_read_ms": read / 1e3,
+           f"{what}_read_ms": read / 1e3,
            "idle_share": (1 - total / 1e6 / wall) if total else None}
     if total:
-        print(f"  profiled fakequant decode step (B=4): device "
-              f"{res['device_ms']:.3f} ms ({res['fakequant_read_ms']:.3f} "
-              f"in the fakequant read) of {res['wall_ms']:.3f} ms wall, "
+        print(f"  profiled {what} decode step (B=4): device "
+              f"{res['device_ms']:.3f} ms ({res[f'{what}_read_ms']:.3f} "
+              f"in the {what} read) of {res['wall_ms']:.3f} ms wall, "
               f"idle {100 * res['idle_share']:.1f}%")
     else:
-        print("  profiled fakequant decode step: the profiler recorded no "
+        print(f"  profiled {what} decode step: the profiler recorded no "
               "device time (not measured)")
     return res
 
@@ -2991,6 +3037,498 @@ def phase_mlp(K, U, MLP, ACC, CMP, syn, report, train, fast=False,
             "claims": claims}
 
 
+# --------------------------------------------------------------------------
+# Phases 15-17: the registry's dense family, serving maintenance, QAT
+# --------------------------------------------------------------------------
+
+#: Phase 15's drift, the reference test's ``DRIFT``.
+DRIFT = dict(nu=0.05, nu_sigma=0.5)
+
+
+def device_serve_cfg(cfg, n_layers=None):
+    """Phase 2's serving settings on ``cfg`` (at ``n_layers`` when cut)."""
+    cfg = cfg.replace(dtype="float32", analog=True, analog_mode="device",
+                      analog_device="taox-nonoise", analog_rows=64,
+                      analog_cols=64)
+    return cfg if n_layers is None else cfg.replace(n_layers=n_layers)
+
+
+def program_model(M, cfg):
+    """Random weights from torch.Generator seed 0, programmed onto
+    crossbars under ``cfg``; the digital tree is dropped."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = M.init_params(cfg.digital(), gen, device="cuda")
+    aparams = M.program_digital(params, cfg)
+    del params
+    return aparams
+
+
+def dense_prompts(cfg, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(0, cfg.vocab, rng.integers(8, 17))]
+            for _ in range(n)]
+
+
+def tree_get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def timed_serve(K, engine, prompts, sp, cfg, what):
+    """One ``generate`` with the read counts set to 0 just before and read
+    just after.  Gates: 4 reads per layer per model call, every one on the
+    FP32 instance with its K-order sum (decode and 16-token prefill
+    chunks; every K spans several 64-row tiles), no transpose read, full
+    outputs in the vocabulary."""
+    for name in K.LAUNCHES:
+        K.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = engine.generate(prompts, sp)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    m = engine.stream.metrics
+    calls = m["prefill_chunks"] + m["decode_steps"]
+    reads = K.LAUNCHES["fused_vmm"]
+    by_kernel = read_kernel_launches([K.LAUNCHES], "vmm")
+    n_tok = sum(len(o) for o in outs)
+    want = {k: 0 for k in by_kernel}
+    want["fused_read_tile_kernel"] = want["reduce_tiles_kernel"] = reads
+    if reads != 4 * cfg.n_layers * calls or calls == 0 \
+            or by_kernel != want or K.LAUNCHES["fused_mvm"]:
+        fail(f"{what}: {reads} reads in {calls} model calls, launches "
+             f"{by_kernel}; expected {4 * cfg.n_layers} a call, each {want}")
+    if [len(o) for o in outs] != [sp.max_new_tokens] * len(prompts) or \
+            not all(0 <= t < cfg.vocab for o in outs for t in o):
+        fail(f"{what}: bad outputs {outs}")
+    return outs, {"tokens": n_tok, "seconds": dt, "tokens_per_s": n_tok / dt,
+                  "model_calls": calls, "reads": reads,
+                  "launches_by_kernel": by_kernel}
+
+
+def probe_reads(K, M, params, cfg, prompt):
+    """A prefill of ``prompt`` and one decode step, every read recorded
+    and held against the plain version on the card on its own operands
+    (phase 1's bound); returns (prefill logits, worst figures)."""
+    reads = []
+    toks = torch.tensor([prompt], device="cuda")
+    with torch.no_grad(), recording_reads(K, reads):
+        logits, cache = M.prefill(params, {"tokens": toks}, cfg, 64)
+        M.decode_step(params, cache, logits.argmax(-1), cfg)
+    torch.cuda.synchronize()
+    if len(reads) != 8 * cfg.n_layers:
+        fail(f"{cfg.name}: {len(reads)} reads in a prefill and a decode "
+             f"step; expected {8 * cfg.n_layers}")
+    worst = check_reads(K, reads, where="cuda")
+    worst["reads_checked"] = len(reads)
+    return logits, worst
+
+
+def prefill_logits(M, params, cfg, prompt):
+    with torch.no_grad():
+        return M.prefill(params, {"tokens": torch.tensor(
+            [prompt], device="cuda")}, cfg, 64)[0]
+
+
+def phase_gemma(M, K, E, make_engine, SamplingParams, get_config, report):
+    """gemma-2b at full size (all 18 layers, full widths) served from
+    programmed crossbars with maintenance (see the module docstring)."""
+    cfg = device_serve_cfg(get_config("gemma-2b"))
+    spec = E.RetentionSpec(**DRIFT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = make_engine(cfg, program_model(M, cfg), backend="analog",
+                         n_slots=4, prefill_chunk=16, max_len=64,
+                         retention=spec)
+    torch.cuda.synchronize()
+    program_s = time.perf_counter() - t0
+    st, rt = engine.state, engine.maintenance
+    cells = sum(st.g_target[p]["g"].numel() for p in st.paths)
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"phase 15: gemma-2b programmed at full size in {program_s:.1f} s: "
+          f"{len(st.paths)} containers, {cells / 1e9:.3f} B cells, "
+          f"{resident_gb:.2f} GB resident (g, ref, g_target, embedding)")
+    prompts = dense_prompts(cfg, 4)
+    sp = SamplingParams(max_new_tokens=32)
+    engine.generate(prompts[:1], SamplingParams(max_new_tokens=2))  # warm-up
+    base, serve1 = timed_serve(K, engine, prompts, sp, cfg, "gemma-2b serve")
+    logits0, worst = probe_reads(K, M, engine.params, cfg, prompts[0])
+    profile = profile_decode_step(M, cfg, engine.params, "crossbar",
+                                  ("fused_read_tile", "reduce_tiles"))
+
+    # drift: 3 days, applied by the next tick (timed alone here)
+    path = ("layers", "attn", "wo")
+    n_reads = st.reads_unapplied[path]
+    engine.advance_clock(3 * 86400.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run_maintenance()
+    torch.cuda.synchronize()
+    drift_ms = 1e3 * (time.perf_counter() - t0)
+    drift_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # layer 0 of wo drifted on the CPU from its programming targets: the
+    # runtime's block 0 (cells 0 .. K N - 1 of the container's fields)
+    target = st.g_target[path]
+    want = E.apply_retention(target["g"][0].cpu(), target["ref"][0].cpu(),
+                             0.0, 3 * 86400.0, torch.tensor(float(n_reads)),
+                             spec, salt=zlib.crc32("/".join(path).encode()))
+    live = tree_get(engine.params, path)
+    drift_rel = max(((live[k][0].cpu() - w).abs()
+                     / w.abs().clamp(min=1e-30)).max().item()
+                    for k, w in zip(("g", "ref"), want))
+    if not drift_rel <= 1e-6:
+        fail(f"gemma-2b: the card's drifted {path} layer 0 is "
+             f"{drift_rel:.3g} relative off the CPU's (bound 1e-6)")
+    drifted, serve2 = timed_serve(K, engine, prompts, sp, cfg,
+                                  "gemma-2b drifted serve")
+    logit_shift = (prefill_logits(M, engine.params, cfg, prompts[0])
+                   - logits0).abs().max().item()
+    if drifted == base and logit_shift == 0.0:
+        fail("gemma-2b: 3 days of drift changed neither tokens nor logits")
+
+    # recalibration, drained through serving ticks while a request decodes
+    sweep_ms = []
+    recal_one = rt._recal_one
+
+    def timed_recal(p):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        recal_one(p)
+        torch.cuda.synchronize()
+        sweep_ms.append(1e3 * (time.perf_counter() - t))
+    rt._recal_one = timed_recal
+    stream = engine.stream
+    engine.reset(0)                       # counts from 0 for this drain
+    try:
+        rid = engine.submit(prompts[1], SamplingParams(max_new_tokens=16))
+        while not stream.metrics["decode_steps"]:
+            engine.step()
+        decode0 = stream.metrics["decode_steps"]
+        engine.start_recalibration()
+        ticks = 0
+        while engine.has_work():
+            engine.step()
+            ticks += 1
+    finally:
+        del rt._recal_one         # the class's method again: no cycle
+    recal_ticks = stream.metrics["recal_ticks"]
+    if recal_ticks != len(st.paths) or rt.recal_pending \
+            or stream.metrics["decode_steps"] - decode0 != ticks \
+            or len(stream.completed[rid]) != 16:
+        fail(f"gemma-2b recalibration: {recal_ticks} recal ticks for "
+             f"{len(st.paths)} containers, {ticks} ticks, decode steps "
+             f"{stream.metrics['decode_steps'] - decode0}")
+    for p in st.paths:
+        cont = tree_get(engine.params, p)
+        if not all(torch.equal(cont[k], st.g_target[p][k])
+                   for k in ("g", "ref")):
+            fail(f"gemma-2b: {p} not restored to g_target bit for bit")
+        if not st.pulses[p] > 0 or st.age_s[p] != 0.0:
+            fail(f"gemma-2b: {p} pulses {st.pulses[p]}, age {st.age_s[p]}")
+    restored, serve3 = timed_serve(K, engine, prompts, sp, cfg,
+                                   "gemma-2b restored serve")
+    if restored != base:
+        fail(f"gemma-2b: tokens after recalibration {restored} differ from "
+             f"the first serve's {base}")
+    restored_diff = (prefill_logits(M, engine.params, cfg, prompts[0])
+                     - logits0).abs().max().item()
+    energy = engine.energy_per_token()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res = {"config": "gemma-2b, 18 layers, full widths", "cells": cells,
+           "program_s": program_s, "resident_gb": resident_gb,
+           "serves": {"first": serve1, "drifted": serve2,
+                      "restored": serve3},
+           "probe_reads": worst, "decode_profile": profile,
+           "drift_ms": drift_ms, "drift_peak_gb": drift_peak_gb,
+           "drift_block_rel_err_vs_cpu": drift_rel,
+           "drift_tokens_changed": drifted != base,
+           "drift_logit_shift": logit_shift,
+           "sweep_ms_per_container": sweep_ms, "sweep_ms": sum(sweep_ms),
+           "recal_ticks": recal_ticks,
+           "pulses": {"/".join(p): st.pulses[p] for p in st.paths},
+           "maintenance": dict(rt.metrics),
+           "restored_logit_diff": restored_diff,
+           "peak_memory_gb": peak_gb, "energy_per_token": energy}
+    report(res)
+    print(f"phase 15: gemma-2b serves {serve1['tokens_per_s']:.1f}, drifted "
+          f"{serve2['tokens_per_s']:.1f}, restored "
+          f"{serve3['tokens_per_s']:.1f} tokens/s; decode step device "
+          f"{profile['device_ms']:.2f} ms of {profile['wall_ms']:.2f} wall; "
+          f"{worst['reads_checked']} probe reads agree "
+          f"({worst['max_err_over_bound']:.3f} of the bound); drift "
+          f"{drift_ms:.1f} ms (layer 0 of wo vs CPU {drift_rel:.3g} rel), "
+          f"tokens changed {drifted != base}, logits moved "
+          f"{logit_shift:.3g}; sweep {sum(sweep_ms):.1f} ms over "
+          f"{recal_ticks} ticks, {rt.metrics['recal_pulses']:.4g} pulses; "
+          f"tokens restored exactly (logits {restored_diff:.3g}); peak "
+          f"{peak_gb:.2f} GB; energy/token analog "
+          f"{energy['analog_pj']:.4g} pJ, digital ReRAM "
+          f"{energy['digital_reram_pj']:.4g}, SRAM {energy['sram_pj']:.4g}")
+    return res
+
+
+def phase_dense_serve(M, K, make_engine, SamplingParams, get_config, name,
+                      n_layers, report):
+    """Phase 16: ``name`` at full width cut to ``n_layers`` layers, served
+    with phase 15's settings (8 new tokens); every read of one prefill
+    and one decode call against its plain version on its own operands."""
+    full = get_config(name)
+    cfg = device_serve_cfg(full, n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    engine = make_engine(cfg, program_model(M, cfg), backend="analog",
+                         n_slots=4, prefill_chunk=16, max_len=64)
+    prompts = dense_prompts(cfg, 4, seed=1)
+    engine.generate(prompts[:1], SamplingParams(max_new_tokens=2))
+    _, serve = timed_serve(K, engine, prompts,
+                           SamplingParams(max_new_tokens=8), cfg,
+                           f"{name} serve")
+    _, worst = probe_reads(K, M, engine.params, cfg, prompts[0])
+    res = {"config": name, "cut": f"{n_layers} of {full.n_layers} layers, "
+           "full widths", **serve, "probe_reads": worst,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    report(res)
+    print(f"phase 16: {name} ({res['cut']}) served "
+          f"{serve['tokens_per_s']:.1f} tokens/s, {serve['reads']} reads; "
+          f"{worst['reads_checked']} probe reads agree "
+          f"({worst['max_err_over_bound']:.3f} of the bound); peak "
+          f"{res['peak_memory_gb']:.2f} GB")
+    return res
+
+
+def phase_dense_train(K, U, TA, syn, get_config, report):
+    """Phase 16: one device-mode training step of starcoder2-3b (full
+    widths, 2 of 30 layers), 8 x 256 tokens, TaOx, lr 0.1; every launch
+    against its plain version on its own operands (phase 7's classes)."""
+    full = get_config("starcoder2-3b")
+    cfg = full.replace(dtype="float32", analog=True, analog_mode="device",
+                       analog_device="taox", analog_rows=64, analog_cols=64,
+                       n_layers=2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    state = TA.init_state(gen, cfg, device="cuda")
+    step = TA.make_analog_sgd_step(cfg, lr=0.1)
+    stream = syn.make_token_stream(200_000, cfg.vocab, seed=0)
+    x, y = syn.batch_tokens(stream, 8, 256, 0)
+    batch = {"tokens": torch.from_numpy(x).long().cuda(),
+             "labels": torch.from_numpy(y).long().cuda()}
+    expect = tensor_core_train_expect(
+        cfg.n_layers, fakequant=0, **dict.fromkeys(FQ_KERNELS.values(), 0),
+        outer_update=4, pulse_update=0, update_tc=4, update_prepare=4,
+        update_fp32=0)
+    reads, writes = [], []
+    update_cuda = U._update_cuda
+    U._update_cuda = recording_writes(U, writes)
+    reset_launches(K, U)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with recording_reads(K, reads):
+            state, mets = step(state, batch, 12345)
+            torch.cuda.synchronize()
+    finally:
+        U._update_cuda = update_cuda
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    got = {**K.LAUNCHES, **U.LAUNCHES}
+    if got != expect:
+        fail(f"starcoder2-3b train step launched {got}; expected {expect}")
+    loss = float(mets["loss"])
+    if not math.isfinite(loss):
+        fail(f"starcoder2-3b train step: loss {loss}")
+    worst, upd = check_step1(K, U, reads, writes)
+    for path, g in tree_leaves(state["params"]):
+        if path[-1] == "g" and not (g.min() >= 0 and g.max() <= 1):
+            fail(f"starcoder2-3b: conductances of {path} left the window")
+    res = {"config": "starcoder2-3b", "cut": "2 of 30 layers, full widths",
+           "loss": loss, "step_ms_recorded": step_ms, "launches": got,
+           "reads_checked": len(reads), "writes_checked": len(writes),
+           **{f"reads_{k}": v for k, v in worst.items()},
+           **{f"writes_{k}": v for k, v in upd.items()},
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    report(res)
+    print(f"phase 16: starcoder2-3b ({res['cut']}) one device-mode step, "
+          f"8 x 256 tokens: loss {loss:.5f}, launches {got}; {len(reads)} "
+          f"reads ({worst['max_err_over_bound']:.3f} of the bound) and "
+          f"{len(writes)} writes ({upd['max_err_over_twin_bound']:.3f} of "
+          f"the twin's bound) agree with their plain versions; peak "
+          f"{res['peak_memory_gb']:.2f} GB")
+    return res
+
+
+@contextlib.contextmanager
+def counting_fq_paths(K, OPS, calls):
+    """Count the fakequant plain expressions a QAT step runs: the kernel's
+    plain version, and the projection's eager expression outside (a
+    forward) and inside (the backward's recomputation) ``_fakequant_vjp``."""
+    plain, eager, vjp = (K._fakequant_plain, OPS._fakequant_eager,
+                         OPS._fakequant_vjp)
+    inside = []
+
+    def count_plain(*args):
+        calls["kernel plain version"] += 1
+        return plain(*args)
+
+    def count_eager(*args):
+        calls["backward recompute" if inside else "plain forward"] += 1
+        return eager(*args)
+
+    def count_vjp(*args):
+        inside.append(1)
+        try:
+            return vjp(*args)
+        finally:
+            inside.pop()
+    K._fakequant_plain, OPS._fakequant_eager, OPS._fakequant_vjp = (
+        count_plain, count_eager, count_vjp)
+    try:
+        yield
+    finally:
+        K._fakequant_plain, OPS._fakequant_eager, OPS._fakequant_vjp = (
+            plain, eager, vjp)
+
+
+def loss_grads(M, TO, params, batch, cfg):
+    """The loss and its gradient per leaf path."""
+    leaves = TO.tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, _ = M.loss_fn(leaves, batch, cfg)
+    loss.backward()
+    return loss.detach(), dict(tree_leaves(TO.tree_map(lambda p: p.grad,
+                                                       leaves)))
+
+
+def phase_qat(K, OPS, M, TL, TO, syn, get_config, report):
+    """Phase 17: lm100m at full width in fakequant mode (1024-row tiles,
+    8-bit), 4 steps of ``make_train_step(cfg, adamw(3e-4))`` on 8 x 256
+    tokens (see the module docstring)."""
+    cfg = get_config("lm100m").replace(dtype="float32", analog=True,
+                                       analog_mode="fakequant")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    state = TL.init_state(gen, cfg, TO.adamw(3e-4), device="cuda")
+    step = TL.make_train_step(cfg, TO.adamw(3e-4))
+    stream = syn.make_token_stream(200_000, cfg.vocab, seed=0)
+    per = 4 * cfg.n_layers
+    want = {"fakequant_scale_kernel": 0, "fakequant_prepare_kernel": per,
+            "fakequant_fp32_kernel": 0, "fakequant_tc_kernel": per,
+            "fakequant_epilogue_kernel": per}
+
+    def batch_of(i):
+        x, y = syn.batch_tokens(stream, 8, 256, i)
+        return {"tokens": torch.from_numpy(x).long().cuda(),
+                "labels": torch.from_numpy(y).long().cuda()}
+
+    # the gradient at step 1's state: kernel forward vs all-eager forward
+    batch = batch_of(0)
+    reads = []
+    for name in K.LAUNCHES:
+        K.LAUNCHES[name] = 0
+    with recording_fq(K, reads):
+        loss_k, grads_k = loss_grads(M, TO, state["params"], batch, cfg)
+    torch.cuda.synchronize()
+    if K.LAUNCHES["fakequant"] != per or len(reads) != per:
+        fail(f"QAT gradient pass made {K.LAUNCHES['fakequant']} fakequant "
+             f"reads; expected {per}")
+    resolve, eager = OPS.resolve_impl, OPS._fakequant_eager
+    replay = iter([r[5] for r in reads])
+
+    def replayed(x, w, adc, rows):
+        """The eager expression's graph carrying the kernel's value."""
+        y = eager(x, w, adc, rows)
+        return y + (next(replay).reshape(y.shape) - y).detach()
+    OPS.resolve_impl = lambda impl, x: "eager"
+    try:
+        loss_e, grads_e = loss_grads(M, TO, state["params"], batch, cfg)
+        OPS._fakequant_eager = replayed
+        loss_r, grads_r = loss_grads(M, TO, state["params"], batch, cfg)
+    finally:
+        OPS.resolve_impl, OPS._fakequant_eager = resolve, eager
+    if next(replay, None) is not None:
+        fail("the replayed eager pass made fewer fakequant reads")
+
+    def rel(grads):
+        return {"/".join(p): ((grads_k[p] - g).norm()
+                              / g.norm().clamp(min=1e-30)).item()
+                for p, g in grads.items()}
+    grad_rel, free_rel = rel(grads_r), rel(grads_e)
+    flips, worst_fq = 0, 0.0
+    with torch.no_grad():
+        for x, w, sc, adc, rows, y in reads:
+            y_e = eager(x, w, adc, rows)
+            flips += int(((y - y_e).abs() > 1e-5 * y_e.abs().amax()).sum())
+            ok, _, over, _ = fq_agrees(y, K._fakequant_plain(x, w, sc, adc,
+                                                             rows),
+                                       x, w, sc, adc, rows)
+            worst_fq = max(worst_fq, over)
+            if not ok:
+                fail(f"a QAT fakequant read disagrees with the plain "
+                     f"version on its operands: x {tuple(x.shape)} w "
+                     f"{tuple(w.shape)}, {over} of the bound")
+    del reads, grads_k, grads_e, grads_r
+    worst = max(grad_rel.values())
+    if not worst <= 1e-4:
+        fail(f"QAT gradient, kernel forward vs the eager graph carrying the "
+             f"kernel's values: {grad_rel} (bound 1e-4 relative in 2-norm "
+             f"per leaf)")
+
+    losses, step_ms, launches, calls = [], [], [], []
+    for i in range(4):
+        b = batch if i == 0 else batch_of(i)
+        for name in K.LAUNCHES:
+            K.LAUNCHES[name] = 0
+        count = collections.Counter()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counting_fq_paths(K, OPS, count):
+            state, mets = step(state, b)
+            torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        got = {name: K.LAUNCHES[c] for name, c in FQ_KERNELS.items()}
+        launches.append(got)
+        calls.append(dict(count))
+        losses.append(float(mets["loss"]))
+        print(f"  QAT step {i + 1}: loss {losses[-1]:.5f}, "
+              f"{step_ms[-1]:.1f} ms, launches {got}, plain expressions "
+              f"{dict(count)}")
+        if got != want or K.LAUNCHES["fakequant"] != per:
+            fail(f"QAT step {i + 1} launched {got}; expected {want}")
+        if count["plain forward"] or count["kernel plain version"] \
+                or count["backward recompute"] != per:
+            fail(f"QAT step {i + 1} ran plain expressions {dict(count)}; "
+                 f"expected only {per} backward recomputations")
+        if not math.isfinite(losses[-1]):
+            fail(f"QAT step {i + 1}: loss {losses[-1]}")
+    warm = step_ms[1:]
+    res = {"config": "lm100m, fakequant, 1024-row tiles, 8-bit",
+           "losses": losses, "step_ms": step_ms,
+           "ms_per_step": sum(warm) / len(warm),
+           "tokens_per_s": 2048 / (sum(warm) / len(warm) / 1e3),
+           "launches_per_step": launches, "plain_calls_per_step": calls,
+           "grad_rel_err_vs_replayed_eager": grad_rel,
+           "grad_rel_err_max": worst,
+           "grad_rel_err_vs_free_eager": free_rel,
+           "loss_kernel_vs_eager": abs(float(loss_k) - float(loss_e)),
+           "loss_kernel_vs_replayed_eager": abs(float(loss_k)
+                                                - float(loss_r)),
+           "code_flips": flips, "reads_max_err_over_bound": worst_fq,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    report(res)
+    print(f"phase 17: QAT, lm100m at full width, 4 steps of 8 x 256 tokens "
+          f"through make_train_step(adamw(3e-4)): losses "
+          f"{[round(v, 5) for v in losses]}, {res['ms_per_step']:.1f} ms per "
+          f"warm step ({res['tokens_per_s']:.0f} tokens/s), {per} "
+          f"tensor-core fakequant reads a step ({worst_fq:.3f} of the "
+          f"read bound at most); gradient vs the eager graph carrying the "
+          f"kernel's values {worst:.3g} relative at most; vs the free "
+          f"eager forward {max(free_rel.values()):.3g} ({flips} code flips "
+          f"between the two forwards); peak "
+          f"{res['peak_memory_gb']:.2f} GB")
+    return res
+
+
 def mlp_read_entry(mlp, direction, names):
     """The kernels-line figures of the MLP's reads in one direction: the
     launches of phase 14(b)'s six runs (each kernel counted) and the
@@ -3075,6 +3613,7 @@ def main():
     from repro_torch.configs import get_config
     from repro_torch.core import (IDEAL, TAOX, TAOX_NONOISE, AdcConfig,
                                   CrossbarConfig)
+    from repro_torch.core import endurance as E
     from repro_torch.data import synthetic as syn
     from repro_torch.kernels import _nvcc
     from repro_torch.kernels import flash_attention as FA
@@ -3181,6 +3720,16 @@ def main():
     phase_nonideality(U, K, TA, TL, TO, M, syn, tcfg, reporter("nonideality"),
                       steps=30)
     mlp = phase_mlp(K, U, MLP, ACC, CMP, syn, reporter("mlp"), train)
+    del params, aparams
+    gemma = phase_gemma(M, K, E, make_engine, SamplingParams, get_config,
+                        reporter("gemma_2b"))
+    dense = {name: phase_dense_serve(M, K, make_engine, SamplingParams,
+                                     get_config, name, 2,
+                                     reporter(f"dense_{name}"))
+             for name in ("stablelm-3b", "granite-20b")}
+    dense_train = phase_dense_train(K, U, TA, syn, get_config,
+                                    reporter("dense_train"))
+    qat = phase_qat(K, OPS, M, TL, TO, syn, get_config, reporter("qat"))
 
     def total(launches, name):
         return sum(step[name] for step in launches)
@@ -3215,6 +3764,12 @@ def main():
         "train_bound_ms": sum(r["bound_ms"] for r in t_vmm),
         "train_tc_floor_ms": sum(r["tc_floor_ms"] for r in t_vmm),
         "train_tc_design_ms": sum(r["tc_design_ms"] for r in t_vmm),
+        "launches_gemma_2b": gemma["serves"]["first"]["reads"],
+        "launches_by_kernel_gemma_2b":
+            gemma["serves"]["first"]["launches_by_kernel"],
+        **{f"launches_{n}": d["reads"] for n, d in dense.items()},
+        "launches_starcoder2_3b_train":
+            dense_train["launches"]["fused_vmm"],
         **mlp_read_entry(mlp, "vmm", ("l1_vmm", "l2_vmm"))}, {
         "name": "xbar_fused_mvm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_vmm.cu",
@@ -3228,19 +3783,25 @@ def main():
         "bound_by": "operations", "library_ms": None,
         "tc_floor_ms": sum(r["tc_floor_ms"] for r in t_mvm),
         "tc_design_ms": sum(r["tc_design_ms"] for r in t_mvm),
+        "launches_starcoder2_3b_train":
+            dense_train["launches"]["fused_mvm"],
         **mlp_read_entry(mlp, "mvm", ("l2_mvm",))}, {
         "name": "xbar_outer_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
         "replaces": "src/repro/kernels/xbar_update.py:281",
         "instance": "tensor_core (tc_update_kernel<false>, mma.sync "
                     "m16n8k16 bf16)",
-        **write_entry(t_upd, total(tl, "update_tc"))}, {
+        **write_entry(t_upd, total(tl, "update_tc")),
+        "launches_starcoder2_3b_train":
+            dense_train["launches"]["update_tc"]}, {
         "name": "xbar_update_prepare", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
         "replaces": "src/repro/kernels/xbar_update.py:281 (the operands "
                     "_update_kernel stages; pre-pass of the tensor-core "
                     "write)",
         "launches": total(tl, "update_prepare"),
+        "launches_starcoder2_3b_train":
+            dense_train["launches"]["update_prepare"],
         "max_abs_err": 0.0 if all(r["prepass_ok"] for r in t_upd)
         else None,
         "ms": sum(r["prepass_ms"] for r in t_upd),
@@ -3254,6 +3815,8 @@ def main():
         "launches_by_kernel": fq_serve["launches_by_kernel"],
         "launches_prefill": fq_prefill["reads"],
         "launches_by_kernel_prefill": fq_prefill["launches_by_kernel"],
+        "launches_qat": sum(step["fakequant_tc_kernel"]
+                            for step in qat["launches_per_step"]),
         **fq_entry(fq_decode), "library_ms": None,
         "instances": [{
             "name": "fp32 (fakequant_scale_kernel, fakequant_fp32_kernel, "
@@ -3363,7 +3926,14 @@ def main():
         "and mlp_b10_bound_ms (bytes at the HBM rate) sum one training "
         "step's B=10 reads in that direction, one per layer: layer 1 "
         "(785x300) and layer 2 (301x10) forward, layer 2 transposed; "
-        "1024x1024 tiles, 8-bit DAC/ADC, dynamic range")
+        "1024x1024 tiles, 8-bit DAC/ADC, dynamic range. Phases 15-17: "
+        "launches_gemma_2b counts phase 15's first gemma-2b serve's reads "
+        "(all on the FP32 instance with its K-order sum; by kernel beside "
+        "it), launches_stablelm-3b and launches_granite-20b phase 16's "
+        "serves at 2 layers, launches_starcoder2_3b_train the reads, "
+        "transpose reads, tensor-core writes and write pre-passes of "
+        "phase 16's starcoder2-3b training step, launches_qat the "
+        "tensor-core fakequant reads of phase 17's 4 QAT steps")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1))

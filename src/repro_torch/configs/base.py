@@ -2,9 +2,10 @@
 
 One ``ModelConfig`` describes an architecture.  The port keeps the JAX
 package's fields for the dense decoder and the analog read, under the
-same names; the fields of the other families and of fakequant training
-arrive with the slices that read them (``ROADMAP.md``).  The port keeps its own copy
-because it imports nothing of ``repro``.
+same names; the fields of the other families arrive with the slices
+that read them (``ROADMAP.md``).  Every config file exports ``CONFIG``
+(the published architecture) and ``SMOKE`` (:func:`make_smoke`).  The
+port keeps its own copy because it imports nothing of ``repro``.
 """
 from __future__ import annotations
 
@@ -139,3 +140,19 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+def make_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """Family-preserving reduction for CPU smoke tests (the reference's
+    ``make_smoke`` on the dense fields this config has)."""
+    kw = dict(
+        n_layers=min(cfg.n_layers, 2),
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads > 1 else 1,
+        head_dim=16,
+        d_ff=128,
+        vocab=256,
+    )
+    kw.update(overrides)
+    return cfg.replace(**kw)

@@ -1,0 +1,10 @@
+"""gemma-2b [dense]: 18L d=2048 8H MQA(kv=1) d_ff=16384 vocab=256000 —
+GeGLU, head_dim=256, tied embeddings. [arXiv:2403.08295; hf]"""
+from .base import ModelConfig, make_smoke
+
+CONFIG = ModelConfig(
+    name="gemma-2b", family="dense",
+    n_layers=18, d_model=2048, n_heads=8, n_kv_heads=1, head_dim=256,
+    d_ff=16384, vocab=256000, act="gelu", gated=True, tie_embeddings=True,
+)
+SMOKE = make_smoke(CONFIG)

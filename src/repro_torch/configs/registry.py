@@ -1,8 +1,14 @@
 """--arch <id> registry.  The port carries only the architectures whose
 model family it implements; the rest of the zoo is queued in ROADMAP.md."""
-from . import lm100m
+from . import gemma_2b, granite_20b, lm100m, stablelm_3b, starcoder2_3b
 
-ARCHS = {"lm100m": lm100m}
+ARCHS = {
+    "gemma-2b": gemma_2b,
+    "stablelm-3b": stablelm_3b,
+    "granite-20b": granite_20b,
+    "starcoder2-3b": starcoder2_3b,
+    "lm100m": lm100m,
+}
 
 
 def get_config(name: str, smoke: bool = False):

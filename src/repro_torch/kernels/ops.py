@@ -12,11 +12,18 @@ Paths (``impl``):
   ``xq @ w`` or the padded multi-tile einsum summed over the tile axis),
   for tensors on the CPU; it is differentiable, as QAT needs;
 * ``"cuda"`` — the fused read, :func:`repro_torch.kernels.xbar_vmm.
-  fakequant_read`, whose CUDA kernels run on the card.  Like the
-  reference's Pallas kernel it has no backward: a call on the card while
-  autograd needs a gradient of ``x`` or ``w`` raises;
+  fakequant_read`, whose CUDA kernels run on the card.  When autograd
+  needs a gradient of ``x`` or ``w`` (QAT on the card), the read runs
+  inside :class:`FakequantRead`: its forward is the kernel, its backward
+  the VJP of the eager expression recomputed from the saved ``x`` and
+  ``w`` (:func:`_fakequant_vjp`);
 * ``"auto"``/``None`` — ``"cuda"`` for CUDA tensors, ``"eager"`` for CPU
-  tensors.  A CUDA tensor never takes the plain path.
+  tensors.  A CUDA tensor never takes the plain path forward.
+
+The gradient is the reference's: it has no straight-through estimator.
+The rounding differentiates to zero, so the gradient flows only through
+the DAC and ADC ranges (the scales' ``max``/``rms``), as ``jax.grad`` of
+the reference's jnp path gives it.
 """
 from __future__ import annotations
 
@@ -59,6 +66,38 @@ def _fakequant_eager(x: Tensor, w: Tensor, adc: AdcConfig,
     return _adc_fake_quant(q, adc).sum(dim=-2)
 
 
+def _fakequant_vjp(x: Tensor, w: Tensor, dy: Tensor, adc: AdcConfig,
+                   rows: int, need=(True, True)):
+    """``(dx, dw)``: the VJP of :func:`_fakequant_eager` at ``(x, w)``,
+    recomputed from the operands; ``need`` says which of the two to form
+    (``None`` in place of the other)."""
+    with torch.enable_grad():
+        ops = [t.detach().requires_grad_(n) for t, n in zip((x, w), need)]
+        y = _fakequant_eager(*ops, adc, rows)
+        grads = iter(torch.autograd.grad(
+            y, [t for t in ops if t.requires_grad], dy))
+    return tuple(next(grads) if n else None for n in need)
+
+
+class FakequantRead(torch.autograd.Function):
+    """The fakequant read under autograd: forward the fused read's
+    kernel on ``x`` (T, K) and ``w`` (K, N), backward
+    :func:`_fakequant_vjp` of the eager expression."""
+
+    @staticmethod
+    def forward(ctx, x, w, adc, rows):
+        ctx.save_for_backward(x, w)
+        ctx.adc, ctx.rows = adc, rows
+        return fakequant_read(x, w, adc, rows)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = _fakequant_vjp(x, w, dy, ctx.adc, ctx.rows,
+                                ctx.needs_input_grad[:2])
+        return dx, dw, None, None
+
+
 def fakequant_project(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
                       impl: Optional[str] = None) -> Tensor:
     """Fakequant (QAT) projection of ``x`` (..., K) through ``w`` (K, N):
@@ -67,12 +106,10 @@ def fakequant_project(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
     impl = resolve_impl(impl, x)
     if impl == "eager":
         return _fakequant_eager(x, w, adc, rows)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "the fakequant read kernel is forward only (as the reference's "
-            "Pallas kernel) and has no backward: QAT training on the card "
-            "needs one, or autograd routed to the plain path as the "
-            "reference's auto does (ROADMAP.md section 1, item 3)")
     lead = x.shape[:-1]
-    y = fakequant_read(x.reshape(-1, x.shape[-1]), w, adc, rows)
+    x2 = x.reshape(-1, x.shape[-1])
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        y = FakequantRead.apply(x2, w, adc, rows)
+    else:
+        y = fakequant_read(x2, w, adc, rows)
     return y.reshape(*lead, w.shape[1])

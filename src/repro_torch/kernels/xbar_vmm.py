@@ -493,7 +493,8 @@ def fakequant_scale(x: Tensor, in_levels: int) -> Tensor:
 def fakequant_read(x: Tensor, w: Tensor, adc: AdcConfig,
                    rows: int) -> Tensor:
     """Fused fakequant projection (port of ``fakequant_read_pallas``):
-    x (T, K), w (K, N) → (T, N) float32, forward only.
+    x (T, K), w (K, N) → (T, N) float32, forward only
+    (``kernels.ops.FakequantRead`` gives it the eager expression's VJP).
 
     One DAC scale for all of ``x``, as in the reference's wrapper; ``rows``
     is the crossbar row pitch (the ADC's tile).  A CUDA tensor launches the

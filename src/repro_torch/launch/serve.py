@@ -1,14 +1,21 @@
-"""Serving CLI: batched prefill + decode of lm100m on synthetic prompts,
-on the card unless ``--device cpu``.
+"""Serving CLI: batched prefill + decode of a dense model on synthetic
+prompts, on the card unless ``--device cpu``.
 
     python -m repro_torch.launch.serve --arch lm100m --backend analog
+    python -m repro_torch.launch.serve --arch gemma-2b --backend analog \\
+        --sim-days 3          # in-array decode after 3 days of drift
     python -m repro_torch.launch.serve --arch lm100m --smoke \\
         --backend digital --scheduler static --device cpu
 
-``--backend analog`` programs the weights onto tiled crossbars
-(``--analog-device``, ``--analog-tile``) and serves the conductances
-in-array: every projection read goes through the fused read, and the
-run prints how many times its CUDA kernels were launched.
+``--arch`` is one of the port's registry (lm100m, gemma-2b, stablelm-3b,
+starcoder2-3b, granite-20b).  ``--backend analog`` programs the weights
+onto tiled crossbars (``--analog-device``, ``--analog-tile``) and serves
+the conductances in-array: every projection read goes through the fused
+read, and the run prints how many times its CUDA kernels were launched,
+the maintenance metrics and the projected energy per token.
+``--sim-days`` advances the simulated deployment clock first, so
+retention drift (and, past the retention spec's interval, the scheduled
+recalibration sweep) is exercised.
 """
 from __future__ import annotations
 
@@ -45,6 +52,9 @@ def main(argv=None):
                     help="device model for --backend analog")
     ap.add_argument("--analog-tile", type=int, default=64,
                     help="sim tile size for --backend analog")
+    ap.add_argument("--sim-days", type=float, default=0.0,
+                    help="advance the analog backend's simulated clock "
+                         "this many days before serving")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -68,6 +78,8 @@ def main(argv=None):
                          prefill_chunk=args.prefill_chunk)
     sp = SamplingParams(temperature=args.temperature,
                         max_new_tokens=args.max_new)
+    if args.sim_days:
+        engine.advance_clock(args.sim_days * 86400.0)
     launches0 = dict(LAUNCHES)
     t0 = time.perf_counter()
     outs = engine.generate(prompts, sp, seed=args.seed)
@@ -85,6 +97,11 @@ def main(argv=None):
     if engine.backend == "analog":
         counts = {name: LAUNCHES[name] - launches0[name] for name in LAUNCHES}
         print(f"fused read kernel launches {counts}")
+        epj = engine.energy_per_token()
+        print(f"maintenance={dict(engine.maintenance.metrics)}")
+        print(f"energy/token: analog={epj['analog_pj']:.1f}pJ "
+              f"digital_reram={epj['digital_reram_pj']:.1f}pJ "
+              f"sram={epj['sram_pj']:.1f}pJ")
     return outs
 
 

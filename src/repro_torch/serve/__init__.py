@@ -1,7 +1,8 @@
 """Serving: one ``make_engine`` entry point over digital or analog state."""
 from .engine import (ContinuousEngine, Engine, Request, SamplingParams,
                      make_engine)
-from .state import ServeState, make_serve_state
+from .state import AnalogServeRuntime, ServeState, make_serve_state
 
-__all__ = ["ContinuousEngine", "Engine", "Request", "SamplingParams",
-           "ServeState", "make_engine", "make_serve_state"]
+__all__ = ["AnalogServeRuntime", "ContinuousEngine", "Engine", "Request",
+           "SamplingParams", "ServeState", "make_engine",
+           "make_serve_state"]

@@ -18,10 +18,15 @@ never stalls in-flight decodes), block-copied into a free slot, and an
 arrival-ordered queue.  The static scheduler prefills one left-padded
 batch and decodes it in lock step.
 
+Analog maintenance rides the same scheduler: ``engine.advance_clock(s)``
+moves a simulated wall clock, retention drift (``core.endurance``) is
+applied lazily, in place, at the next tick, and recalibration sweeps
+drain one container per tick in place of the prefill chunk, while the
+decode batch keeps stepping (``serve.state.AnalogServeRuntime``).
+
 Greedy sampling takes the first maximum (``torch.argmax``, as
 ``jnp.argmax``).  Temperature sampling draws from a ``torch.Generator``
-seeded per engine; it is not held to the reference's draws.  The analog
-maintenance runtime (drift, recalibration) is queued in ROADMAP.md.
+seeded per engine; it is not held to the reference's draws.
 """
 from __future__ import annotations
 
@@ -33,9 +38,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.hwmodel.arch_cost import serve_energy_per_token
 from repro_torch.models import model as M
 
-from .state import make_serve_state
+from .state import AnalogServeRuntime, make_serve_state
 
 Tensor = torch.Tensor
 
@@ -87,12 +93,17 @@ class ContinuousEngine:
     Drive it with ``serve(prompts)`` or with ``submit()`` + repeated
     ``step()``; ``step()`` returns the request ids completed that tick.
     ``metrics`` counts ``prefill_chunks`` and ``decode_steps`` (each one
-    model call), ``admitted`` and ``evicted``.
+    model call), ``admitted``, ``evicted`` and ``recal_ticks``.
+
+    ``maintenance`` (an :class:`AnalogServeRuntime`) hooks the analog
+    backend's drift and recalibration into the tick: a recalibration op
+    takes the tick's prefill lane while decode proceeds.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 4,
                  max_len: int = 512, prefill_chunk: int = 32,
-                 seed: int = 0):
+                 seed: int = 0,
+                 maintenance: Optional[AnalogServeRuntime] = None):
         if cfg.family not in ("dense", "moe"):
             raise ValueError(
                 f"continuous batching needs a positional KV cache per slot; "
@@ -103,6 +114,7 @@ class ContinuousEngine:
         self.n_slots = n_slots
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
+        self._maintenance = maintenance
         self._axes = M.cache_batch_axes(cfg, max_len)
         self._slot_cache = M.init_cache(cfg, n_slots, max_len, self.device)
         self._next_id = 0
@@ -163,16 +175,27 @@ class ContinuousEngine:
             or any(s is not None for s in self._slots)
 
     def step(self) -> List[int]:
-        """One scheduler tick: admit a prefilled request into a freed slot
+        """One scheduler tick: run pending analog maintenance (a drift
+        application, and at most one recalibration op, which takes this
+        tick's prefill lane), admit a prefilled request into a freed slot
         if one waits, run at most one prefill chunk, then one batched
         decode step over the active slots.  Returns completed ids."""
         done: List[int] = []
+        recal_busy = False
+        if self._maintenance is not None:
+            before = self._maintenance.metrics["recal_containers"]
+            self.params = self._maintenance.tick()
+            recal_busy = \
+                self._maintenance.metrics["recal_containers"] > before
+            if recal_busy:
+                self.metrics["recal_ticks"] += 1
         if self._ready is not None:
             slot = self._free_slot()
             if slot is not None:
                 self._admit(*self._ready, slot)
                 self._ready = None
-        if self._ready is None and (self._pf is not None or self._queue):
+        if not recal_busy and self._ready is None \
+                and (self._pf is not None or self._queue):
             done += self._prefill_tick()
         if any(s is not None for s in self._slots):
             done += self._decode_tick()
@@ -205,6 +228,8 @@ class ContinuousEngine:
         tok, row = self._chunk(row, torch.from_numpy(buf).to(self.device),
                                len(chunk), temps)
         self.metrics["prefill_chunks"] += 1
+        if self._maintenance is not None:
+            self._maintenance.note_reads(1)
         consumed += len(chunk)
         if consumed < len(req.prompt):
             self._pf = (req, row, consumed)
@@ -237,6 +262,8 @@ class ContinuousEngine:
                 temps[i] = s.req.sp.temperature
         nxt = self._decode(torch.from_numpy(tok).to(self.device), temps)
         self.metrics["decode_steps"] += 1
+        if self._maintenance is not None:
+            self._maintenance.note_reads(1)
         t = nxt.cpu().numpy()
         done: List[int] = []
         for i, s in enumerate(self._slots):
@@ -262,7 +289,8 @@ def make_engine(cfg: ModelConfig, state, *,
                 scheduler: str = "continuous",
                 max_len: int = 512,
                 n_slots: Optional[int] = None,
-                prefill_chunk: int = 32) -> "Engine":
+                prefill_chunk: int = 32,
+                retention=None) -> "Engine":
     """Build a serving engine — THE serving entry point.
 
     ``state`` is a :class:`ServeState` or a bare parameter tree (digital
@@ -273,11 +301,14 @@ def make_engine(cfg: ModelConfig, state, *,
     ``"static"``.  ``n_slots`` defaults to the batch size of ``generate``
     and to 4 for the streaming surface.  The analog backend reads the
     crossbars with the CUDA kernel on the card and with its plain version
-    on the CPU.
+    on the CPU; ``retention`` (a ``core.endurance.RetentionSpec``) sets
+    its drift and recalibration model.  The analog backend's maintenance
+    rewrites the containers' ``g`` and ``ref`` in place: the engine owns
+    the tree it is given.
     """
     return Engine(cfg, state, max_len=max_len, n_slots=n_slots,
                   prefill_chunk=prefill_chunk, backend=backend,
-                  scheduler=scheduler)
+                  scheduler=scheduler, retention=retention)
 
 
 class Engine:
@@ -286,22 +317,26 @@ class Engine:
     def __init__(self, cfg: ModelConfig, state=None, max_len: int = 512,
                  n_slots: Optional[int] = None, prefill_chunk: int = 32,
                  *, backend: Optional[str] = None,
-                 scheduler: str = "continuous"):
+                 scheduler: str = "continuous", retention=None):
         if scheduler not in SCHEDULERS:
             raise ValueError(f"unknown scheduler {scheduler!r}; expected "
                              f"one of {SCHEDULERS}")
         self.cfg = cfg
-        self.state = make_serve_state(cfg, state, backend=backend)
+        self.state = make_serve_state(cfg, state, backend=backend,
+                                      retention=retention)
         self.backend = self.state.backend
         self.scheduler = scheduler
         self.max_len = max_len
         self.n_slots = n_slots
         self.prefill_chunk = prefill_chunk
         self.device = M.params_device(self.state.params)
+        self._maint = AnalogServeRuntime(self.state, cfg) \
+            if self.state.is_analog else None
         self._cont: Dict[int, ContinuousEngine] = {}
 
     @property
     def params(self):
+        """The live parameter tree (after any analog maintenance)."""
         return self.state.params
 
     @property
@@ -357,25 +392,40 @@ class Engine:
         return self.stream.metrics
 
     # ------------------------------------------------------ analog lifecycle
-    @property
-    def maintenance(self):
-        """The analog drift/recalibration runtime: not ported yet."""
-        return None
+    def _require_analog(self) -> AnalogServeRuntime:
+        if self._maint is None:
+            raise ValueError("analog maintenance needs backend='analog' "
+                             f"(this engine is {self.backend!r})")
+        return self._maint
 
-    def _not_ported(self, what: str):
-        raise NotImplementedError(
-            f"{what} needs the analog maintenance runtime "
-            "(AnalogServeRuntime, core/endurance.py), which is not ported "
-            "yet; see ROADMAP.md")
+    @property
+    def maintenance(self) -> Optional[AnalogServeRuntime]:
+        """The analog drift/recalibration runtime (None when digital)."""
+        return self._maint
 
     def advance_clock(self, seconds: float) -> None:
-        self._not_ported("advance_clock")
+        """Advance the simulated deployment clock: retention drift is
+        applied at the next tick, and a recalibration sweep is scheduled
+        whenever the retention interval elapses."""
+        self._require_analog().advance_clock(seconds)
 
     def start_recalibration(self) -> None:
-        self._not_ported("start_recalibration")
+        """Schedule a full recalibration sweep now; it drains one
+        container per scheduler tick, in the prefill lane."""
+        self._require_analog().schedule_recalibration()
 
     def run_maintenance(self) -> None:
-        self._not_ported("run_maintenance")
+        """Drain pending drift and the whole recalibration queue without
+        serving (for idle engines and the static scheduler)."""
+        m = self._require_analog()
+        m.tick()
+        while m.recal_pending:
+            m.tick()
+
+    def energy_per_token(self, ctx_len: int = 4096) -> Dict[str, float]:
+        """pJ per token for this model at the paper's Table-I geometry
+        (``hwmodel.arch_cost.serve_energy_per_token``)."""
+        return serve_energy_per_token(self.cfg, ctx_len=ctx_len)
 
     # --------------------------------------------------------- static path
     @torch.no_grad()
@@ -385,7 +435,8 @@ class Engine:
         """Static batch: one shared prefill (ragged prompts right-aligned
         by left-padding with 0) and lock-step decode until every row
         finishes."""
-        params = self.state.params
+        params = self._maint.tick() if self._maint is not None \
+            else self.state.params
         b = len(prompts)
         plen = max(len(p) for p in prompts)
         toks = np.zeros((b, plen), dtype=np.int64)
@@ -394,6 +445,8 @@ class Engine:
         logits, cache = M.prefill(
             params, {"tokens": torch.from_numpy(toks).to(self.device)},
             self.cfg, max_len=self.max_len)
+        if self._maint is not None:
+            self._maint.note_reads(1)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
@@ -402,6 +455,8 @@ class Engine:
         done = np.zeros(b, dtype=bool)
         for _ in range(sp.max_new_tokens - 1):
             logits, cache = M.decode_step(params, cache, tok.long(), self.cfg)
+            if self._maint is not None:
+                self._maint.note_reads(1)
             tok = _sample(logits, gen, temps)
             t_host = tok.cpu().numpy()
             for j in range(b):
@@ -419,6 +474,7 @@ class Engine:
         if eng is None:
             eng = ContinuousEngine(
                 self.cfg, self.state.params, n_slots=n_slots,
-                max_len=self.max_len, prefill_chunk=self.prefill_chunk)
+                max_len=self.max_len, prefill_chunk=self.prefill_chunk,
+                maintenance=self._maint)
             self._cont[n_slots] = eng
         return eng

@@ -4,6 +4,11 @@ Port of ``repro.train.train_loop``: the float32 SGD baseline that the
 analog runs are measured against.  ``TrainState`` is a plain dict
 ``{"params", "opt", "step", "err_fb"}``; the step returns a new state.
 Gradients come from ``torch.autograd`` through ``models.model.loss_fn``.
+With ``analog=True, analog_mode="fakequant"`` this is the reference's
+QAT step (``launch/train.py --analog``, ``adamw``): every projection's
+forward is the fakequant read, on the card its kernel inside
+``kernels.ops.FakequantRead``, and its gradient the reference's (no
+straight-through estimator).
 Int8 gradient compression (``grad_compress``, ``train/compress.py``)
 is not ported yet (``ROADMAP.md``, multi-device queue).
 """

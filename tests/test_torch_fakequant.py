@@ -143,26 +143,44 @@ def test_cuda_impl_on_cpu_tensor_raises():
 
 
 def test_autograd_on_the_kernel_path_raises(monkeypatch):
-    """The kernel has no backward: a call that would launch it while
-    autograd needs a gradient raises and names the roadmap; it never takes
-    the plain version instead.  (On the CPU the kernel path is reached by
-    resolving ``impl`` to ``"cuda"``.)"""
+    """Under autograd the kernel path no longer raises: the read goes
+    through ``ops.FakequantRead``, whose forward launches the kernel (here
+    a counting stand-in that returns the plain version's values) and
+    never the plain expression, and whose backward is the eager VJP.
+    Without autograd the kernel is launched bare.  (On the CPU the kernel
+    path is reached by resolving ``impl`` to ``"cuda"``.)"""
     monkeypatch.setattr(ops, "resolve_impl", lambda impl, x: "cuda")
     x, w = (torch.from_numpy(a) for a in _float_operands((), 8, 40, 24))
-    launched = []
+    launched, eager = [], []
+    plain_read = K.fakequant_read
 
     def fake_read(x2, w2, *args, **kw):
         launched.append(1)
-        return torch.zeros((x2.shape[0], w2.shape[1]))
+        return plain_read(x2, w2, *args, **kw)
     monkeypatch.setattr(ops, "fakequant_read", fake_read)
-    for xg, wg in ((True, False), (False, True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ops.fakequant_project(x.clone().requires_grad_(xg),
-                                  w.clone().requires_grad_(wg),
-                                  AdcConfig(), 16)
+    plain_eager = ops._fakequant_eager
+
+    def counting_eager(*args, **kw):
+        eager.append(1)
+        return plain_eager(*args, **kw)
+    monkeypatch.setattr(ops, "_fakequant_eager", counting_eager)
+    for xg, wg in ((True, False), (False, True), (True, True)):
+        xr, wr = x.clone().requires_grad_(xg), w.clone().requires_grad_(wg)
+        y = ops.fakequant_project(xr, wr, AdcConfig(), 16)
+        assert eager == [] and y.grad_fn is not None
+        y.square().sum().backward()
+        assert len(eager) == 1          # the backward's recomputation
+        eager.clear()
+        xe, we = x.clone().requires_grad_(xg), w.clone().requires_grad_(wg)
+        plain_eager(xe, we, AdcConfig(), 16).square().sum().backward()
+        for got, want in ((xr, xe), (wr, we)):
+            assert (got.grad is None) == (want.grad is None)
+            if want.grad is not None:
+                torch.testing.assert_close(got.grad, want.grad, rtol=0,
+                                           atol=0)
     with torch.no_grad():
         ops.fakequant_project(x.requires_grad_(), w, AdcConfig(), 16)
-    assert launched == [1]
+    assert launched == [1] * 4 and eager == []
 
 
 def test_eager_path_is_differentiable_on_cpu():

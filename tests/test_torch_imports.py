@@ -52,8 +52,10 @@ def test_port_sources_and_chip_smoke_import_no_jax_or_repro():
 
 def test_probe_walks_the_kernel_modules():
     """The probe above imports every kernel module of the port, the
-    fakequant projection and flash attention among them, and the carry
-    and numeric-training modules."""
+    fakequant projection and flash attention among them, the carry and
+    numeric-training modules, the registry's dense configs, the
+    retention model, the serving maintenance runtime and the
+    checkpoints."""
     import pkgutil
 
     import repro_torch
@@ -63,4 +65,10 @@ def test_probe_walks_the_kernel_modules():
             "repro_torch.kernels.xbar_vmm", "repro_torch.kernels.xbar_update",
             "repro_torch.models.layers", "repro_torch.core.periodic_carry",
             "repro_torch.train.optimizer",
-            "repro_torch.train.train_loop"} <= names
+            "repro_torch.train.train_loop", "repro_torch.configs.gemma_2b",
+            "repro_torch.configs.stablelm_3b",
+            "repro_torch.configs.starcoder2_3b",
+            "repro_torch.configs.granite_20b", "repro_torch.core.endurance",
+            "repro_torch.serve.state", "repro_torch.serve.engine",
+            "repro_torch.train.checkpoint",
+            "repro_torch.launch.serve"} <= names

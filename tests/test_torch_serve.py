@@ -275,11 +275,23 @@ def test_serve_state_validates_backend():
 
 
 def test_maintenance_is_not_ported_yet():
-    eng = make_engine(ACFG, APARAMS, max_len=32)
-    assert eng.maintenance is None
-    for call in (lambda: eng.advance_clock(60.0), eng.start_recalibration,
-                 eng.run_maintenance):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The maintenance runtime is ported: the analog engine has one and
+    its calls work; a digital engine raises ``ValueError``, as the
+    reference's does (``tests/test_torch_serve_analog.py`` holds the
+    runtime against the reference)."""
+    eng = make_engine(ACFG, params_from_numpy(_np(J_APARAMS), "cpu"),
+                      max_len=32)
+    assert eng.maintenance is not None
+    eng.advance_clock(60.0)
+    eng.start_recalibration()
+    eng.run_maintenance()
+    assert eng.maintenance.recal_pending == 0
+    assert eng.maintenance.metrics["drift_applications"] == 1
+    dig = make_engine(DCFG, PARAMS, max_len=32)
+    assert dig.maintenance is None
+    for call in (lambda: dig.advance_clock(60.0), dig.start_recalibration,
+                 dig.run_maintenance):
+        with pytest.raises(ValueError, match="analog"):
             call()
 
 
