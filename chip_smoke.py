@@ -229,8 +229,39 @@ any gate fails:
    activation's gradient reaches it only through the DAC scale's argmax
    element, and one flip moves a whole leaf's gradient.
 
-Every read's DAC scale (phases 1, 3, 4, 7, 14, 15, 16) must equal the
-float32 division ``max|x| / in_levels`` bit for bit.
+18. the MoE family: llama4-scout-17b-a16e at full width (d 5120, 16
+   experts of 5120 x 8192, top-1, one shared expert, vocab 202048) cut
+   to 2 of 48 layers, random weights from torch.Generator seed 0.  (a)
+   From expert-batched ``taox-nonoise`` 64x64 crossbars (8-bit DAC/ADC,
+   dynamic range) with phase 15's serving settings, 16 greedy tokens:
+   7 reads a layer per model call (wqkv, wo, the shared w_upgate and
+   w_down, one read of each (16, K, N) expert stack), all on the FP32
+   instance with its K-order sum; every read of a prefill and a decode
+   call against its plain version on its own operands, one expert at a
+   time, its DAC scales bit-equal to the float32 division, and at least
+   one expert that read an all-zero buffer returning exact zeros; the
+   prefill logits against a CPU run with the card's reads and routing
+   replayed (the CPU router's own differing choices counted), within
+   1e-3.  Tokens/s, the profiled decode step with the expert reads'
+   CUDA-event time against their bytes, peak memory.  (b) kernel 4 with
+   its lead dim: stacks of exact-class operands (bit-equal, both
+   instances) and llama4-scout's expert stacks at capacity 8 (FP32, 12
+   of 16 experts all-zero) and 160 (tensor cores), each read one launch
+   of each of its three kernels, every expert against the plain version
+   (phase 8's bound), timed; then the model in fakequant mode served as
+   (a): 7 fakequant reads a layer a call (3 of expert stacks), one launch
+   of each kernel a read, no plain version on the card, every read of a
+   prefill and a decode call held per expert.  (c) one device-mode
+   training step (TaOx, lr 0.1, 8 x 256 tokens, capacity 160) at 1 layer
+   (2 do not fit the card's memory): 7 + 7 tensor-core reads and 7
+   tensor-core writes with their pre-passes, each expert stack's write
+   one launch over (16 L, K, N); every read per expert and every write
+   per flattened layer (its noise field recomputed for that layer)
+   against its plain version (phase 7's classes); routed pairs dropped
+   by capacity, the profiled step by kernel, peak memory.
+
+Every read's DAC scale (phases 1, 3, 4, 7, 14, 15, 16, 18) must equal
+the float32 division ``max|x| / in_levels`` bit for bit.
 
 The second-to-last line is a JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.  Details
@@ -388,6 +419,37 @@ def recording_reads(K, reads):
         K._read_cuda = read_cuda
 
 
+#: Output columns (whole tiles) a plain-version check of a read forms at
+#: once: each output tile's charges and range depend on its own columns
+#: only, so the check runs in slices of this many and its temporaries
+#: stay a few GB at B = 2048.
+CHECK_COLS = 2048
+
+
+def out_chunks(n_out, width):
+    """``(c0, c1)`` slices of a read's ``n_out`` outputs, whole tiles of
+    ``width`` each, at most about ``CHECK_COLS`` wide."""
+    step = max(width, CHECK_COLS // width * width)
+    return [(c, min(c + step, n_out)) for c in range(0, n_out, step)]
+
+
+def out_slice(g, c0, c1, transpose):
+    """The conductances behind outputs ``c0:c1`` of a read of ``g`` (L, K,
+    N): columns forward, rows transposed."""
+    return g[:, c0:c1, :] if transpose else g[:, :, c0:c1]
+
+
+def plain_read(K, x, g, ref, sc, cfg, transpose):
+    """The plain version of a read, formed one slice of output tiles at a
+    time (:func:`out_chunks`)."""
+    width = cfg.rows if transpose else cfg.cols
+    n_out = g.shape[1] if transpose else g.shape[2]
+    return torch.cat([K._read_plain(x, out_slice(g, c0, c1, transpose),
+                                    out_slice(ref, c0, c1, transpose), sc,
+                                    cfg, transpose)
+                      for c0, c1 in out_chunks(n_out, width)], dim=-1)
+
+
 def read_agrees(y_k, y_p, x, g, ref, sc, cfg, transpose=False):
     """The dynamic-class bound: every element within one ADC lsb per
     reduction tile (times the output scale) of the plain version, plus
@@ -395,13 +457,18 @@ def read_agrees(y_k, y_p, x, g, ref, sc, cfg, transpose=False):
     more than 1e-5 relative off.  The relative term is taken of both
     values, as in :func:`fq_agrees`, so that it also covers a code that
     flips between 0 and +-1, where the plain value is 0 and the kernel's
-    is one lsb of its own (its range sum taken in another order).
+    is one lsb of its own (its range sum taken in another order).  Each
+    lead matrix (an expert of a stack) has its own lsb and scale.
     Returns (ok, max abs err, largest err / bound, flip share)."""
     err = (y_k - y_p).abs()
-    lsb = tile_lsb(x, g, ref, sc, cfg, transpose)
     width = cfg.rows if transpose else cfg.cols
-    per_col = lsb.sum(0).repeat_interleave(width)[:y_p.shape[-1]]
-    bound = per_col * sc[0, 1].abs() \
+    per_col = torch.stack([torch.cat([
+        tile_lsb(x[i:i + 1], out_slice(g[i:i + 1], c0, c1, transpose),
+                 out_slice(ref[i:i + 1], c0, c1, transpose), sc[i:i + 1],
+                 cfg, transpose).sum(0).repeat_interleave(width)[:c1 - c0]
+        for c0, c1 in out_chunks(y_p.shape[-1], width)])
+        * sc[i, 1].abs() for i in range(x.shape[0])])
+    bound = per_col[:, None, :] \
         + 1e-5 * torch.maximum(y_p.abs(), y_k.abs())
     share = (err > 1e-5 * y_p.abs().amax()).float().mean().item()
     ok = bool((err <= bound).all()) and share < 0.01
@@ -682,24 +749,31 @@ def check_reads(K, reads, where="cpu"):
         return moved[key]
 
     worst = {"max_abs_err": 0.0, "max_err_over_bound": 0.0,
-             "max_flip_share": 0.0}
+             "max_flip_share": 0.0, "zero_leads": 0}
     for x, g, ref, sc, cfg, y, transpose in reads:
         if not dac_scale_ok(x, sc, cfg.adc.in_levels):
             fail(f"a read's DAC scale {sc[:, 0].tolist()} is not the "
                  f"float32 division max|x| / {cfg.adc.in_levels} (x "
                  f"{tuple(x.shape)}, transpose {transpose})")
         x, g, ref, sc = x.to(where), to(g), to(ref), sc.to(where)
-        y_p = K._read_plain(x, g, ref, sc, cfg, transpose)
-        ok, err, over, share = read_agrees(y.to(where), y_p, x, g, ref, sc,
-                                           cfg, transpose)
-        worst["max_abs_err"] = max(worst["max_abs_err"], err)
-        worst["max_err_over_bound"] = max(worst["max_err_over_bound"], over)
-        worst["max_flip_share"] = max(worst["max_flip_share"], share)
-        if not ok:
-            fail(f"a read disagrees with the plain version on its "
-                 f"operands: x {tuple(x.shape)} g {tuple(g.shape)} "
-                 f"transpose {transpose}, max err {err}, err/bound {over}, "
-                 f"flip share {share}")
+        y = y.to(where)
+        for i in range(x.shape[0]):   # a lead matrix (expert) at a time
+            one = (x[i:i + 1], g[i:i + 1], ref[i:i + 1], sc[i:i + 1])
+            y_p = plain_read(K, *one, cfg, transpose)
+            ok, err, over, share = read_agrees(y[i:i + 1], y_p, *one, cfg,
+                                               transpose)
+            if not x[i].any():        # an expert that received no token
+                worst["zero_leads"] += 1
+                ok = ok and not y[i].any() and not y_p.any()
+            worst["max_abs_err"] = max(worst["max_abs_err"], err)
+            worst["max_err_over_bound"] = max(worst["max_err_over_bound"],
+                                              over)
+            worst["max_flip_share"] = max(worst["max_flip_share"], share)
+            if not ok:
+                fail(f"a read disagrees with the plain version on its "
+                     f"operands: x {tuple(x.shape)} g {tuple(g.shape)} "
+                     f"lead matrix {i}, transpose {transpose}, max err "
+                     f"{err}, err/bound {over}, flip share {share}")
     return worst
 
 
@@ -1239,33 +1313,42 @@ def recording_writes(U, writes):
     return rec_write
 
 
-def check_writes(U, writes, what):
+def check_writes(U, writes, what, worst=None):
     """Every recorded write of a training step against its plain versions
-    on its own operands: the operands are codes times the scales they came
-    with, and the write is in ``tc_write_agrees``'s class.  Returns the
-    worst figures."""
-    worst = {"max_abs_err": 0.0, "max_err_over_twin_bound": 0.0,
-             "max_allowance_share": 0.0}
+    on its own operands, one flattened layer at a time (a stack of 16
+    full-width experts does not fit the plain versions' temporaries at
+    once), each layer with its own noise field: the operands are codes
+    times the scales they came with, and each layer is in
+    ``tc_write_agrees``'s class.  Returns the worst figures, gathered into
+    ``worst`` where one is given."""
+    if worst is None:
+        worst = {"max_abs_err": 0.0, "max_err_over_twin_bound": 0.0,
+                 "max_allowance_share": 0.0}
     for (g, x_q, d_q, scale, noise, seed, cfg, mode, xs, ds), out in writes:
         if xs is None or not codes_contract_ok(U, x_q, d_q, xs, ds, cfg):
             fail(f"a write of {what} came without scales that make its "
                  f"operands codes times scales: g {tuple(g.shape)}")
-        g_p = U._update_plain(g, x_q, d_q, scale, noise, seed, cfg, mode)
-        g_x = U._update_tc_plain(g, x_q, d_q, scale, noise, seed, cfg, mode,
-                                 xs, ds)
-        z = U.field_normals(seed, g.shape, cfg, device="cuda") \
-            if mode == "kernel" else noise
-        ok, err, over, share = tc_write_agrees(out, g_p, g_x, g, x_q, d_q,
-                                               scale, cfg, z)
-        worst["max_abs_err"] = max(worst["max_abs_err"], err)
-        worst["max_err_over_twin_bound"] = max(
-            worst["max_err_over_twin_bound"], over)
-        worst["max_allowance_share"] = max(worst["max_allowance_share"],
-                                           share)
-        if not ok:
-            fail(f"a write of {what} disagrees with its plain versions: g "
-                 f"{tuple(g.shape)}, max err {err}, {over} of the twin's "
-                 f"bound, allowance share {share}")
+        k, n = g.shape[1:]
+        for i in range(g.shape[0]):
+            z = U.field_normals(seed, (1, k, n), cfg, (i, 0, 0),
+                                device=g.device) if mode == "kernel" \
+                else (None if noise is None else noise[i:i + 1])
+            one = (g[i:i + 1], x_q[i:i + 1], d_q[i:i + 1], scale[i:i + 1])
+            m = "none" if z is None else "host"
+            g_p = U._update_plain(*one, z, None, cfg, m)
+            g_x = U._update_tc_plain(*one, z, None, cfg, m, xs[i:i + 1],
+                                     ds[i:i + 1])
+            ok, err, over, share = tc_write_agrees(out[i:i + 1], g_p, g_x,
+                                                   *one, cfg, z)
+            worst["max_abs_err"] = max(worst["max_abs_err"], err)
+            worst["max_err_over_twin_bound"] = max(
+                worst["max_err_over_twin_bound"], over)
+            worst["max_allowance_share"] = max(
+                worst["max_allowance_share"], share)
+            if not ok:
+                fail(f"a write of {what} disagrees with its plain versions "
+                     f"at layer {i}: g {tuple(g.shape)}, max err {err}, "
+                     f"{over} of the twin's bound, allowance share {share}")
     return worst
 
 
@@ -3076,12 +3159,13 @@ def tree_get(tree, path):
     return tree
 
 
-def timed_serve(K, engine, prompts, sp, cfg, what):
+def timed_serve(K, engine, prompts, sp, cfg, what, per_layer=4):
     """One ``generate`` with the read counts set to 0 just before and read
-    just after.  Gates: 4 reads per layer per model call, every one on the
-    FP32 instance with its K-order sum (decode and 16-token prefill
-    chunks; every K spans several 64-row tiles), no transpose read, full
-    outputs in the vocabulary."""
+    just after.  Gates: ``per_layer`` reads per layer per model call (4 for
+    the dense family, 7 for MoE: its three expert stacks read once each),
+    every one on the FP32 instance with its K-order sum (decode and
+    16-token prefill chunks; every K spans several 64-row tiles), no
+    transpose read, full outputs in the vocabulary."""
     for name in K.LAUNCHES:
         K.LAUNCHES[name] = 0
     torch.cuda.synchronize()
@@ -3096,10 +3180,11 @@ def timed_serve(K, engine, prompts, sp, cfg, what):
     n_tok = sum(len(o) for o in outs)
     want = {k: 0 for k in by_kernel}
     want["fused_read_tile_kernel"] = want["reduce_tiles_kernel"] = reads
-    if reads != 4 * cfg.n_layers * calls or calls == 0 \
+    if reads != per_layer * cfg.n_layers * calls or calls == 0 \
             or by_kernel != want or K.LAUNCHES["fused_mvm"]:
         fail(f"{what}: {reads} reads in {calls} model calls, launches "
-             f"{by_kernel}; expected {4 * cfg.n_layers} a call, each {want}")
+             f"{by_kernel}; expected {per_layer * cfg.n_layers} a call, "
+             f"each {want}")
     if [len(o) for o in outs] != [sp.max_new_tokens] * len(prompts) or \
             not all(0 <= t < cfg.vocab for o in outs for t in o):
         fail(f"{what}: bad outputs {outs}")
@@ -3529,6 +3614,556 @@ def phase_qat(K, OPS, M, TL, TO, syn, get_config, report):
     return res
 
 
+# --------------------------------------------------------------------------
+# Phase 18: the MoE family (llama4-scout-17b-a16e) at full width
+# --------------------------------------------------------------------------
+
+MOE_ARCH = "llama4-scout-17b-a16e"
+#: Crossbar reads a MoE layer makes per model call: wqkv, wo, the shared
+#: expert's w_upgate and w_down, and one read of each expert stack.
+MOE_READS = 7
+#: The training step's depth: two full-width layers need 35 GB of g + ref,
+#: 8.3 GB of embedding and head, their 8.3 GB of gradients and 8.3 GB of
+#: updated copies, and the new conductances of every container (17.6 GB)
+#: before the write's transients: more than the card's 80 GB.
+MOE_TRAIN_LAYERS = 1
+
+
+@contextlib.contextmanager
+def recording_routes(TMoE, routes):
+    """Record every routing decision of the MoE layers: ``(probs, top_p,
+    top_i)`` per call of ``models.moe.route``."""
+    route = TMoE.route
+
+    def recorded(p, xt, cfg):
+        out = route(p, xt, cfg)
+        routes.append(tuple(t.detach().clone() for t in out))
+        return out
+
+    TMoE.route = recorded
+    try:
+        yield
+    finally:
+        TMoE.route = route
+
+
+def dropped_tokens(routes, cfg):
+    """Routed (token, expert) pairs past their expert's capacity, summed
+    over the recorded routing calls."""
+    from repro_torch.core.analog_registry import expert_capacity
+    out = 0
+    for _, _, top_i in routes:
+        cap = expert_capacity(top_i.shape[0], cfg)
+        counts = torch.bincount(top_i.reshape(-1), minlength=cfg.n_experts)
+        out += int(torch.clamp(counts - cap, min=0).sum())
+    return out
+
+
+def meta_containers(params):
+    """A CPU copy of a device-mode tree whose conductances (``g``,
+    ``ref``) are shapes only (meta tensors): the replayed CPU run never
+    reads them."""
+    if isinstance(params, dict):
+        if "g" in params and "ref" in params:
+            return {k: v.to("meta") if k in ("g", "ref") else v.cpu()
+                    for k, v in params.items()}
+        return {k: meta_containers(v) for k, v in params.items()}
+    return params.cpu()
+
+
+def moe_replay_cpu(M, TT, TMoE, cfg, cpu_params, toks, reads, routes):
+    """Prefill logits of ``toks`` on the CPU with the card's read results
+    (``reads``) and routing choices (``routes``) replayed; returns the
+    logits and how many (token, k) routing choices of the CPU's own router
+    differed from the card's."""
+    read_it, route_it = iter(reads), iter(routes)
+    flips = [0]
+    route = TMoE.route
+
+    def replay_read(x, g, ref, w_scale, xcfg, **_):
+        y = next(read_it)[5]
+        want = (*x.shape[:-1], g.shape[-1])
+        return y.cpu().reshape(want)
+
+    def replay_route(p, xt, c):
+        probs, _, top_i = route(p, xt, c)
+        card_i = next(route_it)[2].cpu()
+        flips[0] += int((card_i != top_i).sum())
+        top_p = torch.gather(probs, 1, card_i)
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+        return probs, top_p, card_i
+
+    vmm, TT.vmm, TMoE.route = TT.vmm, replay_read, replay_route
+    try:
+        with torch.no_grad():
+            logits, _ = M.prefill(cpu_params, {"tokens": toks.cpu()}, cfg,
+                                  64)
+    finally:
+        TT.vmm, TMoE.route = vmm, route
+    if next(read_it, None) is not None or next(route_it, None) is not None:
+        fail("the CPU replay made fewer reads or routing calls than the "
+             "card")
+    return logits, flips[0]
+
+
+def expert_read_ms(K, M, cfg, params, n_experts):
+    """CUDA-event time of the expert-stack reads of one decode step (B =
+    4), the events around each launch of the read (its kernels back to
+    back on the stream), and their g + ref bytes against the HBM rate."""
+    read_cuda = K._read_cuda
+    spans = []
+
+    def timed(x, g, ref, sc, xcfg, transpose=False):
+        if g.shape[0] != n_experts:
+            return read_cuda(x, g, ref, sc, xcfg, transpose)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        y = read_cuda(x, g, ref, sc, xcfg, transpose)
+        b.record()
+        spans.append((a, b, 2 * 4 * g.numel()))
+        return y
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (4, 12))).cuda()
+    with torch.no_grad():
+        logits, cache = M.prefill(params, {"tokens": toks}, cfg, 32)
+        tok = logits.argmax(-1)
+        logits, cache = M.decode_step(params, cache, tok, cfg)
+        K._read_cuda = timed
+        try:
+            M.decode_step(params, cache, logits.argmax(-1), cfg)
+        finally:
+            K._read_cuda = read_cuda
+        torch.cuda.synchronize()
+    ms = sum(a.elapsed_time(b) for a, b, _ in spans)
+    n_bytes = sum(n for _, _, n in spans)
+    return {"expert_reads": len(spans), "expert_read_ms": ms,
+            "expert_read_bytes": n_bytes,
+            "expert_read_bound_ms": 1e3 * n_bytes / HBM_BYTES_PER_S}
+
+
+def phase_moe_serve(M, K, TT, TMoE, make_engine, SamplingParams, get_config,
+                    report):
+    """Phase 18(a): llama4-scout at full width, 2 layers, served from
+    expert-batched crossbars (see the module docstring)."""
+    torch.cuda.empty_cache()   # the earlier phases' cached blocks
+    full = get_config(MOE_ARCH)
+    cfg = device_serve_cfg(full, 2)
+    torch.cuda.synchronize()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = make_engine(cfg, program_model(M, cfg), backend="analog",
+                         n_slots=4, prefill_chunk=16, max_len=64)
+    torch.cuda.synchronize()
+    program_s = time.perf_counter() - t0
+    params = engine.params
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    ex = params["layers"]["moe"]["experts"]["w_up"]
+    want = (cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.d_ff_expert)
+    if tuple(ex["g"].shape) != want \
+            or tuple(ex["w_scale"].shape) != want[:2]:
+        fail(f"llama4-scout expert container {tuple(ex['g'].shape)}, "
+             f"w_scale {tuple(ex['w_scale'].shape)}")
+    cells = sum(v.numel() for path, v in tree_leaves(params)
+                if path[-1] == "g")
+    print(f"phase 18: llama4-scout (2 of 48 layers, full widths) programmed "
+          f"in {program_s:.1f} s: {cells / 1e9:.3f} B cells in g, "
+          f"{resident_gb:.2f} GB resident ({start_gb:.2f} GB allocated "
+          "before)")
+    prompts = dense_prompts(cfg, 4)
+    engine.generate(prompts[:1], SamplingParams(max_new_tokens=2))
+    routes = []
+    with recording_routes(TMoE, routes):
+        outs, serve = timed_serve(K, engine, prompts,
+                                  SamplingParams(max_new_tokens=16), cfg,
+                                  "llama4-scout serve", per_layer=MOE_READS)
+    serve["dropped_pairs"] = dropped_tokens(routes, cfg)
+    # a prefill and a decode call, every read held on its own operands
+    reads, routes = [], []
+    toks = torch.tensor([prompts[0]], device="cuda")
+    with torch.no_grad(), recording_reads(K, reads), \
+            recording_routes(TMoE, routes):
+        logits, cache = M.prefill(params, {"tokens": toks}, cfg, 64)
+        M.decode_step(params, cache, logits.argmax(-1), cfg)
+    torch.cuda.synchronize()
+    if len(reads) != 2 * MOE_READS * cfg.n_layers:
+        fail(f"llama4-scout: {len(reads)} reads in a prefill and a decode "
+             f"step; expected {2 * MOE_READS * cfg.n_layers}")
+    worst = check_reads(K, reads, where="cuda")
+    worst["reads_checked"] = len(reads)
+    if worst["zero_leads"] < 1:
+        fail("llama4-scout: no expert read an all-zero buffer")
+    # the prefill's logits on the CPU, reads and routing replayed
+    n_prefill = MOE_READS * cfg.n_layers
+    cpu_params = meta_containers(params)
+    cpu_logits, route_flips = moe_replay_cpu(
+        M, TT, TMoE, cfg, cpu_params, toks, reads[:n_prefill],
+        routes[:cfg.n_layers])
+    del cpu_params
+    replay_diff = (logits.cpu() - cpu_logits).abs().max().item()
+    if not replay_diff <= 1e-3:
+        fail(f"llama4-scout: card and CPU prefill logits differ by "
+             f"{replay_diff} with the reads and routing replayed")
+    profile = profile_decode_step(M, cfg, params, "crossbar",
+                                  ("fused_read_tile", "reduce_tiles"))
+    profile.update(expert_read_ms(K, M, cfg, params, cfg.n_experts))
+    if profile.get("device_ms"):
+        profile["expert_read_share"] = \
+            profile["expert_read_ms"] / profile["device_ms"]
+    energy = engine.energy_per_token()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res = {"config": MOE_ARCH, "cut": "2 of 48 layers, full widths",
+           "cells": cells, "program_s": program_s,
+           "resident_gb": resident_gb, "allocated_before_gb": start_gb,
+           "serve": serve, "probe_reads": worst,
+           "replay_max_abs_logit_diff": replay_diff,
+           "max_abs_logit": logits.abs().max().item(),
+           "route_choices_differing_on_cpu": route_flips,
+           "decode_profile": profile, "peak_memory_gb": peak_gb,
+           "energy_per_token": energy}
+    report(res)
+    print(f"phase 18(a): llama4-scout served {serve['tokens_per_s']:.1f} "
+          f"tokens/s from crossbars ({serve['reads']} reads in "
+          f"{serve['model_calls']} calls, {serve['dropped_pairs']} routed "
+          f"pairs dropped by capacity); {worst['reads_checked']} probe "
+          f"reads agree ({worst['max_err_over_bound']:.3f} of the bound, "
+          f"{worst['zero_leads']} all-zero experts read exact zeros); "
+          f"replayed CPU logits {replay_diff:.3g} off, {route_flips} "
+          f"routing choices differ on the CPU; decode step device "
+          f"{profile.get('device_ms', 0):.2f} ms, expert reads "
+          f"{profile['expert_read_ms']:.2f} ms for "
+          f"{profile['expert_read_bytes'] / 1e9:.1f} GB (bound "
+          f"{profile['expert_read_bound_ms']:.2f} ms); peak {peak_gb:.2f} GB")
+    del engine, params
+    return res
+
+
+def fq_lead_case(K, name, e, t, k, n, rows, cls, gen, adc, instance,
+                 zero=(), timed=False):
+    """One expert-stack fakequant read (x (E, T, K) through w (E, K, N))
+    on the card against the plain version per expert on the card: the
+    exact class bit-equal, the float class within ``fq_agrees`` per
+    expert; every expert's DAC scale equal to ``fakequant_scale``; the
+    experts in ``zero`` read all-zero buffers and give exact zeros."""
+    if cls == "exact":
+        pairs = [fq_exact_operands(t, k, n, gen) for _ in range(e)]
+        x = torch.stack([a for a, _ in pairs])
+        w = torch.stack([b for _, b in pairs])
+    else:
+        x = torch.randn((e, t, k), generator=gen, device="cuda")
+        x *= torch.logspace(-3, 2, e, device="cuda")[:, None, None]
+        w = torch.randn((e, k, n), generator=gen, device="cuda") \
+            / math.sqrt(k)
+    for i in zero:
+        x[i] = 0.0
+    launches = dict(K.LAUNCHES)
+    y_k, sc_k = K._fakequant_cuda(x, w, adc, rows, instance)
+    torch.cuda.synchronize()
+    got = {c: K.LAUNCHES[c] - launches[c] for c in K.LAUNCHES}
+    per_read = {"fakequant": 1, "fakequant_epilogue": 1,
+                "fakequant_scale" if instance == "fp32"
+                else "fakequant_prepare": 1,
+                "fakequant_fp32" if instance == "fp32"
+                else "fakequant_tc": 1}
+    if {c: v for c, v in got.items() if v} != per_read:
+        fail(f"fakequant {name}: one stack read launched {got}")
+    sc = K.fakequant_scale(x, adc.in_levels)
+    if not torch.equal(sc_k, sc):
+        fail(f"fakequant {name}: the pre-pass's scales differ from "
+             "fakequant_scale")
+    twin = K._fakequant_tc_plain if instance == "tensor_core" else None
+    row = {"case": name, "E": e, "T": t, "K": k, "N": n, "rows": rows,
+           "class": cls, "instance": instance, "max_abs_err": 0.0,
+           "max_err_over_bound": 0.0, "zero_experts": len(zero)}
+    for i in range(e):
+        y_p = K._fakequant_plain(x[i], w[i], sc[i:i + 1], adc, rows)
+        if i in zero:
+            ok = not y_k[i].any() and not y_p.any()
+            err = over = 0.0
+        elif cls == "exact":
+            ok = torch.equal(y_k[i], y_p) and (
+                twin is None or torch.equal(
+                    y_k[i], twin(x[i], w[i], sc[i:i + 1], adc, rows)))
+            err = over = (y_k[i] - y_p).abs().max().item()
+        else:
+            ok, err, over, _ = fq_agrees(y_k[i], y_p, x[i], w[i],
+                                         sc[i:i + 1], adc, rows)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["max_err_over_bound"] = max(row["max_err_over_bound"], over)
+        if not ok:
+            fail(f"fakequant {name}: expert {i} disagrees with the plain "
+                 f"version (err {err}, {over} of the bound)")
+    if timed:
+        row.update(time_fq_lead(K, x, w, sc, adc, rows, instance))
+    return row
+
+
+def time_fq_lead(K, x, w, sc, adc, rows, instance):
+    """CUDA-event times of the expert-stack read (whole), its plain
+    version (the per-expert loop) and the bounds: the bytes (x, W read
+    once, y written once) at the HBM rate, 2 E T K N flops at the FP32
+    rate, and the tensor-core floor."""
+    e, t, k = x.shape
+    n = w.shape[2]
+
+    def kern(_):
+        return K._fakequant_cuda(x, w, adc, rows, instance)
+
+    def plain(_):
+        return K._fakequant_plain_lead(x, w, sc, adc, rows)
+    ms = cuda_ms(kern, 10, torch.cuda.synchronize)
+    plain_ms = cuda_ms(plain, 3, torch.cuda.synchronize)
+    n_bytes = 4 * e * (t * k + k * n + t * n)
+    flops = 2 * e * t * k * n
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return {"ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "tc_floor_ms": 1e3 * max(t_bytes, 3 * flops / BF16_FLOPS),
+            "bytes_ms": 1e3 * t_bytes}
+
+
+def phase_moe_fq_kernel(K, AdcConfig, report):
+    """Phase 18(b), the kernel: kernel 4 with its lead dim at llama4-scout's
+    expert shapes (16 experts, K = 5120, N = 8192, 1024-row tiles) on both
+    instances (decode capacity 8, FP32; training capacity 160, tensor
+    cores), most experts all-zero as at decode, plus exact-class stacks."""
+    torch.cuda.empty_cache()   # the earlier phases' cached blocks
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(18)
+    adc = AdcConfig()
+    rows = [
+        fq_lead_case(K, "exact fp32", 4, 8, 256, 512, 64, "exact", gen,
+                     adc, "fp32", zero=(1,)),
+        fq_lead_case(K, "exact tensor_core", 4, 160, 256, 512, 64, "exact",
+                     gen, adc, "tensor_core", zero=(2,)),
+        fq_lead_case(K, "llama4 expert stack, decode", 16, 8, 5120, 8192,
+                     1024, "float", gen, adc, "fp32",
+                     zero=tuple(range(4, 16)), timed=True),
+        fq_lead_case(K, "llama4 expert stack, training capacity", 16, 160,
+                     5120, 8192, 1024, "float", gen, adc, "tensor_core",
+                     zero=(5,), timed=True)]
+    for r in rows:
+        report(r)
+        extra = (f"; {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, bound "
+                 f"{r['bound_ms']:.3f} by {r['bound_by']})"
+                 if "ms" in r else "")
+        print(f"phase 18(b): fakequant {r['case']} ({r['E']} x {r['T']} x "
+              f"{r['K']} by {r['N']}, {r['instance']}) agrees "
+              f"({r['max_err_over_bound']:.3f} of the bound, "
+              f"{r['zero_experts']} all-zero experts exact){extra}")
+    return rows
+
+
+def phase_moe_fq_serve(M, K, OPS, TMoE, make_engine, SamplingParams,
+                       get_config, report):
+    """Phase 18(b): llama4-scout at full width, 2 layers, served in
+    fakequant mode (digital weights behind the crossbar's DAC and ADC)."""
+    torch.cuda.empty_cache()   # the earlier phases' cached blocks
+    cfg = get_config(MOE_ARCH).replace(n_layers=2, dtype="float32",
+                                       analog=True, analog_mode="fakequant")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, gen, device="cuda")
+    engine = make_engine(cfg, params, n_slots=4, prefill_chunk=16,
+                         max_len=64)
+    prompts = dense_prompts(cfg, 4)
+    engine.generate(prompts[:1], SamplingParams(max_new_tokens=2))
+    torch.cuda.synchronize()
+    plain_calls, stack_reads = [], []
+    fq_cuda = K._fakequant_cuda
+
+    def counted(x, w, adc, rows, instance=None):
+        if x.ndim == 3:
+            stack_reads.append(tuple(x.shape))
+        return fq_cuda(x, w, adc, rows, instance)
+    for name in K.LAUNCHES:
+        K.LAUNCHES[name] = 0
+    K._fakequant_cuda = counted
+    try:
+        with counting_plain(K, OPS, plain_calls):
+            t0 = time.perf_counter()
+            outs = engine.generate(prompts,
+                                   SamplingParams(max_new_tokens=16))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+    finally:
+        K._fakequant_cuda = fq_cuda
+    m = engine.stream.metrics
+    calls = m["prefill_chunks"] + m["decode_steps"]
+    launches = dict(K.LAUNCHES)
+    reads = launches["fakequant"]
+    by_kernel = {name: launches[c] for name, c in FQ_KERNELS.items()}
+    want = {"fakequant_scale_kernel": reads, "fakequant_prepare_kernel": 0,
+            "fakequant_fp32_kernel": reads, "fakequant_tc_kernel": 0,
+            "fakequant_epilogue_kernel": reads}
+    n_tok = sum(len(o) for o in outs)
+    if reads != MOE_READS * cfg.n_layers * calls or calls == 0 \
+            or by_kernel != want \
+            or len(stack_reads) != 3 * cfg.n_layers * calls:
+        fail(f"llama4-scout fakequant serving: {reads} reads ("
+             f"{len(stack_reads)} of expert stacks) in {calls} calls, "
+             f"launches {by_kernel}; expected {MOE_READS * cfg.n_layers} "
+             f"a call, 3 a layer of expert stacks, each read one launch "
+             f"of each kernel {want}")
+    if plain_calls:
+        fail(f"llama4-scout fakequant serving called a plain version "
+             f"{len(plain_calls)} times on the card")
+    if [len(o) for o in outs] != [16] * 4 or \
+            not all(0 <= t < cfg.vocab for o in outs for t in o):
+        fail(f"llama4-scout fakequant: bad outputs {outs}")
+    # a prefill and a decode call, every read on its own operands
+    recorded = []
+    toks = torch.tensor([prompts[0]], device="cuda")
+    with torch.no_grad(), recording_fq(K, recorded):
+        logits, cache = M.prefill(params, {"tokens": toks}, cfg, 64)
+        M.decode_step(params, cache, logits.argmax(-1), cfg)
+    torch.cuda.synchronize()
+    worst = {"max_abs_err": 0.0, "max_err_over_bound": 0.0,
+             "zero_experts": 0, "stack_reads": 0}
+    for x, w, sc, adc, rows, y in recorded:
+        if x.ndim == 2:
+            x, w, y = x[None], w[None], y[None]
+        else:
+            worst["stack_reads"] += 1
+        if not torch.equal(sc, K.fakequant_scale(x, adc.in_levels)):
+            fail("llama4-scout fakequant: a read's DAC scales differ from "
+                 "fakequant_scale")
+        for i in range(x.shape[0]):
+            y_p = K._fakequant_plain(x[i], w[i], sc[i:i + 1], adc, rows)
+            if not x[i].any():
+                worst["zero_experts"] += 1
+                ok, err, over = not y[i].any() and not y_p.any(), 0.0, 0.0
+            else:
+                ok, err, over, _ = fq_agrees(y[i], y_p, x[i], w[i],
+                                             sc[i:i + 1], adc, rows)
+            worst["max_abs_err"] = max(worst["max_abs_err"], err)
+            worst["max_err_over_bound"] = max(worst["max_err_over_bound"],
+                                              over)
+            if not ok:
+                fail(f"llama4-scout fakequant: a read (x {tuple(x.shape)}) "
+                     f"disagrees with the plain version at lead {i}: err "
+                     f"{err}, {over} of the bound")
+    if worst["stack_reads"] != 2 * 3 * cfg.n_layers \
+            or worst["zero_experts"] < 1:
+        fail(f"llama4-scout fakequant probe: {worst}")
+    res = {"config": MOE_ARCH, "cut": "2 of 48 layers, full widths",
+           "tokens": n_tok, "seconds": dt, "tokens_per_s": n_tok / dt,
+           "model_calls": calls, "reads": reads,
+           "stack_reads": len(stack_reads), "launches_by_kernel": by_kernel,
+           "plain_calls": len(plain_calls), "probe": worst,
+           "profile": profile_decode_step(M, cfg, params),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    report(res)
+    print(f"phase 18(b): llama4-scout fakequant served "
+          f"{res['tokens_per_s']:.1f} tokens/s ({reads} reads, "
+          f"{len(stack_reads)} of expert stacks, one launch of each kernel "
+          f"a read: {by_kernel}; no plain version); probe reads agree "
+          f"({worst['max_err_over_bound']:.3f} of the bound, "
+          f"{worst['zero_experts']} all-zero experts exact); peak "
+          f"{res['peak_memory_gb']:.2f} GB")
+    del engine, params
+    return res
+
+
+def phase_moe_train(K, U, TA, TMoE, syn, get_config, report):
+    """Phase 18(c): one device-mode training step of llama4-scout at full
+    width, cut to ``MOE_TRAIN_LAYERS`` layer(s): TaOx, lr 0.1, 8 x 256
+    tokens (capacity 160 an expert)."""
+    torch.cuda.empty_cache()   # the earlier phases' cached blocks
+    from repro_torch.core.analog_registry import expert_capacity
+    full = get_config(MOE_ARCH)
+    cfg = full.replace(dtype="float32", analog=True, analog_mode="device",
+                       analog_device="taox", analog_rows=64, analog_cols=64,
+                       n_layers=MOE_TRAIN_LAYERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    state = TA.init_state(gen, cfg, device="cuda")
+    step = TA.make_analog_sgd_step(cfg, lr=0.1)
+    stream = syn.make_token_stream(200_000, cfg.vocab, seed=0)
+    x, y = syn.batch_tokens(stream, 8, 256, 0)
+    batch = {"tokens": torch.from_numpy(x).long().cuda(),
+             "labels": torch.from_numpy(y).long().cuda()}
+    L = cfg.n_layers
+    expect = tensor_core_train_expect(
+        L, fakequant=0, **dict.fromkeys(FQ_KERNELS.values(), 0),
+        outer_update=MOE_READS * L, pulse_update=0,
+        update_tc=MOE_READS * L, update_prepare=MOE_READS * L,
+        update_fp32=0)
+    for d in ("vmm", "mvm"):     # seven reads a layer, not four
+        for c in READ_KERNEL_COUNTS.values():
+            if expect[f"{c}_{d}"]:
+                expect[f"{c}_{d}"] = MOE_READS * L
+        expect[f"fused_{d}"] = MOE_READS * L
+    reads, routes = [], []
+    worst_w = {"max_abs_err": 0.0, "max_err_over_twin_bound": 0.0,
+               "max_allowance_share": 0.0, "writes": 0, "stack_writes": 0}
+    update_cuda = U._update_cuda
+
+    def checked_write(g, x_q, d_q, scale, noise, seed, wcfg, mode,
+                      x_scale=None, d_scale=None):
+        out = update_cuda(g, x_q, d_q, scale, noise, seed, wcfg, mode,
+                          x_scale, d_scale)
+        check_writes(U, [((g, x_q, d_q, scale, noise, seed, wcfg, mode,
+                           x_scale, d_scale), out)], "the llama4-scout step",
+                     worst_w)
+        worst_w["writes"] += 1
+        worst_w["stack_writes"] += int(g.shape[0] == cfg.n_experts * L)
+        return out
+    U._update_cuda = checked_write
+    reset_launches(K, U)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with recording_reads(K, reads), recording_routes(TMoE, routes):
+            state, mets = step(state, batch, 12345)
+            torch.cuda.synchronize()
+    finally:
+        U._update_cuda = update_cuda
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    got = {**K.LAUNCHES, **U.LAUNCHES}
+    if got != expect:
+        fail(f"llama4-scout train step launched {got}; expected {expect}")
+    if worst_w["stack_writes"] != 3 * L or worst_w["writes"] != MOE_READS * L:
+        fail(f"llama4-scout train step: {worst_w['writes']} writes, "
+             f"{worst_w['stack_writes']} over (E * L, K, N) expert stacks")
+    loss = float(mets["loss"])
+    if not math.isfinite(loss):
+        fail(f"llama4-scout train step: loss {loss}")
+    peak_step_gb = torch.cuda.max_memory_allocated() / 1e9
+    worst_r = check_reads(K, reads, where="cuda")
+    n_reads = len(reads)
+    del reads
+    for path, g in tree_leaves(state["params"]):
+        if path[-1] == "g" and not (g.min() >= 0 and g.max() <= 1):
+            fail(f"llama4-scout: conductances of {path} left the window")
+    dropped = dropped_tokens(routes, cfg)
+    prof = profile_train_step(K, U, syn, step, state, stream, gen, expect)
+    res = {"config": MOE_ARCH,
+           "cut": f"{L} of 48 layers, full widths (the training step only)",
+           "loss": loss, "aux": float(mets["aux"]),
+           "step_ms_recorded": step_ms, "launches": got,
+           "capacity": expert_capacity(batch["tokens"].numel(), cfg),
+           "dropped_pairs": dropped, "reads_checked": n_reads,
+           **{f"reads_{k}": v for k, v in worst_r.items()},
+           **{f"writes_{k}": v for k, v in worst_w.items()},
+           "profile": prof, "peak_step_memory_gb": peak_step_gb,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    report(res)
+    print(f"phase 18(c): llama4-scout ({res['cut']}) one device-mode step, "
+          f"8 x 256 tokens: loss {loss:.5f}, {dropped} routed pairs dropped "
+          f"by capacity; {n_reads} reads ({worst_r['max_err_over_bound']:.3f}"
+          f" of the bound, {worst_r['zero_leads']} all-zero experts) and "
+          f"{worst_w['writes']} writes ({worst_w['stack_writes']} over "
+          f"expert stacks; {worst_w['max_err_over_twin_bound']:.3f} of the "
+          f"twin's bound) agree with their plain versions; peak "
+          f"{peak_step_gb:.2f} GB in the step")
+    del state
+    return res
+
+
 def mlp_read_entry(mlp, direction, names):
     """The kernels-line figures of the MLP's reads in one direction: the
     launches of phase 14(b)'s six runs (each kernel counted) and the
@@ -3620,7 +4255,9 @@ def main():
     from repro_torch.kernels import ops as OPS
     from repro_torch.kernels import xbar_update as U
     from repro_torch.kernels import xbar_vmm as K
+    from repro_torch.core import tiled_analog as TT
     from repro_torch.models import model as M
+    from repro_torch.models import moe as TMoE
     from repro_torch.serve import SamplingParams, make_engine
     from repro_torch.hwmodel import compare as CMP
     from repro_torch.launch import accuracy as ACC
@@ -3730,6 +4367,18 @@ def main():
     dense_train = phase_dense_train(K, U, TA, syn, get_config,
                                     reporter("dense_train"))
     qat = phase_qat(K, OPS, M, TL, TO, syn, get_config, reporter("qat"))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated() / 1e9
+    print(f"phase 18 starts with {before:.2f} GB allocated on the card")
+    details["moe_start_allocated_gb"] = before
+    moe_serve = phase_moe_serve(M, K, TT, TMoE, make_engine, SamplingParams,
+                                get_config, reporter("moe_serve"))
+    moe_fq_rows = phase_moe_fq_kernel(K, AdcConfig,
+                                      reporter("moe_fakequant_kernel"))
+    moe_fq = phase_moe_fq_serve(M, K, OPS, TMoE, make_engine, SamplingParams,
+                                get_config, reporter("moe_fakequant_serve"))
+    moe_train = phase_moe_train(K, U, TA, TMoE, syn, get_config,
+                                reporter("moe_train"))
 
     def total(launches, name):
         return sum(step[name] for step in launches)
@@ -3770,6 +4419,8 @@ def main():
         **{f"launches_{n}": d["reads"] for n, d in dense.items()},
         "launches_starcoder2_3b_train":
             dense_train["launches"]["fused_vmm"],
+        "launches_llama4_scout": moe_serve["serve"]["reads"],
+        "launches_llama4_scout_train": moe_train["launches"]["fused_vmm"],
         **mlp_read_entry(mlp, "vmm", ("l1_vmm", "l2_vmm"))}, {
         "name": "xbar_fused_mvm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_vmm.cu",
@@ -3785,6 +4436,7 @@ def main():
         "tc_design_ms": sum(r["tc_design_ms"] for r in t_mvm),
         "launches_starcoder2_3b_train":
             dense_train["launches"]["fused_mvm"],
+        "launches_llama4_scout_train": moe_train["launches"]["fused_mvm"],
         **mlp_read_entry(mlp, "mvm", ("l2_mvm",))}, {
         "name": "xbar_outer_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
@@ -3793,7 +4445,9 @@ def main():
                     "m16n8k16 bf16)",
         **write_entry(t_upd, total(tl, "update_tc")),
         "launches_starcoder2_3b_train":
-            dense_train["launches"]["update_tc"]}, {
+            dense_train["launches"]["update_tc"],
+        "launches_llama4_scout_train": moe_train["launches"]["update_tc"]},
+        {
         "name": "xbar_update_prepare", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
         "replaces": "src/repro/kernels/xbar_update.py:281 (the operands "
@@ -3802,6 +4456,8 @@ def main():
         "launches": total(tl, "update_prepare"),
         "launches_starcoder2_3b_train":
             dense_train["launches"]["update_prepare"],
+        "launches_llama4_scout_train":
+            moe_train["launches"]["update_prepare"],
         "max_abs_err": 0.0 if all(r["prepass_ok"] for r in t_upd)
         else None,
         "ms": sum(r["prepass_ms"] for r in t_upd),
@@ -3817,6 +4473,12 @@ def main():
         "launches_by_kernel_prefill": fq_prefill["launches_by_kernel"],
         "launches_qat": sum(step["fakequant_tc_kernel"]
                             for step in qat["launches_per_step"]),
+        "launches_llama4_scout": moe_fq["reads"],
+        "launches_llama4_scout_expert_stacks": moe_fq["stack_reads"],
+        "lead_dim": [{key: r.get(key) for key in (
+            "case", "E", "T", "K", "N", "instance", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "tc_floor_ms")}
+            for r in moe_fq_rows if "ms" in r],
         **fq_entry(fq_decode), "library_ms": None,
         "instances": [{
             "name": "fp32 (fakequant_scale_kernel, fakequant_fp32_kernel, "
@@ -3933,7 +4595,18 @@ def main():
         "serves at 2 layers, launches_starcoder2_3b_train the reads, "
         "transpose reads, tensor-core writes and write pre-passes of "
         "phase 16's starcoder2-3b training step, launches_qat the "
-        "tensor-core fakequant reads of phase 17's 4 QAT steps")
+        "tensor-core fakequant reads of phase 17's 4 QAT steps. Phase 18 "
+        "(llama4-scout-17b-a16e at full width): launches_llama4_scout "
+        "counts the reads of 18(a)'s crossbar serve (xbar_fused_vmm: 7 a "
+        "layer a call, an expert stack of 16 one read) and of 18(b)'s "
+        "fakequant serve (xbar_fakequant_read; "
+        "launches_llama4_scout_expert_stacks the expert-stack reads among "
+        "them, each one launch of each of the read's three kernels); "
+        "launches_llama4_scout_train the launches of 18(c)'s training step "
+        "(1 layer); xbar_fakequant_read's lead_dim lists the expert-stack "
+        "reads timed in 18(b) (16 experts, K=5120, N=8192, 1024-row "
+        "tiles; ms and plain_ms CUDA-event times of the whole read, "
+        "bound_ms the bytes or the FP32 rate)")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1))

@@ -1,9 +1,9 @@
 """Model configuration schema (the port's copy of ``repro.configs.base``).
 
 One ``ModelConfig`` describes an architecture.  The port keeps the JAX
-package's fields for the dense decoder and the analog read, under the
-same names; the fields of the other families arrive with the slices
-that read them (``ROADMAP.md``).  Every config file exports ``CONFIG``
+package's fields for the dense decoder, the MoE family and the analog
+read, under the same names; the fields of the other families arrive
+with the slices that read them (``ROADMAP.md``).  Every config file exports ``CONFIG``
 (the published architecture) and ``SMOKE`` (:func:`make_smoke`).  The
 port keeps its own copy because it imports nothing of ``repro``.
 """
@@ -11,6 +11,11 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+
+
+#: The model families the port implements (the others are queued in
+#: ROADMAP.md and raise where a family's code would run).
+PORTED_FAMILIES = ("dense", "moe")
 
 
 class AnalogMode(enum.Enum):
@@ -68,7 +73,7 @@ def resolve_analog_mode(cfg: "ModelConfig") -> AnalogMode:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # only "dense" is ported
+    family: str                    # one of PORTED_FAMILIES in the port
     n_layers: int
     d_model: int
     n_heads: int
@@ -82,6 +87,13 @@ class ModelConfig:
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+
+    # --- MoE ---------------------------------------------------------------
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
 
     # --- analog-crossbar execution (the paper's technique) -------------------
     analog: bool = False           # run projections through the crossbar sim
@@ -144,7 +156,7 @@ class ModelConfig:
 
 def make_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Family-preserving reduction for CPU smoke tests (the reference's
-    ``make_smoke`` on the dense fields this config has)."""
+    ``make_smoke`` on the dense and MoE fields this config has)."""
     kw = dict(
         n_layers=min(cfg.n_layers, 2),
         d_model=64,
@@ -154,5 +166,9 @@ def make_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
         d_ff=128,
         vocab=256,
     )
+    if cfg.n_experts:
+        kw.update(n_experts=min(cfg.n_experts, 8),
+                  top_k=min(cfg.top_k, 2),
+                  d_ff_expert=64 if cfg.d_ff_expert else 0)
     kw.update(overrides)
     return cfg.replace(**kw)

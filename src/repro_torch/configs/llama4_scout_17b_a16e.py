@@ -1,0 +1,12 @@
+"""llama4-scout-17b-a16e [moe]: 48L d=5120 40H GQA(kv=8) d_ff=8192,
+MoE 16 routed experts top-1 + 1 shared, vocab=202048 — early fusion.
+[hf:meta-llama/Llama-4-Scout-17B-16E; unverified]"""
+from .base import ModelConfig, make_smoke
+
+CONFIG = ModelConfig(
+    name="llama4-scout-17b-a16e", family="moe",
+    n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8, head_dim=128,
+    d_ff=8192, vocab=202048, act="silu", gated=True, rope_theta=500000.0,
+    n_experts=16, top_k=1, n_shared_experts=1, d_ff_expert=8192,
+)
+SMOKE = make_smoke(CONFIG)

@@ -91,18 +91,24 @@ def fixed_saturation(cfg: AdcConfig, n_rows: int, g_max: float) -> float:
 
 
 def quantize_input(x: Tensor, cfg: AdcConfig,
-                   scale: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+                   scale: Optional[Tensor] = None,
+                   lead: int = 0) -> Tuple[Tensor, Tensor]:
     """Quantise activations to signed integers for temporal coding.
 
     Returns ``(x_int, scale)`` with ``x ≈ x_int * scale`` and ``x_int`` in
     ``[-L, L]``, ``L = 2^{in_bits-1} - 1``.  ``scale`` defaults to the
-    per-call full scale ``max|x| / L``.
+    per-call full scale ``max|x| / L``; with ``lead`` > 0 it is one full
+    scale per matrix of the first ``lead`` dims (shape ``x.shape[:lead]``),
+    as the reference's quantiser vmapped over them gives it.
     """
     _deterministic(cfg)
     levels = cfg.in_levels
     if scale is None:
-        scale = torch.clamp(x.abs().amax(), min=1e-12) / divisor(levels, x)
-    x_int = _round(x / scale)
+        scale = torch.clamp(x.abs().amax(dim=tuple(range(lead, x.ndim))),
+                            min=1e-12) / divisor(levels, x)
+    per = scale.reshape(*scale.shape, *[1] * (x.ndim - lead)) if lead \
+        else scale
+    x_int = _round(x / per)
     return _clip(x_int, float(-levels), float(levels)), scale
 
 

@@ -1,19 +1,23 @@
-"""Analog parameter registry, dense family (port of
+"""Analog parameter registry, dense and MoE families (port of
 ``repro.core.analog_registry``).
 
 It owns the mapping from a parameter path to whether the matrix there
 lives on crossbar tiles, which consumer kind it is, how its tapes are
 shaped (:func:`tape_lead`), how its leaves lay out on a mesh
 (:func:`leaf_layout`) and how the rank-k write views it
-(:func:`flatten_lead`).  Expert stacks, the hybrid shared block and the
-cross-attention streams follow with the families that need them
-(``ROADMAP.md``): their rows raise here.
+(:func:`flatten_lead`, with the expert dim hoisted outermost by
+:func:`hoist_axis`).  The hybrid shared block and the cross-attention
+streams follow with the families that need them (``ROADMAP.md``): their
+configs raise here.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.configs.base import PORTED_FAMILIES
 
 #: Producer: activations drive the rows, output columns split under TP.
 COLUMN_PARALLEL = "column_parallel"
@@ -93,22 +97,33 @@ def classify_param(path: Sequence) -> Optional[str]:
     return ROW_PARALLEL if proj in ROW_PARALLEL_KEYS else COLUMN_PARALLEL
 
 
-def _dense_rows_only(what: str, kind: Optional[str] = None, cfg=None):
-    if kind == EXPERT_BATCHED:
-        raise NotImplementedError(f"{what} for expert-batched containers "
-                                  "is not ported yet (ROADMAP.md)")
-    if cfg is not None and cfg.family != "dense":
+def _ported_family(what: str, cfg) -> None:
+    if cfg is not None and cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{what} for the {cfg.family!r} family "
                                   "is not ported yet (ROADMAP.md)")
+
+
+def expert_capacity(n_tokens: int, cfg) -> int:
+    """Per-expert dispatch capacity (the MoE buffer's row count), which is
+    also the tape length of an expert-batched container: the write
+    drivers see one operand row per buffer slot, not per token.
+    ``max(8, ceil(capacity_factor * T * top_k / n_experts))`` padded to a
+    multiple of 8."""
+    c = int(math.ceil(cfg.capacity_factor * n_tokens * cfg.top_k
+                      / cfg.n_experts))
+    return max(8, -(-c // 8) * 8)
 
 
 def tape_lead(path: Sequence, cfg, n_tokens: int,
               batch_shape: Optional[Tuple[int, ...]] = None
               ) -> Tuple[int, ...]:
     """Shape of one container's tape slots between the container's own
-    lead dims and the operand feature dim: ``(T,)`` for a container the
-    dense family applies once per step to all T tokens."""
-    _dense_rows_only("tape_lead", classify(path), cfg)
+    lead dims and the operand feature dim: ``(T,)`` for a container
+    applied once per step to all T tokens, ``(capacity,)`` per expert for
+    an expert-batched container (:func:`expert_capacity`)."""
+    _ported_family("tape_lead", cfg)
+    if classify(path) == EXPERT_BATCHED:
+        return (expert_capacity(n_tokens, cfg),)
     return (n_tokens,)
 
 
@@ -131,16 +146,21 @@ def leaf_layout(kind: str, ndim: int, leaf: str, rows: int, cols: int
 
     Logical axes: ``"fsdp"`` (the data axes) and ``"tp"`` (the model
     axis); granularity is the tile size the dim may only split at (1 for
-    untiled dims); ``None`` is replicated.  The layer dim of a stacked
+    untiled dims); ``None`` is replicated.  ``"ep"`` (expert parallelism)
+    is the model axis too, which the expert dim consumes, so an expert
+    matrix's inner dims only FSDP-shard.  The layer dim of a stacked
     container is never sharded; ``w_scale`` and the tape scales follow
-    their container's lead dims.
+    their container's lead dims (per-expert scales follow their experts).
     """
-    _dense_rows_only("leaf_layout", kind)
     lead = ndim if leaf in _LEAD_ONLY_LEAVES else ndim - 2
     roles = [(None, 1)] * lead
+    if kind == EXPERT_BATCHED and lead >= 1:
+        roles[lead - 1] = ("ep", 1)
     if leaf in _LEAD_ONLY_LEAVES:
         return tuple(roles)
-    if kind == ROW_PARALLEL:
+    if kind == EXPERT_BATCHED:
+        r, c = ("fsdp", rows), (None, 1)
+    elif kind == ROW_PARALLEL:
         r, c = ("tp", rows), ("fsdp", cols)
     else:
         r, c = ("fsdp", rows), ("tp", cols)
@@ -153,33 +173,60 @@ def leaf_layout(kind: str, ndim: int, leaf: str, rows: int, cols: int
     raise KeyError(f"unknown container leaf {leaf!r}")
 
 
+def hoist_axis(kind: str, g_ndim: int) -> Optional[int]:
+    """Lead dim moved outermost before flattening onto the kernel's layer
+    grid: the expert dim of a layer-stacked expert container (so an
+    EP-sharded block is a contiguous range of flattened layer indices).
+    ``None`` where the natural order already is that (everything else).
+    The write's counter PRNG seeds each flattened layer index, so the
+    hoist decides which noise field lands on which expert."""
+    lead = g_ndim - 2
+    if kind == EXPERT_BATCHED and lead >= 2:
+        return lead - 1
+    return None
+
+
 def flatten_lead(kind: str, g, x_tape, d_tape, scale, *lead_scales):
     """Collapse a container's lead dims onto the kernel's single layer
-    axis (and any tape-rep dims into the token axis).
+    axis (and any tape-rep dims into the token axis), the expert dim
+    outermost for expert-batched kinds (:func:`hoist_axis`).
 
     ``g``: (lead..., K, N); tapes: (lead..., T, K|N); ``scale`` and any
-    ``lead_scales`` (the tape scales): (lead...,).  Returns ``(g3, x3, d3,
-    scale1, *lead_scales1, unflatten)`` with ``g3`` (Lflat, K, N), each
-    scale flattened alike to (Lflat,), and ``unflatten`` mapping the
-    updated conductances back to the container's layout.  2-D containers
+    ``lead_scales`` (the tape code scales, per expert for an expert
+    stack): (lead...,) or scalars.  Returns ``(g3, x3, d3, scale1,
+    *lead_scales1, unflatten)`` with ``g3`` (Lflat, K, N), each scale
+    flattened alike to (Lflat,), and ``unflatten`` mapping the updated
+    conductances back to the container's layout (any field of ``g``'s
+    shape, a noise field say, flattens as ``g`` does).  2-D containers
     pass through.
     """
-    _dense_rows_only("flatten_lead", kind)
     lead = g.ndim - 2
     if lead == 0:
         x3 = x_tape.reshape(-1, x_tape.shape[-1])
         d3 = d_tape.reshape(-1, d_tape.shape[-1])
         return (g, x3, d3, scale, *lead_scales, lambda gg: gg)
+    hoist = hoist_axis(kind, g.ndim)
+
+    def move(a):
+        return torch.movedim(a, hoist, 0) if hoist is not None else a
+
     g_shape = g.shape
-    lflat = 1
-    for d in g_shape[:lead]:
-        lflat *= d
-    g3 = g.reshape(lflat, *g_shape[lead:])
-    x3 = x_tape.reshape(lflat, -1, x_tape.shape[-1])
-    d3 = d_tape.reshape(lflat, -1, d_tape.shape[-1])
-    s1 = [torch.broadcast_to(s, g_shape[:lead]).reshape(lflat)
+    gm = move(g)
+    lflat = math.prod(gm.shape[:lead])
+    g3 = gm.reshape(lflat, *gm.shape[lead:])
+    x3 = move(x_tape).reshape(lflat, -1, x_tape.shape[-1])
+    d3 = move(d_tape).reshape(lflat, -1, d_tape.shape[-1])
+    s1 = [move(torch.broadcast_to(torch.as_tensor(s, device=g.device),
+                                  g_shape[:lead])).reshape(lflat)
           for s in (scale, *lead_scales)]
-    return (g3, x3, d3, *s1, lambda gg: gg.reshape(g_shape))
+
+    def unflatten(gg):
+        gg = gg.reshape(*gm.shape[:lead], *gg.shape[-2:])
+        if hoist is not None:
+            gg = torch.movedim(gg, 0, hoist)
+        return gg.reshape(g_shape)
+
+    return (g3, x3, d3, *s1, unflatten)
 
 
 def validate_device_params(params, cfg) -> None:

@@ -1,15 +1,16 @@
 """Tiled-crossbar parameter containers for whole-model analog execution.
 
-Port of ``repro.core.tiled_analog`` (dense family).  Any projection matrix
-of the transformer is *programmed* onto a grid of physical ``rows x cols``
-crossbar tiles and executed with the paper's three kernels:
+Port of ``repro.core.tiled_analog`` (dense and MoE families).  Any
+projection matrix of the transformer is *programmed* onto a grid of
+physical ``rows x cols`` crossbar tiles and executed with the paper's
+three kernels:
 
     forward   = VMM   (parallel read,   Fig. 3a)
     backward  = MVM   (transpose read of the SAME conductances, Fig. 3b)
     update    = rank-k outer-product write (Fig. 3c)
 
 The container is a plain dict that rides inside the parameter tree,
-stacked per layer or not:
+stacked per layer (and per expert, for an MoE expert stack) or not:
 
     {"g": (..., K, N) conductances, "ref": (..., K, N) reference,
      "w_scale": (...) weight scale}
@@ -99,13 +100,41 @@ def program_linear(w: Tensor, cfg: CrossbarConfig,
     return p
 
 
+def stack_trees(trees, n: int) -> dict:
+    """Stack ``n`` identically structured dict trees of tensors leaf by
+    leaf (programmed containers, or whole layers).  ``trees`` may be a
+    generator: each tree is copied into leaves allocated once and dropped
+    before the next is made, so a stack built matrix by matrix never
+    holds more than one matrix's temporaries."""
+    out = None
+
+    def alloc(src):
+        return {k: alloc(v) if isinstance(v, dict)
+                else v.new_empty((n, *v.shape)) for k, v in src.items()}
+
+    def fill(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                fill(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    for i, t in enumerate(trees):
+        if out is None:
+            out = alloc(t)
+        fill(out, t, i)
+    return out
+
+
 def program_stacked(w: Tensor, cfg: CrossbarConfig, w_max=None) -> dict:
-    """Program a stack of weight matrices, (L, K, N) or deeper lead dims,
-    one tile grid and one calibration per matrix."""
+    """Program a stack of weight matrices, (E, K, N) expert stacks,
+    (L, K, N) or deeper lead dims, one tile grid and one calibration
+    (``w_scale``) per matrix, exactly as if each were programmed alone:
+    on the hardware every expert owns its own arrays."""
     if w.ndim == 2:
         return program_linear(w, cfg, w_max=w_max)
-    parts = [program_stacked(wi, cfg, w_max=w_max) for wi in w]
-    return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+    return stack_trees((program_stacked(wi, cfg, w_max=w_max) for wi in w),
+                       w.shape[0])
 
 
 def is_analog_container(p) -> bool:
@@ -153,10 +182,13 @@ class TapedMatmul(torch.autograd.Function):
         dx = mvm(dy32, g, ref, w_scale, cfg)
         x_tape, d_tape, x_tape_scale, d_tape_scale = ctx.tapes
         if x_tape is not None:
+            # one coder calibration per matrix: per expert of a batched
+            # container (lead dims of x), one for a plain matrix
+            lead = x.ndim - 2
             x_int, x_scale, d_int, d_scale = quantize_update_codes(
-                x.float(), dy32, cfg)
-            x_tape.copy_(x_int * x_scale)
-            d_tape.copy_(d_int * d_scale)
+                x.float(), dy32, cfg, lead)
+            x_tape.copy_(x_int * x_scale[..., None, None])
+            d_tape.copy_(d_int * d_scale[..., None, None])
             if x_tape_scale is not None:
                 x_tape_scale.copy_(x_scale)
                 d_tape_scale.copy_(d_scale)
@@ -164,24 +196,38 @@ class TapedMatmul(torch.autograd.Function):
 
 
 def analog_project(p: dict, x: Tensor, cfg: CrossbarConfig) -> Tensor:
-    """Apply a programmed (K, N) container to activations (..., K): one
-    fused read over all tokens, returned in ``x.dtype``.
+    """Apply a programmed container to activations, returned in
+    ``x.dtype``: a (K, N) matrix to (..., K), one fused read over all
+    tokens; an expert-batched stack (``g``: (E, K, N)) to (E, T, K) ->
+    (E, T, N), one read of all E matrices, each its own tile grid reading
+    its own dispatch rows with its own DAC full scale.
 
     If the container carries ``x_tape``/``d_tape`` slots (put there by the
     train step), the backward pass deposits the quantised update operands
-    in them.  Each container must be applied at most once per
-    differentiated step: a second application would overwrite its tapes,
-    and the summed outer product of two applications is not the outer
-    product of their summed operands.  Dense transformer stacks apply each
-    projection exactly once per token batch.
+    in them; a stack's slots ((E, T, K) / (E, T, N), code scales (E,))
+    carry the per-expert write operands, and the stack is written as
+    extra layers of the layer-batched rank-k write
+    (``analog_registry.flatten_lead``).  Each container must be applied
+    at most once per differentiated step: a second application would
+    overwrite its tapes, and the summed outer product of two applications
+    is not the outer product of their summed operands.  Transformer
+    stacks apply each projection exactly once per token batch.
     """
     for leaf in ("g", "ref", "w_scale"):
         if getattr(p[leaf], "requires_grad", False):
             raise ValueError(f"container leaf {leaf!r} requires grad: the "
                              "conductances are written by the rank-k "
                              "update, never by autograd")
-    k, n = p["g"].shape
-    xb = x.reshape(-1, k).float()
+    lead = p["g"].shape[:-2]
+    k, n = p["g"].shape[-2:]
+    if not lead:
+        xb = x.reshape(-1, k).float()
+    elif x.ndim == len(lead) + 2 and x.shape[:-2] == lead \
+            and x.shape[-1] == k:
+        xb = x.float()
+    else:
+        raise ValueError(f"expert-batched x {tuple(x.shape)} does not "
+                         f"match container {tuple(p['g'].shape)}")
     y = TapedMatmul.apply(xb, effective_g(p, cfg), p["ref"],
                           torch.as_tensor(p["w_scale"]), cfg,
                           *(p.get(leaf) for leaf in TAPE_LEAVES))

@@ -143,13 +143,17 @@ def mvm(d: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
     return _read(d, g, g_ref, w_scale, cfg, impl, transpose=True, eps=eps)
 
 
-def quantize_update_codes(x: Tensor, d: Tensor, cfg: CrossbarConfig):
+def quantize_update_codes(x: Tensor, d: Tensor, cfg: CrossbarConfig,
+                          lead: int = 0):
     """The write drivers' codes and scales: ``(x_int, x_scale, d_int,
     d_scale)``, rows (x) by the temporal coder (``in_bits``), columns (d)
-    by the voltage coder (``upd_col_bits``); the scales are 0-d tensors."""
-    x_int, x_scale = quantize_input(x, cfg.adc)
+    by the voltage coder (``upd_col_bits``).  The scales are 0-d tensors,
+    or with ``lead`` > 0 one per matrix of the first ``lead`` dims: the
+    coders' full scale is calibrated per physical array, so each expert
+    of a batched container quantises against its own operand range."""
+    x_int, x_scale = quantize_input(x, cfg.adc, lead=lead)
     col_cfg = AdcConfig(in_bits=cfg.upd_col_bits, out_bits=cfg.adc.out_bits)
-    d_int, d_scale = quantize_input(d, col_cfg)
+    d_int, d_scale = quantize_input(d, col_cfg, lead=lead)
     return x_int, x_scale, d_int, d_scale
 
 

@@ -1,8 +1,9 @@
 """Whole-model projection onto the analog neural training accelerator
-(port of ``repro.hwmodel.arch_cost``, dense family).
+(port of ``repro.hwmodel.arch_cost``, dense and MoE families).
 
-Every weight-stationary projection (attention and FFN projections,
-embeddings excluded) maps onto 1024x1024 differential crossbar tiles;
+Every weight-stationary projection (attention, FFN and MoE expert
+projections, embeddings and the router excluded) maps onto 1024x1024
+differential crossbar tiles;
 activation-activation compute (QK^T, PV, softmax, norms) stays on the
 digital core and is charged at the synthesized MAC cost.
 
@@ -13,13 +14,15 @@ cannot place raises instead of being charged as digital.
 
 Accounting:
   * tile padding waste (a 2560x6912 layer occupies 3x7 tiles),
+  * MoE: only the active experts fire (energy, ``top_k / n_experts`` of
+    each expert stack), but every expert occupies area,
   * attention digital MACs at 1.46 pJ (paper §IV.J),
   * training charges VMM + MVM + OPU per projection; inference VMM only.
 
 The reference enumerates the tree with ``jax.eval_shape``; the port
 builds it with ``models.model.init_params`` on the ``meta`` device, which
-allocates nothing.  The other families (MoE stacks, the SSD scan, the
-hybrid shared block, encoders) come with their model code (``ROADMAP.md``).
+allocates nothing.  The other families (the SSD scan, the hybrid shared
+block, encoders) come with their model code (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -28,15 +31,15 @@ import functools
 import math
 from typing import Dict, List, Optional
 
-from repro_torch.configs.base import AnalogMode, ModelConfig
+from repro_torch.configs.base import PORTED_FAMILIES, AnalogMode, ModelConfig
 
 from . import digital_reram, sram
 from .analog import AnalogCore
 from .params import TABLE_I
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _ported_only(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"the cost roll-up of the {cfg.family!r} family is not ported "
             "yet; see ROADMAP.md")
@@ -69,7 +72,7 @@ def model_projections(cfg: ModelConfig) -> List[Projection]:
     from repro_torch.core.tiled_analog import is_analog_container
     from repro_torch.models import model as M
 
-    _dense_only(cfg)
+    _ported_only(cfg)
     params = M.init_params(cfg, torch.Generator(), device="meta")
     ps: List[Projection] = []
     unknown: List[str] = []
@@ -83,7 +86,10 @@ def model_projections(cfg: ModelConfig) -> List[Projection]:
             return
         k, n = shape[-2:]
         count = int(math.prod(shape[:-2])) if len(shape) > 2 else 1
-        active = float(registry.tape_reps(path, cfg))
+        if kind == registry.EXPERT_BATCHED and cfg.n_experts:
+            active = cfg.top_k / cfg.n_experts
+        else:
+            active = float(registry.tape_reps(path, cfg))
         ps.append(Projection("/".join(path), int(k), int(n), count,
                              active=active))
 
@@ -113,7 +119,7 @@ def model_projections(cfg: ModelConfig) -> List[Projection]:
 def digital_macs_per_token(cfg: ModelConfig, ctx_len: int) -> float:
     """Activation-activation MACs (attention QK^T + PV) that stay on the
     digital core, per generated/processed token at context ``ctx_len``."""
-    _dense_only(cfg)
+    _ported_only(cfg)
     hd = cfg.resolved_head_dim
     return float(cfg.n_layers * 2 * cfg.n_heads * hd * ctx_len)
 

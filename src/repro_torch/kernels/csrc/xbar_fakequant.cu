@@ -14,6 +14,19 @@
 //     out_levels, code = clip(round(q / lsb), +-out_levels), code * lsb;
 //   * the tiles' dequantised outputs summed in tile order.
 //
+// Expert stacks.  A read may carry a lead dim: x (L, T, K) through W
+// (L, K, N) into y (L, T, N), every lead matrix with its own DAC scale (the
+// reference vmaps its read over MoE's experts).  The lead dim rides every
+// kernel's grid (the scale kernel's y, the FP32 product's z with the token
+// blocks, the tensor-core product's z with the row tiles, the epilogue's
+// tokens), so a stack is one read of three launches, not three per
+// expert.  The tensor-core pre-pass is a cooperative grid whose size never
+// depends on L: it is capped at the CTAs co-resident on the card and
+// strides over all L matrices' work; its scales take a second grid
+// barrier.  A stack whose grid dims exceed the launch limits is refused
+// with cudaErrorInvalidValue before anything launches: no read falls back
+// to the plain version.  L = 1 is the plain (T, K) read.
+//
 // Three launches per read, for either instance (the DAC scale included):
 //   1. the pre-pass.  FP32 instance: fakequant_scale_kernel, each CTA's
 //      max|x|, one CTA or the last to finish forming the scale (the
@@ -93,10 +106,10 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kScaleThreads = 1024;  // the FP32 instance's scale kernel
 constexpr int kQCols = 64;          // columns of one range partial
-constexpr int kMaxPrepCtas = 2048;  // the pre-pass grids' partial maxima
-// Scratch head: sc, the read's own pre-pass count (zeroed on its stream
-// before a pre-pass that needs it), two spare words, then the maxima.
-constexpr int kHeadFloats = 4 + kMaxPrepCtas;
+constexpr int kMaxPrepCtas = 2048;  // a pre-pass grid's partial maxima
+// Scratch head: the L scales, then the read's own pre-pass counts (L + 2,
+// zeroed on its stream before a pre-pass that needs them), then the
+// pre-pass CTAs' maxima, (L, pre-pass CTAs).
 
 // FP32 instance
 constexpr int kFpCols = 128;     // a CTA's columns: 32 lanes x float4
@@ -128,15 +141,18 @@ __device__ __forceinline__ float dac_code(float x, float sc, float levels) {
 // --------------------------------------------------------------------------
 
 struct PrepArgs {
-  const float* x;         // (T, K)
-  const float* w;         // (K, N)
-  float* sc;              // (1,) out: the DAC scale
-  float* maxp;            // (gridDim.x,) the CTAs' max|x|
-  __nv_bfloat16* codes;   // tensor cores: (Tp, tiles, Rp) DAC codes
-  __nv_bfloat16* planes;  // tensor cores: (3, tiles * Rp, Np) hi, mid, lo
-  unsigned* bar;          // this read's zeroed count: the grid barrier's
-                          // arrivals, or the scale kernel's
-  int T, K, N, rows, tiles, Tp, Rp, Np;
+  const float* x;         // (L, T, K)
+  const float* w;         // (L, K, N)
+  float* sc;              // (L,) out: the DAC scales
+  float* maxp;            // (L, grid CTAs) the CTAs' max|x|
+  __nv_bfloat16* codes;   // tensor cores: (Tp, L * tiles, Rp) DAC codes
+  __nv_bfloat16* planes;  // tensor cores: (3, L * tiles * Rp, Np) hi, mid,
+                          // lo
+  unsigned* bar;          // this read's zeroed counts: the scale kernel's,
+                          // one a lead matrix; the tensor cores' first
+                          // grid barrier's arrivals (bar[0]) ...
+  unsigned* bar2;         // ... and its second's
+  int L, T, K, N, rows, tiles, Tp, Rp, Np;
   float in_levels;
 };
 
@@ -223,46 +239,63 @@ __device__ __forceinline__ float scale_of(const float* maxp, int n,
 // drives as it stages them).
 // Each CTA's max|x|; one CTA forms the scale itself, several leave it to
 // the last to finish (the read's zeroed count, after a __threadfence).
+// Grid (CTAs a lead matrix, L): lead matrix blockIdx.y.
 __global__ void __launch_bounds__(kScaleThreads) fakequant_scale_kernel(
     PrepArgs a) {
   __shared__ float red[kScaleThreads / 32];
   __shared__ int is_last;
+  const int lead = blockIdx.y;
+  const size_t per = (size_t)a.T * a.K;
   const size_t first = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const float m = block_max(abs_max(a.x, (size_t)a.T * a.K, first,
+  const float m = block_max(abs_max(a.x + lead * per, per, first,
                                     (size_t)gridDim.x * blockDim.x), red);
   if (gridDim.x == 1) {
     if (threadIdx.x == 0)
-      a.sc[0] = __fdiv_rn(fmaxf(m, 1e-12f), a.in_levels);
+      a.sc[lead] = __fdiv_rn(fmaxf(m, 1e-12f), a.in_levels);
     return;
   }
-  if (threadIdx.x == 0) a.maxp[blockIdx.x] = m;
+  float* maxp = a.maxp + (size_t)lead * gridDim.x;
+  if (threadIdx.x == 0) maxp[blockIdx.x] = m;
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) is_last = atomicAdd(a.bar, 1u) == gridDim.x - 1;
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(a.bar + lead, 1u) == gridDim.x - 1;
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  const float sc = scale_of(a.maxp, gridDim.x, a.in_levels, red);
-  if (threadIdx.x == 0) a.sc[0] = sc;
+  const float sc = scale_of(maxp, gridDim.x, a.in_levels, red);
+  if (threadIdx.x == 0) a.sc[lead] = sc;
 }
 
-// Tensor-core instance's pre-pass, a cooperative grid: max|x| and W's
-// planes, the grid barrier, then the scale and the codes.
+// Tensor-core instance's pre-pass, a cooperative grid of at most the CTAs
+// co-resident on the card (whatever L): each lead matrix's max|x| and all
+// L matrices' planes of W, a grid barrier, the L scales (lead matrix l by
+// CTA l mod grid), a second grid barrier, then the codes.
 __global__ void __launch_bounds__(kThreads) fakequant_prepare_kernel(
     PrepArgs a) {
   __shared__ float red[kWarps];
   __shared__ float sc_s;
   const int tid = threadIdx.x;
-  const float m = abs_max(a.x, (size_t)a.T * a.K,
-                          (size_t)blockIdx.x * kThreads + tid,
-                          (size_t)gridDim.x * kThreads);
+  const size_t per = (size_t)a.T * a.K;
+  for (int lead = 0; lead < a.L; ++lead) {
+    const float m = abs_max(a.x + lead * per, per,
+                            (size_t)blockIdx.x * kThreads + tid,
+                            (size_t)gridDim.x * kThreads);
+    const float bm = block_max(m, red);
+    if (tid == 0) a.maxp[(size_t)lead * gridDim.x + blockIdx.x] = bm;
+    __syncthreads();  // red is free for the next lead matrix
+  }
   // W's planes, padding zero (they need no scale), a line a CTA
-  const size_t per_part = (size_t)a.tiles * a.Rp * a.Np;
-  for (int lp = blockIdx.x; lp < a.tiles * a.Rp; lp += gridDim.x) {
-    const int tile = lp / a.Rp, r = lp - tile * a.Rp;
+  const int lines = a.tiles * a.Rp;
+  const size_t per_part = (size_t)a.L * lines * a.Np;
+  for (long long lp = blockIdx.x; lp < (long long)a.L * lines;
+       lp += gridDim.x) {
+    const int lead = (int)(lp / lines), rem = (int)(lp - (long long)lead *
+                                                     lines);
+    const int tile = rem / a.Rp, r = rem - tile * a.Rp;
     const int line = tile * a.rows + r;
     const bool live = r < a.rows && line < a.K;
-    const float* wl = a.w + (size_t)line * a.N;
+    const float* wl = a.w + ((size_t)lead * a.K + line) * a.N;
     __nv_bfloat162* pl =
         reinterpret_cast<__nv_bfloat162*>(a.planes + (size_t)lp * a.Np);
 #pragma unroll 4
@@ -271,20 +304,31 @@ __global__ void __launch_bounds__(kThreads) fakequant_prepare_kernel(
                live && n + 1 < a.N ? wl[n + 1] : 0.f, pl + n / 2,
                per_part / 2);
   }
-  const float bm = block_max(m, red);
-  if (tid == 0) a.maxp[blockIdx.x] = bm;
   grid_barrier(a.bar);
 
-  const float s0 = scale_of(a.maxp, gridDim.x, a.in_levels, red);
-  if (tid == 0) sc_s = s0;
-  __syncthreads();
-  const float sc = sc_s;
-  if (blockIdx.x == 0 && tid == 0) a.sc[0] = sc;
-  // the codes, a (token, tile) row a CTA
-  for (long long row = blockIdx.x; row < (long long)a.Tp * a.tiles;
+  for (int lead = blockIdx.x; lead < a.L; lead += gridDim.x) {
+    const float s0 = scale_of(a.maxp + (size_t)lead * gridDim.x, gridDim.x,
+                              a.in_levels, red);
+    if (tid == 0) a.sc[lead] = s0;
+    __syncthreads();  // red is free for the next lead matrix
+  }
+  grid_barrier(a.bar2);
+  // the codes, a (token, lead matrix, tile) row a CTA
+  const int gtiles = a.L * a.tiles;
+  int lead_s = -1;
+  for (long long row = blockIdx.x; row < (long long)a.Tp * gtiles;
        row += gridDim.x) {
-    const int t = (int)(row / a.tiles), tile = (int)(row % a.tiles);
-    const float* xl = a.x + (size_t)t * a.K + (size_t)tile * a.rows;
+    const int t = (int)(row / gtiles), gi = (int)(row % gtiles);
+    const int lead = gi / a.tiles, tile = gi - lead * a.tiles;
+    if (lead != lead_s) {  // uniform over the CTA
+      __syncthreads();
+      if (tid == 0) sc_s = __ldcg(a.sc + lead);
+      __syncthreads();
+      lead_s = lead;
+    }
+    const float sc = sc_s;
+    const float* xl =
+        a.x + ((size_t)lead * a.T + t) * a.K + (size_t)tile * a.rows;
     __nv_bfloat16* cl = a.codes + (size_t)row * a.Rp;
 #pragma unroll 4
     for (int r = tid; r < a.Rp; r += kThreads) {
@@ -301,12 +345,12 @@ __global__ void __launch_bounds__(kThreads) fakequant_prepare_kernel(
 // --------------------------------------------------------------------------
 
 struct FpArgs {
-  const float* w;    // (K, N)
-  const float* x;    // (T, K)
-  const float* sc;   // (1,) the DAC scale
-  float* q;          // (T, tiles, N)
-  float* ssq;        // (T, tiles, ncq) range partials
-  int T, K, N, rows, tiles, slice, spt, ncq;
+  const float* w;    // (L, K, N)
+  const float* x;    // (L, T, K)
+  const float* sc;   // (L,) the DAC scales
+  float* q;          // (L, T, tiles, N)
+  float* ssq;        // (L, T, tiles, ncq) range partials
+  int T, K, N, rows, tiles, slice, spt, ncq, ntb;
   float in_levels;
 };
 
@@ -322,11 +366,13 @@ __device__ __forceinline__ float4 load_w4(const float* w, size_t off, int c,
   return v;
 }
 
-// One CTA: 128 columns of one row slice (rows of one tile) for TB tokens,
-// in passes of 8 * kLoads rows with kLoads 16-byte loads of W in flight a
-// lane.  The slices of a tile form a thread-block cluster (cluster dims
-// (1, spt, 1)); rank 0 sums their partials from distributed shared memory
-// in rank (slice) order.  kVec: N % 4 == 0 and W 16-byte aligned.
+// One CTA: 128 columns of one row slice (rows of one tile) for TB tokens
+// of one lead matrix (blockIdx.z: lead matrix x token blocks + token
+// block), in passes of 8 * kLoads rows with kLoads 16-byte loads of W in
+// flight a lane.  The slices of a tile form a thread-block cluster
+// (cluster dims (1, spt, 1)); rank 0 sums their partials from distributed
+// shared memory in rank (slice) order.  kVec: N % 4 == 0 and W 16-byte
+// aligned.
 template <int TB, int kLoads, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2) fakequant_fp32_kernel(
     FpArgs a) {
@@ -334,7 +380,12 @@ __global__ void __launch_bounds__(kThreads, 2) fakequant_fp32_kernel(
   __shared__ __align__(16) float xs[TB * kPass];          // [t][row]
   __shared__ __align__(16) float red[4 * TB * kFpCols];   // [4][TB][128]
   cg::cluster_group cluster = cg::this_cluster();
-  const int cb = blockIdx.x, s = blockIdx.y, tb = blockIdx.z;
+  const int cb = blockIdx.x, s = blockIdx.y;
+  const int lead = blockIdx.z / a.ntb, tb = blockIdx.z - lead * a.ntb;
+  const float* w = a.w + (size_t)lead * a.K * a.N;
+  const float* x = a.x + (size_t)lead * a.T * a.K;
+  float* q = a.q + (size_t)lead * a.T * a.tiles * a.N;
+  float* ssq = a.ssq + (size_t)lead * a.T * a.tiles * a.ncq;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tile = s / a.spt, sl = s - tile * a.spt;
   const int tile_end = min((tile + 1) * a.rows, a.K);
@@ -343,7 +394,7 @@ __global__ void __launch_bounds__(kThreads, 2) fakequant_fp32_kernel(
   const int t0 = tb * TB;
   const int c = cb * kFpCols + lane * 4;
   const bool col_ok = c < a.N;
-  const float sc = a.sc[0];
+  const float sc = a.sc[lead];
 
   float acc[TB][4];
 #pragma unroll
@@ -356,7 +407,7 @@ __global__ void __launch_bounds__(kThreads, 2) fakequant_fp32_kernel(
     for (int j = 0; j < kLoads; ++j) {
       const int row = p0 + warp + 8 * j;
       wv[j] = (row < nr && col_ok)
-                  ? load_w4<kVec>(a.w, (size_t)(r_lo + row) * a.N + c, c,
+                  ? load_w4<kVec>(w, (size_t)(r_lo + row) * a.N + c, c,
                                   a.N)
                   : make_float4(0.f, 0.f, 0.f, 0.f);
     }
@@ -366,7 +417,7 @@ __global__ void __launch_bounds__(kThreads, 2) fakequant_fp32_kernel(
     for (int e = tid; e < TB * kPass; e += kThreads) {
       const int t = e / kPass, j = e - t * kPass;
       xs[e] = (p0 + j < nr && t0 + t < a.T)
-                  ? __fmul_rn(dac_code(a.x[(size_t)(t0 + t) * a.K + r_lo +
+                  ? __fmul_rn(dac_code(x[(size_t)(t0 + t) * a.K + r_lo +
                                            p0 + j],
                                        sc, a.in_levels), sc)
                   : 0.f;
@@ -436,7 +487,7 @@ __global__ void __launch_bounds__(kThreads, 2) fakequant_fp32_kernel(
       for (int r = 0; r < kFpMaxSlices; ++r)
 #pragma unroll
         for (int k = 0; k < 4; ++k) qv[k] = __fadd_rn(qv[k], v[r][k]);
-      float* qo = a.q + ((size_t)t * a.tiles + tile) * a.N;
+      float* qo = q + ((size_t)t * a.tiles + tile) * a.N;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int cc = cb * kFpCols + lane + 32 * k;
@@ -451,7 +502,7 @@ __global__ void __launch_bounds__(kThreads, 2) fakequant_fp32_kernel(
         h1 = __fadd_rn(h1, __shfl_down_sync(0xffffffffu, h1, off));
       }
       if (lane == 0) {
-        float* so = a.ssq + ((size_t)t * a.tiles + tile) * a.ncq + 2 * cb;
+        float* so = ssq + ((size_t)t * a.tiles + tile) * a.ncq + 2 * cb;
         so[0] = h0;
         if (2 * cb + 1 < a.ncq) so[1] = h1;
       }
@@ -465,12 +516,12 @@ __global__ void __launch_bounds__(kThreads, 2) fakequant_fp32_kernel(
 // --------------------------------------------------------------------------
 
 struct TcArgs {
-  const __nv_bfloat16* codes;   // (Tp, tiles, Rp)
-  const __nv_bfloat16* planes;  // (3, tiles * Rp, Np)
-  const float* sc;              // (1,)
-  float* q;                     // (T, tiles, N)
-  float* ssq;                   // (T, tiles, ncq)
-  int T, N, tiles, Rp, Np, ncq;
+  const __nv_bfloat16* codes;   // (Tp, gtiles, Rp)
+  const __nv_bfloat16* planes;  // (3, gtiles * Rp, Np)
+  const float* sc;              // (L,)
+  float* q;                     // (L, T, tiles, N)
+  float* ssq;                   // (L, T, tiles, ncq)
+  int T, N, tiles, gtiles, Rp, Np, ncq;  // gtiles = L * tiles
 };
 
 // A CTA of BM tokens x 128 columns, in warps of 64 x 32: BM / 64 warps
@@ -530,7 +581,8 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Copies one chunk (32 lines from line r0 of tile i) into a stage: the
+// Copies one chunk (32 lines from line r0 of tile i, counted over the L
+// lead matrices' tiles: lead matrix i / tiles) into a stage: the
 // codes of BM tokens from b0 and the three planes' 32 x 128 block at
 // column c0, all as 16-byte cp.async (the padded layouts keep every copy
 // aligned and in bounds).  Planes land as [line][column] rows of kFwdLd.
@@ -543,10 +595,10 @@ __device__ __forceinline__ void load_stage(const TcArgs& a, int i, int r0,
     const int e = threadIdx.x + k * Cta<BM>::kThreads;
     const int row = e >> 2, q = e & 3;
     cp_async16(stage + row * kTcLd + q * 8,
-               a.codes + ((size_t)(b0 + row) * a.tiles + i) * a.Rp + r0 +
+               a.codes + ((size_t)(b0 + row) * a.gtiles + i) * a.Rp + r0 +
                    q * 8);
   }
-  const size_t per_part = (size_t)a.tiles * a.Rp * a.Np;
+  const size_t per_part = (size_t)a.gtiles * a.Rp * a.Np;
   const size_t line0 = (size_t)i * a.Rp + r0;
   __nv_bfloat16* sd = stage + BM * kTcLd;
   constexpr int kRowCopies = kTcBN / 8;                  // a line's copies
@@ -595,7 +647,8 @@ __device__ __forceinline__ void mma_chunk(const __nv_bfloat16* stage,
   }
 }
 
-// One CTA: BM tokens x 128 columns of row tile blockIdx.z.
+// One CTA: BM tokens x 128 columns of row tile blockIdx.z (over the L lead
+// matrices' tiles: lead matrix blockIdx.z / tiles).
 template <int BM>
 __global__ void __launch_bounds__(Cta<BM>::kThreads, 2) fakequant_tc_kernel(
     TcArgs a) {
@@ -637,14 +690,17 @@ __global__ void __launch_bounds__(Cta<BM>::kThreads, 2) fakequant_tc_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tg = lane & 3;
   const int wm = (warp % (BM / 64)) * 64, wn = (warp / (BM / 64)) * 32;
-  const float sc = a.sc[0];
+  const int lead = i / a.tiles, tile = i - lead * a.tiles;
+  const float sc = a.sc[lead];
+  float* q = a.q + (size_t)lead * a.T * a.tiles * a.N;
+  float* ssq = a.ssq + (size_t)lead * a.T * a.tiles * a.ncq;
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = wm + mt * 16 + g + 8 * h;
       const int t = b0 + row;
-      float* qo = a.q + ((size_t)t * a.tiles + i) * a.N;
+      float* qo = q + ((size_t)t * a.tiles + tile) * a.N;
       float s = 0.f;
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
@@ -663,7 +719,7 @@ __global__ void __launch_bounds__(Cta<BM>::kThreads, 2) fakequant_tc_kernel(
   for (int row = threadIdx.x; row < BM; row += Cta<BM>::kThreads) {
     const int t = b0 + row;
     if (t >= a.T) continue;
-    float* so = a.ssq + ((size_t)t * a.tiles + i) * a.ncq + 2 * cb;
+    float* so = ssq + ((size_t)t * a.tiles + tile) * a.ncq + 2 * cb;
     so[0] = __fadd_rn(ssq_s[0][row], ssq_s[1][row]);
     if (2 * cb + 1 < a.ncq) so[1] = __fadd_rn(ssq_s[2][row], ssq_s[3][row]);
   }
@@ -681,7 +737,8 @@ struct EpiArgs {
   float out_levels, sat_sigmas;
 };
 
-// One CTA per (token blockIdx.x, column chunk blockIdx.y).  Every CTA of a
+// One CTA per (token blockIdx.x, column chunk blockIdx.y); a stack's tokens
+// are its L x T rows of q, in lead-matrix order.  Every CTA of a
 // token reduces the token's range partials in the same order: lane l sums
 // blocks l, l + 32, ... in order, then a fixed shuffle tree.
 __global__ void __launch_bounds__(kThreads) fakequant_epilogue_kernel(
@@ -738,28 +795,32 @@ __global__ void __launch_bounds__(kThreads) fakequant_epilogue_kernel(
 long long round4(long long n) { return (n + 3) / 4 * 4; }
 
 struct Plan {
-  int tiles, reff, ncq, pre_ctas;
+  int tiles, reff, ncq, pre_ctas;     // pre_ctas: a lead matrix's (FP32
+                                      // scale kernel) or the whole grid
+  long long off_max;                  // the pre-pass CTAs' maxima
   int tb, loads, ntb, ncb, slice, spt, nsl;  // FP32 instance
   int Tp, Rp, Np, bm;                 // tensor-core instance
   int chunk, nchunks;                 // epilogue
   long long off_codes, off_planes, off_q, off_ssq, floats;
 };
 
-Plan plan(int T, int K, int N, int rows, int tc, int sms, int prep_cap) {
+Plan plan(int L, int T, int K, int N, int rows, int tc, int sms,
+          int prep_cap) {
   Plan p = {};
   p.tiles = (K + rows - 1) / rows;
   p.reff = rows < K ? rows : K;
   p.ncq = (N + kQCols - 1) / kQCols;
-  long long pre = (long long)T * K;  // the pre-pass's elements
+  long long pre = (long long)T * K;  // a lead matrix's pre-pass elements
   if (tc) {
     p.Tp = (T + kTcTokPad - 1) / kTcTokPad * kTcTokPad;
     p.Rp = (p.reff + kTcKC - 1) / kTcKC * kTcKC;
     p.Np = (N + kTcBN - 1) / kTcBN * kTcBN;
     // 128-token CTAs, or 64-token ones where 128-token CTAs would not
     // fill two CTAs an SM
-    const long long ctas = (long long)(p.Np / kTcBN) * (p.Tp / 128) * p.tiles;
+    const long long ctas =
+        (long long)(p.Np / kTcBN) * (p.Tp / 128) * p.tiles * L;
     p.bm = ctas < 2LL * sms ? 64 : 128;
-    pre += (long long)p.tiles * p.Rp * p.Np;
+    pre = L * (pre + (long long)p.tiles * p.Rp * p.Np);  // the whole grid's
   } else {
     p.tb = T <= 4 ? 4 : T <= 8 ? 8 : kFpMaxTokens;
     p.loads = p.tb <= 8 ? 16 : 8;  // as many as the registers allow
@@ -771,45 +832,48 @@ Plan plan(int T, int K, int N, int rows, int tc, int sms, int prep_cap) {
     p.spt = (p.reff + pass - 1) / pass;
     if (p.spt > kFpMaxSlices) p.spt = kFpMaxSlices;
     while (p.spt > 1 &&
-           (long long)p.ncb * p.tiles * p.spt * p.ntb > 8LL * sms)
+           (long long)p.ncb * p.tiles * p.spt * p.ntb * L > 8LL * sms)
       p.spt = (p.spt + 1) / 2;
     p.slice = (p.reff + p.spt - 1) / p.spt;
     p.nsl = p.tiles * p.spt;
 
   }
   // pre-pass CTAs: the scale kernel takes 16 elements a thread (one CTA
-  // up to 16K), the tensor cores' pre-pass 8, at most its co-resident
-  // grid; either at most kMaxPrepCtas (the partial maxima)
+  // up to 16K; this many CTAs for each lead matrix), the tensor cores'
+  // pre-pass 8 over all L matrices, at most its co-resident grid; either
+  // at most kMaxPrepCtas (the partial maxima of a lead matrix)
   const long long per = tc ? kThreads * 8LL : kScaleThreads * 16LL;
   const long long ctas = (pre + per - 1) / per;
   const long long cap = tc ? prep_cap : kMaxPrepCtas;
   p.pre_ctas = (int)(ctas < 1 ? 1 : ctas > cap ? cap : ctas);
   // Epilogue column chunks (multiples of 64): enough CTAs to fill the card
   // four times over at decode, one chunk a token at prefill.
-  long long splits = (4LL * sms + T - 1) / T;
+  const long long rows_q = (long long)L * T;  // the epilogue's tokens
+  long long splits = (4LL * sms + rows_q - 1) / rows_q;
   if (splits > p.ncq) splits = p.ncq;
   if (splits < 1) splits = 1;
   p.chunk = (int)((p.ncq + splits - 1) / splits) * kQCols;
   p.nchunks = (N + p.chunk - 1) / p.chunk;
 
-  long long off = kHeadFloats;
+  p.off_max = round4(2LL * L + 2);  // the scales and the counts
+  long long off = p.off_max + round4((long long)L * p.pre_ctas);
   if (tc) {
     p.off_codes = off;
-    off += round4(((long long)p.Tp * p.tiles * p.Rp + 1) / 2);
+    off += round4(((long long)p.Tp * L * p.tiles * p.Rp + 1) / 2);
     p.off_planes = off;
-    off += round4((3LL * p.tiles * p.Rp * p.Np + 1) / 2);
+    off += round4((3LL * L * p.tiles * p.Rp * p.Np + 1) / 2);
   }
   p.off_q = off;
-  off += round4((long long)T * p.tiles * N);
+  off += round4(rows_q * p.tiles * N);
   p.off_ssq = off;
-  off += round4((long long)T * p.tiles * p.ncq);
+  off += round4(rows_q * p.tiles * p.ncq);
   p.floats = off;
   return p;
 }
 
 // The slices of a tile as one cluster: cluster dims (1, spt, 1).
 template <int TB, int kLoads>
-cudaError_t launch_fp32(const FpArgs& f, const Plan& p, bool vec,
+cudaError_t launch_fp32(const FpArgs& f, const Plan& p, int L, bool vec,
                         cudaStream_t st) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -817,7 +881,8 @@ cudaError_t launch_fp32(const FpArgs& f, const Plan& p, bool vec,
   attr[0].val.clusterDim.y = (unsigned)p.spt;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)p.ncb, (unsigned)p.nsl, (unsigned)p.ntb);
+  cfg.gridDim = dim3((unsigned)p.ncb, (unsigned)p.nsl,
+                     (unsigned)(p.ntb * L));
   cfg.blockDim = dim3(kThreads);
   cfg.stream = st;
   cfg.attrs = attr;
@@ -836,7 +901,7 @@ template <int BM>
 cudaError_t launch_tc(const TcArgs& t, const Plan& p, cudaStream_t st) {
   fakequant_tc_kernel<BM>
       <<<dim3((unsigned)(p.Tp / BM), (unsigned)(p.Np / kTcBN),
-              (unsigned)p.tiles),
+              (unsigned)t.gtiles),
          Cta<BM>::kThreads, Cta<BM>::kSmemBytes, st>>>(t);
   return cudaGetLastError();
 }
@@ -879,52 +944,61 @@ int xbar_fakequant_setup(int* info) {
   return (int)err;
 }
 
-// Floats of scratch a read needs: the scale and the pre-pass CTAs' maxima;
-// the bf16 codes and planes of W (tensor cores, tc = 1); q (T, tiles, N)
-// and the range partials (T, tiles, ceil(N / 64)).
-long long xbar_fakequant_scratch_floats(int T, int K, int N, int rows, int tc,
-                                        int sms, int prep_cap) {
-  if (T <= 0 || K <= 0 || N <= 0 || rows <= 0 || sms <= 0 || prep_cap <= 0)
+// Floats of scratch a read needs: the L scales, the pre-pass counts and
+// CTAs' maxima; the bf16 codes and planes of W (tensor cores, tc = 1); q
+// (L, T, tiles, N) and the range partials (L, T, tiles, ceil(N / 64)).
+// 0 for operands out of range.
+long long xbar_fakequant_scratch_floats(int L, int T, int K, int N, int rows,
+                                        int tc, int sms, int prep_cap) {
+  if (L <= 0 || T <= 0 || K <= 0 || N <= 0 || rows <= 0 || sms <= 0 ||
+      prep_cap <= 0)
     return 0;
-  return plan(T, K, N, rows, tc, sms, prep_cap).floats;
+  return plan(L, T, K, N, rows, tc, sms, prep_cap).floats;
 }
 
-// Launches one fakequant read on `stream`: x (T, K) and w (K, N) into
-// y (T, N), all contiguous float32 device arrays, with the DAC scale
-// written to scratch[0].  tc = 1 takes the tensor-core instance
-// (in_levels <= 256 only), tc = 0 the FP32 one.  scratch holds
-// xbar_fakequant_scratch_floats() floats, this read's own: a pre-pass
-// that counts its CTAs (the tensor cores' grid barrier, a scale kernel of
-// several CTAs) has its count zeroed first by a 16-byte cudaMemsetAsync
-// on the stream (a memset, not a kernel).  sms and prep_cap come from
-// xbar_fakequant_setup on this device.
+// Launches one fakequant read on `stream`: x (L, T, K) and w (L, K, N) into
+// y (L, T, N), all contiguous float32 device arrays, with lead matrix l's
+// DAC scale written to scratch[l] (L = 1: the (T, K) read).  tc = 1 takes
+// the tensor-core instance (in_levels <= 256 only), tc = 0 the FP32 one.
+// scratch holds xbar_fakequant_scratch_floats() floats, this read's own: a
+// pre-pass that counts its CTAs (the tensor cores' grid barriers, a scale
+// kernel of several CTAs a lead matrix) has its counts zeroed first by a
+// cudaMemsetAsync on the stream (a memset, not a kernel).  sms and
+// prep_cap come from xbar_fakequant_setup on this device; the tensor
+// cores' cooperative pre-pass takes at most prep_cap CTAs for any L (its
+// loops stride over the L matrices), so a stack never exceeds the
+// co-resident grid.  A stack whose other grid dims exceed the launch
+// limits returns cudaErrorInvalidValue before anything launches.
 // Adds one to launched[slot] (host array of kSlots ints, in LaunchSlot
 // order) for each kernel launched.  Returns the CUDA error code of the
 // launches (0 on success).
 int xbar_fakequant(const float* x, const float* w, float* y, float* scratch,
-                   int T, int K, int N, int rows,
+                   int L, int T, int K, int N, int rows,
                    int tc, float in_levels, float out_levels,
                    float sat_sigmas, int sms, int prep_cap, void* stream,
                    int* launched) {
-  if (T <= 0 || K <= 0 || N <= 0 || rows <= 0 || sms <= 0 ||
+  if (L <= 0 || T <= 0 || K <= 0 || N <= 0 || rows <= 0 || sms <= 0 ||
       prep_cap <= 0 || scratch == nullptr ||
       launched == nullptr || (tc && in_levels > kTcMaxLevels))
     return (int)cudaErrorInvalidValue;
-  const Plan p = plan(T, K, N, rows, tc, sms, prep_cap);
-  if (p.nchunks > 65535 || p.tiles > 12288 ||
-      (tc ? p.Np / kTcBN > 65535 : (p.nsl > 65535 || p.ntb > 65535)))
+  const Plan p = plan(L, T, K, N, rows, tc, sms, prep_cap);
+  if (p.nchunks > 65535 || p.tiles > 12288 || L > 65535 ||
+      (long long)L * T > 2147483647LL ||
+      (tc ? (p.Np / kTcBN > 65535 || (long long)L * p.tiles > 65535)
+          : (p.nsl > 65535 || (long long)p.ntb * L > 65535)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 
   PrepArgs pa = {};
-  pa.x = x; pa.w = w; pa.sc = scratch; pa.maxp = scratch + 4;
-  pa.bar = reinterpret_cast<unsigned*>(scratch + 1);
-  pa.T = T; pa.K = K; pa.N = N; pa.rows = rows; pa.tiles = p.tiles;
+  pa.x = x; pa.w = w; pa.sc = scratch; pa.maxp = scratch + p.off_max;
+  pa.bar = reinterpret_cast<unsigned*>(scratch + L);
+  pa.bar2 = pa.bar + 1;
+  pa.L = L; pa.T = T; pa.K = K; pa.N = N; pa.rows = rows; pa.tiles = p.tiles;
   pa.Tp = p.Tp; pa.Rp = p.Rp; pa.Np = p.Np;
   pa.in_levels = in_levels;
   cudaError_t err = cudaSuccess;
   if (tc || p.pre_ctas > 1)
-    err = cudaMemsetAsync(scratch, 0, 4 * sizeof(float), st);
+    err = cudaMemsetAsync(scratch, 0, p.off_max * sizeof(float), st);
   if (err != cudaSuccess) return (int)err;
   if (tc) {
     pa.codes = reinterpret_cast<__nv_bfloat16*>(scratch + p.off_codes);
@@ -940,13 +1014,14 @@ int xbar_fakequant(const float* x, const float* w, float* y, float* scratch,
     TcArgs ta = {};
     ta.codes = pa.codes; ta.planes = pa.planes; ta.sc = scratch;
     ta.q = scratch + p.off_q; ta.ssq = scratch + p.off_ssq;
-    ta.T = T; ta.N = N; ta.tiles = p.tiles; ta.Rp = p.Rp; ta.Np = p.Np;
-    ta.ncq = p.ncq;
+    ta.T = T; ta.N = N; ta.tiles = p.tiles; ta.gtiles = L * p.tiles;
+    ta.Rp = p.Rp; ta.Np = p.Np; ta.ncq = p.ncq;
     err = p.bm == 64 ? launch_tc<64>(ta, p, st) : launch_tc<128>(ta, p, st);
     if (err != cudaSuccess) return (int)err;
     ++launched[kSlotTc];
   } else {
-    fakequant_scale_kernel<<<p.pre_ctas, kScaleThreads, 0, st>>>(pa);
+    fakequant_scale_kernel<<<dim3((unsigned)p.pre_ctas, (unsigned)L),
+                             kScaleThreads, 0, st>>>(pa);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     ++launched[kSlotScale];
@@ -955,21 +1030,21 @@ int xbar_fakequant(const float* x, const float* w, float* y, float* scratch,
     fa.w = w; fa.x = x; fa.sc = scratch;
     fa.q = scratch + p.off_q; fa.ssq = scratch + p.off_ssq;
     fa.T = T; fa.K = K; fa.N = N; fa.rows = rows; fa.tiles = p.tiles;
-    fa.slice = p.slice; fa.spt = p.spt; fa.ncq = p.ncq;
+    fa.slice = p.slice; fa.spt = p.spt; fa.ncq = p.ncq; fa.ntb = p.ntb;
     fa.in_levels = in_levels;
     const bool vec = N % 4 == 0 && ((uintptr_t)w & 15) == 0;
-    err = p.tb == 4   ? launch_fp32<4, 16>(fa, p, vec, st)
-          : p.tb == 8 ? launch_fp32<8, 16>(fa, p, vec, st)
-                      : launch_fp32<kFpMaxTokens, 8>(fa, p, vec, st);
+    err = p.tb == 4   ? launch_fp32<4, 16>(fa, p, L, vec, st)
+          : p.tb == 8 ? launch_fp32<8, 16>(fa, p, L, vec, st)
+                      : launch_fp32<kFpMaxTokens, 8>(fa, p, L, vec, st);
     if (err != cudaSuccess) return (int)err;
     ++launched[kSlotFp32];
   }
 
   EpiArgs ea = {};
   ea.q = scratch + p.off_q; ea.ssq = scratch + p.off_ssq; ea.y = y;
-  ea.T = T; ea.N = N; ea.tiles = p.tiles; ea.ncq = p.ncq; ea.chunk = p.chunk;
-  ea.out_levels = out_levels; ea.sat_sigmas = sat_sigmas;
-  fakequant_epilogue_kernel<<<dim3((unsigned)T, (unsigned)p.nchunks),
+  ea.T = L * T; ea.N = N; ea.tiles = p.tiles; ea.ncq = p.ncq;
+  ea.chunk = p.chunk; ea.out_levels = out_levels; ea.sat_sigmas = sat_sigmas;
+  fakequant_epilogue_kernel<<<dim3((unsigned)(L * T), (unsigned)p.nchunks),
                               kThreads, p.tiles * sizeof(float), st>>>(ea);
   err = cudaGetLastError();
   if (err == cudaSuccess) ++launched[kSlotEpilogue];

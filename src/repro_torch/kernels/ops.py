@@ -51,7 +51,13 @@ def _adc_fake_quant(q: Tensor, adc: AdcConfig) -> Tensor:
 
 def _fakequant_eager(x: Tensor, w: Tensor, adc: AdcConfig,
                      rows: int) -> Tensor:
-    """The reference's jnp branch of ``fakequant_project``, step for step."""
+    """The reference's jnp branch of ``fakequant_project``, step for step;
+    for an expert stack (``w`` (E, K, N), ``x`` (E, T, K)) once per
+    expert, as the reference's ``vmap`` over the experts computes it (one
+    DAC scale per expert)."""
+    if w.ndim == 3:
+        return torch.stack([_fakequant_eager(x[e], w[e], adc, rows)
+                            for e in range(w.shape[0])])
     xq = quantize_dequantize(x, adc)
     k = w.shape[0]
     n_tiles = max(1, -(-k // rows))
@@ -81,8 +87,9 @@ def _fakequant_vjp(x: Tensor, w: Tensor, dy: Tensor, adc: AdcConfig,
 
 class FakequantRead(torch.autograd.Function):
     """The fakequant read under autograd: forward the fused read's
-    kernel on ``x`` (T, K) and ``w`` (K, N), backward
-    :func:`_fakequant_vjp` of the eager expression."""
+    kernel on ``x`` (T, K) and ``w`` (K, N), or on an expert stack (``x``
+    (E, T, K), ``w`` (E, K, N)), backward :func:`_fakequant_vjp` of the
+    eager expression with the same lead dim."""
 
     @staticmethod
     def forward(ctx, x, w, adc, rows):
@@ -101,15 +108,17 @@ class FakequantRead(torch.autograd.Function):
 def fakequant_project(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
                       impl: Optional[str] = None) -> Tensor:
     """Fakequant (QAT) projection of ``x`` (..., K) through ``w`` (K, N):
-    (..., N) float32.  ``rows`` is the crossbar row pitch; ``impl`` as in
-    the module docstring."""
+    (..., N) float32; or of an expert stack, ``x`` (E, T, K) through
+    ``w`` (E, K, N): (E, T, N), each expert with its own DAC scale (one
+    read of the stack on the card).  ``rows`` is the crossbar row pitch;
+    ``impl`` as in the module docstring."""
     impl = resolve_impl(impl, x)
     if impl == "eager":
         return _fakequant_eager(x, w, adc, rows)
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
+    x2 = x if w.ndim == 3 else x.reshape(-1, x.shape[-1])
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         y = FakequantRead.apply(x2, w, adc, rows)
     else:
         y = fakequant_read(x2, w, adc, rows)
-    return y.reshape(*lead, w.shape[1])
+    return y.reshape(*lead, w.shape[-1])

@@ -146,16 +146,22 @@ def _tile_normals(seed: Tensor, rows: int, cols: int) -> Tensor:
     return _pair_normals(_mix32(idx ^ seed))[0]
 
 
-def field_normals(seed, shape, cfg: CrossbarConfig,
+def field_normals(seed, shape, cfg: CrossbarConfig, tile_offsets=(0, 0, 0),
                   device=None) -> Tensor:
     """(L, K, N) standard-normal field, bit-identical in its hash words to
-    what the kernel generates per (layer, tile)."""
+    what the kernel generates per (layer, tile).
+
+    ``tile_offsets`` = (layer, row-tile, col-tile) base coordinates of
+    this block in a larger container: the block of layers ``l0:`` and
+    tiles ``k0:``, ``n0:`` gets exactly that slice of the larger
+    container's field."""
     lyr, k, n = shape
     rows, cols = cfg.rows, cfg.cols
     tk, tn = -(-k // rows), -(-n // cols)
 
     def axis(size, dim):
-        a = torch.arange(size, dtype=torch.int64, device=device)
+        a = torch.arange(size, dtype=torch.int64, device=device) \
+            + tile_offsets[dim]
         return a.reshape([size if i == dim else 1 for i in range(3)])
     seeds = _tile_seed(_u32(seed, device), axis(lyr, 0), axis(tk, 1),
                        axis(tn, 2))

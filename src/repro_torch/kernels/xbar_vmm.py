@@ -35,7 +35,11 @@ instances :func:`fakequant_instance` picks from the operands: below
 the FP32 instance (``fakequant_scale``, the DAC scale; ``fakequant_fp32``,
 the product), from there the tensor-core one (``fakequant_prepare``, the
 scale, the DAC codes and W's three bf16 planes; ``fakequant_tc``); then
-the shared per-token ADC ``fakequant_epilogue``.  ``LAUNCHES["fakequant"]``
+the shared per-token ADC ``fakequant_epilogue``.  An expert stack (x
+(L, T, K) through w (L, K, N), MoE's fakequant experts) is one read: the
+lead dim rides every kernel's grid, each lead matrix with its own DAC
+scale, so a stack costs three launches, not three per expert.
+``LAUNCHES["fakequant"]``
 counts reads and ``LAUNCHES[name]`` each kernel's launches, from the
 launch record the launcher fills.
 
@@ -339,6 +343,16 @@ def _fakequant_plain(x: Tensor, w: Tensor, sc: Tensor, adc: AdcConfig,
     return y
 
 
+def _fakequant_plain_lead(x: Tensor, w: Tensor, sc: Tensor, adc: AdcConfig,
+                          rows: int) -> Tensor:
+    """The lead-dim (expert-stack) fakequant read in plain torch: ``x``
+    (L, T, K), ``w`` (L, K, N), ``sc`` (L,) → (L, T, N), one
+    :func:`_fakequant_plain` per lead matrix with its own DAC scale (the
+    reference vmaps its read over the experts)."""
+    return torch.stack([_fakequant_plain(x[i], w[i], sc[i:i + 1], adc, rows)
+                        for i in range(x.shape[0])])
+
+
 def split_bf16x3(w: Tensor) -> tuple:
     """``(hi, mid, lo)``: float32 tensors holding bf16 values (round to
     nearest even), ``hi = bf16(w)``, ``mid = bf16(w - hi)``, ``lo =
@@ -388,7 +402,8 @@ def _fakequant_tc_plain(x: Tensor, w: Tensor, sc: Tensor, adc: AdcConfig,
 
 
 def fakequant_instance(tokens: int, in_levels: int) -> str:
-    """The kernel instance a fakequant read of ``tokens`` rows takes.
+    """The kernel instance a fakequant read of ``tokens`` rows (per lead
+    matrix: an expert stack's read picks on its capacity) takes.
 
     ``"tensor_core"`` for long prefills (``tokens`` >=
     :data:`FQ_TC_MIN_TOKENS`) when the DAC codes are exact in bf16
@@ -412,12 +427,12 @@ def _fakequant_library():
     if _fq_lib is None:
         lib = _nvcc.load(FAKEQUANT_SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.xbar_fakequant.argtypes = [p, p, p, p, i, i, i, i, i, f, f, f,
-                                       i, i, p, p]
+        lib.xbar_fakequant.argtypes = [p, p, p, p, i, i, i, i, i, i, f, f,
+                                       f, i, i, p, p]
         lib.xbar_fakequant.restype = ctypes.c_int
         lib.xbar_fakequant_setup.argtypes = [ctypes.POINTER(i)]
         lib.xbar_fakequant_setup.restype = ctypes.c_int
-        lib.xbar_fakequant_scratch_floats.argtypes = [i] * 7
+        lib.xbar_fakequant_scratch_floats.argtypes = [i] * 8
         lib.xbar_fakequant_scratch_floats.restype = ctypes.c_longlong
         _fq_lib = lib
     return _fq_lib
@@ -425,17 +440,24 @@ def _fakequant_library():
 
 def _fakequant_cuda(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
                     instance: Optional[str] = None):
-    """Launch a fakequant read of x (T, K) through w (K, N): the pre-pass
-    and the product of ``instance`` (default :func:`fakequant_instance`),
-    then the epilogue.  Returns ``(y, sc)``: the (T, N) result and the
-    (1,) DAC scale the pre-pass computed.  Everything a read counts or
-    keeps on the card lies in its own scratch (a pre-pass that counts its
-    CTAs has the count zeroed on the current stream first), so reads may
-    run together on several streams."""
-    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+    """Launch a fakequant read of x (T, K) through w (K, N), or of an
+    expert stack, x (L, T, K) through w (L, K, N), with the lead dim in
+    the grid of every kernel: the pre-pass and the product of
+    ``instance`` (default :func:`fakequant_instance` on the T rows of one
+    lead matrix), then the epilogue, three launches for the whole stack.
+    Returns ``(y, sc)``: the (T, N) or (L, T, N) result and the DAC
+    scales the pre-pass computed, one per lead matrix ((1,) or (L,)).
+    Everything a read counts or keeps on the card lies in its own scratch
+    (a pre-pass that counts its CTAs has the counts zeroed on the current
+    stream first), so reads may run together on several streams."""
+    squeeze = x.ndim == 2
+    if squeeze:
+        x, w = x[None], w[None]
+    if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] \
+            or x.shape[2] != w.shape[1]:
         raise ValueError(f"operand shapes x {tuple(x.shape)} w "
                          f"{tuple(w.shape)} do not match")
-    instance = instance or fakequant_instance(x.shape[0], adc.in_levels)
+    instance = instance or fakequant_instance(x.shape[1], adc.in_levels)
     if instance not in ("fp32", "tensor_core"):
         raise ValueError(f"unknown fakequant instance {instance!r}")
     tc = instance == "tensor_core"
@@ -449,7 +471,8 @@ def _fakequant_cuda(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     lib = _fakequant_library()
-    (t, k), n = x.shape, w.shape[1]
+    lead, t, k = x.shape
+    n = w.shape[2]
     dev = x.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -461,14 +484,17 @@ def _fakequant_cuda(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
                                    f"error {err} on {dev}")
             _fq_dev[dev.index] = (info[0], info[1])
     sms, cap = _fq_dev[dev.index]
-    n_scratch = lib.xbar_fakequant_scratch_floats(t, k, n, rows, int(tc),
-                                                  sms, cap)
-    y = torch.empty((t, n), dtype=torch.float32, device=dev)
+    n_scratch = lib.xbar_fakequant_scratch_floats(lead, t, k, n, rows,
+                                                  int(tc), sms, cap)
+    if n_scratch <= 0:
+        raise ValueError(f"no fakequant plan for x {tuple(x.shape)} w "
+                         f"{tuple(w.shape)}, rows {rows}")
+    y = torch.empty((lead, t, n), dtype=torch.float32, device=dev)
     scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev)
     launched = (ctypes.c_int * len(FQ_KERNEL_COUNTS))()
     err = lib.xbar_fakequant(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), scratch.data_ptr(),
-        t, k, n, rows, int(tc),
+        lead, t, k, n, rows, int(tc),
         float(adc.in_levels), float(adc.out_levels), float(adc.sat_sigmas),
         sms, cap, stream, launched)
     for name, count in zip(FQ_KERNEL_COUNTS, launched):
@@ -478,35 +504,46 @@ def _fakequant_cuda(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
         raise RuntimeError(f"xbar_fakequant launch failed: CUDA error {err} "
                            f"(x {tuple(x.shape)}, w {tuple(w.shape)}, rows "
                            f"{rows}, {instance} instance)")
-    return y, scratch[:1]
+    if squeeze:
+        return y[0], scratch[:1]
+    return y, scratch[:lead]
 
 
 def fakequant_scale(x: Tensor, in_levels: int) -> Tensor:
-    """The DAC full scale ``max(max|x|, 1e-12) / in_levels``, shape (1,).
-    The divisor is a tensor: on the card, torch turns a division by a
-    Python number into a product with its reciprocal, which is not the
-    reference's (nor the kernels') division."""
+    """The DAC full scale ``max(max|x|, 1e-12) / in_levels``: shape (1,)
+    for x (T, K), (L,) for an expert stack x (L, T, K), one per lead
+    matrix.  The divisor is a tensor: on the card, torch turns a division
+    by a Python number into a product with its reciprocal, which is not
+    the reference's (nor the kernels') division."""
     levels = torch.full((), float(in_levels), device=x.device)
-    return (torch.clamp(x.abs().amax(), min=1e-12) / levels).reshape(1)
+    amax = x.abs().amax(dim=(1, 2)) if x.ndim == 3 else x.abs().amax()
+    return (torch.clamp(amax, min=1e-12) / levels).reshape(-1)
 
 
 def fakequant_read(x: Tensor, w: Tensor, adc: AdcConfig,
                    rows: int) -> Tensor:
     """Fused fakequant projection (port of ``fakequant_read_pallas``):
-    x (T, K), w (K, N) → (T, N) float32, forward only
-    (``kernels.ops.FakequantRead`` gives it the eager expression's VJP).
+    x (T, K), w (K, N) → (T, N) float32, or an expert stack, x (L, T, K),
+    w (L, K, N) → (L, T, N), forward only (``kernels.ops.FakequantRead``
+    gives it the eager expression's VJP).
 
-    One DAC scale for all of ``x``, as in the reference's wrapper; ``rows``
-    is the crossbar row pitch (the ADC's tile).  A CUDA tensor launches the
-    kernels (the scale is computed by the first of them); a CPU tensor
-    takes :func:`fakequant_scale` and :func:`_fakequant_plain`.
+    One DAC scale for all of ``x``, as in the reference's wrapper, per
+    lead matrix for a stack (the reference vmaps its read over the
+    experts); ``rows`` is the crossbar row pitch (the ADC's tile).  A
+    CUDA tensor launches the kernels, three for the whole stack (the
+    scales are computed by the first of them); a CPU tensor takes
+    :func:`fakequant_scale` and :func:`_fakequant_plain` (per lead matrix,
+    :func:`_fakequant_plain_lead`).
     """
     _deterministic(adc)
-    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+    if x.ndim not in (2, 3) or w.ndim != x.ndim \
+            or x.shape[-1] != w.shape[-2] or x.shape[:-2] != w.shape[:-2]:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} are not "
-                         "(T, K) and (K, N)")
+                         "(T, K) and (K, N), or (L, T, K) and (L, K, N)")
     xf, wf = x.float().contiguous(), w.float().contiguous()
     if x.is_cuda:
         return _fakequant_cuda(xf, wf, adc, rows)[0]
-    return _fakequant_plain(xf, wf, fakequant_scale(xf, adc.in_levels), adc,
-                            rows)
+    sc = fakequant_scale(xf, adc.in_levels)
+    if x.ndim == 3:
+        return _fakequant_plain_lead(xf, wf, sc, adc, rows)
+    return _fakequant_plain(xf, wf, sc, adc, rows)

@@ -1,14 +1,20 @@
-"""Serving CLI: batched prefill + decode of a dense model on synthetic
-prompts, on the card unless ``--device cpu``.
+"""Serving CLI: batched prefill + decode of a dense or MoE model on
+synthetic prompts, on the card unless ``--device cpu``.
 
     python -m repro_torch.launch.serve --arch lm100m --backend analog
     python -m repro_torch.launch.serve --arch gemma-2b --backend analog \\
         --sim-days 3          # in-array decode after 3 days of drift
     python -m repro_torch.launch.serve --arch lm100m --smoke \\
         --backend digital --scheduler static --device cpu
+    python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e \\
+        --smoke --backend analog --analog-tile 16 --device cpu
 
 ``--arch`` is one of the port's registry (lm100m, gemma-2b, stablelm-3b,
-starcoder2-3b, granite-20b).  ``--backend analog`` programs the weights
+starcoder2-3b, granite-20b, llama4-scout-17b-a16e).  A model serves at
+full size only where the card's memory holds it: llama4-scout (MoE, 16
+experts) needs 845 GB of conductances at 48 layers, more than one H100
+has, so on one card it serves as ``--smoke`` only (``chip_smoke.py``
+phase 18 runs it at full width, cut to 2 layers).  ``--backend analog`` programs the weights
 onto tiled crossbars (``--analog-device``, ``--analog-tile``) and serves
 the conductances in-array: every projection read goes through the fused
 read, and the run prints how many times its CUDA kernels were launched,
@@ -33,7 +39,11 @@ from repro_torch.serve import SamplingParams, make_engine
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="lm100m")
+    ap.add_argument("--arch", default="lm100m",
+                    help="a config of the port's registry; it serves at "
+                         "full size only where memory allows: "
+                         "llama4-scout-17b-a16e does not fit one H100 "
+                         "(use --smoke)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

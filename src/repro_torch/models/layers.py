@@ -1,6 +1,6 @@
 """Transformer building blocks (port of ``repro.models.layers``, dense
-self-attention and gated FFN, with digital, fakequant and device-mode
-projections).
+self-attention, gated FFN and the MoE expert projection, with digital,
+fakequant and device-mode projections).
 
 Conventions, as in the reference:
   * params are nested dicts of float32 tensors; compute casts to the
@@ -118,6 +118,29 @@ def project(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
     adc = AdcConfig(in_bits=cfg.analog_in_bits,
                     out_bits=cfg.analog_out_bits)
     y = fakequant_project(x.float(), w.float(), adc, cfg.analog_rows)
+    return y.to(x.dtype)
+
+
+def expert_project(p, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """Expert-batched linear layer: ``x`` (E, T, K) -> (E, T, N).
+
+    ``p`` is a raw (E, K, N) weight stack (digital and fakequant MoE) or
+    an expert-batched crossbar container (device mode: each expert's
+    matrix on its own tile grid, one read of the whole stack,
+    ``core.tiled_analog.analog_project``).  In fakequant mode the
+    per-expert products carry the crossbar's I/O quantisation, each
+    expert with its own DAC scale, as the reference's ``vmap`` gives it:
+    on the card one fakequant read of the whole stack (the kernel with
+    its lead dim), under autograd through ``kernels.ops.FakequantRead``
+    so QAT's gradient is the reference's.
+    """
+    if is_analog_container(p):
+        return analog_project(p, x, crossbar_from_model(cfg))
+    if resolve_analog_mode(cfg) is AnalogMode.DIGITAL:
+        return torch.einsum("etk,ekn->etn", x, p.to(x.dtype))
+    adc = AdcConfig(in_bits=cfg.analog_in_bits,
+                    out_bits=cfg.analog_out_bits)
+    y = fakequant_project(x.float(), p.float(), adc, cfg.analog_rows)
     return y.to(x.dtype)
 
 
@@ -306,10 +329,11 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
 # --------------------------------------------------------------------------
 
 def ffn_init(generator: torch.Generator, cfg: ModelConfig,
-             device=None) -> dict:
+             device=None, d_ff: int = 0) -> dict:
     """Gated FFNs lay up and gate out on one column-concatenated
-    ``w_upgate`` (both halves share the row drives)."""
-    d, ff = cfg.d_model, cfg.d_ff
+    ``w_upgate`` (both halves share the row drives).  ``d_ff`` overrides
+    the config's width (MoE's shared expert)."""
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     if cfg.gated:
         up = dense_init(generator, d, ff, device)
         down = proj_init(generator, ff, d, cfg, device)

@@ -1,4 +1,5 @@
-"""Model API, dense decoder family (port of ``repro.models.model``).
+"""Model API, dense and MoE decoder families (port of
+``repro.models.model``).
 
     params         = init_params(cfg, generator, device="cuda")
     loss, metrics  = loss_fn(params, batch, cfg)
@@ -18,7 +19,7 @@ from typing import Dict, Union
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import PORTED_FAMILIES, ModelConfig
 from repro_torch.core.analog_registry import (EXPERT_BATCHED, KINDS,
                                               classify, classify_param)
 from repro_torch.core.tiled_analog import (crossbar_from_model,
@@ -31,8 +32,8 @@ from .layers import make_cache, proj_readout
 Tensor = torch.Tensor
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _ported_only(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; see ROADMAP.md")
 
@@ -45,8 +46,9 @@ def init_params(cfg: ModelConfig,
                 generator: Union[torch.Generator, int] = 0,
                 device="cuda") -> dict:
     """Random parameters from ``generator`` (a torch.Generator on
-    ``device``, or an int seed for one)."""
-    _dense_only(cfg)
+    ``device``, or an int seed for one).  MoE expert stacks are drawn
+    (and in device mode programmed) one expert matrix at a time."""
+    _ported_only(cfg)
     if isinstance(generator, int):
         seed, generator = generator, torch.Generator(device=device)
         generator.manual_seed(seed)
@@ -55,7 +57,9 @@ def init_params(cfg: ModelConfig,
 
 def readout_digital(params, cfg: ModelConfig, path=()):
     """Serial read of an analog-device model back to digital weights: every
-    container becomes ``{"w": (g - ref) / w_scale}``."""
+    container becomes ``{"w": (g - ref) / w_scale}``, an expert-batched
+    container the raw (E, K, N) weight stack (the registry decides which
+    is which)."""
     if is_analog_container(params):
         rd = proj_readout(params, cfg)
         return rd["w"] if classify(path) == EXPERT_BATCHED else rd
@@ -67,9 +71,10 @@ def readout_digital(params, cfg: ModelConfig, path=()):
 
 def program_digital(params, cfg: ModelConfig, path=()):
     """Inverse of :func:`readout_digital`: program a digital tree's
-    crossbar-consumer projections onto containers under ``cfg``'s device
-    model; digital-core matrices (embeddings, norms) pass through.
-    ``cfg`` must resolve to device mode."""
+    crossbar-consumer projections (``{"w"}`` dicts and raw expert stacks)
+    onto containers under ``cfg``'s device model, one calibration per
+    matrix; digital-core matrices (embeddings, router, norms) pass
+    through.  ``cfg`` must resolve to device mode."""
     if cfg.resolved_analog_mode.value != "device":
         raise ValueError(
             "program_digital needs a device-mode config (analog=True, "
@@ -84,25 +89,32 @@ def program_digital(params, cfg: ModelConfig, path=()):
     return params
 
 
-def forward(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig,
-            caches=None, positions=None):
-    """Returns ``(logits, caches)``; ``caches`` are updated in place."""
-    _dense_only(cfg)
+def _forward(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig,
+             caches=None, positions=None):
+    """``(logits, caches, aux)``: :func:`forward` with the aux loss."""
+    _ported_only(cfg)
     return tf.decoder_apply(params, batch["tokens"], cfg, caches=caches,
                             positions=positions)
 
 
+def forward(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig,
+            caches=None, positions=None):
+    """Returns ``(logits, caches)``; ``caches`` are updated in place."""
+    logits, caches, _ = _forward(params, batch, cfg, caches, positions)
+    return logits, caches
+
+
 def loss_fn(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig):
-    """Mean next-token cross-entropy plus ``0.01 * aux`` (the dense family
-    has no auxiliary loss: ``aux`` is 0).  Returns ``(total, {"ce",
-    "aux"})``; cross-entropy is logsumexp minus the true logit."""
-    logits, _ = forward(params, batch, cfg)
+    """Mean next-token cross-entropy plus ``0.01 * aux``, the MoE layers'
+    Switch load-balancing loss summed over the layers (0 for the dense
+    family).  Returns ``(total, {"ce", "aux"})``; cross-entropy is
+    logsumexp minus the true logit."""
+    logits, _, aux = _forward(params, batch, cfg)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     true_logit = torch.gather(logits, -1,
                               batch["labels"].long()[..., None])[..., 0]
     loss = torch.mean(lse - true_logit)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
@@ -112,7 +124,7 @@ def loss_fn(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """``(caches, shared)`` with caches stacked (L, B, ...) per leaf."""
-    _dense_only(cfg)
+    _ported_only(cfg)
     one = make_cache(cfg, batch, max_len, device)
     caches = {k: v[None].repeat(cfg.n_layers, *([1] * v.ndim))
               for k, v in one.items()}
@@ -155,7 +167,7 @@ def prefill_chunk(params: dict, cache, tokens: Tensor, cfg: ModelConfig):
 def cache_lens(cache, cfg: ModelConfig) -> Tensor:
     """Per-row filled lengths of a cache, (B,) (a copy: the cache's own
     length tensors advance in place while a model call runs)."""
-    _dense_only(cfg)
+    _ported_only(cfg)
     return cache[0]["len"][0].clone()
 
 

@@ -1,10 +1,11 @@
-"""Decoder stack, dense family (port of the parts of
-``repro.models.transformer`` the serving slice needs).
+"""Decoder stack, dense and MoE families (port of the decoder-only
+parts of ``repro.models.transformer``).
 
 Per-layer parameters are stacked along a leading (L, ...) dim, as the
 reference's scan expects; the stack runs as a Python loop over the
 stacked tensors.  Caches use the same stacked layout and are updated in
-place (see ``layers.attention``).
+place (see ``layers.attention``).  The MoE blocks' aux losses are summed
+over the layers, as the reference's scan carries them.
 """
 from __future__ import annotations
 
@@ -13,18 +14,13 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tiled_analog import stack_trees
 
+from . import moe as moe_mod
 from .layers import (attention, attn_init, cdtype, dense_init, embed_init,
                      ffn, ffn_init, rmsnorm, rmsnorm_init)
 
 Tensor = torch.Tensor
-
-
-def tree_stack(trees):
-    """Stack a list of identically structured dict trees leaf by leaf."""
-    if isinstance(trees[0], dict):
-        return {k: tree_stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
 
 
 def tree_index(tree, i: int):
@@ -43,19 +39,38 @@ def dense_block_init(generator: torch.Generator, cfg: ModelConfig,
 
 
 def dense_block(p: dict, x: Tensor, cfg: ModelConfig, positions,
-                cache) -> Tuple[Tensor, Optional[dict]]:
+                cache) -> Tuple[Tensor, Optional[dict], Optional[Tensor]]:
     h, new_cache = attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
                              cfg, positions=positions, cache=cache)
     x = x + h
     x = x + ffn(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
-    return x, new_cache
+    return x, new_cache, None
+
+
+def moe_block_init(generator: torch.Generator, cfg: ModelConfig,
+                   device=None) -> dict:
+    return {"ln1": rmsnorm_init(cfg.d_model, device),
+            "attn": attn_init(generator, cfg, device),
+            "ln2": rmsnorm_init(cfg.d_model, device),
+            "moe": moe_mod.moe_init(generator, cfg, device)}
+
+
+def moe_block(p: dict, x: Tensor, cfg: ModelConfig, positions,
+              cache) -> Tuple[Tensor, Optional[dict], Tensor]:
+    h, new_cache = attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                             cfg, positions=positions, cache=cache)
+    x = x + h
+    y, aux = moe_mod.moe_apply(p["moe"], rmsnorm(p["ln2"], x, cfg.norm_eps),
+                               cfg)
+    return x + y, new_cache, aux
 
 
 def decoder_init(generator: torch.Generator, cfg: ModelConfig,
                  device=None) -> dict:
+    block_init = moe_block_init if cfg.n_experts else dense_block_init
     p = {"embed": embed_init(generator, cfg.vocab, cfg.d_model, device),
-         "layers": tree_stack([dense_block_init(generator, cfg, device)
-                               for _ in range(cfg.n_layers)]),
+         "layers": stack_trees((block_init(generator, cfg, device)
+                                for _ in range(cfg.n_layers)), cfg.n_layers),
          "final_ln": rmsnorm_init(cfg.d_model, device)}
     if not cfg.tie_embeddings:
         p["lm_head"] = {"w": dense_init(generator, cfg.d_model, cfg.vocab,
@@ -76,13 +91,18 @@ def _embed_lookup(p: dict, tokens: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 def decoder_apply(p: dict, tokens: Tensor, cfg: ModelConfig, *,
-                  caches=None, positions=None) -> Tuple[Tensor, Any]:
-    """Logits of ``tokens`` (B, S) and the caches, updated in place."""
+                  caches=None, positions=None) -> Tuple[Tensor, Any, Tensor]:
+    """Logits of ``tokens`` (B, S), the caches (updated in place) and the
+    aux loss summed over the layers (0 for the dense family)."""
     x = _embed_lookup(p, tokens, cfg)
+    block = moe_block if cfg.n_experts else dense_block
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         cache = tree_index(caches, i) if caches is not None else None
-        x, new_cache = dense_block(tree_index(p["layers"], i), x, cfg,
-                                   positions, cache)
+        x, new_cache, a = block(tree_index(p["layers"], i), x, cfg,
+                                positions, cache)
+        if a is not None:
+            aux = aux + a
         if caches is not None:
             caches["len"][i] = new_cache["len"]
-    return _logits(p, x, cfg), caches
+    return _logits(p, x, cfg), caches, aux

@@ -1,5 +1,5 @@
 """In-situ analog training of a device-mode transformer, on one device
-(port of ``repro.train.analog_lm``, dense family, no mesh).
+(port of ``repro.train.analog_lm``, dense and MoE families, no mesh).
 
 One ``AnalogTrainStep`` call is the whole training rule:
 
@@ -12,7 +12,12 @@ One ``AnalogTrainStep`` call is the whole training rule:
      tapes, and no (K, N) weight gradient is formed;
   3. every container's update is the paper's rank-k parallel write: its
      (L, T, K) / (L, T, N) tapes go into ONE launch of the layer-batched
-     update kernel (``kernels.xbar_update.xbar_outer_update``) with
+     update kernel (``kernels.xbar_update.xbar_outer_update``); an MoE
+     expert stack's (L, E, cap, K) / (L, E, cap, N) tapes (capacity-
+     sized) go into one launch over (E * L, K, N), flattened by
+     ``core.analog_registry.flatten_lead`` with the expert dim outermost
+     as the reference flattens it (the counter PRNG seeds each flattened
+     layer index, so the order decides the noise field); each with
      ``scale = -lr * w_scale`` and the tapes' scales (which put the write
      on the card's tensor-core instance), write noise from the in-kernel
      counter PRNG keyed by ``_mix32(seed_base ^ crc32(path))``, in the
@@ -153,7 +158,7 @@ class AnalogTrainStep:
                 f"no analog containers in params for family {cfg.family!r}; "
                 "was the state built with analog_mode='device'?")
         out = {"loss": loss.detach(), "ce": metrics["ce"].detach(),
-               "aux": metrics["aux"]}
+               "aux": metrics["aux"].detach()}
         # fraction of devices pinned at the conductance rails — the leading
         # indicator of window exhaustion (paper §V.A)
         out["g_rail_frac"] = sum(rail) / len(rail)
@@ -171,8 +176,9 @@ class AnalogTrainStep:
 
     def _update_container(self, p, tapes, seed_base, path, rail):
         """The paper's Fig. 3c parallel write: one kernel launch per
-        container over its (L, tiles) grid, its write noise from the
-        counter PRNG."""
+        container over its (L, tiles) grid (an expert stack's (E * L,
+        tiles), expert dim outermost), its write noise from the counter
+        PRNG, with the tapes' code scales per flattened matrix."""
         kind = registry.classify(path)
         dev = self.xcfg.device
         seed = None if seed_base is None else container_seed(seed_base, path)

@@ -217,3 +217,108 @@ def test_kernel_source_is_built_for_hopper():
     assert "__fdiv_rn" in src and "__fsqrt_rn" in src
     assert "#include <cublas" not in src
     assert {"fakequant", "fakequant_epilogue"} <= set(K.LAUNCHES)
+
+
+# --------------------------------------------------------------------------
+# The lead-dim (expert-stack) read: x (E, T, K) through w (E, K, N)
+# --------------------------------------------------------------------------
+
+def _stack_operands(e, t, k, n, exact, seed=3):
+    """E experts' operands; the float class with experts of very different
+    magnitudes (1e-3 to 1e2) and one all-zero expert."""
+    if exact:
+        pairs = [_exact_operands((), t, k, n, seed + i) for i in range(e)]
+        x, w = (np.stack(a) for a in zip(*pairs))
+        x[1] = 0.0
+        return x, w
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((e, t, k)).astype(np.float32)
+    x *= np.float32([1e-3, 0.0, 1.0, 1e2])[:e, None, None]
+    w = (rng.standard_normal((e, k, n)) / np.sqrt(k)).astype(np.float32)
+    return x, w
+
+
+def _reference_vmap(x, w, rows, jimpl):
+    """The reference's expert read: ``fakequant_project`` vmapped over the
+    experts (``repro.models.layers.expert_project``)."""
+    import jax
+    return np.asarray(jax.vmap(lambda xe, we: jax_fakequant(
+        xe, we, JAdc(), rows, impl=jimpl))(jnp.asarray(x), jnp.asarray(w)))
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("t,k,n,rows", [(8, 40, 16, 16), (5, 37, 32, 16)])
+def test_lead_dim_read_matches_reference_vmap(t, k, n, rows, exact):
+    """``fakequant_read`` and ``fakequant_project`` on an expert stack
+    against the reference's vmap: one DAC scale per expert, the all-zero
+    expert exactly 0; bit-equal in the exact class, 1e-5 of each expert's
+    largest output otherwise; the plain lead-dim version equal to the
+    per-expert loop of ``_fakequant_plain`` bit for bit."""
+    x, w = _stack_operands(4, t, k, n, exact)
+    want = _reference_vmap(x, w, rows, "jnp")
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    read = K.fakequant_read(tx, tw, AdcConfig(), rows).numpy()
+    proj = ops.fakequant_project(tx, tw, AdcConfig(), rows).numpy()
+    sc = K.fakequant_scale(tx, 127)
+    assert sc.shape == (4,) and float(sc[1]) == np.float32(1e-12 / 127)
+    loop = np.stack([K._fakequant_plain(tx[i], tw[i], sc[i:i + 1],
+                                        AdcConfig(), rows).numpy()
+                     for i in range(4)])
+    np.testing.assert_array_equal(read, loop)
+    np.testing.assert_array_equal(
+        K._fakequant_plain_lead(tx, tw, sc, AdcConfig(), rows).numpy(), loop)
+    assert np.all(read[1] == 0) and np.all(proj[1] == 0)
+    if exact:
+        np.testing.assert_array_equal(read, want)
+        np.testing.assert_array_equal(proj, want)
+        for i in range(4):
+            np.testing.assert_array_equal(K._fakequant_tc_plain(
+                tx[i], tw[i], sc[i:i + 1], AdcConfig(), rows).numpy(),
+                want[i])
+        return
+    scale = np.abs(want).max(axis=(1, 2), keepdims=True) + 1e-30
+    for got in (read, proj):
+        assert (np.abs(got - want) <= 1e-5 * scale).all()
+    interp = _reference_vmap(x, w, rows, "interpret")
+    assert (np.abs(read - interp) <= 1e-5 * scale).all()
+
+
+def test_lead_dim_kernel_path_needs_the_card():
+    """An expert stack on the CPU never reaches the kernel: the kernel's
+    wrapper raises, the dispatch takes the plain version and counts no
+    launch; mismatched lead dims raise."""
+    x, w = (torch.from_numpy(a) for a in _stack_operands(4, 8, 40, 16,
+                                                         False))
+    with pytest.raises(ValueError, match="CUDA"):
+        K._fakequant_cuda(x, w, AdcConfig(), 16)
+    before = dict(K.LAUNCHES)
+    K.fakequant_read(x, w, AdcConfig(), 16)
+    assert K.LAUNCHES == before
+    with pytest.raises(ValueError, match="not"):
+        K.fakequant_read(x, w[:3], AdcConfig(), 16)
+    with pytest.raises(ValueError, match="match"):
+        K._fakequant_cuda(x, w[:3], AdcConfig(), 16)
+
+
+def test_lead_dim_read_under_autograd_is_the_eager_vjp():
+    """The expert read's gradient (QAT on MoE) is the reference's: the
+    eager expression per expert, ``jax.grad`` of its vmap, within 1e-5."""
+    import jax
+    x, w = _stack_operands(4, 8, 40, 16, False)
+    dy = np.random.default_rng(4).standard_normal((4, 8, 16)).astype(
+        np.float32)
+    jgx, jgw = jax.grad(lambda a, b: jnp.sum(jax.vmap(
+        lambda xe, we: jax_fakequant(xe, we, JAdc(), 16))(a, b) * dy),
+        argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tw = torch.from_numpy(w).requires_grad_(True)
+    (ops.fakequant_project(tx, tw, AdcConfig(), 16)
+     * torch.from_numpy(dy)).sum().backward()
+    dx, dw = ops._fakequant_vjp(tx.detach(), tw.detach(),
+                                torch.from_numpy(dy), AdcConfig(), 16)
+    torch.testing.assert_close(tx.grad, dx, rtol=0, atol=0)
+    torch.testing.assert_close(tw.grad, dw, rtol=0, atol=0)
+    for got, want in ((tx.grad, jgx), (tw.grad, jgw)):
+        want = np.asarray(want)
+        assert np.linalg.norm(got.numpy() - want) <= \
+            1e-5 * np.linalg.norm(want)

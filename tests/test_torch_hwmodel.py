@@ -211,6 +211,52 @@ def test_analog_train_step_records_its_cost():
 
 
 def test_non_dense_families_raise():
-    cfg = get_config("lm100m").replace(family="moe")
+    """The families still unported (SSM here) raise; MoE is ported."""
+    cfg = get_config("lm100m").replace(family="ssm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         arch_cost.digital_macs_per_token(cfg, 16)
+    moe = get_config("llama4-scout-17b-a16e")
+    assert arch_cost.digital_macs_per_token(moe, 16) == \
+        J_arch.digital_macs_per_token(jax_config("llama4-scout-17b-a16e"), 16)
+
+
+@pytest.mark.parametrize("mode", ["device", "digital"])
+def test_llama4_scout_cost_equals_the_reference(mode):
+    """The MoE family's roll-up at full size: each expert stack counted
+    layers x experts arrays, active ``top_k / n_experts``; the
+    projections, ``analyze_arch``, the energy per token and a training
+    step's cost equal the reference's."""
+    kw = DEVICE if mode == "device" else {}
+    cfg = get_config("llama4-scout-17b-a16e").replace(**kw)
+    jcfg = jax_config("llama4-scout-17b-a16e").replace(**kw)
+    got = arch_cost.model_projections(cfg)
+    assert sorted(dataclasses.astuple(p) for p in got) == sorted(
+        dataclasses.astuple(p) for p in J_arch.model_projections(jcfg))
+    experts = [p for p in got if "experts" in p.name]
+    assert len(experts) == 3 and all(
+        p.count == 48 * 16 and p.active == 1 / 16 for p in experts)
+    assert dataclasses.asdict(arch_cost.analyze_arch(cfg)) == \
+        dataclasses.asdict(J_arch.analyze_arch(jcfg))
+    assert arch_cost.serve_energy_per_token(cfg) == \
+        J_arch.serve_energy_per_token(jcfg)
+    if mode == "device":
+        assert arch_cost.train_step_cost(cfg, n_tokens=2048, ctx_len=256) \
+            == J_arch.train_step_cost(jcfg, n_tokens=2048, ctx_len=256)
+
+
+def test_moe_engine_energy_per_token_equals_the_reference():
+    """``Engine.energy_per_token`` of a MoE engine (the llama4-scout smoke
+    model from crossbars) is the reference's number."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve import make_engine
+    kw = dict(dtype="float32", analog=True, analog_mode="device",
+              analog_device="taox-nonoise", analog_rows=16, analog_cols=16)
+    cfg = get_config("llama4-scout-17b-a16e", smoke=True).replace(**kw)
+    params = M.program_digital(M.init_params(cfg.digital(),
+                                             torch.Generator(), "cpu"), cfg)
+    engine = make_engine(cfg, params, backend="analog")
+    jcfg = jax_config("llama4-scout-17b-a16e", smoke=True).replace(**kw)
+    assert engine.energy_per_token() == J_arch.serve_energy_per_token(jcfg)
+    assert engine.energy_per_token(256) == \
+        J_arch.serve_energy_per_token(jcfg, ctx_len=256)

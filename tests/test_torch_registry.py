@@ -1,4 +1,6 @@
-"""The registry's dense family in the port against the JAX package:
+"""The registry's dense family in the port against the JAX package (the
+MoE config's fields are held here too; its model in
+``tests/test_torch_moe.py``):
 gemma-2b (MQA, GeGLU, head_dim 256, tied embeddings), stablelm-3b
 (head_dim 80 at full size), starcoder2-3b (GQA kv=2, GELU, not gated,
 rope_theta 1e5) and granite-20b (MQA, GELU, not gated), each as its
@@ -57,7 +59,8 @@ from repro_torch.train import analog_lm as TA
 from test_torch_forward_flips import _one_lsb_per_k_tile
 
 DENSE = ["gemma-2b", "stablelm-3b", "starcoder2-3b", "granite-20b"]
-UNPORTED = sorted(set(J_ARCHS) - set(DENSE) - {"lm100m"})
+MOE = ["llama4-scout-17b-a16e"]
+UNPORTED = sorted(set(J_ARCHS) - set(DENSE) - set(MOE) - {"lm100m"})
 # the (arch, mode) pairs whose forward flips an ADC code at PRNGKey(0)
 FLIPS = {("starcoder2-3b", "device")}
 MODES = {
@@ -105,7 +108,7 @@ def _no_remat():
 # ------------------------------------------------------------------ configs
 
 @pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch", DENSE + ["lm100m"])
+@pytest.mark.parametrize("arch", DENSE + MOE + ["lm100m"])
 def test_config_matches_reference(arch, smoke):
     got, want = get_config(arch, smoke), jax_config(arch, smoke)
     for f in dataclasses.fields(got):
@@ -120,7 +123,7 @@ def test_unported_archs_raise(arch):
 
 
 def test_make_smoke_matches_reference_with_overrides():
-    for arch in DENSE:
+    for arch in DENSE + MOE:
         got = make_smoke(get_config(arch), n_layers=1, vocab=512)
         want = jbase.make_smoke(jax_config(arch), n_layers=1, vocab=512)
         for f in dataclasses.fields(got):
@@ -128,6 +131,11 @@ def test_make_smoke_matches_reference_with_overrides():
     assert make_smoke(get_config("gemma-2b")).n_kv_heads == 1
     assert make_smoke(get_config("starcoder2-3b")).n_kv_heads == 2
     assert make_smoke(get_config("stablelm-3b")).n_kv_heads == 4
+    moe = make_smoke(get_config("llama4-scout-17b-a16e"), top_k=2)
+    j_moe = jbase.make_smoke(jax_config("llama4-scout-17b-a16e"), top_k=2)
+    assert (moe.n_experts, moe.top_k, moe.d_ff_expert) == (8, 2, 64)
+    for f in dataclasses.fields(moe):
+        assert getattr(moe, f.name) == getattr(j_moe, f.name), f.name
 
 
 # ------------------------------------------------------------------ forward

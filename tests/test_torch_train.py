@@ -340,8 +340,14 @@ def test_registry_dense_rows_match_reference():
         for a, b in zip(jout[:4], tout[:4]):
             np.testing.assert_array_equal(b.numpy(), np.asarray(a))
         np.testing.assert_array_equal(tout[4](tout[0]).numpy(), arrs["g"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.tape_lead(("layers", "moe", "experts", "w_up"), CFG, 16)
+    # an expert-batched container tapes its capacity, as the reference's
+    moe = get_config("llama4-scout-17b-a16e", smoke=True)
+    j_moe = jax_config("llama4-scout-17b-a16e", smoke=True)
+    for n in (16, 2048):
+        assert treg.tape_lead(("layers", "moe", "experts", "w_up"), moe,
+                              n) == jreg.tape_lead(
+            ("layers", "moe", "experts", "w_up"), j_moe, n) \
+            == (treg.expert_capacity(n, moe),)
 
 
 def test_validate_device_params_rejects_digital_projections():

@@ -83,6 +83,20 @@ def test_field_normals_close(tile):
     assert abs(float(port.std()) - 1.0) < 0.05
 
 
+def test_field_normals_offsets_slice_the_larger_field():
+    """A block of layers 2:4, row tiles 1:3 and column tiles 2:4 with
+    ``tile_offsets`` gets that slice of the whole field bit for bit, and
+    the reference's offset field within 1e-6."""
+    cfg = CrossbarConfig(rows=16, cols=16)
+    full = U.field_normals(1234, (4, 64, 64), cfg)
+    part = U.field_normals(1234, (2, 32, 32), cfg, (2, 1, 2))
+    assert torch.equal(part, full[2:4, 16:48, 32:64])
+    ref = np.asarray(JU.field_normals(jnp.uint32(1234), (2, 32, 32),
+                                      JXbar(rows=16, cols=16),
+                                      tile_offsets=(2, 1, 2)))
+    np.testing.assert_allclose(part.numpy(), ref, rtol=0, atol=1e-6)
+
+
 def _g_and_request(seed=0, shape=(24, 20)):
     rng = np.random.default_rng(seed)
     g = rng.uniform(0.0, 1.0, shape).astype(np.float32)
