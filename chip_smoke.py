@@ -223,7 +223,9 @@ any gate fails:
    state every read against the plain version on its own operands
    (phase 8's bound) and the loss gradient within 1e-4 relative in
    2-norm per leaf of the eager graph's carrying the kernel's forward
-   values; finite losses.  The gradient of the free-running eager
+   values; the backward's recomputed ADC lsb (``kernels.ops._adc_lsb``,
+   48 ranges a step) equal to the float32 division ``sat / out_levels``
+   bit for bit; finite losses.  The gradient of the free-running eager
    forward and the code flips between the two forwards are reported:
    the reference's gradient has no straight-through estimator, so an
    activation's gradient reaches it only through the DAC scale's argmax
@@ -260,8 +262,40 @@ any gate fails:
    against its plain version (phase 7's classes); routed pairs dropped
    by capacity, the profiled step by kernel, peak memory.
 
-Every read's DAC scale (phases 1, 3, 4, 7, 14, 15, 16, 18) must equal
-the float32 division ``max|x| / in_levels`` bit for bit.
+19. MLA: deepseek-v2-lite-16b at full width (d 2048, 16 heads, q/k head
+   192 = 128 nope + 64 rope, v head 128, kv_lora 512; 64 experts of 2048
+   x 1408, top-6, two shared experts; vocab 102400), random weights from
+   torch.Generator seed 0.  (a) 4 of 27 layers from expert-batched
+   ``taox-nonoise`` 64x64 crossbars with phase 15's serving settings
+   (``max_len`` 64), 16 greedy tokens: 9 reads a layer a call (wq,
+   wkv_a, wkv_b, wo, the shared w_upgate and w_down, the three (64, K,
+   N) expert stacks), ``wkv_b`` on the tensor-core instance (it
+   re-expands the whole latent cache: 64 rows a prefill chunk, 4 x 64 a
+   decode call), the rest on the FP32 instance with its K-order sum; one
+   scheduler tick (a prefill chunk and a decode call) with every read
+   held on its own operands one expert at a time, each ``wkv_b`` read B
+   x ``max_len`` rows on the tensor cores, an expert with no token
+   reading exact zeros; the chunk's logits against a CPU run with the
+   card's reads and routing replayed, within 1e-3.  Tokens/s, the share
+   of expert reads with an all-zero buffer, the profiled decode step and
+   the expert reads' CUDA-event time against their bytes, resident and
+   peak memory.  (b) the same depth in fakequant mode served as (a): 9
+   fakequant reads a layer a call, one launch of each kernel a read,
+   ``wkv_b`` at decode (256 tokens) on the tensor-core instance, no
+   plain version; a (4, 12) prefill, a decode step and a decode step
+   with ``REPRO_MLA_ABSORB=1`` (no ``wkv_b`` read; the variable restored
+   after it), every read held per lead matrix, the three calls' logits
+   against a CPU run with the card's reads and routing replayed, within
+   1e-3.  (c) one device-mode training step (TaOx, lr 0.1, 8 x 256
+   tokens, capacity 240) at 2 layers, as 18(c): 9 + 9 tensor-core reads
+   a layer, 9 tensor-core writes (3 over (64 L, K, N) expert stacks),
+   every read per expert and every write per flattened layer against its
+   plain version.
+
+Every phase prints its wall seconds on a line of its own.
+
+Every read's DAC scale (phases 1, 3, 4, 7, 14, 15, 16, 18, 19) must
+equal the float32 division ``max|x| / in_levels`` bit for bit.
 
 The second-to-last line is a JSON object with each kernel's launches,
 error and times; the last is ``{"ok": true, "device": {...}}``.  Details
@@ -271,6 +305,7 @@ import collections
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1910,17 +1945,17 @@ def phase_fq_serve(M, K, OPS, make_engine, SamplingParams, fcfg, prompts,
 
 
 def profile_decode_step(M, cfg, params, what="fakequant",
-                        keys=("fakequant_",)):
-    """Device time of one decode step (B = 4) by kernel, from
-    torch.profiler, beside its unprofiled wall time, and the share of the
-    kernels whose names contain one of ``keys`` (``what``): reported
-    only."""
+                        keys=("fakequant_",), max_len=32):
+    """Device time of one decode step (B = 4, a cache of ``max_len``) by
+    kernel, from torch.profiler, beside its unprofiled wall time, and the
+    share of the kernels whose names contain one of ``keys`` (``what``):
+    reported only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, (4, 12))).cuda()
     with torch.no_grad():
-        logits, cache = M.prefill(params, {"tokens": toks}, cfg, 32)
+        logits, cache = M.prefill(params, {"tokens": toks}, cfg, max_len)
         tok = logits.argmax(-1)
         for _ in range(2):
             logits, cache = M.decode_step(params, cache, tok, cfg)
@@ -3159,13 +3194,16 @@ def tree_get(tree, path):
     return tree
 
 
-def timed_serve(K, engine, prompts, sp, cfg, what, per_layer=4):
+def timed_serve(K, engine, prompts, sp, cfg, what, per_layer=4,
+                tc_per_layer=0):
     """One ``generate`` with the read counts set to 0 just before and read
     just after.  Gates: ``per_layer`` reads per layer per model call (4 for
-    the dense family, 7 for MoE: its three expert stacks read once each),
-    every one on the FP32 instance with its K-order sum (decode and
-    16-token prefill chunks; every K spans several 64-row tiles), no
-    transpose read, full outputs in the vocabulary."""
+    the dense family, 7 for MoE: its three expert stacks read once each,
+    9 with MLA), ``tc_per_layer`` of them on the tensor-core instance with
+    its pre-pass and range pass (MLA's ``wkv_b``, which reads the whole
+    cache), every other one on the FP32 instance with its K-order sum
+    (decode and 16-token prefill chunks; every K spans several 64-row
+    tiles), no transpose read, full outputs in the vocabulary."""
     for name in K.LAUNCHES:
         K.LAUNCHES[name] = 0
     torch.cuda.synchronize()
@@ -3178,8 +3216,10 @@ def timed_serve(K, engine, prompts, sp, cfg, what, per_layer=4):
     reads = K.LAUNCHES["fused_vmm"]
     by_kernel = read_kernel_launches([K.LAUNCHES], "vmm")
     n_tok = sum(len(o) for o in outs)
-    want = {k: 0 for k in by_kernel}
-    want["fused_read_tile_kernel"] = want["reduce_tiles_kernel"] = reads
+    tc = tc_per_layer * cfg.n_layers * calls
+    want = {"fused_read_tile_kernel": reads - tc,
+            "reduce_tiles_kernel": reads - tc, "read_prepare_kernel": tc,
+            "tc_range_kernel": tc, "tc_read_kernel": tc}
     if reads != per_layer * cfg.n_layers * calls or calls == 0 \
             or by_kernel != want or K.LAUNCHES["fused_mvm"]:
         fail(f"{what}: {reads} reads in {calls} model calls, launches "
@@ -3475,6 +3515,33 @@ def counting_fq_paths(K, OPS, calls):
             plain, eager, vjp)
 
 
+@contextlib.contextmanager
+def recording_lsbs(OPS, lsbs):
+    """Record every output-ADC range the fakequant eager expression forms
+    (``kernels.ops._adc_lsb``: ``(sat, lsb, out_levels)``); in a QAT step
+    on the card only the backward's recomputation forms them."""
+    adc_lsb = OPS._adc_lsb
+
+    def recorded(q, adc):
+        sat, lsb = adc_lsb(q, adc)
+        lsbs.append((sat.detach().clone(), lsb.detach().clone(),
+                     adc.out_levels))
+        return sat, lsb
+    OPS._adc_lsb = recorded
+    try:
+        yield
+    finally:
+        OPS._adc_lsb = adc_lsb
+
+
+def lsb_division_ok(sat, lsb, out_levels):
+    """The recomputed ADC lsb equals the float32 division ``sat /
+    out_levels`` bit for bit (numpy's IEEE division on the host), as
+    :func:`dac_scale_ok` holds the DAC scale."""
+    want = sat.cpu().numpy() / np.float32(out_levels)
+    return bool(np.array_equal(lsb.cpu().numpy(), want))
+
+
 def loss_grads(M, TO, params, batch, cfg):
     """The loss and its gradient per leaf path."""
     leaves = TO.tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -3511,12 +3578,23 @@ def phase_qat(K, OPS, M, TL, TO, syn, get_config, report):
     reads = []
     for name in K.LAUNCHES:
         K.LAUNCHES[name] = 0
-    with recording_fq(K, reads):
+    lsbs = []
+    with recording_fq(K, reads), recording_lsbs(OPS, lsbs):
         loss_k, grads_k = loss_grads(M, TO, state["params"], batch, cfg)
     torch.cuda.synchronize()
     if K.LAUNCHES["fakequant"] != per or len(reads) != per:
         fail(f"QAT gradient pass made {K.LAUNCHES['fakequant']} fakequant "
              f"reads; expected {per}")
+    # the backward's recomputed ADC lsb: the float32 division, bit for bit
+    if len(lsbs) != per or not all(lsb.is_cuda for _, lsb, _ in lsbs):
+        fail(f"the QAT backward formed {len(lsbs)} ADC ranges on the card; "
+             f"expected {per}")
+    lsb_values = sum(lsb.numel() for _, lsb, _ in lsbs)
+    for sat, lsb, levels in lsbs:
+        if not lsb_division_ok(sat, lsb, levels):
+            fail("the QAT backward's recomputed ADC lsb differs from the "
+                 "float32 division sat / out_levels")
+    del lsbs
     resolve, eager = OPS.resolve_impl, OPS._fakequant_eager
     replay = iter([r[5] for r in reads])
 
@@ -3599,6 +3677,7 @@ def phase_qat(K, OPS, M, TL, TO, syn, get_config, report):
            "loss_kernel_vs_replayed_eager": abs(float(loss_k)
                                                 - float(loss_r)),
            "code_flips": flips, "reads_max_err_over_bound": worst_fq,
+           "backward_lsbs_bit_equal": lsb_values,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     report(res)
     print(f"phase 17: QAT, lm100m at full width, 4 steps of 8 x 256 tokens "
@@ -3609,7 +3688,8 @@ def phase_qat(K, OPS, M, TL, TO, syn, get_config, report):
           f"read bound at most); gradient vs the eager graph carrying the "
           f"kernel's values {worst:.3g} relative at most; vs the free "
           f"eager forward {max(free_rel.values()):.3g} ({flips} code flips "
-          f"between the two forwards); peak "
+          f"between the two forwards); the backward's {lsb_values} ADC "
+          f"lsbs equal the float32 division; peak "
           f"{res['peak_memory_gb']:.2f} GB")
     return res
 
@@ -3627,6 +3707,12 @@ MOE_READS = 7
 #: updated copies, and the new conductances of every container (17.6 GB)
 #: before the write's transients: more than the card's 80 GB.
 MOE_TRAIN_LAYERS = 1
+
+
+def moe_reads(cfg):
+    """Crossbar (or fakequant) reads of one MoE layer per model call:
+    ``MOE_READS``, or ``MLA_READS`` with MLA attention."""
+    return MLA_READS if cfg.use_mla else MOE_READS
 
 
 @contextlib.contextmanager
@@ -3671,11 +3757,15 @@ def meta_containers(params):
     return params.cpu()
 
 
-def moe_replay_cpu(M, TT, TMoE, cfg, cpu_params, toks, reads, routes):
-    """Prefill logits of ``toks`` on the CPU with the card's read results
-    (``reads``) and routing choices (``routes``) replayed; returns the
-    logits and how many (token, k) routing choices of the CPU's own router
-    differed from the card's."""
+def moe_replay_cpu(M, TT, TMoE, cfg, cpu_params, toks, reads, routes,
+                   run=None, OPS=None):
+    """Logits on the CPU with the card's read results (``reads``) and
+    routing choices (``routes``) replayed: by default the prefill of
+    ``toks``, else ``run(cpu_params)``; crossbar reads replace
+    ``core.tiled_analog.vmm``, or with ``OPS`` (``kernels.ops``) fakequant
+    reads replace its eager expression.  Returns the logits and how many
+    (token, k) routing choices of the CPU's own router differed from the
+    card's."""
     read_it, route_it = iter(reads), iter(routes)
     flips = [0]
     route = TMoE.route
@@ -3685,6 +3775,9 @@ def moe_replay_cpu(M, TT, TMoE, cfg, cpu_params, toks, reads, routes):
         want = (*x.shape[:-1], g.shape[-1])
         return y.cpu().reshape(want)
 
+    def replay_fq(x, w, adc, rows):
+        return next(read_it)[5].cpu().reshape(*x.shape[:-1], w.shape[-1])
+
     def replay_route(p, xt, c):
         probs, _, top_i = route(p, xt, c)
         card_i = next(route_it)[2].cpu()
@@ -3693,23 +3786,33 @@ def moe_replay_cpu(M, TT, TMoE, cfg, cpu_params, toks, reads, routes):
         top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
         return probs, top_p, card_i
 
-    vmm, TT.vmm, TMoE.route = TT.vmm, replay_read, replay_route
+    if run is None:
+        def run(p):
+            return M.prefill(p, {"tokens": toks.cpu()}, cfg, 64)[0]
+    vmm, TMoE.route = TT.vmm, replay_route
+    eager = OPS._fakequant_eager if OPS is not None else None
+    if OPS is not None:
+        OPS._fakequant_eager = replay_fq
+    else:
+        TT.vmm = replay_read
     try:
         with torch.no_grad():
-            logits, _ = M.prefill(cpu_params, {"tokens": toks.cpu()}, cfg,
-                                  64)
+            logits = run(cpu_params)
     finally:
         TT.vmm, TMoE.route = vmm, route
+        if OPS is not None:
+            OPS._fakequant_eager = eager
     if next(read_it, None) is not None or next(route_it, None) is not None:
         fail("the CPU replay made fewer reads or routing calls than the "
              "card")
     return logits, flips[0]
 
 
-def expert_read_ms(K, M, cfg, params, n_experts):
+def expert_read_ms(K, M, cfg, params, n_experts, max_len=32):
     """CUDA-event time of the expert-stack reads of one decode step (B =
-    4), the events around each launch of the read (its kernels back to
-    back on the stream), and their g + ref bytes against the HBM rate."""
+    4, a cache of ``max_len``), the events around each launch of the read
+    (its kernels back to back on the stream), and their g + ref bytes
+    against the HBM rate."""
     read_cuda = K._read_cuda
     spans = []
 
@@ -3725,7 +3828,7 @@ def expert_read_ms(K, M, cfg, params, n_experts):
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, (4, 12))).cuda()
     with torch.no_grad():
-        logits, cache = M.prefill(params, {"tokens": toks}, cfg, 32)
+        logits, cache = M.prefill(params, {"tokens": toks}, cfg, max_len)
         tok = logits.argmax(-1)
         logits, cache = M.decode_step(params, cache, tok, cfg)
         K._read_cuda = timed
@@ -3955,16 +4058,18 @@ def phase_moe_fq_kernel(K, AdcConfig, report):
     return rows
 
 
-def phase_moe_fq_serve(M, K, OPS, TMoE, make_engine, SamplingParams,
-                       get_config, report):
-    """Phase 18(b): llama4-scout at full width, 2 layers, served in
-    fakequant mode (digital weights behind the crossbar's DAC and ADC)."""
-    torch.cuda.empty_cache()   # the earlier phases' cached blocks
-    cfg = get_config(MOE_ARCH).replace(n_layers=2, dtype="float32",
-                                       analog=True, analog_mode="fakequant")
+def fq_serve_timed(M, K, OPS, make_engine, SamplingParams, cfg, what):
+    """``cfg`` (fakequant, random weights from torch.Generator seed 0)
+    served by the continuous scheduler with phase 2's settings, 16 greedy
+    tokens, the launch counts set to 0 just before and read just after.
+    Gates: ``moe_reads(cfg)`` fakequant reads a layer a call, 3 of them of
+    expert stacks, each read one launch of each of its instance's three
+    kernels: the FP32 instance, but for MLA's ``wkv_b`` at decode (B x
+    max_len = 256 tokens of the latent cache: the tensor-core instance);
+    no plain version on the card.  Returns ``(engine, params, prompts,
+    figures)``."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    torch.cuda.reset_peak_memory_stats()
     params = M.init_params(cfg, gen, device="cuda")
     engine = make_engine(cfg, params, n_slots=4, prefill_chunk=16,
                          max_len=64)
@@ -3994,32 +4099,39 @@ def phase_moe_fq_serve(M, K, OPS, TMoE, make_engine, SamplingParams,
     calls = m["prefill_chunks"] + m["decode_steps"]
     launches = dict(K.LAUNCHES)
     reads = launches["fakequant"]
+    tc = m["decode_steps"] * cfg.n_layers if cfg.use_mla else 0
     by_kernel = {name: launches[c] for name, c in FQ_KERNELS.items()}
-    want = {"fakequant_scale_kernel": reads, "fakequant_prepare_kernel": 0,
-            "fakequant_fp32_kernel": reads, "fakequant_tc_kernel": 0,
+    want = {"fakequant_scale_kernel": reads - tc,
+            "fakequant_prepare_kernel": tc,
+            "fakequant_fp32_kernel": reads - tc, "fakequant_tc_kernel": tc,
             "fakequant_epilogue_kernel": reads}
     n_tok = sum(len(o) for o in outs)
-    if reads != MOE_READS * cfg.n_layers * calls or calls == 0 \
+    per_layer = moe_reads(cfg)
+    if reads != per_layer * cfg.n_layers * calls or calls == 0 \
             or by_kernel != want \
             or len(stack_reads) != 3 * cfg.n_layers * calls:
-        fail(f"llama4-scout fakequant serving: {reads} reads ("
-             f"{len(stack_reads)} of expert stacks) in {calls} calls, "
-             f"launches {by_kernel}; expected {MOE_READS * cfg.n_layers} "
-             f"a call, 3 a layer of expert stacks, each read one launch "
-             f"of each kernel {want}")
+        fail(f"{what}: {reads} reads ({len(stack_reads)} of expert stacks) "
+             f"in {calls} calls, launches {by_kernel}; expected "
+             f"{per_layer * cfg.n_layers} a call, 3 a layer of expert "
+             f"stacks, each read one launch of each kernel {want}")
     if plain_calls:
-        fail(f"llama4-scout fakequant serving called a plain version "
-             f"{len(plain_calls)} times on the card")
+        fail(f"{what} called a plain version {len(plain_calls)} times on "
+             "the card")
     if [len(o) for o in outs] != [16] * 4 or \
             not all(0 <= t < cfg.vocab for o in outs for t in o):
-        fail(f"llama4-scout fakequant: bad outputs {outs}")
-    # a prefill and a decode call, every read on its own operands
-    recorded = []
-    toks = torch.tensor([prompts[0]], device="cuda")
-    with torch.no_grad(), recording_fq(K, recorded):
-        logits, cache = M.prefill(params, {"tokens": toks}, cfg, 64)
-        M.decode_step(params, cache, logits.argmax(-1), cfg)
-    torch.cuda.synchronize()
+        fail(f"{what}: bad outputs {outs}")
+    return engine, params, prompts, {
+        "tokens": n_tok, "seconds": dt, "tokens_per_s": n_tok / dt,
+        "model_calls": calls, "reads": reads, "tensor_core_reads": tc,
+        "stack_reads": len(stack_reads), "launches_by_kernel": by_kernel,
+        "plain_calls": len(plain_calls)}
+
+
+def check_fq_reads(K, recorded, what):
+    """Every recorded fakequant read (``recording_fq``) against the plain
+    version on the card on its own operands, one lead matrix (expert) at
+    a time: its DAC scales bit-equal to ``fakequant_scale``, phase 8's
+    bound, and an all-zero buffer read as exact zeros."""
     worst = {"max_abs_err": 0.0, "max_err_over_bound": 0.0,
              "zero_experts": 0, "stack_reads": 0}
     for x, w, sc, adc, rows, y in recorded:
@@ -4028,8 +4140,7 @@ def phase_moe_fq_serve(M, K, OPS, TMoE, make_engine, SamplingParams,
         else:
             worst["stack_reads"] += 1
         if not torch.equal(sc, K.fakequant_scale(x, adc.in_levels)):
-            fail("llama4-scout fakequant: a read's DAC scales differ from "
-                 "fakequant_scale")
+            fail(f"{what}: a read's DAC scales differ from fakequant_scale")
         for i in range(x.shape[0]):
             y_p = K._fakequant_plain(x[i], w[i], sc[i:i + 1], adc, rows)
             if not x[i].any():
@@ -4042,41 +4153,62 @@ def phase_moe_fq_serve(M, K, OPS, TMoE, make_engine, SamplingParams,
             worst["max_err_over_bound"] = max(worst["max_err_over_bound"],
                                               over)
             if not ok:
-                fail(f"llama4-scout fakequant: a read (x {tuple(x.shape)}) "
-                     f"disagrees with the plain version at lead {i}: err "
-                     f"{err}, {over} of the bound")
+                fail(f"{what}: a read (x {tuple(x.shape)}) disagrees with "
+                     f"the plain version at lead {i}: err {err}, {over} of "
+                     "the bound")
+    return worst
+
+
+def phase_moe_fq_serve(M, K, OPS, TMoE, make_engine, SamplingParams,
+                       get_config, report):
+    """Phase 18(b): llama4-scout at full width, 2 layers, served in
+    fakequant mode (digital weights behind the crossbar's DAC and ADC)."""
+    torch.cuda.empty_cache()   # the earlier phases' cached blocks
+    cfg = get_config(MOE_ARCH).replace(n_layers=2, dtype="float32",
+                                       analog=True, analog_mode="fakequant")
+    torch.cuda.reset_peak_memory_stats()
+    engine, params, prompts, serve = fq_serve_timed(
+        M, K, OPS, make_engine, SamplingParams, cfg,
+        "llama4-scout fakequant serving")
+    # a prefill and a decode call, every read on its own operands
+    recorded = []
+    toks = torch.tensor([prompts[0]], device="cuda")
+    with torch.no_grad(), recording_fq(K, recorded):
+        logits, cache = M.prefill(params, {"tokens": toks}, cfg, 64)
+        M.decode_step(params, cache, logits.argmax(-1), cfg)
+    torch.cuda.synchronize()
+    worst = check_fq_reads(K, recorded, "llama4-scout fakequant")
     if worst["stack_reads"] != 2 * 3 * cfg.n_layers \
             or worst["zero_experts"] < 1:
         fail(f"llama4-scout fakequant probe: {worst}")
     res = {"config": MOE_ARCH, "cut": "2 of 48 layers, full widths",
-           "tokens": n_tok, "seconds": dt, "tokens_per_s": n_tok / dt,
-           "model_calls": calls, "reads": reads,
-           "stack_reads": len(stack_reads), "launches_by_kernel": by_kernel,
-           "plain_calls": len(plain_calls), "probe": worst,
+           **serve, "probe": worst,
            "profile": profile_decode_step(M, cfg, params),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     report(res)
     print(f"phase 18(b): llama4-scout fakequant served "
-          f"{res['tokens_per_s']:.1f} tokens/s ({reads} reads, "
-          f"{len(stack_reads)} of expert stacks, one launch of each kernel "
-          f"a read: {by_kernel}; no plain version); probe reads agree "
-          f"({worst['max_err_over_bound']:.3f} of the bound, "
-          f"{worst['zero_experts']} all-zero experts exact); peak "
+          f"{res['tokens_per_s']:.1f} tokens/s ({res['reads']} reads, "
+          f"{res['stack_reads']} of expert stacks, one launch of each "
+          f"kernel a read: {res['launches_by_kernel']}; no plain version); "
+          f"probe reads agree ({worst['max_err_over_bound']:.3f} of the "
+          f"bound, {worst['zero_experts']} all-zero experts exact); peak "
           f"{res['peak_memory_gb']:.2f} GB")
     del engine, params
     return res
 
 
-def phase_moe_train(K, U, TA, TMoE, syn, get_config, report):
-    """Phase 18(c): one device-mode training step of llama4-scout at full
-    width, cut to ``MOE_TRAIN_LAYERS`` layer(s): TaOx, lr 0.1, 8 x 256
-    tokens (capacity 160 an expert)."""
+def phase_moe_train(K, U, TA, TMoE, syn, get_config, report,
+                    arch=MOE_ARCH, n_layers=MOE_TRAIN_LAYERS, label="18(c)"):
+    """Phase 18(c) (and 19(c)): one device-mode training step of ``arch``
+    at full width, cut to ``n_layers`` layer(s): TaOx, lr 0.1, 8 x 256
+    tokens (capacity 160 an expert for llama4-scout, 240 for
+    deepseek-v2-lite)."""
     torch.cuda.empty_cache()   # the earlier phases' cached blocks
     from repro_torch.core.analog_registry import expert_capacity
-    full = get_config(MOE_ARCH)
+    full = get_config(arch)
     cfg = full.replace(dtype="float32", analog=True, analog_mode="device",
                        analog_device="taox", analog_rows=64, analog_cols=64,
-                       n_layers=MOE_TRAIN_LAYERS)
+                       n_layers=n_layers)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
@@ -4086,17 +4218,19 @@ def phase_moe_train(K, U, TA, TMoE, syn, get_config, report):
     x, y = syn.batch_tokens(stream, 8, 256, 0)
     batch = {"tokens": torch.from_numpy(x).long().cuda(),
              "labels": torch.from_numpy(y).long().cuda()}
-    L = cfg.n_layers
+    L, per_layer = cfg.n_layers, moe_reads(cfg)
+    name = f"{arch} train step"
+    # one write a container over its stacked layers (an expert stack over
+    # its E * L matrices)
     expect = tensor_core_train_expect(
         L, fakequant=0, **dict.fromkeys(FQ_KERNELS.values(), 0),
-        outer_update=MOE_READS * L, pulse_update=0,
-        update_tc=MOE_READS * L, update_prepare=MOE_READS * L,
-        update_fp32=0)
-    for d in ("vmm", "mvm"):     # seven reads a layer, not four
+        outer_update=per_layer, pulse_update=0, update_tc=per_layer,
+        update_prepare=per_layer, update_fp32=0)
+    for d in ("vmm", "mvm"):     # seven (nine with MLA) reads a layer
         for c in READ_KERNEL_COUNTS.values():
             if expect[f"{c}_{d}"]:
-                expect[f"{c}_{d}"] = MOE_READS * L
-        expect[f"fused_{d}"] = MOE_READS * L
+                expect[f"{c}_{d}"] = per_layer * L
+        expect[f"fused_{d}"] = per_layer * L
     reads, routes = [], []
     worst_w = {"max_abs_err": 0.0, "max_err_over_twin_bound": 0.0,
                "max_allowance_share": 0.0, "writes": 0, "stack_writes": 0}
@@ -4107,7 +4241,7 @@ def phase_moe_train(K, U, TA, TMoE, syn, get_config, report):
         out = update_cuda(g, x_q, d_q, scale, noise, seed, wcfg, mode,
                           x_scale, d_scale)
         check_writes(U, [((g, x_q, d_q, scale, noise, seed, wcfg, mode,
-                           x_scale, d_scale), out)], "the llama4-scout step",
+                           x_scale, d_scale), out)], f"the {arch} step",
                      worst_w)
         worst_w["writes"] += 1
         worst_w["stack_writes"] += int(g.shape[0] == cfg.n_experts * L)
@@ -4125,24 +4259,25 @@ def phase_moe_train(K, U, TA, TMoE, syn, get_config, report):
     step_ms = 1e3 * (time.perf_counter() - t0)
     got = {**K.LAUNCHES, **U.LAUNCHES}
     if got != expect:
-        fail(f"llama4-scout train step launched {got}; expected {expect}")
-    if worst_w["stack_writes"] != 3 * L or worst_w["writes"] != MOE_READS * L:
-        fail(f"llama4-scout train step: {worst_w['writes']} writes, "
+        fail(f"{name} launched {got}; expected {expect}")
+    if worst_w["stack_writes"] != 3 or worst_w["writes"] != per_layer:
+        fail(f"{name}: {worst_w['writes']} writes, "
              f"{worst_w['stack_writes']} over (E * L, K, N) expert stacks")
     loss = float(mets["loss"])
     if not math.isfinite(loss):
-        fail(f"llama4-scout train step: loss {loss}")
+        fail(f"{name}: loss {loss}")
     peak_step_gb = torch.cuda.max_memory_allocated() / 1e9
     worst_r = check_reads(K, reads, where="cuda")
     n_reads = len(reads)
     del reads
     for path, g in tree_leaves(state["params"]):
         if path[-1] == "g" and not (g.min() >= 0 and g.max() <= 1):
-            fail(f"llama4-scout: conductances of {path} left the window")
+            fail(f"{arch}: conductances of {path} left the window")
     dropped = dropped_tokens(routes, cfg)
     prof = profile_train_step(K, U, syn, step, state, stream, gen, expect)
-    res = {"config": MOE_ARCH,
-           "cut": f"{L} of 48 layers, full widths (the training step only)",
+    res = {"config": arch,
+           "cut": f"{L} of {full.n_layers} layers, full widths (the "
+                  "training step only)",
            "loss": loss, "aux": float(mets["aux"]),
            "step_ms_recorded": step_ms, "launches": got,
            "capacity": expert_capacity(batch["tokens"].numel(), cfg),
@@ -4152,7 +4287,7 @@ def phase_moe_train(K, U, TA, TMoE, syn, get_config, report):
            "profile": prof, "peak_step_memory_gb": peak_step_gb,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     report(res)
-    print(f"phase 18(c): llama4-scout ({res['cut']}) one device-mode step, "
+    print(f"phase {label}: {arch} ({res['cut']}) one device-mode step, "
           f"8 x 256 tokens: loss {loss:.5f}, {dropped} routed pairs dropped "
           f"by capacity; {n_reads} reads ({worst_r['max_err_over_bound']:.3f}"
           f" of the bound, {worst_r['zero_leads']} all-zero experts) and "
@@ -4161,6 +4296,338 @@ def phase_moe_train(K, U, TA, TMoE, syn, get_config, report):
           f"twin's bound) agree with their plain versions; peak "
           f"{peak_step_gb:.2f} GB in the step")
     del state
+    return res
+
+
+# --------------------------------------------------------------------------
+# Phase 19: MLA (deepseek-v2-lite-16b) at full width
+# --------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v2-lite-16b"
+#: Crossbar reads an MLA MoE layer makes per model call: wq, wkv_a, wkv_b,
+#: wo, the shared experts' w_upgate and w_down, one read of each expert
+#: stack.
+MLA_READS = 9
+#: The served depth: a full-width layer holds 584.7 M cells in each of g
+#: and ref (4.68 GB) and 2.34 GB of programming targets, the embedding
+#: and head 1.68 GB: about 30 GB at 4 layers (191 GB at all 27).
+MLA_SERVE_LAYERS = 4
+#: The training step's depth: 9.4 GB of g + ref and 4.7 GB of new
+#: conductances at 2 layers, before the activations and the head.
+MLA_TRAIN_LAYERS = 2
+#: The serving cache length: every decode step re-expands B x max_len
+#: latent rows through wkv_b.
+MLA_MAX_LEN = 64
+
+
+@contextlib.contextmanager
+def recording_instances(K, instances):
+    """Record the instance every forward or transpose read ran on
+    (``"tensor_core"`` when it launched ``tc_read_kernel``, else
+    ``"fp32"``), in the order of ``recording_reads``."""
+    read_cuda = K._read_cuda
+
+    def recorded(x, g, ref, sc, cfg, transpose=False):
+        key = "tc_read_mvm" if transpose else "tc_read_vmm"
+        before = K.LAUNCHES[key]
+        y = read_cuda(x, g, ref, sc, cfg, transpose)
+        instances.append("tensor_core" if K.LAUNCHES[key] > before
+                         else "fp32")
+        return y
+
+    K._read_cuda = recorded
+    try:
+        yield
+    finally:
+        K._read_cuda = read_cuda
+
+
+@contextlib.contextmanager
+def recording_chunks(M, chunks):
+    """Record every ``models.model.prefill_chunk`` call: ``(tokens,
+    logits)``."""
+    prefill_chunk = M.prefill_chunk
+
+    def recorded(params, cache, tokens, cfg):
+        logits, cache = prefill_chunk(params, cache, tokens, cfg)
+        chunks.append((tokens.clone(), logits.detach().clone()))
+        return logits, cache
+
+    M.prefill_chunk = recorded
+    try:
+        yield
+    finally:
+        M.prefill_chunk = prefill_chunk
+
+
+@contextlib.contextmanager
+def env_set(name, value):
+    """``os.environ[name] = value`` for the block, restored after."""
+    prev = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(name)
+        else:
+            os.environ[name] = prev
+
+
+def idle_experts(routes, cfg, n_slots=4):
+    """The share of expert-stack reads whose (capacity, d) buffer was all
+    zero (an expert no routed pair reached), from the recorded routing
+    calls: over the decode calls (``n_slots`` tokens) and over all."""
+    idle = {"decode": [0, 0], "all": [0, 0]}
+    for _, _, top_i in routes:
+        n = cfg.n_experts - int(torch.unique(top_i).numel())
+        for key in ("all", "decode") if top_i.shape[0] == n_slots \
+                else ("all",):
+            idle[key][0] += n
+            idle[key][1] += cfg.n_experts
+    return {f"idle_expert_share_{k}": (a / b if b else None)
+            for k, (a, b) in idle.items()}
+
+
+def phase_mla_serve(M, K, TT, TMoE, make_engine, SamplingParams, get_config,
+                    report):
+    """Phase 19(a): deepseek-v2-lite at full width, ``MLA_SERVE_LAYERS``
+    layers, served from expert-batched crossbars (see the module
+    docstring)."""
+    torch.cuda.empty_cache()   # the earlier phases' cached blocks
+    full = get_config(MLA_ARCH)
+    cfg = device_serve_cfg(full, MLA_SERVE_LAYERS)
+    L = cfg.n_layers
+    torch.cuda.synchronize()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = make_engine(cfg, program_model(M, cfg), backend="analog",
+                         n_slots=4, prefill_chunk=16, max_len=MLA_MAX_LEN)
+    torch.cuda.synchronize()
+    program_s = time.perf_counter() - t0
+    params = engine.params
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    shapes = {("moe", "experts", "w_up"): (L, cfg.n_experts, cfg.d_model,
+                                           cfg.d_ff_expert),
+              ("attn", "wkv_b"): (L, cfg.kv_lora_rank, cfg.n_heads
+                                  * (cfg.qk_nope_dim + cfg.v_head_dim))}
+    for path, want in shapes.items():
+        got = tuple(tree_get(params["layers"], path)["g"].shape)
+        if got != want:
+            fail(f"deepseek-v2-lite container {path}: g {got}, expected "
+                 f"{want}")
+    wkv_b = shapes[("attn", "wkv_b")][1:]
+    cells = sum(v.numel() for path, v in tree_leaves(params)
+                if path[-1] == "g")
+    print(f"phase 19: deepseek-v2-lite ({L} of {full.n_layers} layers, "
+          f"full widths) programmed in {program_s:.1f} s: "
+          f"{cells / 1e9:.3f} B cells in g, {resident_gb:.2f} GB resident "
+          f"({start_gb:.2f} GB allocated before)")
+    prompts = dense_prompts(cfg, 4)
+    engine.generate(prompts[:1], SamplingParams(max_new_tokens=2))
+    routes = []
+    with recording_routes(TMoE, routes):
+        outs, serve = timed_serve(K, engine, prompts,
+                                  SamplingParams(max_new_tokens=16), cfg,
+                                  "deepseek-v2-lite serve",
+                                  per_layer=MLA_READS, tc_per_layer=1)
+    serve["dropped_pairs"] = dropped_tokens(routes, cfg)
+    serve.update(idle_experts(routes, cfg))
+    # one scheduler tick: a prefill chunk (one row) and a decode call (4
+    # slots), every read held on its own operands
+    reads, instances, routes, chunks = [], [], [], []
+    eng = engine.stream
+    eng.reset()
+    for p in prompts:
+        eng.submit(p, SamplingParams(max_new_tokens=2))
+    with torch.no_grad(), recording_reads(K, reads), \
+            recording_instances(K, instances), \
+            recording_routes(TMoE, routes), recording_chunks(M, chunks):
+        eng.step()
+    torch.cuda.synchronize()
+    if (eng.metrics["prefill_chunks"], eng.metrics["decode_steps"]) != (1, 1) \
+            or len(reads) != 2 * MLA_READS * L or len(chunks) != 1:
+        fail(f"deepseek-v2-lite: one tick made {dict(eng.metrics)}, "
+             f"{len(reads)} reads; expected a prefill chunk and a decode "
+             f"call of {MLA_READS * L} reads each")
+    while eng.has_work():
+        eng.step()
+    wkv_b_rows = []
+    for i, ((x, g, *_), inst) in enumerate(zip(reads, instances)):
+        if tuple(g.shape[1:]) != wkv_b:
+            continue
+        rows = 1 if i < MLA_READS * L else eng.n_slots
+        wkv_b_rows.append((x.shape[1], inst))
+        if x.shape[1] != rows * MLA_MAX_LEN or inst != "tensor_core":
+            fail(f"deepseek-v2-lite: a wkv_b read took {x.shape[1]} rows "
+                 f"on the {inst} instance; expected {rows} x "
+                 f"{MLA_MAX_LEN} (the whole latent cache) on the tensor "
+                 "cores")
+    if len(wkv_b_rows) != 2 * L:
+        fail(f"deepseek-v2-lite: {len(wkv_b_rows)} wkv_b reads in a tick")
+    worst = check_reads(K, reads, where="cuda")
+    worst["reads_checked"] = len(reads)
+    if worst["zero_leads"] < 1:
+        fail("deepseek-v2-lite: no expert read an all-zero buffer")
+    # the prefill chunk's logits on the CPU, reads and routing replayed
+    toks, card_logits = chunks[0]
+    cpu_params = meta_containers(params)
+    cpu_logits, route_flips = moe_replay_cpu(
+        M, TT, TMoE, cfg, cpu_params, toks, reads[:MLA_READS * L],
+        routes[:L], run=lambda p: M.prefill_chunk(
+            p, M.init_cache(cfg, 1, MLA_MAX_LEN, "cpu"), toks.cpu(),
+            cfg)[0])
+    del cpu_params
+    replay_diff = (card_logits.cpu() - cpu_logits).abs().max().item()
+    if not replay_diff <= 1e-3:
+        fail(f"deepseek-v2-lite: card and CPU prefill-chunk logits differ "
+             f"by {replay_diff} with the reads and routing replayed")
+    profile = profile_decode_step(
+        M, cfg, params, "crossbar", ("fused_read_tile", "reduce_tiles",
+                                     "read_prepare", "tc_range", "tc_read"),
+        max_len=MLA_MAX_LEN)
+    profile.update(expert_read_ms(K, M, cfg, params, cfg.n_experts,
+                                  max_len=MLA_MAX_LEN))
+    if profile.get("device_ms"):
+        profile["expert_read_share"] = \
+            profile["expert_read_ms"] / profile["device_ms"]
+    energy = engine.energy_per_token()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res = {"config": MLA_ARCH,
+           "cut": f"{L} of {full.n_layers} layers, full widths",
+           "cells": cells, "program_s": program_s,
+           "resident_gb": resident_gb, "allocated_before_gb": start_gb,
+           "serve": serve, "probe_reads": worst,
+           "wkv_b_rows_and_instance": wkv_b_rows,
+           "replay_max_abs_logit_diff": replay_diff,
+           "max_abs_logit": card_logits.abs().max().item(),
+           "route_choices_differing_on_cpu": route_flips,
+           "decode_profile": profile, "peak_memory_gb": peak_gb,
+           "energy_per_token": energy}
+    report(res)
+    print(f"phase 19(a): deepseek-v2-lite served "
+          f"{serve['tokens_per_s']:.1f} tokens/s from crossbars "
+          f"({serve['reads']} reads in {serve['model_calls']} calls, wkv_b "
+          f"on the tensor cores; {serve['dropped_pairs']} routed pairs "
+          f"dropped; idle experts {serve['idle_expert_share_decode']:.3f} "
+          f"of the decode reads, {serve['idle_expert_share_all']:.3f} of "
+          f"all); {worst['reads_checked']} probe reads agree "
+          f"({worst['max_err_over_bound']:.3f} of the bound, "
+          f"{worst['zero_leads']} all-zero experts read exact zeros; wkv_b "
+          f"rows {[r for r, _ in wkv_b_rows]}); replayed CPU logits "
+          f"{replay_diff:.3g} off, {route_flips} routing choices differ on "
+          f"the CPU; decode step device {profile.get('device_ms', 0):.2f} "
+          f"ms, expert reads {profile['expert_read_ms']:.2f} ms "
+          f"({100 * profile.get('expert_read_share', 0):.0f}% of it) for "
+          f"{profile['expert_read_bytes'] / 1e9:.1f} GB (bound "
+          f"{profile['expert_read_bound_ms']:.2f} ms); resident "
+          f"{resident_gb:.2f} GB, peak {peak_gb:.2f} GB")
+    del engine, params
+    return res
+
+
+def expert_stacks_meta(params, path=()):
+    """A CPU copy of a fakequant tree whose expert stacks are shapes only
+    (meta tensors): the replayed CPU run reads them only through the
+    fakequant read, which replays the card's results."""
+    if isinstance(params, dict):
+        return {k: expert_stacks_meta(v, path + (k,))
+                for k, v in params.items()}
+    return params.to("meta") if "experts" in path else params.cpu()
+
+
+def phase_mla_fq_serve(M, K, OPS, TT, TMoE, make_engine, SamplingParams,
+                       get_config, report):
+    """Phase 19(b): deepseek-v2-lite at full width, ``MLA_SERVE_LAYERS``
+    layers, served in fakequant mode, and a probe: a (4, 12) prefill, a
+    decode step and a decode step with ``REPRO_MLA_ABSORB=1`` (the
+    variable restored after it), every read held on its own operands per
+    lead matrix, the logits against a CPU run with the card's reads and
+    routing replayed, within 1e-3."""
+    torch.cuda.empty_cache()   # the earlier phases' cached blocks
+    full = get_config(MLA_ARCH)
+    cfg = full.replace(n_layers=MLA_SERVE_LAYERS, dtype="float32",
+                       analog=True, analog_mode="fakequant")
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    engine, params, _, serve = fq_serve_timed(
+        M, K, OPS, make_engine, SamplingParams, cfg,
+        "deepseek-v2-lite fakequant serving")
+    recorded, routes = [], []
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (4, 12))).cuda()
+    card = []
+    with torch.no_grad(), recording_fq(K, recorded), \
+            recording_routes(TMoE, routes):
+        logits, cache = M.prefill(params, {"tokens": toks}, cfg, MLA_MAX_LEN)
+        card.append(logits)
+        fed = [logits.argmax(-1)]
+        logits, cache = M.decode_step(params, cache, fed[0], cfg)
+        card.append(logits)
+        fed.append(logits.argmax(-1))
+        n_expanded = len(recorded)
+        with env_set("REPRO_MLA_ABSORB", "1"):
+            logits, cache = M.decode_step(params, cache, fed[1], cfg)
+        card.append(logits)
+    torch.cuda.synchronize()
+    if os.environ.get("REPRO_MLA_ABSORB"):
+        fail("REPRO_MLA_ABSORB was not restored")
+    n_absorbed = len(recorded) - n_expanded
+    tc_wkv_b = [x.shape for x, w, *_ in recorded[MLA_READS * L:n_expanded]
+                if tuple(w.shape) == (cfg.kv_lora_rank, cfg.n_heads
+                                      * (cfg.qk_nope_dim + cfg.v_head_dim))]
+    if n_expanded != 2 * MLA_READS * L or n_absorbed != (MLA_READS - 1) * L \
+            or [tuple(s) for s in tc_wkv_b] != [(4 * MLA_MAX_LEN,
+                                                 cfg.kv_lora_rank)] * L:
+        fail(f"deepseek-v2-lite fakequant probe: {n_expanded} reads in the "
+             f"prefill and decode step (wkv_b at decode {tc_wkv_b}), "
+             f"{n_absorbed} in the absorbed decode step; expected "
+             f"{MLA_READS * L} a call, wkv_b at {4 * MLA_MAX_LEN} tokens, "
+             f"and no wkv_b read when absorbed")
+    worst = check_fq_reads(K, recorded, "deepseek-v2-lite fakequant")
+    if worst["stack_reads"] != 3 * 3 * L or worst["zero_experts"] < 1:
+        fail(f"deepseek-v2-lite fakequant probe: {worst}")
+
+    def run_cpu(p):
+        out = []
+        lg, c = M.prefill(p, {"tokens": toks.cpu()}, cfg, MLA_MAX_LEN)
+        out.append(lg)
+        lg, c = M.decode_step(p, c, fed[0].cpu(), cfg)
+        out.append(lg)
+        with env_set("REPRO_MLA_ABSORB", "1"):
+            out.append(M.decode_step(p, c, fed[1].cpu(), cfg)[0])
+        return out
+    cpu_params = expert_stacks_meta(params)
+    cpu, route_flips = moe_replay_cpu(M, TT, TMoE, cfg, cpu_params, toks,
+                                      recorded, routes, run=run_cpu, OPS=OPS)
+    del cpu_params
+    diffs = [(a.cpu() - b).abs().max().item() for a, b in zip(card, cpu)]
+    if not max(diffs) <= 1e-3:
+        fail(f"deepseek-v2-lite fakequant: card and CPU logits (prefill, "
+             f"decode, absorbed decode) differ by {diffs} with the reads "
+             f"and routing replayed")
+    res = {"config": MLA_ARCH,
+           "cut": f"{L} of {full.n_layers} layers, full widths",
+           **serve, "probe": worst,
+           "replay_max_abs_logit_diff": diffs,
+           "route_choices_differing_on_cpu": route_flips,
+           "profile": profile_decode_step(M, cfg, params,
+                                          max_len=MLA_MAX_LEN),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    report(res)
+    print(f"phase 19(b): deepseek-v2-lite fakequant served "
+          f"{res['tokens_per_s']:.1f} tokens/s ({res['reads']} reads, "
+          f"{res['stack_reads']} of expert stacks, "
+          f"{res['tensor_core_reads']} on the tensor cores (wkv_b at "
+          f"decode); no plain version); probe reads agree "
+          f"({worst['max_err_over_bound']:.3f} of the bound, "
+          f"{worst['zero_experts']} all-zero experts exact); replayed CPU "
+          f"logits {['%.3g' % d for d in diffs]} off (prefill, decode, "
+          f"absorbed decode), {route_flips} routing choices differ; decode "
+          f"step device {res['profile'].get('device_ms', 0):.2f} ms; peak "
+          f"{res['peak_memory_gb']:.2f} GB")
+    del engine, params
     return res
 
 
@@ -4307,78 +4774,121 @@ def main():
         return CrossbarConfig(rows=tile, cols=tile, adc=adc,
                               device=TAOX_NONOISE)
 
-    profiler_warmup()
-    rows = phase_kernel(K, cfg_of, reporter("kernel"))
-    for r in rows:
-        if "ms" in r:
-            print_read_time("VMM", r)
-    print(f"phase 1: {len(rows)} kernel-vs-plain cases agree")
+    seconds = details["phase_seconds"] = {"build": build_s}
+
+    @contextlib.contextmanager
+    def phase(name):
+        """Time phase ``name`` (wall seconds, the card synchronised at its
+        end) and print it on a line of its own."""
+        t = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        print(f"phase {name} took {seconds[name]:.1f} s of wall time")
+
+    with phase("1"):
+        profiler_warmup()
+        rows = phase_kernel(K, cfg_of, reporter("kernel"))
+        for r in rows:
+            if "ms" in r:
+                print_read_time("VMM", r)
+        print(f"phase 1: {len(rows)} kernel-vs-plain cases agree")
 
     acfg = get_config("lm100m").replace(
         dtype="float32", analog=True, analog_mode="device",
         analog_device="taox-nonoise", analog_rows=64, analog_cols=64)
     dcfg = get_config("lm100m")
-    params, aparams, prompts, serve = phase_serve(
-        M, K, make_engine, SamplingParams, acfg, dcfg,
-        reporter("serve"))
-    phase_card_vs_cpu(M, K, acfg, params, aparams, reporter("card_cpu"))
-    phase_profile(M, acfg, aparams, reporter("profile"))
-    phase_default_tiles(M, K, acfg, params, reporter("default_tiles"))
-    mvm_rows = phase_mvm(K, cfg_of, reporter("mvm"))
+    with phase("2"):
+        params, aparams, prompts, serve = phase_serve(
+            M, K, make_engine, SamplingParams, acfg, dcfg,
+            reporter("serve"))
+    with phase("3"):
+        phase_card_vs_cpu(M, K, acfg, params, aparams, reporter("card_cpu"))
+    with phase("4"):
+        phase_profile(M, acfg, aparams, reporter("profile"))
+        phase_default_tiles(M, K, acfg, params, reporter("default_tiles"))
+    with phase("5"):
+        mvm_rows = phase_mvm(K, cfg_of, reporter("mvm"))
 
     def xcfg_of(case):
         return CrossbarConfig(rows=64, cols=64,
                               device=IDEAL if case == "ideal" else TAOX)
-    upd_rows = phase_update(U, TAOX, CrossbarConfig, xcfg_of,
-                            reporter("update"))
+    with phase("6"):
+        upd_rows = phase_update(U, TAOX, CrossbarConfig, xcfg_of,
+                                reporter("update"))
     tcfg = get_config("lm100m").replace(
         dtype="float32", analog=True, analog_mode="device",
         analog_device="taox", analog_rows=64, analog_cols=64)
-    train = phase_train(K, U, TA, M, syn, tcfg, reporter("train"))
+    with phase("7"):
+        train = phase_train(K, U, TA, M, syn, tcfg, reporter("train"))
 
-    fq_rows = phase_fq_kernel(K, AdcConfig, reporter("fakequant_kernel"))
+    with phase("8"):
+        fq_rows = phase_fq_kernel(K, AdcConfig, reporter("fakequant_kernel"))
     fcfg = get_config("lm100m").replace(dtype="float32", analog=True,
                                         analog_mode="fakequant")
-    fparams, fq_serve = phase_fq_serve(M, K, OPS, make_engine,
-                                       SamplingParams, fcfg, prompts,
-                                       reporter("fakequant_serve"))
-    print(f"serving tokens/s in this run: fakequant "
-          f"{fq_serve['tokens_per_s']:.1f}, device mode (phase 2) "
-          f"{serve['tokens_per_s']:.1f}")
-    phase_fq_card_vs_cpu(M, K, OPS, fcfg, fparams,
-                         reporter("fakequant_card_cpu"))
-    fq_prefill = phase_fq_prefill(M, K, OPS, fcfg, fparams,
-                                  reporter("fakequant_prefill"))
+    with phase("9"):
+        fparams, fq_serve = phase_fq_serve(M, K, OPS, make_engine,
+                                           SamplingParams, fcfg, prompts,
+                                           reporter("fakequant_serve"))
+        print(f"serving tokens/s in this run: fakequant "
+              f"{fq_serve['tokens_per_s']:.1f}, device mode (phase 2) "
+              f"{serve['tokens_per_s']:.1f}")
+    with phase("10"):
+        phase_fq_card_vs_cpu(M, K, OPS, fcfg, fparams,
+                             reporter("fakequant_card_cpu"))
+        fq_prefill = phase_fq_prefill(M, K, OPS, fcfg, fparams,
+                                      reporter("fakequant_prefill"))
     del fparams
-    fa_rows, fa_launches = phase_flash(FA, reporter("flash_attention"))
-    pulse_rows = phase_pulse_update(U, TAOX, IDEAL, CrossbarConfig,
-                                    reporter("pulse_update"))
-    carry = phase_carry_train(K, U, TA, M, syn, tcfg, reporter("carry_train"))
-    phase_nonideality(U, K, TA, TL, TO, M, syn, tcfg, reporter("nonideality"),
-                      steps=30)
-    mlp = phase_mlp(K, U, MLP, ACC, CMP, syn, reporter("mlp"), train)
+    with phase("11"):
+        fa_rows, fa_launches = phase_flash(FA, reporter("flash_attention"))
+    with phase("12"):
+        pulse_rows = phase_pulse_update(U, TAOX, IDEAL, CrossbarConfig,
+                                        reporter("pulse_update"))
+    with phase("13"):
+        carry = phase_carry_train(K, U, TA, M, syn, tcfg,
+                                  reporter("carry_train"))
+        phase_nonideality(U, K, TA, TL, TO, M, syn, tcfg,
+                          reporter("nonideality"), steps=30)
+    with phase("14"):
+        mlp = phase_mlp(K, U, MLP, ACC, CMP, syn, reporter("mlp"), train)
     del params, aparams
-    gemma = phase_gemma(M, K, E, make_engine, SamplingParams, get_config,
-                        reporter("gemma_2b"))
-    dense = {name: phase_dense_serve(M, K, make_engine, SamplingParams,
-                                     get_config, name, 2,
-                                     reporter(f"dense_{name}"))
-             for name in ("stablelm-3b", "granite-20b")}
-    dense_train = phase_dense_train(K, U, TA, syn, get_config,
-                                    reporter("dense_train"))
-    qat = phase_qat(K, OPS, M, TL, TO, syn, get_config, reporter("qat"))
+    with phase("15"):
+        gemma = phase_gemma(M, K, E, make_engine, SamplingParams, get_config,
+                            reporter("gemma_2b"))
+    with phase("16"):
+        dense = {name: phase_dense_serve(M, K, make_engine, SamplingParams,
+                                         get_config, name, 2,
+                                         reporter(f"dense_{name}"))
+                 for name in ("stablelm-3b", "granite-20b")}
+        dense_train = phase_dense_train(K, U, TA, syn, get_config,
+                                        reporter("dense_train"))
+    with phase("17"):
+        qat = phase_qat(K, OPS, M, TL, TO, syn, get_config, reporter("qat"))
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated() / 1e9
     print(f"phase 18 starts with {before:.2f} GB allocated on the card")
     details["moe_start_allocated_gb"] = before
-    moe_serve = phase_moe_serve(M, K, TT, TMoE, make_engine, SamplingParams,
-                                get_config, reporter("moe_serve"))
-    moe_fq_rows = phase_moe_fq_kernel(K, AdcConfig,
-                                      reporter("moe_fakequant_kernel"))
-    moe_fq = phase_moe_fq_serve(M, K, OPS, TMoE, make_engine, SamplingParams,
-                                get_config, reporter("moe_fakequant_serve"))
-    moe_train = phase_moe_train(K, U, TA, TMoE, syn, get_config,
-                                reporter("moe_train"))
+    with phase("18"):
+        moe_serve = phase_moe_serve(M, K, TT, TMoE, make_engine,
+                                    SamplingParams, get_config,
+                                    reporter("moe_serve"))
+        moe_fq_rows = phase_moe_fq_kernel(K, AdcConfig,
+                                          reporter("moe_fakequant_kernel"))
+        moe_fq = phase_moe_fq_serve(M, K, OPS, TMoE, make_engine,
+                                    SamplingParams, get_config,
+                                    reporter("moe_fakequant_serve"))
+        moe_train = phase_moe_train(K, U, TA, TMoE, syn, get_config,
+                                    reporter("moe_train"))
+    with phase("19"):
+        mla_serve = phase_mla_serve(M, K, TT, TMoE, make_engine,
+                                    SamplingParams, get_config,
+                                    reporter("mla_serve"))
+        mla_fq = phase_mla_fq_serve(M, K, OPS, TT, TMoE, make_engine,
+                                    SamplingParams, get_config,
+                                    reporter("mla_fakequant_serve"))
+        mla_train = phase_moe_train(K, U, TA, TMoE, syn, get_config,
+                                    reporter("mla_train"), arch=MLA_ARCH,
+                                    n_layers=MLA_TRAIN_LAYERS, label="19(c)")
 
     def total(launches, name):
         return sum(step[name] for step in launches)
@@ -4421,6 +4931,11 @@ def main():
             dense_train["launches"]["fused_vmm"],
         "launches_llama4_scout": moe_serve["serve"]["reads"],
         "launches_llama4_scout_train": moe_train["launches"]["fused_vmm"],
+        "launches_deepseek_v2_lite": mla_serve["serve"]["reads"],
+        "launches_by_kernel_deepseek_v2_lite":
+            mla_serve["serve"]["launches_by_kernel"],
+        "launches_deepseek_v2_lite_train":
+            mla_train["launches"]["fused_vmm"],
         **mlp_read_entry(mlp, "vmm", ("l1_vmm", "l2_vmm"))}, {
         "name": "xbar_fused_mvm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_vmm.cu",
@@ -4437,6 +4952,8 @@ def main():
         "launches_starcoder2_3b_train":
             dense_train["launches"]["fused_mvm"],
         "launches_llama4_scout_train": moe_train["launches"]["fused_mvm"],
+        "launches_deepseek_v2_lite_train":
+            mla_train["launches"]["fused_mvm"],
         **mlp_read_entry(mlp, "mvm", ("l2_mvm",))}, {
         "name": "xbar_outer_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
@@ -4446,7 +4963,9 @@ def main():
         **write_entry(t_upd, total(tl, "update_tc")),
         "launches_starcoder2_3b_train":
             dense_train["launches"]["update_tc"],
-        "launches_llama4_scout_train": moe_train["launches"]["update_tc"]},
+        "launches_llama4_scout_train": moe_train["launches"]["update_tc"],
+        "launches_deepseek_v2_lite_train":
+            mla_train["launches"]["update_tc"]},
         {
         "name": "xbar_update_prepare", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
@@ -4458,6 +4977,8 @@ def main():
             dense_train["launches"]["update_prepare"],
         "launches_llama4_scout_train":
             moe_train["launches"]["update_prepare"],
+        "launches_deepseek_v2_lite_train":
+            mla_train["launches"]["update_prepare"],
         "max_abs_err": 0.0 if all(r["prepass_ok"] for r in t_upd)
         else None,
         "ms": sum(r["prepass_ms"] for r in t_upd),
@@ -4475,6 +4996,9 @@ def main():
                             for step in qat["launches_per_step"]),
         "launches_llama4_scout": moe_fq["reads"],
         "launches_llama4_scout_expert_stacks": moe_fq["stack_reads"],
+        "launches_deepseek_v2_lite": mla_fq["reads"],
+        "launches_deepseek_v2_lite_expert_stacks": mla_fq["stack_reads"],
+        "launches_deepseek_v2_lite_tensor_core": mla_fq["tensor_core_reads"],
         "lead_dim": [{key: r.get(key) for key in (
             "case", "E", "T", "K", "N", "instance", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "tc_floor_ms")}
@@ -4606,7 +5130,15 @@ def main():
         "(1 layer); xbar_fakequant_read's lead_dim lists the expert-stack "
         "reads timed in 18(b) (16 experts, K=5120, N=8192, 1024-row "
         "tiles; ms and plain_ms CUDA-event times of the whole read, "
-        "bound_ms the bytes or the FP32 rate)")
+        "bound_ms the bytes or the FP32 rate). Phase 19 "
+        "(deepseek-v2-lite-16b at full width): launches_deepseek_v2_lite "
+        "counts the reads of 19(a)'s crossbar serve at 4 layers "
+        "(xbar_fused_vmm: 9 a layer a call, wkv_b's on the tensor-core "
+        "instance, by kernel beside it) and of 19(b)'s fakequant serve "
+        "(xbar_fakequant_read; _expert_stacks the expert-stack reads, "
+        "_tensor_core the reads on its tensor-core instance: wkv_b at "
+        "decode); launches_deepseek_v2_lite_train the launches of 19(c)'s "
+        "training step (2 layers)")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1))

@@ -1,8 +1,8 @@
 """Model configuration schema (the port's copy of ``repro.configs.base``).
 
 One ``ModelConfig`` describes an architecture.  The port keeps the JAX
-package's fields for the dense decoder, the MoE family and the analog
-read, under the same names; the fields of the other families arrive
+package's fields for the dense decoder, the MoE family, MLA and the
+analog read, under the same names; the fields of the other families arrive
 with the slices that read them (``ROADMAP.md``).  Every config file exports ``CONFIG``
 (the published architecture) and ``SMOKE`` (:func:`make_smoke`).  The
 port keeps its own copy because it imports nothing of ``repro``.
@@ -95,6 +95,13 @@ class ModelConfig:
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
 
+    # --- MLA (DeepSeek-V2) ---------------------------------------------------
+    use_mla: bool = False
+    kv_lora_rank: int = 0
+    qk_rope_dim: int = 64
+    qk_nope_dim: int = 128
+    v_head_dim: int = 128
+
     # --- analog-crossbar execution (the paper's technique) -------------------
     analog: bool = False           # run projections through the crossbar sim
     # Stored as the string value of an AnalogMode member; validated and
@@ -153,10 +160,43 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_count(self, active_only: bool = False) -> int:
+        """Parameters of the embedding and the layers (the reference's
+        rough count, for roofline and memory reckoning): the dense, MoE
+        and MLA terms.  The other families' terms arrive with their
+        slices (``ROADMAP.md``)."""
+        if self.family not in PORTED_FAMILIES:
+            raise NotImplementedError(
+                f"param_count of family {self.family!r} is not ported "
+                "yet; see ROADMAP.md")
+        d, ff, v = self.d_model, self.d_ff, self.vocab
+        hd = self.resolved_head_dim
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.use_mla:
+            q = d * self.n_heads * (self.qk_nope_dim + self.qk_rope_dim)
+            kv = (d * (self.kv_lora_rank + self.qk_rope_dim)
+                  + self.kv_lora_rank * self.n_heads
+                  * (self.qk_nope_dim + self.v_head_dim))
+            o = self.n_heads * self.v_head_dim * d
+            attn = q + kv + o
+        else:
+            attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) \
+                + self.n_heads * hd * d
+        ffn_mult = 3 if self.gated else 2
+        if self.n_experts:
+            ffe = self.d_ff_expert or ff
+            n_ffn = (self.top_k if active_only else self.n_experts) \
+                + self.n_shared_experts
+            per = attn + n_ffn * ffn_mult * d * ffe \
+                + d * self.n_experts  # + router
+        else:
+            per = attn + ffn_mult * d * ff
+        return emb + self.n_layers * per
+
 
 def make_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Family-preserving reduction for CPU smoke tests (the reference's
-    ``make_smoke`` on the dense and MoE fields this config has)."""
+    ``make_smoke`` on the dense, MoE and MLA fields this config has)."""
     kw = dict(
         n_layers=min(cfg.n_layers, 2),
         d_model=64,
@@ -170,5 +210,8 @@ def make_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
         kw.update(n_experts=min(cfg.n_experts, 8),
                   top_k=min(cfg.top_k, 2),
                   d_ff_expert=64 if cfg.d_ff_expert else 0)
+    if cfg.use_mla:
+        kw.update(kv_lora_rank=32, qk_rope_dim=8, qk_nope_dim=16,
+                  v_head_dim=16)
     kw.update(overrides)
     return cfg.replace(**kw)

@@ -1,14 +1,15 @@
 """--arch <id> registry.  The port carries only the architectures whose
-model family it implements (dense and MoE); the rest of the zoo is
-queued in ROADMAP.md."""
-from . import (gemma_2b, granite_20b, llama4_scout_17b_a16e, lm100m,
-               stablelm_3b, starcoder2_3b)
+model family it implements (dense and MoE, MLA among them); the rest of
+the zoo is queued in ROADMAP.md."""
+from . import (deepseek_v2_lite_16b, gemma_2b, granite_20b,
+               llama4_scout_17b_a16e, lm100m, stablelm_3b, starcoder2_3b)
 
 ARCHS = {
     "gemma-2b": gemma_2b,
     "stablelm-3b": stablelm_3b,
     "granite-20b": granite_20b,
     "starcoder2-3b": starcoder2_3b,
+    "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
     "lm100m": lm100m,
 }

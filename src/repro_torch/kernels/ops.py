@@ -31,20 +31,27 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.adc import AdcConfig, quantize_dequantize
+from repro_torch.core.adc import AdcConfig, divisor, quantize_dequantize
 
 from .xbar_vmm import fakequant_read, resolve_impl
 
 Tensor = torch.Tensor
 
 
-def _adc_fake_quant(q: Tensor, adc: AdcConfig) -> Tensor:
-    """Per-token output-ADC fake quantisation (QAT epilogue): one range per
-    (token, row tile), ``sat_sigmas`` times the token's rms partial over
-    the output width."""
+def _adc_lsb(q: Tensor, adc: AdcConfig):
+    """``(sat, lsb)`` of the per-token output ADC: one range per (token,
+    row tile), ``sat_sigmas`` times the token's rms partial over the
+    output width.  The lsb divides by ``core.adc.divisor``, the float32
+    division the reference takes, on the card as on the CPU."""
     sat = adc.sat_sigmas * torch.sqrt(
         torch.mean(q * q, dim=-1, keepdim=True) + 1e-12)
-    lsb = sat / adc.out_levels
+    return sat, sat / divisor(adc.out_levels, sat)
+
+
+def _adc_fake_quant(q: Tensor, adc: AdcConfig) -> Tensor:
+    """Per-token output-ADC fake quantisation (QAT epilogue) at the range
+    :func:`_adc_lsb` gives."""
+    _, lsb = _adc_lsb(q, adc)
     return torch.clamp(torch.round(q / lsb), -adc.out_levels,
                        adc.out_levels) * lsb
 

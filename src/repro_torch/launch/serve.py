@@ -1,5 +1,5 @@
-"""Serving CLI: batched prefill + decode of a dense or MoE model on
-synthetic prompts, on the card unless ``--device cpu``.
+"""Serving CLI: batched prefill + decode of a dense or MoE (MLA among
+them) model on synthetic prompts, on the card unless ``--device cpu``.
 
     python -m repro_torch.launch.serve --arch lm100m --backend analog
     python -m repro_torch.launch.serve --arch gemma-2b --backend analog \\
@@ -8,13 +8,20 @@ synthetic prompts, on the card unless ``--device cpu``.
         --backend digital --scheduler static --device cpu
     python -m repro_torch.launch.serve --arch llama4-scout-17b-a16e \\
         --smoke --backend analog --analog-tile 16 --device cpu
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
+        --smoke --backend analog --analog-tile 16 --device cpu
 
 ``--arch`` is one of the port's registry (lm100m, gemma-2b, stablelm-3b,
-starcoder2-3b, granite-20b, llama4-scout-17b-a16e).  A model serves at
-full size only where the card's memory holds it: llama4-scout (MoE, 16
-experts) needs 845 GB of conductances at 48 layers, more than one H100
-has, so on one card it serves as ``--smoke`` only (``chip_smoke.py``
-phase 18 runs it at full width, cut to 2 layers).  ``--backend analog`` programs the weights
+starcoder2-3b, granite-20b, llama4-scout-17b-a16e, deepseek-v2-lite-16b).
+A model serves at full size only where the card's memory holds it:
+llama4-scout (MoE, 16 experts) needs 845 GB of conductances at 48
+layers, and deepseek-v2-lite (MLA, 64 experts of 2048 x 1408) 191 GB at
+27 (4.68 GB of ``g`` + ``ref`` a layer, 2.34 GB of programming targets,
+1.68 GB of embedding and head), more than one H100 has, so on one card
+they serve from crossbars as ``--smoke`` only.  ``chip_smoke.py`` runs
+them at full width cut in depth: llama4-scout at 2 layers (phase 18),
+deepseek-v2-lite at 4 of 27 (phase 19, about 30 GB resident), the depth
+that fits one card beside the script's other phases.  ``--backend analog`` programs the weights
 onto tiled crossbars (``--analog-device``, ``--analog-tile``) and serves
 the conductances in-array: every projection read goes through the fused
 read, and the run prints how many times its CUDA kernels were launched,
@@ -42,8 +49,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="lm100m",
                     help="a config of the port's registry; it serves at "
                          "full size only where memory allows: "
-                         "llama4-scout-17b-a16e does not fit one H100 "
-                         "(use --smoke)")
+                         "llama4-scout-17b-a16e and deepseek-v2-lite-16b "
+                         "do not fit one H100 from crossbars (use "
+                         "--smoke)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

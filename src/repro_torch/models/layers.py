@@ -1,6 +1,6 @@
 """Transformer building blocks (port of ``repro.models.layers``, dense
-self-attention, gated FFN and the MoE expert projection, with digital,
-fakequant and device-mode projections).
+self-attention, MLA, gated FFN and the MoE expert projection, with
+digital, fakequant and device-mode projections).
 
 Conventions, as in the reference:
   * params are nested dicts of float32 tensors; compute casts to the
@@ -10,13 +10,14 @@ Conventions, as in the reference:
     reference's einsums (q-chunked prefill, kv-chunked flash-decoding for
     one token, cached attention for chunked prefill).
 
-KV caches are updated in place: ``attention`` writes the new keys and
-values into the cache tensors it is given and returns them with the new
-lengths (the reference returns fresh arrays and its engines donate the
-old ones).
+KV caches are updated in place: ``attention`` (and ``mla_attention``,
+its latent cache) writes the new keys and values into the cache tensors
+it is given and returns them with the new lengths (the reference
+returns fresh arrays and its engines donate the old ones).
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -321,6 +322,140 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
     shape = (batch, max_len, cfg.n_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=cdtype(cfg), device=device),
             "v": torch.zeros(shape, dtype=cdtype(cfg), device=device),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# --------------------------------------------------------------------------
+
+def mla_init(generator: torch.Generator, cfg: ModelConfig,
+             device=None) -> dict:
+    """MLA projections: ``wq`` (all heads' nope + rope queries), ``wkv_a``
+    (the latent and the one shared rope key), ``kv_norm`` on the latent,
+    ``wkv_b`` (latent to per-head nope keys and values), ``wo``."""
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        "wq": proj_init(generator, d, h * qk_dim, cfg, device),
+        "wkv_a": proj_init(generator, d, r + cfg.qk_rope_dim, cfg, device),
+        "kv_norm": rmsnorm_init(r, device),
+        "wkv_b": proj_init(generator, r,
+                           h * (cfg.qk_nope_dim + cfg.v_head_dim), cfg,
+                           device),
+        "wo": proj_init(generator, h * cfg.v_head_dim, d, cfg, device),
+    }
+
+
+def _mla_absorbed(p: dict, x: Tensor, cfg: ModelConfig, q_nope: Tensor,
+                  q_rope: Tensor, c_all: Tensor, kr_all: Tensor,
+                  kv_len: Tensor) -> Tensor:
+    """The absorbed MLA decode (DeepSeek-V2 §2.1.2, the reference's
+    ``REPRO_MLA_ABSORB``): ``wkv_b``'s key block folds into the query and
+    its value block into the output, so attention runs in the latent
+    space.  It reads ``wkv_b``'s digital weights directly (no fakequant
+    read of ``wkv_b``), as the reference does."""
+    b, h = x.shape[0], cfg.n_heads
+    r, dn, dv = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.v_head_dim
+    wkv = p["wkv_b"]["w"].float().reshape(r, h, dn + dv)
+    wkb, wvb = wkv[..., :dn], wkv[..., dn:]
+    scale = 1.0 / np.sqrt(dn + cfg.qk_rope_dim)
+    q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), wkb)
+    c32 = c_all.float()
+    scores = (torch.einsum("bhr,btr->bht", q_abs, c32)
+              + torch.einsum("bhd,btd->bht", q_rope[:, 0].float(),
+                             kr_all.float())) * scale
+    valid = torch.arange(c_all.shape[1], device=x.device)[None, :] \
+        < kv_len[:, None]
+    scores = scores.masked_fill(~valid[:, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bht,btr->bhr", probs, c32)
+    o = torch.einsum("bhr,rhd->bhd", ctx, wvb)[:, None].to(x.dtype)
+    return project(p["wo"], o.reshape(b, 1, -1), cfg)
+
+
+def mla_attention(p: dict, x: Tensor, cfg: ModelConfig, *,
+                  positions: Optional[Tensor] = None,
+                  cache: Optional[dict] = None
+                  ) -> Tuple[Tensor, Optional[dict]]:
+    """Multi-head latent attention.  The cache holds the normalised latent
+    (``kv_lora_rank`` wide) and the one shared rope key, MLA's memory
+    saving: cache = {"c_kv": (B, S, r), "k_rope": (B, S, rope), "len":
+    (B,)}, updated in place as :func:`attention` updates its cache.
+
+    Append mode (one token, or a chunk with explicit ``positions``)
+    writes at each row's ``len`` and re-expands the WHOLE cache, zero
+    slots included, through ``wkv_b``: in device mode that read's DAC
+    scale and per-tile ranges span all B x S rows, as the reference's
+    do.  A fresh prefill (cache given, no positions) expands the freshly
+    computed latent and pads it into the cache.  The softmax scale is
+    1/sqrt(qk_nope + qk_rope), the query's head dim; the values are
+    ``v_head_dim`` wide."""
+    b, sq = x.shape[0], x.shape[1]
+    h = cfg.n_heads
+    r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim
+    append = cache is not None and (sq == 1 or positions is not None)
+    if positions is None:
+        positions = torch.arange(sq, device=x.device).expand(b, sq)
+    q = _split_heads(project(p["wq"], x, cfg), h)        # (b, s, h, dn+dr)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    kv_a = project(p["wkv_a"], x, cfg)
+    c_kv = rmsnorm(p["kv_norm"], kv_a[..., :r], cfg.norm_eps)
+    k_rope = apply_rope(kv_a[..., None, r:], positions,
+                        cfg.rope_theta)[:, :, 0]         # one shared head
+
+    new_cache, kv_len = None, None
+    if append:
+        idx = cache["len"]
+        rows = torch.arange(b, device=x.device)[:, None]
+        slots = idx.long()[:, None] + torch.arange(sq, device=x.device)
+        cache["c_kv"][rows, slots] = c_kv.to(cache["c_kv"].dtype)
+        cache["k_rope"][rows, slots] = k_rope.to(cache["k_rope"].dtype)
+        c_all, kr_all = cache["c_kv"], cache["k_rope"]
+        kv_len = idx + sq
+        new_cache = {"c_kv": c_all, "k_rope": kr_all, "len": kv_len}
+    else:
+        c_all, kr_all = c_kv, k_rope
+        if cache is not None:   # prefill fills the cache
+            for key, val in (("c_kv", c_kv), ("k_rope", k_rope)):
+                cache[key][:, :sq] = val.to(cache[key].dtype)
+                cache[key][:, sq:] = 0
+            new_cache = {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"],
+                         "len": torch.full((b,), sq, dtype=torch.int32,
+                                           device=x.device)}
+
+    if cache is not None and sq == 1 and "w" in p["wkv_b"] \
+            and os.environ.get("REPRO_MLA_ABSORB"):
+        out = _mla_absorbed(p, x, cfg, q_nope, q_rope, c_all, kr_all,
+                            kv_len)
+        return out, new_cache
+
+    # expand the latent to per-head keys and values
+    kv = project(p["wkv_b"], c_all.to(x.dtype), cfg)
+    kv = kv.reshape(b, -1, h, dn + cfg.v_head_dim)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    k_rope_b = kr_all[:, :, None, :].to(x.dtype).expand(
+        b, k_nope.shape[1], h, dr)
+    k_full = torch.cat([k_nope, k_rope_b], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    if append and sq == 1:
+        o = _decode_sdpa(q_full, k_full, v, kv_len)
+    elif append:
+        o = _cached_sdpa(q_full, k_full, v, positions)
+    else:
+        o = _chunked_sdpa(q_full, k_full, v, causal=True)
+    out = project(p["wo"], o.reshape(b, sq, -1), cfg)
+    return out, new_cache
+
+
+def make_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   device=None) -> dict:
+    dt = cdtype(cfg)
+    return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                dtype=dt, device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                  dtype=dt, device=device),
             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 

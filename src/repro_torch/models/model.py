@@ -27,7 +27,7 @@ from repro_torch.core.tiled_analog import (crossbar_from_model,
                                            program_stacked)
 
 from . import transformer as tf
-from .layers import make_cache, proj_readout
+from .layers import make_cache, make_mla_cache, proj_readout
 
 Tensor = torch.Tensor
 
@@ -123,9 +123,11 @@ def loss_fn(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig):
 # --------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """``(caches, shared)`` with caches stacked (L, B, ...) per leaf."""
+    """``(caches, shared)`` with caches stacked (L, B, ...) per leaf: K/V,
+    or with MLA the latent ``c_kv`` and the shared rope key ``k_rope``."""
     _ported_only(cfg)
-    one = make_cache(cfg, batch, max_len, device)
+    make = make_mla_cache if cfg.use_mla else make_cache
+    one = make(cfg, batch, max_len, device)
     caches = {k: v[None].repeat(cfg.n_layers, *([1] * v.ndim))
               for k, v in one.items()}
     return caches, None

@@ -1,5 +1,5 @@
-"""Decoder stack, dense and MoE families (port of the decoder-only
-parts of ``repro.models.transformer``).
+"""Decoder stack, dense and MoE families, MoE with MLA attention (port
+of the decoder-only parts of ``repro.models.transformer``).
 
 Per-layer parameters are stacked along a leading (L, ...) dim, as the
 reference's scan expects; the stack runs as a Python loop over the
@@ -18,7 +18,8 @@ from repro_torch.core.tiled_analog import stack_trees
 
 from . import moe as moe_mod
 from .layers import (attention, attn_init, cdtype, dense_init, embed_init,
-                     ffn, ffn_init, rmsnorm, rmsnorm_init)
+                     ffn, ffn_init, mla_attention, mla_init, rmsnorm,
+                     rmsnorm_init)
 
 Tensor = torch.Tensor
 
@@ -49,16 +50,19 @@ def dense_block(p: dict, x: Tensor, cfg: ModelConfig, positions,
 
 def moe_block_init(generator: torch.Generator, cfg: ModelConfig,
                    device=None) -> dict:
-    return {"ln1": rmsnorm_init(cfg.d_model, device),
-            "attn": attn_init(generator, cfg, device),
+    """A MoE block; its attention is MLA when ``cfg.use_mla``."""
+    attn = mla_init(generator, cfg, device) if cfg.use_mla \
+        else attn_init(generator, cfg, device)
+    return {"ln1": rmsnorm_init(cfg.d_model, device), "attn": attn,
             "ln2": rmsnorm_init(cfg.d_model, device),
             "moe": moe_mod.moe_init(generator, cfg, device)}
 
 
 def moe_block(p: dict, x: Tensor, cfg: ModelConfig, positions,
               cache) -> Tuple[Tensor, Optional[dict], Tensor]:
-    h, new_cache = attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
-                             cfg, positions=positions, cache=cache)
+    attend = mla_attention if cfg.use_mla else attention
+    h, new_cache = attend(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                          cfg, positions=positions, cache=cache)
     x = x + h
     y, aux = moe_mod.moe_apply(p["moe"], rmsnorm(p["ln2"], x, cfg.norm_eps),
                                cfg)

@@ -260,3 +260,21 @@ def test_moe_engine_energy_per_token_equals_the_reference():
     assert engine.energy_per_token() == J_arch.serve_energy_per_token(jcfg)
     assert engine.energy_per_token(256) == \
         J_arch.serve_energy_per_token(jcfg, ctx_len=256)
+
+
+@pytest.mark.parametrize("mode", ["device", "digital"])
+def test_deepseek_v2_lite_cost_equals_the_reference(mode):
+    """MLA with 64 experts at top-6 (deepseek-v2-lite-16b at full size):
+    ``analyze_arch``, the energy per token at two context lengths and,
+    in device mode, a training step's cost equal the reference's."""
+    kw = DEVICE if mode == "device" else {}
+    cfg = get_config("deepseek-v2-lite-16b").replace(**kw)
+    jcfg = jax_config("deepseek-v2-lite-16b").replace(**kw)
+    assert dataclasses.asdict(arch_cost.analyze_arch(cfg)) == \
+        dataclasses.asdict(J_arch.analyze_arch(jcfg))
+    for ctx_len in (4096, 256):
+        assert arch_cost.serve_energy_per_token(cfg, ctx_len=ctx_len) == \
+            J_arch.serve_energy_per_token(jcfg, ctx_len=ctx_len)
+    if mode == "device":
+        assert arch_cost.train_step_cost(cfg, n_tokens=2048, ctx_len=256) \
+            == J_arch.train_step_cost(jcfg, n_tokens=2048, ctx_len=256)

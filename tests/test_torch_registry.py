@@ -1,6 +1,6 @@
 """The registry's dense family in the port against the JAX package (the
-MoE config's fields are held here too; its model in
-``tests/test_torch_moe.py``):
+MoE configs' fields are held here too; their models in
+``tests/test_torch_moe.py`` and, MLA, ``tests/test_torch_mla.py``):
 gemma-2b (MQA, GeGLU, head_dim 256, tied embeddings), stablelm-3b
 (head_dim 80 at full size), starcoder2-3b (GQA kv=2, GELU, not gated,
 rope_theta 1e5) and granite-20b (MQA, GELU, not gated), each as its
@@ -59,7 +59,7 @@ from repro_torch.train import analog_lm as TA
 from test_torch_forward_flips import _one_lsb_per_k_tile
 
 DENSE = ["gemma-2b", "stablelm-3b", "starcoder2-3b", "granite-20b"]
-MOE = ["llama4-scout-17b-a16e"]
+MOE = ["llama4-scout-17b-a16e", "deepseek-v2-lite-16b"]
 UNPORTED = sorted(set(J_ARCHS) - set(DENSE) - set(MOE) - {"lm100m"})
 # the (arch, mode) pairs whose forward flips an ADC code at PRNGKey(0)
 FLIPS = {("starcoder2-3b", "device")}
