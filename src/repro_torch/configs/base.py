@@ -1,11 +1,13 @@
 """Model configuration schema (the port's copy of ``repro.configs.base``).
 
 One ``ModelConfig`` describes an architecture.  The port keeps the JAX
-package's fields for the dense decoder, the MoE family, MLA and the
-analog read, under the same names; the fields of the other families arrive
-with the slices that read them (``ROADMAP.md``).  Every config file exports ``CONFIG``
-(the published architecture) and ``SMOKE`` (:func:`make_smoke`).  The
-port keeps its own copy because it imports nothing of ``repro``.
+package's fields for the dense decoder, the MoE family, MLA, the SSM
+(Mamba-2 SSD) and hybrid (Zamba-2) families and the analog read, under
+the same names; the fields of the cross-attention families arrive with
+the slice that reads them (``ROADMAP.md``).  Every config file exports
+``CONFIG`` (the published architecture) and ``SMOKE``
+(:func:`make_smoke`).  The port keeps its own copy because it imports
+nothing of ``repro``.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import enum
 
 #: The model families the port implements (the others are queued in
 #: ROADMAP.md and raise where a family's code would run).
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 class AnalogMode(enum.Enum):
@@ -102,6 +104,17 @@ class ModelConfig:
     qk_nope_dim: int = 128
     v_head_dim: int = 128
 
+    # --- SSM (Mamba-2 SSD) ---------------------------------------------------
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
+    ssm_conv: int = 4
+    ssm_groups: int = 1
+
+    # --- hybrid (Zamba-2): shared attention block every N ssm layers ---------
+    attn_every: int = 0
+
     # --- analog-crossbar execution (the paper's technique) -------------------
     analog: bool = False           # run projections through the crossbar sim
     # Stored as the string value of an AnalogMode member; validated and
@@ -157,14 +170,24 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the 500k-token long-context shape."""
+        return self.family in ("ssm", "hybrid")
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
     def param_count(self, active_only: bool = False) -> int:
         """Parameters of the embedding and the layers (the reference's
-        rough count, for roofline and memory reckoning): the dense, MoE
-        and MLA terms.  The other families' terms arrive with their
-        slices (``ROADMAP.md``)."""
+        rough count, for roofline and memory reckoning): the dense, MoE,
+        MLA, SSM and hybrid terms (the hybrid's shared block counted
+        once: one weight set).  The cross-attention families' terms
+        arrive with their slice (``ROADMAP.md``)."""
         if self.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"param_count of family {self.family!r} is not ported "
@@ -172,6 +195,19 @@ class ModelConfig:
         d, ff, v = self.d_model, self.d_ff, self.vocab
         hd = self.resolved_head_dim
         emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.family in ("ssm", "hybrid"):
+            d_in = self.ssm_expand * d
+            per = (d * (2 * d_in + 2 * self.ssm_groups * self.ssm_state
+                        + d_in // self.ssm_head_dim)
+                   + d_in * d)
+            n = emb + self.n_layers * per
+            if self.attn_every:  # the shared block (one weight set)
+                shared_attn = d * hd * (self.n_heads
+                                        + 2 * self.n_kv_heads) \
+                    + self.n_heads * hd * d
+                ffn_mult = 3 if self.gated else 2
+                n += 2 * d * d + shared_attn + ffn_mult * d * ff
+            return n
         if self.use_mla:
             q = d * self.n_heads * (self.qk_nope_dim + self.qk_rope_dim)
             kv = (d * (self.kv_lora_rank + self.qk_rope_dim)
@@ -196,9 +232,10 @@ class ModelConfig:
 
 def make_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Family-preserving reduction for CPU smoke tests (the reference's
-    ``make_smoke`` on the dense, MoE and MLA fields this config has)."""
+    ``make_smoke`` on the dense, MoE, MLA, SSM and hybrid fields this
+    config has; a hybrid keeps 4 layers, two groups of ``attn_every=2``)."""
     kw = dict(
-        n_layers=min(cfg.n_layers, 2),
+        n_layers=min(cfg.n_layers, 4 if cfg.attn_every else 2),
         d_model=64,
         n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads > 1 else 1,
@@ -213,5 +250,9 @@ def make_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     if cfg.use_mla:
         kw.update(kv_lora_rank=32, qk_rope_dim=8, qk_nope_dim=16,
                   v_head_dim=16)
+    if cfg.ssm_state:
+        kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)
+    if cfg.attn_every:
+        kw.update(attn_every=2)
     kw.update(overrides)
     return cfg.replace(**kw)

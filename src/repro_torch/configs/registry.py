@@ -1,8 +1,9 @@
 """--arch <id> registry.  The port carries only the architectures whose
-model family it implements (dense and MoE, MLA among them); the rest of
-the zoo is queued in ROADMAP.md."""
+model family it implements (dense, MoE with MLA among them, SSM and
+hybrid); the cross-attention configs are queued in ROADMAP.md."""
 from . import (deepseek_v2_lite_16b, gemma_2b, granite_20b,
-               llama4_scout_17b_a16e, lm100m, stablelm_3b, starcoder2_3b)
+               llama4_scout_17b_a16e, lm100m, mamba2_1_3b, stablelm_3b,
+               starcoder2_3b, zamba2_1_2b)
 
 ARCHS = {
     "gemma-2b": gemma_2b,
@@ -11,6 +12,8 @@ ARCHS = {
     "starcoder2-3b": starcoder2_3b,
     "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
     "llama4-scout-17b-a16e": llama4_scout_17b_a16e,
+    "zamba2-1.2b": zamba2_1_2b,
+    "mamba2-1.3b": mamba2_1_3b,
     "lm100m": lm100m,
 }
 

@@ -1,14 +1,15 @@
-"""Analog parameter registry, dense and MoE families (port of
-``repro.core.analog_registry``).
+"""Analog parameter registry, dense, MoE, SSM and hybrid families (port
+of ``repro.core.analog_registry``).
 
 It owns the mapping from a parameter path to whether the matrix there
 lives on crossbar tiles, which consumer kind it is, how its tapes are
 shaped (:func:`tape_lead`), how its leaves lay out on a mesh
 (:func:`leaf_layout`) and how the rank-k write views it
 (:func:`flatten_lead`, with the expert dim hoisted outermost by
-:func:`hoist_axis`).  The hybrid shared block and the cross-attention
-streams follow with the families that need them (``ROADMAP.md``): their
-configs raise here.
+:func:`hoist_axis`).  The hybrid shared block tapes once per
+application (:func:`tape_reps`).  The cross-attention streams follow
+with the families that need them (``ROADMAP.md``): their configs raise
+here.
 """
 from __future__ import annotations
 
@@ -119,20 +120,25 @@ def tape_lead(path: Sequence, cfg, n_tokens: int,
               ) -> Tuple[int, ...]:
     """Shape of one container's tape slots between the container's own
     lead dims and the operand feature dim: ``(T,)`` for a container
-    applied once per step to all T tokens, ``(capacity,)`` per expert for
-    an expert-batched container (:func:`expert_capacity`)."""
+    applied once per step to all T tokens, ``(reps, T)`` for the hybrid
+    shared block (one slot per application, :func:`tape_reps`),
+    ``(capacity,)`` per expert for an expert-batched container
+    (:func:`expert_capacity`).  Every container of the ported families is
+    driven by the decoder token batch (the reference's ``operand_rows``
+    token case)."""
     _ported_family("tape_lead", cfg)
     if classify(path) == EXPERT_BATCHED:
         return (expert_capacity(n_tokens, cfg),)
-    return (n_tokens,)
+    reps = tape_reps(path, cfg)
+    return (reps, n_tokens) if reps > 1 else (n_tokens,)
 
 
 def tape_reps(path: Sequence, cfg) -> int:
     """How many times the container at ``path`` is applied per step: the
     hybrid shared block once per group boundary (``n_layers //
-    attn_every``), every other container once.  The cost roll-up
-    (``hwmodel.arch_cost``) reads it; the dense family has no shared
-    block, so there it is 1."""
+    attn_every``), every other container once.  The tapes
+    (:func:`tape_lead`) and the cost roll-up (``hwmodel.arch_cost``) read
+    it."""
     keys = _keys(path)
     if getattr(cfg, "attn_every", 0) and \
             any(k in SHARED_BLOCK_KEYS for k in keys):
@@ -191,14 +197,16 @@ def flatten_lead(kind: str, g, x_tape, d_tape, scale, *lead_scales):
     axis (and any tape-rep dims into the token axis), the expert dim
     outermost for expert-batched kinds (:func:`hoist_axis`).
 
-    ``g``: (lead..., K, N); tapes: (lead..., T, K|N); ``scale`` and any
-    ``lead_scales`` (the tape code scales, per expert for an expert
-    stack): (lead...,) or scalars.  Returns ``(g3, x3, d3, scale1,
+    ``g``: (lead..., K, N); tapes: (lead..., reps?, T, K|N); ``scale``
+    and any ``lead_scales`` (the tape code scales, per expert for an
+    expert stack): (lead...,) or scalars.  Returns ``(g3, x3, d3, scale1,
     *lead_scales1, unflatten)`` with ``g3`` (Lflat, K, N), each scale
     flattened alike to (Lflat,), and ``unflatten`` mapping the updated
     conductances back to the container's layout (any field of ``g``'s
     shape, a noise field say, flattens as ``g`` does).  2-D containers
-    pass through.
+    pass through, their tape-rep dims (the hybrid shared block's
+    applications) collapsed into the token axis: the summed outer product
+    over the applications is the rank-k write a reused array receives.
     """
     lead = g.ndim - 2
     if lead == 0:

@@ -207,11 +207,18 @@ def analog_project(p: dict, x: Tensor, cfg: CrossbarConfig) -> Tensor:
     in them; a stack's slots ((E, T, K) / (E, T, N), code scales (E,))
     carry the per-expert write operands, and the stack is written as
     extra layers of the layer-batched rank-k write
-    (``analog_registry.flatten_lead``).  Each container must be applied
-    at most once per differentiated step: a second application would
-    overwrite its tapes, and the summed outer product of two applications
-    is not the outer product of their summed operands.  Transformer
-    stacks apply each projection exactly once per token batch.
+    (``analog_registry.flatten_lead``).  Each tape slot takes one
+    application per differentiated step: a second application through the
+    same slot would overwrite its operands, and the summed outer product
+    of two applications is not the outer product of their summed
+    operands.  A container applied several times a step (the hybrid's
+    shared block, ``analog_registry.tape_reps``) therefore carries
+    (reps, T, K) / (reps, T, N) tapes and (reps,) code scales, and its
+    caller hands application ``i`` the slot ``[i]`` of each
+    (``models.transformer.tape_slot``): each application deposits its own
+    operands and its own scales, and the write sums the applications'
+    outer products.  Every other container is applied exactly once per
+    token batch.
     """
     for leaf in ("g", "ref", "w_scale"):
         if getattr(p[leaf], "requires_grad", False):
@@ -238,10 +245,12 @@ def make_tapes(p: dict, n_tokens) -> dict:
     """Tape slots for one container: zero operands, shapes (lead..., T, K)
     and (lead..., T, N), and their scales, (lead...,) ones.  ``n_tokens``
     may be a tuple: the operand-row shape between the container's lead
-    dims and the feature dim (``analog_registry.tape_lead``).  The
-    backward pass of :class:`TapedMatmul` overwrites them with (x_q, d_q)
-    and the write drivers' scales, and the rank-k write consumes them: one
-    allocation site, one writer, one consumer.
+    dims and the feature dim (``analog_registry.tape_lead``); a (reps, T)
+    one gives one slot per application, (lead..., reps, T, K|N), with a
+    scale per application, (lead..., reps).  The backward pass of
+    :class:`TapedMatmul` overwrites them with (x_q, d_q) and the write
+    drivers' scales, and the rank-k write consumes them: one allocation
+    site, one writer per slot, one consumer.
     """
     g = p["g"]
     k, n = g.shape[-2:]
@@ -250,8 +259,8 @@ def make_tapes(p: dict, n_tokens) -> dict:
     f32 = dict(dtype=torch.float32, device=g.device)
     return {"x_tape": torch.zeros((*lead, *rows, k), **f32),
             "d_tape": torch.zeros((*lead, *rows, n), **f32),
-            "x_tape_scale": torch.ones(lead, **f32),
-            "d_tape_scale": torch.ones(lead, **f32)}
+            "x_tape_scale": torch.ones((*lead, *rows[:-1]), **f32),
+            "d_tape_scale": torch.ones((*lead, *rows[:-1]), **f32)}
 
 
 def split_tapes(params, n_tokens, tokens_for=None, path=()):

@@ -1,11 +1,12 @@
 """Whole-model projection onto the analog neural training accelerator
-(port of ``repro.hwmodel.arch_cost``, dense and MoE families).
+(port of ``repro.hwmodel.arch_cost``, dense, MoE, SSM and hybrid
+families).
 
-Every weight-stationary projection (attention, FFN and MoE expert
-projections, embeddings and the router excluded) maps onto 1024x1024
-differential crossbar tiles;
-activation-activation compute (QK^T, PV, softmax, norms) stays on the
-digital core and is charged at the synthesized MAC cost.
+Every weight-stationary projection (attention, FFN, MoE expert and SSD
+in/out projections, embeddings and the router excluded) maps onto
+1024x1024 differential crossbar tiles; activation-activation compute
+(QK^T, PV, the SSD scan, softmax, norms) stays on the digital core and is
+charged at the synthesized MAC cost.
 
 The projection inventory is derived from the actual parameter tree via
 the analog registry (``core.analog_registry``), so the cost roll-up
@@ -16,13 +17,15 @@ Accounting:
   * tile padding waste (a 2560x6912 layer occupies 3x7 tiles),
   * MoE: only the active experts fire (energy, ``top_k / n_experts`` of
     each expert stack), but every expert occupies area,
-  * attention digital MACs at 1.46 pJ (paper §IV.J),
+  * the hybrid shared block: one weight set, ``n_layers // attn_every``
+    applications per token,
+  * attention and scan digital MACs at 1.46 pJ (paper §IV.J),
   * training charges VMM + MVM + OPU per projection; inference VMM only.
 
 The reference enumerates the tree with ``jax.eval_shape``; the port
 builds it with ``models.model.init_params`` on the ``meta`` device, which
-allocates nothing.  The other families (the SSD scan, the hybrid shared
-block, encoders) come with their model code (``ROADMAP.md``).
+allocates nothing.  The cross-attention families (encoders, vision
+streams) come with their model code (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -117,9 +120,18 @@ def model_projections(cfg: ModelConfig) -> List[Projection]:
 
 
 def digital_macs_per_token(cfg: ModelConfig, ctx_len: int) -> float:
-    """Activation-activation MACs (attention QK^T + PV) that stay on the
-    digital core, per generated/processed token at context ``ctx_len``."""
+    """Activation-activation MACs (attention QK^T + PV, the SSD scan) that
+    stay on the digital core, per generated/processed token at context
+    ``ctx_len``."""
     _ported_only(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        d_in = cfg.ssm_expand * cfg.d_model
+        h = d_in // cfg.ssm_head_dim
+        macs = cfg.n_layers * (h * cfg.ssm_state * cfg.ssm_head_dim * 2)
+        if cfg.attn_every:
+            hd = cfg.resolved_head_dim
+            macs += 2 * cfg.n_heads * hd * ctx_len
+        return float(macs)
     hd = cfg.resolved_head_dim
     return float(cfg.n_layers * 2 * cfg.n_heads * hd * ctx_len)
 

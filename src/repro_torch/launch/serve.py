@@ -1,5 +1,6 @@
-"""Serving CLI: batched prefill + decode of a dense or MoE (MLA among
-them) model on synthetic prompts, on the card unless ``--device cpu``.
+"""Serving CLI: batched prefill + decode of a dense, MoE (MLA among
+them), SSM or hybrid model on synthetic prompts, on the card unless
+``--device cpu``.
 
     python -m repro_torch.launch.serve --arch lm100m --backend analog
     python -m repro_torch.launch.serve --arch gemma-2b --backend analog \\
@@ -10,9 +11,16 @@ them) model on synthetic prompts, on the card unless ``--device cpu``.
         --smoke --backend analog --analog-tile 16 --device cpu
     python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
         --smoke --backend analog --analog-tile 16 --device cpu
+    python -m repro_torch.launch.serve --arch mamba2-1.3b --backend analog
+    python -m repro_torch.launch.serve --arch zamba2-1.2b --backend analog
 
 ``--arch`` is one of the port's registry (lm100m, gemma-2b, stablelm-3b,
-starcoder2-3b, granite-20b, llama4-scout-17b-a16e, deepseek-v2-lite-16b).
+starcoder2-3b, granite-20b, llama4-scout-17b-a16e, deepseek-v2-lite-16b,
+mamba2-1.3b, zamba2-1.2b).  The SSM and hybrid families have no
+positional cache per slot and are served by the static scheduler
+whatever ``--scheduler`` says, as in the reference; both fit one card at
+full size from crossbars (mamba2-1.3b 9.9 GB of ``g`` + ``ref``,
+zamba2-1.2b 8.4 GB, each about twice that with the programming targets).
 A model serves at full size only where the card's memory holds it:
 llama4-scout (MoE, 16 experts) needs 845 GB of conductances at 48
 layers, and deepseek-v2-lite (MLA, 64 experts of 2048 x 1408) 191 GB at
@@ -107,10 +115,11 @@ def main(argv=None):
     n_tok = sum(len(o) for o in outs)
     for i, o in enumerate(outs):
         print(f"[{i}] prompt={prompts[i][:8]}... -> {o[:16]}...")
-    mode = f"{engine.backend}/{engine.scheduler}"
+    sched = engine.scheduler if engine.supports_continuous else "static"
+    mode = f"{engine.backend}/{sched}"
     print(f"[{mode}] {n_tok} tokens in {dt:.2f}s = {n_tok / dt:.1f} tok/s "
           f"on {args.device}")
-    if engine.scheduler == "continuous":
+    if sched == "continuous":
         print(f"metrics={dict(engine.metrics)}")
     if engine.backend == "analog":
         counts = {name: LAUNCHES[name] - launches0[name] for name in LAUNCHES}

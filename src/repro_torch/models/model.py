@@ -1,5 +1,5 @@
-"""Model API, dense and MoE decoder families (port of
-``repro.models.model``).
+"""Model API: the dense and MoE decoder families, the SSM (Mamba-2) and
+hybrid (Zamba-2) stacks (port of ``repro.models.model``).
 
     params         = init_params(cfg, generator, device="cuda")
     loss, metrics  = loss_fn(params, batch, cfg)
@@ -8,14 +8,17 @@
     logits, cache  = prefill_chunk(params, cache, tokens, cfg)
     cache          = init_cache(cfg, batch, max_len, device)
 
-A cache is the pair ``(caches, shared)`` of the reference, ``shared``
-being None for this family; its tensors are updated in place by the
-functions that take it, which return it for the caller's convenience.
-Other families raise and are queued in ROADMAP.md.
+A cache is the pair ``(caches, shared)`` of the reference: per-layer K/V
+(or latent) caches, or SSM states, stacked (L, B, ...), and the hybrid's
+shared-block K/V caches stacked (n_groups, B, ...) (None for the other
+families).  Its tensors are updated in place by the functions that take
+it, which return it for the caller's convenience.  The SSM family has no
+positions (``cache_lens`` is None) and no chunked prefill.  The
+cross-attention families raise and are queued in ROADMAP.md.
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -28,6 +31,7 @@ from repro_torch.core.tiled_analog import (crossbar_from_model,
 
 from . import transformer as tf
 from .layers import make_cache, make_mla_cache, proj_readout
+from .ssm import make_ssm_state
 
 Tensor = torch.Tensor
 
@@ -52,6 +56,8 @@ def init_params(cfg: ModelConfig,
     if isinstance(generator, int):
         seed, generator = generator, torch.Generator(device=device)
         generator.manual_seed(seed)
+    if cfg.family in ("ssm", "hybrid"):
+        return tf.ssm_stack_init(generator, cfg, device)
     return tf.decoder_init(generator, cfg, device)
 
 
@@ -90,17 +96,28 @@ def program_digital(params, cfg: ModelConfig, path=()):
 
 
 def _forward(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig,
-             caches=None, positions=None):
-    """``(logits, caches, aux)``: :func:`forward` with the aux loss."""
+             caches=None, positions=None, shared_caches=None):
+    """``(logits, caches, shared_caches, aux)``, as the reference's
+    ``forward`` returns them: :func:`forward` with the shared caches and
+    the aux loss."""
     _ported_only(cfg)
-    return tf.decoder_apply(params, batch["tokens"], cfg, caches=caches,
-                            positions=positions)
+    if cfg.family in ("ssm", "hybrid"):
+        return tf.ssm_stack_apply(params, batch["tokens"], cfg,
+                                  states=caches, shared_caches=shared_caches,
+                                  positions=positions)
+    logits, caches, aux = tf.decoder_apply(params, batch["tokens"], cfg,
+                                           caches=caches,
+                                           positions=positions)
+    return logits, caches, None, aux
 
 
 def forward(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig,
-            caches=None, positions=None):
-    """Returns ``(logits, caches)``; ``caches`` are updated in place."""
-    logits, caches, _ = _forward(params, batch, cfg, caches, positions)
+            caches=None, positions=None, shared_caches=None):
+    """Returns ``(logits, caches)``; ``caches`` (and the hybrid's
+    ``shared_caches``) are updated in place.  :func:`_forward` also
+    returns the shared caches and the aux loss."""
+    logits, caches, _, _ = _forward(params, batch, cfg, caches, positions,
+                                    shared_caches)
     return logits, caches
 
 
@@ -109,7 +126,7 @@ def loss_fn(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig):
     Switch load-balancing loss summed over the layers (0 for the dense
     family).  Returns ``(total, {"ce", "aux"})``; cross-entropy is
     logsumexp minus the true logit."""
-    logits, _, aux = _forward(params, batch, cfg)
+    logits, _, _, aux = _forward(params, batch, cfg)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     true_logit = torch.gather(logits, -1,
@@ -124,13 +141,23 @@ def loss_fn(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """``(caches, shared)`` with caches stacked (L, B, ...) per leaf: K/V,
-    or with MLA the latent ``c_kv`` and the shared rope key ``k_rope``."""
+    with MLA the latent ``c_kv`` and the shared rope key ``k_rope``, or
+    the SSM states ``h`` and ``conv``; ``shared`` the hybrid's shared-block
+    K/V caches stacked (n_groups, B, ...), else None."""
     _ported_only(cfg)
+
+    def stack(one, n):
+        return {k: v[None].repeat(n, *([1] * v.ndim))
+                for k, v in one.items()}
+    if cfg.family in ("ssm", "hybrid"):
+        states = stack(make_ssm_state(cfg, batch, device), cfg.n_layers)
+        shared = None
+        if cfg.family == "hybrid":
+            shared = stack(make_cache(cfg, batch, max_len, device),
+                           cfg.n_layers // cfg.attn_every)
+        return states, shared
     make = make_mla_cache if cfg.use_mla else make_cache
-    one = make(cfg, batch, max_len, device)
-    caches = {k: v[None].repeat(cfg.n_layers, *([1] * v.ndim))
-              for k, v in one.items()}
-    return caches, None
+    return stack(make(cfg, batch, max_len, device), cfg.n_layers), None
 
 
 def prefill(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig,
@@ -139,16 +166,20 @@ def prefill(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig,
     sized ``max_len``."""
     b = batch["tokens"].shape[0]
     caches, shared = init_cache(cfg, b, max_len, batch["tokens"].device)
-    logits, caches = forward(params, batch, cfg, caches=caches)
+    logits, caches, shared, _ = _forward(params, batch, cfg, caches=caches,
+                                         shared_caches=shared)
     return logits[:, -1], (caches, shared)
 
 
 def decode_step(params: dict, cache, tokens: Tensor, cfg: ModelConfig):
-    """One decode step.  tokens: (B,).  Returns (logits, cache)."""
+    """One decode step.  tokens: (B,).  Returns (logits, cache).  The
+    positions are the cache's lengths (None for the SSM family)."""
     caches, shared = cache
-    positions = cache_lens(cache, cfg)[:, None]
-    logits, caches = forward(params, {"tokens": tokens[:, None]}, cfg,
-                             caches=caches, positions=positions)
+    lens = cache_lens(cache, cfg)
+    positions = None if lens is None else lens[:, None]
+    logits, caches, shared, _ = _forward(
+        params, {"tokens": tokens[:, None]}, cfg, caches=caches,
+        positions=positions, shared_caches=shared)
     return logits[:, -1], (caches, shared)
 
 
@@ -156,21 +187,34 @@ def prefill_chunk(params: dict, cache, tokens: Tensor, cfg: ModelConfig):
     """Append a chunk of prompt tokens (B, S) to an existing cache; each
     row's chunk is written at its current length and attends causally to
     the filled prefix.  Returns (chunk logits (B, S, V), cache); rows
-    advance by S (``cache_with_lens`` fixes a padded final chunk)."""
+    advance by S (``cache_with_lens`` fixes a padded final chunk).  The
+    SSM family has no positional cache and raises, as the reference
+    does."""
     caches, shared = cache
     lens = cache_lens(cache, cfg)
+    if lens is None:
+        raise ValueError(
+            f"family {cfg.family!r} has no positional cache; "
+            "chunked prefill is unsupported — use prefill()")
     positions = lens[:, None] + torch.arange(tokens.shape[1],
                                              device=tokens.device)[None, :]
-    logits, caches = forward(params, {"tokens": tokens}, cfg, caches=caches,
-                             positions=positions)
+    logits, caches, shared, _ = _forward(
+        params, {"tokens": tokens}, cfg, caches=caches, positions=positions,
+        shared_caches=shared)
     return logits, (caches, shared)
 
 
-def cache_lens(cache, cfg: ModelConfig) -> Tensor:
+def cache_lens(cache, cfg: ModelConfig) -> Optional[Tensor]:
     """Per-row filled lengths of a cache, (B,) (a copy: the cache's own
-    length tensors advance in place while a model call runs)."""
+    length tensors advance in place while a model call runs); None for
+    the positionless SSM family, the shared caches' for the hybrid."""
     _ported_only(cfg)
-    return cache[0]["len"][0].clone()
+    caches, shared = cache
+    if cfg.family == "ssm":
+        return None
+    if cfg.family == "hybrid":
+        return shared["len"][0].clone() if shared is not None else None
+    return caches["len"][0].clone()
 
 
 def _leaves(tree, path=()):

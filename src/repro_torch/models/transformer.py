@@ -1,11 +1,19 @@
-"""Decoder stack, dense and MoE families, MoE with MLA attention (port
-of the decoder-only parts of ``repro.models.transformer``).
+"""Layer stacks: the dense and MoE decoders (MoE with MLA attention),
+and the SSM and hybrid stacks (port of ``repro.models.transformer``
+without the cross-attention families).
 
 Per-layer parameters are stacked along a leading (L, ...) dim, as the
 reference's scan expects; the stack runs as a Python loop over the
-stacked tensors.  Caches use the same stacked layout and are updated in
-place (see ``layers.attention``).  The MoE blocks' aux losses are summed
-over the layers, as the reference's scan carries them.
+stacked tensors.  Caches (and SSM states) use the same stacked layout and
+are updated in place (see ``layers.attention``).  The MoE blocks' aux
+losses are summed over the layers, as the reference's scan carries them.
+
+The hybrid (Zamba-2) stack runs groups of ``attn_every`` SSD layers, a
+shared attention block after each group (ONE weight set applied
+``n_layers // attn_every`` times) and the trailing layers.  In a training
+step each application of the shared block deposits its write operands in
+its own slot of the containers' tapes (the reference scans over the
+tapes' leading dim).
 """
 from __future__ import annotations
 
@@ -14,12 +22,13 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.tiled_analog import stack_trees
+from repro_torch.core.tiled_analog import pop_tapes, push_tapes, stack_trees
 
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .layers import (attention, attn_init, cdtype, dense_init, embed_init,
-                     ffn, ffn_init, mla_attention, mla_init, rmsnorm,
-                     rmsnorm_init)
+                     ffn, ffn_init, mla_attention, mla_init, proj_init,
+                     project, rmsnorm, rmsnorm_init)
 
 Tensor = torch.Tensor
 
@@ -69,6 +78,20 @@ def moe_block(p: dict, x: Tensor, cfg: ModelConfig, positions,
     return x + y, new_cache, aux
 
 
+def ssm_block_init(generator: torch.Generator, cfg: ModelConfig,
+                   device=None) -> dict:
+    return {"ln": rmsnorm_init(cfg.d_model, device),
+            "ssm": ssm_mod.ssm_init(generator, cfg, device)}
+
+
+def ssm_block(p: dict, x: Tensor, cfg: ModelConfig,
+              state) -> Tuple[Tensor, Optional[dict]]:
+    h, new_state = ssm_mod.ssm_apply(p["ssm"],
+                                     rmsnorm(p["ln"], x, cfg.norm_eps),
+                                     cfg, state=state)
+    return x + h, new_state
+
+
 def decoder_init(generator: torch.Generator, cfg: ModelConfig,
                  device=None) -> dict:
     block_init = moe_block_init if cfg.n_experts else dense_block_init
@@ -110,3 +133,79 @@ def decoder_apply(p: dict, tokens: Tensor, cfg: ModelConfig, *,
         if caches is not None:
             caches["len"][i] = new_cache["len"]
     return _logits(p, x, cfg), caches, aux
+
+
+# --------------------------------------------------------------------------
+# SSM / hybrid
+# --------------------------------------------------------------------------
+
+def ssm_stack_init(generator: torch.Generator, cfg: ModelConfig,
+                   device=None) -> dict:
+    p = {"embed": embed_init(generator, cfg.vocab, cfg.d_model, device),
+         "layers": stack_trees((ssm_block_init(generator, cfg, device)
+                                for _ in range(cfg.n_layers)), cfg.n_layers),
+         "final_ln": rmsnorm_init(cfg.d_model, device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = {"w": dense_init(generator, cfg.d_model, cfg.vocab,
+                                        device)}
+    if cfg.attn_every:  # the shared attention block
+        p["shared_in"] = proj_init(generator, 2 * cfg.d_model, cfg.d_model,
+                                   cfg, device)
+        p["shared_ln"] = rmsnorm_init(cfg.d_model, device)
+        p["shared_ln2"] = rmsnorm_init(cfg.d_model, device)
+        p["shared_attn"] = attn_init(generator, cfg, device)
+        p["shared_ffn"] = ffn_init(generator, cfg, device)
+    return p
+
+
+def tape_slot(tapes, i: int, reps: int):
+    """Application ``i`` of ``reps``'s slot of tapes popped off a tree
+    (``core.tiled_analog.pop_tapes``): every tape leaf indexed along its
+    leading (reps,) dim, a view, so the backward pass writes into the
+    slot.  With one application the tapes have no such dim
+    (``analog_registry.tape_lead`` gives (T,)) and are the slot."""
+    if reps == 1:
+        return tapes
+    if isinstance(tapes, dict):
+        return {k: tape_slot(v, i, reps) for k, v in tapes.items()}
+    return tapes[i]
+
+
+def ssm_stack_apply(p: dict, tokens: Tensor, cfg: ModelConfig, *,
+                    states=None, shared_caches=None, positions=None
+                    ) -> Tuple[Tensor, Any, Any, Tensor]:
+    """Logits of ``tokens`` (B, S), the SSM states and the hybrid's shared
+    K/V caches (both updated in place) and a zero aux loss."""
+    x0 = _embed_lookup(p, tokens, cfg)
+    x = x0
+    k = cfg.attn_every
+    if k:
+        shared_clean, shared_tapes, has_tapes = pop_tapes(
+            {"in": p["shared_in"], "attn": p["shared_attn"],
+             "ffn": p["shared_ffn"]})
+    for i in range(cfg.n_layers):
+        st = tree_index(states, i) if states is not None else None
+        x, new_st = ssm_block(tree_index(p["layers"], i), x, cfg, st)
+        if states is not None:
+            for key, leaf in states.items():
+                leaf[i].copy_(new_st[key])
+        if not k or (i + 1) % k:
+            continue
+        # the shared block after group gi: its own tape slot, its own cache
+        gi = i // k
+        sp = push_tapes(shared_clean, tape_slot(shared_tapes, gi,
+                                                cfg.n_layers // k)) \
+            if has_tapes else shared_clean
+        cache = tree_index(shared_caches, gi) \
+            if shared_caches is not None else None
+        h_in = project(sp["in"], torch.cat([x, x0], dim=-1), cfg)
+        h1, new_cache = attention(
+            sp["attn"], rmsnorm(p["shared_ln"], h_in, cfg.norm_eps), cfg,
+            positions=positions, cache=cache)
+        x = x + h1
+        x = x + ffn(sp["ffn"], rmsnorm(p["shared_ln2"], x, cfg.norm_eps),
+                    cfg)
+        if shared_caches is not None:
+            shared_caches["len"][gi] = new_cache["len"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(p, x, cfg), states, shared_caches, aux

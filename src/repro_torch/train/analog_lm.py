@@ -1,5 +1,6 @@
 """In-situ analog training of a device-mode transformer, on one device
-(port of ``repro.train.analog_lm``, dense and MoE families, no mesh).
+(port of ``repro.train.analog_lm``, dense, MoE, SSM and hybrid
+families, no mesh).
 
 One ``AnalogTrainStep`` call is the whole training rule:
 
@@ -23,7 +24,13 @@ One ``AnalogTrainStep`` call is the whole training rule:
      counter PRNG keyed by ``_mix32(seed_base ^ crc32(path))``, in the
      config's update mode (``analog_update_mode``: the aggregate
      ``"outer"`` write or ``"pulse_train"``, integer SET/RESET event
-     counts);
+     counts); the hybrid's shared-block containers, applied once per
+     group, tape one (T, K) / (T, N) slot per application with its own
+     code scales, and their write sums the applications' outer products
+     over the collapsed (reps * T) rows, handed over as float operands
+     without code scales (one scale per application does not make the
+     collapsed rows codes times one scale): the FP32 instance on the
+     card;
   4. the digital leaves (embedding, norms) take plain SGD;
   5. with periodic carry (``analog_carry``), the writes land on each
      container's ``g_carry`` array at ``carry_base`` times the scale, and
@@ -178,7 +185,10 @@ class AnalogTrainStep:
         """The paper's Fig. 3c parallel write: one kernel launch per
         container over its (L, tiles) grid (an expert stack's (E * L,
         tiles), expert dim outermost), its write noise from the counter
-        PRNG, with the tapes' code scales per flattened matrix."""
+        PRNG, with the tapes' code scales per flattened matrix.  A
+        container applied several times a step (the hybrid's shared
+        block) is written once over all its applications' rows, without
+        code scales: each application's codes have their own scale."""
         kind = registry.classify(path)
         dev = self.xcfg.device
         seed = None if seed_base is None else container_seed(seed_base, path)
@@ -193,7 +203,8 @@ class AnalogTrainStep:
         if leaf == "g_carry":
             scale = scale * torch.tensor(self.xcfg.carry_base, **f32)
         code_scales = [tapes[k] for k in ("x_tape_scale", "d_tape_scale")
-                       if k in tapes]
+                       if k in tapes and registry.tape_reps(path,
+                                                            self.cfg) == 1]
         g3, x3, d3, s1, *code_scales, unflatten = registry.flatten_lead(
             kind, p[leaf], tapes["x_tape"], tapes["d_tape"], scale,
             *code_scales)

@@ -211,8 +211,9 @@ def test_analog_train_step_records_its_cost():
 
 
 def test_non_dense_families_raise():
-    """The families still unported (SSM here) raise; MoE is ported."""
-    cfg = get_config("lm100m").replace(family="ssm")
+    """The families still unported (the VLM here) raise; MoE is
+    ported."""
+    cfg = get_config("lm100m").replace(family="vlm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         arch_cost.digital_macs_per_token(cfg, 16)
     moe = get_config("llama4-scout-17b-a16e")
@@ -273,6 +274,33 @@ def test_deepseek_v2_lite_cost_equals_the_reference(mode):
     assert dataclasses.asdict(arch_cost.analyze_arch(cfg)) == \
         dataclasses.asdict(J_arch.analyze_arch(jcfg))
     for ctx_len in (4096, 256):
+        assert arch_cost.serve_energy_per_token(cfg, ctx_len=ctx_len) == \
+            J_arch.serve_energy_per_token(jcfg, ctx_len=ctx_len)
+    if mode == "device":
+        assert arch_cost.train_step_cost(cfg, n_tokens=2048, ctx_len=256) \
+            == J_arch.train_step_cost(jcfg, n_tokens=2048, ctx_len=256)
+
+
+@pytest.mark.parametrize("mode", ["device", "digital"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
+def test_ssm_and_hybrid_cost_equals_the_reference(arch, mode):
+    """The SSM and hybrid families at full size: the projections (the
+    SSD's in/out projections per layer, the hybrid's shared block applied
+    ``n_layers // attn_every`` times a token), ``analyze_arch``, the SSD
+    scan's digital MACs, the energy per token at two context lengths
+    and, in device mode, a training step's cost equal the reference's."""
+    kw = DEVICE if mode == "device" else {}
+    cfg = get_config(arch).replace(**kw)
+    jcfg = jax_config(arch).replace(**kw)
+    got = arch_cost.model_projections(cfg)
+    assert sorted(dataclasses.astuple(p) for p in got) == sorted(
+        dataclasses.astuple(p) for p in J_arch.model_projections(jcfg))
+    assert len(got) == (2 if arch == "mamba2-1.3b" else 7)
+    assert dataclasses.asdict(arch_cost.analyze_arch(cfg)) == \
+        dataclasses.asdict(J_arch.analyze_arch(jcfg))
+    for ctx_len in (4096, 256):
+        assert arch_cost.digital_macs_per_token(cfg, ctx_len) == \
+            J_arch.digital_macs_per_token(jcfg, ctx_len)
         assert arch_cost.serve_energy_per_token(cfg, ctx_len=ctx_len) == \
             J_arch.serve_energy_per_token(jcfg, ctx_len=ctx_len)
     if mode == "device":

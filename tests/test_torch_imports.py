@@ -53,9 +53,9 @@ def test_port_sources_and_chip_smoke_import_no_jax_or_repro():
 def test_probe_walks_the_kernel_modules():
     """The probe above imports every kernel module of the port, the
     fakequant projection and flash attention among them, the carry and
-    numeric-training modules, the registry's dense configs, the
-    retention model, the serving maintenance runtime and the
-    checkpoints."""
+    numeric-training modules, the registry's dense and SSM configs, the
+    SSD layer, the retention model, the serving maintenance runtime and
+    the checkpoints."""
     import pkgutil
 
     import repro_torch
@@ -71,4 +71,6 @@ def test_probe_walks_the_kernel_modules():
             "repro_torch.configs.granite_20b", "repro_torch.core.endurance",
             "repro_torch.serve.state", "repro_torch.serve.engine",
             "repro_torch.train.checkpoint",
-            "repro_torch.launch.serve"} <= names
+            "repro_torch.launch.serve", "repro_torch.models.ssm",
+            "repro_torch.configs.mamba2_1_3b",
+            "repro_torch.configs.zamba2_1_2b"} <= names

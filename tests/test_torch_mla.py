@@ -47,6 +47,7 @@ from repro.models import layers as JL
 from repro.models import model as JM
 from repro.train import analog_lm as JA
 from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs.base import PORTED_FAMILIES
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import analog_registry as treg
 from repro_torch.core.tiled_analog import crossbar_from_model
@@ -315,7 +316,7 @@ def test_param_count_matches_reference(active_only):
         (2663120896 if active_only else 16210198528)
     for arch in sorted(set(J_ARCHS) - set(ARCHS)):
         fam = jax_config(arch).family
-        if fam in ("dense", "moe"):
+        if fam in PORTED_FAMILIES:
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config("lm100m").replace(family=fam).param_count()

@@ -1,6 +1,7 @@
 """The registry's dense family in the port against the JAX package (the
-MoE configs' fields are held here too; their models in
-``tests/test_torch_moe.py`` and, MLA, ``tests/test_torch_mla.py``):
+MoE, SSM and hybrid configs' fields are held here too; their models in
+``tests/test_torch_moe.py``, ``tests/test_torch_mla.py``,
+``tests/test_torch_ssm.py`` and ``tests/test_torch_hybrid.py``):
 gemma-2b (MQA, GeGLU, head_dim 256, tied embeddings), stablelm-3b
 (head_dim 80 at full size), starcoder2-3b (GQA kv=2, GELU, not gated,
 rope_theta 1e5) and granite-20b (MQA, GELU, not gated), each as its
@@ -60,7 +61,11 @@ from test_torch_forward_flips import _one_lsb_per_k_tile
 
 DENSE = ["gemma-2b", "stablelm-3b", "starcoder2-3b", "granite-20b"]
 MOE = ["llama4-scout-17b-a16e", "deepseek-v2-lite-16b"]
-UNPORTED = sorted(set(J_ARCHS) - set(DENSE) - set(MOE) - {"lm100m"})
+#: the SSM and hybrid configs (their models in ``tests/test_torch_ssm.py``
+#: and ``tests/test_torch_hybrid.py``)
+SSM = ["mamba2-1.3b", "zamba2-1.2b"]
+UNPORTED = sorted(set(J_ARCHS) - set(DENSE) - set(MOE) - set(SSM)
+                  - {"lm100m"})
 # the (arch, mode) pairs whose forward flips an ADC code at PRNGKey(0)
 FLIPS = {("starcoder2-3b", "device")}
 MODES = {
@@ -108,7 +113,7 @@ def _no_remat():
 # ------------------------------------------------------------------ configs
 
 @pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch", DENSE + MOE + ["lm100m"])
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM + ["lm100m"])
 def test_config_matches_reference(arch, smoke):
     got, want = get_config(arch, smoke), jax_config(arch, smoke)
     for f in dataclasses.fields(got):
@@ -123,7 +128,7 @@ def test_unported_archs_raise(arch):
 
 
 def test_make_smoke_matches_reference_with_overrides():
-    for arch in DENSE + MOE:
+    for arch in DENSE + MOE + SSM:
         got = make_smoke(get_config(arch), n_layers=1, vocab=512)
         want = jbase.make_smoke(jax_config(arch), n_layers=1, vocab=512)
         for f in dataclasses.fields(got):
