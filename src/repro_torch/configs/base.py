@@ -1,23 +1,16 @@
 """Model configuration schema (the port's copy of ``repro.configs.base``).
 
-One ``ModelConfig`` describes an architecture.  The port keeps the JAX
-package's fields for the dense decoder, the MoE family, MLA, the SSM
-(Mamba-2 SSD) and hybrid (Zamba-2) families and the analog read, under
-the same names; the fields of the cross-attention families arrive with
-the slice that reads them (``ROADMAP.md``).  Every config file exports
-``CONFIG`` (the published architecture) and ``SMOKE``
-(:func:`make_smoke`).  The port keeps its own copy because it imports
-nothing of ``repro``.
+One ``ModelConfig`` describes an architecture of any family the registry
+carries (dense, MoE with MLA among them, the cross-attention VLM, the
+audio encoder-decoder, SSM and hybrid), with the JAX package's fields
+under the same names.  Every config file exports ``CONFIG`` (the
+published architecture) and ``SMOKE`` (:func:`make_smoke`).  The port
+keeps its own copy because it imports nothing of ``repro``.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
-
-
-#: The model families the port implements (the others are queued in
-#: ROADMAP.md and raise where a family's code would run).
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 class AnalogMode(enum.Enum):
@@ -75,7 +68,7 @@ def resolve_analog_mode(cfg: "ModelConfig") -> AnalogMode:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # one of PORTED_FAMILIES in the port
+    family: str                    # dense | moe | vlm | audio | hybrid | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -103,6 +96,14 @@ class ModelConfig:
     qk_rope_dim: int = 64
     qk_nope_dim: int = 128
     v_head_dim: int = 128
+
+    # --- cross-attention (VLM decoder) --------------------------------------
+    cross_attn_every: int = 0      # every Nth layer is a cross-attn layer
+    n_vision_tokens: int = 0       # stub frontend tokens per image
+
+    # --- encoder-decoder (audio) ---------------------------------------------
+    n_encoder_layers: int = 0
+    n_audio_frames: int = 0        # stub conv-frontend output frames
 
     # --- SSM (Mamba-2 SSD) ---------------------------------------------------
     ssm_state: int = 0
@@ -179,19 +180,21 @@ class ModelConfig:
         """Eligible for the 500k-token long-context shape."""
         return self.family in ("ssm", "hybrid")
 
+    @property
+    def has_encoder(self) -> bool:
+        return self.n_encoder_layers > 0
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
     def param_count(self, active_only: bool = False) -> int:
         """Parameters of the embedding and the layers (the reference's
-        rough count, for roofline and memory reckoning): the dense, MoE,
-        MLA, SSM and hybrid terms (the hybrid's shared block counted
-        once: one weight set).  The cross-attention families' terms
-        arrive with their slice (``ROADMAP.md``)."""
-        if self.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"param_count of family {self.family!r} is not ported "
-                "yet; see ROADMAP.md")
+        rough count, for roofline reckoning), kept term for term: the
+        hybrid's shared block counted once (one weight set); the VLM's
+        cross layers' attention added on top of ``n_layers`` full layers
+        (so counted twice), the audio decoder's cross-attention not at
+        all.  Memory is reckoned from the parameter tree, not from this
+        count."""
         d, ff, v = self.d_model, self.d_ff, self.vocab
         hd = self.resolved_head_dim
         emb = v * d * (1 if self.tie_embeddings else 2)
@@ -227,15 +230,24 @@ class ModelConfig:
                 + d * self.n_experts  # + router
         else:
             per = attn + ffn_mult * d * ff
-        return emb + self.n_layers * per
+        n = self.n_layers * per
+        if self.cross_attn_every:
+            n_cross = self.n_layers // self.cross_attn_every
+            n += n_cross * (d * hd * (self.n_heads + 2 * self.n_kv_heads)
+                            + self.n_heads * hd * d)
+        if self.n_encoder_layers:
+            n += self.n_encoder_layers * (attn + ffn_mult * d * ff)
+        return emb + n
 
 
 def make_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Family-preserving reduction for CPU smoke tests (the reference's
-    ``make_smoke`` on the dense, MoE, MLA, SSM and hybrid fields this
-    config has; a hybrid keeps 4 layers, two groups of ``attn_every=2``)."""
+    ``make_smoke``): a VLM or hybrid keeps 4 layers, two groups of
+    ``cross_attn_every=2`` / ``attn_every=2``; the VLM 16 vision tokens;
+    the audio model 2 encoder layers and 32 frames."""
     kw = dict(
-        n_layers=min(cfg.n_layers, 4 if cfg.attn_every else 2),
+        n_layers=min(cfg.n_layers, 4 if (cfg.cross_attn_every
+                                         or cfg.attn_every) else 2),
         d_model=64,
         n_heads=4,
         n_kv_heads=min(cfg.n_kv_heads, 4) if cfg.n_kv_heads > 1 else 1,
@@ -250,6 +262,10 @@ def make_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     if cfg.use_mla:
         kw.update(kv_lora_rank=32, qk_rope_dim=8, qk_nope_dim=16,
                   v_head_dim=16)
+    if cfg.cross_attn_every:
+        kw.update(cross_attn_every=2, n_vision_tokens=16)
+    if cfg.n_encoder_layers:
+        kw.update(n_encoder_layers=2, n_audio_frames=32)
     if cfg.ssm_state:
         kw.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=16)
     if cfg.attn_every:

@@ -1,15 +1,15 @@
-"""Analog parameter registry, dense, MoE, SSM and hybrid families (port
-of ``repro.core.analog_registry``).
+"""Analog parameter registry of every family (port of
+``repro.core.analog_registry``).
 
 It owns the mapping from a parameter path to whether the matrix there
 lives on crossbar tiles, which consumer kind it is, how its tapes are
-shaped (:func:`tape_lead`), how its leaves lay out on a mesh
-(:func:`leaf_layout`) and how the rank-k write views it
+shaped (:func:`tape_lead`, with the rows of one application from
+:func:`operand_rows`: the audio encoder's containers see the frames, the
+fused cross-attention ``wqkv`` both streams), how its leaves lay out on
+a mesh (:func:`leaf_layout`) and how the rank-k write views it
 (:func:`flatten_lead`, with the expert dim hoisted outermost by
 :func:`hoist_axis`).  The hybrid shared block tapes once per
-application (:func:`tape_reps`).  The cross-attention streams follow
-with the families that need them (``ROADMAP.md``): their configs raise
-here.
+application (:func:`tape_reps`).
 """
 from __future__ import annotations
 
@@ -17,8 +17,6 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
-
-from repro_torch.configs.base import PORTED_FAMILIES
 
 #: Producer: activations drive the rows, output columns split under TP.
 COLUMN_PARALLEL = "column_parallel"
@@ -98,12 +96,6 @@ def classify_param(path: Sequence) -> Optional[str]:
     return ROW_PARALLEL if proj in ROW_PARALLEL_KEYS else COLUMN_PARALLEL
 
 
-def _ported_family(what: str, cfg) -> None:
-    if cfg is not None and cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"{what} for the {cfg.family!r} family "
-                                  "is not ported yet (ROADMAP.md)")
-
-
 def expert_capacity(n_tokens: int, cfg) -> int:
     """Per-expert dispatch capacity (the MoE buffer's row count), which is
     also the tape length of an expert-batched container: the write
@@ -115,22 +107,43 @@ def expert_capacity(n_tokens: int, cfg) -> int:
     return max(8, -(-c // 8) * 8)
 
 
+def operand_rows(path: Sequence, cfg, n_tokens: int,
+                 batch_shape: Optional[Tuple[int, ...]] = None) -> int:
+    """Operand rows one application of the container at ``path`` sees.
+
+    Most containers are driven by the decoder token batch (``n_tokens``).
+    The audio encoder's (``enc_layers``) see the frame batch, B x
+    ``n_audio_frames``; the fused cross-attention ``wqkv`` (under
+    ``xattn``) both streams concatenated in its single application,
+    ``n_tokens`` + B x (``n_vision_tokens`` or ``n_audio_frames``).
+    ``batch_shape`` is the token batch's (B, S), which scales the
+    per-sequence stream lengths to the batch (B = 1 without it).
+    """
+    keys = _keys(path)
+    b = batch_shape[0] if batch_shape else 1
+    stream = b * (getattr(cfg, "n_vision_tokens", 0)
+                  or getattr(cfg, "n_audio_frames", 0))
+    if "enc_layers" in keys:
+        return b * cfg.n_audio_frames
+    if "xattn" in keys and keys[-1] == "wqkv":
+        return n_tokens + stream
+    return n_tokens
+
+
 def tape_lead(path: Sequence, cfg, n_tokens: int,
               batch_shape: Optional[Tuple[int, ...]] = None
               ) -> Tuple[int, ...]:
     """Shape of one container's tape slots between the container's own
     lead dims and the operand feature dim: ``(T,)`` for a container
-    applied once per step to all T tokens, ``(reps, T)`` for the hybrid
-    shared block (one slot per application, :func:`tape_reps`),
-    ``(capacity,)`` per expert for an expert-batched container
-    (:func:`expert_capacity`).  Every container of the ported families is
-    driven by the decoder token batch (the reference's ``operand_rows``
-    token case)."""
-    _ported_family("tape_lead", cfg)
+    applied once per step (T from :func:`operand_rows`), ``(reps, T)``
+    for the hybrid shared block (one slot per application,
+    :func:`tape_reps`), ``(capacity,)`` per expert for an expert-batched
+    container (:func:`expert_capacity`)."""
     if classify(path) == EXPERT_BATCHED:
         return (expert_capacity(n_tokens, cfg),)
+    rows = operand_rows(path, cfg, n_tokens, batch_shape)
     reps = tape_reps(path, cfg)
-    return (reps, n_tokens) if reps > 1 else (n_tokens,)
+    return (reps, rows) if reps > 1 else (rows,)
 
 
 def tape_reps(path: Sequence, cfg) -> int:

@@ -1,9 +1,9 @@
 """Whole-model projection onto the analog neural training accelerator
-(port of ``repro.hwmodel.arch_cost``, dense, MoE, SSM and hybrid
-families).
+(port of ``repro.hwmodel.arch_cost``, every family).
 
-Every weight-stationary projection (attention, FFN, MoE expert and SSD
-in/out projections, embeddings and the router excluded) maps onto
+Every weight-stationary projection (attention and cross-attention, FFN,
+MoE expert and SSD in/out projections, the audio encoder's; embeddings,
+the router and the encoder's positional table excluded) maps onto
 1024x1024 differential crossbar tiles; activation-activation compute
 (QK^T, PV, the SSD scan, softmax, norms) stays on the digital core and is
 charged at the synthesized MAC cost.
@@ -19,13 +19,13 @@ Accounting:
     each expert stack), but every expert occupies area,
   * the hybrid shared block: one weight set, ``n_layers // attn_every``
     applications per token,
-  * attention and scan digital MACs at 1.46 pJ (paper §IV.J),
+  * attention and scan digital MACs at 1.46 pJ (paper §IV.J), the audio
+    encoder's layers counted with the decoder's,
   * training charges VMM + MVM + OPU per projection; inference VMM only.
 
 The reference enumerates the tree with ``jax.eval_shape``; the port
 builds it with ``models.model.init_params`` on the ``meta`` device, which
-allocates nothing.  The cross-attention families (encoders, vision
-streams) come with their model code (``ROADMAP.md``).
+allocates nothing.
 """
 from __future__ import annotations
 
@@ -34,18 +34,11 @@ import functools
 import math
 from typing import Dict, List, Optional
 
-from repro_torch.configs.base import PORTED_FAMILIES, AnalogMode, ModelConfig
+from repro_torch.configs.base import AnalogMode, ModelConfig
 
 from . import digital_reram, sram
 from .analog import AnalogCore
 from .params import TABLE_I
-
-
-def _ported_only(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the cost roll-up of the {cfg.family!r} family is not ported "
-            "yet; see ROADMAP.md")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +68,6 @@ def model_projections(cfg: ModelConfig) -> List[Projection]:
     from repro_torch.core.tiled_analog import is_analog_container
     from repro_torch.models import model as M
 
-    _ported_only(cfg)
     params = M.init_params(cfg, torch.Generator(), device="meta")
     ps: List[Projection] = []
     unknown: List[str] = []
@@ -122,8 +114,8 @@ def model_projections(cfg: ModelConfig) -> List[Projection]:
 def digital_macs_per_token(cfg: ModelConfig, ctx_len: int) -> float:
     """Activation-activation MACs (attention QK^T + PV, the SSD scan) that
     stay on the digital core, per generated/processed token at context
-    ``ctx_len``."""
-    _ported_only(cfg)
+    ``ctx_len``: the decoder's layers and, for the audio model, the
+    encoder's."""
     if cfg.family in ("ssm", "hybrid"):
         d_in = cfg.ssm_expand * cfg.d_model
         h = d_in // cfg.ssm_head_dim
@@ -133,7 +125,8 @@ def digital_macs_per_token(cfg: ModelConfig, ctx_len: int) -> float:
             macs += 2 * cfg.n_heads * hd * ctx_len
         return float(macs)
     hd = cfg.resolved_head_dim
-    return float(cfg.n_layers * 2 * cfg.n_heads * hd * ctx_len)
+    layers = cfg.n_layers + cfg.n_encoder_layers
+    return float(layers * 2 * cfg.n_heads * hd * ctx_len)
 
 
 @dataclasses.dataclass

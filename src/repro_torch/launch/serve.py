@@ -1,6 +1,6 @@
-"""Serving CLI: batched prefill + decode of a dense, MoE (MLA among
-them), SSM or hybrid model on synthetic prompts, on the card unless
-``--device cpu``.
+"""Serving CLI: batched prefill + decode of any registry model (dense,
+MoE with MLA among them, VLM, audio encoder-decoder, SSM, hybrid) on
+synthetic prompts, on the card unless ``--device cpu``.
 
     python -m repro_torch.launch.serve --arch lm100m --backend analog
     python -m repro_torch.launch.serve --arch gemma-2b --backend analog \\
@@ -13,23 +13,33 @@ them), SSM or hybrid model on synthetic prompts, on the card unless
         --smoke --backend analog --analog-tile 16 --device cpu
     python -m repro_torch.launch.serve --arch mamba2-1.3b --backend analog
     python -m repro_torch.launch.serve --arch zamba2-1.2b --backend analog
+    python -m repro_torch.launch.serve --arch whisper-medium --backend analog
+    python -m repro_torch.launch.serve --arch llama-3.2-vision-90b \\
+        --smoke --backend analog --analog-tile 16 --device cpu
 
-``--arch`` is one of the port's registry (lm100m, gemma-2b, stablelm-3b,
+``--arch`` is one of the registry's 11 (lm100m, gemma-2b, stablelm-3b,
 starcoder2-3b, granite-20b, llama4-scout-17b-a16e, deepseek-v2-lite-16b,
-mamba2-1.3b, zamba2-1.2b).  The SSM and hybrid families have no
-positional cache per slot and are served by the static scheduler
-whatever ``--scheduler`` says, as in the reference; both fit one card at
-full size from crossbars (mamba2-1.3b 9.9 GB of ``g`` + ``ref``,
-zamba2-1.2b 8.4 GB, each about twice that with the programming targets).
+llama-3.2-vision-90b, whisper-medium, mamba2-1.3b, zamba2-1.2b).  The
+SSM and hybrid families have no positional cache per slot, and the VLM
+and the audio model take a second token stream (stub frontend inputs of
+zeros, ``(batch, n_vision_tokens | n_audio_frames, d_model)``, as the
+reference's CLI gives them): all four are served by the static scheduler
+whatever ``--scheduler`` says, as in the reference.  mamba2-1.3b (9.9
+GB of ``g`` + ``ref``), zamba2-1.2b (8.4 GB) and whisper-medium (5.6 GB)
+fit one card at full size from crossbars, each about twice that with
+the programming targets; llama-3.2-vision-90b needs 6.8 GB of ``g`` +
+``ref`` a layer, 684 GB at 100 layers.
 A model serves at full size only where the card's memory holds it:
 llama4-scout (MoE, 16 experts) needs 845 GB of conductances at 48
 layers, and deepseek-v2-lite (MLA, 64 experts of 2048 x 1408) 191 GB at
 27 (4.68 GB of ``g`` + ``ref`` a layer, 2.34 GB of programming targets,
 1.68 GB of embedding and head), more than one H100 has, so on one card
-they serve from crossbars as ``--smoke`` only.  ``chip_smoke.py`` runs
-them at full width cut in depth: llama4-scout at 2 layers (phase 18),
-deepseek-v2-lite at 4 of 27 (phase 19, about 30 GB resident), the depth
-that fits one card beside the script's other phases.  ``--backend analog`` programs the weights
+they serve from crossbars as ``--smoke`` only (llama-3.2-vision-90b
+too).  ``chip_smoke.py`` runs them at full width cut in depth:
+llama4-scout at 2 layers (phase 18), deepseek-v2-lite at 4 of 27 (phase
+19, about 30 GB resident), llama-3.2-vision at 5 of 100 (phase 23, one
+cross layer and its four self layers), the depth that fits one card
+beside the script's other phases.  ``--backend analog`` programs the weights
 onto tiled crossbars (``--analog-device``, ``--analog-tile``) and serves
 the conductances in-array: every projection read goes through the fused
 read, and the run prints how many times its CUDA kernels were launched,
@@ -57,9 +67,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="lm100m",
                     help="a config of the port's registry; it serves at "
                          "full size only where memory allows: "
-                         "llama4-scout-17b-a16e and deepseek-v2-lite-16b "
-                         "do not fit one H100 from crossbars (use "
-                         "--smoke)")
+                         "llama4-scout-17b-a16e, deepseek-v2-lite-16b and "
+                         "llama-3.2-vision-90b do not fit one H100 from "
+                         "crossbars (use --smoke)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -97,11 +107,20 @@ def main(argv=None):
     prompts = [[int(t) for t in rng.integers(
         0, cfg.vocab, size=rng.integers(4, args.prompt_len))]
                for _ in range(args.batch)]
+    extras = {}
+    if cfg.family == "vlm":
+        extras["vision"] = torch.zeros(
+            (args.batch, cfg.n_vision_tokens, cfg.d_model),
+            device=args.device)
+    if cfg.family == "audio":
+        extras["audio"] = torch.zeros(
+            (args.batch, cfg.n_audio_frames, cfg.d_model),
+            device=args.device)
     engine = make_engine(cfg, params, backend=args.backend,
                          scheduler=args.scheduler,
                          max_len=args.prompt_len + args.max_new + 8,
                          n_slots=args.slots or args.batch,
-                         prefill_chunk=args.prefill_chunk)
+                         prefill_chunk=args.prefill_chunk, extras=extras)
     sp = SamplingParams(temperature=args.temperature,
                         max_new_tokens=args.max_new)
     if args.sim_days:

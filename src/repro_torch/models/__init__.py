@@ -1,1 +1,2 @@
-"""Model definitions (dense decoder family)."""
+"""Model definitions: every family of the registry (dense, MoE with MLA,
+VLM, audio encoder-decoder, SSM, hybrid)."""

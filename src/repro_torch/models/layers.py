@@ -1,5 +1,5 @@
-"""Transformer building blocks (port of ``repro.models.layers``, dense
-self-attention, MLA, gated FFN and the MoE expert projection, with
+"""Transformer building blocks (port of ``repro.models.layers``: self-
+and cross-attention, MLA, gated FFN and the MoE expert projection, with
 digital, fakequant and device-mode projections).
 
 Conventions, as in the reference:
@@ -266,30 +266,51 @@ def _cached_sdpa(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor) -> Tensor:
     return o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
-def attention(p: dict, x: Tensor, cfg: ModelConfig, *,
+def attention(p: dict, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
               positions: Optional[Tensor] = None,
-              cache: Optional[dict] = None) -> Tuple[Tensor, Optional[dict]]:
-    """Causal self-attention with rotary embeddings and an optional KV
+              cache: Optional[dict] = None,
+              x_kv: Optional[Tensor] = None,
+              use_rope: bool = True) -> Tuple[Tensor, Optional[dict]]:
+    """Self- or cross-attention with rotary embeddings and an optional KV
     cache.
 
     cache = {"k": (B, S, KVH, hd), "v": ..., "len": (B,)}.  Append mode
     (one token, or a chunk with explicit ``positions``) writes the new
     keys and values at each row's ``len`` and attends to the filled
     prefix.  A cache with ``positions=None`` and sq > 1 is a fresh full
-    prefill, which overwrites the cache from position 0.
+    prefill, which overwrites the cache from position 0.  ``causal`` and
+    ``use_rope`` off give the audio encoder's attention.
+
+    Cross-attention (``x_kv`` (B, Skv, d), a second token stream): ONE
+    application of the fused ``wqkv`` reads both streams concatenated
+    along tokens; q comes from the first ``sq`` rows, k and v from the
+    rest.  It is never split into two reads: in device mode the DAC scale
+    and each output tile's ADC range span every row of a read, and a
+    training step's tape takes one operand block per container (the
+    unused column blocks of each stream carry zero cotangents).  No rope,
+    no causal mask, and the cache is not touched.
     """
     hd = cfg.resolved_head_dim
     b, sq = x.shape[0], x.shape[1]
-    append = cache is not None and (sq == 1 or positions is not None)
+    append = cache is not None and x_kv is None and (
+        sq == 1 or positions is not None)
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    qkv = project(p["wqkv"], x, cfg)
-    q = _split_heads(qkv[..., :nq], cfg.n_heads)
-    k = _split_heads(qkv[..., nq:nq + nkv], cfg.n_kv_heads)
-    v = _split_heads(qkv[..., nq + nkv:], cfg.n_kv_heads)
+    if x_kv is None:
+        qkv = project(p["wqkv"], x, cfg)
+        q = _split_heads(qkv[..., :nq], cfg.n_heads)
+        k = _split_heads(qkv[..., nq:nq + nkv], cfg.n_kv_heads)
+        v = _split_heads(qkv[..., nq + nkv:], cfg.n_kv_heads)
+    else:
+        qkv = project(p["wqkv"], torch.cat([x, x_kv.to(x.dtype)], dim=1),
+                      cfg)
+        q = _split_heads(qkv[:, :sq, :nq], cfg.n_heads)
+        k = _split_heads(qkv[:, sq:, nq:nq + nkv], cfg.n_kv_heads)
+        v = _split_heads(qkv[:, sq:, nq + nkv:], cfg.n_kv_heads)
     if positions is None:
         positions = torch.arange(sq, device=x.device).expand(b, sq)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope and x_kv is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     new_cache = None
     if append:
         idx = cache["len"]
@@ -303,8 +324,8 @@ def attention(p: dict, x: Tensor, cfg: ModelConfig, *,
             o = _cached_sdpa(q, cache["k"], cache["v"], positions)
         new_cache = {"k": cache["k"], "v": cache["v"], "len": idx + sq}
     else:
-        o = _chunked_sdpa(q, k, v, causal=True)
-        if cache is not None:  # prefill fills the cache
+        o = _chunked_sdpa(q, k, v, causal=causal and x_kv is None)
+        if cache is not None and x_kv is None:  # prefill fills the cache
             cache["k"][:, :sq] = k.to(cache["k"].dtype)
             cache["k"][:, sq:] = 0
             cache["v"][:, :sq] = v.to(cache["v"].dtype)

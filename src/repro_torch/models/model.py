@@ -1,20 +1,28 @@
-"""Model API: the dense and MoE decoder families, the SSM (Mamba-2) and
-hybrid (Zamba-2) stacks (port of ``repro.models.model``).
+"""Model API over every family: the dense and MoE decoders, the VLM,
+the audio encoder-decoder, the SSM (Mamba-2) and hybrid (Zamba-2) stacks
+(port of ``repro.models.model``).
 
     params         = init_params(cfg, generator, device="cuda")
     loss, metrics  = loss_fn(params, batch, cfg)
     logits, cache  = prefill(params, batch, cfg, max_len)
-    logits, cache  = decode_step(params, cache, tokens, cfg)
-    logits, cache  = prefill_chunk(params, cache, tokens, cfg)
+    logits, cache  = decode_step(params, cache, tokens, cfg, batch_extras)
+    logits, cache  = prefill_chunk(params, cache, tokens, cfg, batch_extras)
     cache          = init_cache(cfg, batch, max_len, device)
 
+``batch`` holds ``tokens`` (and ``labels`` for the loss) and, for the
+cross-attention families, the stub frontends' stream: ``{"vision": (B,
+n_vision_tokens, d)}`` or ``{"audio": (B, n_audio_frames, d)}``; decode
+steps take it as ``batch_extras``.
+
 A cache is the pair ``(caches, shared)`` of the reference: per-layer K/V
-(or latent) caches, or SSM states, stacked (L, B, ...), and the hybrid's
-shared-block K/V caches stacked (n_groups, B, ...) (None for the other
-families).  Its tensors are updated in place by the functions that take
-it, which return it for the caller's convenience.  The SSM family has no
-positions (``cache_lens`` is None) and no chunked prefill.  The
-cross-attention families raise and are queued in ROADMAP.md.
+(or latent) caches, or SSM states, stacked (L, B, ...); the VLM's self
+caches stacked (n_groups, cross_attn_every - 1, B, ...); the audio
+decoder's ``{"self": K/V, "ck", "cv": cross K/V over the frames}``
+stacked (L, B, ...); and the hybrid's shared-block K/V caches stacked
+(n_groups, B, ...) (None for the other families).  Its tensors are
+updated in place by the functions that take it, which return it for the
+caller's convenience.  The SSM family has no positions (``cache_lens``
+is None) and no chunked prefill.
 """
 from __future__ import annotations
 
@@ -22,7 +30,7 @@ from typing import Dict, Optional, Union
 
 import torch
 
-from repro_torch.configs.base import PORTED_FAMILIES, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.analog_registry import (EXPERT_BATCHED, KINDS,
                                               classify, classify_param)
 from repro_torch.core.tiled_analog import (crossbar_from_model,
@@ -30,16 +38,10 @@ from repro_torch.core.tiled_analog import (crossbar_from_model,
                                            program_stacked)
 
 from . import transformer as tf
-from .layers import make_cache, make_mla_cache, proj_readout
+from .layers import cdtype, make_cache, make_mla_cache, proj_readout
 from .ssm import make_ssm_state
 
 Tensor = torch.Tensor
-
-
-def _ported_only(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; see ROADMAP.md")
 
 
 # --------------------------------------------------------------------------
@@ -52,10 +54,13 @@ def init_params(cfg: ModelConfig,
     """Random parameters from ``generator`` (a torch.Generator on
     ``device``, or an int seed for one).  MoE expert stacks are drawn
     (and in device mode programmed) one expert matrix at a time."""
-    _ported_only(cfg)
     if isinstance(generator, int):
         seed, generator = generator, torch.Generator(device=device)
         generator.manual_seed(seed)
+    if cfg.family == "vlm":
+        return tf.vlm_init(generator, cfg, device)
+    if cfg.family == "audio":
+        return tf.audio_init(generator, cfg, device)
     if cfg.family in ("ssm", "hybrid"):
         return tf.ssm_stack_init(generator, cfg, device)
     return tf.decoder_init(generator, cfg, device)
@@ -99,13 +104,26 @@ def _forward(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig,
              caches=None, positions=None, shared_caches=None):
     """``(logits, caches, shared_caches, aux)``, as the reference's
     ``forward`` returns them: :func:`forward` with the shared caches and
-    the aux loss."""
-    _ported_only(cfg)
+    the aux loss.  An audio decode step (caches given, one token) skips
+    the encoder: the cross keys and values come from the caches."""
+    tokens = batch["tokens"]
+    if cfg.family == "vlm":
+        logits, caches, aux = tf.vlm_apply(params, tokens, batch["vision"],
+                                           cfg, caches=caches,
+                                           positions=positions)
+        return logits, caches, None, aux
+    if cfg.family == "audio":
+        enc = None if caches is not None and tokens.shape[1] == 1 \
+            else tf.audio_encode(params, batch["audio"], cfg)
+        logits, caches, aux = tf.audio_decode(params, tokens, enc, cfg,
+                                              caches=caches,
+                                              positions=positions)
+        return logits, caches, None, aux
     if cfg.family in ("ssm", "hybrid"):
-        return tf.ssm_stack_apply(params, batch["tokens"], cfg,
+        return tf.ssm_stack_apply(params, tokens, cfg,
                                   states=caches, shared_caches=shared_caches,
                                   positions=positions)
-    logits, caches, aux = tf.decoder_apply(params, batch["tokens"], cfg,
+    logits, caches, aux = tf.decoder_apply(params, tokens, cfg,
                                            caches=caches,
                                            positions=positions)
     return logits, caches, None, aux
@@ -140,15 +158,27 @@ def loss_fn(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig):
 # --------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """``(caches, shared)`` with caches stacked (L, B, ...) per leaf: K/V,
-    with MLA the latent ``c_kv`` and the shared rope key ``k_rope``, or
-    the SSM states ``h`` and ``conv``; ``shared`` the hybrid's shared-block
-    K/V caches stacked (n_groups, B, ...), else None."""
-    _ported_only(cfg)
-
-    def stack(one, n):
-        return {k: v[None].repeat(n, *([1] * v.ndim))
-                for k, v in one.items()}
+    """``(caches, shared)``: K/V caches stacked (L, B, ...) per leaf (with
+    MLA the latent ``c_kv`` and the shared rope key ``k_rope``), the
+    VLM's self caches stacked (n_groups, cross_attn_every - 1, B, ...),
+    the audio decoder's ``{"self": K/V, "ck", "cv"}`` stacked (L, B,
+    ...) with the cross K/V over ``n_audio_frames``, or the SSM states
+    ``h`` and ``conv``; ``shared`` the hybrid's shared-block K/V caches
+    stacked (n_groups, B, ...), else None."""
+    def stack(one, *lead):
+        if isinstance(one, dict):
+            return {k: stack(v, *lead) for k, v in one.items()}
+        return one.expand(*lead, *one.shape).clone()
+    if cfg.family == "vlm":
+        g = cfg.cross_attn_every
+        return stack(make_cache(cfg, batch, max_len, device),
+                     cfg.n_layers // g, g - 1), None
+    if cfg.family == "audio":
+        cross = torch.zeros((batch, cfg.n_audio_frames, cfg.n_kv_heads,
+                             cfg.resolved_head_dim), dtype=cdtype(cfg),
+                            device=device)
+        return stack({"self": make_cache(cfg, batch, max_len, device),
+                      "ck": cross, "cv": cross}, cfg.n_layers), None
     if cfg.family in ("ssm", "hybrid"):
         states = stack(make_ssm_state(cfg, batch, device), cfg.n_layers)
         shared = None
@@ -162,8 +192,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
 
 def prefill(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig,
             max_len: int):
-    """Run the prompt through the model: last-token logits and a cache
-    sized ``max_len``."""
+    """Run the prompt (and the batch's stream, for the cross-attention
+    families) through the model: last-token logits and a cache sized
+    ``max_len``."""
     b = batch["tokens"].shape[0]
     caches, shared = init_cache(cfg, b, max_len, batch["tokens"].device)
     logits, caches, shared, _ = _forward(params, batch, cfg, caches=caches,
@@ -171,19 +202,24 @@ def prefill(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig,
     return logits[:, -1], (caches, shared)
 
 
-def decode_step(params: dict, cache, tokens: Tensor, cfg: ModelConfig):
+def decode_step(params: dict, cache, tokens: Tensor, cfg: ModelConfig,
+                batch_extras: Optional[Dict[str, Tensor]] = None):
     """One decode step.  tokens: (B,).  Returns (logits, cache).  The
-    positions are the cache's lengths (None for the SSM family)."""
+    positions are the cache's lengths (None for the SSM family).
+    ``batch_extras`` carries the stream of a cross-attention family (the
+    VLM re-reads it every step; the audio decoder reads its cached cross
+    keys and values instead)."""
     caches, shared = cache
     lens = cache_lens(cache, cfg)
     positions = None if lens is None else lens[:, None]
     logits, caches, shared, _ = _forward(
-        params, {"tokens": tokens[:, None]}, cfg, caches=caches,
-        positions=positions, shared_caches=shared)
+        params, {"tokens": tokens[:, None], **(batch_extras or {})}, cfg,
+        caches=caches, positions=positions, shared_caches=shared)
     return logits[:, -1], (caches, shared)
 
 
-def prefill_chunk(params: dict, cache, tokens: Tensor, cfg: ModelConfig):
+def prefill_chunk(params: dict, cache, tokens: Tensor, cfg: ModelConfig,
+                  batch_extras: Optional[Dict[str, Tensor]] = None):
     """Append a chunk of prompt tokens (B, S) to an existing cache; each
     row's chunk is written at its current length and attends causally to
     the filled prefix.  Returns (chunk logits (B, S, V), cache); rows
@@ -199,21 +235,25 @@ def prefill_chunk(params: dict, cache, tokens: Tensor, cfg: ModelConfig):
     positions = lens[:, None] + torch.arange(tokens.shape[1],
                                              device=tokens.device)[None, :]
     logits, caches, shared, _ = _forward(
-        params, {"tokens": tokens}, cfg, caches=caches, positions=positions,
-        shared_caches=shared)
+        params, {"tokens": tokens, **(batch_extras or {})}, cfg,
+        caches=caches, positions=positions, shared_caches=shared)
     return logits, (caches, shared)
 
 
 def cache_lens(cache, cfg: ModelConfig) -> Optional[Tensor]:
     """Per-row filled lengths of a cache, (B,) (a copy: the cache's own
     length tensors advance in place while a model call runs); None for
-    the positionless SSM family, the shared caches' for the hybrid."""
-    _ported_only(cfg)
+    the positionless SSM family, the shared caches' for the hybrid, the
+    first self layer's for the VLM and the audio decoder."""
     caches, shared = cache
     if cfg.family == "ssm":
         return None
     if cfg.family == "hybrid":
         return shared["len"][0].clone() if shared is not None else None
+    if cfg.family == "vlm":
+        return caches["len"][0, 0].clone()
+    if cfg.family == "audio":
+        return caches["self"]["len"][0].clone()
     return caches["len"][0].clone()
 
 

@@ -1,6 +1,7 @@
-"""Layer stacks: the dense and MoE decoders (MoE with MLA attention),
-and the SSM and hybrid stacks (port of ``repro.models.transformer``
-without the cross-attention families).
+"""Layer stacks of every family (port of ``repro.models.transformer``):
+the dense and MoE decoders (MoE with MLA attention), the VLM's groups of
+a gated cross-attention block and ``cross_attn_every - 1`` self blocks,
+the audio encoder-decoder, and the SSM and hybrid stacks.
 
 Per-layer parameters are stacked along a leading (L, ...) dim, as the
 reference's scan expects; the stack runs as a Python loop over the
@@ -14,6 +15,13 @@ shared attention block after each group (ONE weight set applied
 step each application of the shared block deposits its write operands in
 its own slot of the containers' tapes (the reference scans over the
 tapes' leading dim).
+
+The cross-attention families take a second token stream (the stub
+frontends' ``(B, n_vision_tokens | n_audio_frames, d_model)`` inputs).
+Every cross-attention reads its fused ``wqkv`` once over the decoder
+tokens and the stream concatenated (``layers.attention``), so a training
+step tapes n_tokens + B x stream rows for it
+(``analog_registry.operand_rows``).
 """
 from __future__ import annotations
 
@@ -26,9 +34,10 @@ from repro_torch.core.tiled_analog import pop_tapes, push_tapes, stack_trees
 
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import (attention, attn_init, cdtype, dense_init, embed_init,
-                     ffn, ffn_init, mla_attention, mla_init, proj_init,
-                     project, rmsnorm, rmsnorm_init)
+from .layers import (_chunked_sdpa, _split_heads, attention, attn_init,
+                     cdtype, dense_init, embed_init, ffn, ffn_init,
+                     mla_attention, mla_init, proj_init, project, rmsnorm,
+                     rmsnorm_init)
 
 Tensor = torch.Tensor
 
@@ -78,6 +87,30 @@ def moe_block(p: dict, x: Tensor, cfg: ModelConfig, positions,
     return x + y, new_cache, aux
 
 
+def cross_block_init(generator: torch.Generator, cfg: ModelConfig,
+                     device=None) -> dict:
+    """The gated cross-attention block: ``xattn`` in the fused ``wqkv``
+    layout (one wide array driven by both token streams), the FFN, and
+    the two gates, which start at 0 as the reference's do (``tanh(0)``
+    hides the block until training moves them)."""
+    return {"ln1": rmsnorm_init(cfg.d_model, device),
+            "xattn": attn_init(generator, cfg, device),
+            "ln2": rmsnorm_init(cfg.d_model, device),
+            "ffn": ffn_init(generator, cfg, device),
+            "gate_attn": torch.zeros((), dtype=torch.float32, device=device),
+            "gate_ffn": torch.zeros((), dtype=torch.float32, device=device)}
+
+
+def cross_block(p: dict, x: Tensor, kv: Tensor, cfg: ModelConfig) -> Tensor:
+    """Gated cross-attention block (llama-3.2-vision style): ``tanh`` of
+    each gate scales its residual branch."""
+    h, _ = attention(p["xattn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
+                     causal=False, x_kv=kv, use_rope=False)
+    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * h
+    h = ffn(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    return x + torch.tanh(p["gate_ffn"]).to(x.dtype) * h
+
+
 def ssm_block_init(generator: torch.Generator, cfg: ModelConfig,
                    device=None) -> dict:
     return {"ln": rmsnorm_init(cfg.d_model, device),
@@ -92,12 +125,17 @@ def ssm_block(p: dict, x: Tensor, cfg: ModelConfig,
     return x + h, new_state
 
 
+def _stack(generator, n: int, init, cfg, device) -> dict:
+    """``n`` blocks from ``init``, drawn one after another and stacked
+    (n, ...) leaf by leaf."""
+    return stack_trees((init(generator, cfg, device) for _ in range(n)), n)
+
+
 def decoder_init(generator: torch.Generator, cfg: ModelConfig,
                  device=None) -> dict:
     block_init = moe_block_init if cfg.n_experts else dense_block_init
     p = {"embed": embed_init(generator, cfg.vocab, cfg.d_model, device),
-         "layers": stack_trees((block_init(generator, cfg, device)
-                                for _ in range(cfg.n_layers)), cfg.n_layers),
+         "layers": _stack(generator, cfg.n_layers, block_init, cfg, device),
          "final_ln": rmsnorm_init(cfg.d_model, device)}
     if not cfg.tie_embeddings:
         p["lm_head"] = {"w": dense_init(generator, cfg.d_model, cfg.vocab,
@@ -136,14 +174,155 @@ def decoder_apply(p: dict, tokens: Tensor, cfg: ModelConfig, *,
 
 
 # --------------------------------------------------------------------------
+# VLM: [cross + (g - 1) self] x n_groups   (llama-3.2-vision)
+# --------------------------------------------------------------------------
+
+def vlm_init(generator: torch.Generator, cfg: ModelConfig,
+             device=None) -> dict:
+    """``n_groups = n_layers // cross_attn_every`` cross blocks and
+    ``n_groups * (cross_attn_every - 1)`` self blocks, the latter stored
+    flat (n_self, ...)."""
+    g = cfg.cross_attn_every
+    n_groups = cfg.n_layers // g
+    return {"embed": embed_init(generator, cfg.vocab, cfg.d_model, device),
+            "self_layers": _stack(generator, n_groups * (g - 1),
+                                  dense_block_init, cfg, device),
+            "cross_layers": _stack(generator, n_groups, cross_block_init,
+                                   cfg, device),
+            "final_ln": rmsnorm_init(cfg.d_model, device),
+            "lm_head": {"w": dense_init(generator, cfg.d_model, cfg.vocab,
+                                        device)}}
+
+
+def vlm_apply(p: dict, tokens: Tensor, vision: Tensor, cfg: ModelConfig, *,
+              caches=None, positions=None) -> Tuple[Tensor, Any, Tensor]:
+    """Logits of ``tokens`` (B, S) with the vision stream ``vision`` (B,
+    n_vision_tokens, d_model); each group is a cross block over the
+    stream and ``g - 1`` self blocks, self layer ``gi * (g - 1) + j``
+    with the cache ``caches[gi, j]`` (stacked (n_groups, g - 1, B, ...),
+    updated in place).  Every call re-reads each cross block's ``wqkv``
+    over the tokens and the whole stream, decode steps included."""
+    x = _embed_lookup(p, tokens, cfg)
+    vision = vision.to(cdtype(cfg))
+    inner = cfg.cross_attn_every - 1
+    for gi in range(cfg.n_layers // cfg.cross_attn_every):
+        x = cross_block(tree_index(p["cross_layers"], gi), x, vision, cfg)
+        for j in range(inner):
+            cache = tree_index(tree_index(caches, gi), j) \
+                if caches is not None else None
+            x, new_cache, _ = dense_block(
+                tree_index(p["self_layers"], gi * inner + j), x, cfg,
+                positions, cache)
+            if caches is not None:
+                caches["len"][gi, j] = new_cache["len"]
+    return _logits(p, x, cfg), caches, \
+        torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# --------------------------------------------------------------------------
+# Audio encoder-decoder (whisper)
+# --------------------------------------------------------------------------
+
+def _dec_block_init(generator: torch.Generator, cfg: ModelConfig,
+                    device=None) -> dict:
+    return {"ln1": rmsnorm_init(cfg.d_model, device),
+            "attn": attn_init(generator, cfg, device),
+            "lnx": rmsnorm_init(cfg.d_model, device),
+            "xattn": attn_init(generator, cfg, device),  # fused wqkv
+            "ln2": rmsnorm_init(cfg.d_model, device),
+            "ffn": ffn_init(generator, cfg, device)}
+
+
+def audio_init(generator: torch.Generator, cfg: ModelConfig,
+               device=None) -> dict:
+    """The encoder (dense blocks over the frames, a learned positional
+    table ``enc_pos`` kept on the digital core) and the decoder (self-
+    attention, fused-``wqkv`` cross-attention, FFN per layer)."""
+    enc_pos = torch.empty((cfg.n_audio_frames, cfg.d_model),
+                          dtype=torch.float32, device=device)
+    return {"embed": embed_init(generator, cfg.vocab, cfg.d_model, device),
+            "enc_pos": 0.02 * enc_pos.normal_(generator=generator),
+            "enc_layers": _stack(generator, cfg.n_encoder_layers,
+                                 dense_block_init, cfg, device),
+            "enc_ln": rmsnorm_init(cfg.d_model, device),
+            "dec_layers": _stack(generator, cfg.n_layers, _dec_block_init,
+                                 cfg, device),
+            "final_ln": rmsnorm_init(cfg.d_model, device),
+            "lm_head": {"w": dense_init(generator, cfg.d_model, cfg.vocab,
+                                        device)}}
+
+
+def audio_encode(p: dict, frames: Tensor, cfg: ModelConfig) -> Tensor:
+    """frames: (B, n_audio_frames, d_model), the stub conv frontend's
+    output; non-causal, rope-free attention."""
+    x = frames.to(cdtype(cfg)) + p["enc_pos"].to(cdtype(cfg))
+    for i in range(cfg.n_encoder_layers):
+        lp = tree_index(p["enc_layers"], i)
+        h, _ = attention(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                         cfg, causal=False, use_rope=False)
+        x = x + h
+        x = x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg)
+    return rmsnorm(p["enc_ln"], x, cfg.norm_eps)
+
+
+def audio_decode(p: dict, tokens: Tensor, enc: Optional[Tensor],
+                 cfg: ModelConfig, *, caches=None,
+                 positions=None) -> Tuple[Tensor, Any, Tensor]:
+    """The decoder stack.  Self-attention is cached, with rope (as the
+    reference, not whisper's learned positions).  Cross-attention: with
+    the encoder output ``enc`` (prefill, training), one read of the fused
+    ``wqkv`` over the tokens and ``enc`` gives q and the cross keys and
+    values, which fill the cache's ``ck`` / ``cv``; with ``enc`` None (a
+    decode step) the token alone drives the whole ``wqkv``, q is sliced
+    off, and ``ck`` / ``cv`` come from the cache: no encoder container is
+    read.  The caches (``{"self", "ck", "cv"}`` stacked (L, B, ...)) are
+    updated in place.  Only the fused ``wqkv`` layout exists (the
+    reference's split layout has no initialiser)."""
+    x = _embed_lookup(p, tokens, cfg)
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    sq = x.shape[1]
+    for i in range(cfg.n_layers):
+        lp = tree_index(p["dec_layers"], i)
+        c = tree_index(caches, i) if caches is not None else None
+        h, nc_self = attention(lp["attn"], rmsnorm(lp["ln1"], x,
+                                                   cfg.norm_eps),
+                               cfg, positions=positions,
+                               cache=c["self"] if c is not None else None)
+        x = x + h
+        hn = rmsnorm(lp["lnx"], x, cfg.norm_eps)
+        xp = lp["xattn"]
+        if enc is None:
+            ck, cv = c["ck"].to(x.dtype), c["cv"].to(x.dtype)
+            q = _split_heads(project(xp["wqkv"], hn, cfg)[..., :nq],
+                             cfg.n_heads)
+        else:
+            qkv = project(xp["wqkv"], torch.cat([hn, enc.to(hn.dtype)],
+                                                dim=1), cfg)
+            q = _split_heads(qkv[:, :sq, :nq], cfg.n_heads)
+            ck = _split_heads(qkv[:, sq:, nq:nq + nkv], cfg.n_kv_heads)
+            cv = _split_heads(qkv[:, sq:, nq + nkv:], cfg.n_kv_heads)
+            if c is not None:
+                c["ck"].copy_(ck)
+                c["cv"].copy_(cv)
+        o = _chunked_sdpa(q, ck, cv, causal=False)
+        x = x + project(xp["wo"], o.reshape(*x.shape[:-1], -1), cfg)
+        x = x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg)
+        if caches is not None:
+            caches["self"]["len"][i] = nc_self["len"]
+    return _logits(p, x, cfg), caches, \
+        torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# --------------------------------------------------------------------------
 # SSM / hybrid
 # --------------------------------------------------------------------------
 
 def ssm_stack_init(generator: torch.Generator, cfg: ModelConfig,
                    device=None) -> dict:
     p = {"embed": embed_init(generator, cfg.vocab, cfg.d_model, device),
-         "layers": stack_trees((ssm_block_init(generator, cfg, device)
-                                for _ in range(cfg.n_layers)), cfg.n_layers),
+         "layers": _stack(generator, cfg.n_layers, ssm_block_init, cfg,
+                          device),
          "final_ln": rmsnorm_init(cfg.d_model, device)}
     if not cfg.tie_embeddings:
         p["lm_head"] = {"w": dense_init(generator, cfg.d_model, cfg.vocab,

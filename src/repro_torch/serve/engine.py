@@ -16,7 +16,9 @@ decode step: a per-slot KV cache with per-row lengths, chunked prefill on
 a detached single-row cache (at most one chunk per tick, so a long prompt
 never stalls in-flight decodes), block-copied into a free slot, and an
 arrival-ordered queue.  The static scheduler prefills one left-padded
-batch and decodes it in lock step.
+batch and decodes it in lock step; it serves the families without a
+positional cache per slot (SSM, hybrid) and those with a second token
+stream (``extras``: the VLM's vision tokens, the audio model's frames).
 
 Analog maintenance rides the same scheduler: ``engine.advance_clock(s)``
 moves a simulated wall clock, retention drift (``core.endurance``) is
@@ -106,8 +108,9 @@ class ContinuousEngine:
                  maintenance: Optional[AnalogServeRuntime] = None):
         if cfg.family not in ("dense", "moe"):
             raise ValueError(
-                f"continuous batching needs a positional KV cache per slot; "
-                f"family {cfg.family!r} is served by the static engine")
+                f"continuous batching needs a positional KV cache per slot "
+                f"and no second token stream; family {cfg.family!r} is "
+                "served by the static engine")
         self.cfg = cfg
         self.params = params
         self.device = M.params_device(params)
@@ -290,6 +293,7 @@ def make_engine(cfg: ModelConfig, state, *,
                 max_len: int = 512,
                 n_slots: Optional[int] = None,
                 prefill_chunk: int = 32,
+                extras: Optional[dict] = None,
                 retention=None) -> "Engine":
     """Build a serving engine — THE serving entry point.
 
@@ -299,7 +303,10 @@ def make_engine(cfg: ModelConfig, state, *,
     tree lives on.  ``backend`` ``None`` infers it from the tree; one that
     contradicts the tree raises.  ``scheduler`` is ``"continuous"`` or
     ``"static"``.  ``n_slots`` defaults to the batch size of ``generate``
-    and to 4 for the streaming surface.  The analog backend reads the
+    and to 4 for the streaming surface.  ``extras`` holds a cross-attention
+    family's stream (``{"vision": (B, n_vision_tokens, d)}`` or
+    ``{"audio": (B, n_audio_frames, d)}``, B the batch ``generate`` is
+    given) and forces the static scheduler.  The analog backend reads the
     crossbars with the CUDA kernel on the card and with its plain version
     on the CPU; ``retention`` (a ``core.endurance.RetentionSpec``) sets
     its drift and recalibration model.  The analog backend's maintenance
@@ -307,8 +314,8 @@ def make_engine(cfg: ModelConfig, state, *,
     the tree it is given.
     """
     return Engine(cfg, state, max_len=max_len, n_slots=n_slots,
-                  prefill_chunk=prefill_chunk, backend=backend,
-                  scheduler=scheduler, retention=retention)
+                  prefill_chunk=prefill_chunk, extras=extras,
+                  backend=backend, scheduler=scheduler, retention=retention)
 
 
 class Engine:
@@ -316,6 +323,7 @@ class Engine:
 
     def __init__(self, cfg: ModelConfig, state=None, max_len: int = 512,
                  n_slots: Optional[int] = None, prefill_chunk: int = 32,
+                 extras: Optional[dict] = None,
                  *, backend: Optional[str] = None,
                  scheduler: str = "continuous", retention=None):
         if scheduler not in SCHEDULERS:
@@ -327,6 +335,7 @@ class Engine:
         self.backend = self.state.backend
         self.scheduler = scheduler
         self.max_len = max_len
+        self.extras = extras or {}
         self.n_slots = n_slots
         self.prefill_chunk = prefill_chunk
         self.device = M.params_device(self.state.params)
@@ -341,7 +350,7 @@ class Engine:
 
     @property
     def supports_continuous(self) -> bool:
-        return self.cfg.family in ("dense", "moe")
+        return self.cfg.family in ("dense", "moe") and not self.extras
 
     # ------------------------------------------------------------ generation
     def generate(self, prompts: Sequence[Sequence[int]],
@@ -443,8 +452,8 @@ class Engine:
         for i, p in enumerate(prompts):
             toks[i, plen - len(p):] = p
         logits, cache = M.prefill(
-            params, {"tokens": torch.from_numpy(toks).to(self.device)},
-            self.cfg, max_len=self.max_len)
+            params, {"tokens": torch.from_numpy(toks).to(self.device),
+                     **self.extras}, self.cfg, max_len=self.max_len)
         if self._maint is not None:
             self._maint.note_reads(1)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -454,7 +463,8 @@ class Engine:
         out = [[int(t)] for t in tok.cpu().numpy()]
         done = np.zeros(b, dtype=bool)
         for _ in range(sp.max_new_tokens - 1):
-            logits, cache = M.decode_step(params, cache, tok.long(), self.cfg)
+            logits, cache = M.decode_step(params, cache, tok.long(), self.cfg,
+                                          self.extras or None)
             if self._maint is not None:
                 self._maint.note_reads(1)
             tok = _sample(logits, gen, temps)

@@ -64,6 +64,9 @@ from repro_torch.models import model as M
 
 Tensor = torch.Tensor
 
+#: Cells of ``g`` the rail count takes at once.
+RAIL_SLICE = 1 << 24
+
 
 def init_state(generator: Union[torch.Generator, int], cfg: ModelConfig,
                device="cuda") -> dict:
@@ -179,7 +182,12 @@ class AnalogTrainStep:
                     for k in p}
         if d.grad is None:  # a leaf the loss does not reach
             return p
-        return p - self.lr * d.grad.to(p.dtype)
+        # The gradient is scaled in place and dropped with the walk: the
+        # embedding's and the head's are the size of the leaves, and
+        # neither a second copy nor a temporary is held (the same float32
+        # product and difference as ``p - lr * grad``).
+        grad, d.grad = d.grad, None
+        return p - grad.mul_(self.lr).to(p.dtype)
 
     def _update_container(self, p, tapes, seed_base, path, rail):
         """The paper's Fig. 3c parallel write: one kernel launch per
@@ -213,9 +221,13 @@ class AnalogTrainStep:
             g3, x3, d3, s1, self.xcfg, seed=seed, noise_mode=mode,
             x_scale=xs, d_scale=ds))
         span = dev.gmax - dev.gmin
-        railed = (g_new <= dev.gmin + 1e-3 * span) \
-            | (g_new >= dev.gmax - 1e-3 * span)
-        rail.append(railed.sum().to(torch.float32) / railed.numel())
+        lo, hi = dev.gmin + 1e-3 * span, dev.gmax - 1e-3 * span
+        # counted a slice at a time: a count of a boolean tensor sums an
+        # integer copy of it (8 bytes a cell; 15 GB for a w_upgate stack)
+        railed = sum(torch.count_nonzero(c <= lo)
+                     + torch.count_nonzero(c >= hi)
+                     for c in g_new.reshape(-1).split(RAIL_SLICE))
+        rail.append(railed.to(torch.float32) / g_new.numel())
         return {**p, leaf: g_new}
 
     def _carry_readout(self, v: Tensor) -> Tensor:

@@ -211,14 +211,18 @@ def test_analog_train_step_records_its_cost():
 
 
 def test_non_dense_families_raise():
-    """The families still unported (the VLM here) raise; MoE is
-    ported."""
-    cfg = get_config("lm100m").replace(family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        arch_cost.digital_macs_per_token(cfg, 16)
-    moe = get_config("llama4-scout-17b-a16e")
-    assert arch_cost.digital_macs_per_token(moe, 16) == \
-        J_arch.digital_macs_per_token(jax_config("llama4-scout-17b-a16e"), 16)
+    """Every family's digital-core MACs per token equal the reference's:
+    the VLM's and the audio model's (its encoder layers counted with the
+    decoder's), MoE's."""
+    for arch in ("llama-3.2-vision-90b", "whisper-medium",
+                 "llama4-scout-17b-a16e"):
+        for ctx_len in (16, 4096):
+            assert arch_cost.digital_macs_per_token(
+                get_config(arch), ctx_len) == \
+                J_arch.digital_macs_per_token(jax_config(arch), ctx_len)
+    whisper = get_config("whisper-medium")
+    assert arch_cost.digital_macs_per_token(whisper, 16) == \
+        (24 + 24) * 2 * 16 * 64 * 16
 
 
 @pytest.mark.parametrize("mode", ["device", "digital"])
@@ -301,6 +305,40 @@ def test_ssm_and_hybrid_cost_equals_the_reference(arch, mode):
     for ctx_len in (4096, 256):
         assert arch_cost.digital_macs_per_token(cfg, ctx_len) == \
             J_arch.digital_macs_per_token(jcfg, ctx_len)
+        assert arch_cost.serve_energy_per_token(cfg, ctx_len=ctx_len) == \
+            J_arch.serve_energy_per_token(jcfg, ctx_len=ctx_len)
+    if mode == "device":
+        assert arch_cost.train_step_cost(cfg, n_tokens=2048, ctx_len=256) \
+            == J_arch.train_step_cost(jcfg, n_tokens=2048, ctx_len=256)
+
+
+@pytest.mark.parametrize("mode", ["device", "digital"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-medium"])
+def test_cross_attention_cost_equals_the_reference(arch, mode):
+    """The cross-attention families at full size: the projections (the
+    VLM's 80 self and 20 cross layers, whisper's 24 encoder and 24
+    decoder layers, the fused cross ``wqkv`` each), ``analyze_arch``, the
+    energy per token at two context lengths and, in device mode, a
+    training step's cost equal the reference's."""
+    kw = DEVICE if mode == "device" else {}
+    cfg = get_config(arch).replace(**kw)
+    jcfg = jax_config(arch).replace(**kw)
+    got = {p.name: dataclasses.astuple(p)
+           for p in arch_cost.model_projections(cfg)}
+    want = {p.name: dataclasses.astuple(p)
+            for p in J_arch.model_projections(jcfg)}
+    assert got == want
+    if arch == "whisper-medium":
+        assert len(got) == 10
+        assert got["enc_layers/attn/wqkv"][1:] == (1024, 3072, 24, 1.0)
+        assert got["dec_layers/xattn/wqkv"][1:] == (1024, 3072, 24, 1.0)
+    else:
+        assert len(got) == 8
+        assert got["self_layers/attn/wqkv"][1:] == (8192, 10240, 80, 1.0)
+        assert got["cross_layers/xattn/wqkv"][1:] == (8192, 10240, 20, 1.0)
+    assert dataclasses.asdict(arch_cost.analyze_arch(cfg)) == \
+        dataclasses.asdict(J_arch.analyze_arch(jcfg))
+    for ctx_len in (4096, 256):
         assert arch_cost.serve_energy_per_token(cfg, ctx_len=ctx_len) == \
             J_arch.serve_energy_per_token(jcfg, ctx_len=ctx_len)
     if mode == "device":

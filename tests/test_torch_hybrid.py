@@ -100,15 +100,6 @@ def test_tape_lead_gives_one_slot_per_application(full):
         assert treg.tape_reps(path, cfg) == (reps if path in SHARED else 1)
 
 
-def test_vlm_and_audio_still_raise():
-    for fam in ("vlm", "audio"):
-        cfg = get_config("lm100m").replace(family=fam)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            treg.tape_lead(("layers", "attn", "wqkv"), cfg, 16)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            M.init_params(cfg, 0, "cpu")
-
-
 # ------------------------------------------------------------------ model
 
 @pytest.fixture(scope="module")

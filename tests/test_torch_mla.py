@@ -47,7 +47,6 @@ from repro.models import layers as JL
 from repro.models import model as JM
 from repro.train import analog_lm as JA
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.configs.base import PORTED_FAMILIES
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import analog_registry as treg
 from repro_torch.core.tiled_analog import crossbar_from_model
@@ -305,8 +304,8 @@ def test_mla_config_fields_and_smoke_match_reference():
 
 @pytest.mark.parametrize("active_only", [False, True])
 def test_param_count_matches_reference(active_only):
-    """``param_count`` of every ported config, full and smoke, equals the
-    reference's; the families still to port raise."""
+    """``param_count`` of every config, full and smoke, equals the
+    reference's (the port carries the whole registry)."""
     for arch in ARCHS:
         for smoke in (False, True):
             assert get_config(arch, smoke).param_count(active_only) == \
@@ -314,12 +313,7 @@ def test_param_count_matches_reference(active_only):
     full = get_config(ARCH)
     assert full.param_count(active_only) == \
         (2663120896 if active_only else 16210198528)
-    for arch in sorted(set(J_ARCHS) - set(ARCHS)):
-        fam = jax_config(arch).family
-        if fam in PORTED_FAMILIES:
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config("lm100m").replace(family=fam).param_count()
+    assert sorted(ARCHS) == sorted(J_ARCHS)
 
 
 # ------------------------------------------------------------- attention

@@ -1,7 +1,8 @@
 """The registry's dense family in the port against the JAX package (the
-MoE, SSM and hybrid configs' fields are held here too; their models in
-``tests/test_torch_moe.py``, ``tests/test_torch_mla.py``,
-``tests/test_torch_ssm.py`` and ``tests/test_torch_hybrid.py``):
+fields of all 11 configs are held here too; the other families' models
+in ``tests/test_torch_moe.py``, ``tests/test_torch_mla.py``,
+``tests/test_torch_ssm.py``, ``tests/test_torch_hybrid.py``,
+``tests/test_torch_vlm.py`` and ``tests/test_torch_audio.py``):
 gemma-2b (MQA, GeGLU, head_dim 256, tied embeddings), stablelm-3b
 (head_dim 80 at full size), starcoder2-3b (GQA kv=2, GELU, not gated,
 rope_theta 1e5) and granite-20b (MQA, GELU, not gated), each as its
@@ -64,8 +65,9 @@ MOE = ["llama4-scout-17b-a16e", "deepseek-v2-lite-16b"]
 #: the SSM and hybrid configs (their models in ``tests/test_torch_ssm.py``
 #: and ``tests/test_torch_hybrid.py``)
 SSM = ["mamba2-1.3b", "zamba2-1.2b"]
-UNPORTED = sorted(set(J_ARCHS) - set(DENSE) - set(MOE) - set(SSM)
-                  - {"lm100m"})
+#: the cross-attention configs (their models in ``tests/test_torch_vlm.py``
+#: and ``tests/test_torch_audio.py``)
+CROSS = ["llama-3.2-vision-90b", "whisper-medium"]
 # the (arch, mode) pairs whose forward flips an ADC code at PRNGKey(0)
 FLIPS = {("starcoder2-3b", "device")}
 MODES = {
@@ -113,22 +115,17 @@ def _no_remat():
 # ------------------------------------------------------------------ configs
 
 @pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch", DENSE + MOE + SSM + ["lm100m"])
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM + CROSS + ["lm100m"])
 def test_config_matches_reference(arch, smoke):
     got, want = get_config(arch, smoke), jax_config(arch, smoke)
     for f in dataclasses.fields(got):
         assert getattr(got, f.name) == getattr(want, f.name), f.name
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_archs_raise(arch):
-    assert arch not in ARCHS
-    with pytest.raises(ValueError, match="ROADMAP"):
-        get_config(arch)
+    assert sorted(ARCHS) == sorted(J_ARCHS) == sorted(
+        DENSE + MOE + SSM + CROSS + ["lm100m"])
 
 
 def test_make_smoke_matches_reference_with_overrides():
-    for arch in DENSE + MOE + SSM:
+    for arch in DENSE + MOE + SSM + CROSS:
         got = make_smoke(get_config(arch), n_layers=1, vocab=512)
         want = jbase.make_smoke(jax_config(arch), n_layers=1, vocab=512)
         for f in dataclasses.fields(got):
