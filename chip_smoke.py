@@ -386,6 +386,39 @@ any gate fails:
    groups), served as 22(b).  (c) one TaOx step at 5 layers, 2 x 128
    tokens with 2 x 1024 vision rows: 20 + 20 tensor-core reads, 8
    tensor-core writes, the cross ``wqkv`` over 256 + 2048 rows; as 22(c).
+24. the sharded train step's kernel work, each shard of a layout in turn
+   on this one card (the step itself runs on gloo CPU ranks in the tests;
+   a run across four cards is not made here).  (a) lm100m's four
+   containers at full width, (12, K, N) with T = 2048, codes times scales
+   and TaOx counter-PRNG noise, cut into the blocks the policy gives them
+   (``launch.sharding.analog_update_specs``) on 2x4 and 4x4 layouts, and
+   one llama4-scout-17b-a16e expert stack at 1 layer with its 16 experts
+   over 4 shards: each block written alone at its (layer, row-tile,
+   col-tile) offsets on the tensor-core and the FP32 instance, outer and
+   pulse-train, with the container's code scales.  Gates: the blocks
+   reassemble bit-equal to the whole write; each block against its plain
+   versions at its offsets (``tc_write_agrees``, ``update_bound``,
+   ``pulse_agrees``); each instance's launches counted; in outer mode a
+   block at other offsets draws other noise.  (b) the same containers and
+   layouts, forward and transpose, at B = 4 (FP32 instance) and B = 2048
+   (tensor cores), and the expert stack at its capacity buffer: every
+   rank of the layout, emulated one after another on the card
+   (``launch.mesh.emulate_layout``), runs the sharded step's read
+   ``kernels.xbar_vmm.manual_collective_read`` on its block: its
+   reduction rows of the drive at the whole drive's DAC scale, read in
+   partials form, the partials gathered in tile order
+   (``core.shardctx.combine_partials_exact``) and summed by
+   ``reduce_tiles_kernel``, the output and expert blocks gathered.
+   Gates: every rank's result bit-equal to the whole read; one read
+   launch a rank, and one tile sum a rank where the reduction dim is
+   split.  The whole read's and the emulated layout's CUDA-event times,
+   beside the card's name and power limit.  (c) the training CLI under
+   ``torchrun`` in a one-rank NCCL group, lm100m at full width with
+   ``--analog`` (QAT: kernel 4 under autograd) and ``--grad-compress``,
+   6 steps with a checkpoint at 4, then a second run resumed from step 4.
+   Gates: steps 5-6 take the same batches and their losses agree within
+   1e-6 relative; every step reads through the fakequant kernel, the
+   same count each step.  Tokens/s.
 
 Every phase prints its wall seconds on a line of its own.
 
@@ -398,6 +431,7 @@ go to ``chiprun_out/chip_smoke.json``.
 """
 import collections
 import contextlib
+import inspect
 import itertools
 import json
 import math
@@ -1545,19 +1579,28 @@ def tree_leaves(t, path=()):
         yield path, t
 
 
+def write_call(update_cuda, args, kw):
+    """A call of ``U._update_cuda`` as its full argument tuple, defaults
+    filled: (g, x_q, d_q, scale, noise, seed, cfg, mode, x_scale, d_scale,
+    offs)."""
+    bound = inspect.signature(update_cuda).bind(*args, **kw)
+    bound.apply_defaults()
+    return tuple(bound.arguments.values())
+
+
 def recording_writes(U, writes):
     """A stand-in for ``U._update_cuda`` that records every write with its
-    operands (scales included) and result."""
+    operands (scales and tile offsets included) and result."""
     update_cuda = U._update_cuda
 
-    def rec_write(g, x_q, d_q, scale, noise, seed, cfg, mode, x_scale=None,
-                  d_scale=None):
-        out = update_cuda(g, x_q, d_q, scale, noise, seed, cfg, mode,
-                          x_scale, d_scale)
+    def rec_write(*args, **kw):
+        out = update_cuda(*args, **kw)
+        g, x_q, d_q, scale, noise, seed, cfg, mode, xs, ds, offs = \
+            write_call(update_cuda, args, kw)
         writes.append(((g, x_q.clone(), d_q.clone(), scale.clone(), noise,
                         seed, cfg, mode,
-                        None if x_scale is None else x_scale.clone(),
-                        None if d_scale is None else d_scale.clone()),
+                        None if xs is None else xs.clone(),
+                        None if ds is None else ds.clone(), offs),
                        out.clone()))
         return out
     return rec_write
@@ -1582,7 +1625,8 @@ def check_writes(U, writes, what, worst=None):
     if worst is None:
         worst = {"max_abs_err": 0.0, "max_err_over_twin_bound": 0.0,
                  "max_allowance_share": 0.0}
-    for (g, x_q, d_q, scale, noise, seed, cfg, mode, xs, ds), out in writes:
+    for (g, x_q, d_q, scale, noise, seed, cfg, mode, xs, ds, offs), out \
+            in writes:
         if xs is None or not codes_contract_ok(U, x_q, d_q, xs, ds, cfg):
             fail(f"a write of {what} came without scales that make its "
                  f"operands codes times scales: g {tuple(g.shape)}")
@@ -1595,7 +1639,8 @@ def check_writes(U, writes, what, worst=None):
             for c0 in range(0, n, step):
                 c1 = min(c0 + step, n)
                 z = U.field_normals(seed, (1, k, c1 - c0), cfg,
-                                    (i, 0, c0 // cfg.cols),
+                                    (offs[0] + i, offs[1],
+                                     offs[2] + c0 // cfg.cols),
                                     device=g.device) if mode == "kernel" \
                     else (None if noise is None
                           else noise[i:i + 1, :, c0:c1])
@@ -4457,13 +4502,11 @@ def phase_moe_train(K, U, TA, TMoE, syn, get_config, report,
                "max_allowance_share": 0.0, "writes": 0, "stack_writes": 0}
     update_cuda = U._update_cuda
 
-    def checked_write(g, x_q, d_q, scale, noise, seed, wcfg, mode,
-                      x_scale=None, d_scale=None):
-        out = update_cuda(g, x_q, d_q, scale, noise, seed, wcfg, mode,
-                          x_scale, d_scale)
-        check_writes(U, [((g, x_q, d_q, scale, noise, seed, wcfg, mode,
-                           x_scale, d_scale), out)], f"the {arch} step",
-                     worst_w)
+    def checked_write(*args, **kw):
+        out = update_cuda(*args, **kw)
+        call = write_call(update_cuda, args, kw)
+        g = call[0]
+        check_writes(U, [(call, out)], f"the {arch} step", worst_w)
         worst_w["writes"] += 1
         worst_w["stack_writes"] += int(g.shape[0] == cfg.n_experts * L)
         return out
@@ -5096,11 +5139,13 @@ def ssd_scan_ms(TS, cfg):
     return device_ms(run, 3)
 
 
-def fp32_write_agrees(U, g, x_q, d_q, scale, noise, seed, wcfg, mode, out):
+def fp32_write_agrees(U, g, x_q, d_q, scale, noise, seed, wcfg, mode, out,
+                      offs=(0, 0, 0)):
     """A write on the FP32 instance (float operands) against its plain
-    version on the same operands and noise field: ``update_bound`` on
-    every cell.  Returns (ok, max abs err, largest err / bound)."""
-    g_p = U._update_plain(g, x_q, d_q, scale, noise, seed, wcfg, mode)
+    version on the same operands and noise field (at the write's tile
+    offsets): ``update_bound`` on every cell.  Returns (ok, max abs err,
+    largest err / bound)."""
+    g_p = U._update_plain(g, x_q, d_q, scale, noise, seed, wcfg, mode, offs)
     err = (out - g_p).abs()
     over = (err / update_bound(g_p, g)).max().item()
     return over <= 1.0, err.max().item(), over
@@ -5154,18 +5199,17 @@ def phase_ssm_train(K, U, TA, TS, syn, get_config, report, arch, n_layers,
     update_cuda = U._update_cuda
     update_container = TA.AnalogTrainStep._update_container
 
-    def checked_write(g, x_q, d_q, scale, noise, seed, wcfg, mode,
-                      x_scale=None, d_scale=None):
-        out = update_cuda(g, x_q, d_q, scale, noise, seed, wcfg, mode,
-                          x_scale, d_scale)
+    def checked_write(*args, **kw):
+        out = update_cuda(*args, **kw)
+        call = write_call(update_cuda, args, kw)
+        g, x_q, d_q, scale, noise, seed, wcfg, mode, x_scale, _, offs = call
         if x_scale is not None:
             if g.shape[0] != n_layers:
                 fail(f"{name}: a tensor-core write over {tuple(g.shape)}")
-            check_writes(U, [((g, x_q, d_q, scale, noise, seed, wcfg, mode,
-                               x_scale, d_scale), out)], name, worst_tc)
+            check_writes(U, [(call, out)], name, worst_tc)
         else:
             ok, err, over = fp32_write_agrees(U, g, x_q, d_q, scale, noise,
-                                              seed, wcfg, mode, out)
+                                              seed, wcfg, mode, out, offs)
             worst_fp["max_abs_err"] = max(worst_fp["max_abs_err"], err)
             worst_fp["max_err_over_bound"] = max(
                 worst_fp["max_err_over_bound"], over)
@@ -5738,14 +5782,11 @@ def phase_cross_train(K, U, TA, M, syn, get_config, report, arch, n_layers,
     update_cuda = U._update_cuda
     update_container = TA.AnalogTrainStep._update_container
 
-    def recorded_write(g, x_q, d_q, scale, noise, seed, wcfg, mode,
-                       x_scale=None, d_scale=None):
-        out = update_cuda(g, x_q, d_q, scale, noise, seed, wcfg, mode,
-                          x_scale, d_scale)
+    def recorded_write(*args, **kw):
+        out = update_cuda(*args, **kw)
         # the old and the new conductances stay as they are until the
         # check after the step: no copy of either
-        writes.append(((g, x_q, d_q, scale, noise, seed, wcfg, mode,
-                        x_scale, d_scale), out))
+        writes.append((write_call(update_cuda, args, kw), out))
         return out
 
     def rows_checked(self, p, tapes, seed_base, path, rail):
@@ -5829,6 +5870,435 @@ def phase_cross_train(K, U, TA, M, syn, get_config, report, arch, n_layers,
           f"the recorded step, {peak_bare_gb:.2f} GB in the profiled one")
     del state
     return res
+
+
+# --------------------------------------------------------------------------
+# Phase 24: the sharded step's kernel work on one card
+# --------------------------------------------------------------------------
+
+#: The tile layouts (data x model) phase 24 cuts lm100m's containers into.
+SHARD_LAYOUTS = ((2, 4), (4, 4))
+SHARD_T = 2048                    # tokens of a training step's write
+SHARD_READ_B = (4, 2048)          # FP32-instance and tensor-core reads
+SHARD_EXPERT_LAYOUT = (1, 4)      # llama4-scout's experts over 4 shards
+SHARD_EXPERT_ARCH = "llama4-scout-17b-a16e"
+#: 24(b)'s times: CUDA events (host included) of the whole read and of
+#: the emulated layout's reads, and the profiler's kernel time of the
+#: latter.
+SHARD_READ_TIMES = ("ms", "sharded_ms", "sharded_device_ms")
+SHARD_CLI_STEPS = 6
+SHARD_CLI_RESUME = 4
+SHARD_CLI_SEQ, SHARD_CLI_BATCH = 256, 8
+SHARD_CLI_FREE_BYTES = 24e9       # lm100m's QAT step at 8 x 256 tokens
+
+
+def layout_blocks(TM, S, path, g_shape, mcfg, layout):
+    """Every rank's block of a container under ``layout``, in flat rank
+    order: (coords, the rank's specs, its slices of ``g``, its mesh)."""
+    axes = ("data", "model")
+    out = []
+    for coords in TM.layout_coords(TM.emulated_mesh(layout, axes)):
+        m = TM.emulated_mesh(layout, axes, coords)
+        specs = S.analog_update_specs(path, g_shape, mcfg, m)
+        out.append((coords, specs, S.block_slices(g_shape, specs["g"], m),
+                    m))
+    return out
+
+
+def block_write_ok(U, blk, out, offs, seed, cfg, xs, ds):
+    """One block written at its offsets against its plain versions at the
+    same offsets: ``tc_write_agrees`` (tensor cores, with the container's
+    code scales) or ``update_bound`` / ``pulse_agrees`` (FP32).  Returns
+    (ok, share of cells on an allowance)."""
+    g, x_q, d_q, scale = blk
+    g_p = U._update_plain(g, x_q, d_q, scale, None, seed, cfg, "kernel",
+                          offs)
+    z = U.field_normals(seed, g.shape, cfg, offs, device=g.device)
+    if xs is not None:
+        g_x = U._update_tc_plain(g, x_q, d_q, scale, None, seed, cfg,
+                                 "kernel", xs, ds, offs)
+        ok, _, _, share = tc_write_agrees(out, g_p, g_x, g, x_q, d_q, scale,
+                                          cfg, z)
+        return ok and share < SUM_TIE_SHARE, share
+    if cfg.update_mode == "pulse_train":
+        ok, _, _, share = pulse_agrees(out, g_p, g, x_q, d_q, scale, cfg, z)
+        return ok, share
+    return bool(((out - g_p).abs() <= update_bound(g_p, g)).all()), 0.0
+
+
+def offsets_case(U, g3, x3, d3, scale, xs, ds, blocks, cfg, seed, label):
+    """Phase 24(a) on one flattened (L, K, N) container: the whole write,
+    then every block alone at its (layer, row-tile, col-tile) offsets
+    (``blocks``: (lead slice, row slice, col slice) per rank), reassembled
+    and held bit-equal to the whole write, each block also against its
+    plain versions.  Counts each instance's launches.  Returns the row."""
+    sync = torch.cuda.synchronize
+    scaled = xs is not None
+    before = dict(U.LAUNCHES)
+    whole = U._update_cuda(g3, x3, d3, scale, None, seed, cfg, "kernel", xs,
+                           ds)
+    joined = torch.empty_like(whole)
+    worst = 0.0
+    for lsl, ksl, nsl in blocks:
+        blk = (g3[lsl, ksl, nsl].contiguous(), x3[lsl, :, ksl].contiguous(),
+               d3[lsl, :, nsl].contiguous(), scale[lsl].contiguous())
+        bxs = xs[lsl].contiguous() if scaled else None
+        bds = ds[lsl].contiguous() if scaled else None
+        offs = (lsl.start or 0, (ksl.start or 0) // cfg.rows,
+                (nsl.start or 0) // cfg.cols)
+        out = U._update_cuda(*blk, None, seed, cfg, "kernel", bxs, bds, offs)
+        joined[lsl, ksl, nsl] = out
+        ok, share = block_write_ok(U, blk, out, offs, seed, cfg, bxs, bds)
+        worst = max(worst, share)
+        if not ok:
+            fail(f"24(a) {label}: block {offs} disagrees with its plain "
+                 f"versions at its offsets")
+        del blk, out
+    sync()
+    n = len(blocks) + 1
+    launched = {k: U.LAUNCHES[k] - before[k] for k in U.LAUNCHES}
+    want = {"update_tc": n if scaled else 0,
+            "update_prepare": n if scaled else 0,
+            "update_fp32": 0 if scaled else n}
+    if any(launched[k] != v for k, v in want.items()):
+        fail(f"24(a) {label}: launches {launched}, expected {want}")
+    equal = torch.equal(joined, whole)
+    # the first tile written as if it were tile (1, 1): other noise
+    shifted = (whole[:, :cfg.rows, :cfg.cols] - U._update_cuda(
+        g3[:, :cfg.rows, :cfg.cols].contiguous(),
+        x3[:, :, :cfg.rows].contiguous(), d3[:, :, :cfg.cols].contiguous(),
+        scale, None, seed, cfg, "kernel", xs, ds, (0, 1, 1))
+               ).abs().max().item()
+    row = {"case": label, "shape": list(g3.shape), "T": x3.shape[1],
+           "blocks": len(blocks), "instance":
+           "tensor_core" if scaled else "fp32", "mode": cfg.update_mode,
+           "bit_equal": equal, "allowance_share_max": worst,
+           "launches": launched,
+           "wrong_offset_moves": shifted}
+    if not equal:
+        fail(f"24(a) {label}: the blocks written at their offsets are not "
+             f"bit-equal to the whole write")
+    # (outer mode: every requested cell draws noise; a pulse-train cell
+    # only with an event)
+    if cfg.update_mode == "outer" and shifted <= 0.0:
+        fail(f"24(a) {label}: a block at other offsets drew the same noise")
+    del whole, joined
+    return row
+
+
+def phase_shard_writes(U, S, TM, TAOX, CrossbarConfig, get_config, report):
+    """24(a): lm100m's four containers at full width, (12, K, N) with T =
+    2048 and TaOx counter-PRNG noise, cut into the policy's blocks on 2x4
+    and 4x4 layouts, and one llama4-scout-17b-a16e expert stack (1 layer,
+    its 16 experts over 4 shards): each block written alone at its
+    offsets, on both instances in both update modes, bit-equal to the
+    whole write."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    mcfg = get_config("lm100m").replace(
+        dtype="float32", analog=True, analog_mode="device",
+        analog_device="taox", analog_rows=64, analog_cols=64)
+    rows = []
+    seed = 0x2545F491
+    for name, k, n in TRAIN_SHAPES:
+        g, x_q, d_q, scale, xs, ds = update_operands(12, k, n, SHARD_T, gen,
+                                                     False)
+        path = ("layers", "ffn" if name.startswith("w_") else "attn", name)
+        for layout in SHARD_LAYOUTS:
+            blocks = [(slice(None), sl[-2], sl[-1]) for _, _, sl, _ in
+                      layout_blocks(TM, S, path, tuple(g.shape), mcfg,
+                                    layout)]
+            for mode in ("outer", "pulse_train"):
+                cfg = CrossbarConfig(rows=64, cols=64, device=TAOX,
+                                     update_mode=mode)
+                for scaled in (True, False):
+                    label = (f"{name} {layout[0]}x{layout[1]} {mode} "
+                             f"{'tc' if scaled else 'fp32'}")
+                    row = offsets_case(U, g, x_q, d_q, scale,
+                                       xs if scaled else None,
+                                       ds if scaled else None, blocks, cfg,
+                                       seed, label)
+                    rows.append(row)
+                    report(row)
+        del g, x_q, d_q
+    ecfg = get_config(SHARD_EXPERT_ARCH)
+    e, k, n = ecfg.n_experts, ecfg.d_model, ecfg.d_ff_expert or ecfg.d_ff
+    cap = -(-int(1.25 * SHARD_T * ecfg.top_k) // e)
+    cap = max(8, -(-cap // 8) * 8)
+    g, x_q, d_q, scale, xs, ds = update_operands(e, k, n, cap, gen, False)
+    m0 = TM.emulated_mesh(SHARD_EXPERT_LAYOUT, ("data", "model"))
+    xcfg = get_config(SHARD_EXPERT_ARCH).replace(
+        dtype="float32", analog=True, analog_mode="device",
+        analog_device="taox")
+    path = ("layers", "moe", "experts", "w_up")
+    blocks = []
+    for coords in TM.layout_coords(m0):
+        m = TM.emulated_mesh(SHARD_EXPERT_LAYOUT, ("data", "model"), coords)
+        spec = S.analog_update_specs(path, (1, e, k, n), xcfg, m)["g"]
+        sl = S.block_slices((1, e, k, n), spec, m)
+        if spec[1] != ("model",):
+            fail(f"24(a): the expert dim is not over model: {spec}")
+        # the registry hoists the expert dim outermost: at one layer the
+        # flattened lead index is the expert index
+        blocks.append((sl[1], sl[2], sl[3]))
+    for mode in ("outer", "pulse_train"):
+        cfg = CrossbarConfig(rows=xcfg.analog_rows, cols=xcfg.analog_cols,
+                             device=TAOX, update_mode=mode)
+        for scaled in (True, False):
+            label = (f"expert w_up (E {e}) 1x4 {mode} "
+                     f"{'tc' if scaled else 'fp32'}")
+            row = offsets_case(U, g, x_q, d_q, scale, xs if scaled else None,
+                               ds if scaled else None, blocks, cfg, seed,
+                               label)
+            rows.append(row)
+            report(row)
+    del g, x_q, d_q
+    print(f"phase 24(a): {len(rows)} block-write cases bit-equal to the "
+          f"whole write ({sum(r['blocks'] for r in rows)} blocks at their "
+          f"offsets, each within its plain versions' gates)")
+    return rows
+
+
+def shard_read_case(K, S, TM, path, x, g, ref, ws, cfg, mcfg, layout,
+                    transpose, label):
+    """24(b) for one container, layout and direction: every rank of the
+    layout, emulated one after another on the card
+    (``launch.mesh.emulate_layout``), runs the sharded step's read,
+    ``kernels.xbar_vmm.manual_collective_read``, on its block of the
+    container and the whole replicated drive: the DAC scale of its
+    matrices' whole drives, its tiles read in partials form where the
+    reduction dim is split, the partials gathered in tile order over the
+    reduction shards by ``core.shardctx.combine_partials_exact`` and
+    summed by ``reduce_tiles_kernel``, the output and expert blocks
+    gathered.  Each rank's result is bit-equal to the whole read.  Times
+    both on the card with CUDA events around the call (the emulated
+    layout's is every rank's work one after another, its host time
+    included), and the emulated layout's kernel time from torch.profiler
+    (``device_ms``: the host's rank hand-overs left out)."""
+    sync = torch.cuda.synchronize
+    axes = ("data", "model")
+    shape = tuple(g.shape)
+    whole = K.xbar_fused_read(x, g, ref, ws, cfg, transpose=transpose)
+    blocks = {}
+    for coords in TM.layout_coords(TM.emulated_mesh(layout, axes)):
+        m = TM.emulated_mesh(layout, axes, coords)
+        spec = S.analog_update_specs(path, shape, mcfg, m)["g"]
+        sl = S.block_slices(shape, spec, m)
+        blocks[m.rank] = (g[sl].contiguous(), ref[sl].contiguous(),
+                          ws[sl[:-2]].contiguous(),
+                          S.shard_meta(shape, spec, m))
+    meta = blocks[0][3]
+    if meta is None:
+        fail(f"24(b) {label}: the policy splits no dim of {shape}")
+    red_names = meta.col if transpose else meta.row
+
+    def rank_read(m):
+        gb, rb, wb, mt = blocks[m.rank]
+        return K.manual_collective_read(x, gb, rb, wb, cfg, mt,
+                                        transpose=transpose, mesh=m)
+
+    def sharded(i=0):
+        return TM.emulate_layout(layout, axes, rank_read)
+    d = "mvm" if transpose else "vmm"
+    before = dict(K.LAUNCHES)
+    ys = sharded()
+    sync()
+    launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
+                if K.LAUNCHES[k] != before[k]}
+    n = len(blocks)
+    want_reduce = n if red_names else 0
+    if launched.get(f"fused_{d}", 0) != n \
+            or launched.get(f"reduce_tiles_{d}", 0) != want_reduce:
+        fail(f"24(b) {label}: launches {launched}, expected {n} reads and "
+             f"{want_reduce} tile sums")
+    equal = all(torch.equal(y, whole) for y in ys)
+    if not equal:
+        worst = max((y - whole).abs().max().item() for y in ys)
+        fail(f"24(b) {label}: the shard-local reads are not bit-equal to "
+             f"the whole read (max diff {worst:.3g})")
+    del ys
+    def whole_read(i=0):
+        return K.xbar_fused_read(x, g, ref, ws, cfg, transpose=transpose)
+    row = {"case": label, "B": x.shape[-2], "transpose": transpose,
+           "expert": len(shape) > 3,
+           "instance": K.read_instance(x.shape[-2], cfg.adc.in_levels),
+           "shards": n, "partials_form": bool(red_names),
+           "bit_equal": equal, "launches": launched,
+           "ms": cuda_ms(whole_read, 3, sync),
+           "sharded_ms": cuda_ms(sharded, 3, sync),
+           "sharded_device_ms": device_ms(sharded, 3)}
+    row["sharded_ms_per_shard"] = row["sharded_ms"] / n
+    return row
+
+
+def phase_shard_reads(K, S, TM, CrossbarConfig, AdcConfig, TAOX_NONOISE,
+                      get_config, gpu_line, report):
+    """24(b): the same containers and layouts, forward and transpose, at
+    B = 4 (FP32 instance) and B = 2048 (tensor cores), and one
+    llama4-scout-17b-a16e expert stack (1 layer, its 16 experts over 4
+    shards, at a capacity buffer of T = 2048 tokens): every rank's
+    ``manual_collective_read``, bit-equal to the whole read, timed."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(241)
+    mcfg = get_config("lm100m").replace(
+        dtype="float32", analog=True, analog_mode="device",
+        analog_device="taox", analog_rows=64, analog_cols=64)
+    cfg = CrossbarConfig(rows=64, cols=64, adc=AdcConfig(range_mode="dynamic"),
+                         device=TAOX_NONOISE)
+    rows = []
+
+    def case(path, x, g, ref, ws, xcfg, mc, layout, transpose, label):
+        row = shard_read_case(K, S, TM, path, x, g, ref, ws, xcfg, mc,
+                              layout, transpose, label)
+        rows.append(row)
+        report(row)
+        print(f"  24(b) {label} ({row['instance']}): whole "
+              f"{row['ms']:.3f} ms, {row['shards']} shards "
+              f"{'in partials form ' if row['partials_form'] else ''}"
+              f"{row['sharded_ms']:.3f} ms in all with the host's hand-overs "
+              f"({row['sharded_ms_per_shard']:.3f} a shard), "
+              f"{row['sharded_device_ms']} ms of kernels [{gpu_line}]")
+
+    for name, k, n in TRAIN_SHAPES:
+        path = ("layers", "ffn" if name.startswith("w_") else "attn", name)
+        g = (0.5 + 0.05 * torch.randn((12, k, n), generator=gen,
+                                      device=dev)).clamp(0, 1)
+        ref = torch.full_like(g, 0.5)
+        ws = 1.5 + torch.rand((12,), generator=gen, device=dev)
+        for b in SHARD_READ_B:
+            for transpose in (False, True):
+                x = torch.randn((12, b, n if transpose else k), generator=gen,
+                                device=dev)
+                for layout in SHARD_LAYOUTS:
+                    case(path, x, g, ref, ws, cfg, mcfg, layout, transpose,
+                         f"{name} {layout[0]}x{layout[1]} B={b} "
+                         f"{'mvm' if transpose else 'vmm'}")
+                del x
+        del g, ref
+    ecfg = get_config(SHARD_EXPERT_ARCH).replace(
+        dtype="float32", analog=True, analog_mode="device",
+        analog_device="taox")
+    e, k, n = ecfg.n_experts, ecfg.d_model, ecfg.d_ff_expert or ecfg.d_ff
+    cap = -(-int(1.25 * SHARD_T * ecfg.top_k) // e)
+    cap = max(8, -(-cap // 8) * 8)
+    xcfg = CrossbarConfig(rows=ecfg.analog_rows, cols=ecfg.analog_cols,
+                          adc=AdcConfig(range_mode="dynamic"),
+                          device=TAOX_NONOISE)
+    g = (0.5 + 0.05 * torch.randn((1, e, k, n), generator=gen,
+                                  device=dev)).clamp(0, 1)
+    ref = torch.full_like(g, 0.5)
+    ws = 1.5 + torch.rand((1, e), generator=gen, device=dev)
+    for transpose in (False, True):
+        x = torch.randn((1, e, cap, n if transpose else k), generator=gen,
+                        device=dev)
+        case(("layers", "moe", "experts", "w_up"), x, g, ref, ws, xcfg, ecfg,
+             SHARD_EXPERT_LAYOUT, transpose,
+             f"expert w_up (E {e}) 1x4 B={cap} "
+             f"{'mvm' if transpose else 'vmm'}")
+        del x
+    del g, ref
+    print(f"phase 24(b): {len(rows)} sharded reads bit-equal to the whole "
+          f"read on every rank")
+    return rows
+
+
+def run_cli(argv, env, what):
+    """One training-CLI run under torchrun (one rank); fails on an
+    error."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.train", *argv]
+    t = time.perf_counter()
+    out = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"24(c) {what}: the CLI exited {out.returncode}:\n"
+             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return out.stdout, time.perf_counter() - t
+
+
+def phase_shard_cli(report, gpu_line):
+    """24(c): the training CLI under torchrun in a one-rank NCCL group at
+    lm100m's full width with QAT (``--analog``: kernel 4 under autograd)
+    and int8 gradient compression, 6 steps with a checkpoint at 4; then a
+    second run resumed from step 4's checkpoint: steps 5-6 take the same
+    batches and the same losses within 1e-6 relative."""
+    import gc
+    import shutil
+    # the CLI runs in its own process: hand it the memory this process's
+    # allocator still caches from the earlier phases
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    held = torch.cuda.memory_allocated() / 1e9
+    print(f"24(c): {free / 1e9:.1f} of {total / 1e9:.1f} GB free on the card "
+          f"for the CLI ({held:.2f} GB still allocated here)")
+    if free < SHARD_CLI_FREE_BYTES:
+        fail(f"24(c): only {free / 1e9:.1f} GB free for the CLI; "
+             f"{held:.2f} GB still allocated by this process")
+    work = ROOT / "build" / "shard_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    base = ["--arch", "lm100m", "--mesh", "1x1", "--analog",
+            "--grad-compress", "--seq-len", str(SHARD_CLI_SEQ),
+            "--global-batch", str(SHARD_CLI_BATCH),
+            "--steps", str(SHARD_CLI_STEPS),
+            "--ckpt-every", str(SHARD_CLI_RESUME), "--log-every", "1"]
+    full_m = work / "full.jsonl"
+    log, wall = run_cli(base + ["--ckpt-dir", str(work / "full"),
+                                "--metrics-out", str(full_m)], env, "run")
+    done = [ln for ln in log.splitlines() if ln.startswith("done:")]
+    resume_dir = work / "resume"
+    resume_dir.mkdir()
+    name = f"step_{SHARD_CLI_RESUME:08d}"
+    shutil.copytree(work / "full" / name, resume_dir / name)
+    shutil.copy(work / "full" / f"{name}.COMMITTED", resume_dir)
+    res_m = work / "resumed.jsonl"
+    log2, wall2 = run_cli(base + ["--ckpt-dir", str(resume_dir),
+                                  "--metrics-out", str(res_m)], env,
+                          "resume")
+    if f"resumed from step {SHARD_CLI_RESUME}" not in log2:
+        fail(f"24(c): the second run did not resume:\n{log2[-2000:]}")
+    full = [json.loads(ln) for ln in open(full_m)]
+    again = [json.loads(ln) for ln in open(res_m)]
+    if [m["step"] for m in full] != list(range(1, SHARD_CLI_STEPS + 1)) \
+            or [m["step"] for m in again] != list(
+                range(SHARD_CLI_RESUME + 1, SHARD_CLI_STEPS + 1)):
+        fail(f"24(c): steps {[m['step'] for m in full]} / "
+             f"{[m['step'] for m in again]}")
+    worst = 0.0
+    for a, b in zip(full[SHARD_CLI_RESUME:], again):
+        if a["batch"] != b["batch"]:
+            fail(f"24(c): step {a['step']} resumed on another batch")
+        worst = max(worst, abs(a["loss"] - b["loss"]) / abs(a["loss"]))
+    if worst > 1e-6:
+        fail(f"24(c): resumed losses differ by {worst:.3g} relative")
+    reads = [m["fakequant_reads"] for m in full + again]
+    if min(reads) <= 0 or len(set(reads)) != 1:
+        fail(f"24(c): fakequant reads a step {reads}: every step must read "
+             f"through kernel 4, the same count each step")
+    tps = float(done[0].split(",")[1].split()[0]) if done else None
+    # steady state: the steps after the first (which pays the card's and
+    # the kernels' one-time setup)
+    secs = [m["seconds"] for m in full]
+    steady = SHARD_CLI_SEQ * SHARD_CLI_BATCH / float(np.median(secs[1:]))
+    row = {"steps": SHARD_CLI_STEPS, "resume_at": SHARD_CLI_RESUME,
+           "step_seconds": secs, "steady_tokens_per_s": steady,
+           "losses": [m["loss"] for m in full],
+           "resumed_losses": [m["loss"] for m in again],
+           "max_rel_loss_diff": worst, "fakequant_reads_per_step": reads[0],
+           "tokens_per_s": tps, "run_wall_s": wall, "resume_wall_s": wall2}
+    report(row)
+    print(f"phase 24(c): the CLI (torchrun, one NCCL rank, lm100m full "
+          f"width, QAT + int8 compression) {tps} tokens/s over "
+          f"{SHARD_CLI_STEPS} steps, {steady:.1f} after the first (step "
+          f"seconds {', '.join(f'{t:.3f}' for t in secs)}; {reads[0]} "
+          f"fakequant reads a step); "
+          f"resumed at {SHARD_CLI_RESUME}: steps 5-6 same batches, losses "
+          f"within {worst:.3g} relative [{gpu_line}]")
+    return row
 
 
 def mlp_read_entry(mlp, direction, names):
@@ -5940,6 +6410,8 @@ def main():
     from repro_torch.train import mlp_analog as MLP
     from repro_torch.train import optimizer as TO
     from repro_torch.train import train_loop as TL
+    from repro_torch.launch import mesh as TM
+    from repro_torch.launch import sharding as S
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6138,6 +6610,34 @@ def main():
                                       VLM_TRAIN_LAYERS, "23(c)")
     cross = {"whisper_medium": (audio_serve, audio_fq, audio_train),
              "llama_3_2_vision_90b": (vlm_serve, vlm_fq, vlm_train)}
+    with phase("24"):
+        shard_writes = phase_shard_writes(U, S, TM, TAOX, CrossbarConfig,
+                                          get_config,
+                                          reporter("shard_writes"))
+        shard_reads = phase_shard_reads(K, S, TM, CrossbarConfig, AdcConfig,
+                                        TAOX_NONOISE, get_config, gpu_line,
+                                        reporter("shard_reads"))
+        shard_cli = phase_shard_cli(reporter("shard_cli"), gpu_line)
+
+    def sharded_reads(transpose):
+        """The kernels-line figures of phase 24(b) for one direction."""
+        rs = [r for r in shard_reads if r["transpose"] == transpose]
+
+        def summed(sel, k):   # None where the profiler recorded no kernel
+            vals = [r[k] for r in rs if sel(r)]
+            return None if None in vals else sum(vals)
+        return {"cases_bit_equal": sum(r["bit_equal"] for r in rs),
+                **{f"B{b}_{k}": summed(lambda r: not r["expert"]
+                                      and r["B"] == b, k)
+                   for b in SHARD_READ_B for k in SHARD_READ_TIMES},
+                **{f"expert_{k}": summed(lambda r: r["expert"], k)
+                   for k in SHARD_READ_TIMES}}
+
+    def sharded_writes(mode):
+        """The kernels-line figures of phase 24(a) for one update mode."""
+        rs = [r for r in shard_writes if r["mode"] == mode]
+        return {"cases_bit_equal": sum(r["bit_equal"] for r in rs),
+                "blocks": sum(r["blocks"] for r in rs)}
 
     def cross_launches(kind):
         """The kernels-line figures of phases 22-23 for one kernel."""
@@ -6211,6 +6711,7 @@ def main():
             hybrid_serve["serve"]["launches_by_kernel"],
         "launches_zamba2_1_2b_train": hybrid_train["launches"]["fused_vmm"],
         **cross_launches("vmm"),
+        "partials_form_24b": sharded_reads(False),
         **mlp_read_entry(mlp, "vmm", ("l1_vmm", "l2_vmm"))}, {
         "name": "xbar_fused_mvm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_vmm.cu",
@@ -6232,6 +6733,7 @@ def main():
         "launches_mamba2_1_3b_train": ssm_train["launches"]["fused_mvm"],
         "launches_zamba2_1_2b_train": hybrid_train["launches"]["fused_mvm"],
         **cross_launches("mvm"),
+        "partials_form_24b": sharded_reads(True),
         **mlp_read_entry(mlp, "mvm", ("l2_mvm",))}, {
         "name": "xbar_outer_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
@@ -6246,7 +6748,8 @@ def main():
             mla_train["launches"]["update_tc"],
         "launches_mamba2_1_3b_train": ssm_train["launches"]["update_tc"],
         "launches_zamba2_1_2b_train": hybrid_train["launches"]["update_tc"],
-        **cross_launches("update_tc")},
+        **cross_launches("update_tc"),
+        "tile_offsets_24a": sharded_writes("outer")},
         {
         "name": "xbar_update_prepare", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
@@ -6287,6 +6790,7 @@ def main():
         "launches_deepseek_v2_lite_tensor_core": mla_fq["tensor_core_reads"],
         "launches_mamba2_1_3b": ssm_fq["reads"],
         **cross_launches("fakequant"),
+        "launches_cli_qat_per_step": shard_cli["fakequant_reads_per_step"],
         "lead_dim": [{key: r.get(key) for key in (
             "case", "E", "T", "K", "N", "instance", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "tc_floor_ms")}
@@ -6334,7 +6838,8 @@ def main():
         "instance": "tensor_core (tc_update_kernel<true>, mma.sync "
                     "m16n8k16 bf16, two accumulates)",
         **write_entry(t_pulse, total(carry["launches_per_step"],
-                                     "update_tc"), None)}]
+                                     "update_tc"), None),
+        "tile_offsets_24a": sharded_writes("pulse_train")}]
     details["tie_recounts"] = TIE_RECOUNTS
     details["kernels_line_note"] = (
         "xbar_fused_vmm: launches counts the serving run's reads (each one "
@@ -6448,7 +6953,19 @@ def main():
         "4 x 1025 rows on the tensor cores every decode call) and of 22(b) "
         "/ 23(b)'s fakequant serves (xbar_fakequant_read; _tensor_core the "
         "reads on its tensor-core instance); _train the launches of 22(c)'s "
-        "step at 48 layers and 23(c)'s at 5")
+        "step at 48 layers and 23(c)'s at 5. Phase 24 (the sharded step's "
+        "kernel work, each shard of a layout in turn on this card): "
+        "tile_offsets_24a counts the write cases (lm100m's four containers "
+        "on 2x4 and 4x4 layouts and one llama4-scout expert stack over 4 "
+        "shards, both instances) whose blocks, each written alone at its "
+        "offsets, reassemble bit-equal to the whole write; "
+        "partials_form_24b the read cases whose shards' partials-form reads, "
+        "combined in tile order and summed by reduce_tiles_kernel, are "
+        "bit-equal to the whole read, with B{4,2048}_ms the whole reads' "
+        "and B{4,2048}_sharded_ms all shards' reads and tile sums on one "
+        "card, summed over the four containers and both layouts; "
+        "launches_cli_qat_per_step the fakequant reads of each step of "
+        "24(c)'s training CLI (torchrun, one NCCL rank, QAT)")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1))

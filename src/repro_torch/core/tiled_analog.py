@@ -166,11 +166,12 @@ class TapedMatmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, g, ref, w_scale, cfg, x_tape, d_tape, x_tape_scale,
-                d_tape_scale):
+                d_tape_scale, meta=None):
         ctx.save_for_backward(x, g, ref, w_scale)
         ctx.cfg = cfg
+        ctx.meta = meta
         ctx.tapes = (x_tape, d_tape, x_tape_scale, d_tape_scale)
-        return vmm(x, g, ref, w_scale, cfg)
+        return vmm(x, g, ref, w_scale, cfg, meta=meta)
 
     @staticmethod
     def backward(ctx, dy):
@@ -179,7 +180,7 @@ class TapedMatmul(torch.autograd.Function):
         dy32 = dy.float()
         # Error backprop: transpose read of the SAME (quantised, saturated,
         # ADC'd) conductances the forward pass saw.
-        dx = mvm(dy32, g, ref, w_scale, cfg)
+        dx = mvm(dy32, g, ref, w_scale, cfg, meta=ctx.meta)
         x_tape, d_tape, x_tape_scale, d_tape_scale = ctx.tapes
         if x_tape is not None:
             # one coder calibration per matrix: per expert of a batched
@@ -192,7 +193,7 @@ class TapedMatmul(torch.autograd.Function):
             if x_tape_scale is not None:
                 x_tape_scale.copy_(x_scale)
                 d_tape_scale.copy_(d_scale)
-        return dx.to(x.dtype), *(None,) * 8
+        return dx.to(x.dtype), *(None,) * 9
 
 
 def analog_project(p: dict, x: Tensor, cfg: CrossbarConfig) -> Tensor:
@@ -219,14 +220,20 @@ def analog_project(p: dict, x: Tensor, cfg: CrossbarConfig) -> Tensor:
     operands and its own scales, and the write sums the applications'
     outer products.  Every other container is applied exactly once per
     token batch.
+
+    A container of the sharded train step holds this rank's tile blocks
+    and its ``tp_meta`` (``core.shardctx.ShardMeta``): its geometry comes
+    from the meta, and both its reads go shard-local.
     """
     for leaf in ("g", "ref", "w_scale"):
         if getattr(p[leaf], "requires_grad", False):
             raise ValueError(f"container leaf {leaf!r} requires grad: the "
                              "conductances are written by the rank-k "
                              "update, never by autograd")
-    lead = p["g"].shape[:-2]
-    k, n = p["g"].shape[-2:]
+    meta = p.get("tp_meta")
+    gshape = meta.view(p["g"].ndim) if meta is not None else p["g"].shape
+    lead = tuple(gshape[:-2])
+    k, n = gshape[-2:]
     if not lead:
         xb = x.reshape(-1, k).float()
     elif x.ndim == len(lead) + 2 and x.shape[:-2] == lead \
@@ -237,7 +244,7 @@ def analog_project(p: dict, x: Tensor, cfg: CrossbarConfig) -> Tensor:
                          f"match container {tuple(p['g'].shape)}")
     y = TapedMatmul.apply(xb, effective_g(p, cfg), p["ref"],
                           torch.as_tensor(p["w_scale"]), cfg,
-                          *(p.get(leaf) for leaf in TAPE_LEAVES))
+                          *(p.get(leaf) for leaf in TAPE_LEAVES), meta)
     return y.reshape(*x.shape[:-1], n).to(x.dtype)
 
 
@@ -253,8 +260,11 @@ def make_tapes(p: dict, n_tokens) -> dict:
     site, one writer per slot, one consumer.
     """
     g = p["g"]
-    k, n = g.shape[-2:]
-    lead = g.shape[:-2]
+    meta = p.get("tp_meta")
+    # tapes are replicated: a sharded container's come in its global shape
+    gshape = meta.view(g.ndim) if meta is not None else g.shape
+    k, n = gshape[-2:]
+    lead = tuple(gshape[:-2])
     rows = n_tokens if isinstance(n_tokens, tuple) else (n_tokens,)
     f32 = dict(dtype=torch.float32, device=g.device)
     return {"x_tape": torch.zeros((*lead, *rows, k), **f32),
@@ -276,7 +286,8 @@ def split_tapes(params, n_tokens, tokens_for=None, path=()):
         rows = tokens_for(path, params["g"].shape) if tokens_for \
             else n_tokens
         return (make_tapes(params, rows),
-                {k: params[k] for k in ("g", "ref", "w_scale", "g_carry")
+                {k: params[k]
+                 for k in ("g", "ref", "w_scale", "g_carry", "tp_meta")
                  if k in params})
     if isinstance(params, dict):
         split = {k: split_tapes(v, n_tokens, tokens_for, path + (k,))

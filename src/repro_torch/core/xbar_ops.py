@@ -37,17 +37,18 @@ from .device import DeviceConfig, apply_update
 Tensor = torch.Tensor
 
 
-def _tiled_read(x_int: Tensor, diff: Tensor, cfg: CrossbarConfig,
-                transpose: bool = False) -> Tensor:
-    """Per-tile integrate + saturate + ADC, summed over reduction tiles.
+def _tile_partials(x_int: Tensor, diff: Tensor, cfg: CrossbarConfig,
+                   transpose: bool = False) -> Tensor:
+    """Per-tile integrate + saturate + ADC: the (..., tR, tO, B, C)
+    quantised charges of every tile (tR reduction tiles, tO output tiles
+    of C outputs), before the digital sum over the reduction tiles.
+    Arguments as for :func:`_tiled_read`.
 
-    ``x_int``: (..., B, K) integer drive levels; ``diff``: (..., Kp, Np)
-    signed conductance ``G - G_ref`` padded to tile multiples, with the
-    same lead dims as ``x_int``.  Returns (..., B, Np).  ``transpose``
-    reads the array column-driven (the MVM of Fig. 3b): ``x_int`` is
-    (..., B, Np), the reduction runs over the stored tile's columns and
-    the result is (..., B, Kp).
-    """
+    Each tile's charges are one (B, rows) x (rows, C) product and its
+    range one sum over its own contiguous (B, C) charges, so a tile's
+    result does not depend on how many tiles share the call: a block of
+    a container gives the bits of its tiles in the whole read (the
+    sharded step's shard-local read relies on it)."""
     rows, cols = cfg.rows, cfg.cols
     if transpose:
         # Drive columns, integrate rows: the tile sizes swap roles.
@@ -59,18 +60,41 @@ def _tiled_read(x_int: Tensor, diff: Tensor, cfg: CrossbarConfig,
     if x_int.shape[-1] != kp:  # pad drive lines to the tile grid
         x_int = torch.nn.functional.pad(x_int, (0, kp - x_int.shape[-1]))
     tk, tn = kp // rows, np_ // cols
-    xt = x_int.reshape(*lead, b, tk, rows).float()
-    dt = diff.reshape(*lead, tk, rows, tn, cols).float()
-    # Per-tile analog column charge: (..., B, tk, tn, cols)
-    q = torch.einsum("...btr,...trnc->...btnc", xt, dt)
+    xt = x_int.float().reshape(*lead, b, tk, rows).movedim(-2, -3)
+    dt = diff.float().reshape(*lead, tk, rows, tn, cols).movedim(-2, -3)
+    # Per-tile analog column charge: (..., tk, tn, B, cols)
+    q = torch.matmul(xt.unsqueeze(-3), dt)
     nd = q.ndim
     # One integrator range per physical tile, shared over batch and columns.
     q, sat = integrator_saturation(q, cfg.adc, n_rows=rows,
                                    g_max=cfg.device.gmax,
-                                   reduce_axes=(nd - 4, nd - 1))
-    q = adc_quantize(q, sat, cfg.adc)
-    # Digital accumulation across reduction tiles.
-    return q.sum(dim=nd - 3).reshape(*lead, b, np_)
+                                   reduce_axes=(nd - 2, nd - 1))
+    return adc_quantize(q, sat, cfg.adc)
+
+
+def _sum_tiles(q: Tensor) -> Tensor:
+    """Digital accumulation of :func:`_tile_partials` across the
+    reduction tiles, float32 adds in tile order from tile 0 (the order of
+    the kernels' tile sum): (..., tR, tO, B, C) -> (..., B, tO * C)."""
+    acc = q[..., 0, :, :, :]
+    for t in range(1, q.shape[-4]):
+        acc = acc + q[..., t, :, :, :]
+    tn, b, cols = acc.shape[-3:]
+    return acc.movedim(-2, -3).reshape(*acc.shape[:-3], b, tn * cols)
+
+
+def _tiled_read(x_int: Tensor, diff: Tensor, cfg: CrossbarConfig,
+                transpose: bool = False) -> Tensor:
+    """Per-tile integrate + saturate + ADC, summed over reduction tiles.
+
+    ``x_int``: (..., B, K) integer drive levels; ``diff``: (..., Kp, Np)
+    signed conductance ``G - G_ref`` padded to tile multiples, with the
+    same lead dims as ``x_int``.  Returns (..., B, Np).  ``transpose``
+    reads the array column-driven (the MVM of Fig. 3b): ``x_int`` is
+    (..., B, Np), the reduction runs over the stored tile's columns and
+    the result is (..., B, Kp).
+    """
+    return _sum_tiles(_tile_partials(x_int, diff, cfg, transpose))
 
 
 def _chain_read(x: Tensor, g: Tensor, g_ref: Tensor, w_scale,
@@ -108,8 +132,15 @@ def _read_conductance(g: Tensor, cfg: CrossbarConfig,
 
 def _read(x: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
           impl: Optional[str], transpose: bool,
-          eps: Optional[Tensor] = None) -> Tensor:
+          eps: Optional[Tensor] = None, meta=None) -> Tensor:
     g = _read_conductance(g, cfg, eps)
+    if meta is not None and meta.sharded:
+        # the sharded train step: ``g``/``g_ref`` are this rank's tile
+        # blocks, ``x`` the whole replicated drive; the shard-local read
+        # exchanges only the per-tile ADC partials, in pinned order
+        from repro_torch.kernels.xbar_vmm import manual_collective_read
+        return manual_collective_read(x, g, g_ref, w_scale, cfg, meta,
+                                      transpose=transpose, impl=impl)
     if impl == "chain":
         if x.is_cuda:
             raise ValueError("impl='chain' on a CUDA tensor: tensors on the "
@@ -121,7 +152,8 @@ def _read(x: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
 
 
 def vmm(x: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
-        impl: Optional[str] = None, eps: Optional[Tensor] = None) -> Tensor:
+        impl: Optional[str] = None, eps: Optional[Tensor] = None,
+        meta=None) -> Tensor:
     """Analog vector-matrix multiply: ``y ≈ x @ W`` for
     ``W = (g - g_ref) / w_scale``.
 
@@ -131,16 +163,22 @@ def vmm(x: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
     ``"chain"``, the unfused oracle, takes CPU tensors only.  ``eps`` is
     the read-noise field (:func:`_read_conductance`), needed only when the
     device has read noise; the noisy ``g`` goes through the same read.
+    ``meta`` (a ``core.shardctx.ShardMeta``) marks ``g``/``g_ref`` as this
+    rank's blocks of a tile-sharded container: the read goes shard-local
+    (``kernels.xbar_vmm.manual_collective_read``).
     """
-    return _read(x, g, g_ref, w_scale, cfg, impl, transpose=False, eps=eps)
+    return _read(x, g, g_ref, w_scale, cfg, impl, transpose=False, eps=eps,
+                 meta=meta)
 
 
 def mvm(d: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
-        impl: Optional[str] = None, eps: Optional[Tensor] = None) -> Tensor:
+        impl: Optional[str] = None, eps: Optional[Tensor] = None,
+        meta=None) -> Tensor:
     """Analog transpose read: ``y ≈ d @ W.T`` (same array, columns
-    driven).  ``d``: (..., B, N); returns (..., B, K).  ``eps`` as in
-    :func:`vmm`."""
-    return _read(d, g, g_ref, w_scale, cfg, impl, transpose=True, eps=eps)
+    driven).  ``d``: (..., B, N); returns (..., B, K).  ``eps`` and
+    ``meta`` as in :func:`vmm`."""
+    return _read(d, g, g_ref, w_scale, cfg, impl, transpose=True, eps=eps,
+                 meta=meta)
 
 
 def quantize_update_codes(x: Tensor, d: Tensor, cfg: CrossbarConfig,

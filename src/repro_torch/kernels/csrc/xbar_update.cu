@@ -32,7 +32,11 @@
 // (_tile_seed), then one 16-bit Box-Muller draw per pair of adjacent
 // columns (_tile_normals; an odd tile width takes one draw per cell and
 // keeps the cosine leg), in uint32 arithmetic bit-identical to the
-// reference's hash words.  Both modes draw the same normals.
+// reference's hash words.  Both modes draw the same normals.  A block of a
+// larger container (a shard of the sharded train step) is written with its
+// (layer, row-tile, col-tile) base coordinates, which both instances add to
+// each tile's coordinates before hashing: the block draws exactly its slice
+// of the whole container's noise (the reference's tile_offsets).
 //
 // Two instances; update_instance() in kernels/xbar_update.py picks one
 // from the operands, never from a failure.
@@ -230,7 +234,7 @@ update_kernel(const float* __restrict__ g, const float* __restrict__ xq,
               const float* __restrict__ dq, const float* __restrict__ scale,
               const float* __restrict__ noise, float* __restrict__ out,
               int T, int K, int N, int rows, int cols, uint32_t seed,
-              DeviceParams p) {
+              uint32_t l0, uint32_t k0t, uint32_t n0t, DeviceParams p) {
   __shared__ __align__(16) float xs[kTC][kBlk];
   __shared__ __align__(16) float ds[kTC][kBlk];
   const int nt = blockIdx.x, kt = blockIdx.y, l = blockIdx.z;
@@ -244,7 +248,8 @@ update_kernel(const float* __restrict__ g, const float* __restrict__ xq,
   const int tx = tid & 15, ty = tid >> 4;
   uint32_t tseed = 0;
   if (p.noise_mode == 2)
-    tseed = tile_seed(seed, (uint32_t)l, (uint32_t)kt, (uint32_t)nt);
+    tseed = tile_seed(seed, (uint32_t)l + l0, (uint32_t)kt + k0t,
+                      (uint32_t)nt + n0t);
   const bool pairs = (cols & 1) == 0;
   const uint32_t half = (uint32_t)cols >> 1;
 
@@ -347,7 +352,8 @@ template <bool kPulse>
 int launch(const float* g, const float* xq, const float* dq,
            const float* scale, const float* noise, float* out, int L, int T,
            int K, int N, int rows, int cols, unsigned int seed,
-           const DeviceParams& params, void* stream) {
+           const unsigned int* offs, const DeviceParams& params,
+           void* stream) {
   if (L <= 0 || T <= 0 || K <= 0 || N <= 0 || rows <= 0 || cols <= 0)
     return (int)cudaErrorInvalidValue;
   if (params.noise_mode == 1 && noise == nullptr)
@@ -357,7 +363,8 @@ int launch(const float* g, const float* xq, const float* dq,
     return (int)cudaErrorInvalidValue;
   update_kernel<kPulse><<<dim3((unsigned)tn, (unsigned)tk, (unsigned)L),
                           kThreads, 0, (cudaStream_t)stream>>>(
-      g, xq, dq, scale, noise, out, T, K, N, rows, cols, seed, params);
+      g, xq, dq, scale, noise, out, T, K, N, rows, cols, seed, offs[0],
+      offs[1], offs[2], params);
   return (int)cudaGetLastError();
 }
 
@@ -474,6 +481,7 @@ struct TcArgs {
   float* out;                // (L, K, N)
   int K, N, Tp, Kp, Np, rows, cols;
   uint32_t seed;
+  uint32_t l0, k0t, n0t;     // the block's (layer, row-tile, col-tile) base
 };
 
 // Copies the 32 tokens from t0 of the CTA's 128 row codes and 128 column
@@ -643,10 +651,12 @@ tc_update_kernel(TcArgs a, DeviceParams p) {
       tk = r / a.rows;
       rl = r - tk * a.rows;
       if (p.noise_mode == 2) {
-        ts[0] = tile_seed(a.seed, (uint32_t)l, (uint32_t)tk, (uint32_t)tn[0]);
-        ts[1] = tn[1] == tn[0] ? ts[0]
-                               : tile_seed(a.seed, (uint32_t)l, (uint32_t)tk,
-                                           (uint32_t)tn[1]);
+        ts[0] = tile_seed(a.seed, (uint32_t)l + a.l0, (uint32_t)tk + a.k0t,
+                          (uint32_t)tn[0] + a.n0t);
+        ts[1] = tn[1] == tn[0]
+                    ? ts[0]
+                    : tile_seed(a.seed, (uint32_t)l + a.l0,
+                                (uint32_t)tk + a.k0t, (uint32_t)tn[1] + a.n0t);
       }
     } else {
       rl += kRowStep;
@@ -725,24 +735,31 @@ extern "C" {
 // FP32 instance.  Launch the rank-k write on `stream`: g/out (L,K,N), xq
 // (L,T,K), dq (L,T,N), scale (L,) and, in host-noise mode, noise (L,K,N)
 // are contiguous float32 device arrays; out must not alias g.  seed keys
-// the counter PRNG in kernel-noise mode.
+// the counter PRNG in kernel-noise mode; l0, k0, n0 are the block's
+// (layer, row-tile, col-tile) base coordinates in a larger container (0 for
+// a whole container): tile (l, kt, nt) draws the stream of (l + l0, kt +
+// k0, nt + n0), so a block written alone gets its slice of the whole write.
 
 // update_mode="outer"
 int xbar_outer_update(const float* g, const float* xq, const float* dq,
                       const float* scale, const float* noise, float* out,
                       int L, int T, int K, int N, int rows, int cols,
-                      unsigned int seed, DeviceParams params, void* stream) {
+                      unsigned int seed, unsigned int l0, unsigned int k0,
+                      unsigned int n0, DeviceParams params, void* stream) {
+  const unsigned int offs[3] = {l0, k0, n0};
   return launch<false>(g, xq, dq, scale, noise, out, L, T, K, N, rows, cols,
-                       seed, params, stream);
+                       seed, offs, params, stream);
 }
 
 // update_mode="pulse_train"
 int xbar_pulse_update(const float* g, const float* xq, const float* dq,
                       const float* scale, const float* noise, float* out,
                       int L, int T, int K, int N, int rows, int cols,
-                      unsigned int seed, DeviceParams params, void* stream) {
+                      unsigned int seed, unsigned int l0, unsigned int k0,
+                      unsigned int n0, DeviceParams params, void* stream) {
+  const unsigned int offs[3] = {l0, k0, n0};
   return launch<true>(g, xq, dq, scale, noise, out, L, T, K, N, rows, cols,
-                      seed, params, stream);
+                      seed, offs, params, stream);
 }
 
 
@@ -771,18 +788,20 @@ int xbar_update_prepare(const float* xq, const float* dq, const float* xs,
 
 // The write from the code planes: g/out (L,K,N), scale/xs/ds (L,) and, in
 // host-noise mode, noise (L,K,N) contiguous float32; out must not alias g.
-// pulse selects update_mode="pulse_train".
+// pulse selects update_mode="pulse_train"; seed, l0, k0, n0 as for the FP32
+// instance.
 int xbar_tc_update(int pulse, const float* g, const __nv_bfloat16* codes,
                    const float* scale, const float* xs, const float* ds,
                    const float* noise, float* out, int L, int T, int K,
                    int N, int Tp, int Kp, int Np, int rows, int cols,
-                   unsigned int seed, DeviceParams params, void* stream) {
+                   unsigned int seed, unsigned int l0, unsigned int k0,
+                   unsigned int n0, DeviceParams params, void* stream) {
   if (!tc_dims_ok(L, T, K, N, Tp, Kp, Np) || rows <= 0 || cols <= 0)
     return (int)cudaErrorInvalidValue;
   if (params.noise_mode == 1 && noise == nullptr)
     return (int)cudaErrorInvalidValue;
   TcArgs a{g, codes, codes + (size_t)L * Tp * Kp, scale, xs, ds, noise,
-           out, K, N, Tp, Kp, Np, rows, cols, seed};
+           out, K, N, Tp, Kp, Np, rows, cols, seed, l0, k0, n0};
   return pulse ? tc_launch<true>(a, L, params, stream)
                : tc_launch<false>(a, L, params, stream);
 }

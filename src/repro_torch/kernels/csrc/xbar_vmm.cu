@@ -82,6 +82,14 @@
 // the partials in tile order and rescales (with one reduction tile the
 // first kernel writes the output itself).
 //
+// Partials form (partials = 1, both instances): the read stops before its
+// tile sum and writes each reduction tile's quantised charges, unscaled, as
+// (L, tR, B, O).  A read sharded over its reduction dim (the sharded train
+// step) gathers the shards' partials in tile order and sums them with
+// reduce_tiles_kernel (xbar_reduce_tiles): the same float32 adds in the
+// same order as the whole read's register sum (tensor cores) or tile sum
+// (FP32), so the result is bit-equal to the whole read.
+//
 // Arithmetic: x/sc, q/lsb, sat/out_levels and sqrt are IEEE-rounded
 // (__fdiv_rn, __fsqrt_rn) and the ADC output is formed with explicit
 // round-to-nearest multiply/add intrinsics so nvcc cannot contract them
@@ -124,6 +132,7 @@ struct ReadArgs {
   const float* ref;      // (L, K, N)
   const float* sc;       // (L, 2): x_scale, x_scale / w_scale
   float* out;            // (L, tR, B, O) partials, or (L, B, O) if tR == 1
+  int partials;          // write the (L, tR, B, O) partials, unscaled
   int B, K, N;
   int R, C;              // tile reduction length, tile output width
   int D, O;              // drive features, output features
@@ -134,7 +143,7 @@ struct ReadArgs {
   __nv_bfloat16* planes; // (L, 3, ...) hi, mid, lo of G - G_ref, padded
   float* ssq;            // (L, tR, tO, nbt) range sums of squares
   int* nz;               // (L, tR, tO, nbt) non-zero charge counts
-  float* y;              // (L, B, O)
+  float* y;              // (L, B, O), or the (L, tR, B, O) partials
   int L, Bp, Rp, Cp, tR, tO, nbt;
 };
 
@@ -286,8 +295,9 @@ fused_read_tile_kernel(ReadArgs a) {
   const float lsb = __fdiv_rn(sat, a.out_levels);
 
   // Saturate and ramp-ADC the slice in place.  With one reduction tile the
-  // output is final (rescaled here); otherwise it is this tile's digital
-  // partial, summed in tile order by reduce_tiles_kernel.
+  // output is final (rescaled here); otherwise, or when the caller asks for
+  // the partials, it is this tile's digital partial, summed in tile order
+  // by reduce_tiles_kernel.
   const float out_scale = a.sc[2 * l + 1];
   for (int e = tid; e < B * c_end; e += kThreads) {
     const int b = e / c_end, c = e - b * c_end;
@@ -296,7 +306,7 @@ fused_read_tile_kernel(ReadArgs a) {
     float code = rintf(__fdiv_rn(v, lsb));
     code = fminf(fmaxf(code, -a.out_levels), a.out_levels);
     const float q = __fmul_rn(code, lsb);
-    *p = tR == 1 ? __fmul_rn(q, out_scale) : q;
+    *p = tR == 1 && !a.partials ? __fmul_rn(q, out_scale) : q;
   }
 }
 
@@ -663,6 +673,14 @@ tc_read_kernel(ReadArgs a) {
       [&](int s, float(&acc)[2][4][4]) {
         const int rt = s / nch;
         const float sat = sat_s[rt & 1], lsb = lsb_s[rt & 1];
+        // partials form: the tile's quantised charges go out unscaled,
+        // to (l, rt, b, output) of y, and the caller sums them
+        float* pl = a.partials ? a.y + ((size_t)l * a.tR + rt) * a.B * a.O +
+                                     ot * a.C + sub * kTcBN
+                               : nullptr;
+        const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+        const int g = lane >> 2, tg = lane & 3;
+        const int wm = (warp % (BM / 32)) * 32, wn = (warp / (BM / 32)) * 32;
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -673,7 +691,13 @@ tc_read_kernel(ReadArgs a) {
               float code = rintf(__fdiv_rn(v, lsb));
               code = fminf(fmaxf(code, -a.out_levels), a.out_levels);
               const float p = __fmul_rn(code, lsb);
-              run[mt][nt][r] = rt == 0 ? p : __fadd_rn(run[mt][nt][r], p);
+              if (pl != nullptr) {
+                const int b = b0 + wm + mt * 16 + g + 8 * (r >> 1);
+                const int c = wn + nt * 8 + 2 * tg + (r & 1);
+                if (b < a.B && c < c_len) pl[(size_t)b * a.O + c] = p;
+              } else {
+                run[mt][nt][r] = rt == 0 ? p : __fadd_rn(run[mt][nt][r], p);
+              }
             }
       },
       [&](int s) {
@@ -697,6 +721,7 @@ tc_read_kernel(ReadArgs a) {
         sat_s[rt & 1] = sat;
         lsb_s[rt & 1] = __fdiv_rn(sat, a.out_levels);
       });
+  if (a.partials) return;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tg = lane & 3;
   const int wm = (warp % (BM / 32)) * 32, wn = (warp / (BM / 32)) * 32;
@@ -840,11 +865,16 @@ long long xbar_read_scratch_floats(int L, int B, int K, int N, int rows,
 // (in_levels <= 256 only), tc = 0 the FP32 one.  scratch holds
 // xbar_read_scratch_floats() floats; sms is the device's SM count and the
 // device has had xbar_read_setup.  Adds one to launched[slot] (host array of
-// kSlots ints, in LaunchSlot order) for each kernel launched.  Returns the
-// CUDA error code of the launches (0 on success).
+// kSlots ints, in LaunchSlot order) for each kernel launched.  With
+// partials = 1 the read stops before its tile sum: y is (L, tR, B, O) and
+// receives each reduction tile's quantised charges, unscaled (tR the
+// reduction tiles), for xbar_reduce_tiles to sum in tile order and rescale
+// (the FP32 instance then needs no scratch).  Returns the CUDA error code
+// of the launches (0 on success).
 int xbar_read(const float* x, const float* g, const float* ref,
               const float* sc, float* y, float* scratch, int L, int B, int K,
-              int N, int rows, int cols, int transpose, int tc, int dynamic,
+              int N, int rows, int cols, int transpose, int tc, int partials,
+              int dynamic,
               float in_levels, float out_levels, float sat_fixed,
               float sat_sigmas, int sms, void* stream, int* launched) {
   if (L <= 0 || B <= 0 || K <= 0 || N <= 0 || rows <= 0 || cols <= 0 ||
@@ -852,6 +882,7 @@ int xbar_read(const float* x, const float* g, const float* ref,
     return (int)cudaErrorInvalidValue;
   ReadArgs a = {};
   a.x = x; a.g = g; a.ref = ref; a.sc = sc;
+  a.partials = partials;
   a.B = B; a.K = K; a.N = N;
   a.R = transpose ? cols : rows;
   a.C = transpose ? rows : cols;
@@ -883,18 +914,36 @@ int xbar_read(const float* x, const float* g, const float* ref,
                            : launch_tc<false>(a, sms, st, launched));
   }
 
-  if (tR > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  a.out = tR > 1 ? scratch : y;
+  if (tR > 1 && !partials && scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  a.out = tR > 1 && !partials ? scratch : y;
   const dim3 grid((unsigned)tO, (unsigned)tR, (unsigned)L);
   cudaError_t err = transpose ? launch_tiles<true>(a, grid, st, launched)
                               : launch_tiles<false>(a, grid, st, launched);
-  if (err != cudaSuccess || tR == 1) return (int)err;
+  if (err != cudaSuccess || tR == 1 || partials) return (int)err;
   const long long bo = (long long)B * a.O;
   const long long blocks = ((long long)L * bo + kThreads - 1) / kThreads;
   reduce_tiles_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
       scratch, sc, y, L, (int)tR, bo);
   err = cudaGetLastError();
   if (err == cudaSuccess) ++launched[kSlotReduceTiles];
+  return (int)err;
+}
+
+// The tile sum of a read in partials form: y (L, B, O) = sc[l, 1] * the sum
+// over tR tiles, in tile order, of partial (L, tR, B, O) (the same kernel
+// and order as xbar_read's own FP32 tile sum).  Adds one to *launched.
+int xbar_reduce_tiles(const float* partial, const float* sc, float* y, int L,
+                      int tR, int B, int O, void* stream, int* launched) {
+  if (L <= 0 || tR <= 0 || B <= 0 || O <= 0 || launched == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long bo = (long long)B * O;
+  const long long blocks = ((long long)L * bo + kThreads - 1) / kThreads;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  reduce_tiles_kernel<<<(unsigned)blocks, kThreads, 0,
+                        (cudaStream_t)stream>>>(partial, sc, y, L, tR, bo);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launched;
   return (int)err;
 }
 

@@ -58,6 +58,7 @@ import torch
 from repro_torch.core.adc import AdcConfig
 from repro_torch.core.crossbar import CrossbarConfig
 from repro_torch.core.device import DeviceConfig
+from repro_torch.core.shardctx import flat_index
 
 from . import _nvcc
 
@@ -261,14 +262,15 @@ def _pulse_epilogue(g: Tensor, acc: Tensor, a_abs: Tensor, m: Tensor,
 
 def _update_plain(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
                   noise: Optional[Tensor], seed: Optional[int],
-                  cfg: CrossbarConfig, noise_mode: str) -> Tensor:
+                  cfg: CrossbarConfig, noise_mode: str,
+                  offs=(0, 0, 0)) -> Tensor:
     """The kernel's function in plain torch (the reference's
     ``_fused_update``): one layer-batched einsum (two in pulse-train mode)
-    and the epilogue, with the counter PRNG's field in kernel-noise
-    mode."""
+    and the epilogue, with the counter PRNG's field in kernel-noise mode,
+    its tiles at the (layer, row-tile, col-tile) base ``offs``."""
     acc = torch.einsum("lbk,lbn->lkn", x_q, d_q)
     if noise_mode == "kernel":
-        noise = field_normals(seed, g.shape, cfg, device=g.device)
+        noise = field_normals(seed, g.shape, cfg, offs, device=g.device)
     elif noise_mode == "none":
         noise = None
     if cfg.update_mode == "pulse_train":
@@ -312,7 +314,7 @@ def _update_codes_plain(x_q: Tensor, d_q: Tensor, x_scale: Tensor,
 def _update_tc_plain(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
                      noise: Optional[Tensor], seed: Optional[int],
                      cfg: CrossbarConfig, noise_mode: str, x_scale: Tensor,
-                     d_scale: Tensor) -> Tensor:
+                     d_scale: Tensor, offs=(0, 0, 0)) -> Tensor:
     """The tensor-core instance's arithmetic in plain torch: the codes of
     the pre-pass, their sums taken exactly (in float64, exact below
     2^53), then ``acc = fl(sum) * fl(x_scale d_scale)`` and the same
@@ -326,7 +328,7 @@ def _update_tc_plain(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
     sxd = (x_scale * d_scale)[:, None, None]
     acc = torch.einsum("lbk,lbn->lkn", cx, cd).float() * sxd
     if noise_mode == "kernel":
-        noise = field_normals(seed, g.shape, cfg, device=g.device)
+        noise = field_normals(seed, g.shape, cfg, offs, device=g.device)
     elif noise_mode == "none":
         noise = None
     if cfg.update_mode == "pulse_train":
@@ -410,14 +412,15 @@ def _library():
         p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, \
             ctypes.c_float
         for fn in (lib.xbar_outer_update, lib.xbar_pulse_update):
-            fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, u,
+            fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, u, u, u, u,
                            _DeviceParams, p]
             fn.restype = ctypes.c_int
         lib.xbar_update_prepare.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                             i, f, f, p]
         lib.xbar_update_prepare.restype = ctypes.c_int
         lib.xbar_tc_update.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i,
-                                       i, i, i, i, i, u, _DeviceParams, p]
+                                       i, i, i, i, i, u, u, u, u,
+                                       _DeviceParams, p]
         lib.xbar_tc_update.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -476,8 +479,9 @@ def code_planes(codes: Tensor, lyr: int, t_tok: int, k: int, n: int):
 def _update_tc_cuda(g: Tensor, codes: Tensor, t_tok: int, scale: Tensor,
                     x_scale: Tensor, d_scale: Tensor, noise: Optional[Tensor],
                     seed: Optional[int], cfg: CrossbarConfig,
-                    noise_mode: str) -> Tensor:
-    """Launch the tensor-core write from the pre-pass's code planes."""
+                    noise_mode: str, offs=(0, 0, 0)) -> Tensor:
+    """Launch the tensor-core write from the pre-pass's code planes, its
+    tiles' noise at the (layer, row-tile, col-tile) base ``offs``."""
     lyr, k, n = g.shape
     tp, kp, np_ = update_code_dims(t_tok, k, n)
     if codes.dtype != torch.bfloat16 or codes.device != g.device \
@@ -490,8 +494,8 @@ def _update_tc_cuda(g: Tensor, codes: Tensor, t_tok: int, scale: Tensor,
         codes.data_ptr(), scale.data_ptr(), x_scale.data_ptr(),
         d_scale.data_ptr(), noise.data_ptr() if noise is not None else None,
         out.data_ptr(), lyr, t_tok, k, n, tp, kp, np_, cfg.rows, cfg.cols,
-        int(seed or 0) & _M32, device_params(cfg.device, noise_mode),
-        _stream(g.device))
+        int(seed or 0) & _M32, *(int(o) & _M32 for o in offs),
+        device_params(cfg.device, noise_mode), _stream(g.device))
     if err != 0:
         raise RuntimeError(f"xbar_tc_update launch failed: CUDA error {err} "
                            f"(g {tuple(g.shape)}, T {t_tok}, tile "
@@ -502,8 +506,10 @@ def _update_tc_cuda(g: Tensor, codes: Tensor, t_tok: int, scale: Tensor,
 
 def _update_fp32_cuda(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
                       noise: Optional[Tensor], seed: Optional[int],
-                      cfg: CrossbarConfig, noise_mode: str) -> Tensor:
-    """Launch the FP32 instance on the float operands."""
+                      cfg: CrossbarConfig, noise_mode: str,
+                      offs=(0, 0, 0)) -> Tensor:
+    """Launch the FP32 instance on the float operands, its tiles' noise at
+    the (layer, row-tile, col-tile) base ``offs``."""
     lyr, k, n = g.shape
     t_tok = x_q.shape[1]
     lib = _library()
@@ -513,8 +519,8 @@ def _update_fp32_cuda(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
     err = fn(g.data_ptr(), x_q.data_ptr(), d_q.data_ptr(), scale.data_ptr(),
              noise.data_ptr() if noise is not None else None, out.data_ptr(),
              lyr, t_tok, k, n, cfg.rows, cfg.cols,
-             int(seed or 0) & _M32, device_params(cfg.device, noise_mode),
-             _stream(g.device))
+             int(seed or 0) & _M32, *(int(o) & _M32 for o in offs),
+             device_params(cfg.device, noise_mode), _stream(g.device))
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error "
                            f"{err} (g {tuple(g.shape)}, T {t_tok}, tile "
@@ -527,11 +533,13 @@ def _update_cuda(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
                  noise: Optional[Tensor], seed: Optional[int],
                  cfg: CrossbarConfig, noise_mode: str,
                  x_scale: Optional[Tensor] = None,
-                 d_scale: Optional[Tensor] = None) -> Tensor:
+                 d_scale: Optional[Tensor] = None,
+                 offs=(0, 0, 0)) -> Tensor:
     """The rank-k write (in ``cfg.update_mode``) on the card, on (L, K, N)
     / (L, T, K) / (L, T, N) / (L,) operands and, when stated, the (L,)
-    scales of the codes: the instance :func:`update_instance` picks.
-    Returns the new conductances (a new tensor)."""
+    scales of the codes: the instance :func:`update_instance` picks, its
+    tiles' noise at the tile base ``offs``.  Returns the new conductances
+    (a new tensor)."""
     tensors = {"g": g, "x_q": x_q, "d_q": d_q, "scale": scale}
     if noise is not None:
         tensors["noise"] = noise
@@ -552,10 +560,10 @@ def _update_cuda(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
     if update_instance(t_tok, cfg, scaled) == "tensor_core":
         codes = _update_prepare_cuda(x_q, d_q, x_scale, d_scale, cfg)
         out = _update_tc_cuda(g, codes, t_tok, scale, x_scale, d_scale,
-                              noise, seed, cfg, noise_mode)
+                              noise, seed, cfg, noise_mode, offs)
     else:
         out = _update_fp32_cuda(g, x_q, d_q, scale, noise, seed, cfg,
-                                noise_mode)
+                                noise_mode, offs)
     LAUNCHES["pulse_update" if cfg.update_mode == "pulse_train"
              else "outer_update"] += 1
     return out
@@ -583,7 +591,7 @@ def xbar_outer_update(g: Tensor, x_q: Tensor, d_q: Tensor, scale,
                       cfg: CrossbarConfig, *, noise: Optional[Tensor] = None,
                       seed=None, noise_mode: Optional[str] = None,
                       impl: Optional[str] = None, x_scale=None,
-                      d_scale=None) -> Tensor:
+                      d_scale=None, tile_offsets=None) -> Tensor:
     """``G <- device(G, scale * sum_t outer(x_q_t, d_q_t))``, layer-batched.
 
     ``g``: (K, N) or scan-stacked (L, K, N) conductances; ``x_q``: (T, K)
@@ -596,7 +604,15 @@ def xbar_outer_update(g: Tensor, x_q: Tensor, d_q: Tensor, scale,
     per lead matrix, with the codes inside the coders' levels
     (:func:`update_levels`).  On the card they let the write take the
     tensor-core instance (:func:`update_instance`); the plain version
-    ignores them.
+    ignores them.  A block of a larger container keeps the container's
+    scales: a scale recomputed from the block's slice of the tapes would
+    give other codes.
+
+    ``tile_offsets``: (layer, row-tile, col-tile) base coordinates of this
+    block when it is a shard of a larger container, uint32 words.  They
+    shift the counter PRNG's tile streams (:func:`field_normals`), so a
+    block written at its offsets gets exactly its slice of the whole
+    container's write.  Default (0, 0, 0).
 
     Write noise: ``seed`` (a uint32) for the counter PRNG
     (``noise_mode="kernel"``), or an N(0, 1) ``noise`` field of ``g``'s
@@ -661,9 +677,63 @@ def xbar_outer_update(g: Tensor, x_q: Tensor, d_q: Tensor, scale,
     if x_scale is not None:
         x_scale = code_scale(x_scale, "x_scale")
         d_scale = code_scale(d_scale, "d_scale")
+    offs = tuple(int(o) & _M32 for o in (tile_offsets or (0, 0, 0)))
+    if len(offs) != 3:
+        raise ValueError(f"tile_offsets must be (layer, row-tile, col-tile), "
+                         f"got {tile_offsets!r}")
     if impl == "cuda":
         out = _update_cuda(g, x_q, d_q, scale, noise, seed, cfg, noise_mode,
-                           x_scale, d_scale)
+                           x_scale, d_scale, offs)
     else:
-        out = _update_plain(g, x_q, d_q, scale, noise, seed, cfg, noise_mode)
+        out = _update_plain(g, x_q, d_q, scale, noise, seed, cfg, noise_mode,
+                            offs)
     return (out[0] if squeeze else out).to(in_dtype)
+
+
+# --------------------------------------------------------------------------
+# The write of one rank's block of a sharded container
+# --------------------------------------------------------------------------
+
+def xbar_sharded_update(g: Tensor, x_q: Tensor, d_q: Tensor, scale,
+                        cfg: CrossbarConfig, mesh, spec, *, seed=None,
+                        noise_mode: Optional[str] = None, x_scale=None,
+                        d_scale=None) -> Tensor:
+    """The layer-batched write of this rank's block of a container tiled
+    over ``mesh`` (port of the reference's ``xbar_sharded_update``; one
+    process per rank, so the block is this process's own).
+
+    ``g``: this rank's (L_loc, K_loc, N_loc) block (or (K_loc, N_loc)) of
+    an (L, K, N) container laid out by ``spec`` (per dim ``None`` or the
+    mesh axes it splits over: ``launch.sharding``); ``scale``: the
+    block's (L_loc,) scales.  ``x_q`` (L, T, K), ``d_q`` (L, T, N) and the
+    code scales (L,) are the whole container's, replicated.  They are cut
+    to the block, whose write runs over the full token batch with the
+    container's code scales, its tiles' noise drawn at their global
+    (layer, row-tile, col-tile) coordinates: the block is bit-equal to its
+    slice of the whole write on any mesh.  The block's coordinates come
+    from ``mesh.coords`` (row-major over each dim's axes)."""
+    squeeze = g.ndim == 2
+    if squeeze:
+        g, x_q, d_q = g[None], x_q[None], d_q[None]
+        spec = (None, *spec)
+    l_loc, k_loc, n_loc = g.shape
+
+    def start(d, size):
+        names = spec[d] if d < len(spec) else None
+        return flat_index(mesh.shape, mesh.coords, names) * size \
+            if names else 0
+    l0, k0, n0 = start(0, l_loc), start(1, k_loc), start(2, n_loc)
+    lyr = slice(l0, l0 + l_loc)
+    x_q = x_q[lyr, :, k0:k0 + k_loc]
+    d_q = d_q[lyr, :, n0:n0 + n_loc]
+    if x_scale is not None:
+        x_scale = torch.as_tensor(x_scale).reshape(-1)
+        d_scale = torch.as_tensor(d_scale).reshape(-1)
+        x_scale = x_scale[lyr] if x_scale.numel() > 1 else x_scale
+        d_scale = d_scale[lyr] if d_scale.numel() > 1 else d_scale
+    out = xbar_outer_update(g, x_q, d_q, scale, cfg, seed=seed,
+                            noise_mode=noise_mode, x_scale=x_scale,
+                            d_scale=d_scale,
+                            tile_offsets=(l0, k0 // cfg.rows,
+                                          n0 // cfg.cols))
+    return out[0] if squeeze else out

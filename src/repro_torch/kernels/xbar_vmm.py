@@ -60,14 +60,17 @@ tile).
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import Optional
 
 import torch
 
+from repro_torch.core import shardctx
 from repro_torch.core.adc import (AdcConfig, _clip, _deterministic, _round,
                                   divisor, fixed_saturation)
 from repro_torch.core.crossbar import CrossbarConfig
-from repro_torch.core.xbar_ops import _tiled_read
+from repro_torch.core.xbar_ops import _tile_partials, _tiled_read
 
 from . import _nvcc
 
@@ -133,22 +136,41 @@ def resolve_impl(impl: Optional[str], x: Tensor) -> str:
 # --------------------------------------------------------------------------
 
 def _read_plain(x: Tensor, g: Tensor, ref: Tensor, sc: Tensor,
-                cfg: CrossbarConfig, transpose: bool = False) -> Tensor:
+                cfg: CrossbarConfig, transpose: bool = False,
+                partials: bool = False) -> Tensor:
     """The kernels' function in plain torch, on the kernels' operands.
 
     ``x`` (L, B, K), ``g``/``ref`` (L, K, N), ``sc`` (L, 2) float32 →
     (L, B, N): quantise by ``sc[:, 0]`` → pad → per-tile einsum →
     saturation → ADC → sum over K tiles → ``× sc[:, 1]`` (the steps of
     the reference's ``_read_one_jnp`` / ``_tiled_read_twin``).  With
-    ``transpose``, ``x`` is (L, B, N) and the result (L, B, K).
+    ``transpose``, ``x`` is (L, B, N) and the result (L, B, K).  With
+    ``partials``, the read stops before the tile sum, as the kernels'
+    partials form does: (L, tR, B, O), each reduction tile's quantised
+    charges, unscaled (:func:`_reduce_tiles_plain` finishes it).
     """
     levels = float(cfg.adc.in_levels)
     xi = _clip(_round(x / sc[:, 0, None, None]), -levels, levels)
     k, n = g.shape[-2:]
     diff = torch.nn.functional.pad(g - ref, (0, (-n) % cfg.cols,
                                              0, (-k) % cfg.rows))
-    q = _tiled_read(xi, diff, cfg, transpose)[..., :k if transpose else n]
+    out = k if transpose else n
+    if partials:
+        q = _tile_partials(xi, diff, cfg, transpose)   # (L, tR, tO, B, C)
+        lyr, t_r, _, b = q.shape[:4]
+        return q.movedim(3, 2).reshape(lyr, t_r, b, -1)[..., :out]
+    q = _tiled_read(xi, diff, cfg, transpose)[..., :out]
     return q * sc[:, 1, None, None]
+
+
+def _reduce_tiles_plain(partials: Tensor, sc: Tensor) -> Tensor:
+    """The tile sum of a read in partials form, (L, tR, B, O) → (L, B, O):
+    float32 adds in tile order from tile 0, then ``× sc[:, 1]``, the
+    kernel ``reduce_tiles_kernel``'s arithmetic."""
+    acc = partials[:, 0]
+    for t in range(1, partials.shape[1]):
+        acc = acc + partials[:, t]
+    return acc * sc[:, 1, None, None]
 
 
 # --------------------------------------------------------------------------
@@ -178,8 +200,11 @@ def _library():
         lib = _nvcc.load(SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.xbar_read.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                  i, f, f, f, f, i, p, p]
+                                  i, i, f, f, f, f, i, p, p]
         lib.xbar_read.restype = ctypes.c_int
+        lib.xbar_reduce_tiles.argtypes = [p, p, p, i, i, i, i, p,
+                                          ctypes.POINTER(i)]
+        lib.xbar_reduce_tiles.restype = ctypes.c_int
         lib.xbar_read_setup.argtypes = [ctypes.POINTER(i)]
         lib.xbar_read_setup.restype = ctypes.c_int
         lib.xbar_read_scratch_floats.argtypes = [i, i, i, i, i, i, i, i]
@@ -207,20 +232,29 @@ def _check_operands(x: Tensor, g: Tensor, ref: Tensor, sc: Tensor,
 
 
 def _read_cuda(x: Tensor, g: Tensor, ref: Tensor, sc: Tensor,
-               cfg: CrossbarConfig, transpose: bool = False) -> Tensor:
+               cfg: CrossbarConfig, transpose: bool = False,
+               partials: bool = False) -> Tensor:
     """Launch a fused read on (L, B, K|N) / (L, K, N) / (L, 2): the
-    forward read, or with ``transpose`` the transpose read."""
+    forward read, or with ``transpose`` the transpose read.  With
+    ``partials`` the read stops before its tile sum and returns (L, tR,
+    B, O), each reduction tile's quantised charges, unscaled (the
+    kernels' partials form; :func:`_reduce_tiles_cuda` sums them)."""
     _check_operands(x, g, ref, sc, transpose)
     lib = _library()
     lyr, b, _ = x.shape
     k, n = g.shape[1:]
     adc = cfg.adc
-    y = torch.empty((lyr, b, k if transpose else n), dtype=torch.float32,
-                    device=x.device)
+    out = k if transpose else n
+    t_r = -(-(n if transpose else k) // (cfg.cols if transpose
+                                         else cfg.rows))
+    y = torch.empty((lyr, t_r, b, out) if partials else (lyr, b, out),
+                    dtype=torch.float32, device=x.device)
     tc = read_instance(b, adc.in_levels) == "tensor_core"
     n_scratch = lib.xbar_read_scratch_floats(lyr, b, k, n, cfg.rows,
                                              cfg.cols, int(transpose),
                                              int(tc))
+    if partials and not tc:
+        n_scratch = 0   # the FP32 instance writes its partials into y
     scratch = torch.empty((n_scratch,), dtype=torch.float32,
                           device=x.device) if n_scratch else None
     dev = x.device.index
@@ -239,7 +273,7 @@ def _read_cuda(x: Tensor, g: Tensor, ref: Tensor, sc: Tensor,
         x.data_ptr(), g.data_ptr(), ref.data_ptr(), sc.data_ptr(),
         y.data_ptr(), scratch.data_ptr() if scratch is not None else None,
         lyr, b, k, n, cfg.rows, cfg.cols, int(transpose), int(tc),
-        int(adc.range_mode != "fixed"), float(adc.in_levels),
+        int(partials), int(adc.range_mode != "fixed"), float(adc.in_levels),
         float(adc.out_levels), fixed_saturation(adc, n_rows, cfg.device.gmax),
         float(adc.sat_sigmas), _sms[dev], stream, launched)
     direction = "mvm" if transpose else "vmm"
@@ -250,6 +284,35 @@ def _read_cuda(x: Tensor, g: Tensor, ref: Tensor, sc: Tensor,
         raise RuntimeError(f"xbar_read launch failed: CUDA error {err} "
                            f"(x {tuple(x.shape)}, g {tuple(g.shape)}, tile "
                            f"{cfg.rows}x{cfg.cols}, transpose={transpose})")
+    return y
+
+
+def _reduce_tiles_cuda(partials: Tensor, sc: Tensor,
+                       transpose: bool = False) -> Tensor:
+    """Launch ``reduce_tiles_kernel`` on a read's (L, tR, B, O) partials:
+    the (L, B, O) tile sum in tile order, rescaled by ``sc[:, 1]``.
+    Counted as ``reduce_tiles_vmm`` / ``reduce_tiles_mvm``."""
+    for name, t in {"partials": partials, "sc": sc}.items():
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 CUDA "
+                             f"tensor, got {t.dtype} on {t.device}")
+    lyr, t_r, b, out = partials.shape
+    if sc.shape != (lyr, 2) or sc.device != partials.device:
+        raise ValueError(f"sc {tuple(sc.shape)} on {sc.device} does not "
+                         f"match partials {tuple(partials.shape)}")
+    y = torch.empty((lyr, b, out), dtype=torch.float32,
+                    device=partials.device)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(partials.device):
+        stream = torch.cuda.current_stream().cuda_stream
+    err = _library().xbar_reduce_tiles(
+        partials.data_ptr(), sc.data_ptr(), y.data_ptr(), lyr, t_r, b, out,
+        stream, ctypes.byref(launched))
+    LAUNCHES[f"reduce_tiles_{'mvm' if transpose else 'vmm'}"] += \
+        launched.value
+    if err != 0:
+        raise RuntimeError(f"xbar_reduce_tiles launch failed: CUDA error "
+                           f"{err} (partials {tuple(partials.shape)})")
     return y
 
 
@@ -307,6 +370,97 @@ def xbar_fused_read(x: Tensor, g: Tensor, ref: Tensor, w_scale,
     else:
         y = _read_plain(xf, gf, rf, sc, cfg, transpose)
     return y.reshape(*lead, *y.shape[1:]).to(in_dtype)
+
+
+# --------------------------------------------------------------------------
+# The shard-local read of the sharded train step
+# --------------------------------------------------------------------------
+
+def manual_collective_read(x: Tensor, g: Tensor, ref: Tensor, w_scale,
+                           cfg: CrossbarConfig, meta, *,
+                           transpose: bool = False,
+                           impl: Optional[str] = None,
+                           mesh=None) -> Tensor:
+    """Shard-local read with the ordered exchange of per-tile partials
+    (port of the reference's ``manual_collective_read``).
+
+    ``g``/``ref``/``w_scale`` are this rank's whole-tile blocks of a
+    container tiled over the mesh (``meta``, a ``core.shardctx.ShardMeta``,
+    carries the global geometry, the axes and this rank's coordinates);
+    ``x`` is the whole replicated drive, (lead..., B, K) (or (lead..., B,
+    N) transposed) with the container's *global* lead dims.  Returns the
+    whole replicated read, bit-equal to :func:`xbar_fused_read` of the
+    whole container.  Stage by stage, the same on the card (the kernels)
+    and on the CPU (their plain version):
+
+      * DAC: the drives are cut to this rank's lead (expert) block, whose
+        matrices' full scales (:func:`read_scales`) come from their whole
+        drive rows; the codes are then cut to this rank's reduction rows,
+        so each code is the whole read's;
+      * tiles: each rank reads only its own tiles.  A reduction dim split
+        over shards is read in partials form (each reduction tile's
+        quantised charges, unscaled), the partials gathered in tile order
+        over the reduction shards and summed over the full tile axis in
+        the whole read's order (``reduce_tiles_kernel``, or
+        :func:`_reduce_tiles_plain`), then rescaled by ``x_scale /
+        w_scale``; a rank that holds its reduction dim whole reads its
+        block as it is;
+      * output columns, then the lead blocks, are gathered.
+
+    The gathers are ``core.shardctx.combine_partials_exact`` on ``mesh``
+    (default: the installed one).
+    """
+    impl = resolve_read_impl(impl, x)
+    _deterministic(cfg.adc)
+    nlead = g.ndim - 2
+    lead_loc = tuple(g.shape[:-2])
+    gview = meta.view(g.ndim)
+    lead_glob = tuple(gview[:-2])
+    lead_names = meta.lead_names(nlead)
+    red_names = meta.col if transpose else meta.row
+    out_names = meta.row if transpose else meta.col
+    if x.ndim != nlead + 2 or tuple(x.shape[:nlead]) != lead_glob \
+            or x.shape[-1] != gview[-1 if transpose else -2]:
+        raise ValueError(f"x {tuple(x.shape)} does not match container "
+                         f"{tuple(gview)} (local block {tuple(g.shape)})")
+    in_dtype = x.dtype
+    n_loc = math.prod(lead_loc)
+    b, d_glob = x.shape[-2:]
+    xl = x.float()
+    for d, names in enumerate(lead_names):
+        if names:
+            xl = xl.narrow(d, shardctx.shard_index(meta, names) * lead_loc[d],
+                           lead_loc[d])
+    xl = xl.reshape(n_loc, b, d_glob)
+    ws = torch.broadcast_to(torch.as_tensor(
+        w_scale, dtype=torch.float32, device=x.device), lead_loc)
+    sc = read_scales(xl, ws.reshape(n_loc), cfg.adc.in_levels)
+    k_loc, n_cols = g.shape[-2:]
+    red_loc = n_cols if transpose else k_loc
+    red_off = shardctx.shard_index(meta, red_names) * red_loc \
+        if red_names else 0
+    xr = xl.narrow(2, red_off, red_loc).contiguous()
+    gf = g.float().reshape(n_loc, k_loc, n_cols).contiguous()
+    rf = ref.float().reshape(n_loc, k_loc, n_cols).contiguous()
+    if impl == "cuda":
+        read = _read_cuda
+        reduce = functools.partial(_reduce_tiles_cuda, transpose=transpose)
+    else:
+        read, reduce = _read_plain, _reduce_tiles_plain
+
+    def combine(t, names, axis):
+        return shardctx.combine_partials_exact(t, names, axis, mesh)
+
+    if red_names:
+        part = read(xr, gf, rf, sc, cfg, transpose, partials=True)
+        y = reduce(combine(part, red_names, 1).contiguous(), sc)
+    else:
+        y = read(xr, gf, rf, sc, cfg, transpose)
+    y = y.reshape(*lead_loc, b, y.shape[-1])
+    y = combine(y, out_names, y.ndim - 1)
+    for d in range(nlead - 1, -1, -1):
+        y = combine(y, lead_names[d], d)
+    return y.to(in_dtype)
 
 
 # --------------------------------------------------------------------------

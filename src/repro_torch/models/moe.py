@@ -17,8 +17,13 @@ token falls back to the shared path and the residual only.
 The combine is deterministic: each token sums its k contributions in
 one fixed order (ascending expert index, from zero), the order of the
 reference's scatter-add over the expert-sorted pairs, with no atomics.
-The reference's grouped dispatch (``REPRO_MOE_GROUPS``, a sharding
-formulation) waits for the multi-device slice (``ROADMAP.md``).
+
+``REPRO_MOE_GROUPS=G`` dispatches within G batch groups, each with its
+own capacity (the reference's one-device grouped dispatch), outside
+device mode.  The sharded train step's expert parallelism needs no
+dispatch of its own: its expert stacks hold whole experts per rank and
+each rank's read takes only its own experts' rows of the replicated
+capacity buffer (``kernels.xbar_vmm.manual_collective_read``).
 """
 from __future__ import annotations
 
@@ -115,17 +120,30 @@ def route(p: dict, xt: Tensor, cfg: ModelConfig):
 
 def moe_apply(p: dict, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
     """``(output, aux_loss)`` of the MoE FFN on ``x`` (B, S, d); ``aux``
-    is the Switch load-balancing loss.  The reference dispatches in
-    groups when ``REPRO_MOE_GROUPS`` asks for them (outside device mode);
-    that sharding formulation is not ported and raises."""
+    is the Switch load-balancing loss.
+
+    ``REPRO_MOE_GROUPS=G`` (outside device mode, when G divides the batch)
+    dispatches within G independent batch groups, each its own routing,
+    sort and capacity, and averages their aux losses (the reference's
+    vmapped grouped dispatch; its ``REPRO_MOE_EXPLICIT`` variant differs
+    only in the sharding constraints on its buffers, which eager torch
+    does not have).  Device mode always dispatches globally: a grouped
+    dispatch would apply each expert container once per group, against
+    the one-application tape contract."""
     groups = int(os.environ.get("REPRO_MOE_GROUPS", "1"))
     if resolve_analog_mode(cfg) is not AnalogMode.DEVICE and groups > 1 \
             and x.shape[0] % groups == 0:
-        raise NotImplementedError(
-            "grouped MoE dispatch (REPRO_MOE_GROUPS) is a sharding "
-            "formulation and waits for the multi-device slice; see "
-            "ROADMAP.md")
+        return _moe_apply_grouped(p, x, cfg, groups)
     return _moe_apply_flat(p, x, cfg)
+
+
+def _moe_apply_grouped(p: dict, x: Tensor, cfg: ModelConfig, groups: int
+                       ) -> Tuple[Tensor, Tensor]:
+    """The flat dispatch within each of ``groups`` equal batch groups."""
+    outs = [_moe_apply_flat(p, xg, cfg)
+            for xg in x.reshape(groups, -1, *x.shape[1:])]
+    y = torch.stack([o[0] for o in outs]).reshape(x.shape)
+    return y, torch.mean(torch.stack([o[1] for o in outs]))
 
 
 def _moe_apply_flat(p: dict, x: Tensor, cfg: ModelConfig

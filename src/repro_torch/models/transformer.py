@@ -30,6 +30,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.shardctx import ShardMeta
 from repro_torch.core.tiled_analog import pop_tapes, push_tapes, stack_trees
 
 from . import moe as moe_mod
@@ -46,6 +47,8 @@ def tree_index(tree, i: int):
     """Leaf-wise ``tree[i]`` (views) of a stacked dict tree."""
     if isinstance(tree, dict):
         return {k: tree_index(v, i) for k, v in tree.items()}
+    if isinstance(tree, ShardMeta):  # a sharded container's, every layer's
+        return tree
     return tree[i]
 
 

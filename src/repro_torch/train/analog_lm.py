@@ -1,6 +1,6 @@
-"""In-situ analog training of a device-mode transformer, on one device
-(port of ``repro.train.analog_lm``, dense, MoE, SSM and hybrid
-families, no mesh).
+"""In-situ analog training of a device-mode transformer (port of
+``repro.train.analog_lm``, every family, on one device or sharded over a
+mesh of ranks).
 
 One ``AnalogTrainStep`` call is the whole training rule:
 
@@ -40,11 +40,38 @@ One ``AnalogTrainStep`` call is the whole training rule:
 The conductances are never updated in place: the step returns a new
 state.  On its first call the step also records its projected hardware
 cost on the paper's accelerator (``step.cost``, from
-``hwmodel.arch_cost.train_step_cost``).  The sharded step is not ported
-yet (ROADMAP.md).
+``hwmodel.arch_cost.train_step_cost``).
+
+Multi-device sharding
+---------------------
+Pass ``mesh=`` (``launch.mesh.Mesh``; one process per rank, NCCL on cards,
+gloo on the CPU) to run the step sharded.  The parallel axis is the
+container *tile grid*, not the batch: every rank holds whole-tile blocks
+of each container (column tiles over ``model``, row tiles over the FSDP
+axes, flipped for row-parallel consumers, the expert dim of an MoE stack
+over ``model``: ``launch.sharding.analog_container_pspec``), and the
+batch, the activations, the tapes and every digital leaf stay
+replicated.  Lay a whole state out with :meth:`AnalogTrainStep.shard_state`
+first.  With ``read_mode="local"`` (the default) every read is
+shard-local: each rank reads only its own tiles and the ranks exchange
+the per-tile ADC partials in pinned order
+(``kernels.xbar_vmm.manual_collective_read``; an expert stack's read
+takes only its own experts' rows of the replicated capacity buffer).
+``read_mode="gather"`` gathers every container's blocks and replays the
+whole read (the reference's A/B path).  Each rank's rank-k write updates
+only its own block, with the container's tape scales and its tiles'
+counter-PRNG streams at their global (layer, row-tile, col-tile)
+coordinates (``tile_offsets``).  The rail fraction is the railed cells
+counted over the shards (integers, exchanged by ``all_gather``) over the
+global cell count.  Every cross-rank exchange on the analog path is an
+arithmetic-free ``all_gather`` (``core.shardctx``), so one seed gives
+bit-identical conductances, loss and rail fraction on any mesh.
+``exact=False`` (the reference's GSPMD read with ulp drift) is not
+ported (ROADMAP.md).
 """
 from __future__ import annotations
 
+import math
 import zlib
 from typing import Dict, Union
 
@@ -53,13 +80,16 @@ import torch
 from repro_torch.configs.base import (AnalogMode, ModelConfig,
                                       resolve_analog_mode)
 from repro_torch.core import analog_registry as registry
+from repro_torch.core import shardctx
 from repro_torch.core.adc import adc_quantize
 from repro_torch.core.periodic_carry import carry_fold
 from repro_torch.core.tiled_analog import (crossbar_from_model,
                                            is_analog_container, merge_tapes,
                                            split_tapes)
 from repro_torch.hwmodel.arch_cost import train_step_cost
-from repro_torch.kernels.xbar_update import _mix32, _u32, xbar_outer_update
+from repro_torch.kernels.xbar_update import (_mix32, _u32, xbar_outer_update,
+                                             xbar_sharded_update)
+from repro_torch.launch import sharding as S
 from repro_torch.models import model as M
 
 Tensor = torch.Tensor
@@ -104,14 +134,25 @@ class AnalogTrainStep:
 
     ``step.cost`` is the step's projected cost on the paper's accelerator
     at ``bits``-bit I/O (``hwmodel.arch_cost.train_step_cost``), set on
-    the first call.  ``mesh`` is not ported yet and raises.
+    the first call.
+
+    ``mesh`` (a ``launch.mesh.Mesh`` with ``data``/``model`` axes) runs
+    the step sharded over the container tile grid, bit-identical to the
+    single-device step (see the module docstring); the state must come
+    from :meth:`shard_state`.  ``read_mode`` is ``"local"`` (shard-local
+    reads) or ``"gather"`` (gather the blocks, replay the whole read).
+    ``exact=False`` raises: the reference's GSPMD read is not ported.
     """
 
     def __init__(self, cfg: ModelConfig, lr: float, mesh=None,
-                 bits: int = 8):
-        if mesh is not None:
+                 bits: int = 8, exact: bool = True,
+                 read_mode: str = "local"):
+        if not exact:
             raise NotImplementedError(
-                "the sharded analog step is not ported yet; see ROADMAP.md")
+                "exact=False (the reference's GSPMD read path, ulp drift) is "
+                "not ported; see ROADMAP.md section 1 item 5")
+        if read_mode not in ("local", "gather"):
+            raise ValueError("read_mode must be 'local' or 'gather'")
         if resolve_analog_mode(cfg) is not AnalogMode.DEVICE:
             raise ValueError(
                 f"AnalogTrainStep needs a device-mode config (resolved "
@@ -121,8 +162,82 @@ class AnalogTrainStep:
         self.lr = lr
         self.xcfg = crossbar_from_model(cfg)
         self.bits = bits
+        self.mesh = mesh
+        self.read_mode = read_mode
         self.cost = None
         self._validated = False
+        self._cspecs = None   # path -> (update specs, global g shape)
+
+    # ------------------------------------------------------- mesh layout
+
+    def state_shardings(self, state: dict) -> dict:
+        """Specs of a whole train state on this step's mesh: containers
+        tile-sharded by the policy, every other leaf replicated."""
+        return {"params": S.analog_params_shardings(state["params"],
+                                                    self.cfg, self.mesh),
+                "step": ()}
+
+    def shard_state(self, state: dict) -> dict:
+        """This rank's part of a whole (unsharded) train state: each
+        container's blocks at tile granularity (dims that do not divide
+        stay whole), every other leaf as it is.  Records each container's
+        specs and global shape for the step."""
+        if self.mesh is None:
+            return state
+        self._cspecs = {}
+        for path in registry.container_paths(state["params"]):
+            p = state["params"]
+            for k in path:
+                p = p[k]
+            self._cspecs[path] = (S.analog_update_specs(
+                path, tuple(p["g"].shape), self.cfg, self.mesh),
+                tuple(p["g"].shape))
+        specs = self.state_shardings(state)
+        params = S.map_specs(lambda t, sp: S.shard_block(t, sp, self.mesh)
+                             if sp and any(sp) else t,
+                             state["params"], specs["params"])
+        return {**state, "params": params}
+
+    def unshard_state(self, state: dict) -> dict:
+        """The whole train state from every rank's part (an ordered
+        gather of each container's blocks)."""
+        if self.mesh is None:
+            return state
+        params = state["params"]
+        out = self._map_containers(
+            params, lambda p, path: {
+                k: S.unshard(v, self._cspecs[path][0][
+                    "w_scale" if k == "w_scale" else "g"], self.mesh)
+                if k in ("g", "ref", "g_carry", "w_scale") else v
+                for k, v in p.items()})
+        return {**state, "params": out}
+
+    def _map_containers(self, p, fn, path=()):
+        if is_analog_container(p):
+            return fn(p, path)
+        if isinstance(p, dict):
+            return {k: self._map_containers(v, fn, path + (k,))
+                    for k, v in p.items()}
+        return p
+
+    def _annotate(self, p, path):
+        """``read_mode="local"``: each tile-sharded container gains its
+        ``tp_meta``; containers the policy left whole read as on one
+        device."""
+        specs, shape = self._cspecs[path]
+        meta = S.shard_meta(shape, specs["g"], self.mesh)
+        return p if meta is None else {**p, "tp_meta": meta}
+
+    def _gather(self, p, path):
+        """``read_mode="gather"``: the container's whole g/ref/w_scale
+        (and carry array) from every rank's blocks."""
+        specs = self._cspecs[path][0]
+        out = dict(p)
+        for leaf, key in (("g", "g"), ("ref", "g"), ("w_scale", "w_scale"),
+                          ("g_carry", "g")):
+            if leaf in p:
+                out[leaf] = S.unshard(p[leaf], specs[key], self.mesh)
+        return out
 
     def __call__(self, state: dict, batch: Dict[str, Tensor], rng=None):
         cfg = self.cfg
@@ -133,11 +248,20 @@ class AnalogTrainStep:
         tokens = batch["tokens"]
         n_tokens = tokens.numel()
         if self.cost is None:
-            self.cost = train_step_cost(cfg, n_tokens=n_tokens,
-                                        bits=self.bits,
-                                        ctx_len=tokens.shape[-1])
+            self.cost = train_step_cost(
+                cfg, n_tokens=n_tokens, bits=self.bits,
+                ctx_len=tokens.shape[-1],
+                n_shards=self.mesh.size if self.mesh is not None else 1)
+        read_params = params
+        if self.mesh is not None:
+            if self._cspecs is None:
+                raise ValueError("a sharded step takes a state laid out by "
+                                 "its shard_state")
+            read_params = self._map_containers(
+                params, self._annotate if self.read_mode == "local"
+                else self._gather)
         diff, frozen = split_tapes(
-            params, n_tokens,
+            read_params, n_tokens,
             tokens_for=lambda path, shape: registry.tape_lead(
                 path, cfg, n_tokens, tuple(tokens.shape)))
         diff = _trainable(diff, frozen)
@@ -198,7 +322,6 @@ class AnalogTrainStep:
         block) is written once over all its applications' rows, without
         code scales: each application's codes have their own scale."""
         kind = registry.classify(path)
-        dev = self.xcfg.device
         seed = None if seed_base is None else container_seed(seed_base, path)
         mode = "none" if seed is None else "kernel"
         f32 = dict(dtype=torch.float32, device=p["g"].device)
@@ -213,22 +336,69 @@ class AnalogTrainStep:
         code_scales = [tapes[k] for k in ("x_tape_scale", "d_tape_scale")
                        if k in tapes and registry.tape_reps(path,
                                                             self.cfg) == 1]
-        g3, x3, d3, s1, *code_scales, unflatten = registry.flatten_lead(
-            kind, p[leaf], tapes["x_tape"], tapes["d_tape"], scale,
+        if self.mesh is None:
+            g3, x3, d3, s1, *code_scales, unflatten = registry.flatten_lead(
+                kind, p[leaf], tapes["x_tape"], tapes["d_tape"], scale,
+                *code_scales)
+            xs, ds = code_scales if code_scales else (None, None)
+            g_new = unflatten(xbar_outer_update(
+                g3, x3, d3, s1, self.xcfg, seed=seed, noise_mode=mode,
+                x_scale=xs, d_scale=ds))
+            rail.append(self._railed(g_new).to(torch.float32)
+                        / g_new.numel())
+            return {**p, leaf: g_new}
+        # this rank's block, flattened as a block; its tapes and their code
+        # scales are the whole container's (replicated), flattened as the
+        # whole container is (zero-stride stand-ins carry the shapes)
+        gshape = self._cspecs[path][1]
+        one = p[leaf].new_empty(())
+        stub = one.expand(*p[leaf].shape[:-2], 1, 1)
+        g3, _, _, s1, unflatten = registry.flatten_lead(kind, p[leaf], stub,
+                                                        stub, scale)
+        _, x3, d3, _, *code_scales, _ = registry.flatten_lead(
+            kind, one.expand(gshape), tapes["x_tape"], tapes["d_tape"], 0.0,
             *code_scales)
         xs, ds = code_scales if code_scales else (None, None)
-        g_new = unflatten(xbar_outer_update(
-            g3, x3, d3, s1, self.xcfg, seed=seed, noise_mode=mode,
-            x_scale=xs, d_scale=ds))
+        g_new = unflatten(xbar_sharded_update(
+            g3, x3, d3, s1, self.xcfg, self.mesh, self._flat_spec(path, kind),
+            seed=seed, noise_mode=mode, x_scale=xs, d_scale=ds))
+        railed = self._shard_total(self._railed(g_new), path)
+        rail.append(railed.to(torch.float32) / math.prod(gshape))
+        return {**p, leaf: g_new}
+
+    def _railed(self, g: Tensor) -> Tensor:
+        """Cells of ``g`` within 1e-3 of the window's rails (int64)."""
+        dev = self.xcfg.device
         span = dev.gmax - dev.gmin
         lo, hi = dev.gmin + 1e-3 * span, dev.gmax - 1e-3 * span
         # counted a slice at a time: a count of a boolean tensor sums an
         # integer copy of it (8 bytes a cell; 15 GB for a w_upgate stack)
-        railed = sum(torch.count_nonzero(c <= lo)
-                     + torch.count_nonzero(c >= hi)
-                     for c in g_new.reshape(-1).split(RAIL_SLICE))
-        rail.append(railed.to(torch.float32) / g_new.numel())
-        return {**p, leaf: g_new}
+        return sum(torch.count_nonzero(c <= lo) + torch.count_nonzero(c >= hi)
+                   for c in g.reshape(-1).split(RAIL_SLICE))
+
+    def _shard_total(self, count: Tensor, path) -> Tensor:
+        """An integer count summed over the ranks holding the container's
+        blocks: gathered (arithmetic-free), then added in shard order."""
+        spec = self._cspecs[path][0]["g"]
+        names = tuple(a for e in spec if e for a in e)
+        return shardctx.combine_partials_exact(
+            count.reshape(1), names, 0, self.mesh).sum()
+
+    def _flat_spec(self, path, kind):
+        """The spec of a container's flattened (Lflat, K, N) write view:
+        the flattened lead dim carries the sharded lead dim's axes (the
+        expert dim, which the registry hoists outermost, so a rank's
+        experts are a contiguous range of flattened layers; the layer dim
+        is never sharded)."""
+        spec, gshape = self._cspecs[path][0]["g"], self._cspecs[path][1]
+        lead = [e for e in spec[:-2] if e]
+        if len(lead) > 1 or (lead and registry.hoist_axis(
+                kind, len(gshape)) not in (None, spec.index(lead[0]))):
+            raise ValueError(f"{'/'.join(path)}: a sharded lead dim must be "
+                             "the registry's hoisted axis")
+        if len(gshape) == 2:
+            return spec
+        return (lead[0] if lead else None, spec[-2], spec[-1])
 
     def _carry_readout(self, v: Tensor) -> Tensor:
         """Serial readout of a carry cell's signed value through the ADC
@@ -265,7 +435,11 @@ class AnalogTrainStep:
 
 
 def make_analog_sgd_step(cfg: ModelConfig, lr: float, mesh=None,
-                         bits: int = 8) -> AnalogTrainStep:
+                         bits: int = 8, exact: bool = True,
+                         read_mode: str = "local") -> AnalogTrainStep:
     """The analog-SGD training step for a device-mode transformer config
-    (see :class:`AnalogTrainStep`)."""
-    return AnalogTrainStep(cfg, lr, mesh=mesh, bits=bits)
+    (see :class:`AnalogTrainStep`): on one device, or with ``mesh``
+    sharded over the container tile grid, ``read_mode`` ``"local"``
+    (shard-local reads) or ``"gather"``."""
+    return AnalogTrainStep(cfg, lr, mesh=mesh, bits=bits, exact=exact,
+                           read_mode=read_mode)

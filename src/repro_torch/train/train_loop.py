@@ -8,46 +8,50 @@ With ``analog=True, analog_mode="fakequant"`` this is the reference's
 QAT step (``launch/train.py --analog``, ``adamw``): every projection's
 forward is the fakequant read, on the card its kernel inside
 ``kernels.ops.FakequantRead``, and its gradient the reference's (no
-straight-through estimator).
-Int8 gradient compression (``grad_compress``, ``train/compress.py``)
-is not ported yet (``ROADMAP.md``, multi-device queue).
+straight-through estimator).  ``grad_compress`` passes the gradients
+through int8 compression with error feedback (``train.compress``; the
+residuals ride in ``state["err_fb"]``), and ``grad_reduce`` (the
+data-parallel mean of ``launch.train``) acts on them first.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 
+from . import compress
 from .optimizer import Optimizer, clip_by_global_norm, tree_map
 
 Tensor = torch.Tensor
 
 
 def init_state(generator: Union[torch.Generator, int], cfg: ModelConfig,
-               optimizer: Optimizer, device="cuda") -> dict:
+               optimizer: Optimizer, device="cuda",
+               grad_compress: bool = False) -> dict:
     """A fresh train state: random parameters from ``generator`` (see
-    ``models.model.init_params``), the optimizer's state and a step
-    counter."""
+    ``models.model.init_params``), the optimizer's state, a step counter
+    and, with ``grad_compress``, zero error-feedback residuals."""
     params = M.init_params(cfg, generator, device)
     return {"params": params, "opt": optimizer.init(params),
             "step": torch.zeros((), dtype=torch.int32, device=device),
-            "err_fb": ()}
+            "err_fb": (compress.init_error_feedback(params)
+                       if grad_compress else ())}
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                     clip_norm: float = 1.0,
-                    grad_compress: bool = False) -> Callable:
+                    grad_compress: bool = False,
+                    grad_reduce: Optional[Callable] = None) -> Callable:
     """``state, metrics = step(state, batch)``: the loss and its gradients,
-    the gradients clipped to ``clip_norm`` in global 2-norm, then the
-    optimizer's update.  ``metrics`` holds ``loss``, ``grad_norm`` (before
-    clipping), ``ce`` and ``aux``."""
-    if grad_compress:
-        raise NotImplementedError(
-            "int8 gradient compression (train/compress.py) is not ported "
-            "yet; see ROADMAP.md")
+    the gradients reduced by ``grad_reduce`` (a function of the gradient
+    tree; none on one device), with ``grad_compress`` compressed to int8
+    with error feedback (a state without residuals starts from zeros),
+    clipped to ``clip_norm`` in global 2-norm, then the optimizer's
+    update.  ``metrics`` holds ``loss``, ``grad_norm`` (before clipping),
+    ``ce`` and ``aux``."""
 
     def train_step(state: dict, batch: Dict[str, Tensor]
                    ) -> Tuple[dict, Dict[str, Tensor]]:
@@ -58,11 +62,18 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
         grads = tree_map(lambda p: p.grad if p.grad is not None
                          else torch.zeros_like(p), params)
         with torch.no_grad():
+            if grad_reduce is not None:
+                grads = grad_reduce(grads)
+            err_fb = state["err_fb"]
+            if grad_compress:
+                if isinstance(err_fb, tuple):
+                    err_fb = compress.init_error_feedback(grads)
+                grads, err_fb = compress.compress_decompress(grads, err_fb)
             grads, gnorm = clip_by_global_norm(grads, clip_norm)
             new_params, opt = optimizer.update(
                 grads, state["opt"], tree_map(torch.Tensor.detach, params))
         new_state = {"params": new_params, "opt": opt,
-                     "step": state["step"] + 1, "err_fb": state["err_fb"]}
+                     "step": state["step"] + 1, "err_fb": err_fb}
         out = {"loss": loss.detach(), "grad_norm": gnorm,
                **{k: v.detach() for k, v in metrics.items()}}
         return new_state, out

@@ -98,8 +98,8 @@ def _port_forward(reference, monkeypatch, replay=None):
     mine = []
     vmm = TT.vmm
 
-    def recorded(x, g, ref, ws, cfg):
-        out = vmm(x, g, ref, ws, cfg)
+    def recorded(x, g, ref, ws, cfg, **kw):
+        out = vmm(x, g, ref, ws, cfg, **kw)
         mine.append(out.numpy().copy())
         if replay is not None:
             return torch.from_numpy(replay[len(mine) - 1])

@@ -54,8 +54,10 @@ def test_probe_walks_the_kernel_modules():
     """The probe above imports every kernel module of the port, the
     fakequant projection and flash attention among them, the carry and
     numeric-training modules, the registry's dense and SSM configs, the
-    SSD layer, the retention model, the serving maintenance runtime and
-    the checkpoints."""
+    SSD layer, the retention model, the serving maintenance runtime, the
+    checkpoints, and the multi-device modules (the shard context, the
+    mesh, the sharding policy, the pipeline schedule, the training CLI,
+    gradient compression and the data pipeline)."""
     import pkgutil
 
     import repro_torch
@@ -73,4 +75,8 @@ def test_probe_walks_the_kernel_modules():
             "repro_torch.train.checkpoint",
             "repro_torch.launch.serve", "repro_torch.models.ssm",
             "repro_torch.configs.mamba2_1_3b",
-            "repro_torch.configs.zamba2_1_2b"} <= names
+            "repro_torch.configs.zamba2_1_2b",
+            "repro_torch.core.shardctx", "repro_torch.launch.mesh",
+            "repro_torch.launch.sharding", "repro_torch.launch.pipeline",
+            "repro_torch.launch.train", "repro_torch.train.compress",
+            "repro_torch.data.pipeline"} <= names

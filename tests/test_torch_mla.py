@@ -261,8 +261,8 @@ def _recording_port(monkeypatch, replay=None):
     the given result instead."""
     mine = []
 
-    def recorded(x, g, ref, ws, xcfg):
-        y = torch_vmm(x, g, ref, ws, xcfg)
+    def recorded(x, g, ref, ws, xcfg, **kw):
+        y = torch_vmm(x, g, ref, ws, xcfg, **kw)
         mine.append(y.numpy().copy())
         return torch.from_numpy(replay[len(mine) - 1]) if replay else y
     monkeypatch.setattr(TT, "vmm", recorded)
@@ -529,7 +529,7 @@ def test_device_train_step_with_replayed_reads(monkeypatch):
     used = []
 
     def replay(kind):
-        def read(x_, g, ref, ws, xcfg):
+        def read(x_, g, ref, ws, xcfg, **_):
             key = _g_key(kind, g.numpy())
             used.append(key)
             return torch.from_numpy(results[key])

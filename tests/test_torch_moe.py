@@ -231,14 +231,25 @@ def test_gradients_through_dispatch_match_reference():
 
 
 def test_grouped_dispatch_is_not_ported():
-    _, cfg = _cfgs()
-    _, tp = _moe_params(_cfgs()[0])
+    """``REPRO_MOE_GROUPS=2`` (ported since the multi-device slice; the
+    name is kept) dispatches within two batch groups, each with its own
+    capacity, as the reference's vmapped grouped dispatch: output and aux
+    loss within 1e-5; the aux loss is the groups' mean, not the flat
+    dispatch's."""
+    jcfg, cfg = _cfgs()
+    jp, tp = _moe_params(jcfg)
+    x = _x((4, 8, cfg.d_model))
+    _, flat_aux = TMoE.moe_apply(tp, torch.from_numpy(x), cfg)
     os.environ["REPRO_MOE_GROUPS"] = "2"
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TMoE.moe_apply(tp, torch.zeros((2, 4, cfg.d_model)), cfg)
+        jy, jaux = JMoE.moe_apply(jp, jnp.asarray(x), jcfg)
+        y, aux = TMoE.moe_apply(tp, torch.from_numpy(x), cfg)
     finally:
         os.environ.pop("REPRO_MOE_GROUPS")
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-5)
+    assert abs(float(aux) - float(jaux)) <= 1e-5 * abs(float(jaux))
+    assert float(aux) != float(flat_aux)
 
 
 # --------------------------------------------------- the expert projection
@@ -509,8 +520,8 @@ def reference():
 def _port_forward(run, cfg, monkeypatch, replay=None):
     mine = []
 
-    def recorded(x, g, ref, ws, xcfg):
-        y = torch_vmm(x, g, ref, ws, xcfg)
+    def recorded(x, g, ref, ws, xcfg, **kw):
+        y = torch_vmm(x, g, ref, ws, xcfg, **kw)
         mine.append(y.numpy().copy())
         return torch.from_numpy(replay[len(mine) - 1]) if replay else y
 

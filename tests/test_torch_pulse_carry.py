@@ -553,5 +553,12 @@ def test_train_loop_init_eval_and_unported_compression():
     mets = TL.make_eval_step(CFG.digital())(state["params"],
                                             _torch_batch(0))
     assert torch.isfinite(mets["loss"]) and not mets["loss"].requires_grad
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TL.make_train_step(CFG.digital(), opt, grad_compress=True)
+    # int8 compression (ported since the multi-device slice; the name is
+    # kept): the step starts its error feedback from zeros and carries
+    # the residual, one leaf per parameter
+    step = TL.make_train_step(CFG.digital(), opt, grad_compress=True)
+    new, mets = step(state, _torch_batch(0))
+    assert torch.isfinite(mets["loss"])
+    fb = TO.tree_leaves(new["err_fb"])
+    assert len(fb) == len(TO.tree_leaves(state["params"]))
+    assert any(float(e.abs().max()) > 0 for e in fb)

@@ -178,8 +178,8 @@ def reference():
 def _port_forward(run, cfg, monkeypatch, replay=None):
     mine = []
 
-    def recorded(x, g, ref, ws, xcfg):
-        y = torch_vmm(x, g, ref, ws, xcfg)
+    def recorded(x, g, ref, ws, xcfg, **kw):
+        y = torch_vmm(x, g, ref, ws, xcfg, **kw)
         mine.append(y.numpy().copy())
         return torch.from_numpy(replay[len(mine) - 1]) if replay else y
 

@@ -147,8 +147,8 @@ def port_forward(run, cfg, monkeypatch, replay=None):
     ``"fq_reads"``) each read returns the reference's result instead."""
     mine = []
 
-    def recorded(x, g, ref, ws, xcfg):
-        y = torch_vmm(x, g, ref, ws, xcfg)
+    def recorded(x, g, ref, ws, xcfg, **kw):
+        y = torch_vmm(x, g, ref, ws, xcfg, **kw)
         mine.append(y.numpy().copy())
         if replay == "reads":
             return torch.from_numpy(run["reads"][len(mine) - 1][4])
@@ -503,7 +503,7 @@ def replaying(monkeypatch, results, used):
     container and, where it was applied several times, the application
     whose operands lie nearest the port's."""
     def replay(kind):
-        def read(x, g, ref, ws, xcfg):
+        def read(x, g, ref, ws, xcfg, **_):
             key = _g_key(kind, g.numpy())
             xs = x.numpy().reshape(-1, x.shape[-1])
             best = min(results[key], key=lambda r: np.abs(

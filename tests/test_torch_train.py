@@ -230,8 +230,8 @@ def test_step_divergence_starts_at_a_transpose_read_flip(reference,
     mine = []
     mvm = TT.mvm
 
-    def recorded(d, g, ref, ws, cfg):
-        out = mvm(d, g, ref, ws, cfg)
+    def recorded(d, g, ref, ws, cfg, **kw):
+        out = mvm(d, g, ref, ws, cfg, **kw)
         mine.append(out.numpy().copy())
         return out
 
@@ -408,12 +408,13 @@ def test_container_seed_matches_reference_mix():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(mesh="2x4"), "sharded"),
+    (dict(exact=False), "GSPMD"),
 ])
 def test_unported_training_options_raise(change, match):
-    mesh = change.pop("mesh", None)
+    """The sharded step is ported (a mesh no longer raises); the
+    reference's ``exact=False`` GSPMD read is not."""
     with pytest.raises(NotImplementedError, match=match) as err:
-        TA.make_analog_sgd_step(CFG.replace(**change), lr=LR, mesh=mesh)
+        TA.make_analog_sgd_step(CFG, lr=LR, **change)
     assert "ROADMAP.md" in str(err.value)
 
 

@@ -131,8 +131,8 @@ def port_reads(monkeypatch, run=None, replay=None):
     also record their operand rows and conductances."""
     mine, rows = [], []
 
-    def recorded(x, g, ref, ws, xcfg):
-        y = torch_vmm(x, g, ref, ws, xcfg)
+    def recorded(x, g, ref, ws, xcfg, **kw):
+        y = torch_vmm(x, g, ref, ws, xcfg, **kw)
         mine.append(y.numpy().copy())
         rows.append((x.reshape(-1, x.shape[-1]).shape[0], g))
         if replay == "reads":
