@@ -419,6 +419,31 @@ any gate fails:
    Gates: steps 5-6 take the same batches and their losses agree within
    1e-6 relative; every step reads through the fakequant kernel, the
    same count each step.  Tokens/s.
+25. the port's auditor, oracle and dry run against the card.  (a) the
+   bit-plane oracle: both read kernels, forward and transpose, on the
+   FP32 instance (B = 4) and the tensor-core one (B = 64), at lm100m's
+   four container shapes and a ragged 200 x 72 (64x64 tiles), with 2, 4,
+   8 and 9-bit DACs (9: the widest the tensor-core instance takes): an
+   ideal device, conductances 0.5 + j/8 against a reference of 0.5, DAC
+   codes pinned to their grid (the DAC scale 1), a 16-bit ADC at a fixed
+   range whose lsb is 1/8.  Gates: every read, and the plain read, bit-
+   equal to ``kernels.ref.vmm_bitplanes`` computed on the card in
+   float32 (every charge an exact float32 sum).  (b) launch coverage:
+   ``analysis.kernel_lint.audit_launches`` runs kernels 1, 2 (both
+   instances, the partials form with its tile sum), 3 and 3p (both write
+   instances), 4 (both instances, an expert stack) and 5 (float32 and
+   bfloat16) on ragged shapes (partial tiles in every tiled dim) and at
+   lm100m's full width, each output allocated through the wrappers' hook
+   (``kernels.outputs``) as a NaN sentinel between two guard regions.
+   Gates: no sentinel left (RA201), no guard element changed (RA202), two
+   launches bit-equal (RA201).  (c) ``launch.dryrun.reckon`` of two
+   lm100m train steps at 8 x 256 tokens on meta tensors, each against
+   the same step on the card: the QAT step (phase 17's cell) and the
+   digital bfloat16 step (the mode of the dry run's table).  Gates: the
+   reckoned argument bytes equal the bytes of the state and batch
+   allocated on the card; a finite loss; the card's peak over the step
+   (``torch.cuda.max_memory_allocated``) within 0.9-1.1 of the reckoned
+   peak (the same ops and autograd structure on meta and on the card).
 
 Every phase prints its wall seconds on a line of its own.
 
@@ -6301,6 +6326,196 @@ def phase_shard_cli(report, gpu_line):
     return row
 
 
+#: Phase 25(a): lm100m's four container shapes at 64x64 tiles and a
+#: ragged one; the DAC widths of the paper's variants and the widest the
+#: tensor-core instance takes (9 bits: 255 levels); a batch per instance.
+BITPLANE_SHAPES = ((768, 2304), (768, 768), (768, 6144), (3072, 768),
+                   (200, 72))
+BITPLANE_BITS = (2, 4, 8, 9)
+BITPLANE_B = {"fp32": 4, "tensor_core": 64}
+BITPLANE_LSB = 0.125     # the 16-bit ADC's lsb: the conductance grid's
+
+
+def bitplane_cfg(CrossbarConfig, AdcConfig, IDEAL, bits):
+    """64x64 tiles, an ideal device, a ``bits``-bit DAC and a 16-bit ADC
+    at a fixed range whose lsb is :data:`BITPLANE_LSB` exactly."""
+    adc = AdcConfig(in_bits=bits, out_bits=16, range_mode="fixed")
+    sat = BITPLANE_LSB * adc.out_levels
+    adc = AdcConfig(in_bits=bits, out_bits=16, range_mode="fixed",
+                    sat_frac=sat / (adc.in_levels * 64 * IDEAL.gmax))
+    return CrossbarConfig(rows=64, cols=64, adc=adc, device=IDEAL)
+
+
+def bitplane_operands(k, n, b, lv, transpose, gen):
+    """Drive codes in [-lv, lv] with one pinned at lv (so the DAC scale
+    is 1 and the codes come back unchanged), conductances 0.5 + j/8,
+    j in [-4, 4], against a reference of 0.5: every charge and partial
+    sum is a multiple of 1/8 far below 2^21, exact in float32."""
+    drive = n if transpose else k
+    x = torch.randint(-lv, lv + 1, (1, b, drive), generator=gen,
+                      device="cuda").float()
+    x[0, 0, 0] = lv
+    g = 0.5 + torch.randint(-4, 5, (1, k, n), generator=gen,
+                            device="cuda").float() / 8
+    return x, g, torch.full_like(g, 0.5)
+
+
+def phase_bitplanes(K, REF, CrossbarConfig, AdcConfig, IDEAL, report):
+    """25(a): both read kernels on both instances, bit-equal to the
+    bit-plane temporal-coding oracle (``kernels.ref.vmm_bitplanes``,
+    computed on the card in float32) and so to the integer product."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    ws = torch.ones((1,), device="cuda")
+    rows = []
+    for bits in BITPLANE_BITS:
+        cfg = bitplane_cfg(CrossbarConfig, AdcConfig, IDEAL, bits)
+        lv = cfg.adc.in_levels
+        for inst, b in BITPLANE_B.items():
+            if K.read_instance(b, lv) != inst:
+                fail(f"25(a): B={b} at {bits} bits takes the "
+                     f"{K.read_instance(b, lv)} instance, not {inst}")
+            for k, n in BITPLANE_SHAPES:
+                for transpose in (False, True):
+                    x, g, ref = bitplane_operands(k, n, b, lv, transpose,
+                                                  gen)
+                    sc = K.read_scales(x, ws, lv)
+                    if not (torch.equal(sc, torch.ones_like(sc))):
+                        fail(f"25(a): the DAC scale is not 1: {sc}")
+                    y = K._read_cuda(x, g, ref, sc, cfg, transpose)
+                    diff = (g - ref)[0]
+                    oracle = REF.vmm_bitplanes(
+                        x[0], diff.T if transpose else diff, cfg)
+                    plain = K._read_plain(x, g, ref, sc, cfg, transpose)
+                    torch.cuda.synchronize()
+                    row = {"bits": bits, "instance": inst, "B": b, "K": k,
+                           "N": n, "transpose": transpose,
+                           "bit_equal": torch.equal(y[0], oracle),
+                           "plain_bit_equal": torch.equal(plain[0], oracle),
+                           "max_abs_err": (y[0] - oracle).abs().max().item()}
+                    rows.append(row)
+                    report(row)
+                    if not (row["bit_equal"] and row["plain_bit_equal"]):
+                        fail(f"25(a): a read disagrees with the bit-plane "
+                             f"oracle: {row}")
+    print(f"phase 25(a): {len(rows)} reads (forward and transpose, FP32 "
+          f"and tensor-core instances, {', '.join(map(str, BITPLANE_BITS))}"
+          f"-bit DACs, lm100m's containers and a ragged shape) bit-equal "
+          f"to the bit-plane oracle")
+    return rows
+
+
+def phase_coverage(KL, report, gpu_line):
+    """25(b): ``kernel_lint``'s card half: every kernel and instance on
+    ragged shapes and at lm100m's full width, its output a NaN sentinel
+    between guard regions; no sentinel left, no guard touched, two
+    launches bit-equal."""
+    findings, rows = KL.audit_launches()
+    for row in rows:
+        report(row)
+    by_kernel = collections.defaultdict(int)
+    for row in rows:
+        by_kernel[row["kernel"]] += 1
+    if findings:
+        fail("25(b): launch coverage: " + "; ".join(map(str, findings)))
+    print(f"phase 25(b): {len(rows)} launch-coverage cases clean "
+          f"({', '.join(f'{k} {v}' for k, v in by_kernel.items())}): every "
+          f"output element written, no guard touched, two launches "
+          f"bit-equal [{gpu_line}]")
+    return rows
+
+
+#: 25(c)'s gate on the card's peak over the reckoned one.  The same
+#: torch ops run on meta tensors and on the card, with the same autograd
+#: structure (the fakequant read saves x and w on both), so autograd
+#: saves the same tensors; what differs is the kernels' scratch against
+#: the plain versions' transients, and the allocator's rounding.
+PEAK_RATIO = (0.9, 1.1)
+
+
+def _dryrun_case(M, TL, TO, DR, cfg, shape, label):
+    """One cell of 25(c): the dry run's reckoning of ``cfg``'s train step
+    at ``shape`` on one card, and the same step run on the card."""
+    t = time.perf_counter()
+    rec = DR.reckon(cfg, shape, DR.make_mesh("1x1"))
+    reckon_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    opt = TO.adamw(3e-4)
+    state = TL.init_state(0, cfg, opt, device="cuda")
+    batch = M.input_specs(cfg, shape, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for k in ("tokens", "labels"):
+        batch[k].random_(0, cfg.vocab, generator=gen)
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated() - base
+    storages = {}
+    for _, v in M._leaves((state, batch)):
+        storages[v.untyped_storage().data_ptr()] = \
+            v.untyped_storage().nbytes()
+    held = sum(storages.values())
+    step = TL.make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    state2, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated() - before
+    peak = rec["trace"]["peak_bytes"]
+    row = {"case": label, "reckoned_argument_bytes": rec["argument_bytes"],
+           "allocated_state_bytes": held,
+           "memory_allocated_delta": alloc,
+           "reckoned_peak_bytes": peak, "card_peak_bytes": card_peak,
+           "peak_ratio_card_over_reckoned": card_peak / max(peak, 1),
+           "reckoned_flops": rec["trace"]["flops"],
+           "reckoned_traffic_bytes": rec["trace"]["traffic_bytes"],
+           "reckoned_ops": rec["trace"]["n_ops"], "reckon_s": reckon_s,
+           "loss": loss}
+    if held != rec["argument_bytes"]:
+        fail(f"25(c) {label}: the dry run reckons {rec['argument_bytes']} "
+             f"argument bytes; the card holds {held} for the same state "
+             "and batch")
+    if not math.isfinite(loss):
+        fail(f"25(c) {label}: the step's loss is {loss}")
+    lo, hi = PEAK_RATIO
+    if not lo <= row["peak_ratio_card_over_reckoned"] <= hi:
+        fail(f"25(c) {label}: the card's peak {card_peak} bytes is "
+             f"{row['peak_ratio_card_over_reckoned']:.3f} of the reckoned "
+             f"{peak}, outside {PEAK_RATIO}")
+    del state, state2
+    return row
+
+
+def phase_dryrun(M, TL, TO, DR, get_config, report, gpu_line):
+    """25(c): the dry run's reckoning of two lm100m train steps at 8 x
+    256 tokens against the card: the QAT step of phases 17 and 24(c)
+    (float32, fakequant) and the digital bfloat16 step (the mode of the
+    dry run's table).  Gated: the argument bytes equal the bytes of the
+    state and batch allocated for the same step; the card's peak over
+    the step within ``PEAK_RATIO`` of the reckoned peak."""
+    from repro_torch.configs import ShapeSpec
+    shape = ShapeSpec("train_8x256", "train", 256, 8)
+    qat = get_config("lm100m").replace(dtype="float32", analog=True,
+                                       analog_mode="fakequant")
+    rows = [_dryrun_case(M, TL, TO, DR, qat, shape, "qat_fakequant"),
+            _dryrun_case(M, TL, TO, DR, get_config("lm100m"), shape,
+                         "digital_bf16")]
+    for row in rows:
+        report(row)
+        print(f"phase 25(c): lm100m {row['case']} 8 x 256: argument bytes "
+              f"{row['allocated_state_bytes']} reckoned = allocated "
+              f"(memory_allocated grew {row['memory_allocated_delta']}); "
+              f"peak of the step {row['card_peak_bytes'] / 1e9:.3f} GB on "
+              f"the card, {row['reckoned_peak_bytes'] / 1e9:.3f} GB "
+              f"reckoned on meta tensors (ratio "
+              f"{row['peak_ratio_card_over_reckoned']:.3f}, gated within "
+              f"{PEAK_RATIO}); {row['reckoned_flops']:.4e} FLOPs reckoned "
+              f"[{gpu_line}]")
+    return rows
+
+
 def mlp_read_entry(mlp, direction, names):
     """The kernels-line figures of the MLP's reads in one direction: the
     launches of phase 14(b)'s six runs (each kernel counted) and the
@@ -6412,6 +6627,9 @@ def main():
     from repro_torch.train import train_loop as TL
     from repro_torch.launch import mesh as TM
     from repro_torch.launch import sharding as S
+    from repro_torch.kernels import ref as REF
+    from repro_torch.analysis import kernel_lint as KL
+    from repro_torch.launch import dryrun as DR
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6618,6 +6836,27 @@ def main():
                                         TAOX_NONOISE, get_config, gpu_line,
                                         reporter("shard_reads"))
         shard_cli = phase_shard_cli(reporter("shard_cli"), gpu_line)
+    with phase("25"):
+        bitplanes = phase_bitplanes(K, REF, CrossbarConfig, AdcConfig, IDEAL,
+                                    reporter("bitplanes"))
+        coverage = phase_coverage(KL, reporter("coverage"), gpu_line)
+        dryrun = phase_dryrun(M, TL, TO, DR, get_config, reporter("dryrun"),
+                              gpu_line)
+    details["dryrun_25c"] = dryrun
+
+    def bitplane_cases(transpose):
+        """The kernels-line figures of phase 25(a) for one direction."""
+        rs = [r for r in bitplanes if r["transpose"] == transpose]
+        return {inst: sum(r["bit_equal"] for r in rs
+                          if r["instance"] == inst) for inst in BITPLANE_B}
+
+    def covered(name):
+        """The kernels-line figures of phase 25(b) for one kernel."""
+        rs = [r for r in coverage if r["kernel"] == name]
+        return {"cases_clean": sum(not r["unwritten"]
+                                   and not r["guard_touched"]
+                                   and r["bit_equal"] for r in rs),
+                "cases": [r["case"] for r in rs]}
 
     def sharded_reads(transpose):
         """The kernels-line figures of phase 24(b) for one direction."""
@@ -6712,6 +6951,8 @@ def main():
         "launches_zamba2_1_2b_train": hybrid_train["launches"]["fused_vmm"],
         **cross_launches("vmm"),
         "partials_form_24b": sharded_reads(False),
+        "bitplane_oracle_25a": bitplane_cases(False),
+        "coverage_25b": covered("xbar_fused_vmm"),
         **mlp_read_entry(mlp, "vmm", ("l1_vmm", "l2_vmm"))}, {
         "name": "xbar_fused_mvm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_vmm.cu",
@@ -6734,6 +6975,8 @@ def main():
         "launches_zamba2_1_2b_train": hybrid_train["launches"]["fused_mvm"],
         **cross_launches("mvm"),
         "partials_form_24b": sharded_reads(True),
+        "bitplane_oracle_25a": bitplane_cases(True),
+        "coverage_25b": covered("xbar_fused_mvm"),
         **mlp_read_entry(mlp, "mvm", ("l2_mvm",))}, {
         "name": "xbar_outer_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
@@ -6749,7 +6992,8 @@ def main():
         "launches_mamba2_1_3b_train": ssm_train["launches"]["update_tc"],
         "launches_zamba2_1_2b_train": hybrid_train["launches"]["update_tc"],
         **cross_launches("update_tc"),
-        "tile_offsets_24a": sharded_writes("outer")},
+        "tile_offsets_24a": sharded_writes("outer"),
+        "coverage_25b": covered("xbar_outer_update")},
         {
         "name": "xbar_update_prepare", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
@@ -6796,6 +7040,7 @@ def main():
             "plain_ms", "bound_ms", "bound_by", "tc_floor_ms")}
             for r in moe_fq_rows if "ms" in r],
         **fq_entry(fq_decode), "library_ms": None,
+        "coverage_25b": covered("xbar_fakequant_read"),
         "instances": [{
             "name": "fp32 (fakequant_scale_kernel, fakequant_fp32_kernel, "
                     "fakequant_epilogue_kernel)", "route": "cuda",
@@ -6828,6 +7073,7 @@ def main():
         "bound_by": fa_main["bound_by"],
         "library_ms": fa_main["library_ms"],
         "tc_floor_ms": fa_main["tc_floor_ms"],
+        "coverage_25b": covered("flash_attention"),
         "bf16": {key: fa_bf16[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
             "tc_floor_ms")}}, {
@@ -6839,7 +7085,8 @@ def main():
                     "m16n8k16 bf16, two accumulates)",
         **write_entry(t_pulse, total(carry["launches_per_step"],
                                      "update_tc"), None),
-        "tile_offsets_24a": sharded_writes("pulse_train")}]
+        "tile_offsets_24a": sharded_writes("pulse_train"),
+        "coverage_25b": covered("xbar_pulse_update")}]
     details["tie_recounts"] = TIE_RECOUNTS
     details["kernels_line_note"] = (
         "xbar_fused_vmm: launches counts the serving run's reads (each one "
@@ -6965,7 +7212,14 @@ def main():
         "and B{4,2048}_sharded_ms all shards' reads and tile sums on one "
         "card, summed over the four containers and both layouts; "
         "launches_cli_qat_per_step the fakequant reads of each step of "
-        "24(c)'s training CLI (torchrun, one NCCL rank, QAT)")
+        "24(c)'s training CLI (torchrun, one NCCL rank, QAT). Phase 25: "
+        "bitplane_oracle_25a counts, per instance, the reads (2, 4, 8 and "
+        "9-bit DACs, lm100m's four containers and a ragged shape) bit-equal "
+        "to the bit-plane oracle kernels.ref.vmm_bitplanes; coverage_25b "
+        "lists the launch-coverage cases of analysis.kernel_lint (ragged "
+        "and full width, every instance) and counts those with every output "
+        "element written, no guard element touched and two launches "
+        "bit-equal; those launches are not counted in launches")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1))

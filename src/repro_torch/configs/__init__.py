@@ -1,6 +1,8 @@
 """Architecture configs (``--arch <id>``)."""
-from .base import AnalogMode, ModelConfig, make_smoke, resolve_analog_mode
-from .registry import ARCHS, get_config
+from .base import (SHAPE_BY_NAME, SHAPES, AnalogMode, ModelConfig, ShapeSpec,
+                   applicable_shapes, make_smoke, resolve_analog_mode)
+from .registry import ARCHS, ASSIGNED, get_config
 
-__all__ = ["AnalogMode", "ModelConfig", "make_smoke", "resolve_analog_mode",
-           "ARCHS", "get_config"]
+__all__ = ["AnalogMode", "ModelConfig", "ShapeSpec", "SHAPES",
+           "SHAPE_BY_NAME", "applicable_shapes", "make_smoke",
+           "resolve_analog_mode", "ARCHS", "ASSIGNED", "get_config"]

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Tuple
 
 
 class AnalogMode(enum.Enum):
@@ -238,6 +239,35 @@ class ModelConfig:
         if self.n_encoder_layers:
             n += self.n_encoder_layers * (attn + ffn_mult * d * ff)
         return emb + n
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One cell of the assigned (arch x shape) grid (the reference's
+    ``ShapeSpec``): a training step, a prefill or one decode step against
+    a ``seq_len`` cache, at ``global_batch`` sequences."""
+
+    name: str                      # train_4k | prefill_32k | decode_32k | ...
+    kind: str                      # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("train_4k", "train", 4096, 256),
+    ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    ShapeSpec("decode_32k", "decode", 32768, 128),
+    ShapeSpec("long_500k", "decode", 524288, 1),
+)
+
+SHAPE_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def applicable_shapes(cfg: ModelConfig):
+    """The shape grid minus the reference's skips: the full-attention
+    architectures skip ``long_500k``."""
+    return [s for s in SHAPES
+            if s.name != "long_500k" or cfg.sub_quadratic]
 
 
 def make_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:

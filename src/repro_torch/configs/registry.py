@@ -18,6 +18,9 @@ ARCHS = {
     "mamba2-1.3b": mamba2_1_3b,
     "lm100m": lm100m,
 }
+#: The assigned architectures of the dry run's grid (the reference's
+#: ``ASSIGNED``): every one but lm100m.
+ASSIGNED = [k for k in ARCHS if k != "lm100m"]
 
 
 def get_config(name: str, smoke: bool = False):

@@ -88,6 +88,7 @@ def pc_forward(params: dict, x: Tensor, cfg: CrossbarConfig,
     base = params["base"]
     y = 0.0
     for c in range(params["g"].shape[0]):
+        # audit: allow RA303 -- n_cells <= 4 place-value cells with distinct significance weights, not a layer stack
         y = y + base ** c * vmm(x, params["g"][c], params["ref"],
                                 params["w_scale"], cfg,
                                 eps=read_eps[c] if read_eps else None)
@@ -100,6 +101,7 @@ def pc_backward(params: dict, d: Tensor, cfg: CrossbarConfig,
     base = params["base"]
     dx = 0.0
     for c in range(params["g"].shape[0]):
+        # audit: allow RA303 -- n_cells <= 4 place-value cells with distinct significance weights, not a layer stack
         dx = dx + base ** c * mvm(d, params["g"][c], params["ref"],
                                   params["w_scale"], cfg,
                                   eps=read_eps[c] if read_eps else None)

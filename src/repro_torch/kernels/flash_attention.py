@@ -28,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from . import _nvcc
+from . import _nvcc, outputs
 
 Tensor = torch.Tensor
 
@@ -94,7 +94,7 @@ def _flash_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool) -> Tensor:
         raise ValueError(f"head dim {hd} is not one the kernel is built "
                          f"for {HEAD_DIMS}")
     lib = _library()
-    o = torch.empty_like(q)
+    o = outputs.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
     err = lib.flash_attention_fwd(

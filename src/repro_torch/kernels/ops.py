@@ -20,6 +20,11 @@ Paths (``impl``):
 * ``"auto"``/``None`` — ``"cuda"`` for CUDA tensors, ``"eager"`` for CPU
   tensors.  A CUDA tensor never takes the plain path forward.
 
+Tensors on the meta device (the dry run) take the card's autograd
+structure: :class:`FakequantRead` over the plain read, so that a step
+saves x and w as on the card and not the eager expression's
+intermediates.
+
 The gradient is the reference's: it has no straight-through estimator.
 The rounding differentiates to zero, so the gradient flows only through
 the DAC and ADC ranges (the scales' ``max``/``rms``), as ``jax.grad`` of
@@ -120,7 +125,7 @@ def fakequant_project(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
     read of the stack on the card).  ``rows`` is the crossbar row pitch;
     ``impl`` as in the module docstring."""
     impl = resolve_impl(impl, x)
-    if impl == "eager":
+    if impl == "eager" and not x.is_meta:
         return _fakequant_eager(x, w, adc, rows)
     lead = x.shape[:-1]
     x2 = x if w.ndim == 3 else x.reshape(-1, x.shape[-1])

@@ -60,7 +60,7 @@ from repro_torch.core.crossbar import CrossbarConfig
 from repro_torch.core.device import DeviceConfig
 from repro_torch.core.shardctx import flat_index
 
-from . import _nvcc
+from . import _nvcc, outputs
 
 Tensor = torch.Tensor
 
@@ -488,7 +488,7 @@ def _update_tc_cuda(g: Tensor, codes: Tensor, t_tok: int, scale: Tensor,
             or codes.numel() != lyr * tp * (kp + np_):
         raise ValueError(f"codes must be the pre-pass's bf16 buffer of "
                          f"{lyr * tp * (kp + np_)} on {g.device}")
-    out = torch.empty_like(g)
+    out = outputs.empty_like(g)
     err = _library().xbar_tc_update(
         int(cfg.update_mode == "pulse_train"), g.data_ptr(),
         codes.data_ptr(), scale.data_ptr(), x_scale.data_ptr(),
@@ -515,7 +515,7 @@ def _update_fp32_cuda(g: Tensor, x_q: Tensor, d_q: Tensor, scale: Tensor,
     lib = _library()
     fn = lib.xbar_pulse_update if cfg.update_mode == "pulse_train" \
         else lib.xbar_outer_update
-    out = torch.empty_like(g)
+    out = outputs.empty_like(g)
     err = fn(g.data_ptr(), x_q.data_ptr(), d_q.data_ptr(), scale.data_ptr(),
              noise.data_ptr() if noise is not None else None, out.data_ptr(),
              lyr, t_tok, k, n, cfg.rows, cfg.cols,

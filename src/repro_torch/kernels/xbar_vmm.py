@@ -72,7 +72,7 @@ from repro_torch.core.adc import (AdcConfig, _clip, _deterministic, _round,
 from repro_torch.core.crossbar import CrossbarConfig
 from repro_torch.core.xbar_ops import _tile_partials, _tiled_read
 
-from . import _nvcc
+from . import _nvcc, outputs
 
 Tensor = torch.Tensor
 
@@ -247,8 +247,8 @@ def _read_cuda(x: Tensor, g: Tensor, ref: Tensor, sc: Tensor,
     out = k if transpose else n
     t_r = -(-(n if transpose else k) // (cfg.cols if transpose
                                          else cfg.rows))
-    y = torch.empty((lyr, t_r, b, out) if partials else (lyr, b, out),
-                    dtype=torch.float32, device=x.device)
+    y = outputs.empty((lyr, t_r, b, out) if partials else (lyr, b, out),
+                      torch.float32, x.device)
     tc = read_instance(b, adc.in_levels) == "tensor_core"
     n_scratch = lib.xbar_read_scratch_floats(lyr, b, k, n, cfg.rows,
                                              cfg.cols, int(transpose),
@@ -300,8 +300,7 @@ def _reduce_tiles_cuda(partials: Tensor, sc: Tensor,
     if sc.shape != (lyr, 2) or sc.device != partials.device:
         raise ValueError(f"sc {tuple(sc.shape)} on {sc.device} does not "
                          f"match partials {tuple(partials.shape)}")
-    y = torch.empty((lyr, b, out), dtype=torch.float32,
-                    device=partials.device)
+    y = outputs.empty((lyr, b, out), torch.float32, partials.device)
     launched = ctypes.c_int(0)
     with torch.cuda.device(partials.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -453,12 +452,15 @@ def manual_collective_read(x: Tensor, g: Tensor, ref: Tensor, w_scale,
 
     if red_names:
         part = read(xr, gf, rf, sc, cfg, transpose, partials=True)
+        # audit: allow RA103 -- ordered gather of the per-tile ADC partial sums of the shard-local read (activation-sized, arithmetic-free), reduced after in single-device tile order; conductances never move and RA107 bounds the payload
         y = reduce(combine(part, red_names, 1).contiguous(), sc)
     else:
         y = read(xr, gf, rf, sc, cfg, transpose)
     y = y.reshape(*lead_loc, b, y.shape[-1])
+    # audit: allow RA103 -- ordered gather of the read's output-column blocks (activation-sized ADC results, concatenated, no arithmetic); RA107 bounds the payload
     y = combine(y, out_names, y.ndim - 1)
     for d in range(nlead - 1, -1, -1):
+        # audit: allow RA103 -- ordered gather of the read's lead-dimension (layer / expert) output blocks, concatenated with no arithmetic; RA107 bounds the payload
         y = combine(y, lead_names[d], d)
     return y.to(in_dtype)
 
@@ -643,7 +645,7 @@ def _fakequant_cuda(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
     if n_scratch <= 0:
         raise ValueError(f"no fakequant plan for x {tuple(x.shape)} w "
                          f"{tuple(w.shape)}, rows {rows}")
-    y = torch.empty((lead, t, n), dtype=torch.float32, device=dev)
+    y = outputs.empty((lead, t, n), torch.float32, dev)
     scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev)
     launched = (ctypes.c_int * len(FQ_KERNEL_COUNTS))()
     err = lib.xbar_fakequant(

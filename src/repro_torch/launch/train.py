@@ -57,8 +57,13 @@ def _data_mean(mesh):
     n = mesh.shape["data"]
     if n == 1:
         return None
-    group = mesh.group("data")
+    return data_mean(n, mesh.group("data"))
 
+
+def data_mean(n: int, group=None):
+    """The mean of a gradient tree over ``n`` data ranks: each leaf
+    ``all_reduce``d over ``group`` (the default group when None), then
+    divided by ``n``."""
     def mean(grads):
         def one(g):
             g = g.clone()

@@ -8,6 +8,8 @@ the audio encoder-decoder, the SSM (Mamba-2) and hybrid (Zamba-2) stacks
     logits, cache  = decode_step(params, cache, tokens, cfg, batch_extras)
     logits, cache  = prefill_chunk(params, cache, tokens, cfg, batch_extras)
     cache          = init_cache(cfg, batch, max_len, device)
+    batch          = input_specs(cfg, shape)          # meta tensors
+    cache          = cache_specs(cfg, batch, max_len)  # meta tensors
 
 ``batch`` holds ``tokens`` (and ``labels`` for the loss) and, for the
 cross-attention families, the stub frontends' stream: ``{"vision": (B,
@@ -30,7 +32,7 @@ from typing import Dict, Optional, Union
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.core.analog_registry import (EXPERT_BATCHED, KINDS,
                                               classify, classify_param)
 from repro_torch.core.tiled_analog import (crossbar_from_model,
@@ -53,8 +55,13 @@ def init_params(cfg: ModelConfig,
                 device="cuda") -> dict:
     """Random parameters from ``generator`` (a torch.Generator on
     ``device``, or an int seed for one).  MoE expert stacks are drawn
-    (and in device mode programmed) one expert matrix at a time."""
-    if isinstance(generator, int):
+    (and in device mode programmed) one expert matrix at a time.  On the
+    ``meta`` device nothing is drawn (the generator is ignored): the tree
+    carries the shapes and dtypes the program allocates, and nothing
+    else (the dry run's abstract state)."""
+    if torch.device(device).type == "meta":
+        generator = None
+    elif isinstance(generator, int):
         seed, generator = generator, torch.Generator(device=device)
         generator.manual_seed(seed)
     if cfg.family == "vlm":
@@ -190,6 +197,34 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     return stack(make(cfg, batch, max_len, device), cfg.n_layers), None
 
 
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                batch: Optional[int] = None, device="meta"
+                ) -> Dict[str, Tensor]:
+    """Every model input of one dry-run cell, as tensors on ``device``
+    (``meta``: shapes and dtypes, nothing allocated): ``tokens`` (and
+    ``labels`` for a training step) int32 (B, S), or (B,) for a decode
+    step; the cross-attention families' stream (``vision`` or ``audio``,
+    (B, tokens, d) in the config's activation dtype).  ``batch``
+    overrides ``shape.global_batch`` (one data-parallel rank's share)."""
+    b = shape.global_batch if batch is None else batch
+    dims = (b, shape.seq_len) if shape.kind in ("train", "prefill") \
+        else (b,)
+    out = {"tokens": torch.zeros(dims, dtype=torch.int32, device=device)}
+    if shape.kind == "train":
+        out["labels"] = torch.zeros(dims, dtype=torch.int32, device=device)
+    stream = {"vlm": ("vision", cfg.n_vision_tokens),
+              "audio": ("audio", cfg.n_audio_frames)}.get(cfg.family)
+    if stream is not None:
+        out[stream[0]] = torch.zeros((b, stream[1], cfg.d_model),
+                                     dtype=cdtype(cfg), device=device)
+    return out
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+    """The cache :func:`init_cache` allocates, on the ``meta`` device."""
+    return init_cache(cfg, batch, max_len, "meta")
+
+
 def prefill(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig,
             max_len: int):
     """Run the prompt (and the batch's stream, for the cross-attention
@@ -323,6 +358,7 @@ def params_device(params) -> torch.device:
 
 __all__ = ["init_params", "readout_digital", "program_digital", "forward",
            "loss_fn",
-           "init_cache", "prefill", "decode_step", "prefill_chunk",
+           "init_cache", "input_specs", "cache_specs", "prefill",
+           "decode_step", "prefill_chunk",
            "cache_lens", "cache_with_lens", "cache_batch_axes",
            "cache_insert", "cache_reset_row", "params_device"]

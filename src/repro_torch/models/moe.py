@@ -100,10 +100,12 @@ def _float32_matmul():
     whatever the caller set: a routing decision must not hang on the
     matmul precision."""
     prev = torch.backends.cuda.matmul.allow_tf32
+    # audit: allow RA301 -- scoped to the router's matmul and restored below: a routing decision must not hang on the caller's precision
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
+        # audit: allow RA301 -- restores the caller's own setting
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 

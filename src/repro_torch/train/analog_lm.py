@@ -381,6 +381,7 @@ class AnalogTrainStep:
         blocks: gathered (arithmetic-free), then added in shard order."""
         spec = self._cspecs[path][0]["g"]
         names = tuple(a for e in spec if e for a in e)
+        # audit: allow RA103 -- metric-only gather of integer rail counts, added in shard order: integer sums are order-exact, bit-identity unaffected
         return shardctx.combine_partials_exact(
             count.reshape(1), names, 0, self.mesh).sum()
 

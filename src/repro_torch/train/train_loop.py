@@ -41,6 +41,13 @@ def init_state(generator: Union[torch.Generator, int], cfg: ModelConfig,
                        if grad_compress else ())}
 
 
+def abstract_state(cfg: ModelConfig, optimizer: Optimizer,
+                   grad_compress: bool = False) -> dict:
+    """:func:`init_state`'s tree on the ``meta`` device: every leaf's
+    shape and dtype, nothing allocated and nothing drawn (the dry run)."""
+    return init_state(0, cfg, optimizer, "meta", grad_compress)
+
+
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                     clip_norm: float = 1.0,
                     grad_compress: bool = False,

@@ -1,0 +1,209 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) and what it stands
+on: the shape grid and ``ASSIGNED`` against the reference's, the
+``meta``-device specs (``models.model.input_specs`` / ``cache_specs``,
+``train.train_loop.abstract_state``) leaf for leaf against the
+reference's ``jax.eval_shape`` structs at full size, ``launch.
+trace_analysis`` on hand-built programs with exact FLOPs and bytes, a
+smoke train cell inside the reference's FLOP window and a full-size
+decode cell's argument bytes.  Nothing is allocated at full size.
+"""
+import functools
+
+import jax
+import pytest
+import torch
+
+from repro.configs import ASSIGNED as J_ASSIGNED
+from repro.configs import SHAPES as J_SHAPES
+from repro.configs import applicable_shapes as j_applicable
+from repro.configs import get_config as j_get_config
+from repro.models import model as JM
+from repro.train import train_loop as JTL
+from repro.train.optimizer import adamw as j_adamw
+from repro_torch.configs import (ASSIGNED, SHAPE_BY_NAME, SHAPES,
+                                 applicable_shapes, get_config)
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch.trace_analysis import tracing
+from repro_torch.models import model as M
+from repro_torch.train import train_loop as TL
+from repro_torch.train.optimizer import adamw
+
+CELLS = [(a, s.name) for a in ASSIGNED
+         for s in applicable_shapes(get_config(a))]
+
+
+def _jax_leaves(tree):
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        key = "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                       for k in path)
+        out[key] = (tuple(leaf.shape), str(leaf.dtype))
+    return out
+
+
+def _port_leaves(tree):
+    out = {}
+    for path, leaf in M._leaves(tree):
+        assert leaf.device.type == "meta"
+        out["/".join(map(str, path))] = (tuple(leaf.shape),
+                                         str(leaf.dtype).split(".")[-1])
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_state(arch):
+    """The reference's abstract train state, traced once per arch."""
+    return _jax_leaves(JTL.abstract_state(j_get_config(arch),
+                                          j_adamw(3e-4)))
+
+
+def test_shape_grid_and_assigned_match_reference():
+    assert [tuple(vars(s).values()) for s in SHAPES] == \
+        [tuple(vars(s).values()) for s in J_SHAPES]
+    assert ASSIGNED == list(J_ASSIGNED)
+    for arch in ASSIGNED:
+        assert [s.name for s in applicable_shapes(get_config(arch))] == \
+            [s.name for s in j_applicable(j_get_config(arch))]
+    # 10 archs x 3 shapes + the 2 sub-quadratic archs' long_500k
+    assert len(CELLS) == 32
+    assert {a for a, s in CELLS if s == "long_500k"} == {"zamba2-1.2b",
+                                                         "mamba2-1.3b"}
+
+
+@pytest.mark.parametrize("arch", ASSIGNED)
+def test_input_and_cache_specs_match_reference(arch):
+    cfg, jcfg = get_config(arch), j_get_config(arch)
+    for shape in applicable_shapes(cfg):
+        jshape = next(s for s in J_SHAPES if s.name == shape.name)
+        assert _port_leaves(M.input_specs(cfg, shape)) == \
+            _jax_leaves(JM.input_specs(jcfg, jshape)), shape.name
+        assert _port_leaves(M.cache_specs(
+            cfg, shape.global_batch, shape.seq_len)) == _jax_leaves(
+                JM.cache_specs(jcfg, shape.global_batch, shape.seq_len)), \
+            shape.name
+
+
+@pytest.mark.parametrize("arch", ASSIGNED)
+def test_abstract_state_matches_reference(arch):
+    got = _port_leaves(TL.abstract_state(get_config(arch), adamw(3e-4)))
+    assert got == _ref_state(arch)
+
+
+def test_trace_counts_exact_flops_and_bytes():
+    a, b = torch.randn(8, 16), torch.randn(16, 32)
+    x = torch.randn(3, 8, 16)
+    with tracing() as tr:
+        c = a @ b                   # 2*8*16*32 flops; (128+512+256)*4 B
+        d = c.t()                   # a view: nothing
+        e = d + 1                   # 256*4 in, 256*4 out
+        f = torch.bmm(x, b.expand(3, 16, 32))   # expanded b: its storage
+        del c, d
+    assert tr.flops == 2 * 8 * 16 * 32 + 2 * 3 * 8 * 16 * 32
+    assert tr.traffic_bytes == (128 + 512 + 256) * 4 + 2 * 256 * 4 \
+        + (384 + 512 + 768) * 4
+    assert tr.ops["aten.t"] == 1 and tr.n_ops == 5
+    # c (1024 B) freed with d; e and f live: the peak while all three
+    assert tr.peak_bytes == 1024 + 1024 + 3072
+    assert tr.live_bytes == 1024 + 3072
+    assert e.shape == (32, 8) and f.shape == (3, 8, 32)
+
+
+def test_trace_in_place_ops_and_meta_tensors():
+    with tracing() as tr:
+        y = torch.zeros(1000, device="meta")
+        y.add_(1.0)                  # in place: no new storage
+        z = torch.bincount(torch.zeros(50, dtype=torch.long,
+                                       device="meta"), minlength=7)
+    assert tr.peak_bytes == 4000 + 50 * 8 + 7 * 8
+    assert tuple(z.shape) == (7,) and tr.flops == 0
+
+
+def test_trace_records_collectives_dry():
+    import torch.distributed as dist
+    with tracing(dry=True, group_size=4) as tr:
+        g = torch.ones(100)
+        dist.all_reduce(g)
+        dist.all_gather_into_tensor(torch.empty(400), torch.ones(100))
+    assert tr.count_collectives() == {"all_reduce": 1,
+                                      "all_gather_into_tensor": 1,
+                                      "total": 2}
+    assert tr.collective_byte_volume()["total"] == 800
+    assert tr.collective_payloads() == [("all_reduce", 400),
+                                        ("all_gather_into_tensor", 400)]
+    # ring factors: all-reduce 2(n-1)/n, all-gather n-1 operands received
+    assert tr.collective_link_bytes() == 400 * 1.5 + 400 * 3
+
+
+@pytest.mark.parametrize("arch,smoke", [("mamba2-1.3b", True),
+                                        ("gemma-2b", False)],
+                         ids=["mamba2-smoke", "gemma-2b-full"])
+def test_train_cell_flops_within_reference_window(arch, smoke):
+    """The reference's 0.9-3.0 x 6 N D window
+    (``tests/test_dryrun_artifacts.py``), the work summed over the data
+    ranks: each computes its share of the batch.  A smoke attention model
+    at 4096 tokens spends 7-13x 6 N D in attention (d_model 64), so the
+    smoke cell is the attention-free SSM's; gemma-2b's at full size."""
+    rec = DR.run_cell(arch, "train_4k", "16x16", smoke=smoke)
+    assert rec["ok"], rec.get("error")
+    m = rec["model"]
+    model_flops = 6 * m["params_active"] * m["seq_len"] * m["global_batch"]
+    ratio = rec["trace"]["flops"] * DR.dp_size(DR.make_mesh("16x16")) \
+        / model_flops
+    assert 0.9 < ratio < 3.0, ratio
+    # the gradient all-reduce over the 16 data ranks, one per leaf
+    assert rec["trace"]["collectives"]["all_reduce"] == len(list(
+        M._leaves(M.init_params(get_config(arch, smoke=smoke), None,
+                                "meta"))))
+    assert rec["local_batch"] == 16
+
+
+def test_full_size_decode_cell_argument_bytes():
+    """gemma-2b's decode_32k cell on the 1-card mesh at full size: the
+    argument bytes are the sum of its meta leaves (params, the 128 x
+    32768 cache, the tokens), nothing replicated beyond the policy."""
+    cfg = get_config("gemma-2b")
+    shape = SHAPE_BY_NAME["decode_32k"]
+    rec = DR.run_cell("gemma-2b", "decode_32k", "1x1")
+    assert rec["ok"], rec.get("error")
+    leaves = [M.init_params(cfg, None, "meta"),
+              M.cache_specs(cfg, 128, shape.seq_len),
+              M.input_specs(cfg, shape)]
+    want = sum(t.numel() * t.element_size()
+               for tree in leaves for _, t in M._leaves(tree))
+    assert rec["argument_bytes"] == want
+    assert rec["mem"]["replicated_by_port_gb"] == 0.0
+    assert rec["devices"] == 1 and rec["trace"]["flops"] > 0
+    assert set(rec) >= {"ok", "devices", "mem", "model", "trace"}
+
+
+def test_failed_cell_records_its_error():
+    rec = DR.run_cell("gemma-2b", "no_such_shape", "1x1")
+    assert rec["ok"] is False and "KeyError" in rec["error"]
+
+
+def _graph_nodes(t):
+    seen, stack = set(), [t.grad_fn]
+    while stack:
+        f = stack.pop()
+        if f is not None and type(f).__name__ not in seen:
+            seen.add(type(f).__name__)
+            stack.extend(n for n, _ in f.next_functions)
+    return seen
+
+
+def test_meta_fakequant_read_keeps_the_cards_autograd_structure():
+    """On meta tensors (the dry run) the fakequant read runs under
+    ``FakequantRead`` as on the card, so a reckoned step saves x and w and
+    not the eager expression's intermediates; a CPU tensor still takes
+    the eager expression."""
+    from repro_torch.core.adc import AdcConfig
+    from repro_torch.kernels import ops
+    adc = AdcConfig(in_bits=8, out_bits=8)
+    xm = torch.empty(8, 96, device="meta", requires_grad=True)
+    wm = torch.empty(96, 40, device="meta", requires_grad=True)
+    ym = ops.fakequant_project(xm, wm, adc, 32)
+    assert ym.shape == (8, 40) and ym.is_meta
+    assert "FakequantReadBackward" in _graph_nodes(ym)
+    xc = torch.randn(8, 96, requires_grad=True)
+    yc = ops.fakequant_project(xc, torch.randn(96, 40), adc, 32)
+    assert "FakequantReadBackward" not in _graph_nodes(yc)
