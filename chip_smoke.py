@@ -445,6 +445,39 @@ any gate fails:
    (``torch.cuda.max_memory_allocated``) within 0.9-1.1 of the reckoned
    peak (the same ops and autograd structure on meta and on the card).
 
+Phases 1-25 run under ``REPRO_REMAT=none`` (no per-layer remat), so
+their gates, launch counts and times stay comparable with the runs
+before remat existed.
+
+26. per-layer remat (``models.transformer._remat``, ``REPRO_REMAT``:
+   ``full``, the default, and ``dots`` against ``none``).  (a) lm100m in
+   device mode with phase 7's settings, one step under each policy from
+   one state with one ``seed_base``: the new conductances, digital leaves
+   and loss bit-equal across the policies (a digital leaf passes
+   otherwise only where ``none`` does not reproduce itself on the card,
+   and then within phase 7's CPU-replay class); 48 forward reads, 48
+   transpose reads and 4 writes under ``none``, 48 more forward reads
+   (the backward's recompute) under ``full`` and ``dots``; each policy's
+   ``max_memory_allocated``.  (b) 25(c)'s QAT and digital cells under
+   each policy: 25(c)'s gates with the dry run reckoned under the same
+   policy (the card's peak within 0.9-1.1), the parameters after the
+   step bit-equal to ``none``'s, kernel 4's tensor-core instance 48
+   reads a QAT step under ``none`` and 96 under ``full`` / ``dots``.
+   (c) starcoder2-3b at full size (30 of 30 layers) in device mode, one
+   step over 1 x 4096 tokens under ``full`` (1 x 2048 if it does not
+   fit, said so): a finite loss, the conductances in the window, 240
+   forward reads (120 recomputed), 120 transpose reads and 4 writes on
+   the tensor-core instances, the first and last layers' reads and
+   writes against their plain versions (phase 7's classes) and each
+   recomputed read bit-equal to its original; the step ms and the card's
+   peak beside the dry run's reckoning of the same step under ``none``
+   and ``full``.  (d) zamba2-1.2b at 21(b)'s 13-layer cut, one step
+   under ``none`` and ``full``: bit-equal as (a), the 26 SSD layers'
+   forward reads made once more, the shared block's not.  (e) the
+   prefill head: ``models.model.prefill``'s last-position logits against
+   the full forward's last row, lm100m and starcoder2-3b (2 layers),
+   float32 (within 1e-5) and bfloat16 (stated).
+
 Every phase prints its wall seconds on a line of its own.
 
 Every read's DAC scale (phases 1, 3, 4, 7, 14, 15, 16, 18-23) must
@@ -6433,9 +6466,11 @@ def phase_coverage(KL, report, gpu_line):
 PEAK_RATIO = (0.9, 1.1)
 
 
-def _dryrun_case(M, TL, TO, DR, cfg, shape, label):
+def _dryrun_case(M, TL, TO, DR, cfg, shape, label, keep=False):
     """One cell of 25(c): the dry run's reckoning of ``cfg``'s train step
-    at ``shape`` on one card, and the same step run on the card."""
+    at ``shape`` on one card, and the same step run on the card.  With
+    ``keep``, returns the step's new parameters (path -> tensor) beside
+    the row."""
     t = time.perf_counter()
     rec = DR.reckon(cfg, shape, DR.make_mesh("1x1"))
     reckon_s = time.perf_counter() - t
@@ -6484,8 +6519,9 @@ def _dryrun_case(M, TL, TO, DR, cfg, shape, label):
         fail(f"25(c) {label}: the card's peak {card_peak} bytes is "
              f"{row['peak_ratio_card_over_reckoned']:.3f} of the reckoned "
              f"{peak}, outside {PEAK_RATIO}")
+    new = dict(tree_leaves(state2["params"])) if keep else None
     del state, state2
-    return row
+    return (row, new) if keep else row
 
 
 def phase_dryrun(M, TL, TO, DR, get_config, report, gpu_line):
@@ -6513,6 +6549,520 @@ def phase_dryrun(M, TL, TO, DR, get_config, report, gpu_line):
               f"{row['peak_ratio_card_over_reckoned']:.3f}, gated within "
               f"{PEAK_RATIO}); {row['reckoned_flops']:.4e} FLOPs reckoned "
               f"[{gpu_line}]")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# Phase 26: per-layer remat (REPRO_REMAT) on the card
+# --------------------------------------------------------------------------
+
+#: The policies phase 26 runs; ``none`` is the baseline each is held to.
+REMAT_POLICIES = ("none", "full", "dots")
+#: The write-noise seed of every phase-26 step (one for all policies).
+REMAT_SEED = 12345
+#: 26(c): starcoder2-3b at full depth in device mode, one step under the
+#: default policy over the first of these (B, S) that fits the card.
+REMAT_DEEP_ARCH = "starcoder2-3b"
+REMAT_DEEP_SHAPES = ((1, 4096), (1, 2048))
+
+
+def remat_expect(expect, n_again):
+    """A step's launch counts under remat: ``n_again`` forward reads (the
+    containers of the rematted blocks) made once more by the backward's
+    recompute, each with its own pre-pass and range pass; the transpose
+    reads and the writes as in ``expect``."""
+    out = dict(expect)
+    out["fused_vmm"] += n_again
+    for count in READ_KERNEL_COUNTS.values():
+        if out[f"{count}_vmm"]:
+            out[f"{count}_vmm"] += n_again
+    return out
+
+
+def remat_step(K, U, TA, cfg, state, batch, expect, what):
+    """One device-mode step of ``cfg`` from ``state`` (left as it is: the
+    step returns a new state) under the policy the caller set: its new
+    parameters (path -> tensor), loss, rail fraction, launches (gated
+    against ``expect``), step ms and the card's peak."""
+    step = TA.make_analog_sgd_step(cfg, lr=0.1)
+    reset_launches(K, U)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new, mets = step(state, batch, REMAT_SEED)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    got = {**K.LAUNCHES, **U.LAUNCHES}
+    if got != expect:
+        fail(f"{what} launched {got}; expected {expect}")
+    loss = float(mets["loss"])
+    if not math.isfinite(loss):
+        fail(f"{what}: loss {loss}")
+    return {"params": dict(tree_leaves(new["params"])), "loss": loss,
+            "g_rail_frac": float(mets["g_rail_frac"]), "launches": got,
+            "step_ms": ms,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+            / 1e9}
+
+
+def remat_agrees(runs, what, rerun, initial):
+    """Every policy's new parameters and loss against ``none``'s: bit for
+    bit.  A digital leaf (not a conductance) that differs passes only
+    where ``rerun()`` (``none`` again) differs from the first ``none`` run
+    in that leaf too, i.e. an op of the card that is not deterministic
+    run to run, and then within phase 7's CPU-replay class (1e-3 of the
+    leaf's move from ``initial()``'s leaves plus 1e-6).  Returns
+    {policy: differing leaves} and the leaves found nondeterministic."""
+    base = runs["none"]
+    again, init, nondet, diff = None, None, [], {}
+    for pol, run in runs.items():
+        if pol == "none":
+            continue
+        if run["loss"] != base["loss"] \
+                or run["g_rail_frac"] != base["g_rail_frac"]:
+            fail(f"{what}: {pol}'s loss / rail fraction {run['loss']} / "
+                 f"{run['g_rail_frac']} differ from none's {base['loss']} "
+                 f"/ {base['g_rail_frac']}")
+        off = [p for p, v in run["params"].items()
+               if not torch.equal(v, base["params"][p])]
+        diff[pol] = ["/".join(p) for p in off]
+        for p in off:
+            if p[-1] in ("g", "g_carry", "ref", "w_scale"):
+                fail(f"{what}: {'/'.join(p)} under {pol} differs from "
+                     "none's")
+            if again is None:
+                again, init = rerun(), initial()
+            if torch.equal(again["params"][p], base["params"][p]):
+                fail(f"{what}: {'/'.join(p)} under {pol} differs from "
+                     "none's, and none reproduces itself on the card")
+            if p not in nondet:
+                nondet.append(p)
+            v, w = run["params"][p].float(), base["params"][p].float()
+            bound = 1e-3 * (w - init[p].float()).abs().max() + 1e-6
+            if ((v - w).abs() > bound).any():
+                fail(f"{what}: {'/'.join(p)} under {pol} differs from "
+                     f"none's by {(v - w).abs().max().item()}, over the "
+                     f"CPU-replay class ({bound.item()})")
+    return diff, ["/".join(p) for p in nondet]
+
+
+def rerun_none(K, U, TA, cfg, state, batch, expect, what):
+    """:func:`remat_agrees`' ``rerun`` and ``initial`` for a device-mode
+    step from ``state``: ``none``'s step once more, the state's leaves."""
+    def run():
+        with env_set("REPRO_REMAT", "none"):
+            return remat_step(K, U, TA, cfg, state, batch, expect,
+                              f"{what} (none again)")
+    return run, lambda: dict(tree_leaves(state["params"]))
+
+
+def card_batch(syn, cfg, b, s):
+    stream = syn.make_token_stream(200_000, cfg.vocab, seed=0)
+    x, y = syn.batch_tokens(stream, b, s, 0)
+    return {"tokens": torch.from_numpy(x).long().cuda(),
+            "labels": torch.from_numpy(y).long().cuda()}
+
+
+def phase_remat_train(K, U, TA, syn, tcfg, report, gpu_line):
+    """26(a): lm100m in device mode with phase 7's settings (full width,
+    TaOx, 64x64 tiles, lr 0.1, 8 x 256 tokens, init seed 0), one step
+    under each policy from one state, with one ``seed_base``.  Gates: the
+    three new states and losses bit-equal (:func:`remat_agrees`); 48
+    forward reads, 48 transpose reads and 4 writes under ``none``, 48
+    more forward reads (the recompute) under ``full`` and ``dots``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = TA.init_state(gen, tcfg, device="cuda")
+    batch = card_batch(syn, tcfg, 8, 256)
+    n = 4 * tcfg.n_layers
+    base = tensor_core_train_expect(
+        tcfg.n_layers, fakequant=0, **dict.fromkeys(FQ_KERNELS.values(), 0),
+        outer_update=4, pulse_update=0, update_tc=4, update_prepare=4,
+        update_fp32=0)
+    runs = {}
+    for pol in REMAT_POLICIES:
+        with env_set("REPRO_REMAT", pol):
+            runs[pol] = remat_step(
+                K, U, TA, tcfg, state, batch,
+                base if pol == "none" else remat_expect(base, n),
+                f"26(a) lm100m under {pol}")
+    diff, nondet = remat_agrees(runs, "26(a) lm100m", *rerun_none(
+        K, U, TA, tcfg, state, batch, base, "26(a) lm100m"))
+    res = {"config": "lm100m, device mode, TaOx, 64x64 tiles, 8 x 256",
+           "nondeterministic_leaves": nondet, "differing_leaves": diff,
+           **{pol: {k: v for k, v in r.items() if k != "params"}
+              for pol, r in runs.items()}}
+    report(res)
+    for pol, r in runs.items():
+        print(f"phase 26(a): lm100m one device-mode step under "
+              f"REPRO_REMAT={pol}: loss {r['loss']:.6f}, forward reads "
+              f"{r['launches']['fused_vmm']}, transpose reads "
+              f"{r['launches']['fused_mvm']}, writes "
+              f"{r['launches']['update_tc']}, {r['step_ms']:.1f} ms, "
+              f"max_memory_allocated {r['max_memory_allocated_gb']:.3f} GB "
+              f"[{gpu_line}]")
+    print(f"phase 26(a): full and dots bit-equal to none in every "
+          f"conductance, digital leaf and the loss"
+          + (f" but the card's nondeterministic {nondet}" if nondet else ""))
+    del runs, state
+    return res
+
+
+def phase_remat_dryrun(M, K, TL, TO, DR, get_config, report, gpu_line):
+    """26(b): 25(c)'s two lm100m cells (the QAT step and the digital
+    bfloat16 step, 8 x 256 tokens, adamw) under each policy: 25(c)'s
+    gates under the same policy (argument bytes equal, the card's peak
+    within ``PEAK_RATIO`` of the dry run's reckoning), the new
+    parameters bit-equal to ``none``'s (:func:`remat_agrees`), and the
+    QAT step's fakequant reads (kernel 4 on its tensor-core instance) 48
+    a step under ``none``, 96 (48 recomputed) under ``full`` and
+    ``dots``."""
+    from repro_torch.configs import ShapeSpec
+    shape = ShapeSpec("train_8x256", "train", 256, 8)
+    cells = {"qat_fakequant": get_config("lm100m").replace(
+        dtype="float32", analog=True, analog_mode="fakequant"),
+        "digital_bf16": get_config("lm100m")}
+    per = 4 * get_config("lm100m").n_layers
+    rows, runs = [], {label: {} for label in cells}
+    for pol in REMAT_POLICIES:
+        for label, cfg in cells.items():
+            for name in K.LAUNCHES:
+                K.LAUNCHES[name] = 0
+            with env_set("REPRO_REMAT", pol):
+                row, new = _dryrun_case(M, TL, TO, DR, cfg, shape,
+                                        f"{label}_{pol}", keep=True)
+            got = {name: K.LAUNCHES[c] for name, c in FQ_KERNELS.items()}
+            reads = 0 if label == "digital_bf16" \
+                else per * (1 if pol == "none" else 2)
+            want = {"fakequant_scale_kernel": 0, "fakequant_fp32_kernel": 0,
+                    "fakequant_prepare_kernel": reads,
+                    "fakequant_tc_kernel": reads,
+                    "fakequant_epilogue_kernel": reads}
+            if got != want or K.LAUNCHES["fakequant"] != reads:
+                fail(f"26(b) {label} under {pol} launched {got}; expected "
+                     f"{want}")
+            row.update(remat=pol, fakequant_launches=got)
+            rows.append(row)
+            runs[label][pol] = {"params": new, "loss": row["loss"],
+                                "g_rail_frac": 0.0}
+            print(f"phase 26(b): lm100m {label} 8 x 256 under "
+                  f"REPRO_REMAT={pol}: peak {row['card_peak_bytes'] / 1e9:.3f}"
+                  f" GB on the card, {row['reckoned_peak_bytes'] / 1e9:.3f} "
+                  f"GB reckoned (ratio "
+                  f"{row['peak_ratio_card_over_reckoned']:.3f}, gated within "
+                  f"{PEAK_RATIO}); {row['reckoned_flops']:.4e} FLOPs "
+                  f"reckoned; fakequant reads {reads} [{gpu_line}]")
+    for label, by_pol in runs.items():
+        def rerun(label=label):
+            with env_set("REPRO_REMAT", "none"):
+                row, new = _dryrun_case(M, TL, TO, DR, cells[label], shape,
+                                        f"{label}_none_again", keep=True)
+            return {"params": new, "loss": row["loss"]}
+
+        def initial(label=label):     # _dryrun_case's initial state
+            return dict(tree_leaves(TL.init_state(
+                0, cells[label], TO.adamw(3e-4), device="cuda")["params"]))
+        diff, nondet = remat_agrees(by_pol, f"26(b) {label}", rerun,
+                                    initial)
+        rows.append({"case": label, "differing_leaves": diff,
+                     "nondeterministic_leaves": nondet})
+        print(f"phase 26(b): lm100m {label}: the parameters after one step "
+              f"under full and dots bit-equal to none's"
+              + (f" but the card's nondeterministic {nondet}"
+                 if nondet else ""))
+    for row in rows:
+        report(row)
+    del runs
+    return rows
+
+
+def edge_recorders(K, U, state, n_layers, reads, writes):
+    """Stand-ins for ``K._read_cuda`` and ``U._update_cuda`` that record
+    only the first and last layers' launches: a read whose conductances
+    are layer 0 or ``n_layers - 1`` of a container, with its operands and
+    result; each write's two layers, sliced, at their own layer offsets.
+    Returns (recording read, recording write, real read, real write)."""
+    from repro_torch.core.analog_registry import container_paths
+    edge = {}
+    for path in container_paths(state["params"]):
+        g = tree_get(state["params"], path)["g"]
+        for i in (0, n_layers - 1):
+            edge[g[i].data_ptr()] = ("/".join(path), i)
+    read_cuda, update_cuda = K._read_cuda, U._update_cuda
+
+    def read(x, g, ref, sc, cfg, transpose=False, *a, **kw):
+        y = read_cuda(x, g, ref, sc, cfg, transpose, *a, **kw)
+        where = edge.get(g.data_ptr())
+        if where is not None:
+            reads.append((where, (x.clone(), g, ref, sc.clone(), cfg,
+                                  y.clone(), transpose)))
+        return y
+
+    def write(*args, **kw):
+        out = update_cuda(*args, **kw)
+        g, x_q, d_q, scale, noise, seed, cfg, mode, xs, ds, offs = \
+            write_call(update_cuda, args, kw)
+        for i in (0, g.shape[0] - 1):
+            sl = slice(i, i + 1)
+            writes.append(((g[sl], x_q[sl].clone(), d_q[sl].clone(),
+                            scale[sl].clone(),
+                            None if noise is None else noise[sl], seed, cfg,
+                            mode, None if xs is None else xs[sl].clone(),
+                            None if ds is None else ds[sl].clone(),
+                            (offs[0] + i, offs[1], offs[2])),
+                           out[sl].clone()))
+        return out
+    return read, write, read_cuda, update_cuda
+
+
+def reckon_device_step(TA, cfg, shape, policy):
+    """The dry run's reckoning of ``cfg``'s device-mode step over
+    ``shape`` (B, S) tokens on meta tensors under ``policy``: the
+    arguments (state and batch), the peak of the step's temporaries (the
+    plain versions' in place of the kernels'), its FLOPs."""
+    from repro_torch.launch.trace_analysis import tracing
+    with env_set("REPRO_REMAT", policy):
+        state = TA.init_state(0, cfg, device="meta")
+        batch = {k: torch.zeros(shape, dtype=torch.long, device="meta")
+                 for k in ("tokens", "labels")}
+        t = time.perf_counter()
+        with tracing(dry=True) as trace:
+            TA.make_analog_sgd_step(cfg, lr=0.1)(state, batch, REMAT_SEED)
+    args = sum(v.numel() * v.element_size()
+               for tree in (state, batch) for _, v in tree_leaves(tree))
+    return {"argument_gb": args / 1e9, "temp_gb": trace.peak_bytes / 1e9,
+            "total_gb": (args + trace.peak_bytes) / 1e9,
+            "flops": trace.flops, "reckon_s": time.perf_counter() - t}
+
+
+def phase_remat_deep(K, U, TA, syn, get_config, report, gpu_line):
+    """26(c): starcoder2-3b at full size in device mode (phase 16's
+    settings at 30 of 30 layers: TaOx, 64x64 tiles, lr 0.1), one step over
+    1 x 4096 tokens under ``full`` (1 x 2048 if that does not fit).
+    Gates: a finite loss; the conductances in the window; 240 forward
+    reads (120 of them the recompute), 120 transpose reads and 4 writes,
+    all on the tensor-core instances; the first and last layers' reads
+    and writes against their plain versions (phase 7's classes), each
+    recomputed forward read bit-equal to its original.  Beside the card's
+    step ms and peak, the dry-run reckoning under ``none`` and ``full``."""
+    cfg = get_config(REMAT_DEEP_ARCH).replace(
+        dtype="float32", analog=True, analog_mode="device",
+        analog_device="taox", analog_rows=64, analog_cols=64)
+    L = cfg.n_layers
+    torch.cuda.empty_cache()
+    resident_gb = torch.cuda.memory_allocated() / 1e9   # earlier phases'
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    state = TA.init_state(gen, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    expect = remat_expect(tensor_core_train_expect(
+        L, fakequant=0, **dict.fromkeys(FQ_KERNELS.values(), 0),
+        outer_update=4, pulse_update=0, update_tc=4, update_prepare=4,
+        update_fp32=0), 4 * L)
+    step = TA.make_analog_sgd_step(cfg, lr=0.1)
+    reads, writes, notes = [], [], []
+    for shape in REMAT_DEEP_SHAPES:
+        batch = card_batch(syn, cfg, *shape)
+        read, write, read_cuda, update_cuda = edge_recorders(
+            K, U, state, L, reads, writes)
+        K._read_cuda, U._update_cuda = read, write
+        reset_launches(K, U)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with env_set("REPRO_REMAT", "full"):
+                new, mets = step(state, batch, REMAT_SEED)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            notes.append(f"{shape[0]} x {shape[1]} did not fit: "
+                         f"{str(e).splitlines()[0]}")
+            print(f"phase 26(c): {notes[-1]}")
+            reads.clear()
+            writes.clear()
+            del batch
+            torch.cuda.empty_cache()
+            continue
+        finally:
+            K._read_cuda, U._update_cuda = read_cuda, update_cuda
+        break
+    else:
+        fail(f"26(c): {REMAT_DEEP_ARCH}'s step fits none of "
+             f"{REMAT_DEEP_SHAPES}: {notes}")
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    got = {**K.LAUNCHES, **U.LAUNCHES}
+    if got != expect:
+        fail(f"26(c) {REMAT_DEEP_ARCH} step launched {got}; expected "
+             f"{expect}")
+    loss = float(mets["loss"])
+    if not math.isfinite(loss):
+        fail(f"26(c) {REMAT_DEEP_ARCH}: loss {loss}")
+    for path, g in tree_leaves(new["params"]):
+        if path[-1] == "g" and not (g.min() >= 0 and g.max() <= 1):
+            fail(f"26(c): conductances of {path} left the window")
+    del new, state
+    # each recomputed forward read against its original, the originals
+    # and the transpose reads against the plain version
+    first, recomputed = {}, 0
+    checked = []
+    for where, r in reads:
+        key = (where, r[6])
+        if r[6] or key not in first:
+            first[key] = r
+            checked.append(r)
+            continue
+        o = first[key]
+        if not (torch.equal(o[0], r[0]) and torch.equal(o[5], r[5])):
+            fail(f"26(c): the recomputed forward read of {where} differs "
+                 "from its original")
+        recomputed += 1
+    if recomputed != 4 * 2 or len(checked) != 4 * 2 * 2:
+        fail(f"26(c): {recomputed} recomputed and {len(checked)} other "
+             "reads of the first and last layers recorded; expected 8 and "
+             "16")
+    worst_r = check_reads(K, checked, where="cuda")
+    worst_w = check_writes(U, writes, f"26(c) {REMAT_DEEP_ARCH} step")
+    del reads, writes, checked, first
+    torch.cuda.empty_cache()
+    reckoned = {pol: reckon_device_step(TA, cfg, shape, pol)
+                for pol in ("none", "full")}
+    res = {"config": REMAT_DEEP_ARCH,
+           "cut": f"{L} of {L} layers, full widths; one step over "
+                  f"{shape[0]} x {shape[1]} tokens",
+           "shape": list(shape), "notes": notes, "init_s": init_s,
+           "resident_before_gb": resident_gb,
+           "loss": loss, "step_ms": step_ms, "launches": got,
+           "card_peak_gb": peak_gb, "reads_checked": 16,
+           "recomputed_reads_bit_equal": recomputed,
+           **{f"reads_{k}": v for k, v in worst_r.items()},
+           "writes_checked": 8,
+           **{f"writes_{k}": v for k, v in worst_w.items()},
+           "reckoned": reckoned}
+    report(res)
+    print(f"phase 26(c): {REMAT_DEEP_ARCH} ({res['cut']}) one device-mode "
+          f"step under REPRO_REMAT=full: loss {loss:.5f}, {step_ms:.1f} ms, "
+          f"card peak {peak_gb:.2f} GB ({resident_gb:.2f} GB held before "
+          f"the phase); launches {got['fused_vmm']} forward "
+          f"({4 * L} recomputed), {got['fused_mvm']} transpose, "
+          f"{got['update_tc']} writes; the first and last layers' 16 reads "
+          f"({worst_r['max_err_over_bound']:.3f} of the bound) and 8 "
+          f"written layers ({worst_w['max_err_over_twin_bound']:.3f} of the "
+          f"twin's bound) agree with their plain versions, 8 recomputed "
+          f"reads bit-equal to their originals [{gpu_line}]")
+    for pol, r in reckoned.items():
+        print(f"phase 26(c): reckoned (dry run, meta tensors) under "
+              f"REPRO_REMAT={pol}: {r['argument_gb']:.1f} + "
+              f"{r['temp_gb']:.1f} = {r['total_gb']:.1f} GB "
+              f"(args + temps), {r['flops']:.4e} FLOPs")
+    if notes:
+        print(f"phase 26(c): took {shape[0]} x {shape[1]} tokens: "
+              + "; ".join(notes))
+    return res
+
+
+def phase_remat_hybrid(K, U, TA, syn, get_config, report, gpu_line):
+    """26(d): zamba2-1.2b in device mode at 21(b)'s cut (13 layers, two
+    shared-block applications between rematted SSD groups; TaOx, 64x64
+    tiles, lr 0.1, 8 x 256 tokens), one step under ``none`` and ``full``
+    from one state.  Gates: bit-equal new states and losses; 21(b)'s
+    launches under ``none``, the 26 SSD layers' forward reads once more
+    under ``full`` (the shared block is not rematted)."""
+    from repro_torch.core.analog_registry import container_paths, tape_reps
+    torch.cuda.empty_cache()
+    n_layers = HYBRID_TRAIN_LAYERS
+    cfg = get_config(HYBRID_ARCH).replace(
+        dtype="float32", analog=True, analog_mode="device",
+        analog_device="taox", analog_rows=64, analog_cols=64,
+        n_layers=n_layers)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = TA.init_state(gen, cfg, device="cuda")
+    batch = card_batch(syn, cfg, 8, 256)
+    n_reads = ssm_reads(state["params"], cfg)
+    n_shared = sum(tape_reps(p, cfg) > 1
+                   for p in container_paths(state["params"]))
+    base = tensor_core_train_expect(
+        n_layers, fakequant=0, **dict.fromkeys(FQ_KERNELS.values(), 0),
+        outer_update=2 + n_shared, pulse_update=0, update_tc=2,
+        update_prepare=2, update_fp32=n_shared)
+    for d in ("vmm", "mvm"):
+        for c in READ_KERNEL_COUNTS.values():
+            if base[f"{c}_{d}"]:
+                base[f"{c}_{d}"] = n_reads
+        base[f"fused_{d}"] = n_reads
+    runs = {}
+    for pol in ("none", "full"):
+        with env_set("REPRO_REMAT", pol):
+            runs[pol] = remat_step(
+                K, U, TA, cfg, state, batch,
+                base if pol == "none" else remat_expect(base, 2 * n_layers),
+                f"26(d) {HYBRID_ARCH} under {pol}")
+    diff, nondet = remat_agrees(runs, f"26(d) {HYBRID_ARCH}", *rerun_none(
+        K, U, TA, cfg, state, batch, base, f"26(d) {HYBRID_ARCH}"))
+    res = {"config": HYBRID_ARCH,
+           "cut": f"{n_layers} layers, full widths; 8 x 256 tokens",
+           "nondeterministic_leaves": nondet, "differing_leaves": diff,
+           **{pol: {k: v for k, v in r.items() if k != "params"}
+              for pol, r in runs.items()}}
+    report(res)
+    print(f"phase 26(d): {HYBRID_ARCH} ({res['cut']}) one device-mode step "
+          f"under none and full: bit-equal"
+          + (f" but the card's nondeterministic {nondet}" if nondet else "")
+          + "; forward reads " + ", ".join(
+              f"{p} {r['launches']['fused_vmm']}" for p, r in runs.items())
+          + f", transpose {runs['none']['launches']['fused_mvm']}, writes "
+          f"{n_shared} FP32 + 2 tensor-core; "
+          + ", ".join(f"{p} {r['step_ms']:.1f} ms" for p, r in runs.items())
+          + f" [{gpu_line}]")
+    del runs, state
+    return res
+
+
+def phase_prefill_head(M, get_config, report, gpu_line):
+    """26(e): the prefill head on the card.  ``models.model.prefill``
+    applies the final norm and the head to the last position alone (a
+    1-row product a sequence); the same logits are the last row of the
+    full forward's (B x S rows).  lm100m (tied head: a float32 product)
+    and starcoder2-3b at 2 layers (its own head, in the activation dtype),
+    digital, float32 and bfloat16, 4 x 64 tokens from seed 0.  Gate: the
+    float32 cases within the forward's class (1e-5 relative and absolute,
+    ``tests/test_torch_prefill_head.py``); the bfloat16 ones are stated."""
+    rows = []
+    for arch, layers in (("lm100m", None), ("starcoder2-3b", 2)):
+        for dtype in ("float32", "bfloat16"):
+            cfg = get_config(arch).replace(dtype=dtype)
+            if layers:
+                cfg = cfg.replace(n_layers=layers)
+            params = M.init_params(cfg, 0, device="cuda")
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            tokens = torch.randint(0, cfg.vocab, (4, 64), device="cuda",
+                                   generator=gen)
+            with torch.no_grad():
+                head, _ = M.prefill(params, {"tokens": tokens}, cfg, 64)
+                full, _ = M.forward(params, {"tokens": tokens}, cfg)
+            full = full[:, -1]
+            err = (head - full).abs().max().item()
+            scale = full.abs().max().item()
+            row = {"arch": arch, "layers": layers or cfg.n_layers,
+                   "dtype": dtype, "max_abs_err": err,
+                   "max_abs_logit": scale,
+                   "bit_equal": bool(torch.equal(head, full))}
+            rows.append(row)
+            report(row)
+            print(f"phase 26(e): {arch} {dtype} prefill head (one row a "
+                  f"sequence) vs the full forward's last row: max abs err "
+                  f"{err:.3g} of logits up to {scale:.3g}"
+                  + (", bit-equal" if row["bit_equal"] else "")
+                  + f" [{gpu_line}]")
+            if dtype == "float32" and not torch.allclose(
+                    head, full, rtol=1e-5, atol=1e-5):
+                fail(f"26(e): {arch}'s float32 prefill head differs from "
+                     f"the full forward's last row by {err}")
+            del params
     return rows
 
 
@@ -6684,6 +7234,11 @@ def main():
         seconds[name] = time.perf_counter() - t
         print(f"phase {name} took {seconds[name]:.1f} s of wall time")
 
+    # phases 1-25 run without per-layer remat, as in the runs before it
+    # existed (their gates, launch counts and times stay comparable);
+    # phase 26 runs the policies
+    no_remat = contextlib.ExitStack()
+    no_remat.enter_context(env_set("REPRO_REMAT", "none"))
     with phase("1"):
         profiler_warmup()
         rows = phase_kernel(K, cfg_of, reporter("kernel"))
@@ -6843,6 +7398,29 @@ def main():
         dryrun = phase_dryrun(M, TL, TO, DR, get_config, reporter("dryrun"),
                               gpu_line)
     details["dryrun_25c"] = dryrun
+    no_remat.close()
+    with phase("26"):
+        remat_lm = phase_remat_train(K, U, TA, syn, tcfg,
+                                     reporter("remat_train"), gpu_line)
+        remat_dry = phase_remat_dryrun(M, K, TL, TO, DR, get_config,
+                                       reporter("remat_dryrun"), gpu_line)
+        remat_deep = phase_remat_deep(K, U, TA, syn, get_config,
+                                      reporter("remat_deep"), gpu_line)
+        remat_hybrid = phase_remat_hybrid(K, U, TA, syn, get_config,
+                                          reporter("remat_hybrid"), gpu_line)
+        phase_prefill_head(M, get_config, reporter("prefill_head"),
+                           gpu_line)
+
+    def remat_launches(name):
+        """The kernels-line figures of phase 26 for one launch count."""
+        return {"launches_lm100m_train_remat_26a": {
+                    pol: remat_lm[pol]["launches"][name]
+                    for pol in REMAT_POLICIES},
+                "launches_starcoder2_3b_train_full_depth_26c":
+                    remat_deep["launches"][name],
+                "launches_zamba2_1_2b_train_remat_26d": {
+                    pol: remat_hybrid[pol]["launches"][name]
+                    for pol in ("none", "full")}}
 
     def bitplane_cases(transpose):
         """The kernels-line figures of phase 25(a) for one direction."""
@@ -6953,6 +7531,7 @@ def main():
         "partials_form_24b": sharded_reads(False),
         "bitplane_oracle_25a": bitplane_cases(False),
         "coverage_25b": covered("xbar_fused_vmm"),
+        **remat_launches("fused_vmm"),
         **mlp_read_entry(mlp, "vmm", ("l1_vmm", "l2_vmm"))}, {
         "name": "xbar_fused_mvm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_vmm.cu",
@@ -6977,6 +7556,7 @@ def main():
         "partials_form_24b": sharded_reads(True),
         "bitplane_oracle_25a": bitplane_cases(True),
         "coverage_25b": covered("xbar_fused_mvm"),
+        **remat_launches("fused_mvm"),
         **mlp_read_entry(mlp, "mvm", ("l2_mvm",))}, {
         "name": "xbar_outer_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
@@ -6993,7 +7573,8 @@ def main():
         "launches_zamba2_1_2b_train": hybrid_train["launches"]["update_tc"],
         **cross_launches("update_tc"),
         "tile_offsets_24a": sharded_writes("outer"),
-        "coverage_25b": covered("xbar_outer_update")},
+        "coverage_25b": covered("xbar_outer_update"),
+        **remat_launches("update_tc")},
         {
         "name": "xbar_update_prepare", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
@@ -7041,6 +7622,10 @@ def main():
             for r in moe_fq_rows if "ms" in r],
         **fq_entry(fq_decode), "library_ms": None,
         "coverage_25b": covered("xbar_fakequant_read"),
+        "launches_qat_remat_26b": {
+            r["remat"]: r["fakequant_launches"]["fakequant_tc_kernel"]
+            for r in remat_dry if r.get("case", "").startswith("qat")
+            and "remat" in r},
         "instances": [{
             "name": "fp32 (fakequant_scale_kernel, fakequant_fp32_kernel, "
                     "fakequant_epilogue_kernel)", "route": "cuda",
@@ -7219,7 +7804,17 @@ def main():
         "lists the launch-coverage cases of analysis.kernel_lint (ragged "
         "and full width, every instance) and counts those with every output "
         "element written, no guard element touched and two launches "
-        "bit-equal; those launches are not counted in launches")
+        "bit-equal; those launches are not counted in launches. Phase 26 "
+        "(per-layer remat, REPRO_REMAT; phases 1-25 run under none): "
+        "launches_lm100m_train_remat_26a counts one lm100m device-mode "
+        "step's launches under each policy (the forward reads of full and "
+        "dots include the backward's recompute), "
+        "launches_starcoder2_3b_train_full_depth_26c the 30-layer "
+        "starcoder2-3b step's under full, "
+        "launches_zamba2_1_2b_train_remat_26d the 13-layer zamba2-1.2b "
+        "step's under none and full; xbar_fakequant_read's "
+        "launches_qat_remat_26b the tensor-core fakequant reads of one "
+        "lm100m QAT step under each policy")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1))

@@ -46,8 +46,10 @@ from .findings import Finding, relativize
 
 #: RA105: dispatched aten ops of the lm100m smoke analog step (64x64
 #: tiles, batch 2 x 16, forward, backward and writes).  Measured on this
-#: tree: 3115 on one device, 3265 on a 2x2 mesh (its block cuts, combines
-#: and rail count); the budget is about 1.6x the larger.  It exists to
+#: tree under the default per-layer remat (``REPRO_REMAT=full``, the
+#: backward's recomputed forward included): 3711 on one device, 4093 on
+#: a 2x2 mesh (its block cuts, combines and rail count); 3115 and 3265
+#: without remat.  The budget is about 1.3x the larger.  It exists to
 #: catch per-layer unrolling (which multiplies the count by the layers)
 #: and a de-fused read chain, not drift.
 MAX_STEP_OPS = 5200

@@ -20,6 +20,10 @@ coords)``: the production meshes need 256 or 512 ranks, which
     ``temp_gb`` is the step's peak of live bytes it allocates and
     ``fits_h100`` compares arguments plus temporaries with the H100's 80
     GB;
+  * ``remat``: the per-layer remat policy the step ran under
+    (``models.transformer.remat_policy``, ``REPRO_REMAT``: ``full`` by
+    default, as in the reference; ``--remat none,full`` runs each cell
+    under each);
   * ``trace``: the local step's FLOPs, bytes moved and peak, counted by
     ``launch.trace_analysis`` over the step as it runs on ``meta``
     tensors (the train step of ``train_loop.make_train_step`` with
@@ -42,13 +46,15 @@ fails records its error and the sweep goes on.
 
     python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--mesh 1x1,4x1] \\
-        [--out results/dryrun] [--table]
+        [--remat none,full] [--out results/dryrun] [--table]
 
 Nothing is written unless ``--out`` is given.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 import json
 import math
 import os
@@ -66,6 +72,7 @@ from repro_torch.launch.mesh import PRODUCTION_SHAPES, Mesh, dp_axes
 from repro_torch.launch.trace_analysis import tracing
 from repro_torch.launch.train import data_mean
 from repro_torch.models import model as M
+from repro_torch.models.transformer import remat_policy
 from repro_torch.train import train_loop
 from repro_torch.train.optimizer import adamw
 
@@ -189,7 +196,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str,
     if os.environ.get("REPRO_ANALOG"):     # the fakequant projections
         cfg = cfg.replace(analog=True)
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-           "ok": False}
+           "remat": remat_policy(), "ok": False}
     try:
         shape = SHAPE_BY_NAME[shape_name]
         rec["kind"] = shape.kind
@@ -215,28 +222,48 @@ def cells(arch: Optional[str] = None, shape: Optional[str] = None):
 
 
 def table(recs) -> str:
-    """Markdown table of per-device gigabytes, one row per cell, one
-    column group per mesh."""
+    """Markdown table of per-device gigabytes, one row per cell: for each
+    mesh the replicated gigabytes, then for each (mesh, remat policy) the
+    total (arguments + temporaries) and whether it fits."""
     meshes = sorted({r["mesh"] for r in recs}, key=list(MESHES).index)
-    by = {(r["arch"], r["shape"], r["mesh"]): r for r in recs}
+    remats = list(dict.fromkeys(r["remat"] for r in recs))
+    by = {(r["arch"], r["shape"], r["mesh"], r["remat"]): r for r in recs}
+    groups = [(m, p) for m in meshes for p in remats]
     head = "| arch | shape | " + " | ".join(
-        f"{m} total GB (args + temp) | {m} replicated GB | {m} fits"
-        for m in meshes) + " |"
-    lines = [head, "|" + "---|" * (2 + 3 * len(meshes))]
+        f"{m} replicated GB" for m in meshes) + " | " + " | ".join(
+        f"{m} {p}: total GB (args + temp), fits" for m, p in groups) + " |"
+    lines = [head, "|" + "---|" * (2 + len(meshes) + len(groups))]
     for a, s in dict.fromkeys((r["arch"], r["shape"]) for r in recs):
+        mems = {g: by[(a, s, *g)]["mem"] for g in groups
+                if (a, s, *g) in by and by[(a, s, *g)]["ok"]}
         row = [a, s]
-        for m in meshes:
-            r = by.get((a, s, m))
-            if r is None or not r["ok"]:
-                row += ["error", "", ""]
-                continue
-            mem = r["mem"]
-            row += [f"{mem['total_gb']:.1f} ({mem['argument_gb']:.1f} + "
-                    f"{mem['temp_gb']:.1f})",
-                    f"{mem['replicated_by_port_gb']:.1f}",
-                    "yes" if mem["fits_h100"] else "no"]
+        for m in meshes:    # the same under every policy
+            mem = next((v for (mm, _), v in mems.items() if mm == m), None)
+            row.append("error" if mem is None
+                       else f"{mem['replicated_by_port_gb']:.1f}")
+        for g in groups:
+            mem = mems.get(g)
+            row.append("error" if mem is None else
+                       f"{mem['total_gb']:.1f} ({mem['argument_gb']:.1f} + "
+                       f"{mem['temp_gb']:.1f}), "
+                       + ("yes" if mem["fits_h100"] else "no"))
         lines.append("| " + " | ".join(row) + " |")
     return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def _remat_env(policy: Optional[str]):
+    """``REPRO_REMAT=policy`` for the block (``None``: as it is)."""
+    prev = os.environ.get("REPRO_REMAT")
+    if policy is not None:
+        os.environ["REPRO_REMAT"] = policy
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_REMAT", None)
+        else:
+            os.environ["REPRO_REMAT"] = prev
 
 
 def main(argv=None):
@@ -246,6 +273,10 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--mesh", default=",".join(MESHES),
                     help=f"comma-separated, of {', '.join(MESHES)}")
+    ap.add_argument("--remat", default=None,
+                    help="comma-separated REPRO_REMAT policies (none, dots, "
+                    "full) to run each cell under; default the "
+                    "environment's")
     ap.add_argument("--smoke", action="store_true", help="reduced configs")
     ap.add_argument("--out", default=None,
                     help="write one JSON record per cell here")
@@ -260,10 +291,13 @@ def main(argv=None):
     recs = []
     for arch, shape_name in cells(None if args.all else args.arch,
                                   args.shape):
-        for mesh_name in args.mesh.split(","):
-            rec = run_cell(arch, shape_name, mesh_name, smoke=args.smoke)
+        for mesh_name, policy in itertools.product(
+                args.mesh.split(","),
+                args.remat.split(",") if args.remat else [None]):
+            with _remat_env(policy):
+                rec = run_cell(arch, shape_name, mesh_name, smoke=args.smoke)
             recs.append(rec)
-            tag = f"{arch}__{shape_name}__{mesh_name}"
+            tag = f"{arch}__{shape_name}__{mesh_name}__{rec['remat']}"
             if out_dir is not None:
                 (out_dir / f"{tag}.json").write_text(json.dumps(rec,
                                                                 indent=1))

@@ -108,31 +108,30 @@ def program_digital(params, cfg: ModelConfig, path=()):
 
 
 def _forward(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig,
-             caches=None, positions=None, shared_caches=None):
+             caches=None, positions=None, shared_caches=None,
+             last_only: bool = False):
     """``(logits, caches, shared_caches, aux)``, as the reference's
     ``forward`` returns them: :func:`forward` with the shared caches and
-    the aux loss.  An audio decode step (caches given, one token) skips
-    the encoder: the cross keys and values come from the caches."""
+    the aux loss; with ``last_only`` the logits of the last position
+    alone, (B, 1, V).  An audio decode step (caches given, one token)
+    skips the encoder: the cross keys and values come from the caches."""
     tokens = batch["tokens"]
+    kw = dict(positions=positions, last_only=last_only)
     if cfg.family == "vlm":
         logits, caches, aux = tf.vlm_apply(params, tokens, batch["vision"],
-                                           cfg, caches=caches,
-                                           positions=positions)
+                                           cfg, caches=caches, **kw)
         return logits, caches, None, aux
     if cfg.family == "audio":
         enc = None if caches is not None and tokens.shape[1] == 1 \
             else tf.audio_encode(params, batch["audio"], cfg)
         logits, caches, aux = tf.audio_decode(params, tokens, enc, cfg,
-                                              caches=caches,
-                                              positions=positions)
+                                              caches=caches, **kw)
         return logits, caches, None, aux
     if cfg.family in ("ssm", "hybrid"):
-        return tf.ssm_stack_apply(params, tokens, cfg,
-                                  states=caches, shared_caches=shared_caches,
-                                  positions=positions)
+        return tf.ssm_stack_apply(params, tokens, cfg, states=caches,
+                                  shared_caches=shared_caches, **kw)
     logits, caches, aux = tf.decoder_apply(params, tokens, cfg,
-                                           caches=caches,
-                                           positions=positions)
+                                           caches=caches, **kw)
     return logits, caches, None, aux
 
 
@@ -229,11 +228,14 @@ def prefill(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig,
             max_len: int):
     """Run the prompt (and the batch's stream, for the cross-attention
     families) through the model: last-token logits and a cache sized
-    ``max_len``."""
+    ``max_len``.  The head reads the last position alone (B rows, not B
+    x S: the reference's forms every position's logits and keeps the
+    last)."""
     b = batch["tokens"].shape[0]
     caches, shared = init_cache(cfg, b, max_len, batch["tokens"].device)
     logits, caches, shared, _ = _forward(params, batch, cfg, caches=caches,
-                                         shared_caches=shared)
+                                         shared_caches=shared,
+                                         last_only=True)
     return logits[:, -1], (caches, shared)
 
 

@@ -16,6 +16,13 @@ step each application of the shared block deposits its write operands in
 its own slot of the containers' tapes (the reference scans over the
 tapes' leading dim).
 
+Per-layer remat (:func:`_remat`, the reference's ``REPRO_REMAT``) wraps
+the same blocks as the reference's scans: the dense, MoE and MLA
+decoder blocks, the audio encoder and decoder blocks, the VLM's self
+blocks and the SSM / hybrid SSD layers; not the VLM's cross blocks nor
+the hybrid's shared block, whose group bodies the reference leaves
+un-rematerialised.
+
 The cross-attention families take a second token stream (the stub
 frontends' ``(B, n_vision_tokens | n_audio_frames, d_model)`` inputs).
 Every cross-attention reads its fused ``wqkv`` once over the decoder
@@ -25,9 +32,13 @@ step tapes n_tokens + B x stream rows for it
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+import os
+from functools import partial
+from typing import Any, Callable, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.shardctx import ShardMeta
@@ -50,6 +61,59 @@ def tree_index(tree, i: int):
     if isinstance(tree, ShardMeta):  # a sharded container's, every layer's
         return tree
     return tree[i]
+
+
+#: The ops whose outputs ``REPRO_REMAT=dots`` saves: the matmuls without
+#: batch dims (``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``).
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def remat_policy() -> str:
+    """``REPRO_REMAT`` as the reference reads it: ``none``, ``dots``, and
+    anything else (the default included) ``full``."""
+    pol = os.environ.get("REPRO_REMAT", "full")
+    return pol if pol in ("none", "dots") else "full"
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(f: Callable) -> Callable:
+    """Per-layer remat (the reference's ``_remat``): ``f`` called through
+    ``torch.utils.checkpoint`` under the policy ``REPRO_REMAT`` names when
+    the call is made.
+
+    * ``full`` (the default): ``checkpoint(f, ..., use_reentrant=False)``;
+      only the block's inputs are kept, and the backward replays the
+      whole block.
+    * ``dots``: the same call with a selective-checkpoint context that
+      saves the outputs of ``aten.mm`` and ``aten.addmm`` (the matmuls
+      without batch dims) and recomputes every other op.  Recomputed as
+      under ``full``: ``bmm`` (the attention scores, the expert stacks),
+      the analog reads inside ``core.tiled_analog.TapedMatmul`` and the
+      fakequant kernel inside ``kernels.ops.FakequantRead``, none of which
+      is a dot without batch dims in the reference either.
+    * ``none``: ``f`` as it is.
+
+    Remat changes only differentiation, so a call with grad disabled
+    (serving) runs ``f`` bare under every policy.  The recomputed forward
+    reads the same conductances and deposits nothing: the tape slots are
+    written only by the original ``TapedMatmul`` node's backward, and no
+    block draws a random number.  Callers thread no caches or states
+    through a rematted block: their in-place updates would be replayed.
+    """
+    def run(*args):
+        pol = remat_policy()
+        if pol == "none" or not torch.is_grad_enabled():
+            return f(*args)
+        kw = {}
+        if pol == "dots":
+            kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                       _save_dots)
+        return checkpoint(f, *args, use_reentrant=False, **kw)
+    return run
 
 
 def dense_block_init(generator: torch.Generator, cfg: ModelConfig,
@@ -146,7 +210,12 @@ def decoder_init(generator: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _logits(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+def _logits(p: dict, x: Tensor, cfg: ModelConfig,
+            last_only: bool = False) -> Tensor:
+    """The head's logits, of every position or (``last_only``, a prefill)
+    of the last one alone: the norm and the head act per position."""
+    if last_only:
+        x = x[:, -1:]
     x = rmsnorm(p["final_ln"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         # the scale keeps init logits O(1) (embeddings are unit-variance)
@@ -159,11 +228,15 @@ def _embed_lookup(p: dict, tokens: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 def decoder_apply(p: dict, tokens: Tensor, cfg: ModelConfig, *,
-                  caches=None, positions=None) -> Tuple[Tensor, Any, Tensor]:
-    """Logits of ``tokens`` (B, S), the caches (updated in place) and the
-    aux loss summed over the layers (0 for the dense family)."""
+                  caches=None, positions=None, last_only: bool = False
+                  ) -> Tuple[Tensor, Any, Tensor]:
+    """Logits of ``tokens`` (B, S) (of the last position alone, (B, 1, V),
+    with ``last_only``), the caches (updated in place) and the aux loss
+    summed over the layers (0 for the dense family)."""
     x = _embed_lookup(p, tokens, cfg)
     block = moe_block if cfg.n_experts else dense_block
+    if caches is None:
+        block = _remat(block)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         cache = tree_index(caches, i) if caches is not None else None
@@ -173,7 +246,7 @@ def decoder_apply(p: dict, tokens: Tensor, cfg: ModelConfig, *,
             aux = aux + a
         if caches is not None:
             caches["len"][i] = new_cache["len"]
-    return _logits(p, x, cfg), caches, aux
+    return _logits(p, x, cfg, last_only), caches, aux
 
 
 # --------------------------------------------------------------------------
@@ -198,7 +271,8 @@ def vlm_init(generator: torch.Generator, cfg: ModelConfig,
 
 
 def vlm_apply(p: dict, tokens: Tensor, vision: Tensor, cfg: ModelConfig, *,
-              caches=None, positions=None) -> Tuple[Tensor, Any, Tensor]:
+              caches=None, positions=None, last_only: bool = False
+              ) -> Tuple[Tensor, Any, Tensor]:
     """Logits of ``tokens`` (B, S) with the vision stream ``vision`` (B,
     n_vision_tokens, d_model); each group is a cross block over the
     stream and ``g - 1`` self blocks, self layer ``gi * (g - 1) + j``
@@ -208,17 +282,18 @@ def vlm_apply(p: dict, tokens: Tensor, vision: Tensor, cfg: ModelConfig, *,
     x = _embed_lookup(p, tokens, cfg)
     vision = vision.to(cdtype(cfg))
     inner = cfg.cross_attn_every - 1
+    self_block = _remat(dense_block) if caches is None else dense_block
     for gi in range(cfg.n_layers // cfg.cross_attn_every):
         x = cross_block(tree_index(p["cross_layers"], gi), x, vision, cfg)
         for j in range(inner):
             cache = tree_index(tree_index(caches, gi), j) \
                 if caches is not None else None
-            x, new_cache, _ = dense_block(
+            x, new_cache, _ = self_block(
                 tree_index(p["self_layers"], gi * inner + j), x, cfg,
                 positions, cache)
             if caches is not None:
                 caches["len"][gi, j] = new_cache["len"]
-    return _logits(p, x, cfg), caches, \
+    return _logits(p, x, cfg, last_only), caches, \
         torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -255,22 +330,59 @@ def audio_init(generator: torch.Generator, cfg: ModelConfig,
                                         device)}}
 
 
+def _enc_block(lp: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """An encoder block: non-causal, rope-free attention and the FFN."""
+    h, _ = attention(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
+                     causal=False, use_rope=False)
+    x = x + h
+    return x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg)
+
+
 def audio_encode(p: dict, frames: Tensor, cfg: ModelConfig) -> Tensor:
     """frames: (B, n_audio_frames, d_model), the stub conv frontend's
     output; non-causal, rope-free attention."""
     x = frames.to(cdtype(cfg)) + p["enc_pos"].to(cdtype(cfg))
+    block = _remat(_enc_block)
     for i in range(cfg.n_encoder_layers):
-        lp = tree_index(p["enc_layers"], i)
-        h, _ = attention(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps),
-                         cfg, causal=False, use_rope=False)
-        x = x + h
-        x = x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg)
+        x = block(tree_index(p["enc_layers"], i), x, cfg)
     return rmsnorm(p["enc_ln"], x, cfg.norm_eps)
 
 
+def _dec_block(lp: dict, x: Tensor, enc: Optional[Tensor], cfg: ModelConfig,
+               positions, c) -> Tuple[Tensor, Optional[dict]]:
+    """A decoder block (see :func:`audio_decode`): cached self-attention,
+    the fused cross-attention, the FFN.  Fills ``c``'s cross keys and
+    values in place when ``enc`` is given; returns the new self cache."""
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    h, nc_self = attention(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                           cfg, positions=positions,
+                           cache=c["self"] if c is not None else None)
+    x = x + h
+    hn = rmsnorm(lp["lnx"], x, cfg.norm_eps)
+    xp = lp["xattn"]
+    if enc is None:
+        ck, cv = c["ck"].to(x.dtype), c["cv"].to(x.dtype)
+        q = _split_heads(project(xp["wqkv"], hn, cfg)[..., :nq], cfg.n_heads)
+    else:
+        sq = x.shape[1]
+        qkv = project(xp["wqkv"], torch.cat([hn, enc.to(hn.dtype)], dim=1),
+                      cfg)
+        q = _split_heads(qkv[:, :sq, :nq], cfg.n_heads)
+        ck = _split_heads(qkv[:, sq:, nq:nq + nkv], cfg.n_kv_heads)
+        cv = _split_heads(qkv[:, sq:, nq + nkv:], cfg.n_kv_heads)
+        if c is not None:
+            c["ck"].copy_(ck)
+            c["cv"].copy_(cv)
+    o = _chunked_sdpa(q, ck, cv, causal=False)
+    x = x + project(xp["wo"], o.reshape(*x.shape[:-1], -1), cfg)
+    x = x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg)
+    return x, nc_self
+
+
 def audio_decode(p: dict, tokens: Tensor, enc: Optional[Tensor],
-                 cfg: ModelConfig, *, caches=None,
-                 positions=None) -> Tuple[Tensor, Any, Tensor]:
+                 cfg: ModelConfig, *, caches=None, positions=None,
+                 last_only: bool = False) -> Tuple[Tensor, Any, Tensor]:
     """The decoder stack.  Self-attention is cached, with rope (as the
     reference, not whisper's learned positions).  Cross-attention: with
     the encoder output ``enc`` (prefill, training), one read of the fused
@@ -282,38 +394,14 @@ def audio_decode(p: dict, tokens: Tensor, enc: Optional[Tensor],
     updated in place.  Only the fused ``wqkv`` layout exists (the
     reference's split layout has no initialiser)."""
     x = _embed_lookup(p, tokens, cfg)
-    hd = cfg.resolved_head_dim
-    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-    sq = x.shape[1]
+    block = _remat(_dec_block) if caches is None else _dec_block
     for i in range(cfg.n_layers):
-        lp = tree_index(p["dec_layers"], i)
         c = tree_index(caches, i) if caches is not None else None
-        h, nc_self = attention(lp["attn"], rmsnorm(lp["ln1"], x,
-                                                   cfg.norm_eps),
-                               cfg, positions=positions,
-                               cache=c["self"] if c is not None else None)
-        x = x + h
-        hn = rmsnorm(lp["lnx"], x, cfg.norm_eps)
-        xp = lp["xattn"]
-        if enc is None:
-            ck, cv = c["ck"].to(x.dtype), c["cv"].to(x.dtype)
-            q = _split_heads(project(xp["wqkv"], hn, cfg)[..., :nq],
-                             cfg.n_heads)
-        else:
-            qkv = project(xp["wqkv"], torch.cat([hn, enc.to(hn.dtype)],
-                                                dim=1), cfg)
-            q = _split_heads(qkv[:, :sq, :nq], cfg.n_heads)
-            ck = _split_heads(qkv[:, sq:, nq:nq + nkv], cfg.n_kv_heads)
-            cv = _split_heads(qkv[:, sq:, nq + nkv:], cfg.n_kv_heads)
-            if c is not None:
-                c["ck"].copy_(ck)
-                c["cv"].copy_(cv)
-        o = _chunked_sdpa(q, ck, cv, causal=False)
-        x = x + project(xp["wo"], o.reshape(*x.shape[:-1], -1), cfg)
-        x = x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg)
+        x, nc_self = block(tree_index(p["dec_layers"], i), x, enc, cfg,
+                           positions, c)
         if caches is not None:
             caches["self"]["len"][i] = nc_self["len"]
-    return _logits(p, x, cfg), caches, \
+    return _logits(p, x, cfg, last_only), caches, \
         torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -354,12 +442,14 @@ def tape_slot(tapes, i: int, reps: int):
 
 
 def ssm_stack_apply(p: dict, tokens: Tensor, cfg: ModelConfig, *,
-                    states=None, shared_caches=None, positions=None
+                    states=None, shared_caches=None, positions=None,
+                    last_only: bool = False
                     ) -> Tuple[Tensor, Any, Any, Tensor]:
     """Logits of ``tokens`` (B, S), the SSM states and the hybrid's shared
     K/V caches (both updated in place) and a zero aux loss."""
     x0 = _embed_lookup(p, tokens, cfg)
     x = x0
+    block = _remat(ssm_block) if states is None else ssm_block
     k = cfg.attn_every
     if k:
         shared_clean, shared_tapes, has_tapes = pop_tapes(
@@ -367,7 +457,7 @@ def ssm_stack_apply(p: dict, tokens: Tensor, cfg: ModelConfig, *,
              "ffn": p["shared_ffn"]})
     for i in range(cfg.n_layers):
         st = tree_index(states, i) if states is not None else None
-        x, new_st = ssm_block(tree_index(p["layers"], i), x, cfg, st)
+        x, new_st = block(tree_index(p["layers"], i), x, cfg, st)
         if states is not None:
             for key, leaf in states.items():
                 leaf[i].copy_(new_st[key])
@@ -390,4 +480,4 @@ def ssm_stack_apply(p: dict, tokens: Tensor, cfg: ModelConfig, *,
         if shared_caches is not None:
             shared_caches["len"][gi] = new_cache["len"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(p, x, cfg), states, shared_caches, aux
+    return _logits(p, x, cfg, last_only), states, shared_caches, aux

@@ -47,7 +47,7 @@ from repro_torch.serve import SamplingParams, make_engine
 from repro_torch.serve.engine import ContinuousEngine
 from test_torch_ssm import (MODES, TOKENS, TRAIN, _close, _get, _np,
                             check_reads_on_reference_operands, check_step,
-                            recording_reference)
+                            recording_reference, remat_replays)
 from test_torch_vlm import (check_fq_reads_with_flips, check_mode,
                             check_tapes, port_forward, port_reads,
                             port_step_replayed, reference_forward,
@@ -353,15 +353,16 @@ def audio_step():
 def test_device_train_step_with_replayed_reads(audio_step, monkeypatch):
     """One device-mode step against the reference's, every forward and
     transpose read replaced by the reference's result for the same
-    container (10 containers, each read once each way a layer):
-    conductances within 1e-6, ``ref`` and ``w_scale`` bit-equal, the loss
-    within 1e-5, ``enc_pos`` and the other digital leaves within 1e-4 of
-    their moves."""
+    container (10 containers, each read once each way a layer, forward
+    once more under the port's remat): conductances within 1e-6, ``ref``
+    and ``w_scale`` bit-equal, the loss within 1e-5, ``enc_pos`` and the
+    other digital leaves within 1e-4 of their moves."""
     run = audio_step
     state, mets, _, used = port_step_replayed(run, monkeypatch)
     assert len(run["reads"]) == 2 * READS_PER_CALL
     assert all(len(v) == 1 for v in run["reads"].values())
-    assert sorted(k for k, _ in used) == sorted(run["reads"])
+    assert sorted(k for k, _ in used) == remat_replays(
+        run["init"]["params"], ("enc_layers", "dec_layers"), run["reads"])
     check_step(run, state, mets, 10)
     assert np.abs(state["params"]["enc_pos"].numpy()
                   - run["init"]["params"]["enc_pos"]).max() > 0

@@ -52,8 +52,8 @@ from test_torch_ssm import (LR, MODES, TOKENS, TRAIN, _close, _get,
                             check_reads_on_reference_operands, check_step,
                             check_write_on_reference_tapes, port_forward,
                             port_step_replayed, recording_port_tapes,
-                            reference_forward,
-                            reference_step, tapes_agree)
+                            reference_forward, reference_step,
+                            remat_replays, tapes_agree)
 
 ARCH = "zamba2-1.2b"
 #: Two groups of attn_every=2 SSD layers and one trailing layer.
@@ -237,14 +237,18 @@ def test_device_train_step_with_replayed_reads(hybrid_step, monkeypatch):
     """One device-mode step against the reference's, every read replaced
     by the reference's result for the same container and application:
     the shared block's containers are read twice forward and twice
-    transposed a step, the SSD stacks once a layer."""
+    transposed a step, the SSD stacks once a layer (their forward reads
+    once more under the port's remat; the shared block is not
+    rematted)."""
     run = hybrid_step
     state, mets, _, used = port_step_replayed(run, monkeypatch)
     assert len(run["reads"]) == 2 * (2 * N_LAYERS + 5)
     assert sorted(len(v) for v in run["reads"].values()) == \
         [1] * (2 * 2 * N_LAYERS) + [N_GROUPS] * (2 * 5)
-    # every recorded application replayed exactly once
-    assert len(used) == len(set(used)) == 2 * _reads_per_call(run["cfg"])
+    # every recorded application replayed, once, or twice where rematted
+    assert len(set(used)) == 2 * _reads_per_call(run["cfg"])
+    assert sorted(used) == remat_replays(run["init"]["params"], ("layers",),
+                                         set(used), key=lambda u: u[0])
     check_step(run, state, mets, 7)
 
 

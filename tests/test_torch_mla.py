@@ -57,6 +57,7 @@ from repro_torch.models import model as M
 from repro_torch.serve import SamplingParams, make_engine
 from repro_torch.train import analog_lm as TA
 from test_torch_forward_flips import _one_lsb_per_k_tile
+from test_torch_ssm import remat_replays
 
 ARCH = "deepseek-v2-lite-16b"
 F32 = dict(dtype="float32")
@@ -510,7 +511,8 @@ def test_device_train_step_with_replayed_reads(monkeypatch):
     """One device-mode step (TaOx, lr 0.1, 2 x 8 tokens, capacity 8)
     against the reference's step with its seed_base, every forward and
     transpose read of the port replaced by the reference's result for the
-    same container (9 + 9 a layer): conductances within 1e-6, ``ref`` and
+    same container (9 + 9 a layer, the forward reads once more under the
+    port's remat): conductances within 1e-6, ``ref`` and
     ``w_scale`` bit-equal, the loss within 1e-5, each digital leaf's
     update within 1e-4 of its move.  With the reads replayed the port
     follows the reference's codes, so the reference runs jitted."""
@@ -541,7 +543,7 @@ def test_device_train_step_with_replayed_reads(monkeypatch):
         {"tokens": torch.from_numpy(x).long(),
          "labels": torch.from_numpy(y).long()},
         int(jax.random.bits(ks, (), jnp.uint32)))
-    assert sorted(used) == sorted(results)
+    assert sorted(used) == remat_replays(init["params"], ("layers",), results)
     assert abs(float(got["loss"]) - float(mets["loss"])) <= 1e-5
     n_containers = 0
     for path, want in _leaves(_np(new["params"])):

@@ -56,6 +56,7 @@ from repro_torch.core.xbar_ops import vmm as torch_vmm
 from repro_torch.models import layers as TL
 from repro_torch.models import model as M
 from repro_torch.models import ssm as TS
+from repro_torch.models import transformer as TF
 from repro_torch.serve import SamplingParams, make_engine
 from repro_torch.train import analog_lm as TA
 from test_torch_forward_flips import _one_lsb_per_k_tile
@@ -547,6 +548,22 @@ def _get(tree, path):
     return tree
 
 
+def remat_replays(init_params, stacks, keys, key=lambda k: k):
+    """The replays a port step makes of the recorded reads ``keys`` (each
+    ``(direction, conductance bytes)`` key, or an entry whose ``key`` is
+    one, once per recorded application), sorted: each once, and under the
+    port's per-layer remat (``models.transformer.remat_policy``, ``full``
+    by default) the forward reads of the containers in the layer stacks
+    ``stacks`` once more, by the backward's recompute of their blocks."""
+    again = set()
+    if TF.remat_policy() != "none":
+        for path, g in _leaves(init_params):
+            if path[0] in stacks and path[-1] == "g":
+                again |= {_g_key("vmm", gi) for gi in g}
+    keys = list(keys)
+    return sorted(keys + [k for k in keys if key(k) in again])
+
+
 def reference_step(arch, n_layers=None):
     """The reference's jitted device-mode step on the smoke config (TaOx,
     lr 0.1, 2 x 8 tokens): its init state, new state, loss, seed_base,
@@ -659,13 +676,15 @@ def ssm_step():
 def test_device_train_step_with_replayed_reads(ssm_step, monkeypatch):
     """One device-mode step against the reference's, every forward and
     transpose read of the port replaced by the reference's result for
-    the same container (2 + 2 a layer)."""
+    the same container (2 + 2 a layer; the forward reads once more under
+    the port's remat)."""
     run = ssm_step
     cfg = run["cfg"]
     state, mets, _, used = port_step_replayed(run, monkeypatch)
     assert len(run["reads"]) == 2 * 2 * cfg.n_layers
     assert all(len(v) == 1 for v in run["reads"].values())
-    assert sorted(k for k, _ in used) == sorted(run["reads"])
+    assert sorted(k for k, _ in used) == remat_replays(
+        run["init"]["params"], ("layers",), run["reads"])
     check_step(run, state, mets, 2)
 
 

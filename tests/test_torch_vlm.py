@@ -58,7 +58,7 @@ from test_torch_ssm import (LR, MODES, TOKENS, TRAIN, _close, _env, _get,
                             _np, check_reads_on_reference_operands, check_step,
                             recording_jitted, recording_port_tapes,
                             recording_reference, recording_reference_tapes,
-                            replaying, tapes_agree)
+                            remat_replays, replaying, tapes_agree)
 
 ARCH = "llama-3.2-vision-90b"
 MAX_LEN = 16
@@ -568,14 +568,17 @@ def vlm_step():
 def test_device_train_step_with_replayed_reads(vlm_step, monkeypatch):
     """One device-mode step against the reference's, every forward and
     transpose read replaced by the reference's result for the same
-    container: 8 containers read once each way a layer, conductances
-    within 1e-6, ``ref`` and ``w_scale`` bit-equal, the loss within 1e-5,
-    the gates' SGD moves within 1e-4 of theirs."""
+    container: 8 containers read once each way a layer (the self blocks'
+    forward reads once more under the port's remat, not the cross
+    blocks'), conductances within 1e-6, ``ref`` and ``w_scale``
+    bit-equal, the loss within 1e-5, the gates' SGD moves within 1e-4 of
+    theirs."""
     run = vlm_step
     state, mets, _, used = port_step_replayed(run, monkeypatch)
     assert len(run["reads"]) == 2 * READS_PER_CALL
     assert all(len(v) == 1 for v in run["reads"].values())
-    assert sorted(k for k, _ in used) == sorted(run["reads"])
+    assert sorted(k for k, _ in used) == remat_replays(
+        run["init"]["params"], ("self_layers",), run["reads"])
     check_step(run, state, mets, 8)
     g0 = run["init"]["params"]["cross_layers"]["gate_attn"]
     assert np.abs(state["params"]["cross_layers"]["gate_attn"].numpy()
