@@ -478,6 +478,27 @@ before remat existed.
    the full forward's last row, lm100m and starcoder2-3b (2 layers),
    float32 (within 1e-5) and bfloat16 (stated).
 
+27. FSDP and tensor parallelism of the numeric step, and the analog
+   step's ``exact=False``.  Each rank of a layout runs as its own process
+   on this one card, in a gloo group whose collectives move through
+   slots on the card that every rank maps by CUDA IPC
+   (:class:`CardTransport`, the meshes' exchange hook).  (a) lm100m at
+   full width, QAT at 128-row tiles (so that ``wo`` and ``w_down`` split
+   by rows), 8 x 256 tokens, one step on 2x2, 1x4 and 4x1 against
+   the 1x1 step from the same state: the loss within 1e-4, the
+   parameters in the test class, the fakequant reads a rank equal to the
+   1x1 step's; on ``model`` ranks kernel 4's split-range (column split)
+   and tiles (row split) reads against their plain versions and bit-equal
+   to the whole read, both launched by the step.  (b) gemma-2b at full
+   size, digital bfloat16, FSDP on 4x1 over 4 x 1024 tokens: each rank's
+   held bytes equal the dry run's policy bytes, 36 layer gathers, the
+   loss within bfloat16's class of the 1x1 forward's.  (c)
+   ``exact=False`` on 2x4 (lm100m, device mode, phase 7's settings):
+   every read of the four containers within the reassociation bound of
+   the exact read, the step's first read too, and off it when one rank's
+   tile sum is dropped (a planted fault); the write's distance from the
+   exact step's against the spread of one-ulp embedding nudges.
+
 Every phase prints its wall seconds on a line of its own.
 
 Every read's DAC scale (phases 1, 3, 4, 7, 14, 15, 16, 18-23) must
@@ -1298,7 +1319,8 @@ def tensor_core_train_expect(n_layers, **others):
     reads per layer, each on the tensor-core instance with its pre-pass and
     range pass, nothing on the FP32 instance; ``others`` the rest."""
     reads = 4 * n_layers
-    expect = {"fused_vmm": reads, "fused_mvm": reads, **others}
+    expect = {"fused_vmm": reads, "fused_mvm": reads, "fakequant_split": 0,
+              "fakequant_tiles": 0, **others}
     for d in ("vmm", "mvm"):
         for count in READ_KERNEL_COUNTS.values():
             expect[f"{count}_{d}"] = 0 if count in ("read_tile",
@@ -3868,8 +3890,8 @@ def recording_lsbs(OPS, lsbs):
     on the card only the backward's recomputation forms them."""
     adc_lsb = OPS._adc_lsb
 
-    def recorded(q, adc):
-        sat, lsb = adc_lsb(q, adc)
+    def recorded(q, adc, *args):
+        sat, lsb = adc_lsb(q, adc, *args)
         lsbs.append((sat.detach().clone(), lsb.detach().clone(),
                      adc.out_levels))
         return sat, lsb
@@ -7066,6 +7088,1053 @@ def phase_prefill_head(M, get_config, report, gpu_line):
     return rows
 
 
+# --------------------------------------------------------------------------
+# Phase 27: FSDP and tensor parallelism of the numeric step, exact=False
+# --------------------------------------------------------------------------
+
+#: 27(a): the layouts of lm100m's QAT step, its global batch, seed and lr.
+TP_LAYOUTS = ((2, 2), (1, 4), (4, 1))
+TP_BATCH = (8, 256)
+TP_SEED = 27
+TP_LR = 1e-3
+#: 27(b): gemma-2b's global batch on 4x1: one 1024-token sequence a rank
+#: (4096 tokens; 4 x 2048 would hold the 1x1 step's float32 logits and
+#: their gradient at 8192 x 256000, too close to 80 GB beside its state).
+GEMMA_BATCH = (4, 1024)
+#: 27(c): the exact=False layout and its batches.
+INEXACT_LAYOUT = (2, 4)
+INEXACT_B = (4, 2048)
+INEXACT_SEED_BASE = 2727
+#: 27(c)'s yardsticks: the one-device step with the embedding nudged one
+#: ulp up, every element (None) or a random half of them (these seeds).
+NUDGE_SEEDS = (None, 1, 2, 3)
+#: 27(c)'s planted fault: this rank's own tile sum dropped in the
+#: exact=False step's first read (layer 0's wqkv).
+FAULT_RANK = 1
+#: 27(c)'s limit on the exact=False step's write distance from the exact
+#: step's, in units of the largest nudge's: the exact=False step read
+#: 0.97-0.99 of it, the planted fault 1.22-1.81 (PERF.md section 6).
+WRITE_LIMIT = 1.15
+
+
+def tp_qat_cfg(get_config):
+    """lm100m's QAT cell at 128-row tiles (phase 17's 1024-row tiles
+    leave ``wo`` and ``w_down`` whole on every layout): ``w_down`` then
+    splits at whole tiles on 2x2 and 1x4 and ``wo`` on 2x2, so the step
+    runs kernel 4's row-split (tiles) form beside its column split."""
+    return get_config("lm100m").replace(dtype="float32", analog=True,
+                                        analog_mode="fakequant",
+                                        analog_rows=128)
+
+
+def tp_inexact_cfg(get_config):
+    """Phase 7's settings."""
+    return get_config("lm100m").replace(
+        dtype="float32", analog=True, analog_mode="device",
+        analog_device="taox", analog_rows=64, analog_cols=64)
+
+
+def tp_tokens(vocab, b, s, rows=None):
+    """The phase's global batch (numpy seed 27), or its ``rows``."""
+    rng = np.random.default_rng(TP_SEED)
+    x = rng.integers(0, vocab, (b, s + 1))
+    x = x if rows is None else x[rows]
+    return {"tokens": torch.from_numpy(x[:, :-1]).long().cuda(),
+            "labels": torch.from_numpy(x[:, 1:]).long().cuda()}
+
+
+def local_rows(mesh, b):
+    d, n = mesh.coords["data"], mesh.shape["data"]
+    return slice(d * b // n, (d + 1) * b // n)
+
+
+def tree_nbytes(tree):
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(tree_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def leaves_of(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves_of(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def timed_step(step, state, batch, *args):
+    """One step between CUDA events: ``(state, metrics, ms)``."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    state, m = step(state, batch, *args)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return state, m, ev[0].elapsed_time(ev[1])
+
+
+def split_read_case(K, mesh, cfg, adc):
+    """One column-split fakequant read at 27(a)'s shapes (2048 tokens,
+    lm100m's ``wqkv`` split over ``model``): the kernels' split form (range
+    partials gathered over ``model``) bit-equal to the whole read's
+    columns, and against the plain split version on the same inputs,
+    whose partials are gathered in turn, in ``fq_agrees``' bound with the
+    lsb of the whole width.  Times the kernels' split form and its plain version on
+    this rank's columns (one rank's combine left out)."""
+    from repro_torch.kernels.xbar_vmm import (_fakequant_plain_finish,
+                                              _fakequant_plain_head)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    t, k = TP_BATCH[0] * TP_BATCH[1], cfg.d_model
+    n = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.resolved_head_dim
+    rows = cfg.analog_rows
+    x = torch.randn((t, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    m, r = mesh.shape["model"], mesh.coords["model"]
+    c = n // m
+    wr = w[:, r * c:(r + 1) * c].contiguous()
+
+    def combine(s):     # contiguous columns: rank order is column order
+        return mesh.all_gather(s, "model", s.ndim - 1)
+    y_k, _ = K.fakequant_split_read(x, wr, adc, rows, combine, n)
+    whole = K.fakequant_read(x, w, adc, rows)[:, r * c:(r + 1) * c]
+    sc = K.fakequant_scale(x, adc.in_levels)
+    q_p, ssq_p = _fakequant_plain_head(x, wr, sc, adc, rows)
+    tot = combine(ssq_p).sum(dim=-1)
+    y_p = _fakequant_plain_finish(q_p, combine(ssq_p), n, adc)
+    lsb = adc.sat_sigmas * torch.sqrt(tot / n + 1e-12) / adc.out_levels
+    err = (y_k - y_p).abs()
+    bound = lsb.sum(1, keepdim=True) + 1e-5 * torch.maximum(y_p.abs(),
+                                                            y_k.abs())
+    share = (err > 1e-5 * y_p.abs().amax()).float().mean().item()
+    sync = torch.cuda.synchronize
+
+    def kernel(i=0):
+        head, s = K._fakequant_split_cuda(x, wr, adc, rows)
+        return K._fakequant_finish_cuda(head, s, n, adc)
+
+    def plain(i=0):
+        q, s = _fakequant_plain_head(x, wr, sc, adc, rows)
+        return _fakequant_plain_finish(q, s, n, adc)
+    before = K.LAUNCHES["fakequant_split"]
+    ms = cuda_ms(kernel, 5, sync)
+    plain_ms = cuda_ms(plain, 5, sync)
+    K.LAUNCHES["fakequant_split"] = before   # timing launches not counted
+    return {"ok": bool((err <= bound).all()) and share < 0.01,
+            "bit_equal_whole_read": bool(torch.equal(y_k, whole)),
+            "max_abs_err": err.max().item(),
+            "worst_err_over_bound": (err / bound).max().item(),
+            "flip_share": share, "T": t, "K": k, "N_rank": c, "N": n,
+            "ms": ms, "plain_ms": plain_ms, **fq_bounds(t, k, c)}
+
+
+def tiles_read_case(K, mesh, cfg, adc):
+    """One row-split fakequant read at 27(a)'s shapes (2048 tokens,
+    lm100m's ``w_down`` split over ``model`` at whole row tiles): the
+    kernels' tiles form (this rank's tiles' products and range partials
+    gathered in tile order, the epilogue over every tile) bit-equal to
+    the whole read, and against the plain version of the same steps in
+    ``fq_agrees``' class.  Times the kernels' form and its plain version
+    on this rank (the gather left out)."""
+    from repro_torch.kernels.xbar_vmm import (_fakequant_plain_finish,
+                                              _fakequant_plain_head)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    t, k, n = TP_BATCH[0] * TP_BATCH[1], cfg.d_ff, cfg.d_model
+    rows = cfg.analog_rows
+    x = torch.randn((t, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+    m, r = mesh.shape["model"], mesh.coords["model"]
+    kr = k // m
+    xr = x[:, r * kr:(r + 1) * kr].contiguous()
+    wr = w[r * kr:(r + 1) * kr].contiguous()
+
+    def combine(q):     # contiguous row tiles: rank order is tile order
+        return mesh.all_gather(q, "model", 1)
+    sc = mesh.all_reduce(K.fakequant_scale(xr, adc.in_levels), "model",
+                         op="max")
+    y_k = K.fakequant_tiles_read(xr, wr, adc, rows, combine, sc)
+    whole = K.fakequant_read(x, w, adc, rows)
+    q_p, ssq_p = _fakequant_plain_head(xr, wr, sc, adc, rows)
+    q_all, ssq_all = combine(q_p), combine(ssq_p)
+    y_p = _fakequant_plain_finish(q_all, ssq_all, n, adc)
+    ok, err, ratio, share = fq_agrees(y_k, y_p, x, w, sc, adc, rows)
+    sync = torch.cuda.synchronize
+    _, s_k, q_k = K._fakequant_split_cuda(xr, wr, adc, rows, sc, q_out=True)
+    q_k, s_k = combine(q_k), combine(s_k)
+    before = (K.LAUNCHES["fakequant_split"], K.LAUNCHES["fakequant_tiles"])
+
+    def kernel(i=0):
+        K._fakequant_split_cuda(xr, wr, adc, rows, sc, q_out=True)
+        return K._fakequant_tiles_cuda(q_k, s_k, adc)
+
+    def plain(i=0):
+        q, _ = _fakequant_plain_head(xr, wr, sc, adc, rows)
+        return _fakequant_plain_finish(q_all, ssq_all, n, adc)
+    ms = cuda_ms(kernel, 5, sync)
+    plain_ms = cuda_ms(plain, 5, sync)
+    # timing launches not counted
+    K.LAUNCHES["fakequant_split"], K.LAUNCHES["fakequant_tiles"] = before
+    bound = fq_bounds(t, kr, n)
+    # beyond the read's own x, W and y: every tile's q read by the epilogue
+    extra = 4 * t * (k // rows) * n
+    t_bytes = 1e-3 * bound["bytes_ms"] + extra / HBM_BYTES_PER_S
+    t_ops = 2 * t * kr * n / FP32_FLOPS
+    return {"ok": ok, "bit_equal_whole_read": bool(torch.equal(y_k, whole)),
+            "max_abs_err": err, "worst_err_over_bound": ratio,
+            "flip_share": share, "T": t, "K_rank": kr, "K": k, "N": n,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "tc_floor_ms": max(bound["tc_floor_ms"], 1e3 * t_bytes)}
+
+
+def split_kernel_cases(K, adc, rows, report):
+    """Kernel 4's new entries on one rank against their plain versions,
+    on both instances (16 and 2048 tokens, lm100m's wqkv width): the
+    split form with its own partials (one rank: bit-equal to the whole
+    read) and a read at a given DAC scale (a row split's), each in
+    fq_agrees' class."""
+    from repro_torch.kernels.xbar_vmm import _fakequant_plain
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    k, n = 768, 2304
+    out = []
+    for t in (16, 2048):
+        x = torch.randn((t, k), generator=gen, device="cuda")
+        w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+        sc = K.fakequant_scale(x, adc.in_levels)
+        y_p = _fakequant_plain(x, w, sc, adc, rows)
+        y_s, _ = K.fakequant_split_read(x, w, adc, rows, lambda s: s, n)
+        if not torch.equal(y_s, K.fakequant_read(x, w, adc, rows)):
+            fail(f"27(a) kernel 4's split form at T={t} on one rank is not "
+                 "the whole read bit for bit")
+        given = sc * 1.5
+        y_g = K.fakequant_read(x, w, adc, rows, sc=given)
+        y_gp = _fakequant_plain(x, w, given, adc, rows)
+        for what, y_k, ref, scale in (("split", y_s, y_p, sc),
+                                      ("given_scale", y_g, y_gp, given)):
+            ok, err, ratio, share = fq_agrees(y_k, ref, x, w, scale, adc,
+                                              rows)
+            row = {"case": what, "T": t, "instance":
+                   K.fakequant_instance(t, adc.in_levels), "ok": ok,
+                   "max_abs_err": err, "worst_err_over_bound": ratio,
+                   "flip_share": share}
+            if not ok:
+                fail(f"27(a) kernel 4's {what} entry at T={t}: {row}")
+            report(row)
+            out.append(row)
+    return out
+
+
+def tp_rank_qat(rank, src):
+    """27(a) on one rank: for each layout, lm100m's QAT step from the
+    whole initial state cut into blocks, timed; the whole parameters
+    after it (rank 0), the step's launches and one split read held
+    against its plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.core.adc import AdcConfig
+    from repro_torch.kernels import xbar_vmm as K
+    from repro_torch.train import train_loop as TL
+    from repro_torch.train.optimizer import adamw
+    cfg = tp_qat_cfg(get_config)
+    adc = AdcConfig(in_bits=cfg.analog_in_bits, out_bits=cfg.analog_out_bits)
+    out = {}
+    for shape in TP_LAYOUTS:
+        mesh = card_mesh(shape)
+        opt = adamw(TP_LR)
+        state = TL.init_sharded_state(TP_SEED, cfg, opt, mesh, "cuda")
+        step = TL.make_train_step(cfg, opt, mesh=mesh)
+        batch = tp_tokens(cfg.vocab, *TP_BATCH,
+                          rows=local_rows(mesh, TP_BATCH[0]))
+        step(state, batch)      # warm-up (the step leaves its input state)
+        for name in K.LAUNCHES:
+            K.LAUNCHES[name] = 0
+        state, mets, ms = timed_step(step, state, batch)
+        launches = dict(K.LAUNCHES)
+        loss = mesh.all_reduce(mets["loss"].reshape(1), "data") \
+            / mesh.shape["data"]
+        whole = TL.unshard_state(state, cfg, mesh)["params"]
+        out[shape] = {
+            "loss": float(loss), "grad_norm": float(mets["grad_norm"]),
+            "ms": ms, "launches": launches,
+            "plan": {k: getattr(step.numeric, k) for k in (
+                "attn", "attn_row", "ffn", "ffn_row", "vocab")},
+            "params": params_to_numpy(whole) if rank == 0 else None,
+            **({"split": split_read_case(K, mesh, cfg, adc),
+                "tiles": tiles_read_case(K, mesh, cfg, adc)}
+               if mesh.shape["model"] > 1 else {})}
+        del state, whole
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_gemma(rank, src):
+    """27(b) on one rank of 4x1: gemma-2b's state drawn whole and cut into
+    this rank's blocks (the ranks in turn), its held bytes, one FSDP step
+    over its sequence, timed, its layer gathers and its peak."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import train_loop as TL
+    from repro_torch.train.optimizer import adamw
+    cfg = get_config("gemma-2b")
+    mesh = card_mesh((4, 1))
+    opt = adamw(TP_LR)
+    for turn in range(mesh.size):   # one whole draw on the card at a time
+        if turn == rank:
+            state = TL.init_sharded_state(TP_SEED, cfg, opt, mesh, "cuda")
+            torch.cuda.empty_cache()
+        dist.barrier()
+    held = {"params": tree_nbytes(state["params"]),
+            "m": tree_nbytes(state["opt"]["m"]),
+            "v": tree_nbytes(state["opt"]["v"]),
+            "t": tree_nbytes(state["opt"]["t"]),
+            "step": tree_nbytes(state["step"])}
+    step = TL.make_train_step(cfg, opt, mesh=mesh)
+    batch = tp_tokens(cfg.vocab, *GEMMA_BATCH,
+                      rows=local_rows(mesh, GEMMA_BATCH[0]))
+    torch.cuda.reset_peak_memory_stats()
+    state, mets, ms = timed_step(step, state, batch)
+    loss = mesh.all_reduce(mets["loss"].reshape(1), "data") / mesh.size
+    return {"coords": dict(mesh.coords), "held": held, "ms": ms,
+            "loss": float(loss), "grad_norm": float(mets["grad_norm"]),
+            "layer_gathers": step.numeric.counts["layer_gathers"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+@contextlib.contextmanager
+def first_read_recorded(K, first, fault):
+    """Record the step's first shard-local read (layer 0's ``wqkv``,
+    forward): its drive and its output.  With ``fault`` this rank's own
+    tile sum is dropped in that read (the planted fault)."""
+    read, reduce = K.manual_collective_read, K._reduce_tiles_cuda
+
+    def reduce_first(part, sc, transpose=False):
+        y = reduce(part, sc, transpose)
+        if fault and "dropped" not in first:
+            first["dropped"] = True
+            y = torch.zeros_like(y)
+        return y
+
+    def read_first(x, *args, **kw):
+        if "y" in first:
+            return read(x, *args, **kw)
+        K._reduce_tiles_cuda = reduce_first
+        try:
+            y = read(x, *args, **kw)
+        finally:
+            K._reduce_tiles_cuda = reduce
+        first["x"], first["y"], first["g"] = x.clone(), y.clone(), args[0]
+        return y
+    K.manual_collective_read = read_first
+    try:
+        yield
+    finally:
+        K.manual_collective_read = read
+
+
+def tp_rank_inexact(rank, src):
+    """27(c) on one rank of 2x4: lm100m's device-mode step with phase 7's
+    settings, exact, exact=False, and exact=False with the planted fault
+    (rank ``FAULT_RANK``'s tile sum dropped in the first read), from the
+    same state, batch and write seed; the conductances after each (rank
+    0), the launches, and the first read of each against the exact
+    step's (rank 0: its drive, and each form's output)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import shardctx
+    from repro_torch.kernels import xbar_update as U
+    from repro_torch.kernels import xbar_vmm as K
+    from repro_torch.train import analog_lm as TA
+    cfg = tp_inexact_cfg(get_config)
+    mesh = card_mesh(INEXACT_LAYOUT)
+    shardctx.set_shard_context(mesh, None)
+    batch = tp_tokens(cfg.vocab, *TP_BATCH)
+    out, firsts = {}, {}
+    for run in ("exact", "inexact", "fault"):
+        step = TA.make_analog_sgd_step(cfg, lr=0.1, mesh=mesh,
+                                       exact=run == "exact")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        state = step.shard_state(TA.init_state(gen, cfg, device="cuda"))
+        torch.cuda.empty_cache()
+        for name in K.LAUNCHES:
+            K.LAUNCHES[name] = 0
+        for name in U.LAUNCHES:
+            U.LAUNCHES[name] = 0
+        firsts[run] = first = {}
+        with first_read_recorded(K, first,
+                                 run == "fault" and rank == FAULT_RANK):
+            state, mets, ms = timed_step(step, state, batch,
+                                         INEXACT_SEED_BASE)
+        launches = {**K.LAUNCHES, **U.LAUNCHES}
+        whole = step.unshard_state(state)["params"]
+        gs = {"/".join(p): t.cpu() for p, t in leaves_of(whole)
+              if p[-1] == "g"} if rank == 0 else None
+        out[run] = {"loss": float(mets["loss"]), "ms": ms,
+                    "launches": launches, "g": gs,
+                    "first_block": tuple(first["g"].shape)}
+        if rank == 0:
+            out[run]["first"] = (first["x"].cpu(), first["y"].cpu())
+        del state, whole, first["g"]
+    return out
+
+
+TP_JOBS = {"qat": tp_rank_qat, "gemma": tp_rank_gemma,
+           "inexact": tp_rank_inexact}
+
+
+class CardTransport:
+    """The collectives of the ranks of a layout that share this one card
+    (each rank its own process in a gloo group: NCCL takes one card a
+    rank), as a ``launch.mesh.Mesh`` exchange hook: each rank owns a slot
+    of ``slot_bytes`` on the card that every other rank maps through CUDA
+    IPC.  A collective moves its operand through the slots in pieces:
+    each rank copies its piece into its slot, the group meets at a gloo
+    barrier, each rank reads the slots it needs (gathers in rank order,
+    sums and maxima over the ranks in rank order) and the group meets
+    again before the slots are reused.  Bits move on the card; gloo
+    carries only the barriers (staging the card's tensors through gloo
+    took 78 s a gemma-2b step, this 5.6 s)."""
+
+    def __init__(self, slot_bytes=1 << 27):
+        import torch.distributed as dist
+        from torch.multiprocessing.reductions import reduce_tensor
+        import warnings
+        dev = torch.device("cuda", torch.cuda.current_device())
+        # IPC shares whole allocations: the slot takes a plain segment
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            torch.cuda.memory._set_allocator_settings(
+                "expandable_segments:False")
+            try:
+                self.slot = torch.empty(slot_bytes, dtype=torch.uint8,
+                                        device=dev)
+            finally:
+                if "expandable_segments:True" in os.environ.get(
+                        "PYTORCH_CUDA_ALLOC_CONF", ""):
+                    torch.cuda.memory._set_allocator_settings(
+                        "expandable_segments:True")
+        handles = [None] * dist.get_world_size()
+        dist.all_gather_object(handles, reduce_tensor(self.slot))
+        me = dist.get_rank()
+        self.slots = [self.slot if r == me else fn(*args)
+                      for r, (fn, args) in enumerate(handles)]
+        self.bytes = slot_bytes
+
+    @staticmethod
+    def _group(mesh, axis):
+        from repro_torch.core.shardctx import flat_index
+        return [flat_index(mesh.shape, {**mesh.coords, axis: i},
+                           mesh.axis_names)
+                for i in range(mesh.shape[axis])], mesh.group(axis)
+
+    def _meet(self, group):
+        import torch.distributed as dist
+        torch.cuda.current_stream().synchronize()
+        dist.barrier(group=group)
+
+    def exchange(self, mesh, t, axis):
+        """``t`` of every rank of the axis group, in rank order."""
+        ranks, group = self._group(mesh, axis)
+        src = t.contiguous().reshape(-1).view(torch.uint8)
+        outs = [torch.empty_like(src) for _ in ranks]
+        for off in range(0, max(src.numel(), 1), self.bytes):
+            n = min(self.bytes, src.numel() - off)
+            self.slot[:n].copy_(src[off:off + n])
+            self._meet(group)
+            for o, r in zip(outs, ranks):
+                o[off:off + n].copy_(self.slots[r][:n])
+            self._meet(group)
+        return [o.view(t.dtype).view(t.shape) for o in outs]
+
+    def _combine(self, t, ranks, group, op, dest=None):
+        """The sum (or max) over ``ranks`` of their ``t``, in rank order;
+        with ``dest`` (a global rank) only that rank forms it."""
+        import torch.distributed as dist
+        src = t.contiguous().reshape(-1)
+        out = torch.empty_like(src) if dest in (None, dist.get_rank()) \
+            else None
+        esize = src.element_size()
+        per = self.bytes // esize
+        for off in range(0, max(src.numel(), 1), per):
+            n = min(per, src.numel() - off)
+            self.slot[:n * esize].view(src.dtype).copy_(src[off:off + n])
+            self._meet(group)
+            if out is not None:
+                acc = None
+                for r in ranks:
+                    v = self.slots[r][:n * esize].view(src.dtype)
+                    acc = v.clone() if acc is None else (
+                        acc + v if op == "sum" else torch.maximum(acc, v))
+                out[off:off + n].copy_(acc)
+            self._meet(group)
+        return None if out is None else out.view(t.shape)
+
+    def reduce(self, mesh, t, axis, op):
+        ranks, group = self._group(mesh, axis)
+        return self._combine(t, ranks, group, op)
+
+    def reduce_scatter(self, mesh, t, axis, dim):
+        ranks, group = self._group(mesh, axis)
+        src = t.movedim(dim, 0)
+        loc = src.shape[0] // len(ranks)
+        mine = None
+        for j, r in enumerate(ranks):     # each rank's chunk in turn
+            got = self._combine(src[j * loc:(j + 1) * loc], ranks, group,
+                                "sum", dest=r)
+            mine = got if got is not None else mine
+        return mine.movedim(0, dim)
+
+
+_TRANSPORT = {}
+
+
+def card_mesh(shape):
+    """A (data, model) mesh of this job's ranks (a gloo group), its
+    collectives carried by this process's :class:`CardTransport` (made on
+    first use: every rank of the job takes part)."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    if "card" not in _TRANSPORT:
+        _TRANSPORT["card"] = CardTransport()
+    mesh.layout = _TRANSPORT["card"]
+    return mesh
+
+
+def tp_rank(rank, world, rdv, job, out, src):
+    """One rank of a layout on this card: its own process, a gloo group
+    whose collectives go through :class:`CardTransport`,
+    ``TP_JOBS[job]``'s result saved for the parent."""
+    sys.path.insert(0, src)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+    init_distributed("cpu", f"file://{rdv}", rank, world)
+    res = TP_JOBS[job](rank, src)
+    torch.save(res, f"{out}.{rank}")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def spawn_layout(world, job):
+    """``world`` ranks of ``job`` on this card (``torch.multiprocessing``,
+    a file rendezvous under build/); their results in rank order.  Every
+    process is joined (mp.spawn ends the others when one fails)."""
+    import gc
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"27 {job}: {world} ranks; this process holds "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card "
+          f"({torch.cuda.memory_reserved() / 1e9:.2f} reserved)", flush=True)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="tp27-", dir=ROOT / "build"))
+    # the ranks share one card: segments that grow in place keep each
+    # rank's allocator from holding freed blocks it cannot reuse
+    prev = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        mp.spawn(tp_rank, args=(world, str(tmp / "rdv"), job,
+                                str(tmp / "res"), str(ROOT / "src")),
+                 nprocs=world, join=True)
+        return [torch.load(f"{tmp / 'res'}.{r}", weights_only=False,
+                           map_location="cpu") for r in range(world)]
+    finally:
+        if prev is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prev
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def params_class(got, want, lr):
+    """Satellite 1's parameter class: within 1e-5 relative plus 1e-6,
+    except elements whose gradient lies within float32 rounding of 0
+    (adamw moves them by up to 2 lr): (elements off, elements, worst
+    move off)."""
+    off = total = 0
+    worst = 0.0
+    by_leaf = {}
+    for path, w in leaves_of(want):
+        g = tree_get(got, path)
+        d = np.abs(g - w)
+        bad = d > 1e-5 * np.abs(w) + 1e-6
+        off += int(bad.sum())
+        total += w.size
+        if bad.any():
+            worst = max(worst, float(d[bad].max()))
+            by_leaf["/".join(path)] = (int(bad.sum()), int(w.size))
+    return off, total, worst, by_leaf
+
+
+def phase_tp_qat(K, TL, TO, get_config, report, gpu_line):
+    """27(a): lm100m at full width, QAT at 128-row tiles, 8 x 256 tokens:
+    one FSDP + TP step on the 2x2, 1x4 and 4x1 layouts (each rank its own process on this
+    card) against the 1x1 step on the card from the same state.  Gates:
+    the loss within 1e-4 relative; on ``model`` ranks every rank's
+    split-range read (a column split) and tiles read (a row split)
+    against its plain version (fq_agrees' class, the range combined
+    across ranks) and bit-equal to the whole read, and the step launching
+    both; each rank's fakequant reads in its step equal to the 1x1
+    step's; the parameters after the step, unsharded, in satellite 1's
+    class (off under 1e-3 of the elements, by at most 2 lr)."""
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.core.adc import AdcConfig
+    cfg = tp_qat_cfg(get_config)
+    cases = split_kernel_cases(K, AdcConfig(in_bits=cfg.analog_in_bits,
+                                            out_bits=cfg.analog_out_bits),
+                               cfg.analog_rows, report)
+    opt = TO.adamw(TP_LR)
+    state = TL.init_state(TP_SEED, cfg, opt, "cuda")
+    step = TL.make_train_step(cfg, opt)
+    batch = tp_tokens(cfg.vocab, *TP_BATCH)
+    step(state, batch)          # warm-up (the step leaves its input state)
+    for name in K.LAUNCHES:
+        K.LAUNCHES[name] = 0
+    state, mets, ms1 = timed_step(step, state, batch)
+    one = {"loss": float(mets["loss"]), "ms": ms1,
+           "grad_norm": float(mets["grad_norm"]),
+           "reads": K.LAUNCHES["fakequant"],
+           "params": params_to_numpy(state["params"])}
+    del state
+    ranks = spawn_layout(4, "qat")
+    rows = []
+    for shape in TP_LAYOUTS:
+        label = "x".join(map(str, shape))
+        per = [r[shape] for r in ranks]
+        for i, r in enumerate(per):
+            if abs(r["loss"] - one["loss"]) > 1e-4 * abs(one["loss"]):
+                fail(f"27(a) {label} rank {i}: loss {r['loss']} against the "
+                     f"1x1 step's {one['loss']}")
+            if r["launches"]["fakequant"] != one["reads"]:
+                fail(f"27(a) {label} rank {i}: {r['launches']['fakequant']} "
+                     f"fakequant reads in its step, the 1x1 step "
+                     f"{one['reads']}")
+            if shape[1] == 1:
+                continue
+            for case in ("split", "tiles"):
+                if not r[case]["ok"] or \
+                        not r[case]["bit_equal_whole_read"]:
+                    fail(f"27(a) {label} rank {i}: the {case} read is off "
+                         f"its plain version or the whole read: "
+                         f"{r[case]}")
+            if not r["launches"]["fakequant_split"] \
+                    or not r["launches"]["fakequant_tiles"]:
+                fail(f"27(a) {label} rank {i}: no split-range or tiles "
+                     f"read in the step ({r['launches']})")
+        off, total, worst, by_leaf = params_class(per[0]["params"],
+                                                  one["params"], TP_LR)
+        if off > 1e-3 * total or worst > 2 * TP_LR * 1.01:
+            fail(f"27(a) {label}: {off} of {total} parameters off the 1x1 "
+                 f"step's class (worst {worst:.3g}; by leaf {by_leaf}; grad "
+                 f"norm {per[0]['grad_norm']} against {one['grad_norm']})")
+        tp = shape[1] > 1
+        row = {"layout": label, "loss": per[0]["loss"],
+               "losses_per_rank": [r["loss"] for r in per],
+               "loss_1x1": one["loss"], "grad_norm": per[0]["grad_norm"],
+               "grad_norm_1x1": one["grad_norm"],
+               "ms_per_rank": [r["ms"] for r in per],
+               "ms_1x1": one["ms"], "reads_per_rank": one["reads"],
+               "split_reads_per_rank": [r["launches"]["fakequant_split"]
+                                        for r in per],
+               "tiles_reads_per_rank": [r["launches"]["fakequant_tiles"]
+                                        for r in per],
+               "params_off": off, "params": total, "plan": per[0]["plan"],
+               "split": [r["split"] for r in per] if tp else [],
+               "tiles": [r["tiles"] for r in per] if tp else [],
+               "kernel_cases": cases}
+        reads = (f"split read max err "
+                 f"{max(s['max_abs_err'] for s in row['split']):.3g}, "
+                 f"{per[0]['split']['ms']:.3f} ms (plain "
+                 f"{per[0]['split']['plain_ms']:.3f}); tiles read max err "
+                 f"{max(s['max_abs_err'] for s in row['tiles']):.3g}, "
+                 f"{per[0]['tiles']['ms']:.3f} ms (plain "
+                 f"{per[0]['tiles']['plain_ms']:.3f})") if tp else \
+            "no model split"
+        print(f"27(a) {label}: loss {row['loss']!r} (1x1 "
+              f"{one['loss']!r}), grad norm {row['grad_norm']!r} (1x1 "
+              f"{one['grad_norm']!r}), step ms per rank "
+              f"{[round(v, 1) for v in row['ms_per_rank']]} (1x1 "
+              f"{one['ms']:.1f}; warm steps; each rank its own process on "
+              f"this card), {one['reads']} fakequant reads a rank "
+              f"({row['split_reads_per_rank'][0]} split-range, "
+              f"{row['tiles_reads_per_rank'][0]} tiles), "
+              f"{off} of {total} parameters off; {reads} [{gpu_line}]")
+        report(row)
+        rows.append(row)
+    return rows
+
+
+def phase_tp_gemma(M, TL, TO, DR, S, TM, get_config, report, gpu_line):
+    """27(b): gemma-2b at full size (18 layers, vocab 256000), digital
+    bfloat16, FSDP on 4x1 (each rank its own process on this card) after
+    the 1x1 forward's loss from the same parameters (freed first; the
+    1x1 step's adamw update does not fit one card), over 4 x 1024
+    tokens.  Gates: each rank's held params, m and v bytes equal
+    launch.dryrun's policy bytes for its coordinates, exactly; a finite
+    loss within 1e-2 relative of the 1x1 step's; 36 layer gathers a rank
+    (18 forward, 18 in the rematted backward)."""
+    from repro_torch.configs.base import ShapeSpec
+    cfg = get_config("gemma-2b")
+    # the 1x1 step's loss (the step reports it before its update): its
+    # whole adamw state and update (about 70 GB at this size: the tree-wide
+    # m / v rebuild, PERF.md section 6) do not fit beside the activations
+    params = M.init_params(cfg, TP_SEED, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with torch.no_grad():
+        ev[0].record()
+        loss, _ = M.loss_fn(params, tp_tokens(cfg.vocab, *GEMMA_BATCH), cfg)
+        ev[1].record()
+    torch.cuda.synchronize()
+    one = {"loss": float(loss), "ms": ev[0].elapsed_time(ev[1]),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, loss
+    ranks = spawn_layout(4, "gemma")
+    like = M.init_params(cfg, None, "meta")
+    shape = ShapeSpec("train_tp27", "train", GEMMA_BATCH[1], GEMMA_BATCH[0])
+    rec = DR.reckon(cfg, shape, DR.make_mesh("4x1"))
+    for i, r in enumerate(ranks):
+        mesh = TM.Mesh((4, 1), ("data", "model"),
+                       coords=(r["coords"]["data"], r["coords"]["model"]))
+        specs = S.params_shardings(like, cfg, mesh)
+        policy = DR.block_bytes(like, specs, mesh)
+        held = r["held"]
+        if held["params"] != policy or held["m"] != policy \
+                or held["v"] != policy:
+            fail(f"27(b) rank {i}: holds {held}, the policy "
+                 f"{policy} bytes a tree")
+        arg = sum(held.values()) + DR.tree_bytes(M.input_specs(
+            cfg, shape, batch=GEMMA_BATCH[0] // 4))
+        if arg / 1e9 != rec["mem"]["policy_argument_gb"]:
+            fail(f"27(b) rank {i}: {arg} argument bytes, the dry run "
+                 f"{rec['mem']['policy_argument_gb']} GB")
+        if not math.isfinite(r["loss"]) \
+                or abs(r["loss"] - one["loss"]) > 1e-2 * abs(one["loss"]):
+            fail(f"27(b) rank {i}: loss {r['loss']}, the 1x1 step's "
+                 f"{one['loss']}")
+        if r["layer_gathers"] != 2 * cfg.n_layers:
+            fail(f"27(b) rank {i}: {r['layer_gathers']} layer gathers, "
+                 f"expected {2 * cfg.n_layers}")
+    row = {"tokens": f"{GEMMA_BATCH[0]} x {GEMMA_BATCH[1]}",
+           "loss": ranks[0]["loss"], "loss_1x1": one["loss"],
+           "ms_per_rank": [r["ms"] for r in ranks], "ms_1x1": one["ms"],
+           "held_bytes_per_rank": ranks[0]["held"],
+           "dryrun_policy_argument_gb": rec["mem"]["policy_argument_gb"],
+           "dryrun_replicated_by_port_gb": rec["mem"]["replicated_by_port_gb"],
+           "peak_gb_per_rank": [r["peak_gb"] for r in ranks],
+           "peak_gb_1x1": one["peak_gb"],
+           "layer_gathers": ranks[0]["layer_gathers"]}
+    print(f"27(b) gemma-2b 4x1 FSDP over {row['tokens']} tokens: loss "
+          f"{row['loss']:.5f} (1x1 {one['loss']:.5f}), step ms per rank "
+          f"{[round(v, 1) for v in row['ms_per_rank']]} (1x1 forward "
+          f"{one['ms']:.1f}), held {sum(ranks[0]['held'].values()) / 1e9:.3f}"
+          f" GB a rank (= the dry run's policy), peak "
+          f"{max(row['peak_gb_per_rank']):.2f} GB a rank (1x1 "
+          f"{one['peak_gb']:.2f}), {row['layer_gathers']} layer gathers "
+          f"[{gpu_line}]")
+    report(row)
+    return row
+
+
+def inexact_read_case(K, S, TM, path, x, g, ref, ws, cfg, mcfg, transpose):
+    """27(c)'s reads for one container and direction: every rank of 2x4
+    (emulated one after another: ``launch.mesh.emulate_layout``) reads
+    with ``exact=False`` (its own tiles summed, the ranks' sums
+    all-reduced, rescaled once); each within ``(tiles - 1) * 2^-23 * sum
+    |partial| * |x_scale / w_scale| + 2^-23 |exact|`` an element of the
+    exact read (two float sums of the same terms in two orders, and the
+    rescale).  Each
+    rank's kernel work timed in both forms: its partials-form read with
+    the tile sum of its own tiles (exact=False) or of every rank's
+    gathered tiles (exact)."""
+    import dataclasses
+    axes = ("data", "model")
+    shape = tuple(g.shape)
+    whole = K.xbar_fused_read(x, g, ref, ws, cfg, transpose=transpose)
+    lyr = shape[0]
+    xf = x.float().contiguous()
+    sc = K.read_scales(xf, ws.reshape(lyr), cfg.adc.in_levels)
+    part = K._read_cuda(xf, g, ref, sc, cfg, transpose, partials=True)
+    blocks = {}
+    for coords in TM.layout_coords(TM.emulated_mesh(INEXACT_LAYOUT, axes)):
+        m = TM.emulated_mesh(INEXACT_LAYOUT, axes, coords)
+        spec = S.analog_update_specs(path, shape, mcfg, m)["g"]
+        sl = S.block_slices(shape, spec, m)
+        meta = dataclasses.replace(S.shard_meta(shape, spec, m), exact=False)
+        blocks[m.rank] = (g[sl].contiguous(), ref[sl].contiguous(),
+                          ws[sl[:-2]].contiguous(), meta, sl)
+    meta = blocks[0][3]
+    red = meta.col if transpose else meta.row
+    n_red = math.prod(TM.emulated_mesh(INEXACT_LAYOUT, axes).shape[a]
+                      for a in red)
+    # two float sums of the same tR terms in two orders: each within (tR -
+    # 1) u sum|p| of the exact sum (u = 2^-24), and the rescale's rounding
+    bound = (part.shape[1] - 1) * 2.0 ** -23 * part.abs().sum(1) \
+        * sc[:, 1, None, None].abs() + 2.0 ** -23 * whole.abs()
+
+    def rank_read(m):
+        gb, rb, wb, mt, _ = blocks[m.rank]
+        return K.manual_collective_read(x, gb, rb, wb, cfg, mt,
+                                        transpose=transpose, mesh=m)
+    ys = TM.emulate_layout(INEXACT_LAYOUT, axes, rank_read)
+    worst = max(((y - whole).abs() / bound.clamp_min(1e-30)).max().item()
+                for y in ys)
+    ok = all(bool(((y - whole).abs() <= bound).all()) for y in ys)
+    sync = torch.cuda.synchronize
+    loose_ms = exact_ms = 0.0
+    for r, (gb, rb, wb, mt, sl) in blocks.items():
+        off = sl[-1 if transpose else -2].start or 0
+        width = gb.shape[-1 if transpose else -2]
+        xr = xf.narrow(2, off, width).contiguous()
+        scr = sc  # the whole drive's scales (the layer dim is never split)
+        pr = K._read_cuda(xr, gb, rb, scr, cfg, transpose, partials=True)
+        loose_ms += cuda_ms(lambda i: K._reduce_tiles_cuda(
+            K._read_cuda(xr, gb, rb, scr, cfg, transpose, partials=True),
+            scr, transpose), 3, sync)
+        exact_ms += cuda_ms(lambda i: K._reduce_tiles_cuda(
+            torch.cat([K._read_cuda(xr, gb, rb, scr, cfg, transpose,
+                                    partials=True)] + [pr] * (n_red - 1),
+                      dim=1), scr, transpose), 3, sync)
+        del pr
+    whole_ms = cuda_ms(lambda i: K.xbar_fused_read(
+        x, g, ref, ws, cfg, transpose=transpose), 3, sync)
+    return {"case": path[-1], "B": x.shape[-2], "transpose": transpose,
+            "within_bound": ok, "worst_err_over_bound": worst,
+            "whole_ms": whole_ms, "exact_form_ms": exact_ms,
+            "inexact_form_ms": loose_ms}
+
+
+def write_distance(after, before, base):
+    """Each container's write ``after - base`` against ``before - base``,
+    in 2-norm relative to the latter."""
+    return {k: float((after[k] - before[k]).norm()
+                     / (before[k] - base[k]).norm()) for k in before}
+
+
+def first_read_bound(K, cfg, xcfg, c, x):
+    """The reassociation bound of layer 0's forward read of container
+    ``c`` at drive ``x`` (B, K), against the exact read's partials: an
+    element of two float sums of the same tiles' partials in two orders
+    lies within ``(tiles - 1) * 2^-23 * sum |partial|`` of the other
+    (``u = 2^-24`` each), times the rescale, plus the rescale's own
+    rounding of the exact output ``exact``."""
+    g, ref = c["g"][:1], c["ref"][:1]
+    ws = torch.as_tensor(c["w_scale"], device="cuda").float() \
+        .reshape(-1)[:1].contiguous()
+    xf = x.reshape(1, -1, x.shape[-1]).float().cuda().contiguous()
+    sc = K.read_scales(xf, ws, xcfg.adc.in_levels)
+    part = K._read_cuda(xf, g, ref, sc, xcfg, False, partials=True)
+    return (part.shape[1] - 1) * 2.0 ** -23 * part.abs().sum(1) \
+        * sc[:, 1, None, None].abs()
+
+
+def phase_tp_inexact(K, S, TM, TA, syn, get_config, report, gpu_line):
+    """27(c): ``AnalogTrainStep(exact=False)`` on 2x4, lm100m in device
+    mode at full width with phase 7's settings.  (i) Every shard-local
+    read of the four containers (12 layers), both directions, at B = 4
+    and B = 2048, within the reassociation bound of the exact read;
+    (ii) one step exact, one exact=False and one exact=False with a
+    planted fault (rank ``FAULT_RANK``'s own tile sum dropped in the
+    step's first read) from the same state, batch and write seed (each
+    rank its own process on this card): the exact step bit-equal to the
+    one-device step; the writes' launches unchanged; the step's first
+    read (layer 0's wqkv, the same drive in every form) within the
+    reassociation bound in the exact=False step, and off it in the
+    faulty one (the gate sees a fault of one rank in one read); the
+    loss and each container's write (new g - initial g) against the
+    exact step's: the write within ``WRITE_LIMIT`` times, in 2-norm, the
+    largest distance that a one-ulp nudge of the embedding (every
+    element, or a random half) puts between two one-device steps, and
+    the faulty step's beyond it in some container (the gate sees the
+    fault); the loss within 1e-3 relative.  The device-mode step is chaotic at this
+    size: an ulp anywhere flips DAC and ADC codes downstream, and a
+    rank-2048 write sums them into nearly every cell, so the cells off
+    (beyond 1e-4 of their own write) and not bit-equal are printed, not
+    bounded, and the nudges' and the fault's distances are printed
+    beside the exact=False step's."""
+    cfg = tp_inexact_cfg(get_config)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = TA.init_state(gen, cfg, device="cuda")
+    from repro_torch.core.tiled_analog import crossbar_from_model
+    xcfg = crossbar_from_model(cfg)
+    reads = []
+    for name in ("wqkv", "wo", "w_upgate", "w_down"):
+        sub = "attn" if name in ("wqkv", "wo") else "ffn"
+        c = state["params"]["layers"][sub][name]
+        path = ("layers", sub, name)
+        for b in INEXACT_B:
+            for tr in (False, True):
+                d = c["g"].shape[-1 if tr else -2]
+                x = torch.randn((c["g"].shape[0], b, d), generator=gen,
+                                device="cuda")
+                ws = torch.as_tensor(c["w_scale"], device="cuda").float() \
+                    .expand(c["g"].shape[0]).contiguous()
+                row = inexact_read_case(K, S, TM, path, x, c["g"], c["ref"],
+                                        ws, xcfg, cfg, tr)
+                if not row["within_bound"]:
+                    fail(f"27(c) {name} B={b} transpose={tr}: a read is "
+                         f"off the reassociation bound ({row})")
+                reads.append(row)
+    g0 = {"/".join(p): t.cpu() for p, t in leaves_of(state["params"])
+          if p[-1] == "g"}
+    step1 = TA.make_analog_sgd_step(cfg, lr=0.1)
+    batch = tp_tokens(cfg.vocab, *TP_BATCH)
+    one, _ = step1(state, batch, INEXACT_SEED_BASE)
+    g1 = {"/".join(p): t.cpu() for p, t in leaves_of(one["params"])
+          if p[-1] == "g"}
+    del one
+    # the yardsticks: the same one-device step with the embedding nudged
+    # one ulp up, every element or a random half (the device-mode step is
+    # chaotic: an ulp flips DAC and ADC codes downstream, and a rank-2048
+    # write sums them)
+    embed = state["params"]["embed"]
+    up = torch.nextafter(embed, torch.tensor(float("inf"), device="cuda"))
+    nudges = {}
+    for seed in NUDGE_SEEDS:
+        if seed is None:
+            nudged = up
+        else:
+            pick = torch.Generator(device="cuda")
+            pick.manual_seed(seed)
+            half = torch.rand(embed.shape, generator=pick,
+                              device="cuda") < 0.5
+            nudged = torch.where(half, up, embed)
+        two, _ = step1({**state, "params": {**state["params"],
+                                            "embed": nudged}},
+                       batch, INEXACT_SEED_BASE)
+        nudges["all" if seed is None else f"half_{seed}"] = write_distance(
+            {"/".join(p): t.cpu() for p, t in leaves_of(two["params"])
+             if p[-1] == "g"}, g1, g0)
+        del two, nudged
+    yard = {k: max(n[k] for n in nudges.values()) for k in g1}
+    wqkv = state["params"]["layers"]["attn"]["wqkv"]
+    ranks = spawn_layout(8, "inexact")
+    exact, loose, fault = (ranks[0][r] for r in ("exact", "inexact",
+                                                  "fault"))
+    # the exact step on 2x4 is the one-device step bit for bit
+    sharded_off = sum(int((exact["g"][k] != g1[k]).sum()) for k in g1)
+    if sharded_off:
+        fail(f"27(c): the exact step on 2x4 differs from the one-device "
+             f"step in {sharded_off} cells (losses {exact['loss']})")
+    # the first read in the step: the same drive in every form
+    x_e, y_e = exact["first"]
+    bound = first_read_bound(K, cfg, xcfg, wqkv, x_e)
+    bound = bound.reshape(y_e.shape).cpu() + 2.0 ** -23 * y_e.abs()
+    first = {}
+    for name, run in (("inexact", loose), ("fault", fault)):
+        x_r, y_r = run["first"]
+        err = (y_r - y_e).abs()
+        first[name] = {"same_drive": bool(torch.equal(x_r, x_e)),
+                       "block": run["first_block"],
+                       "within_bound": bool((err <= bound).all()),
+                       "worst_err_over_bound": float(
+                           (err / bound.clamp_min(1e-30)).max()),
+                       "elements_off": int((err > bound).sum())}
+    del state, wqkv, embed, up
+    diff = cells = unequal = 0
+    for key, a in exact["g"].items():
+        b = loose["g"][key]
+        # the writes' scales move by float rounding with the reads: a
+        # cell is off when it moves beyond 1e-4 of its own write (a
+        # flipped operand code moves it by about one code step, 1e-2)
+        off = (a - b).abs() > 1e-4 * (a - g0[key]).abs() + 1e-7
+        diff += int(off.sum())
+        unequal += int((a != b).sum())
+        cells += a.numel()
+    write_rel = write_distance(loose["g"], exact["g"], g0)
+    fault_rel = write_distance(fault["g"], exact["g"], g0)
+    limit = {k: WRITE_LIMIT * v for k, v in yard.items()}
+    print(f"27(c) writes: {diff} of {cells} cells off, {unequal} not "
+          f"bit-equal; write distance from the exact step's (2-norm, "
+          f"relative): exact=False {write_rel}, planted fault {fault_rel}; "
+          f"one-ulp nudges {nudges}; limit {WRITE_LIMIT} x the largest "
+          f"nudge; losses exact {exact['loss']!r} / exact=False "
+          f"{loose['loss']!r} / fault {fault['loss']!r}; first read "
+          f"{first}", flush=True)
+    if not all(f["same_drive"] for f in first.values()):
+        fail(f"27(c): the steps' first reads saw different drives: {first}")
+    if not first["inexact"]["within_bound"]:
+        fail(f"27(c): the exact=False step's first read is off the "
+             f"reassociation bound: {first['inexact']}")
+    if first["fault"]["within_bound"]:
+        fail(f"27(c): the planted fault's first read is within the bound: "
+             f"the gate cannot see it ({first['fault']})")
+    if abs(loose["loss"] - exact["loss"]) > 1e-3 * abs(exact["loss"]) \
+            or any(v > limit[k] for k, v in write_rel.items()):
+        fail(f"27(c): the exact=False step moved beyond the yardstick: "
+             f"writes {write_rel} against the limit {limit}, losses "
+             f"{exact['loss']} / {loose['loss']}")
+    if not any(v > limit[k] for k, v in fault_rel.items()):
+        fail(f"27(c): the planted fault's writes {fault_rel} are within the "
+             f"limit {limit}: the write gate cannot see it")
+    writes = ("update_tc", "update_prepare", "update_fp32")
+    for i, r in enumerate(ranks):
+        if any(r["exact"]["launches"].get(k) != r[v]["launches"].get(k)
+               for k in writes for v in ("inexact", "fault")):
+            fail(f"27(c) rank {i}: the writes' launches changed: "
+                 f"{r['exact']['launches']} against "
+                 f"{r['inexact']['launches']}")
+    by_b = {b: {k: sum(r[k] for r in reads if r["B"] == b)
+                for k in ("whole_ms", "exact_form_ms", "inexact_form_ms")}
+            for b in INEXACT_B}
+    row = {"reads": reads, "reads_within_bound": len(reads),
+           "cells_off": diff, "cells_not_bit_equal": unequal,
+           "cells": cells, "write_rel_2norm": write_rel,
+           "write_rel_2norm_planted_fault": fault_rel,
+           "write_rel_2norm_one_ulp_nudges": nudges,
+           "write_limit": limit, "first_read": first,
+           "loss": {"exact": exact["loss"], "inexact": loose["loss"],
+                    "fault": fault["loss"]},
+           "step_ms_per_rank": {run: [r[run]["ms"] for r in ranks]
+                                for run in ("exact", "inexact", "fault")},
+           "kernel_ms_by_B": by_b}
+    print(f"27(c) exact=False on 2x4: {len(reads)} reads within the bound; "
+          f"the step's first read at {first['inexact']['worst_err_over_bound']:.3g}"
+          f" of the bound (the planted fault at "
+          f"{first['fault']['worst_err_over_bound']:.3g}, "
+          f"{first['fault']['elements_off']} elements off); "
+          f"{diff} of {cells} cells off after one step ({unequal} not "
+          f"bit-equal; loss "
+          f"{exact['loss']:.6f} / {loose['loss']:.6f}); kernel ms summed "
+          f"over the ranks and containers, whole / exact form / exact=False "
+          + "; ".join(f"B={b}: {v['whole_ms']:.2f} / {v['exact_form_ms']:.2f}"
+                      f" / {v['inexact_form_ms']:.2f}"
+                      for b, v in by_b.items())
+          + f" (phase 24(b) on an H100: the exact form 4.1-5.9x the whole "
+          f"read at B=2048) [{gpu_line}]")
+    report(row)
+    return row
+
+
+def tp_split_entry(rows, case="split"):
+    """The kernels-line figures of the split-range read (``case``
+    ``split``) or the tiles read (``tiles``) of phase 27(a): its
+    launches in the layouts' steps, summed over the ranks; the error and
+    times of rank 0's read on 2x2 (2048 tokens; 768 x 1152 of lm100m's
+    wqkv, or 1536 x 768 of its w_down; the gather over the ranks left out
+    of the times)."""
+    main = rows[0][case][0]
+    key = f"{case}_reads_per_rank"
+    return {"launches": sum(sum(r[key]) for r in rows),
+            "launches_per_rank": {r["layout"]: r[key] for r in rows},
+            "max_abs_err": max(sp["max_abs_err"] for r in rows
+                               for sp in r[case]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "tc_floor_ms": main["tc_floor_ms"], "library_ms": None}
+
+
 def mlp_read_entry(mlp, direction, names):
     """The kernels-line figures of the MLP's reads in one direction: the
     launches of phase 14(b)'s six runs (each kernel counted) and the
@@ -7411,6 +8480,18 @@ def main():
         phase_prefill_head(M, get_config, reporter("prefill_head"),
                            gpu_line)
 
+    with phase("27"):
+        tp_qat = phase_tp_qat(K, TL, TO, get_config, reporter("tp_qat"),
+                              gpu_line)
+        tp_gemma = phase_tp_gemma(M, TL, TO, DR, S, TM, get_config,
+                                  reporter("tp_gemma"), gpu_line)
+        tp_inexact = phase_tp_inexact(K, S, TM, TA, syn, get_config,
+                                      reporter("tp_inexact"), gpu_line)
+    details["tp_27"] = {"qat": [{k: v for k, v in r.items()}
+                                for r in tp_qat],
+                        "gemma": tp_gemma,
+                        "inexact": {k: v for k, v in tp_inexact.items()}}
+
     def remat_launches(name):
         """The kernels-line figures of phase 26 for one launch count."""
         return {"launches_lm100m_train_remat_26a": {
@@ -7649,6 +8730,22 @@ def main():
             "threshold": fq_entry(fq_rows_of(fq_rows, K.FQ_TC_MIN_TOKENS,
                                              "tensor_core")),
             "decode": fq_entry(fq_rows_of(fq_rows, 4, "tensor_core"))}]}, {
+        "name": "xbar_fakequant_split", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/xbar_fakequant.cu",
+        "replaces": "src/repro/kernels/xbar_vmm.py:247 (the fakequant "
+                    "read of a column-split leaf under tensor parallelism: "
+                    "xbar_fakequant_split + xbar_fakequant_finish, the "
+                    "per-token range over the whole width from the ranks' "
+                    "gathered range partials)",
+        **tp_split_entry(tp_qat)}, {
+        "name": "xbar_fakequant_tiles", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/xbar_fakequant.cu",
+        "replaces": "src/repro/kernels/xbar_vmm.py:247 (the fakequant "
+                    "read of a row-split leaf under tensor parallelism: "
+                    "xbar_fakequant_split with q copied out, the ranks' "
+                    "tiles gathered in tile order, xbar_fakequant_tiles "
+                    "the epilogue over every tile)",
+        **tp_split_entry(tp_qat, "tiles")}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:29",
@@ -7814,7 +8911,20 @@ def main():
         "launches_zamba2_1_2b_train_remat_26d the 13-layer zamba2-1.2b "
         "step's under none and full; xbar_fakequant_read's "
         "launches_qat_remat_26b the tensor-core fakequant reads of one "
-        "lm100m QAT step under each policy")
+        "lm100m QAT step under each policy. Phase 27 (FSDP and tensor "
+        "parallelism; each rank of a layout its own process on this card, "
+        "a gloo group whose collectives move through slots on the card "
+        "mapped by CUDA IPC): xbar_fakequant_split is kernel 4's "
+        "split-range form (the pre-pass and the product, then the "
+        "epilogue on every rank's range partials gathered in column "
+        "order), xbar_fakequant_tiles its row-split form (the pre-pass "
+        "and the product with q copied out, then the epilogue over every "
+        "rank's tiles gathered in tile order): launches counts their reads "
+        "in 27(a)'s lm100m QAT steps on 2x2, 1x4 and 4x1, summed over the "
+        "ranks; ms, plain_ms and bound_ms one such read at 2048 tokens "
+        "through 768 x 1152 of wqkv or 1536 x 768 of w_down (rank 0 of "
+        "2x2), its gather over the ranks left out; no PyTorch call "
+        "computes the function, so library_ms is null")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1))

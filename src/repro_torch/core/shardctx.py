@@ -23,10 +23,22 @@ per-shard blocks; :func:`combine_partials_exact` joins with it whatever
 the mesh's gather returns: the blocks of the ranks of a job, or of the
 ranks of a layout emulated in one process (``launch.mesh.emulate_layout``,
 which runs a layout's shards one after another on one card).
+
+The numeric (FSDP and tensor-parallel) step lives on another contract:
+its float sums meet in ``all_reduce`` / ``reduce_scatter`` and agree with
+one device within float32 rounding.  Its differentiable collectives are
+here (:func:`gather`, :func:`copy_to`, :func:`reduce_from`,
+:func:`scatter_reduce`, :func:`split_to`: each a pair of a forward and a backward
+collective over a tuple of mesh axes, Megatron's f / g
+operators and FSDP's gather), and so is the slot of the step's
+:class:`~repro_torch.launch.sharding.NumericParallel`
+(:func:`numeric_context`), which the models consult to gather a layer's
+blocks and to split their compute over ``model``.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from contextlib import contextmanager as _contextmanager
 from typing import Optional, Sequence, Tuple
 
@@ -35,6 +47,9 @@ import torch
 Tensor = torch.Tensor
 
 _CTX: dict = {"mesh": None, "dp": None, "tp": None}
+#: The numeric step's context, one a thread: the ranks of a layout
+#: emulated in one process (``launch.mesh.emulate_layout``) are threads.
+_NUMERIC = threading.local()
 
 #: The ordered gathers this process took part in, and the bytes it
 #: received from other ranks through them (only
@@ -85,7 +100,9 @@ class ShardMeta:
     dims ``-2``/``-1``, ``lead`` (aligned right) the axes sharding the
     remaining lead dims (the MoE expert dim); ``axis_sizes`` and
     ``coords`` give each mesh axis's size and this rank's coordinate on
-    it.
+    it.  ``exact`` False (``AnalogTrainStep(exact=False)``) lets the read
+    sum its reduction tiles on each rank and ``all_reduce`` the ranks'
+    sums (``kernels.xbar_vmm.manual_collective_read``).
     """
 
     shape: Tuple[int, ...]
@@ -94,6 +111,7 @@ class ShardMeta:
     lead: Tuple[Tuple[str, ...], ...] = ()
     axis_sizes: Tuple[Tuple[str, int], ...] = ()
     coords: Tuple[Tuple[str, int], ...] = ()
+    exact: bool = True
 
     @property
     def sharded(self) -> bool:
@@ -160,3 +178,111 @@ def combine_partials_exact(q: Tensor, names: Sequence[str], axis: int,
             GATHERED["bytes"] += (n - 1) * q.numel() * q.element_size()
             q = combine_blocks(mesh.gather_blocks(q, a), axis)
     return q
+
+
+# --------------------------------------------------------------------------
+# The numeric step's differentiable collectives
+# --------------------------------------------------------------------------
+
+def _collective(x: Tensor, mesh, axes: Sequence[str], dim: int,
+                kind: str) -> Tensor:
+    """One collective over ``axes`` in turn: ``gather`` (minor axis first,
+    so the blocks land in row-major order), ``reduce_scatter`` and
+    ``slice`` (major axis first, their inverse), ``all_reduce`` (sum),
+    ``id``."""
+    if kind == "id":
+        return x
+    if kind == "gather":
+        for a in reversed(tuple(axes)):
+            x = mesh.all_gather(x, a, dim)
+        return x
+    for a in axes:
+        n = mesh.shape[a]
+        if kind == "all_reduce":
+            x = mesh.all_reduce(x, a)
+        elif kind == "reduce_scatter":
+            x = mesh.reduce_scatter(x.contiguous(), a, dim)
+        elif kind == "slice":
+            loc = x.shape[dim] // n
+            x = x.narrow(dim, mesh.coords[a] * loc, loc)
+        else:
+            raise ValueError(f"unknown collective {kind!r}")
+    return x
+
+
+class _Collective(torch.autograd.Function):
+    """A forward collective and its adjoint's backward one."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, fwd, bwd):
+        ctx.args = (mesh, axes, dim, bwd)
+        out = _collective(x, mesh, axes, dim, fwd)
+        return out.clone() if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim, bwd = ctx.args
+        out = _collective(g.contiguous(), mesh, axes, dim, bwd)
+        return out, None, None, None, None, None
+
+
+def _live(mesh, axes) -> Tuple[str, ...]:
+    return tuple(a for a in (axes or ()) if mesh.shape.get(a, 1) > 1)
+
+
+def _apply(x, mesh, axes, dim, fwd, bwd):
+    axes = _live(mesh, axes) if mesh is not None else ()
+    if not axes:
+        return x
+    return _Collective.apply(x, mesh, axes, dim, fwd, bwd)
+
+
+def gather(x: Tensor, mesh, axes, dim: int, grad: str = "reduce_scatter"
+           ) -> Tensor:
+    """``x``'s blocks over ``axes`` concatenated along ``dim``.  Backward
+    ``grad``: ``reduce_scatter`` (FSDP: each rank's gradient is partial)
+    or ``slice`` (the ranks compute the same gradient: compute replicated
+    over ``axes``)."""
+    return _apply(x, mesh, axes, dim, "gather", grad)
+
+
+def copy_to(x: Tensor, mesh, axes) -> Tensor:
+    """Identity forward, gradient summed over ``axes`` (Megatron's f: the
+    input of a column-parallel read)."""
+    return _apply(x, mesh, axes, 0, "id", "all_reduce")
+
+
+def reduce_from(x: Tensor, mesh, axes) -> Tensor:
+    """Summed over ``axes`` forward, identity backward (Megatron's g: the
+    output of a row-parallel read)."""
+    return _apply(x, mesh, axes, 0, "all_reduce", "id")
+
+
+def scatter_reduce(x: Tensor, mesh, axes, dim: int) -> Tensor:
+    """Summed over ``axes`` and this rank's chunk along ``dim`` kept;
+    backward gathers (sequence parallelism after a row-parallel read)."""
+    return _apply(x, mesh, axes, dim, "reduce_scatter", "gather")
+
+
+def split_to(x: Tensor, mesh, axes, dim: int) -> Tensor:
+    """This rank's chunk along ``dim`` of an ``x`` the ranks of ``axes``
+    hold alike; backward gathers the chunks' gradients (sequence
+    parallelism after a read whose whole output every rank holds)."""
+    return _apply(x, mesh, axes, dim, "slice", "gather")
+
+
+@_contextmanager
+def numeric_parallel(ctx):
+    """Install the numeric step's
+    :class:`~repro_torch.launch.sharding.NumericParallel` for a block."""
+    prev = numeric_context()
+    _NUMERIC.ctx = ctx
+    try:
+        yield ctx
+    finally:
+        _NUMERIC.ctx = prev
+
+
+def numeric_context():
+    """This thread's installed numeric-parallel context, or None."""
+    return getattr(_NUMERIC, "ctx", None)

@@ -47,6 +47,25 @@
 //      The range is taken from any number of columns: there is no cap on
 //      N, and the chunks spread the epilogue over the card at decode.
 //
+// Split range (tensor parallelism over the output columns).  A rank that
+// holds only some of W's columns reads them through xbar_fakequant_split:
+// the pre-pass and the product as above, and a copy of its range partials
+// (each token and tile's sum of q^2 over each 64-column block) out of
+// scratch.  The ranks' partials are gathered in the whole width's column
+// order (outside this source: an ordered gather, no arithmetic), and
+// xbar_fakequant_finish runs the epilogue on them, N the whole width: it
+// reduces every block of the whole width in the whole read's fixed order,
+// so the range, and each code, is the whole read's bit for bit wherever
+// the blocks' partials are (the rank's columns start on a block).  A
+// row-split read (each rank its own row tiles) takes the whole drive's
+// DAC scale as an operand (sc_in, the ranks' max|x| combined): the FP32
+// pre-pass then copies it and the tensor cores' pre-pass skips its max.
+// It also copies its tiles' q out (q_out); the ranks' q and range
+// partials are gathered in tile order (outside this source), and
+// xbar_fakequant_tiles runs the epilogue over every tile: the tiles are
+// summed in the whole read's order, so each rank holds the whole read's
+// output bit for bit.
+//
 // FP32 instance (decode, prefill chunks and short prompts, T < 144, or
 // DACs wider than 9 bits).  What bounds it: the bytes of W (2T flops per weight; 37.7 MB per
 // lm100m layer in f32, 11.3 us at 3.35 TB/s).  W stays f32 (a bf16 copy
@@ -144,6 +163,7 @@ struct PrepArgs {
   const float* x;         // (L, T, K)
   const float* w;         // (L, K, N)
   float* sc;              // (L,) out: the DAC scales
+  const float* sc_in;     // (L,) given DAC scales, or null: computed
   float* maxp;            // (L, grid CTAs) the CTAs' max|x|
   __nv_bfloat16* codes;   // tensor cores: (Tp, L * tiles, Rp) DAC codes
   __nv_bfloat16* planes;  // tensor cores: (3, L * tiles * Rp, Np) hi, mid,
@@ -245,6 +265,10 @@ __global__ void __launch_bounds__(kScaleThreads) fakequant_scale_kernel(
   __shared__ float red[kScaleThreads / 32];
   __shared__ int is_last;
   const int lead = blockIdx.y;
+  if (a.sc_in != nullptr) {  // a given scale: copied, nothing reduced
+    if (blockIdx.x == 0 && threadIdx.x == 0) a.sc[lead] = a.sc_in[lead];
+    return;
+  }
   const size_t per = (size_t)a.T * a.K;
   const size_t first = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const float m = block_max(abs_max(a.x + lead * per, per, first,
@@ -277,7 +301,7 @@ __global__ void __launch_bounds__(kThreads) fakequant_prepare_kernel(
   __shared__ float sc_s;
   const int tid = threadIdx.x;
   const size_t per = (size_t)a.T * a.K;
-  for (int lead = 0; lead < a.L; ++lead) {
+  for (int lead = 0; lead < (a.sc_in ? 0 : a.L); ++lead) {
     const float m = abs_max(a.x + lead * per, per,
                             (size_t)blockIdx.x * kThreads + tid,
                             (size_t)gridDim.x * kThreads);
@@ -307,8 +331,9 @@ __global__ void __launch_bounds__(kThreads) fakequant_prepare_kernel(
   grid_barrier(a.bar);
 
   for (int lead = blockIdx.x; lead < a.L; lead += gridDim.x) {
-    const float s0 = scale_of(a.maxp + (size_t)lead * gridDim.x, gridDim.x,
-                              a.in_levels, red);
+    const float s0 = a.sc_in ? a.sc_in[lead]
+                             : scale_of(a.maxp + (size_t)lead * gridDim.x,
+                                        gridDim.x, a.in_levels, red);
     if (tid == 0) a.sc[lead] = s0;
     __syncthreads();  // red is free for the next lead matrix
   }
@@ -731,9 +756,10 @@ __global__ void __launch_bounds__(Cta<BM>::kThreads, 2) fakequant_tc_kernel(
 
 struct EpiArgs {
   const float* q;    // (T, tiles, N)
-  const float* ssq;  // (T, tiles, ncq)
+  const float* ssq;  // (T, tiles, ncq): ncq blocks of the range's width
   float* y;          // (T, N)
   int T, N, tiles, ncq, chunk;
+  float n_range;     // the range's width: N, or the whole width's
   float out_levels, sat_sigmas;
 };
 
@@ -746,7 +772,7 @@ __global__ void __launch_bounds__(kThreads) fakequant_epilogue_kernel(
   extern __shared__ float lsb_s[];  // (tiles,)
   const int t = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const float n_f = (float)a.N;
+  const float n_f = a.n_range;
   for (int i = warp; i < a.tiles; i += kWarps) {
     const float* s = a.ssq + ((size_t)t * a.tiles + i) * a.ncq;
     float v = 0.f;
@@ -804,6 +830,16 @@ struct Plan {
   long long off_codes, off_planes, off_q, off_ssq, floats;
 };
 
+// Epilogue column chunks (multiples of 64): enough CTAs to fill the card
+// four times over at decode, one chunk a token at prefill.
+int epilogue_chunk(long long rows_q, int N, int sms) {
+  const long long ncq = (N + kQCols - 1) / kQCols;
+  long long splits = (4LL * sms + rows_q - 1) / rows_q;
+  if (splits > ncq) splits = ncq;
+  if (splits < 1) splits = 1;
+  return (int)((ncq + splits - 1) / splits) * kQCols;
+}
+
 Plan plan(int L, int T, int K, int N, int rows, int tc, int sms,
           int prep_cap) {
   Plan p = {};
@@ -846,13 +882,8 @@ Plan plan(int L, int T, int K, int N, int rows, int tc, int sms,
   const long long ctas = (pre + per - 1) / per;
   const long long cap = tc ? prep_cap : kMaxPrepCtas;
   p.pre_ctas = (int)(ctas < 1 ? 1 : ctas > cap ? cap : ctas);
-  // Epilogue column chunks (multiples of 64): enough CTAs to fill the card
-  // four times over at decode, one chunk a token at prefill.
   const long long rows_q = (long long)L * T;  // the epilogue's tokens
-  long long splits = (4LL * sms + rows_q - 1) / rows_q;
-  if (splits > p.ncq) splits = p.ncq;
-  if (splits < 1) splits = 1;
-  p.chunk = (int)((p.ncq + splits - 1) / splits) * kQCols;
+  p.chunk = epilogue_chunk(rows_q, N, sms);
   p.nchunks = (N + p.chunk - 1) / p.chunk;
 
   p.off_max = round4(2LL * L + 2);  // the scales and the counts
@@ -956,41 +987,20 @@ long long xbar_fakequant_scratch_floats(int L, int T, int K, int N, int rows,
   return plan(L, T, K, N, rows, tc, sms, prep_cap).floats;
 }
 
-// Launches one fakequant read on `stream`: x (L, T, K) and w (L, K, N) into
-// y (L, T, N), all contiguous float32 device arrays, with lead matrix l's
-// DAC scale written to scratch[l] (L = 1: the (T, K) read).  tc = 1 takes
-// the tensor-core instance (in_levels <= 256 only), tc = 0 the FP32 one.
-// scratch holds xbar_fakequant_scratch_floats() floats, this read's own: a
-// pre-pass that counts its CTAs (the tensor cores' grid barriers, a scale
-// kernel of several CTAs a lead matrix) has its counts zeroed first by a
-// cudaMemsetAsync on the stream (a memset, not a kernel).  sms and
-// prep_cap come from xbar_fakequant_setup on this device; the tensor
-// cores' cooperative pre-pass takes at most prep_cap CTAs for any L (its
-// loops stride over the L matrices), so a stack never exceeds the
-// co-resident grid.  A stack whose other grid dims exceed the launch
-// limits returns cudaErrorInvalidValue before anything launches.
-// Adds one to launched[slot] (host array of kSlots ints, in LaunchSlot
-// order) for each kernel launched.  Returns the CUDA error code of the
-// launches (0 on success).
-int xbar_fakequant(const float* x, const float* w, float* y, float* scratch,
-                   int L, int T, int K, int N, int rows,
-                   int tc, float in_levels, float out_levels,
-                   float sat_sigmas, int sms, int prep_cap, void* stream,
-                   int* launched) {
-  if (L <= 0 || T <= 0 || K <= 0 || N <= 0 || rows <= 0 || sms <= 0 ||
-      prep_cap <= 0 || scratch == nullptr ||
-      launched == nullptr || (tc && in_levels > kTcMaxLevels))
-    return (int)cudaErrorInvalidValue;
-  const Plan p = plan(L, T, K, N, rows, tc, sms, prep_cap);
-  if (p.nchunks > 65535 || p.tiles > 12288 || L > 65535 ||
-      (long long)L * T > 2147483647LL ||
-      (tc ? (p.Np / kTcBN > 65535 || (long long)L * p.tiles > 65535)
-          : (p.nsl > 65535 || (long long)p.ntb * L > 65535)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+}  // extern "C"
 
+namespace {
+
+// The pre-pass and the product of one read (everything but the epilogue):
+// q and the range partials into scratch, lead matrix l's DAC scale into
+// scratch[l] (from sc_in when given).  Returns the CUDA error code.
+int launch_head(const float* x, const float* w, const float* sc_in,
+                float* scratch, const Plan& p, int L, int T, int K, int N,
+                int rows, int tc, float in_levels, cudaStream_t st,
+                int* launched) {
   PrepArgs pa = {};
-  pa.x = x; pa.w = w; pa.sc = scratch; pa.maxp = scratch + p.off_max;
+  pa.x = x; pa.w = w; pa.sc = scratch; pa.sc_in = sc_in;
+  pa.maxp = scratch + p.off_max;
   pa.bar = reinterpret_cast<unsigned*>(scratch + L);
   pa.bar2 = pa.bar + 1;
   pa.L = L; pa.T = T; pa.K = K; pa.N = N; pa.rows = rows; pa.tiles = p.tiles;
@@ -1020,7 +1030,8 @@ int xbar_fakequant(const float* x, const float* w, float* y, float* scratch,
     if (err != cudaSuccess) return (int)err;
     ++launched[kSlotTc];
   } else {
-    fakequant_scale_kernel<<<dim3((unsigned)p.pre_ctas, (unsigned)L),
+    fakequant_scale_kernel<<<dim3(sc_in ? 1u : (unsigned)p.pre_ctas,
+                                  (unsigned)L),
                              kScaleThreads, 0, st>>>(pa);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -1039,16 +1050,157 @@ int xbar_fakequant(const float* x, const float* w, float* y, float* scratch,
     if (err != cudaSuccess) return (int)err;
     ++launched[kSlotFp32];
   }
+  return 0;
+}
 
+// The epilogue over the range partials ssq, (L * T, tiles, ncq) floats:
+// the whole read's own (scratch, ncq its own) or a split read's gathered
+// ones (ncq the whole width's blocks, n_range its columns).
+int launch_epilogue(const float* q, const float* ssq, int ncq, float* y,
+                    int rows_q, int tiles, int N, int chunk, float n_range,
+                    float out_levels, float sat_sigmas, cudaStream_t st,
+                    int* launched) {
   EpiArgs ea = {};
-  ea.q = scratch + p.off_q; ea.ssq = scratch + p.off_ssq; ea.y = y;
-  ea.T = L * T; ea.N = N; ea.tiles = p.tiles; ea.ncq = p.ncq;
-  ea.chunk = p.chunk; ea.out_levels = out_levels; ea.sat_sigmas = sat_sigmas;
-  fakequant_epilogue_kernel<<<dim3((unsigned)(L * T), (unsigned)p.nchunks),
-                              kThreads, p.tiles * sizeof(float), st>>>(ea);
-  err = cudaGetLastError();
+  ea.q = q; ea.ssq = ssq; ea.y = y;
+  ea.T = rows_q; ea.N = N; ea.tiles = tiles; ea.ncq = ncq;
+  ea.chunk = chunk; ea.n_range = n_range;
+  ea.out_levels = out_levels; ea.sat_sigmas = sat_sigmas;
+  fakequant_epilogue_kernel<<<dim3((unsigned)rows_q,
+                                   (unsigned)((N + chunk - 1) / chunk)),
+                              kThreads, tiles * sizeof(float), st>>>(ea);
+  const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++launched[kSlotEpilogue];
   return (int)err;
+}
+
+bool bad_args(int L, int T, int K, int N, int rows, int sms, int prep_cap,
+              const float* scratch, const int* launched, int tc,
+              float in_levels) {
+  return L <= 0 || T <= 0 || K <= 0 || N <= 0 || rows <= 0 || sms <= 0 ||
+         prep_cap <= 0 || scratch == nullptr || launched == nullptr ||
+         (tc && in_levels > kTcMaxLevels);
+}
+
+bool out_of_range(const Plan& p, int L, int T, int tc) {
+  return p.nchunks > 65535 || p.tiles > 12288 || L > 65535 ||
+         (long long)L * T > 2147483647LL ||
+         (tc ? (p.Np / kTcBN > 65535 || (long long)L * p.tiles > 65535)
+             : (p.nsl > 65535 || (long long)p.ntb * L > 65535));
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches one fakequant read on `stream`: x (L, T, K) and w (L, K, N) into
+// y (L, T, N), all contiguous float32 device arrays, with lead matrix l's
+// DAC scale written to scratch[l] (L = 1: the (T, K) read), computed from
+// x, or copied from sc_in (L floats on the device) when it is not null.
+// tc = 1 takes the tensor-core instance (in_levels <= 256 only), tc = 0
+// the FP32 one.
+// scratch holds xbar_fakequant_scratch_floats() floats, this read's own: a
+// pre-pass that counts its CTAs (the tensor cores' grid barriers, a scale
+// kernel of several CTAs a lead matrix) has its counts zeroed first by a
+// cudaMemsetAsync on the stream (a memset, not a kernel).  sms and
+// prep_cap come from xbar_fakequant_setup on this device; the tensor
+// cores' cooperative pre-pass takes at most prep_cap CTAs for any L (its
+// loops stride over the L matrices), so a stack never exceeds the
+// co-resident grid.  A stack whose other grid dims exceed the launch
+// limits returns cudaErrorInvalidValue before anything launches.
+// Adds one to launched[slot] (host array of kSlots ints, in LaunchSlot
+// order) for each kernel launched.  Returns the CUDA error code of the
+// launches (0 on success).
+int xbar_fakequant(const float* x, const float* w, float* y, float* scratch,
+                   int L, int T, int K, int N, int rows,
+                   int tc, float in_levels, float out_levels,
+                   float sat_sigmas, int sms, int prep_cap, void* stream,
+                   int* launched, const float* sc_in) {
+  if (bad_args(L, T, K, N, rows, sms, prep_cap, scratch, launched, tc,
+               in_levels))
+    return (int)cudaErrorInvalidValue;
+  const Plan p = plan(L, T, K, N, rows, tc, sms, prep_cap);
+  if (out_of_range(p, L, T, tc)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int err = launch_head(x, w, sc_in, scratch, p, L, T, K, N, rows, tc,
+                              in_levels, st, launched);
+  if (err != 0) return err;
+  return launch_epilogue(scratch + p.off_q, scratch + p.off_ssq, p.ncq, y,
+                         L * T, p.tiles, N, p.chunk, (float)N, out_levels,
+                         sat_sigmas, st, launched);
+}
+
+// The first half of a split-range read of this rank's columns: the
+// pre-pass and the product (as xbar_fakequant, sc_in likewise), then its
+// range partials, (L * T, tiles, ceil(N / 64)) floats, copied into
+// ssq_out (cudaMemcpyAsync, not a kernel).  q stays in scratch for
+// xbar_fakequant_finish; with q_out (not null) it is copied there too,
+// (L * T, tiles, N) floats, for xbar_fakequant_tiles.  Two launches.
+int xbar_fakequant_split(const float* x, const float* w, float* ssq_out,
+                         float* scratch, int L, int T, int K, int N,
+                         int rows, int tc, float in_levels, int sms,
+                         int prep_cap, void* stream, int* launched,
+                         const float* sc_in, float* q_out) {
+  if (ssq_out == nullptr ||
+      bad_args(L, T, K, N, rows, sms, prep_cap, scratch, launched, tc,
+               in_levels))
+    return (int)cudaErrorInvalidValue;
+  const Plan p = plan(L, T, K, N, rows, tc, sms, prep_cap);
+  if (out_of_range(p, L, T, tc)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int err = launch_head(x, w, sc_in, scratch, p, L, T, K, N, rows, tc,
+                              in_levels, st, launched);
+  if (err != 0) return err;
+  if (q_out != nullptr) {
+    const cudaError_t e = cudaMemcpyAsync(
+        q_out, scratch + p.off_q, (size_t)L * T * p.tiles * N * sizeof(float),
+        cudaMemcpyDeviceToDevice, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaMemcpyAsync(
+      ssq_out, scratch + p.off_ssq,
+      (size_t)L * T * p.tiles * p.ncq * sizeof(float),
+      cudaMemcpyDeviceToDevice, st);
+}
+
+// The second half: the epilogue on the scratch of xbar_fakequant_split
+// (the same L, T, K, N, rows, tc, sms and prep_cap), with ssq_all, (L * T,
+// tiles, ncq_all) floats, the range partials of every block of the whole
+// width in its column order, and n_range the whole width's column count:
+// y (L, T, N) for this rank's columns.  One launch.
+int xbar_fakequant_finish(float* scratch, const float* ssq_all, int ncq_all,
+                          float* y, int L, int T, int K, int N, int rows,
+                          int tc, float n_range, float out_levels,
+                          float sat_sigmas, int sms, int prep_cap,
+                          void* stream, int* launched) {
+  if (ssq_all == nullptr || y == nullptr || ncq_all <= 0 ||
+      !(n_range > 0.f) ||
+      bad_args(L, T, K, N, rows, sms, prep_cap, scratch, launched, tc, 0.f))
+    return (int)cudaErrorInvalidValue;
+  const Plan p = plan(L, T, K, N, rows, tc, sms, prep_cap);
+  if (out_of_range(p, L, T, tc)) return (int)cudaErrorInvalidValue;
+  return launch_epilogue(scratch + p.off_q, ssq_all, ncq_all, y, L * T,
+                         p.tiles, N, p.chunk, n_range, out_levels,
+                         sat_sigmas, (cudaStream_t)stream, launched);
+}
+
+// The epilogue alone over the row tiles of several ranks, gathered in
+// tile order (a row-split read, each rank its own whole row tiles): q,
+// (T, tiles, N), each tile's product, and ssq, (T, tiles, ceil(N / 64)),
+// its range partials, as xbar_fakequant_split copies them out (q_out),
+// into y (T, N).  The tiles are summed in tile order from 0, so y is the
+// whole read's bit for bit.  One launch.
+int xbar_fakequant_tiles(const float* q, const float* ssq, float* y, int T,
+                         int tiles, int N, float out_levels,
+                         float sat_sigmas, int sms, void* stream,
+                         int* launched) {
+  if (q == nullptr || ssq == nullptr || y == nullptr || launched == nullptr ||
+      T <= 0 || tiles <= 0 || tiles > 12288 || N <= 0 || sms <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int chunk = epilogue_chunk(T, N, sms);
+  if ((N + chunk - 1) / chunk > 65535) return (int)cudaErrorInvalidValue;
+  return launch_epilogue(q, ssq, (N + kQCols - 1) / kQCols, y, T, tiles, N,
+                         chunk, (float)N, out_levels, sat_sigmas,
+                         (cudaStream_t)stream, launched);
 }
 
 }  // extern "C"

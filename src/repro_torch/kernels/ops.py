@@ -29,72 +29,158 @@ The gradient is the reference's: it has no straight-through estimator.
 The rounding differentiates to zero, so the gradient flows only through
 the DAC and ADC ranges (the scales' ``max``/``rms``), as ``jax.grad`` of
 the reference's jnp path gives it.
+
+Under tensor parallelism (:class:`FakequantSplitRead`, the numeric
+step's ``tp`` reads) a rank holds some of a leaf's columns or some of
+its row tiles.  Column split: each rank's read forms its range partials
+(per token, row tile and 64-column block, the sum of q²), the ranks'
+partials are gathered in the whole width's column order and every rank
+quantises with the whole width's range
+(``kernels.xbar_vmm.fakequant_split_read``; on the card the range is the
+whole read's bit for bit).  Row split (whole row tiles a rank): the DAC
+scale is the ``max`` over the ranks' drives, each rank's tiles' products
+and range partials are gathered in tile order and every rank runs the
+ADC over all of them (``kernels.xbar_vmm.fakequant_tiles_read``), so its
+output is the whole read's.  The backward is the whole expression's
+gradient (:func:`_fakequant_vjp` with the split's view of the whole):
+the per-(token, tile) ``dL/dlsb`` partial of a column split is summed
+over ``model`` before it flows into the rank's own q, and a shared DAC
+scale's gradient is summed over its ranks and shared among their
+elements at the max.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import shardctx
 from repro_torch.core.adc import AdcConfig, divisor, quantize_dequantize
 
-from .xbar_vmm import fakequant_read, resolve_impl
+from .xbar_vmm import (fakequant_read, fakequant_scale, fakequant_split_read,
+                       fakequant_tiles_read, resolve_impl)
 
 Tensor = torch.Tensor
 
 
-def _adc_lsb(q: Tensor, adc: AdcConfig):
+class _Split(NamedTuple):
+    """A split read's view of the whole read (:class:`FakequantSplitRead`):
+    the mesh, the axes whose ranks hold the other columns
+    (``range_axes``, ``n_range`` columns in all; ``tot`` (T, tiles) the
+    whole width's per-(token, row tile) sum of q²) and those sharing the
+    DAC scale (``scale_axes``; ``sc`` the shared scale, 0-d)."""
+    mesh: object
+    range_axes: tuple
+    scale_axes: tuple
+    n_range: int
+    sc: Optional[Tensor]
+    tot: Optional[Tensor]
+
+
+def _adc_lsb(q: Tensor, adc: AdcConfig, split: Optional[_Split] = None):
     """``(sat, lsb)`` of the per-token output ADC: one range per (token,
     row tile), ``sat_sigmas`` times the token's rms partial over the
     output width.  The lsb divides by ``core.adc.divisor``, the float32
-    division the reference takes, on the card as on the CPU."""
-    sat = adc.sat_sigmas * torch.sqrt(
-        torch.mean(q * q, dim=-1, keepdim=True) + 1e-12)
-    return sat, sat / divisor(adc.out_levels, sat)
+    division the reference takes, on the card as on the CPU.  A column
+    split's range is the whole width's: its value from ``split.tot``, its
+    gradient through this rank's q only (the others' sums constants), and
+    ``dL/dlsb`` summed over ``split.range_axes`` (each rank's codes
+    cover its own columns)."""
+    if split is None or split.tot is None:
+        sat = adc.sat_sigmas * torch.sqrt(
+            torch.mean(q * q, dim=-1, keepdim=True) + 1e-12)
+        return sat, sat / divisor(adc.out_levels, sat)
+    n = torch.full((), float(split.n_range), device=q.device)
+    tot = split.tot.reshape(*q.shape[:-1], 1)
+    own = torch.sum(q * q, dim=-1, keepdim=True)
+    grad = adc.sat_sigmas * torch.sqrt((own + (tot - own.detach())) / n
+                                       + 1e-12)
+    sat = adc.sat_sigmas * torch.sqrt(tot / n + 1e-12) \
+        + (grad - grad.detach())
+    lsb = sat / divisor(adc.out_levels, sat)
+    return sat, shardctx.copy_to(lsb, split.mesh, split.range_axes)
 
 
-def _adc_fake_quant(q: Tensor, adc: AdcConfig) -> Tensor:
+def _adc_fake_quant(q: Tensor, adc: AdcConfig,
+                    split: Optional[_Split] = None) -> Tensor:
     """Per-token output-ADC fake quantisation (QAT epilogue) at the range
     :func:`_adc_lsb` gives."""
-    _, lsb = _adc_lsb(q, adc)
+    _, lsb = _adc_lsb(q, adc, split)
     return torch.clamp(torch.round(q / lsb), -adc.out_levels,
                        adc.out_levels) * lsb
 
 
 def _fakequant_eager(x: Tensor, w: Tensor, adc: AdcConfig,
-                     rows: int) -> Tensor:
+                     rows: int, split: Optional[_Split] = None) -> Tensor:
     """The reference's jnp branch of ``fakequant_project``, step for step;
     for an expert stack (``w`` (E, K, N), ``x`` (E, T, K)) once per
     expert, as the reference's ``vmap`` over the experts computes it (one
-    DAC scale per expert)."""
+    DAC scale per expert).  ``split`` makes it a split read's part of the
+    whole expression: the DAC round trip at the shared scale, the ADC at
+    the whole width's range (:func:`_adc_lsb`)."""
     if w.ndim == 3:
         return torch.stack([_fakequant_eager(x[e], w[e], adc, rows)
                             for e in range(w.shape[0])])
-    xq = quantize_dequantize(x, adc)
+    if split is None or split.sc is None:
+        xq = quantize_dequantize(x, adc)
+    else:
+        xq = quantize_dequantize_at(x, split.sc, adc)
     k = w.shape[0]
     n_tiles = max(1, -(-k // rows))
     if n_tiles == 1:
-        return _adc_fake_quant(xq @ w, adc)
+        return _adc_fake_quant(xq @ w, adc, split)
     pad = (-k) % rows
     xp = torch.nn.functional.pad(xq, (0, pad))
     wp = torch.nn.functional.pad(w, (0, 0, 0, pad))
     xt = xp.reshape(*x.shape[:-1], n_tiles, rows)
     wt = wp.reshape(n_tiles, rows, w.shape[1])
     q = torch.einsum("...tk,tkn->...tn", xt, wt)
-    return _adc_fake_quant(q, adc).sum(dim=-2)
+    return _adc_fake_quant(q, adc, split).sum(dim=-2)
 
 
 def _fakequant_vjp(x: Tensor, w: Tensor, dy: Tensor, adc: AdcConfig,
-                   rows: int, need=(True, True)):
+                   rows: int, need=(True, True),
+                   split: Optional[_Split] = None):
     """``(dx, dw)``: the VJP of :func:`_fakequant_eager` at ``(x, w)``,
     recomputed from the operands; ``need`` says which of the two to form
-    (``None`` in place of the other)."""
+    (``None`` in place of the other).  For a split read (``split``) the
+    whole expression's: the range's gradient as :func:`_adc_lsb` gives
+    it, and a shared DAC scale's gradient summed over
+    ``split.scale_axes`` and shared among every rank's elements at the
+    drive's max (:func:`_shared_scale_dx`)."""
+    shared = split is not None and split.sc is not None and need[0]
     with torch.enable_grad():
         ops = [t.detach().requires_grad_(n) for t, n in zip((x, w), need)]
-        y = _fakequant_eager(*ops, adc, rows)
-        grads = iter(torch.autograd.grad(
-            y, [t for t in ops if t.requires_grad], dy))
-    return tuple(next(grads) if n else None for n in need)
+        sc = None
+        if split is not None and split.sc is not None:
+            sc = split.sc.detach().requires_grad_(shared)
+            split = split._replace(sc=sc)
+        y = _fakequant_eager(*ops, adc, rows, split)
+        wrt = [t for t in (*ops, sc) if t is not None and t.requires_grad]
+        grads = dict(zip(map(id, wrt), torch.autograd.grad(y, wrt, dy)))
+    dx, dw = (grads.get(id(t)) for t in ops)
+    if shared:
+        dx = dx + _shared_scale_dx(ops[0], grads[id(sc)], split, adc)
+    return dx if need[0] else None, dw if need[1] else None
+
+
+def _shared_scale_dx(x: Tensor, g_sc: Tensor, split: _Split,
+                     adc: AdcConfig) -> Tensor:
+    """``dx`` from a DAC scale shared over ``split.scale_axes``: the
+    scale's gradient summed over them, shared equally among the elements
+    of every rank where ``|x|`` reaches the shared max (the gradient of
+    the reference's ``max`` over its one global drive)."""
+    g = _all_reduce(g_sc, split.mesh, split.scale_axes)
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        top = xg.abs().amax()
+        own = torch.clamp(top, min=1e-12) / divisor(adc.in_levels, xg)
+    hit = bool(own.detach() == split.sc)
+    ties = (xg.detach().abs() == top.detach()).sum().float() * hit
+    total = _all_reduce(ties.reshape(1), split.mesh, split.scale_axes)[0]
+    if not hit:
+        return torch.zeros_like(x)
+    return torch.autograd.grad(own, xg, g * ties / total)[0]
 
 
 class FakequantRead(torch.autograd.Function):
@@ -115,6 +201,84 @@ class FakequantRead(torch.autograd.Function):
         dx, dw = _fakequant_vjp(x, w, dy, ctx.adc, ctx.rows,
                                 ctx.needs_input_grad[:2])
         return dx, dw, None, None
+
+
+def _all_reduce(t: Tensor, mesh, axes, op: str = "sum") -> Tensor:
+    for a in axes:
+        t = mesh.all_reduce(t, a, op)
+    return t
+
+
+class FakequantSplitRead(torch.autograd.Function):
+    """A fakequant read of this rank's part of a read spread over the
+    ranks of ``mesh``: the drive's DAC scale is the max over the ranks of
+    ``scale_axes`` (the data ranks' tokens of one global batch, and the
+    ranks holding the other row tiles of a row-split leaf).  A column
+    split's per-(token, row tile) ADC range sums q² over the ranks of
+    ``range_axes`` (the ranks holding the other columns, ``n_range``
+    columns wide in all; ``blocks`` puts the gathered 64-column range
+    partials in the whole width's order).  A row split gathers the
+    ranks of ``tile_axes``' row tiles and returns the whole read (one
+    device's output on every rank).  See the module docstring."""
+
+    @staticmethod
+    def forward(ctx, x, w, adc, rows, mesh, range_axes, scale_axes,
+                n_range, blocks=None, tile_axes=()):
+        sc = None
+        if scale_axes:
+            sc = _all_reduce(fakequant_scale(x, adc.in_levels), mesh,
+                             scale_axes, "max")
+        tot = None
+        if range_axes:
+            def combine(s):     # ordered gather, then the whole width's order
+                for a in reversed(range_axes):
+                    s = mesh.all_gather(s, a, s.ndim - 1)
+                return s if blocks is None else s.index_select(
+                    -1, blocks.to(s.device))
+            y, full = fakequant_split_read(x, w, adc, rows, combine,
+                                           n_range, sc)
+            tot = full.sum(dim=-1)
+        elif tile_axes:
+            def combine(t):     # every rank's tiles, in tile order
+                for a in reversed(tile_axes):
+                    t = mesh.all_gather(t, a, 1)
+                return t
+            y = fakequant_tiles_read(x, w, adc, rows, combine, sc)
+        else:
+            y = fakequant_read(x, w, adc, rows, sc=sc)
+        ctx.save_for_backward(x, w, sc, tot)
+        ctx.args = (adc, rows, mesh, range_axes, scale_axes, n_range)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, sc, tot = ctx.saved_tensors
+        adc, rows, mesh, range_axes, scale_axes, n_range = ctx.args
+        dx, dw = _fakequant_vjp(
+            x, w, dy, adc, rows, ctx.needs_input_grad[:2],
+            _Split(mesh, range_axes, scale_axes, n_range,
+                   None if sc is None else sc[0], tot))
+        return dx, dw, None, None, None, None, None, None, None, None
+
+
+def quantize_dequantize_at(x: Tensor, sc: Tensor, adc: AdcConfig) -> Tensor:
+    """The DAC round trip at the full scale ``sc`` (differentiable in
+    ``sc``; the rounding differentiates to zero)."""
+    lv = float(adc.in_levels)
+    return torch.clamp(torch.round(x / sc), -lv, lv) * sc
+
+
+def fakequant_split_project(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
+                            mesh, range_axes, scale_axes, n_range: int,
+                            blocks=None, tile_axes=()) -> Tensor:
+    """:class:`FakequantSplitRead` of ``x`` (..., K) (the reads' tokens
+    flattened), in float32."""
+    lead = x.shape[:-1]
+    y = FakequantSplitRead.apply(x.reshape(-1, x.shape[-1]).float(),
+                                 w.float(), adc, rows, mesh,
+                                 tuple(range_axes), tuple(scale_axes),
+                                 n_range, blocks, tuple(tile_axes))
+    return y.reshape(*lead, w.shape[-1])
 
 
 def fakequant_project(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,

@@ -40,8 +40,12 @@ the shared per-token ADC ``fakequant_epilogue``.  An expert stack (x
 lead dim rides every kernel's grid, each lead matrix with its own DAC
 scale, so a stack costs three launches, not three per expert.
 ``LAUNCHES["fakequant"]``
-counts reads and ``LAUNCHES[name]`` each kernel's launches, from the
-launch record the launcher fills.
+counts reads, ``LAUNCHES["fakequant_split"]`` the split reads among
+them (tensor parallelism: :func:`fakequant_split_read` for a column
+split, :func:`fakequant_tiles_read` for a row split, whose epilogues
+over every rank's tiles ``LAUNCHES["fakequant_tiles"]`` counts) and
+``LAUNCHES[name]`` each kernel's launches, from the launch record the
+launcher fills.
 
 The kernels are built at first use from ``csrc/xbar_vmm.cu`` (see
 ``kernels._nvcc``).  :func:`read_instance` picks one of its two instances
@@ -88,7 +92,8 @@ FQ_KERNEL_COUNTS = ("fakequant_scale", "fakequant_prepare", "fakequant_fp32",
 LAUNCHES = {"fused_vmm": 0, "fused_mvm": 0,
             **{f"{name}_{d}": 0 for d in ("vmm", "mvm")
                for name in READ_KERNEL_COUNTS},
-            "fakequant": 0, **{name: 0 for name in FQ_KERNEL_COUNTS}}
+            "fakequant": 0, "fakequant_split": 0, "fakequant_tiles": 0,
+            **{name: 0 for name in FQ_KERNEL_COUNTS}}
 
 SOURCE = _nvcc.CSRC / "xbar_vmm.cu"
 FAKEQUANT_SOURCE = _nvcc.CSRC / "xbar_fakequant.cu"
@@ -99,6 +104,7 @@ TC_MIN_BATCH = 17              # the tensor-core instance from this batch
 # tools/fakequant_crossover.py).
 FQ_TC_MIN_TOKENS = 144
 TC_MAX_LEVELS = 256            # kTcMaxLevels: DAC codes exact in bf16
+RANGE_COLS = 64                # kQCols: the columns of one range partial
 KERNEL_IMPLS = ("auto", "cuda", "eager")
 
 
@@ -408,6 +414,16 @@ def manual_collective_read(x: Tensor, g: Tensor, ref: Tensor, w_scale,
 
     The gathers are ``core.shardctx.combine_partials_exact`` on ``mesh``
     (default: the installed one).
+
+    With ``meta.exact`` False (the port's counterpart of the reference's
+    GSPMD read, ``AnalogTrainStep(exact=False)``) a split reduction dim
+    trades the ordered combine for a mesh-dependent association: each
+    rank sums its *own* reduction tiles' partials in tile order
+    (``reduce_tiles_kernel``, unscaled), the ranks' sums are
+    ``all_reduce``d over the reduction axes, and the result is rescaled
+    once.  The payload falls from (L, tiles, B, O) partials to (L, B, O);
+    each element moves within ``ranks * 2^-23 * sum |partial|`` of the
+    exact read.  Output and lead blocks are still gathered.
     """
     impl = resolve_read_impl(impl, x)
     _deterministic(cfg.adc)
@@ -450,7 +466,15 @@ def manual_collective_read(x: Tensor, g: Tensor, ref: Tensor, w_scale,
     def combine(t, names, axis):
         return shardctx.combine_partials_exact(t, names, axis, mesh)
 
-    if red_names:
+    if red_names and not getattr(meta, "exact", True):
+        part = read(xr, gf, rf, sc, cfg, transpose, partials=True)
+        unscaled = torch.stack([sc[:, 0], torch.ones_like(sc[:, 0])], 1)
+        y = reduce(part, unscaled)
+        m = mesh if mesh is not None else shardctx.current_mesh()
+        for a in red_names:
+            y = m.all_reduce(y, a)
+        y = y * sc[:, 1, None, None]
+    elif red_names:
         part = read(xr, gf, rf, sc, cfg, transpose, partials=True)
         # audit: allow RA103 -- ordered gather of the per-tile ADC partial sums of the shard-local read (activation-sized, arithmetic-free), reduced after in single-device tile order; conductances never move and RA107 bounds the payload
         y = reduce(combine(part, red_names, 1).contiguous(), sc)
@@ -584,8 +608,16 @@ def _fakequant_library():
         lib = _nvcc.load(FAKEQUANT_SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.xbar_fakequant.argtypes = [p, p, p, p, i, i, i, i, i, i, f, f,
-                                       f, i, i, p, p]
+                                       f, i, i, p, p, p]
         lib.xbar_fakequant.restype = ctypes.c_int
+        lib.xbar_fakequant_split.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                             f, i, i, p, p, p, p]
+        lib.xbar_fakequant_split.restype = ctypes.c_int
+        lib.xbar_fakequant_finish.argtypes = [p, p, i, p, i, i, i, i, i, i,
+                                              f, f, f, i, i, p, p]
+        lib.xbar_fakequant_finish.restype = ctypes.c_int
+        lib.xbar_fakequant_tiles.argtypes = [p, p, p, i, i, i, f, f, i, p, p]
+        lib.xbar_fakequant_tiles.restype = ctypes.c_int
         lib.xbar_fakequant_setup.argtypes = [ctypes.POINTER(i)]
         lib.xbar_fakequant_setup.restype = ctypes.c_int
         lib.xbar_fakequant_scratch_floats.argtypes = [i] * 8
@@ -595,20 +627,54 @@ def _fakequant_library():
 
 
 def _fakequant_cuda(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
-                    instance: Optional[str] = None):
+                    instance: Optional[str] = None,
+                    sc: Optional[Tensor] = None):
     """Launch a fakequant read of x (T, K) through w (K, N), or of an
     expert stack, x (L, T, K) through w (L, K, N), with the lead dim in
     the grid of every kernel: the pre-pass and the product of
     ``instance`` (default :func:`fakequant_instance` on the T rows of one
     lead matrix), then the epilogue, three launches for the whole stack.
     Returns ``(y, sc)``: the (T, N) or (L, T, N) result and the DAC
-    scales the pre-pass computed, one per lead matrix ((1,) or (L,)).
+    scales the pre-pass computed, one per lead matrix ((1,) or (L,)), or
+    copied from ``sc`` when it is given (a row-split read: the whole
+    drive's scale).
     Everything a read counts or keeps on the card lies in its own scratch
     (a pre-pass that counts its CTAs has the counts zeroed on the current
     stream first), so reads may run together on several streams."""
     squeeze = x.ndim == 2
     if squeeze:
         x, w = x[None], w[None]
+    lib, plan = _fakequant_plan(x, w, adc, rows, instance, sc)
+    y = outputs.empty(tuple(x.shape[:2]) + (w.shape[2],), torch.float32,
+                      x.device)
+    launched = (ctypes.c_int * len(FQ_KERNEL_COUNTS))()
+    err = lib.xbar_fakequant(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), plan["scratch"].data_ptr(),
+        *plan["dims"], float(adc.in_levels), float(adc.out_levels),
+        float(adc.sat_sigmas), *plan["dev"], plan["stream"], launched,
+        sc.data_ptr() if sc is not None else None)
+    _fq_count(launched)
+    if err != 0:
+        raise RuntimeError(f"xbar_fakequant launch failed: CUDA error {err} "
+                           f"(x {tuple(x.shape)}, w {tuple(w.shape)}, rows "
+                           f"{rows}, {plan['instance']} instance)")
+    scratch = plan["scratch"]
+    if squeeze:
+        return y[0], scratch[:1]
+    return y, scratch[:x.shape[0]]
+
+
+def _fq_count(launched) -> None:
+    for name, count in zip(FQ_KERNEL_COUNTS, launched):
+        LAUNCHES[name] += count
+    LAUNCHES["fakequant"] += launched[0] + launched[1]
+
+
+def _fakequant_plan(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
+                    instance: Optional[str], sc: Optional[Tensor]) -> dict:
+    """Check a read's (L, T, K) / (L, K, N) operands and plan it: the
+    library, the instance, the dims, the device's setup, the stream and
+    the read's own scratch."""
     if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] \
             or x.shape[2] != w.shape[1]:
         raise ValueError(f"operand shapes x {tuple(x.shape)} w "
@@ -620,12 +686,16 @@ def _fakequant_cuda(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
     if tc and adc.in_levels > TC_MAX_LEVELS:
         raise ValueError(f"the tensor-core instance takes DAC codes of at "
                          f"most {TC_MAX_LEVELS} levels, got {adc.in_levels}")
-    for name, t in {"x": x, "w": w}.items():
+    ops = {"x": x, "w": w, **({"sc": sc} if sc is not None else {})}
+    for name, t in ops.items():
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 CUDA "
                              f"tensor, got {t.dtype} on {t.device}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if sc is not None and sc.shape != (x.shape[0],):
+        raise ValueError(f"sc {tuple(sc.shape)} is not one scale a lead "
+                         f"matrix ({x.shape[0]},)")
     lib = _fakequant_library()
     lead, t, k = x.shape
     n = w.shape[2]
@@ -645,24 +715,177 @@ def _fakequant_cuda(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
     if n_scratch <= 0:
         raise ValueError(f"no fakequant plan for x {tuple(x.shape)} w "
                          f"{tuple(w.shape)}, rows {rows}")
-    y = outputs.empty((lead, t, n), torch.float32, dev)
-    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev)
+    return lib, {"instance": instance,
+                 "dims": (lead, t, k, n, rows, int(tc)), "dev": (sms, cap),
+                 "stream": stream,
+                 "scratch": torch.empty((n_scratch,), dtype=torch.float32,
+                                        device=dev)}
+
+
+def _fakequant_split_cuda(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
+                          sc: Optional[Tensor] = None, q_out: bool = False):
+    """The first half of a split-range read on the card (x (T, K), w (K,
+    N): this rank's columns or row tiles): the pre-pass and the product,
+    two launches.  Returns ``(head, ssq)``: what
+    :func:`_fakequant_finish_cuda` takes, and the read's range partials,
+    (T, tiles, ceil(N / 64)): each token and row tile's sum of q² over
+    each 64-column block; with ``q_out`` ``(head, ssq, q)``, q (T, tiles,
+    N) each row tile's product (for :func:`_fakequant_tiles_cuda`)."""
+    x3, w3 = x[None], w[None]
+    lib, plan = _fakequant_plan(x3, w3, adc, rows, None, sc)
+    tiles = -(-x.shape[1] // rows)
+    ssq = torch.empty((x.shape[0], tiles, -(-w.shape[1] // RANGE_COLS)),
+                      dtype=torch.float32, device=x.device)
+    q = torch.empty((x.shape[0], tiles, w.shape[1]), dtype=torch.float32,
+                    device=x.device) if q_out else None
     launched = (ctypes.c_int * len(FQ_KERNEL_COUNTS))()
-    err = lib.xbar_fakequant(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), scratch.data_ptr(),
-        lead, t, k, n, rows, int(tc),
-        float(adc.in_levels), float(adc.out_levels), float(adc.sat_sigmas),
-        sms, cap, stream, launched)
-    for name, count in zip(FQ_KERNEL_COUNTS, launched):
-        LAUNCHES[name] += count
-    LAUNCHES["fakequant"] += launched[0] + launched[1]
+    err = lib.xbar_fakequant_split(
+        x3.data_ptr(), w3.data_ptr(), ssq.data_ptr(),
+        plan["scratch"].data_ptr(), *plan["dims"], float(adc.in_levels),
+        *plan["dev"], plan["stream"], launched,
+        sc.data_ptr() if sc is not None else None,
+        q.data_ptr() if q_out else None)
+    _fq_count(launched)
+    LAUNCHES["fakequant_split"] += launched[0] + launched[1]
     if err != 0:
-        raise RuntimeError(f"xbar_fakequant launch failed: CUDA error {err} "
-                           f"(x {tuple(x.shape)}, w {tuple(w.shape)}, rows "
-                           f"{rows}, {instance} instance)")
-    if squeeze:
-        return y[0], scratch[:1]
-    return y, scratch[:lead]
+        raise RuntimeError(f"xbar_fakequant_split launch failed: CUDA error "
+                           f"{err} (x {tuple(x.shape)}, w {tuple(w.shape)})")
+    return ((lib, plan), ssq, q) if q_out else ((lib, plan), ssq)
+
+
+def _fakequant_tiles_cuda(q_all: Tensor, ssq_all: Tensor,
+                          adc: AdcConfig) -> Tensor:
+    """The epilogue over every rank's row tiles gathered in tile order:
+    ``q_all`` (T, tiles, N) and ``ssq_all`` (T, tiles, ceil(N / 64)) as
+    :func:`_fakequant_split_cuda` gives them with ``q_out``; (T, N), the
+    tiles summed in tile order (the whole read's bits).  One launch."""
+    lib = _fakequant_library()
+    q_all, ssq_all = q_all.float().contiguous(), ssq_all.float().contiguous()
+    t, tiles, n = q_all.shape
+    dev = q_all.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+    y = outputs.empty((t, n), torch.float32, dev)
+    launched = (ctypes.c_int * len(FQ_KERNEL_COUNTS))()
+    err = lib.xbar_fakequant_tiles(
+        q_all.data_ptr(), ssq_all.data_ptr(), y.data_ptr(), t, tiles, n,
+        float(adc.out_levels), float(adc.sat_sigmas), _fq_dev[dev.index][0],
+        stream, launched)
+    _fq_count(launched)
+    LAUNCHES["fakequant_tiles"] += launched[FQ_KERNEL_COUNTS.index(
+        "fakequant_epilogue")]
+    if err != 0:
+        raise RuntimeError(f"xbar_fakequant_tiles launch failed: CUDA error "
+                           f"{err} (q {tuple(q_all.shape)})")
+    return y
+
+
+def _fakequant_finish_cuda(head, ssq_all: Tensor, n_range: int,
+                           adc: AdcConfig) -> Tensor:
+    """The second half: the epilogue on the head's scratch with
+    ``ssq_all`` (T, tiles, blocks), the range partials of every 64-column
+    block of the whole width in its column order, ``n_range`` columns
+    wide; (T, N) for this rank's columns.  One launch."""
+    lib, plan = head
+    _, t, _, n, _, _ = plan["dims"]
+    ssq_all = ssq_all.float().contiguous()
+    y = outputs.empty((t, n), torch.float32, ssq_all.device)
+    launched = (ctypes.c_int * len(FQ_KERNEL_COUNTS))()
+    err = lib.xbar_fakequant_finish(
+        plan["scratch"].data_ptr(), ssq_all.data_ptr(), ssq_all.shape[-1],
+        y.data_ptr(), *plan["dims"], float(n_range), float(adc.out_levels),
+        float(adc.sat_sigmas), *plan["dev"], plan["stream"], launched)
+    _fq_count(launched)
+    if err != 0:
+        raise RuntimeError(f"xbar_fakequant_finish launch failed: CUDA error "
+                           f"{err} (y {tuple(y.shape)})")
+    return y
+
+
+def _fakequant_plain_head(x: Tensor, w: Tensor, sc: Tensor, adc: AdcConfig,
+                          rows: int):
+    """The first half of the split-range read in plain torch: ``(q,
+    ssq)``, each row tile's product (T, tiles, N) and its range partials
+    (T, tiles, ceil(N / 64)), each 64-column block's per-token sum of q²
+    (:func:`_fakequant_plain`'s steps)."""
+    t, k = x.shape
+    in_lv = float(adc.in_levels)
+    pad = (-k) % rows
+    xq = _clip(_round(torch.nn.functional.pad(x, (0, pad)) / sc),
+               -in_lv, in_lv) * sc
+    wp = torch.nn.functional.pad(w, (0, 0, 0, pad))
+    q = torch.stack([xq[:, i:i + rows] @ wp[i:i + rows]
+                     for i in range(0, k + pad, rows)], dim=1)
+    qp = torch.nn.functional.pad(q, (0, (-q.shape[-1]) % RANGE_COLS))
+    ssq = torch.sum((qp * qp).reshape(*q.shape[:2], -1, RANGE_COLS), dim=-1)
+    return q, ssq
+
+
+def _fakequant_plain_finish(q: Tensor, ssq_all: Tensor, n_range: int,
+                            adc: AdcConfig) -> Tensor:
+    """The second half in plain torch: each tile's per-token ADC at the
+    range of the blocks' partials ``ssq_all`` over ``n_range`` columns,
+    the tiles summed in tile order from 0."""
+    out_lv = float(adc.out_levels)
+    n_cols = torch.full((), float(n_range), device=q.device)
+    levels = torch.full((), out_lv, device=q.device)
+    tot = ssq_all.sum(dim=-1)
+    y = torch.zeros((q.shape[0], q.shape[2]), dtype=torch.float32,
+                    device=q.device)
+    for i in range(q.shape[1]):
+        ms = tot[:, i:i + 1] / n_cols
+        lsb = adc.sat_sigmas * torch.sqrt(ms + 1e-12) / levels
+        y = y + _clip(_round(q[:, i] / lsb), -out_lv, out_lv) * lsb
+    return y
+
+
+def fakequant_split_read(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
+                         combine, n_range: int,
+                         sc: Optional[Tensor] = None) -> Tensor:
+    """A fakequant read of this rank's columns ``w`` (K, N) of a leaf
+    ``n_range`` columns wide, x (T, K) → (T, N), whose per-(token, row
+    tile) ADC range is the whole width's: the read's range partials, one
+    per 64-column block, (T, tiles, blocks), go through ``combine`` (the
+    ordered gather of every rank's blocks into the whole width's column
+    order) before the ADC.  ``sc`` (1,) is a given DAC scale.  On the
+    card the kernels' split form (:func:`_fakequant_split_cuda`, three
+    launches with the finish), whose range is then the whole read's bit
+    for bit; on the CPU the plain halves.  Returns ``(y, ssq_all)``, the
+    read and the whole width's partials."""
+    _deterministic(adc)
+    xf, wf = x.float().contiguous(), w.float().contiguous()
+    if x.is_cuda:
+        head, ssq = _fakequant_split_cuda(xf, wf, adc, rows, sc)
+        full = combine(ssq)
+        return _fakequant_finish_cuda(head, full, n_range, adc), full
+    if sc is None:
+        sc = fakequant_scale(xf, adc.in_levels)
+    q, ssq = _fakequant_plain_head(xf, wf, sc, adc, rows)
+    full = combine(ssq)
+    return _fakequant_plain_finish(q, full, n_range, adc), full
+
+
+def fakequant_tiles_read(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
+                         combine, sc: Optional[Tensor] = None) -> Tensor:
+    """A fakequant read of this rank's whole row tiles ``w`` (K, N) of a
+    leaf split by rows, x (T, K) its part of the drive → (T, N), the
+    whole read's output: each tile's product q (T, tiles, N) and its range
+    partials (T, tiles, blocks) go through ``combine`` (the ordered gather
+    of every rank's tiles along dim 1, in tile order) and the ADC runs
+    over every tile, summing them in tile order as the whole read does.
+    ``sc`` (1,) is the whole drive's DAC scale.  On the card the kernels'
+    split form with its q copied out and ``xbar_fakequant_tiles`` (three
+    launches: the read on every rank is the whole read's bit for bit); on
+    the CPU the plain halves."""
+    _deterministic(adc)
+    xf, wf = x.float().contiguous(), w.float().contiguous()
+    if x.is_cuda:
+        _, ssq, q = _fakequant_split_cuda(xf, wf, adc, rows, sc, q_out=True)
+        return _fakequant_tiles_cuda(combine(q), combine(ssq), adc)
+    if sc is None:
+        sc = fakequant_scale(xf, adc.in_levels)
+    q, ssq = _fakequant_plain_head(xf, wf, sc, adc, rows)
+    return _fakequant_plain_finish(combine(q), combine(ssq), w.shape[1], adc)
 
 
 def fakequant_scale(x: Tensor, in_levels: int) -> Tensor:
@@ -677,7 +900,7 @@ def fakequant_scale(x: Tensor, in_levels: int) -> Tensor:
 
 
 def fakequant_read(x: Tensor, w: Tensor, adc: AdcConfig,
-                   rows: int) -> Tensor:
+                   rows: int, sc: Optional[Tensor] = None) -> Tensor:
     """Fused fakequant projection (port of ``fakequant_read_pallas``):
     x (T, K), w (K, N) → (T, N) float32, or an expert stack, x (L, T, K),
     w (L, K, N) → (L, T, N), forward only (``kernels.ops.FakequantRead``
@@ -689,7 +912,9 @@ def fakequant_read(x: Tensor, w: Tensor, adc: AdcConfig,
     CUDA tensor launches the kernels, three for the whole stack (the
     scales are computed by the first of them); a CPU tensor takes
     :func:`fakequant_scale` and :func:`_fakequant_plain` (per lead matrix,
-    :func:`_fakequant_plain_lead`).
+    :func:`_fakequant_plain_lead`).  ``sc``, one scale a lead matrix,
+    replaces the scale of ``x`` (a row-split read takes the whole
+    drive's).
     """
     _deterministic(adc)
     if x.ndim not in (2, 3) or w.ndim != x.ndim \
@@ -698,8 +923,11 @@ def fakequant_read(x: Tensor, w: Tensor, adc: AdcConfig,
                          "(T, K) and (K, N), or (L, T, K) and (L, K, N)")
     xf, wf = x.float().contiguous(), w.float().contiguous()
     if x.is_cuda:
-        return _fakequant_cuda(xf, wf, adc, rows)[0]
-    sc = fakequant_scale(xf, adc.in_levels)
+        if sc is None:
+            return _fakequant_cuda(xf, wf, adc, rows)[0]
+        return _fakequant_cuda(xf, wf, adc, rows, sc=sc)[0]
+    if sc is None:
+        sc = fakequant_scale(xf, adc.in_levels)
     if x.ndim == 3:
         return _fakequant_plain_lead(xf, wf, sc, adc, rows)
     return _fakequant_plain(xf, wf, sc, adc, rows)

@@ -8,15 +8,18 @@ takes one rank's view of the mesh (``launch.mesh.Mesh(shape, axes,
 coords)``: the production meshes need 256 or 512 ranks, which
 ``make_production_mesh`` rightly refuses here) and records
 
-  * ``mem``: the bytes one rank holds, as the port holds them: the
-    numeric leaves and the optimizer state whole on every rank (the
-    port's data-parallel step keeps them replicated across ``model``;
-    FSDP and tensor parallelism are not ported), the batch and the cache
-    at this rank's share of the batch (over the data axes where they
-    divide it).  Beside it, ``policy_argument_gb`` is what the sharding
-    policy (``launch.sharding.params_shardings`` / ``cache_shardings``,
-    each leaf's block by ``block_slices``) would give the rank, and
-    ``replicated_by_port_gb`` the difference: the FSDP gap as a number.
+  * ``mem``: the bytes one rank holds, as the port holds them: in a
+    training cell on a mesh of several ranks its block of every numeric
+    leaf and of adamw's ``m`` and ``v`` (``launch.sharding.state_specs``;
+    a fused leaf's k and v stay whole on every ``model`` rank where the
+    kv heads do not divide over it), whole on one rank and in the serving
+    cells (serving holds the whole model on every rank), the batch and
+    the cache at this rank's share of the batch (over the data axes where
+    they divide it).  Beside it, ``policy_argument_gb`` is what the
+    sharding policy (``launch.sharding.params_shardings`` /
+    ``cache_shardings``, each leaf's block by ``block_slices``) gives the
+    rank, and ``replicated_by_port_gb`` the difference: what the port
+    holds beyond the policy.
     ``temp_gb`` is the step's peak of live bytes it allocates and
     ``fits_h100`` compares arguments plus temporaries with the H100's 80
     GB;
@@ -30,8 +33,13 @@ coords)``: the production meshes need 256 or 512 ranks, which
     ``adamw``, ``prefill`` or one ``decode_step`` against a ``seq_len``
     cache; ``REPRO_ANALOG=1`` puts every projection through the
     fakequant read, as the reference's flag does), and the collective
-    link-bytes the port's own step sends: the data-parallel gradient
-    all-reduce of ``launch.train`` (recorded, not made).  The exact-mode
+    link-bytes the port's own step sends (the ``torch.distributed``
+    calls of :class:`DryMesh`, whose groups are their sizes, recorded
+    and not made by ``launch.trace_analysis.tracing(dry=True)``): a
+    training step on several
+    ranks is the FSDP / tensor-parallel step of ``train_loop.
+    make_train_step(mesh=)``, its layers' gathers, their backward
+    ``reduce_scatter``s and the tensor-parallel sums.  The exact-mode
     combines of the sharded analog step apply only to device-mode
     training, which no cell of this grid runs.
 
@@ -70,7 +78,6 @@ from repro_torch.configs import (ASSIGNED, SHAPE_BY_NAME, ShapeSpec,
 from repro_torch.launch import sharding
 from repro_torch.launch.mesh import PRODUCTION_SHAPES, Mesh, dp_axes
 from repro_torch.launch.trace_analysis import tracing
-from repro_torch.launch.train import data_mean
 from repro_torch.models import model as M
 from repro_torch.models.transformer import remat_policy
 from repro_torch.train import train_loop
@@ -86,10 +93,20 @@ MESHES = {"16x16": PRODUCTION_SHAPES[False],
 H100_GB = 80.0
 
 
+class DryMesh(Mesh):
+    """One rank's view of a mesh without processes: an axis's group is
+    its size, which ``tracing(dry=True)`` records as the collective's
+    group (the call is not made)."""
+
+    def group(self, axis: str) -> int:
+        return self.shape[axis]
+
+
 def make_mesh(name: str) -> Mesh:
-    """Rank 0's view of mesh ``name`` (no processes)."""
+    """Rank 0's view of mesh ``name`` (no processes; its collectives are
+    recorded, not made)."""
     shape, axes = MESHES[name]
-    return Mesh(shape, axes, coords=(0,) * len(shape))
+    return DryMesh(shape, axes, coords=(0,) * len(shape))
 
 
 def dp_size(mesh: Mesh) -> int:
@@ -132,21 +149,24 @@ def reckon(cfg, shape: ShapeSpec, mesh: Mesh) -> dict:
     policy: Dict[str, int] = {"batch": held["batch"]}
     if shape.kind == "train":
         opt = adamw(3e-4)
-        state = train_loop.abstract_state(cfg, opt)
-        step = train_loop.make_train_step(
-            cfg, opt, grad_reduce=data_mean(dp) if dp > 1 else None)
+        whole = train_loop.abstract_state(cfg, opt)
+        params = whole["params"]
+        sharded = mesh.size > 1
+        state = train_loop.shard_state(whole, cfg, mesh) if sharded \
+            else whole
+        step = train_loop.make_train_step(cfg, opt,
+                                          mesh=mesh if sharded else None)
         with tracing(dry=True, group_size=dp) as trace:
             step(state, batch)
-        params = state["params"]
-        held["params"] = tree_bytes(params)
+        held["params"] = tree_bytes(state["params"])
         held["opt"] = tree_bytes(state["opt"]) + tree_bytes(state["step"])
         policy["params"] = block_bytes(params, sharding.params_shardings(
             params, cfg, mesh), mesh)
-        policy["opt"] = 2 * block_bytes(state["opt"]["m"],
+        policy["opt"] = 2 * block_bytes(whole["opt"]["m"],
                                         sharding.params_shardings(
-                                            state["opt"]["m"], cfg, mesh),
+                                            whole["opt"]["m"], cfg, mesh),
                                         mesh) \
-            + tree_bytes(state["opt"]["t"]) + tree_bytes(state["step"])
+            + tree_bytes(whole["opt"]["t"]) + tree_bytes(whole["step"])
     else:
         params = M.init_params(cfg, None, device="meta")
         held["params"] = tree_bytes(params)

@@ -12,6 +12,15 @@ any rank of a layout without processes (sharding policy).
 process, one rank at a time, its meshes' gathers exchanging the ranks'
 blocks in memory: a layout's shards run one after another on one card
 through the same code the ranks of a job run.
+
+The collectives of one axis group (:meth:`Mesh.all_gather`,
+:meth:`Mesh.reduce_scatter`, :meth:`Mesh.all_reduce` with ``op`` ``sum``
+or ``max``) serve the FSDP and tensor-parallel numeric step: in a
+process group they call ``torch.distributed`` on the axis's group (NCCL
+on cards, gloo on the CPU); a mesh with an exchange hook (its
+``layout``: the emulated layout, or a harness's own transport) hands
+them to the hook, which the emulated layout serves in memory, summing
+in rank order.
 """
 from __future__ import annotations
 
@@ -35,12 +44,16 @@ PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
 
 class Mesh:
     """Axis names, sizes and this rank's coordinates, plus the process
-    group of each axis (``None`` for an emulated or one-rank mesh) or the
-    emulated layout whose rank it is."""
+    group of each axis (``None`` for an emulated or one-rank mesh) and
+    an exchange hook, ``layout``: the emulated layout whose rank it is,
+    or any object with the same three methods (``exchange(mesh, t,
+    axis)``: the axis group's ``t`` in rank order; ``reduce(mesh, t,
+    axis, op)``; ``reduce_scatter(mesh, t, axis, dim)``), which then
+    carries every collective of the mesh."""
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str],
                  coords: Optional[Sequence[int]] = None, device_mesh=None,
-                 layout: Optional["_Layout"] = None):
+                 layout=None):
         if len(shape) != len(axes):
             raise ValueError(f"mesh shape {tuple(shape)} does not match axes "
                              f"{tuple(axes)}")
@@ -80,6 +93,53 @@ class Mesh:
             warnings.simplefilter("ignore", FutureWarning)
             dist.all_gather_into_tensor(out, qc, group=self.group(axis))
         return [t.view(q.shape) for t in out.unbind(0)]
+
+    # ------------------------------------------- collectives of one axis
+
+    def all_gather(self, t: torch.Tensor, axis: str,
+                   dim: int) -> torch.Tensor:
+        """The axis group's ``t`` concatenated along ``dim`` in their
+        order along ``axis`` (bits moved, nothing added)."""
+        if self.shape[axis] == 1:
+            return t
+        return torch.cat(self.gather_blocks(t, axis), dim=dim)
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str,
+                       dim: int) -> torch.Tensor:
+        """This rank's chunk along ``dim`` of the sum of the axis group's
+        ``t`` (``dim`` divides into one chunk a rank).  Real groups sum
+        in the backend's order, an emulated layout in rank order."""
+        n = self.shape[axis]
+        if n == 1:
+            return t
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"over {n} ranks of {axis!r}")
+        if self.layout is not None:
+            return self.layout.reduce_scatter(self, t, axis, dim)
+        src = t.movedim(dim, 0).contiguous()
+        out = src.new_empty((t.shape[dim] // n, *src.shape[1:]))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            dist.reduce_scatter_tensor(out, src, group=self.group(axis))
+        return out.movedim(0, dim)
+
+    def all_reduce(self, t: torch.Tensor, axis: str,
+                   op: str = "sum") -> torch.Tensor:
+        """The sum (``op="sum"``) or the max (``"max"``) of the axis
+        group's ``t``, a new tensor.  Real groups sum in the backend's
+        order, an emulated layout in rank order; a max is exact in any
+        order."""
+        if op not in ("sum", "max"):
+            raise ValueError(f"op must be 'sum' or 'max', got {op!r}")
+        if self.shape[axis] == 1:
+            return t
+        if self.layout is not None:
+            return self.layout.reduce(self, t, axis, op)
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum"
+                        else dist.ReduceOp.MAX, group=self.group(axis))
+        return out
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, coords={self.coords})"
@@ -140,6 +200,24 @@ class _Layout:
         if posts[n] == n:
             del self.posts[rnd]
         return group
+
+    def reduce(self, mesh: Mesh, t: torch.Tensor, axis: str,
+               op: str) -> torch.Tensor:
+        blocks = self.exchange(mesh, t, axis)
+        acc = blocks[0]
+        for b in blocks[1:]:
+            acc = acc + b if op == "sum" else torch.maximum(acc, b)
+        return acc
+
+    def reduce_scatter(self, mesh: Mesh, t: torch.Tensor, axis: str,
+                       dim: int) -> torch.Tensor:
+        loc = t.shape[dim] // mesh.shape[axis]
+        at = mesh.coords[axis] * loc
+        blocks = self.exchange(mesh, t, axis)
+        acc = blocks[0].narrow(dim, at, loc)
+        for b in blocks[1:]:
+            acc = acc + b.narrow(dim, at, loc)
+        return acc
 
     def run(self, fn: Callable[[Mesh], object]) -> list:
         results: list = [None] * len(self.meshes)

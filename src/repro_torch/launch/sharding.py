@@ -17,6 +17,16 @@ The functions read only ``mesh.shape`` (axis -> size) and
 mesh, ``launch.mesh.emulated_mesh``).  :func:`shard_block` cuts this
 rank's block out of a whole tensor and :func:`unshard` gathers the blocks
 back in at-rest order.
+
+The numeric step holds each rank's blocks of every numeric leaf
+(:func:`state_specs`, :func:`shard_tree`, :func:`unshard_tree`) and
+computes through :class:`NumericParallel`.  A fused leaf (``wqkv``,
+``w_upgate``) whose output dim splits over ``model`` is cut per part
+(:func:`fused_parts`): rank r holds its heads' q, k and v columns, its
+slice of up and of gate, so a tensor-parallel rank reads its own heads
+from its own block; k and v stay whole on every rank of ``model`` where
+the kv heads do not divide over it (MQA).  Checkpoints hold whole
+tensors in the reference's layout.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import torch
 from repro_torch.configs.base import (AnalogMode, ModelConfig,
                                       resolve_analog_mode)
 from repro_torch.core import analog_registry as registry
+from repro_torch.core import shardctx
 from repro_torch.core.analog_registry import ANALOG_LEAVES
 from repro_torch.core.shardctx import (ShardMeta, combine_partials_exact,
                                        flat_index)
@@ -313,3 +324,476 @@ def map_specs(fn, tree, specs):
     if isinstance(tree, dict):
         return {k: map_specs(fn, v, specs[k]) for k, v in tree.items()}
     return fn(tree, specs)
+
+
+# --------------------------------------------------------------------------
+# The numeric step's rest layout: blocks of every leaf, fused leaves by part
+# --------------------------------------------------------------------------
+
+def fused_parts(path, width: int, cfg: ModelConfig, n: int):
+    """The parts of a fused leaf's output dim, ``[(width, split), ...]``,
+    over ``n`` ranks of ``model``; None for any other leaf.  ``wqkv``: q,
+    k and v, q split when the heads divide, k and v when the kv heads
+    do; ``w_upgate``: up and gate, each split when it divides."""
+    sp = [str(k) for k in path]
+    if "wqkv" in sp:
+        hd = cfg.resolved_head_dim
+        nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        if nq + 2 * nkv != width:
+            return None
+        kv = cfg.n_kv_heads % n == 0
+        return [(nq, cfg.n_heads % n == 0), (nkv, kv), (nkv, kv)]
+    if "w_upgate" in sp and width % 2 == 0:
+        half = width // 2
+        return [(half, half % n == 0)] * 2
+    return None
+
+
+def _model_parts(path, shape, spec, cfg, mesh):
+    """The parts of ``shape``'s last dim when ``spec`` splits it over
+    ``model`` alone and the leaf is fused, else None."""
+    if not shape or len(spec) < len(shape) or spec[-1] != ("model",):
+        return None
+    return fused_parts(path, shape[-1], cfg, mesh.shape["model"])
+
+
+def part_columns(parts, n: int, r: int) -> torch.Tensor:
+    """The whole-leaf column indices rank ``r`` of ``n`` holds, in its
+    block's order: each part's slice (split) or the whole part."""
+    cols, off = [], 0
+    for w, split in parts:
+        if split:
+            loc = w // n
+            cols.append(torch.arange(off + r * loc, off + (r + 1) * loc))
+        else:
+            cols.append(torch.arange(off, off + w))
+        off += w
+    return torch.cat(cols)
+
+
+def part_assembly(parts, n: int) -> torch.Tensor:
+    """Where each whole-leaf column lies in the ``n`` blocks concatenated
+    in rank order (a replicated part from rank 0's block)."""
+    bw = len(part_columns(parts, n, 0))
+    pos = {}
+    for r in range(n):
+        for j, c in enumerate(part_columns(parts, n, r).tolist()):
+            pos.setdefault(c, r * bw + j)
+    return torch.tensor([pos[c] for c in range(len(pos))])
+
+
+def range_blocks(parts, n: int, cols: int = 64) -> Optional[Tensor]:
+    """The order of a fused leaf's ``cols``-column blocks as its ``n``
+    ranks' blocks come out of a gather in rank order: for each block of
+    the whole leaf, its position among the gathered ones (a split read's
+    range partials put back in the whole read's order); None where a
+    part's slice does not fill whole blocks."""
+    if any((w // n if split else w) % cols for w, split in parts):
+        return None
+    return part_assembly(parts, n)[::cols] // cols
+
+
+def leaf_block(t: Tensor, path, spec, cfg, mesh) -> Tensor:
+    """This rank's block of a whole leaf (a copy), fused parts cut per
+    part."""
+    parts = _model_parts(path, tuple(t.shape), spec, cfg, mesh)
+    if parts is None:
+        return shard_block(t, spec, mesh)
+    cols = part_columns(parts, mesh.shape["model"], mesh.coords["model"])
+    t = t.index_select(-1, cols.to(t.device))
+    return shard_block(t, tuple(spec[:-1]) + (None,), mesh)
+
+
+def leaf_unshard(block: Tensor, path, spec, cfg, mesh,
+                 shape=None) -> Tensor:
+    """The whole leaf from every rank's block (ordered gathers, no
+    arithmetic); ``shape`` is the whole shape (needed for a fused
+    leaf)."""
+    parts = None if shape is None else _model_parts(path, tuple(shape),
+                                                      spec, cfg, mesh)
+    if parts is None:
+        return unshard(block, spec, mesh)
+    whole = unshard(block, tuple(spec[:-1]) + (None,), mesh)
+    gathered = combine_partials_exact(whole, ("model",), whole.ndim - 1,
+                                      mesh)
+    pos = part_assembly(parts, mesh.shape["model"])
+    return gathered.index_select(-1, pos.to(gathered.device))
+
+
+def _walk(fn, tree, specs, path=()):
+    if isinstance(tree, dict):
+        return {k: _walk(fn, v, specs[k], path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_walk(fn, v, specs[i], path + (str(i),))
+                     for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(path, tree, specs)
+
+
+def state_specs(state: dict, cfg: ModelConfig, mesh) -> dict:
+    """Specs of a numeric train state (``train_loop.init_state``): the
+    parameters, adamw's ``m`` / ``v`` and the error-feedback residuals by
+    :func:`params_shardings`; the step counter and ``t`` replicated."""
+    p_sh = params_shardings(state["params"], cfg, mesh)
+    opt = state["opt"]
+    if isinstance(opt, dict) and "m" in opt:
+        opt_sh = {"m": p_sh, "v": p_sh, "t": ()}
+    elif isinstance(opt, dict):
+        opt_sh = p_sh
+    else:
+        opt_sh = ()
+    err = state.get("err_fb", ())
+    return {"params": p_sh, "opt": opt_sh, "step": (),
+            "err_fb": p_sh if isinstance(err, dict) else ()}
+
+
+def _strip(path):
+    """A state path without its leading ``params`` / ``opt/m`` / ...
+    keys: the parameter path the parts rule reads."""
+    return tuple(k for k in path if k not in ("params", "opt", "m", "v",
+                                              "err_fb"))
+
+
+def shard_tree(tree, specs, cfg: ModelConfig, mesh):
+    """This rank's blocks of a whole tree (:func:`leaf_block`)."""
+    return _walk(lambda path, t, sp: leaf_block(t, _strip(path), sp, cfg,
+                                                mesh)
+                 if sp and any(sp) else t, tree, specs)
+
+
+def unshard_tree(tree, specs, like, cfg: ModelConfig, mesh):
+    """The whole tree from every rank's blocks; ``like`` carries the
+    whole shapes (meta tensors will do)."""
+    flat = dict(_flat(like))
+    return _walk(lambda path, t, sp: leaf_unshard(
+        t, _strip(path), sp, cfg, mesh, flat["/".join(path)].shape)
+        if sp and any(sp) else t, tree, specs)
+
+
+def leaf_cutter(specs, cfg: ModelConfig, mesh):
+    """``cut(path, whole)``: this rank's block of the whole leaf at
+    ``path`` of a state laid out by ``specs`` (checkpoint restore)."""
+    def cut(path, t):
+        sp = _spec_at(specs, path)
+        if not sp or not any(sp):
+            return t
+        return leaf_block(t, _strip(path), sp, cfg, mesh)
+    return cut
+
+
+def leaf_gatherer(specs, like, cfg: ModelConfig, mesh):
+    """``gather(path, block)``: the whole leaf at ``path`` from every
+    rank's block (checkpoint save); ``like`` the whole state's shapes."""
+    flat = dict(_flat(like))
+
+    def gather(path, t):
+        sp = _spec_at(specs, path)
+        if not sp or not any(sp):
+            return t
+        return leaf_unshard(t, _strip(path), sp, cfg, mesh,
+                            flat["/".join(path)].shape)
+    return gather
+
+
+def _flat_paths(tree, path=()):
+    """``(key tuple, leaf)`` of a dict tree, keys sorted."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat_paths(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, path + (str(k),))
+    elif isinstance(tree, tuple):
+        for i, v in enumerate(tree):
+            yield from _flat(v, path + (str(i),))
+    elif tree is not None:
+        yield "/".join(path), tree
+
+
+class _FusedGather(torch.autograd.Function):
+    """A fused leaf's blocks over ``model`` reassembled whole; backward
+    this rank's block of the whole gradient (the compute it feeds runs
+    replicated over ``model``)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, parts):
+        n = mesh.shape["model"]
+        ctx.args = (part_columns(parts, n, mesh.coords["model"]),)
+        gathered = mesh.all_gather(t.contiguous(), "model", t.ndim - 1)
+        return gathered.index_select(
+            -1, part_assembly(parts, n).to(t.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        cols, = ctx.args
+        return g.index_select(-1, cols.to(g.device)), None, None
+
+
+#: The leaves a tensor-parallel dense block keeps split, by their path in
+#: the block: the dim kept and the plan flag that allows it.
+TP_KEPT = {("attn", "wqkv", "w"): (-1, "attn"),
+           ("attn", "wo", "w"): (-2, "attn_row"),
+           ("ffn", "w_upgate", "w"): (-1, "ffn"),
+           ("ffn", "w_up", "w"): (-1, "ffn"),
+           ("ffn", "w_down", "w"): (-2, "ffn_row")}
+
+
+def _spec_at(specs, path):
+    for k in path:
+        specs = specs[k]
+    return specs
+
+
+class NumericParallel:
+    """The FSDP and tensor-parallel numeric step on ``mesh`` (installed
+    with ``core.shardctx.numeric_parallel`` while the loss runs).
+
+    Every numeric leaf lies in its policy block (:func:`state_specs`).
+    Just before a layer runs, :meth:`layer` gathers its leaves over the
+    axes its compute does not split: the FSDP axes always (backward: a
+    ``reduce_scatter``, each data rank's gradient being partial), and
+    ``model`` unless the dense family's plan keeps the dim split (backward:
+    this rank's block of the gradient, the compute being replicated over
+    ``model``).  The plan (one flag each, ``model`` > 1, the dense family
+    only):
+
+      * ``attn``: ``wqkv`` column-parallel and the heads split (whole
+        heads a rank); in fakequant mode also the kv heads;
+      * ``attn_row``: ``wo`` row-parallel (fakequant: its block owns whole
+        ``analog_rows`` tiles, and every rank's tiles are gathered for the
+        ADC and the tile sum, so the read is one device's), a digital
+        read's partial outputs summed over ``model``; otherwise the heads'
+        outputs are gathered and ``wo`` read whole;
+      * ``ffn`` / ``ffn_row``: the same for ``w_upgate`` (or ``w_up``)
+        and ``w_down``;
+      * ``vocab``: the embedding vocab-split (a rank looks up its rows,
+        the partial embeddings summed) and the head vocab-parallel, the
+        loss a vocab-parallel cross-entropy (``models.model.loss_fn``);
+      * ``seq``: ``REPRO_SEQ_SHARD`` with every flag above, the
+        activations split along the sequence at block boundaries
+        (Megatron-SP), for a sequence that divides over ``model``.
+
+    ``counts["layer_gathers"]`` counts the layers gathered (a rematted
+    layer's backward gathers again).
+    """
+
+    def __init__(self, cfg: ModelConfig, mesh):
+        from repro_torch.models import model as M
+        self.cfg, self.mesh = cfg, mesh
+        self.like = M.init_params(cfg, None, device="meta")
+        self.specs = params_shardings(self.like, cfg, mesh)
+        self.fsdp = tuple(a for a in dp_axes(mesh) if mesh.shape[a] > 1)
+        m = mesh.shape.get("model", 1)
+        self.m = m = m if "model" not in dp_axes(mesh) else 1
+        self.tp = ("model",) if m > 1 else ()
+        self.counts = {"layer_gathers": 0}
+        self.sp_on = False
+        qat = resolve_analog_mode(cfg) is AnalogMode.FAKEQUANT
+        dense = cfg.family == "dense" and self.m > 1
+        hd, rows = cfg.resolved_head_dim, cfg.analog_rows
+        lay = self.specs.get("layers", {})
+
+        def split(path, dim):
+            try:
+                return _spec_at(lay, path)[dim] == ("model",)
+            except (KeyError, IndexError, TypeError):
+                return False
+        self.kv_split = cfg.n_kv_heads % m == 0
+        # a fakequant read split by columns needs its range partials in
+        # whole 64-column blocks (kernel 4's range pitch)
+        w_qkv = (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+        self.blocks = {
+            "wqkv": range_blocks(fused_parts(("wqkv",), w_qkv, cfg, m), m),
+            "w_upgate": range_blocks(fused_parts(("w_upgate",),
+                                                 2 * cfg.d_ff, cfg, m), m),
+            "w_up": range_blocks([(cfg.d_ff, True)], m)}
+        self.attn = dense and cfg.n_heads % m == 0 \
+            and split(("attn", "wqkv", "w"), -1) \
+            and fused_parts(("wqkv",), w_qkv, cfg, m)[0][1] \
+            and (not qat or (self.kv_split
+                             and self.blocks["wqkv"] is not None))
+        self.attn_row = self.attn and split(("attn", "wo", "w"), -2) and (
+            not qat or (cfg.n_heads * hd // m) % rows == 0)
+        up = ("ffn", "w_upgate" if cfg.gated else "w_up", "w")
+        self.ffn = dense and cfg.d_ff % m == 0 and split(up, -1) and (
+            not qat or self.blocks[up[1]] is not None)
+        self.ffn_row = self.ffn and split(("ffn", "w_down", "w"), -2) and (
+            not qat or (cfg.d_ff // m) % rows == 0)
+        emb = self.specs.get("embed")
+        head = self.specs.get("lm_head", {}).get("w")
+        self.vocab = dense and emb is not None and emb[0] == ("model",) \
+            and (cfg.tie_embeddings or (head is not None
+                                        and head[-1] == ("model",)))
+        self.seq = bool(os.environ.get("REPRO_SEQ_SHARD")) and self.attn \
+            and self.attn_row and self.ffn and self.ffn_row and self.vocab
+
+    # ------------------------------------------------------------ leaves
+
+    def leaf(self, t: Tensor, spec, path=(), keep: Optional[int] = None,
+             width: Optional[int] = None) -> Tensor:
+        """``t``, this rank's block of a leaf under ``spec`` (``width``: the
+        whole leaf's last dim), gathered over every split axis but the
+        ``model`` split of dim ``keep``."""
+        nd = t.ndim
+        keep = None if keep is None else keep % nd
+        for d in range(nd):
+            names = tuple(spec[d] or ()) if d < len(spec) else ()
+            if not names or (d == keep and names == ("model",)):
+                continue
+            parts = fused_parts(path, width, self.cfg, self.mesh.shape[
+                "model"]) if d == nd - 1 and names == ("model",) \
+                and width is not None else None
+            if parts is not None:
+                t = _FusedGather.apply(t, self.mesh, parts)
+                continue
+            for a in reversed(names):
+                grad = "reduce_scatter" if a in dp_axes(self.mesh) \
+                    else "slice"
+                t = shardctx.gather(t, self.mesh, (a,), d, grad)
+        return t
+
+    def tree(self, tree, specs, like, path=(), lead: int = 0, kept=None):
+        """Every leaf of ``tree`` gathered by :meth:`leaf` (``like``: the
+        whole tree on the meta device; a layer's specs and ``like`` carry
+        ``lead`` stacking dims first); ``kept`` maps a leaf's path to the
+        dim it keeps split."""
+        if isinstance(tree, dict):
+            return {k: self.tree(v, specs[k], like[k], path + (k,), lead,
+                                 kept) for k, v in tree.items()}
+        if not isinstance(tree, torch.Tensor):
+            return tree
+        return self.leaf(tree, tuple(specs)[lead:], path,
+                         (kept or {}).get(path), like.shape[-1])
+
+    def layer(self, lp: dict, stack) -> dict:
+        """A layer's leaves of the stack ``stack`` (a key of the parameter
+        tree, a tuple for nested stacks), gathered for its block."""
+        self.counts["layer_gathers"] += 1
+        stack = (stack,) if isinstance(stack, str) else tuple(stack)
+        kept = {path: dim for path, (dim, flag) in TP_KEPT.items()
+                if getattr(self, flag)} if stack == ("layers",) else None
+        return self.tree(lp, _spec_at(self.specs, stack),
+                         _spec_at(self.like, stack), (), 1, kept)
+
+    def top(self, t, path):
+        """A leaf or subtree outside the layer stacks (the embedding, the
+        head, the final norm, the audio encoder's positions, the hybrid's
+        shared block), gathered; the vocab-split dim of the embedding and
+        the head kept under ``vocab``."""
+        path = (path,) if isinstance(path, str) else tuple(path)
+        specs, like = _spec_at(self.specs, path), _spec_at(self.like, path)
+        if not isinstance(t, torch.Tensor):
+            return self.tree(t, specs, like, path, 0, None)
+        keep = None
+        if self.vocab and path == ("embed",):
+            keep = 0
+        elif self.vocab and path == ("lm_head", "w"):
+            keep = -1
+        return self.leaf(t, tuple(specs), path, keep, like.shape[-1])
+
+    # ------------------------------------------------------- activations
+
+    def col_input(self, x: Tensor) -> Tensor:
+        """The input of a column-parallel read: gathered along the
+        sequence under sequence parallelism, else the identity whose
+        gradient is summed over ``model``."""
+        if self.sp_on:
+            return shardctx.gather(x, self.mesh, self.tp, 1)
+        return shardctx.copy_to(x, self.mesh, self.tp)
+
+    def row_output(self, y: Tensor) -> Tensor:
+        """The partial output of a row-parallel read summed over
+        ``model`` (and split along the sequence under sequence
+        parallelism)."""
+        if self.sp_on:
+            return shardctx.scatter_reduce(y, self.mesh, self.tp, 1)
+        return shardctx.reduce_from(y, self.mesh, self.tp)
+
+    def row_whole(self, y: Tensor) -> Tensor:
+        """The whole output of a row-split fakequant read, the same on
+        every ``model`` rank (it gathered every rank's tiles): as it is,
+        or this rank's chunk of the sequence under sequence parallelism
+        (backward: the chunks' gradients gathered)."""
+        if self.sp_on:
+            return shardctx.split_to(y, self.mesh, self.tp, 1)
+        return y
+
+    def gather_heads(self, o: Tensor) -> Tensor:
+        """This rank's heads' (or ff slice's) outputs gathered along the
+        last dim for a read made whole on every rank."""
+        return shardctx.gather(o, self.mesh, self.tp, o.ndim - 1, "slice")
+
+    def vocab_offset(self, local: int) -> int:
+        return self.mesh.coords["model"] * local if self.tp else 0
+
+    # --------------------------------------------------------- gradients
+
+    def leaf_axes(self, spec) -> Tuple[str, ...]:
+        """The mesh axes a leaf of ``spec`` is split over."""
+        return tuple(a for e in spec if e for a in e
+                     if self.mesh.shape[a] > 1)
+
+    def reduce_grads(self, grads):
+        """The data-parallel mean of the block gradients: a leaf split
+        over the FSDP axes had its gradient summed over them by its
+        gather's ``reduce_scatter``; the others are ``all_reduce``d over
+        the FSDP axes they do not split; all are divided by the data
+        ranks' count.  Under sequence parallelism a leaf not split over
+        ``model`` (the norms, which ran on this rank's tokens) is summed
+        over ``model``."""
+        from repro_torch.core.adc import divisor
+        n = math.prod(self.mesh.shape[a] for a in self.fsdp) or 1
+
+        def one(path, g, spec):
+            axes = self.leaf_axes(spec)
+            for a in self.fsdp:
+                if a not in axes:
+                    g = self.mesh.all_reduce(g, a)
+            if self.sp_on and "model" not in axes:
+                g = self.mesh.all_reduce(g, "model")
+            return g / divisor(n, g) if n > 1 else g
+        return _walk(one, grads, self.specs)
+
+    def leaf_max(self, path, t: Tensor) -> Tensor:
+        """``t`` (a max over a block) maxed over the axes the leaf at
+        ``path`` is split along: the whole leaf's max (``train.compress``'s
+        per-leaf scale)."""
+        for a in self.leaf_axes(_spec_at(self.specs, path)):
+            t = self.mesh.all_reduce(t, a, op="max")
+        return t
+
+    def sq_total(self, tree) -> Tensor:
+        """The sum of squares of every whole leaf from the blocks of
+        ``tree`` (``clip_by_global_norm``): the blocks' sums grouped by
+        the axes their leaf is split along, each group summed over its
+        axes in one ``all_reduce``; a replicated leaf counts once, and so
+        does a fused leaf's part that every ``model`` rank holds whole
+        (MQA's k and v): only ``model`` rank 0 counts it."""
+        groups: Dict[Tuple[str, ...], Tensor] = {}
+        for path, t in _flat_paths(tree):
+            spec = _spec_at(self.specs, path)
+            axes = self.leaf_axes(spec)
+            sq = torch.square(t.float())
+            parts = _model_parts(path, tuple(_spec_at(self.like, path).shape),
+                                 spec, self.cfg, self.mesh)
+            if parts is not None and self.mesh.coords["model"] \
+                    and not all(split for _, split in parts):
+                n = self.mesh.shape["model"]
+                own = torch.cat([torch.full((w // n if split else w,), split)
+                                 for w, split in parts]).to(t.device)
+                sq = sq * own
+            s = torch.sum(sq)
+            groups[axes] = groups[axes] + s if axes in groups else s
+        total = None
+        for axes, s in groups.items():
+            for a in axes:
+                s = self.mesh.all_reduce(s, a)
+            total = s if total is None else total + s
+        return total

@@ -230,7 +230,11 @@ def _recording(trace: Trace, name: str, real, dry: bool, group_size):
     def call(*args, **kwargs):
         operand = args[pos] if len(args) > pos else \
             kwargs.get("tensor", kwargs.get("input_tensor"))
-        n = group_size if dry else dist.get_world_size(kwargs.get("group"))
+        group = kwargs.get("group")
+        if dry:     # a dry mesh names its axis's size as the group
+            n = group if isinstance(group, int) else group_size
+        else:
+            n = dist.get_world_size(group)
         trace.collectives.append(Collective(
             name, _nbytes(operand), int(n), repo_frames()))
         if dry:
@@ -246,7 +250,8 @@ def tracing(dry: bool = False, group_size: int = 1):
     The ``torch.distributed`` calls are recorded too.  With ``dry`` they
     are recorded and not made (no process group is needed:
     the dry run reckons a rank's step alone), their group size taken as
-    ``group_size``; an all-reduce then leaves its operand as it was.
+    ``group_size`` (or the ``group=`` a dry mesh passes: its axis's
+    size); an all-reduce then leaves its operand as it was.
     Otherwise each call's group (its ``group=`` keyword, the default
     group without one) gives the size."""
     trace = Trace()

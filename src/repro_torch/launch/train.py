@@ -13,15 +13,19 @@ int8 gradient compression (port of ``repro.launch.train``).
 Rerun a killed command and it resumes from the latest committed
 checkpoint, on any mesh (``--mesh`` may change between runs).  Each data
 rank trains on its shard of every global batch (``data.pipeline``: a
-batch is a function of (seed, step, shard)) and the gradients are
-averaged with an ``all_reduce`` over the ``data`` axis, so a D x M run
-agrees with a 1 x 1 run within float32 rounding, not bit for bit.  The
-numeric leaves stay replicated across ``model``: every rank of a model
-group computes the same step (FSDP and tensor parallelism of the numeric
-leaves are not ported; ROADMAP.md).  ``--metrics-out`` writes one JSON
-line a step from rank 0: the loss, the step's wall seconds, the global
-batch's digest and the step's fakequant reads on the card
-(``kernels.xbar_vmm.LAUNCHES``).
+batch is a function of (seed, step, shard)).  On a mesh of more than one
+rank the step follows the sharding policy (``train_loop.make_train_step``
+with ``mesh``): each rank holds its block of every numeric leaf, of
+adamw's ``m`` and ``v`` and of the error-feedback residuals
+(``launch.sharding.state_specs``), each layer is gathered just before it
+runs and its gradients are ``reduce_scatter``ed back to the blocks, and
+the dense family computes tensor-parallel over ``model`` (QAT with the
+fakequant read's split form).  A D x M run agrees with a 1 x 1 run within
+float32 rounding, not bit for bit.  Checkpoints hold whole tensors,
+gathered leaf by leaf and written by rank 0, and restore onto any mesh.
+``--metrics-out`` writes one JSON line a step from rank 0: the loss, the
+step's wall seconds, the global batch's digest and the step's fakequant
+reads on the card (``kernels.xbar_vmm.LAUNCHES``).
 """
 from __future__ import annotations
 
@@ -38,9 +42,11 @@ from repro_torch.core.adc import divisor
 from repro_torch.core.shardctx import set_shard_context
 from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
 from repro_torch.kernels import xbar_vmm
+from repro_torch.launch import sharding
 from repro_torch.launch.mesh import dp_axes, init_distributed, make_mesh
+from repro_torch.models import model as M
 from repro_torch.train import checkpoint, train_loop
-from repro_torch.train.optimizer import adamw, tree_map
+from repro_torch.train.optimizer import adamw
 
 
 def batch_digest(batch) -> str:
@@ -49,28 +55,6 @@ def batch_digest(batch) -> str:
     for k in ("tokens", "labels"):
         h.update(batch[k].tobytes())
     return h.hexdigest()[:16]
-
-
-def _data_mean(mesh):
-    """The data-parallel mean of a gradient tree: an ``all_reduce`` sum
-    over the ``data`` group, then a division by its size."""
-    n = mesh.shape["data"]
-    if n == 1:
-        return None
-    return data_mean(n, mesh.group("data"))
-
-
-def data_mean(n: int, group=None):
-    """The mean of a gradient tree over ``n`` data ranks: each leaf
-    ``all_reduce``d over ``group`` (the default group when None), then
-    divided by ``n``."""
-    def mean(grads):
-        def one(g):
-            g = g.clone()
-            dist.all_reduce(g, group=group)
-            return g / divisor(n, g)
-        return tree_map(one, grads)
-    return mean
 
 
 def main(argv=None, *, init_method=None, rank=None, world_size=None):
@@ -114,18 +98,31 @@ def main(argv=None, *, init_method=None, rank=None, world_size=None):
     if args.dtype:
         cfg = cfg.replace(dtype=args.dtype)
     opt = adamw(args.lr)
+    sharded = mesh.size > 1
     step_fn = train_loop.make_train_step(cfg, opt,
                                          grad_compress=args.grad_compress,
-                                         grad_reduce=_data_mean(mesh))
+                                         mesh=mesh if sharded else None)
     pipe_cfg = PipelineConfig(vocab=cfg.vocab, seq_len=args.seq_len,
                               global_batch=args.global_batch,
                               seed=args.seed)
 
-    state = train_loop.init_state(args.seed, cfg, opt, device,
-                                  grad_compress=args.grad_compress)
+    if sharded:
+        state = train_loop.init_sharded_state(
+            args.seed, cfg, opt, mesh, device,
+            grad_compress=args.grad_compress)
+        specs = sharding.state_specs(state, cfg, mesh)
+        cut = sharding.leaf_cutter(specs, cfg, mesh)
+        like = M.init_params(cfg, None, "meta")
+        gather = sharding.leaf_gatherer(specs, {
+            "params": like, "opt": {"m": like, "v": like},
+            "err_fb": like}, cfg, mesh)
+    else:
+        state = train_loop.init_state(args.seed, cfg, opt, device,
+                                      grad_compress=args.grad_compress)
+        cut = gather = None
     start_step = 0
     if args.ckpt_dir and checkpoint.latest_step(args.ckpt_dir) is not None:
-        state = checkpoint.restore(args.ckpt_dir, state)
+        state = checkpoint.restore(args.ckpt_dir, state, cut=cut)
         start_step = int(state["step"])
         if lead:
             print(f"resumed from step {start_step} (elastic mesh "
@@ -138,7 +135,10 @@ def main(argv=None, *, init_method=None, rank=None, world_size=None):
     def save(step):
         if dist.is_initialized():
             dist.barrier()
-        if lead:
+        if gather is not None:
+            checkpoint.save(args.ckpt_dir, state, step, gather=gather,
+                            write=lead)
+        elif lead:
             checkpoint.save(args.ckpt_dir, state, step)
         if dist.is_initialized():
             dist.barrier()

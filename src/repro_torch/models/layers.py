@@ -14,6 +14,15 @@ KV caches are updated in place: ``attention`` (and ``mla_attention``,
 its latent cache) writes the new keys and values into the cache tensors
 it is given and returns them with the new lengths (the reference
 returns fresh arrays and its engines donate the old ones).
+
+Under the numeric step's tensor parallelism
+(``core.shardctx.numeric_context``, ``launch.sharding.NumericParallel``)
+the dense family's ``attention`` and ``ffn`` get this rank's blocks:
+``wqkv`` and ``w_upgate`` / ``w_up`` column-parallel (this rank's heads,
+its ff slice), ``wo`` and ``w_down`` row-parallel (or, where the plan
+keeps them whole, the heads' outputs gathered first); :func:`project`'s
+``tp`` reads a split leaf: a digital row split sums its ranks' partial
+outputs over ``model``, the fakequant read takes its split form.
 """
 from __future__ import annotations
 
@@ -26,13 +35,15 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import (AnalogMode, ModelConfig,
                                       resolve_analog_mode)
+from repro_torch.core import shardctx
 from repro_torch.core.adc import AdcConfig
 from repro_torch.core.tiled_analog import (analog_project,
                                            crossbar_from_model,
                                            is_analog_container,
                                            program_stacked, readout)
 from repro_torch.kernels.ops import _adc_fake_quant as _kernels_adc_fake_quant
-from repro_torch.kernels.ops import fakequant_project
+from repro_torch.kernels.ops import (fakequant_project,
+                                     fakequant_split_project)
 
 Tensor = torch.Tensor
 
@@ -106,18 +117,39 @@ def rmsnorm(p: dict, x: Tensor, eps: float = 1e-5) -> Tensor:
 # Projection
 # --------------------------------------------------------------------------
 
-def project(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+def project(p: dict, x: Tensor, cfg: ModelConfig, tp=None) -> Tensor:
     """Linear layer.  A crossbar container is read in-array (VMM through
     the fused read); a digital ``{"w"}`` dict is a plain matmul, or in
     fakequant mode the matmul with the crossbar's I/O quantisation (the
-    fakequant read: the CUDA kernel on the card)."""
+    fakequant read: the CUDA kernel on the card).  ``tp`` (``("col",
+    whole width, block order)`` or ``("row", width)``) marks this rank's
+    part of a tensor-parallel leaf over the numeric context's ``model``
+    axis: a column split returns this rank's columns, a row split the
+    whole output (this rank's sequence chunk under sequence
+    parallelism).  The fakequant read then takes its split form
+    (``kernels.ops.FakequantSplitRead``; a row split gathers every
+    rank's tiles, so its output is one device's), a digital row split
+    sums the ranks' partial products.  In a numeric-parallel step every
+    fakequant read's DAC scale is the max over the data ranks' tokens,
+    as the reference's over its one global batch."""
     if is_analog_container(p):
         return analog_project(p, x, crossbar_from_model(cfg))
     w = p["w"].to(x.dtype)
+    npar = shardctx.numeric_context()
+    row = tp is not None and tp[0] == "row"
     if resolve_analog_mode(cfg) is AnalogMode.DIGITAL:
-        return x @ w
+        return npar.row_output(x @ w) if row else x @ w
     adc = AdcConfig(in_bits=cfg.analog_in_bits,
                     out_bits=cfg.analog_out_bits)
+    if npar is not None and w.ndim == 2 and (npar.fsdp or tp is not None):
+        # one global batch over the data ranks: one DAC scale over them
+        col = tp is not None and tp[0] == "col"
+        y = fakequant_split_project(
+            x, w, adc, cfg.analog_rows, npar.mesh, npar.tp if col else (),
+            npar.fsdp + (npar.tp if row else ()),
+            tp[1] if tp is not None else w.shape[-1],
+            tp[2] if col else None, npar.tp if row else ())
+        return npar.row_whole(y.to(x.dtype)) if row else y.to(x.dtype)
     y = fakequant_project(x.float(), w.float(), adc, cfg.analog_rows)
     return y.to(x.dtype)
 
@@ -291,15 +323,30 @@ def attention(p: dict, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
     no causal mask, and the cache is not touched.
     """
     hd = cfg.resolved_head_dim
+    npar = shardctx.numeric_context()
+    tp = npar is not None and npar.attn and x_kv is None and cache is None
+    n_h, n_kvh = cfg.n_heads, cfg.n_kv_heads
+    wqkv, col = p["wqkv"], None
+    if tp:
+        x = npar.col_input(x)
+        n_h //= npar.m
+        col = ("col", (cfg.n_heads + 2 * cfg.n_kv_heads) * hd,
+               npar.blocks.get("wqkv"))
+        if npar.kv_split:
+            n_kvh //= npar.m
+        else:   # MQA: k and v whole on every rank, their gradient summed
+            w = wqkv["w"]
+            wqkv = {"w": torch.cat([w[..., :n_h * hd], shardctx.copy_to(
+                w[..., n_h * hd:], npar.mesh, npar.tp)], dim=-1)}
     b, sq = x.shape[0], x.shape[1]
     append = cache is not None and x_kv is None and (
         sq == 1 or positions is not None)
-    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    nq, nkv = n_h * hd, n_kvh * hd
     if x_kv is None:
-        qkv = project(p["wqkv"], x, cfg)
-        q = _split_heads(qkv[..., :nq], cfg.n_heads)
-        k = _split_heads(qkv[..., nq:nq + nkv], cfg.n_kv_heads)
-        v = _split_heads(qkv[..., nq + nkv:], cfg.n_kv_heads)
+        qkv = project(wqkv, x, cfg, tp=col)
+        q = _split_heads(qkv[..., :nq], n_h)
+        k = _split_heads(qkv[..., nq:nq + nkv], n_kvh)
+        v = _split_heads(qkv[..., nq + nkv:], n_kvh)
     else:
         qkv = project(p["wqkv"], torch.cat([x, x_kv.to(x.dtype)], dim=1),
                       cfg)
@@ -333,8 +380,12 @@ def attention(p: dict, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
             new_cache = {"k": cache["k"], "v": cache["v"],
                          "len": torch.full((b,), sq, dtype=torch.int32,
                                            device=x.device)}
-    out = project(p["wo"], o.reshape(b, sq, -1), cfg)
-    return out, new_cache
+    o = o.reshape(b, sq, -1)
+    if not tp:
+        return project(p["wo"], o, cfg), new_cache
+    if npar.attn_row:
+        return project(p["wo"], o, cfg, tp=("row", cfg.d_model)), new_cache
+    return project(p["wo"], npar.gather_heads(o), cfg), new_cache
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -504,9 +555,21 @@ def ffn_init(generator: torch.Generator, cfg: ModelConfig,
 def ffn(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
     act = (lambda t: F.gelu(t, approximate="tanh")) if cfg.act == "gelu" \
         else F.silu
+    npar = shardctx.numeric_context()
+    tp = npar is not None and npar.ffn
+    if tp:
+        x = npar.col_input(x)
     if "w_upgate" in p:
-        up, gate = torch.chunk(project(p["w_upgate"], x, cfg), 2, dim=-1)
+        col = ("col", 2 * cfg.d_ff, npar.blocks.get("w_upgate")) if tp \
+            else None
+        up, gate = torch.chunk(project(p["w_upgate"], x, cfg, tp=col), 2,
+                               dim=-1)
         up = act(gate) * up
     else:
-        up = act(project(p["w_up"], x, cfg))
-    return project(p["w_down"], up, cfg)
+        up = act(project(p["w_up"], x, cfg, tp=(
+            "col", cfg.d_ff, npar.blocks.get("w_up")) if tp else None))
+    if not tp:
+        return project(p["w_down"], up, cfg)
+    if npar.ffn_row:
+        return project(p["w_down"], up, cfg, tp=("row", cfg.d_model))
+    return project(p["w_down"], npar.gather_heads(up), cfg)

@@ -33,6 +33,7 @@ from typing import Dict, Optional, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.core import shardctx
 from repro_torch.core.analog_registry import (EXPERT_BATCHED, KINDS,
                                               classify, classify_param)
 from repro_torch.core.tiled_analog import (crossbar_from_model,
@@ -152,11 +153,35 @@ def loss_fn(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig):
     logsumexp minus the true logit."""
     logits, _, _, aux = _forward(params, batch, cfg)
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    true_logit = torch.gather(logits, -1,
-                              batch["labels"].long()[..., None])[..., 0]
+    npar = shardctx.numeric_context()
+    if npar is not None and npar.vocab:
+        lse, true_logit = _vocab_parallel_ce(logits, batch["labels"], npar)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        true_logit = torch.gather(logits, -1,
+                                  batch["labels"].long()[..., None])[..., 0]
     loss = torch.mean(lse - true_logit)
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
+
+
+def _vocab_parallel_ce(logits: Tensor, labels: Tensor, npar):
+    """``(logsumexp, true logit)`` from this rank's vocab slice of the
+    logits (a numeric step's ``vocab`` plan): the max and the sum of
+    exponentials all-reduced over ``model`` (the max carries no
+    gradient: the logsumexp does not depend on it), the true logit
+    taken from the rank that holds it and summed."""
+    mesh, axes = npar.mesh, npar.tp
+    m = logits.detach().amax(dim=-1)
+    for a in axes:
+        m = mesh.all_reduce(m, a, op="max")
+    se = shardctx.reduce_from(torch.sum(torch.exp(logits - m[..., None]),
+                                        dim=-1), mesh, axes)
+    rows = logits.shape[-1]
+    idx = labels.long() - npar.vocab_offset(rows)
+    mine = (idx >= 0) & (idx < rows)
+    t = torch.gather(logits, -1, idx.clamp(0, rows - 1)[..., None])[..., 0]
+    t = torch.where(mine, t, torch.zeros((), device=t.device))
+    return m + torch.log(se), shardctx.reduce_from(t, mesh, axes)
 
 
 # --------------------------------------------------------------------------

@@ -23,6 +23,17 @@ blocks and the SSM / hybrid SSD layers; not the VLM's cross blocks nor
 the hybrid's shared block, whose group bodies the reference leaves
 un-rematerialised.
 
+Under the numeric step's FSDP and tensor parallelism
+(``core.shardctx.numeric_context``) every layer's leaves are gathered
+just before its block runs (:func:`_layered`, inside the remat boundary:
+a rematted block's backward gathers again instead of keeping the layer
+alive), and so is every leaf outside the stacks at its use.  The dense
+family's embedding is then vocab-split (each rank looks up its rows, the
+partial embeddings summed over ``model``) and its head vocab-parallel;
+``REPRO_SEQ_SHARD`` splits the activations along the sequence between
+blocks, and ``REPRO_EMBED_BF16`` casts the table before the lookup (the
+reference's flags).
+
 The cross-attention families take a second token stream (the stub
 frontends' ``(B, n_vision_tokens | n_audio_frames, d_model)`` inputs).
 Every cross-attention reads its fused ``wqkv`` once over the decoder
@@ -41,6 +52,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import shardctx
 from repro_torch.core.shardctx import ShardMeta
 from repro_torch.core.tiled_analog import pop_tapes, push_tapes, stack_trees
 
@@ -114,6 +126,34 @@ def _remat(f: Callable) -> Callable:
                                        _save_dots)
         return checkpoint(f, *args, use_reentrant=False, **kw)
     return run
+
+
+def _layered(f: Callable, stack) -> Callable:
+    """``f(lp, ...)`` with the layer's leaves gathered first when a
+    numeric-parallel step runs (``NumericParallel.layer`` of the stack
+    ``stack``); ``f`` itself otherwise.  Wrap it in :func:`_remat`."""
+    npar = shardctx.numeric_context()
+    if npar is None:
+        return f
+
+    def run(lp, *args):
+        # installed again for a rematted backward's replay, which runs on
+        # autograd's device thread for tensors on the card
+        with shardctx.numeric_parallel(npar):
+            return f(npar.layer(lp, stack), *args)
+    return run
+
+
+def _top(p: dict, key):
+    """``p[key]`` (a path for a nested leaf), gathered whole for use when
+    a numeric-parallel step runs (the embedding and the head keep their
+    vocab split under its ``vocab`` plan)."""
+    keys = (key,) if isinstance(key, str) else tuple(key)
+    t = p
+    for k in keys:
+        t = t[k]
+    npar = shardctx.numeric_context()
+    return t if npar is None else npar.top(t, keys)
 
 
 def dense_block_init(generator: torch.Generator, cfg: ModelConfig,
@@ -213,18 +253,45 @@ def decoder_init(generator: torch.Generator, cfg: ModelConfig,
 def _logits(p: dict, x: Tensor, cfg: ModelConfig,
             last_only: bool = False) -> Tensor:
     """The head's logits, of every position or (``last_only``, a prefill)
-    of the last one alone: the norm and the head act per position."""
+    of the last one alone: the norm and the head act per position.  Under
+    a numeric step's ``vocab`` plan, this rank's vocab slice of them."""
     if last_only:
         x = x[:, -1:]
-    x = rmsnorm(p["final_ln"], x, cfg.norm_eps)
+    x = rmsnorm(_top(p, "final_ln"), x, cfg.norm_eps)
+    npar = shardctx.numeric_context()
+    if npar is not None and npar.vocab:
+        x = npar.col_input(x)
     if cfg.tie_embeddings:
         # the scale keeps init logits O(1) (embeddings are unit-variance)
-        return x.float() @ p["embed"].T / (cfg.d_model ** 0.5)
-    return (x @ p["lm_head"]["w"].to(x.dtype)).float()
+        return x.float() @ _top(p, "embed").T / (cfg.d_model ** 0.5)
+    return (x @ _top(p, ("lm_head", "w")).to(x.dtype)).float()
 
 
 def _embed_lookup(p: dict, tokens: Tensor, cfg: ModelConfig) -> Tensor:
-    return p["embed"][tokens].to(cdtype(cfg))
+    """The embedding of ``tokens``.  ``REPRO_EMBED_BF16`` casts the table
+    to the compute dtype before the lookup (the reference's flag: a
+    vocab-split lookup's sum then moves 2 bytes an element; each output
+    element has one nonzero term, so the values are the same).  Under a
+    numeric step's ``vocab`` plan each rank looks up the tokens of its
+    vocab slice, zeros elsewhere, and the partial embeddings are summed
+    over ``model`` (split along the sequence under ``seq``)."""
+    table = _top(p, "embed")
+    if os.environ.get("REPRO_EMBED_BF16"):
+        table = table.to(cdtype(cfg))
+    npar = shardctx.numeric_context()
+    if npar is None or not npar.vocab:
+        if npar is not None:
+            npar.sp_on = False
+        return table[tokens].to(cdtype(cfg))
+    rows = table.shape[0]
+    idx = tokens.long() - npar.vocab_offset(rows)
+    mine = (idx >= 0) & (idx < rows)
+    e = table[idx.clamp(0, rows - 1)]
+    e = torch.where(mine[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                    device=e.device))
+    e = e.to(cdtype(cfg))
+    npar.sp_on = npar.seq and e.ndim == 3 and e.shape[1] % npar.m == 0
+    return npar.row_output(e)
 
 
 def decoder_apply(p: dict, tokens: Tensor, cfg: ModelConfig, *,
@@ -234,7 +301,7 @@ def decoder_apply(p: dict, tokens: Tensor, cfg: ModelConfig, *,
     with ``last_only``), the caches (updated in place) and the aux loss
     summed over the layers (0 for the dense family)."""
     x = _embed_lookup(p, tokens, cfg)
-    block = moe_block if cfg.n_experts else dense_block
+    block = _layered(moe_block if cfg.n_experts else dense_block, "layers")
     if caches is None:
         block = _remat(block)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -282,9 +349,12 @@ def vlm_apply(p: dict, tokens: Tensor, vision: Tensor, cfg: ModelConfig, *,
     x = _embed_lookup(p, tokens, cfg)
     vision = vision.to(cdtype(cfg))
     inner = cfg.cross_attn_every - 1
-    self_block = _remat(dense_block) if caches is None else dense_block
+    self_block = _layered(dense_block, "self_layers")
+    if caches is None:
+        self_block = _remat(self_block)
+    cross = _layered(cross_block, "cross_layers")
     for gi in range(cfg.n_layers // cfg.cross_attn_every):
-        x = cross_block(tree_index(p["cross_layers"], gi), x, vision, cfg)
+        x = cross(tree_index(p["cross_layers"], gi), x, vision, cfg)
         for j in range(inner):
             cache = tree_index(tree_index(caches, gi), j) \
                 if caches is not None else None
@@ -341,11 +411,11 @@ def _enc_block(lp: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
 def audio_encode(p: dict, frames: Tensor, cfg: ModelConfig) -> Tensor:
     """frames: (B, n_audio_frames, d_model), the stub conv frontend's
     output; non-causal, rope-free attention."""
-    x = frames.to(cdtype(cfg)) + p["enc_pos"].to(cdtype(cfg))
-    block = _remat(_enc_block)
+    x = frames.to(cdtype(cfg)) + _top(p, "enc_pos").to(cdtype(cfg))
+    block = _remat(_layered(_enc_block, "enc_layers"))
     for i in range(cfg.n_encoder_layers):
         x = block(tree_index(p["enc_layers"], i), x, cfg)
-    return rmsnorm(p["enc_ln"], x, cfg.norm_eps)
+    return rmsnorm(_top(p, "enc_ln"), x, cfg.norm_eps)
 
 
 def _dec_block(lp: dict, x: Tensor, enc: Optional[Tensor], cfg: ModelConfig,
@@ -394,7 +464,9 @@ def audio_decode(p: dict, tokens: Tensor, enc: Optional[Tensor],
     updated in place.  Only the fused ``wqkv`` layout exists (the
     reference's split layout has no initialiser)."""
     x = _embed_lookup(p, tokens, cfg)
-    block = _remat(_dec_block) if caches is None else _dec_block
+    block = _layered(_dec_block, "dec_layers")
+    if caches is None:
+        block = _remat(block)
     for i in range(cfg.n_layers):
         c = tree_index(caches, i) if caches is not None else None
         x, nc_self = block(tree_index(p["dec_layers"], i), x, enc, cfg,
@@ -449,12 +521,14 @@ def ssm_stack_apply(p: dict, tokens: Tensor, cfg: ModelConfig, *,
     K/V caches (both updated in place) and a zero aux loss."""
     x0 = _embed_lookup(p, tokens, cfg)
     x = x0
-    block = _remat(ssm_block) if states is None else ssm_block
+    block = _layered(ssm_block, "layers")
+    if states is None:
+        block = _remat(block)
     k = cfg.attn_every
     if k:
         shared_clean, shared_tapes, has_tapes = pop_tapes(
-            {"in": p["shared_in"], "attn": p["shared_attn"],
-             "ffn": p["shared_ffn"]})
+            {"in": _top(p, "shared_in"), "attn": _top(p, "shared_attn"),
+             "ffn": _top(p, "shared_ffn")})
     for i in range(cfg.n_layers):
         st = tree_index(states, i) if states is not None else None
         x, new_st = block(tree_index(p["layers"], i), x, cfg, st)
@@ -472,11 +546,11 @@ def ssm_stack_apply(p: dict, tokens: Tensor, cfg: ModelConfig, *,
             if shared_caches is not None else None
         h_in = project(sp["in"], torch.cat([x, x0], dim=-1), cfg)
         h1, new_cache = attention(
-            sp["attn"], rmsnorm(p["shared_ln"], h_in, cfg.norm_eps), cfg,
-            positions=positions, cache=cache)
+            sp["attn"], rmsnorm(_top(p, "shared_ln"), h_in, cfg.norm_eps),
+            cfg, positions=positions, cache=cache)
         x = x + h1
-        x = x + ffn(sp["ffn"], rmsnorm(p["shared_ln2"], x, cfg.norm_eps),
-                    cfg)
+        x = x + ffn(sp["ffn"], rmsnorm(_top(p, "shared_ln2"), x,
+                                       cfg.norm_eps), cfg)
         if shared_caches is not None:
             shared_caches["len"][gi] = new_cache["len"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

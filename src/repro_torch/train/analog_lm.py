@@ -66,11 +66,18 @@ counted over the shards (integers, exchanged by ``all_gather``) over the
 global cell count.  Every cross-rank exchange on the analog path is an
 arithmetic-free ``all_gather`` (``core.shardctx``), so one seed gives
 bit-identical conductances, loss and rail fraction on any mesh.
-``exact=False`` (the reference's GSPMD read with ulp drift) is not
-ported (ROADMAP.md).
+
+``exact=False`` is the port's counterpart of the reference's GSPMD read:
+each shard-local read sums its own reduction tiles, ``all_reduce``s the
+ranks' sums over the reduction axes and rescales once
+(``kernels.xbar_vmm.manual_collective_read``), so the reads drift from
+the exact step's by float reassociation (within ``ranks * 2^-23 *
+sum |partial|`` an element) and a write may see a flipped operand code.
+The digital leaves stay replicated and the writes are unchanged.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import zlib
 from typing import Dict, Union
@@ -141,16 +148,13 @@ class AnalogTrainStep:
     single-device step (see the module docstring); the state must come
     from :meth:`shard_state`.  ``read_mode`` is ``"local"`` (shard-local
     reads) or ``"gather"`` (gather the blocks, replay the whole read).
-    ``exact=False`` raises: the reference's GSPMD read is not ported.
+    ``exact=False`` reads with the ranks' tile sums ``all_reduce``d (see
+    the module docstring; local reads only).
     """
 
     def __init__(self, cfg: ModelConfig, lr: float, mesh=None,
                  bits: int = 8, exact: bool = True,
                  read_mode: str = "local"):
-        if not exact:
-            raise NotImplementedError(
-                "exact=False (the reference's GSPMD read path, ulp drift) is "
-                "not ported; see ROADMAP.md section 1 item 5")
         if read_mode not in ("local", "gather"):
             raise ValueError("read_mode must be 'local' or 'gather'")
         if resolve_analog_mode(cfg) is not AnalogMode.DEVICE:
@@ -164,6 +168,7 @@ class AnalogTrainStep:
         self.bits = bits
         self.mesh = mesh
         self.read_mode = read_mode
+        self.exact = exact
         self.cost = None
         self._validated = False
         self._cspecs = None   # path -> (update specs, global g shape)
@@ -226,6 +231,8 @@ class AnalogTrainStep:
         device."""
         specs, shape = self._cspecs[path]
         meta = S.shard_meta(shape, specs["g"], self.mesh)
+        if meta is not None and not self.exact:
+            meta = dataclasses.replace(meta, exact=False)
         return p if meta is None else {**p, "tp_meta": meta}
 
     def _gather(self, p, path):

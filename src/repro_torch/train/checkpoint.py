@@ -15,6 +15,12 @@ reference's (dict keys and tuple indices joined by "/"), so a checkpoint
 written by either package restores into the other.  ``meta.json``'s
 ``treedef`` is this package's own description of the structure; restore
 goes by the ``like`` tree, as the reference's does.
+
+A state held in blocks over a mesh (the FSDP / tensor-parallel numeric
+step) is saved whole: ``save(..., gather=)`` makes each leaf whole in
+turn (every rank takes part in its gathers, rank 0 writes), and
+``restore(..., cut=)`` cuts each whole leaf into this rank's block, on
+any mesh.
 """
 from __future__ import annotations
 
@@ -60,9 +66,28 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def save(ckpt_dir: str | Path, state: Any, step: int,
-         keep_n: int = 3) -> Path:
+         keep_n: int = 3, gather=None, write: bool = True
+         ) -> Optional[Path]:
     """Write ``state`` (a tree of dicts and tuples of tensors and numbers)
-    as step ``step``; keep the newest ``keep_n`` committed steps."""
+    as step ``step``; keep the newest ``keep_n`` committed steps.
+    ``gather(path, leaf)`` makes a block-held leaf whole (``path`` its
+    key tuple), one leaf at a time; with ``write`` False (every rank but
+    the one that writes) the gathers run and nothing is written."""
+    if gather is not None:
+        flat = {}
+        for key, leaf in _leaves(state):
+            whole = gather(tuple(key.split("/")), leaf)
+            if write:
+                flat[key] = _to_numpy(whole)
+            del whole
+        if not write:
+            return None
+        return _write(ckpt_dir, state, step, keep_n, flat)
+    return _write(ckpt_dir, state, step, keep_n,
+                  {k: _to_numpy(v) for k, v in _leaves(state)})
+
+
+def _write(ckpt_dir, state, step: int, keep_n: int, flat: dict) -> Path:
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     name = f"step_{step:08d}"
@@ -73,7 +98,6 @@ def save(ckpt_dir: str | Path, state: Any, step: int,
         shutil.rmtree(tmp)
     tmp.mkdir()
 
-    flat = {k: _to_numpy(v) for k, v in _leaves(state)}
     np.savez(tmp / "arrays.npz", **flat)
     meta = {
         "step": step,
@@ -113,11 +137,13 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
 
 
 def restore(ckpt_dir: str | Path, like: Any, step: Optional[int] = None,
-            device=None) -> Any:
+            device=None, cut=None) -> Any:
     """Restore into the structure of ``like`` (a tree of tensors, meta
     tensors included, and numbers): each tensor leaf takes ``like``'s
     dtype and lands on ``device`` (default: the leaf's own device; a meta
-    leaf needs ``device``); a number leaf stays a number of its type."""
+    leaf needs ``device``); a number leaf stays a number of its type.
+    ``cut(path, whole)`` gives this rank's block of a whole leaf (a
+    block-held ``like``)."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -139,8 +165,9 @@ def restore(ckpt_dir: str | Path, like: Any, step: Optional[int] = None,
         where = device if device is not None else leaf.device
         if torch.device(where).type == "meta":
             raise ValueError("restoring into meta tensors needs device=")
-        return torch.from_numpy(np.array(arr)).to(dtype=leaf.dtype,
-                                                  device=where)
+        whole = torch.from_numpy(np.array(arr)).to(dtype=leaf.dtype,
+                                                   device=where)
+        return whole if cut is None else cut(path, whole)
     return build(like, ())
 
 

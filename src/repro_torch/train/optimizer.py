@@ -40,6 +40,16 @@ def tree_leaves(tree):
     return [tree]
 
 
+def tree_map_path(fn, tree, *rest, path=()):
+    """:func:`tree_map` with each leaf's key path as ``fn``'s first
+    argument."""
+    if isinstance(tree, dict):
+        return {k: tree_map_path(fn, v, *(r[k] for r in rest),
+                                 path=path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree, *rest)
+
+
 def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
     def init(params):
         if momentum == 0.0:
@@ -65,36 +75,63 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 "t": torch.zeros((), dtype=torch.int32,
                                  device=tree_leaves(params)[0].device)}
 
-    def update(grads, state, params, **_):
+    def update(grads, state, params, consume: bool = False, **_):
+        """The new parameters and state.  ``consume``: ``grads`` (a dict
+        tree) is emptied leaf by leaf as each leaf's update is made, so
+        a gradient's memory is free before the next leaf's new moments
+        are allocated (the same arithmetic)."""
         t = state["t"] + 1
         bc1 = 1 - b1 ** t.to(torch.float32)
         bc2 = 1 - b2 ** t.to(torch.float32)
-        m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(),
-                     state["m"], grads)
-        v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * torch.square(
-            g.float()), state["v"], grads)
 
-        def step(p, m_, v_):
-            upd = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
+        def leaf(p, m_, v_, g):
+            # the reference's expressions, each product and sum rounded as
+            # there; in place on fresh tensors, so a leaf's update holds
+            # one temporary beside its new moments
+            g = g.float()
+            m = b1 * m_
+            m += (1 - b1) * g
+            v = b2 * v_
+            v += (1 - b2) * torch.square(g)
+            den = torch.sqrt_(v / bc2).add_(eps)
+            upd = torch.div(m, bc1).div_(den)
+            del den
             if weight_decay:
-                upd = upd + weight_decay * p.float()
-            return (p.float() - lr * upd).to(p.dtype)
+                upd += weight_decay * p.float()
+            upd *= lr
+            return (p.float() - upd).to(p.dtype), m, v
 
-        new = tree_map(step, params, m, v)
-        return new, {"m": m, "v": v, "t": t}
+        def walk(p, m_, v_, g):
+            if not isinstance(p, dict):
+                return leaf(p, m_, v_, g)
+            out = {}
+            for k in list(p):
+                out[k] = walk(p[k], m_[k], v_[k], g[k])
+                if consume:
+                    del g[k]
+            return out
+        triples = walk(params, state["m"], state["v"], grads)
+        return (tree_map(lambda x: x[0], triples),
+                {"m": tree_map(lambda x: x[1], triples),
+                 "v": tree_map(lambda x: x[2], triples), "t": t})
     return Optimizer(init, update)
 
 
-def global_norm(tree) -> Tensor:
-    """The 2-norm of all leaves together, in float32."""
+def global_norm(tree, sq_total=None) -> Tensor:
+    """The 2-norm of all leaves together, in float32.  ``sq_total(tree)``
+    gives the leaves' total sum of squares where they are blocks of
+    leaves held over several ranks
+    (``launch.sharding.NumericParallel.sq_total``)."""
+    if sq_total is not None:
+        return torch.sqrt(sq_total(tree))
     sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(tree)]
     return torch.sqrt(sum(sq))
 
 
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, sq_total=None):
     """Scale every leaf by ``min(1, max_norm / (norm + 1e-9))``; returns
-    ``(clipped, norm)``."""
-    norm = global_norm(tree)
+    ``(clipped, norm)``; ``sq_total`` as in :func:`global_norm`."""
+    norm = global_norm(tree, sq_total)
     # a tensor numerator: torch's ``scalar / tensor`` multiplies by the
     # reciprocal, the reference divides
     scale = torch.clamp(torch.tensor(max_norm, dtype=norm.dtype,

@@ -407,15 +407,39 @@ def test_container_seed_matches_reference_mix():
         assert TA.container_seed(seed_base, path) == want
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(exact=False), "GSPMD"),
-])
-def test_unported_training_options_raise(change, match):
-    """The sharded step is ported (a mesh no longer raises); the
-    reference's ``exact=False`` GSPMD read is not."""
-    with pytest.raises(NotImplementedError, match=match) as err:
-        TA.make_analog_sgd_step(CFG, lr=LR, **change)
-    assert "ROADMAP.md" in str(err.value)
+def test_inexact_step_on_one_device_is_the_exact_step():
+    """``exact=False`` (the reference's GSPMD read, ported in
+    ``kernels.xbar_vmm.manual_collective_read``) changes only how a
+    sharded read sums its reduction tiles: on one device the step is the
+    exact step, bit for bit (the mesh cases are in
+    ``tests/test_torch_tensor_parallel.py``)."""
+    state = TA.init_state(0, CFG, device="cpu")
+    x, y = _batch(0)
+    batch = {"tokens": torch.from_numpy(x).long(),
+             "labels": torch.from_numpy(y).long()}
+    outs = []
+    for exact in (True, False):
+        step = TA.make_analog_sgd_step(CFG, lr=LR, exact=exact)
+        assert step.exact is exact
+        outs.append(step(state, batch, 1234))
+    (a, ma), (b, mb) = outs
+    assert float(ma["loss"]) == float(mb["loss"])
+    for path, leaf in _flat_leaves(a["params"]):
+        assert torch.equal(leaf, _get_leaf(b["params"], path)), path
+
+
+def _flat_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _get_leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def test_noisy_step_takes_a_generator_or_its_seed_base():

@@ -230,9 +230,10 @@ def test_transpose_kernel_source_contracts_the_stored_columns():
     src = K.SOURCE.read_text()
     assert "_fused_mvm_kernel" in src and "kTranspose" in src
     assert set(K.LAUNCHES) == {
-        "fused_vmm", "fused_mvm", "fakequant", "fakequant_scale",
-        "fakequant_prepare", "fakequant_fp32", "fakequant_tc",
-        "fakequant_epilogue",
+        "fused_vmm", "fused_mvm", "fakequant", "fakequant_split",
+        "fakequant_tiles",
+        "fakequant_scale", "fakequant_prepare", "fakequant_fp32",
+        "fakequant_tc", "fakequant_epilogue",
         *(f"{name}_{d}" for d in ("vmm", "mvm")
           for name in ("read_tile", "reduce_tiles", "read_prepare",
                        "read_range", "tc_read"))}
