@@ -499,6 +499,23 @@ before remat existed.
    tile sum is dropped (a planted fault); the write's distance from the
    exact step's against the spread of one-ulp embedding nudges.
 
+28. Tensor and expert parallelism of the MoE family, each rank its own
+   process on this card as in phase 27.  (a) deepseek-v2-lite at full
+   width cut to 2 layers, QAT at 128-row tiles, 8 x 256 tokens, one step
+   on 2x2, 1x4 and 4x1 against the 1x1 step from the same state: the loss
+   within 1e-4, the parameters in the test class, each data rank's
+   expert-stack read (kernel 4's lead form with the DAC scales shared
+   over the data ranks) bit-equal to the whole buffer's read at the same
+   rows and against its plain version, MLA's split (``wq``) and tiles
+   (``wo``) reads bit-equal to the whole read, each rank's fakequant and
+   expert-stack reads equal to the 1x1 step's, no plain-version call,
+   the plan's flags.  (b) llama4-scout at full width, one layer, digital
+   bfloat16 with sgd, on 1x4 over 4 x 1024 tokens: each rank's held
+   parameter bytes equal the dry run's policy bytes, the loss within
+   1e-2 of the 1x1 forward's, 2 layer gathers.  (c) (a)'s cut on 4x1 at
+   capacity factor 1.0, where the 1x1 forward drops pairs: the loss
+   within 1e-4 and the ranks' dropped pairs summing to the 1x1 count.
+
 Every phase prints its wall seconds on a line of its own.
 
 Every read's DAC scale (phases 1, 3, 4, 7, 14, 15, 16, 18-23) must
@@ -1320,7 +1337,7 @@ def tensor_core_train_expect(n_layers, **others):
     range pass, nothing on the FP32 instance; ``others`` the rest."""
     reads = 4 * n_layers
     expect = {"fused_vmm": reads, "fused_mvm": reads, "fakequant_split": 0,
-              "fakequant_tiles": 0, **others}
+              "fakequant_tiles": 0, "fakequant_lead": 0, **others}
     for d in ("vmm", "mvm"):
         for count in READ_KERNEL_COUNTS.values():
             expect[f"{count}_{d}"] = 0 if count in ("read_tile",
@@ -4089,8 +4106,8 @@ def recording_routes(TMoE, routes):
     top_i)`` per call of ``models.moe.route``."""
     route = TMoE.route
 
-    def recorded(p, xt, cfg):
-        out = route(p, xt, cfg)
+    def recorded(p, xt, cfg, seq=0):
+        out = route(p, xt, cfg, seq)
         routes.append(tuple(t.detach().clone() for t in out))
         return out
 
@@ -4147,8 +4164,8 @@ def moe_replay_cpu(M, TT, TMoE, cfg, cpu_params, toks, reads, routes,
     def replay_fq(x, w, adc, rows):
         return next(read_it)[5].cpu().reshape(*x.shape[:-1], w.shape[-1])
 
-    def replay_route(p, xt, c):
-        probs, _, top_i = route(p, xt, c)
+    def replay_route(p, xt, c, seq=0):
+        probs, _, top_i = route(p, xt, c, seq)
         card_i = next(route_it)[2].cpu()
         flips[0] += int((card_i != top_i).sum())
         top_p = torch.gather(probs, 1, card_i)
@@ -4309,7 +4326,7 @@ def fq_lead_case(K, name, e, t, k, n, rows, cls, gen, adc, instance,
     y_k, sc_k = K._fakequant_cuda(x, w, adc, rows, instance)
     torch.cuda.synchronize()
     got = {c: K.LAUNCHES[c] - launches[c] for c in K.LAUNCHES}
-    per_read = {"fakequant": 1, "fakequant_epilogue": 1,
+    per_read = {"fakequant": 1, "fakequant_lead": 1, "fakequant_epilogue": 1,
                 "fakequant_scale" if instance == "fp32"
                 else "fakequant_prepare": 1,
                 "fakequant_fp32" if instance == "fp32"
@@ -7174,9 +7191,10 @@ def timed_step(step, state, batch, *args):
     return state, m, ev[0].elapsed_time(ev[1])
 
 
-def split_read_case(K, mesh, cfg, adc):
+def split_read_case(K, mesh, cfg, adc, k=None, n=None):
     """One column-split fakequant read at 27(a)'s shapes (2048 tokens,
-    lm100m's ``wqkv`` split over ``model``): the kernels' split form (range
+    lm100m's ``wqkv`` split over ``model``; ``k`` x ``n`` another leaf's,
+    28(a)'s MLA ``wq``): the kernels' split form (range
     partials gathered over ``model``) bit-equal to the whole read's
     columns, and against the plain split version on the same inputs,
     whose partials are gathered in turn, in ``fq_agrees``' bound with the
@@ -7186,8 +7204,8 @@ def split_read_case(K, mesh, cfg, adc):
                                               _fakequant_plain_head)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    t, k = TP_BATCH[0] * TP_BATCH[1], cfg.d_model
-    n = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.resolved_head_dim
+    t, k = TP_BATCH[0] * TP_BATCH[1], k or cfg.d_model
+    n = n or (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.resolved_head_dim
     rows = cfg.analog_rows
     x = torch.randn((t, k), generator=gen, device="cuda")
     w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
@@ -7229,9 +7247,10 @@ def split_read_case(K, mesh, cfg, adc):
             "ms": ms, "plain_ms": plain_ms, **fq_bounds(t, k, c)}
 
 
-def tiles_read_case(K, mesh, cfg, adc):
+def tiles_read_case(K, mesh, cfg, adc, k=None):
     """One row-split fakequant read at 27(a)'s shapes (2048 tokens,
-    lm100m's ``w_down`` split over ``model`` at whole row tiles): the
+    lm100m's ``w_down`` split over ``model`` at whole row tiles; ``k``
+    rows another leaf's, 28(a)'s MLA ``wo``): the
     kernels' tiles form (this rank's tiles' products and range partials
     gathered in tile order, the epilogue over every tile) bit-equal to
     the whole read, and against the plain version of the same steps in
@@ -7241,7 +7260,7 @@ def tiles_read_case(K, mesh, cfg, adc):
                                               _fakequant_plain_head)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    t, k, n = TP_BATCH[0] * TP_BATCH[1], cfg.d_ff, cfg.d_model
+    t, k, n = TP_BATCH[0] * TP_BATCH[1], k or cfg.d_ff, cfg.d_model
     rows = cfg.analog_rows
     x = torch.randn((t, k), generator=gen, device="cuda")
     w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
@@ -7482,8 +7501,535 @@ def tp_rank_inexact(rank, src):
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 28: tensor and expert parallelism of the MoE family
+# --------------------------------------------------------------------------
+
+#: 28(a) / 28(c): deepseek-v2-lite at full width cut to this many layers
+#: (the dry run reckons the 1x1 step at 46 GB and each rank of the
+#: layouts at well under 20: the phase prints its reckoning), its layouts
+#: and seed; the global batch is 27(a)'s, 8 x 256 tokens.
+MOE_LAYERS = 2
+MOE_LAYOUTS = ((2, 2), (1, 4), (4, 1))
+MOE_SEED = 28
+#: 28(c): its layout and a capacity factor at which the 1x1 dispatch
+#: drops pairs (capacity 192 rows an expert for 2048 x 6 pairs over 64
+#: experts: the mean load)
+MOE_DROP_LAYOUT = (4, 1)
+MOE_DROP_CF = 1.0
+#: 28(b): llama4-scout at full width, one layer, over 4 x 1024 tokens,
+#: on 1x4 with sgd: with adamw the dry run reckons 31.97 GB a rank on
+#: 1x4 (12.81 held, the update's new m and v beside the old) and 63.93
+#: on 1x2, 128 GB for the ranks together either way; sgd holds the
+#: parameters' blocks alone (4.27 GB a rank)
+SCOUT_BATCH = (4, 1024)
+SCOUT_LAYOUT = (1, 4)
+#: the 1x1 step's parameters, written for the ranks (6.6 GB: the card's
+#: room is the ranks'; the dry run reckons 16.6 GB a rank on 4x1)
+MOE_REF = ROOT / "build" / "phase28-ref.pt"
+
+
+def moe_qat_cfg(get_config, **kw):
+    """28(a)'s cut: deepseek-v2-lite, QAT at 128-row tiles (``wo`` splits
+    by rows on 2x2 and 1x4), float32."""
+    return get_config("deepseek-v2-lite-16b").replace(
+        n_layers=MOE_LAYERS, dtype="float32", analog=True,
+        analog_mode="fakequant", analog_rows=128, **kw)
+
+
+def scout_cfg(get_config):
+    return get_config("llama4-scout-17b-a16e").replace(n_layers=1)
+
+
+@contextlib.contextmanager
+def plain_counted(K, calls):
+    """Count calls of the fakequant read's plain versions (whole, lead,
+    split halves); the QAT backward's VJP of the eager expression is the
+    design's own and not among them."""
+    names = ("_fakequant_plain", "_fakequant_plain_lead",
+             "_fakequant_plain_head", "_fakequant_plain_finish")
+    saved = {n: getattr(K, n) for n in names}
+
+    def counted(name):
+        def call(*args, **kw):
+            calls.append(name)
+            return saved[name](*args, **kw)
+        return call
+    for n in names:
+        setattr(K, n, counted(n))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(K, n, f)
+
+
+def save_leaves(tree, path):
+    """``tree``'s leaves, on the host, to ``path`` (for the ranks: the
+    card keeps its room for them)."""
+    path.parent.mkdir(exist_ok=True)
+    torch.save({"/".join(p): t.detach().cpu() for p, t in leaves_of(tree)},
+               path)
+
+
+def draw_in_turns(make, rank, world):
+    """``make()`` on each rank in turn: one whole draw on the card at a
+    time (the state is drawn whole, then cut to the rank's blocks)."""
+    import torch.distributed as dist
+    out = None
+    for turn in range(world):
+        if turn == rank:
+            out = make()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def params_against(S, params, npar, ref, compare):
+    """Every leaf of this rank's blocks gathered whole (one leaf at a
+    time, every rank taking part) and, with ``compare``, held against the
+    1x1 step's (``ref``, on the host) in satellite 1's class: (elements
+    off, elements, worst move off, by leaf)."""
+    off = total = 0
+    worst = 0.0
+    by_leaf = {}
+    for path, t in leaves_of(params):
+        key = "/".join(path)
+        spec = tree_get(npar.specs, path)
+        whole = t if not spec or not any(spec) else S.leaf_unshard(
+            t, path, spec, npar.cfg, npar.mesh,
+            tree_get(npar.like, path).shape)
+        if compare:
+            w = ref[key].to(whole.device)
+            d = (whole - w).abs()
+            bad = d > 1e-5 * w.abs() + 1e-6
+            n_bad = int(bad.sum())
+            off += n_bad
+            total += w.numel()
+            if n_bad:
+                worst = max(worst, float(d[bad].max()))
+                by_leaf[key] = (n_bad, w.numel())
+        del whole
+    return off, total, worst, by_leaf
+
+
+def expert_read_case(K, OPS, mesh, npar, cfg, adc):
+    """A data rank's rows of an expert-stack read at 28(a)'s shapes (this
+    rank's experts of deepseek-v2-lite's ``w_up``, 2048 x 1408, each
+    expert's buffer 240 rows over the data ranks, this rank's share of
+    them, 60 or 120 rows, as the global dispatch's buffer holds them):
+    each expert's DAC scale the max over the data ranks
+    (``kernels.ops.fakequant_expert_project``, the kernel's lead form
+    with ``sc_in``) on the whole buffer's instance (the tensor cores: 240
+    rows, where 60 would take the FP32 one); its rows bit-equal to the
+    whole buffer's read, and against the plain lead version at the same
+    scales in fq_agrees' class, expert by expert.  Times the kernel and
+    its plain version on this rank's buffer."""
+    from repro_torch.core.analog_registry import expert_capacity
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    rows = cfg.analog_rows
+    e_l = npar.expert_range(cfg.n_experts)[1]
+    n_d, d = npar.n_data, npar.data_index()
+    t_all = TP_BATCH[0] * TP_BATCH[1]
+    cap = expert_capacity(t_all, cfg)
+    local = c = cap // n_d
+    k, n = cfg.d_model, cfg.d_ff_expert
+    x = torch.randn((e_l, cap, k), generator=gen, device="cuda")
+    w = torch.randn((e_l, k, n), generator=gen, device="cuda") / math.sqrt(k)
+    mine = x[:, d * c:(d + 1) * c].contiguous()
+    inst = K.fakequant_instance(cap, adc.in_levels)
+    with torch.no_grad():
+        y = OPS.fakequant_expert_project(mine, w, adc, rows, mesh, npar.fsdp,
+                                         cap)
+        whole = K.fakequant_read(x, w, adc, rows)
+        sc = K.fakequant_scale(mine, adc.in_levels)
+        for a in npar.fsdp:
+            sc = mesh.all_reduce(sc, a, op="max")
+        y_p = K._fakequant_plain_lead(mine, w, sc, adc, rows)
+    equal = bool(torch.equal(y[:, :c], whole[:, d * c:(d + 1) * c]))
+    scale_equal = bool(torch.equal(sc, K.fakequant_scale(x, adc.in_levels)))
+    ok, err, ratio, share = True, 0.0, 0.0, 0.0
+    for i in range(e_l):
+        o, e_, r_, s_ = fq_agrees(y[i], y_p[i], mine[i], w[i], sc[i:i + 1],
+                                  adc, rows)
+        ok, err = ok and o, max(err, e_)
+        ratio, share = max(ratio, r_), max(share, s_)
+    sync = torch.cuda.synchronize
+    before = (K.LAUNCHES["fakequant"], K.LAUNCHES["fakequant_lead"])
+
+    def kernel(i=0):
+        return K.fakequant_read(mine, w, adc, rows, sc=sc, instance=inst)
+
+    def plain(i=0):
+        return K._fakequant_plain_lead(mine, w, sc, adc, rows)
+    ms = cuda_ms(kernel, 5, sync)
+    plain_ms = cuda_ms(plain, 2, sync)
+    # timing launches not counted
+    K.LAUNCHES["fakequant"], K.LAUNCHES["fakequant_lead"] = before
+    b = fq_bounds(e_l * local, k, n)
+    # every expert's W read once, not one W for all rows
+    w_extra = 4 * (e_l - 1) * k * n / HBM_BYTES_PER_S
+    t_bytes = 1e-3 * b["bytes_ms"] + w_extra
+    t_ops = 2 * e_l * local * k * n / FP32_FLOPS
+    return {"ok": ok, "bit_equal_whole_rows": equal,
+            "scale_equal_whole": scale_equal, "max_abs_err": err,
+            "worst_err_over_bound": ratio, "flip_share": share,
+            "E": e_l, "T": local, "T_whole": cap, "rows_mine": c, "K": k,
+            "N": n, "instance": inst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "tc_floor_ms": max(1e3 * t_bytes, 3e3 * 2 * e_l * local * k * n
+                               / BF16_FLOPS)}
+
+
+def moe_drop_case(M, moe, NP, shardctx, cfg, params, batch, mesh):
+    """28(c) on one rank: the forward of the global batch at
+    MOE_DROP_CF (no gradient, so the dispatch runs once a layer): the
+    global loss and this rank's dropped pairs."""
+    npar = NP(cfg, mesh)
+    moe.DROPPED["pairs"] = 0
+    with torch.no_grad(), shardctx.numeric_parallel(npar):
+        loss = M.loss_fn(params, batch, cfg)[0]
+    loss = mesh.all_reduce(loss.reshape(1), "data") / mesh.shape["data"]
+    return {"loss": float(loss), "dropped": int(moe.DROPPED["pairs"])}
+
+
+def moe_rank_qat(rank, src):
+    """28(a) and 28(c) on one rank: for each layout, deepseek-v2-lite's
+    cut drawn whole in turns and cut to this rank's blocks; on 4x1 first
+    28(c)'s forward; one warm-up step and one timed QAT step (its launches
+    counted, the plain versions' calls counted), the parameters held
+    against the 1x1 step's leaf by leaf (rank 0), the expert-stack read
+    (data ranks) and MLA's split and tiles reads (model ranks)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import shardctx
+    from repro_torch.core.adc import AdcConfig
+    from repro_torch.kernels import ops as OPS
+    from repro_torch.kernels import xbar_vmm as K
+    from repro_torch.launch import sharding as S
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.train import train_loop as TL
+    from repro_torch.train.optimizer import adamw
+    cfg = moe_qat_cfg(get_config)
+    adc = AdcConfig(in_bits=cfg.analog_in_bits, out_bits=cfg.analog_out_bits)
+    ref = torch.load(MOE_REF, mmap=True) if rank == 0 else None
+    world = dist.get_world_size()
+    out = {}
+    for shape in MOE_LAYOUTS:
+        mesh = card_mesh(shape)
+        opt = adamw(TP_LR)
+        state = draw_in_turns(lambda: TL.init_sharded_state(
+            MOE_SEED, cfg, opt, mesh, "cuda"), rank, world)
+        step = TL.make_train_step(cfg, opt, mesh=mesh)
+        npar = step.numeric
+        batch = tp_tokens(cfg.vocab, *TP_BATCH,
+                          rows=local_rows(mesh, TP_BATCH[0]))
+        res = {}
+        if shape == MOE_DROP_LAYOUT:
+            res["drop"] = moe_drop_case(
+                M, moe, S.NumericParallel, shardctx,
+                cfg.replace(capacity_factor=MOE_DROP_CF), state["params"],
+                batch, mesh)
+        step(state, batch)      # warm-up (the step leaves its input state)
+        for name in K.LAUNCHES:
+            K.LAUNCHES[name] = 0
+        calls = []
+        torch.cuda.reset_peak_memory_stats()
+        with plain_counted(K, calls):
+            state, mets, ms = timed_step(step, state, batch)
+        launches = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        loss = mesh.all_reduce(mets["loss"].reshape(1), "data") \
+            / mesh.shape["data"]
+        off, total, worst, by_leaf = params_against(
+            S, state["params"], npar, ref, rank == 0)
+        res.update({
+            "loss": float(loss), "grad_norm": float(mets["grad_norm"]),
+            "ms": ms, "launches": launches, "plain_calls": len(calls),
+            "plan": npar.plan(), "peak_gb": peak,
+            "params_off": off, "params": total, "params_worst": worst,
+            "params_by_leaf": by_leaf})
+        del state
+        torch.cuda.empty_cache()
+        if npar.n_data > 1:
+            res["expert"] = expert_read_case(K, OPS, mesh, npar, cfg, adc)
+        if mesh.shape["model"] > 1:
+            h = cfg.n_heads
+            res["split"] = split_read_case(
+                K, mesh, cfg, adc, cfg.d_model,
+                h * (cfg.qk_nope_dim + cfg.qk_rope_dim))
+            res["tiles"] = tiles_read_case(K, mesh, cfg, adc,
+                                           h * cfg.v_head_dim)
+        out[shape] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def scout_rank(rank, src, shape):
+    """28(b) on one rank: llama4-scout's one-layer state (sgd: the
+    parameters alone) drawn whole in turns and cut to this rank's blocks,
+    its held bytes, one digital FSDP + TP + EP step over its rows, timed,
+    its layer gathers and peak."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import train_loop as TL
+    from repro_torch.train.optimizer import sgd
+    cfg = scout_cfg(get_config)
+    mesh = card_mesh(shape)
+    opt = sgd(TP_LR)
+    state = draw_in_turns(lambda: TL.init_sharded_state(
+        TP_SEED, cfg, opt, mesh, "cuda"), rank, dist.get_world_size())
+    held = {"params": tree_nbytes(state["params"]),
+            "opt": tree_nbytes(state["opt"]),
+            "step": tree_nbytes(state["step"])}
+    step = TL.make_train_step(cfg, opt, mesh=mesh)
+    batch = tp_tokens(cfg.vocab, *SCOUT_BATCH,
+                      rows=local_rows(mesh, SCOUT_BATCH[0]))
+    torch.cuda.reset_peak_memory_stats()
+    state, mets, ms = timed_step(step, state, batch)
+    loss = mesh.all_reduce(mets["loss"].reshape(1), "data") \
+        / mesh.shape["data"]
+    return {"coords": dict(mesh.coords), "held": held, "ms": ms,
+            "loss": float(loss), "grad_norm": float(mets["grad_norm"]),
+            "layer_gathers": step.numeric.counts["layer_gathers"],
+            "plan": step.numeric.plan(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_moe_qat(M, K, TL, TO, get_config, report, gpu_line):
+    """28(a) and 28(c): deepseek-v2-lite at full width (d 2048, 16 MLA
+    heads, 64 experts of 2048 x 1408 top-6, 2 shared, vocab 102400) cut
+    to MOE_LAYERS layers, QAT at 128-row tiles, 8 x 256 tokens: one FSDP
+    + TP + EP step on 2x2, 1x4 and 4x1 (each rank its own process on this
+    card) against the 1x1 step on the card from the same state.  Gates
+    (28(a)): the loss within 1e-4 relative; the parameters in satellite
+    1's class (off under 1e-3 of the elements, by at most 2 lr); each
+    data rank's expert-stack read with the shared per-expert scale
+    bit-equal to the whole buffer's read at the same rows and in
+    fq_agrees' class against its plain version; MLA's split (``wq``)
+    and tiles (``wo``) reads bit-equal to the whole read and in its class;
+    each rank's fakequant reads and expert-stack reads equal to the 1x1
+    step's, split reads on model ranks, and no plain-version call; the
+    plan printed per layout (``ep``, ``mla`` and ``attn_row``, ``ffn``,
+    ``vocab`` on model ranks).  28(c) at capacity factor MOE_DROP_CF on
+    4x1: the 1x1 forward drops pairs, the loss within 1e-4 relative of
+    its, and the four ranks' dropped pairs sum to its count."""
+    from repro_torch.models import moe
+    cfg = moe_qat_cfg(get_config)
+    opt = TO.adamw(TP_LR)
+    state = TL.init_state(MOE_SEED, cfg, opt, "cuda")
+    batch = tp_tokens(cfg.vocab, *TP_BATCH)
+    drop_cfg = cfg.replace(capacity_factor=MOE_DROP_CF)
+    moe.DROPPED["pairs"] = 0
+    with torch.no_grad():
+        drop_loss = float(M.loss_fn(state["params"], batch, drop_cfg)[0])
+    drop_one = {"loss": drop_loss, "dropped": int(moe.DROPPED["pairs"])}
+    step = TL.make_train_step(cfg, opt)
+    step(state, batch)          # warm-up (the step leaves its input state)
+    for name in K.LAUNCHES:
+        K.LAUNCHES[name] = 0
+    torch.cuda.reset_peak_memory_stats()
+    state, mets, ms1 = timed_step(step, state, batch)
+    one = {"loss": float(mets["loss"]), "ms": ms1,
+           "grad_norm": float(mets["grad_norm"]),
+           "reads": K.LAUNCHES["fakequant"],
+           "lead_reads": K.LAUNCHES["fakequant_lead"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    save_leaves(state["params"], MOE_REF)
+    del state
+    try:
+        ranks = spawn_layout(4, "moe")
+    finally:
+        MOE_REF.unlink(missing_ok=True)
+    if not one["lead_reads"]:
+        fail("28(a): the 1x1 step read no expert stack")
+    if not drop_one["dropped"]:
+        fail("28(c): the 1x1 forward drops no pair at capacity factor "
+             f"{MOE_DROP_CF}")
+    rows = []
+    for shape_ in MOE_LAYOUTS:     # every layout's figures before the gates
+        per = [r[shape_] for r in ranks]
+        print(f"28(a) {shape_}: losses {[r['loss'] for r in per]}, grad "
+              f"norms {[r['grad_norm'] for r in per]}, parameters off "
+              f"{per[0]['params_off']} of {per[0]['params']} (by leaf "
+              f"{per[0]['params_by_leaf']})", flush=True)
+    for shape_ in MOE_LAYOUTS:
+        label = "x".join(map(str, shape_))
+        per = [r[shape_] for r in ranks]
+        for i, r in enumerate(per):
+            if abs(r["loss"] - one["loss"]) > 1e-4 * abs(one["loss"]):
+                fail(f"28(a) {label} rank {i}: loss {r['loss']} against the "
+                     f"1x1 step's {one['loss']}")
+            lc = r["launches"]
+            if lc["fakequant"] != one["reads"] \
+                    or lc["fakequant_lead"] != one["lead_reads"]:
+                fail(f"28(a) {label} rank {i}: {lc['fakequant']} fakequant "
+                     f"reads ({lc['fakequant_lead']} expert stacks), the 1x1 "
+                     f"step {one['reads']} ({one['lead_reads']})")
+            if r["plain_calls"]:
+                fail(f"28(a) {label} rank {i}: {r['plain_calls']} calls of "
+                     "a plain version in the step")
+            want = shape_[1] > 1
+            plan = r["plan"]
+            if not all(plan[k] == want for k in ("ep", "mla", "attn_row",
+                                                 "ffn", "vocab")):
+                fail(f"28(a) {label}: plan {plan}")
+            if "expert" in r:
+                ex = r["expert"]
+                if not (ex["ok"] and ex["bit_equal_whole_rows"]
+                        and ex["scale_equal_whole"]):
+                    fail(f"28(a) {label} rank {i}: the expert-stack read is "
+                         f"off the whole buffer's or its plain version: {ex}")
+            if want:
+                for case in ("split", "tiles"):
+                    if not r[case]["ok"] \
+                            or not r[case]["bit_equal_whole_read"]:
+                        fail(f"28(a) {label} rank {i}: MLA's {case} read is "
+                             f"off its plain version or the whole read: "
+                             f"{r[case]}")
+                if not lc["fakequant_split"]:
+                    fail(f"28(a) {label} rank {i}: no split read in the "
+                         f"step ({lc})")
+        off, total, worst = (per[0]["params_off"], per[0]["params"],
+                             per[0]["params_worst"])
+        if off > 1e-3 * total or worst > 2 * TP_LR * 1.01:
+            fail(f"28(a) {label}: {off} of {total} parameters off the 1x1 "
+                 f"step's class (worst {worst:.3g}; by leaf "
+                 f"{per[0]['params_by_leaf']})")
+        row = {"layout": label, "loss": per[0]["loss"],
+               "losses_per_rank": [r["loss"] for r in per],
+               "loss_1x1": one["loss"], "grad_norm": per[0]["grad_norm"],
+               "grad_norm_1x1": one["grad_norm"],
+               "ms_per_rank": [r["ms"] for r in per], "ms_1x1": one["ms"],
+               "peak_gb_per_rank": [r["peak_gb"] for r in per],
+               "peak_gb_1x1": one["peak_gb"],
+               "reads_per_rank": one["reads"],
+               "expert_reads_per_rank": one["lead_reads"],
+               "split_reads_per_rank": [r["launches"]["fakequant_split"]
+                                        for r in per],
+               "tiles_reads_per_rank": [r["launches"]["fakequant_tiles"]
+                                        for r in per],
+               "params_off": off, "params": total, "plan": per[0]["plan"],
+               "expert": [r["expert"] for r in per if "expert" in r],
+               "split": [r["split"] for r in per if "split" in r],
+               "tiles": [r["tiles"] for r in per if "tiles" in r]}
+        ex = (f"expert read rank 0: {row['expert'][0]['ms']:.3f} ms (plain "
+              f"{row['expert'][0]['plain_ms']:.3f}, bound "
+              f"{row['expert'][0]['bound_ms']:.3f}), rows bit-equal to the "
+              f"whole buffer's") if row["expert"] else "no data split"
+        print(f"28(a) {label}: loss {row['loss']!r} (1x1 {one['loss']!r}), "
+              f"grad norm {row['grad_norm']!r} (1x1 {one['grad_norm']!r}), "
+              f"step ms per rank {[round(v, 1) for v in row['ms_per_rank']]}"
+              f" (1x1 {one['ms']:.1f}; warm steps; each rank its own "
+              f"process on this card), peak GB per rank "
+              f"{[round(v, 2) for v in row['peak_gb_per_rank']]} (1x1 "
+              f"{one['peak_gb']:.2f}), {one['reads']} fakequant reads a rank "
+              f"({one['lead_reads']} expert stacks, "
+              f"{row['split_reads_per_rank'][0]} split-range, "
+              f"{row['tiles_reads_per_rank'][0]} tiles), {off} of {total} "
+              f"parameters off; plan {row['plan']}; {ex} [{gpu_line}]")
+        report(row)
+        rows.append(row)
+    drop = [r[MOE_DROP_LAYOUT]["drop"] for r in ranks]
+    total_drop = sum(d["dropped"] for d in drop)
+    if total_drop != drop_one["dropped"]:
+        fail(f"28(c): the ranks drop {[d['dropped'] for d in drop]} pairs, "
+             f"{total_drop} in all; the 1x1 forward {drop_one['dropped']}")
+    for i, d in enumerate(drop):
+        if abs(d["loss"] - drop_one["loss"]) > 1e-4 * abs(drop_one["loss"]):
+            fail(f"28(c) rank {i}: loss {d['loss']} against the 1x1 "
+                 f"forward's {drop_one['loss']}")
+    drop_row = {"capacity_factor": MOE_DROP_CF, "layout": "4x1",
+                "dropped_1x1": drop_one["dropped"],
+                "dropped_per_rank": [d["dropped"] for d in drop],
+                "loss_1x1": drop_one["loss"], "loss": drop[0]["loss"]}
+    print(f"28(c) deepseek-v2-lite at capacity factor {MOE_DROP_CF} on 4x1: "
+          f"{drop_one['dropped']} pairs dropped by the 1x1 forward of "
+          f"{TP_BATCH[0] * TP_BATCH[1] * cfg.top_k * MOE_LAYERS} (pairs x "
+          f"layers), the ranks {drop_row['dropped_per_rank']} (sum "
+          f"{total_drop}); loss {drop[0]['loss']!r} (1x1 "
+          f"{drop_one['loss']!r}) [{gpu_line}]")
+    report(drop_row)
+    return rows, drop_row
+
+
+def phase_moe_scout(M, TL, DR, S, TM, get_config, report, gpu_line):
+    """28(b): llama4-scout at full width (d 5120, 40 heads over 8 kv
+    heads, 16 experts of 5120 x 8192, vocab 202048), one layer, digital
+    bfloat16, FSDP + TP + EP on SCOUT_LAYOUT with sgd (adamw's state
+    and its update do not fit four ranks on one card: SCOUT_LAYOUT's
+    note), each rank its own process on this card, after the 1x1
+    forward's loss from the same parameters (freed first: the 1x1 step
+    does not fit one card), over 4 x 1024 tokens.  Gates: each rank's
+    held parameter bytes equal the dry run's policy bytes for its
+    coordinates, exactly, and it holds no optimizer state; a finite loss
+    within 1e-2 relative of the 1x1 forward's; 2 layer gathers a rank
+    (the forward and the rematted backward); ``ep`` and ``attn`` in the
+    plan."""
+    cfg = scout_cfg(get_config)
+    layout = SCOUT_LAYOUT
+    label = "x".join(map(str, layout))
+    params = M.init_params(cfg, TP_SEED, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with torch.no_grad():
+        ev[0].record()
+        loss, _ = M.loss_fn(params, tp_tokens(cfg.vocab, *SCOUT_BATCH), cfg)
+        ev[1].record()
+    torch.cuda.synchronize()
+    one = {"loss": float(loss), "ms": ev[0].elapsed_time(ev[1]),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, loss
+    ranks = spawn_layout(layout[0] * layout[1], f"scout{label}")
+    like = M.init_params(cfg, None, "meta")
+    n = layout[0] * layout[1]
+    for i, r in enumerate(ranks):
+        mesh = TM.Mesh(layout, ("data", "model"),
+                       coords=(r["coords"]["data"], r["coords"]["model"]))
+        specs = S.params_shardings(like, cfg, mesh)
+        policy = DR.block_bytes(like, specs, mesh)
+        held = r["held"]
+        if held["params"] != policy or held["opt"]:
+            fail(f"28(b) rank {i}: holds {held}, the policy {policy} bytes "
+                 "of parameters")
+        if not math.isfinite(r["loss"]) \
+                or abs(r["loss"] - one["loss"]) > 1e-2 * abs(one["loss"]):
+            fail(f"28(b) rank {i}: loss {r['loss']}, the 1x1 forward's "
+                 f"{one['loss']}")
+        if r["layer_gathers"] != 2 * cfg.n_layers:
+            fail(f"28(b) rank {i}: {r['layer_gathers']} layer gathers, "
+                 f"expected {2 * cfg.n_layers}")
+        if not (r["plan"]["ep"] and r["plan"]["attn"]):
+            fail(f"28(b) rank {i}: plan {r['plan']}")
+    row = {"layout": label, "ranks": n,
+           "tokens": f"{SCOUT_BATCH[0]} x {SCOUT_BATCH[1]}",
+           "loss": ranks[0]["loss"], "loss_1x1": one["loss"],
+           "ms_per_rank": [r["ms"] for r in ranks], "ms_1x1": one["ms"],
+           "held_bytes_per_rank": ranks[0]["held"],
+           "peak_gb_per_rank": [r["peak_gb"] for r in ranks],
+           "peak_gb_1x1": one["peak_gb"], "plan": ranks[0]["plan"],
+           "layer_gathers": ranks[0]["layer_gathers"]}
+    print(f"28(b) llama4-scout {label} FSDP + TP + EP over {row['tokens']} "
+          f"tokens, 1 layer: loss {row['loss']:.5f} (1x1 {one['loss']:.5f}),"
+          f" step ms per rank {[round(v, 1) for v in row['ms_per_rank']]} "
+          f"(1x1 forward {one['ms']:.1f}), held "
+          f"{sum(ranks[0]['held'].values()) / 1e9:.3f} GB a rank (= the dry "
+          f"run's policy), peak {max(row['peak_gb_per_rank']):.2f} GB a rank"
+          f" (1x1 forward {one['peak_gb']:.2f}), {row['layer_gathers']} layer"
+          f" gathers; plan {row['plan']} [{gpu_line}]")
+    report(row)
+    return row
+
+
 TP_JOBS = {"qat": tp_rank_qat, "gemma": tp_rank_gemma,
-           "inexact": tp_rank_inexact}
+           "inexact": tp_rank_inexact, "moe": moe_rank_qat,
+           "scout1x4": lambda rank, src: scout_rank(rank, src, (1, 4)),
+           "scout1x2": lambda rank, src: scout_rank(rank, src, (1, 2))}
 
 
 class CardTransport:
@@ -7633,7 +8179,7 @@ def spawn_layout(world, job):
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    print(f"27 {job}: {world} ranks; this process holds "
+    print(f"{job}: {world} ranks; this process holds "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card "
           f"({torch.cuda.memory_reserved() / 1e9:.2f} reserved)", flush=True)
     (ROOT / "build").mkdir(exist_ok=True)
@@ -8192,6 +8738,29 @@ def write_entry(rows, launches, hybrid=None):
                     hybrid["shared_fp32_writes_ms"]})}}
 
 
+def moe_expert_entry(rows):
+    """The kernels-line figures of 28(a)'s expert-stack reads on data
+    ranks: their launches in the steps of the layouts with data ranks
+    (2x2, 4x1: every fakequant read of an expert stack, summed over the
+    ranks), the error over every data rank's case, the times and bound of
+    rank 0's on 4x1 (64 experts x 240 rows x 2048 x 1408, w_up's
+    shapes; the four ranks time theirs at once on this card)."""
+    rows = [r for r in rows if r["expert"]]
+    cases = [c for r in rows for c in r["expert"]]
+    main = next(r for r in rows if r["layout"] == "4x1")["expert"][0]
+    return {"launches": sum(r["expert_reads_per_rank"] * len(r["ms_per_rank"])
+                            for r in rows),
+            "launches_per_rank": {r["layout"]: r["expert_reads_per_rank"]
+                                  for r in rows},
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "tc_floor_ms": main["tc_floor_ms"], "library_ms": None,
+            "instance": main["instance"],
+            "bit_equal_whole_rows": all(c["bit_equal_whole_rows"]
+                                        for c in cases)}
+
+
 def fq_rows_of(rows, t, instance):
     """The timed fakequant rows of one lm100m layer's four projections at
     ``t`` tokens on ``instance``."""
@@ -8492,6 +9061,14 @@ def main():
                         "gemma": tp_gemma,
                         "inexact": {k: v for k, v in tp_inexact.items()}}
 
+    with phase("28"):
+        moe_qat, moe_drop = phase_moe_qat(M, K, TL, TO, get_config,
+                                          reporter("moe_qat"), gpu_line)
+        moe_scout = phase_moe_scout(M, TL, DR, S, TM, get_config,
+                                    reporter("moe_scout"), gpu_line)
+    details["moe_28"] = {"qat": moe_qat, "drop": moe_drop,
+                         "scout": moe_scout}
+
     def remat_launches(name):
         """The kernels-line figures of phase 26 for one launch count."""
         return {"launches_lm100m_train_remat_26a": {
@@ -8746,6 +9323,14 @@ def main():
                     "tiles gathered in tile order, xbar_fakequant_tiles "
                     "the epilogue over every tile)",
         **tp_split_entry(tp_qat, "tiles")}, {
+        "name": "xbar_fakequant_expert_shared_scale", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/xbar_fakequant.cu",
+        "replaces": "src/repro/kernels/xbar_vmm.py:247 (a data rank's rows "
+                    "of an expert-stack read, vmapped over the experts in "
+                    "the reference: the lead form with sc_in, each "
+                    "expert's DAC scale the max over the data ranks, on the "
+                    "whole buffer's instance)",
+        **moe_expert_entry(moe_qat)}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:29",
@@ -8924,7 +9509,15 @@ def main():
         "ranks; ms, plain_ms and bound_ms one such read at 2048 tokens "
         "through 768 x 1152 of wqkv or 1536 x 768 of w_down (rank 0 of "
         "2x2), its gather over the ranks left out; no PyTorch call "
-        "computes the function, so library_ms is null")
+        "computes the function, so library_ms is null. Phase 28 (tensor "
+        "and expert parallelism of the MoE family, deepseek-v2-lite cut to "
+        f"{MOE_LAYERS} layers at full width, QAT, and llama4-scout's one "
+        "layer): xbar_fakequant_expert_shared_scale is kernel 4's lead form "
+        "with a given DAC scale per expert (sc_in) on a data rank's rows of "
+        "each expert's buffer: launches counts the expert-stack reads of "
+        "28(a)'s steps on 2x2, 1x4 and 4x1, summed over the ranks; ms, "
+        "plain_ms and bound_ms one such read on rank 0 of 4x1; no PyTorch "
+        "call computes the function, so library_ms is null")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1))

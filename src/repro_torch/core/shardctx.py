@@ -28,7 +28,7 @@ The numeric (FSDP and tensor-parallel) step lives on another contract:
 its float sums meet in ``all_reduce`` / ``reduce_scatter`` and agree with
 one device within float32 rounding.  Its differentiable collectives are
 here (:func:`gather`, :func:`copy_to`, :func:`reduce_from`,
-:func:`scatter_reduce`, :func:`split_to`: each a pair of a forward and a backward
+:func:`reduce_sum`, :func:`scatter_reduce`, :func:`split_to`: each a pair of a forward and a backward
 collective over a tuple of mesh axes, Megatron's f / g
 operators and FSDP's gather), and so is the slot of the step's
 :class:`~repro_torch.launch.sharding.NumericParallel`
@@ -256,6 +256,15 @@ def reduce_from(x: Tensor, mesh, axes) -> Tensor:
     """Summed over ``axes`` forward, identity backward (Megatron's g: the
     output of a row-parallel read)."""
     return _apply(x, mesh, axes, 0, "all_reduce", "id")
+
+
+def reduce_sum(x: Tensor, mesh, axes) -> Tensor:
+    """Summed over ``axes`` forward and backward: the ranks' terms of one
+    global sum that every rank then uses alike (the MoE aux loss's means
+    over the data ranks' tokens).  Each rank's term gets the sum of the
+    ranks' gradients, so that the data-parallel mean of the step's
+    gradients is the global sum's."""
+    return _apply(x, mesh, axes, 0, "all_reduce", "all_reduce")
 
 
 def scatter_reduce(x: Tensor, mesh, axes, dim: int) -> Tensor:

@@ -57,8 +57,9 @@ import torch
 from repro_torch.core import shardctx
 from repro_torch.core.adc import AdcConfig, divisor, quantize_dequantize
 
-from .xbar_vmm import (fakequant_read, fakequant_scale, fakequant_split_read,
-                       fakequant_tiles_read, resolve_impl)
+from .xbar_vmm import (fakequant_instance, fakequant_read, fakequant_scale,
+                       fakequant_split_read, fakequant_tiles_read,
+                       resolve_impl)
 
 Tensor = torch.Tensor
 
@@ -68,7 +69,8 @@ class _Split(NamedTuple):
     the mesh, the axes whose ranks hold the other columns
     (``range_axes``, ``n_range`` columns in all; ``tot`` (T, tiles) the
     whole width's per-(token, row tile) sum of q²) and those sharing the
-    DAC scale (``scale_axes``; ``sc`` the shared scale, 0-d)."""
+    DAC scale (``scale_axes``; ``sc`` the shared scale, (1,), or (L,) one
+    per lead matrix of an expert stack)."""
     mesh: object
     range_axes: tuple
     scale_axes: tuple
@@ -119,8 +121,13 @@ def _fakequant_eager(x: Tensor, w: Tensor, adc: AdcConfig,
     whole expression: the DAC round trip at the shared scale, the ADC at
     the whole width's range (:func:`_adc_lsb`)."""
     if w.ndim == 3:
-        return torch.stack([_fakequant_eager(x[e], w[e], adc, rows)
-                            for e in range(w.shape[0])])
+        if split is None or split.sc is None:   # each its own scale
+            return torch.stack([_fakequant_eager(x[e], w[e], adc, rows)
+                                for e in range(w.shape[0])])
+        return torch.stack([     # each lead matrix's shared scale
+            _fakequant_eager(x[e], w[e], adc, rows,
+                             split._replace(sc=split.sc[e:e + 1]))
+            for e in range(w.shape[0])])
     if split is None or split.sc is None:
         xq = quantize_dequantize(x, adc)
     else:
@@ -169,18 +176,22 @@ def _shared_scale_dx(x: Tensor, g_sc: Tensor, split: _Split,
     """``dx`` from a DAC scale shared over ``split.scale_axes``: the
     scale's gradient summed over them, shared equally among the elements
     of every rank where ``|x|`` reaches the shared max (the gradient of
-    the reference's ``max`` over its one global drive)."""
-    g = _all_reduce(g_sc, split.mesh, split.scale_axes)
+    the reference's ``max`` over its one global drive); for an expert
+    stack ``x`` (L, T, K) each lead matrix's scale on its own, its ties
+    counted over the ranks' rows of that matrix."""
+    g = _all_reduce(g_sc.reshape(-1), split.mesh, split.scale_axes)
     with torch.enable_grad():
         xg = x.detach().requires_grad_(True)
-        top = xg.abs().amax()
+        x3 = xg if x.ndim == 3 else xg[None]
+        top = x3.abs().amax(dim=(1, 2))
         own = torch.clamp(top, min=1e-12) / divisor(adc.in_levels, xg)
-    hit = bool(own.detach() == split.sc)
-    ties = (xg.detach().abs() == top.detach()).sum().float() * hit
-    total = _all_reduce(ties.reshape(1), split.mesh, split.scale_axes)[0]
-    if not hit:
-        return torch.zeros_like(x)
-    return torch.autograd.grad(own, xg, g * ties / total)[0]
+    hit = own.detach() == split.sc.reshape(-1)
+    ties = (x3.detach().abs() == top.detach()[:, None, None]).sum(dim=(1, 2))
+    ties = ties.float() * hit
+    total = _all_reduce(ties, split.mesh, split.scale_axes)
+    share = torch.where(hit, g * ties / torch.clamp(total, min=1.0),
+                        torch.zeros_like(g))
+    return torch.autograd.grad(own, xg, share)[0]
 
 
 class FakequantRead(torch.autograd.Function):
@@ -219,11 +230,16 @@ class FakequantSplitRead(torch.autograd.Function):
     columns wide in all; ``blocks`` puts the gathered 64-column range
     partials in the whole width's order).  A row split gathers the
     ranks of ``tile_axes``' row tiles and returns the whole read (one
-    device's output on every rank).  See the module docstring."""
+    device's output on every rank).  An expert stack (``x`` (L, T, K),
+    ``w`` (L, K, N)) shares each lead matrix's scale over ``scale_axes``
+    (one per expert: the max over the data ranks' rows of its buffer)
+    and reads on ``instance`` (the whole buffer's, so that a rank's rows
+    are the whole read's bit for bit); it splits no range or tiles.
+    See the module docstring."""
 
     @staticmethod
     def forward(ctx, x, w, adc, rows, mesh, range_axes, scale_axes,
-                n_range, blocks=None, tile_axes=()):
+                n_range, blocks=None, tile_axes=(), instance=None):
         sc = None
         if scale_axes:
             sc = _all_reduce(fakequant_scale(x, adc.in_levels), mesh,
@@ -245,7 +261,7 @@ class FakequantSplitRead(torch.autograd.Function):
                 return t
             y = fakequant_tiles_read(x, w, adc, rows, combine, sc)
         else:
-            y = fakequant_read(x, w, adc, rows, sc=sc)
+            y = fakequant_read(x, w, adc, rows, sc=sc, instance=instance)
         ctx.save_for_backward(x, w, sc, tot)
         ctx.args = (adc, rows, mesh, range_axes, scale_axes, n_range)
         return y
@@ -256,9 +272,8 @@ class FakequantSplitRead(torch.autograd.Function):
         adc, rows, mesh, range_axes, scale_axes, n_range = ctx.args
         dx, dw = _fakequant_vjp(
             x, w, dy, adc, rows, ctx.needs_input_grad[:2],
-            _Split(mesh, range_axes, scale_axes, n_range,
-                   None if sc is None else sc[0], tot))
-        return dx, dw, None, None, None, None, None, None, None, None
+            _Split(mesh, range_axes, scale_axes, n_range, sc, tot))
+        return (dx, dw) + (None,) * 9
 
 
 def quantize_dequantize_at(x: Tensor, sc: Tensor, adc: AdcConfig) -> Tensor:
@@ -279,6 +294,19 @@ def fakequant_split_project(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
                                  tuple(range_axes), tuple(scale_axes),
                                  n_range, blocks, tuple(tile_axes))
     return y.reshape(*lead, w.shape[-1])
+
+
+def fakequant_expert_project(x: Tensor, w: Tensor, adc: AdcConfig,
+                             rows: int, mesh, scale_axes,
+                             tokens: int) -> Tensor:
+    """:class:`FakequantSplitRead` of a rank's rows ``x`` (E, T, K) of an
+    expert-stack read through ``w`` (E, K, N) whose whole buffer is
+    ``tokens`` rows over the ranks of ``scale_axes``: each expert's DAC
+    scale the max over them, the kernel instance the whole buffer's; in
+    float32."""
+    return FakequantSplitRead.apply(
+        x.float(), w.float(), adc, rows, mesh, (), tuple(scale_axes),
+        w.shape[-1], None, (), fakequant_instance(tokens, adc.in_levels))
 
 
 def fakequant_project(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,

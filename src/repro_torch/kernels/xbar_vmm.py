@@ -40,7 +40,8 @@ the shared per-token ADC ``fakequant_epilogue``.  An expert stack (x
 lead dim rides every kernel's grid, each lead matrix with its own DAC
 scale, so a stack costs three launches, not three per expert.
 ``LAUNCHES["fakequant"]``
-counts reads, ``LAUNCHES["fakequant_split"]`` the split reads among
+counts reads, ``LAUNCHES["fakequant_lead"]`` the expert-stack reads
+among them, ``LAUNCHES["fakequant_split"]`` the split reads among
 them (tensor parallelism: :func:`fakequant_split_read` for a column
 split, :func:`fakequant_tiles_read` for a row split, whose epilogues
 over every rank's tiles ``LAUNCHES["fakequant_tiles"]`` counts) and
@@ -92,7 +93,8 @@ FQ_KERNEL_COUNTS = ("fakequant_scale", "fakequant_prepare", "fakequant_fp32",
 LAUNCHES = {"fused_vmm": 0, "fused_mvm": 0,
             **{f"{name}_{d}": 0 for d in ("vmm", "mvm")
                for name in READ_KERNEL_COUNTS},
-            "fakequant": 0, "fakequant_split": 0, "fakequant_tiles": 0,
+            "fakequant": 0, "fakequant_lead": 0, "fakequant_split": 0,
+            "fakequant_tiles": 0,
             **{name: 0 for name in FQ_KERNEL_COUNTS}}
 
 SOURCE = _nvcc.CSRC / "xbar_vmm.cu"
@@ -654,6 +656,8 @@ def _fakequant_cuda(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
         float(adc.sat_sigmas), *plan["dev"], plan["stream"], launched,
         sc.data_ptr() if sc is not None else None)
     _fq_count(launched)
+    if not squeeze:
+        LAUNCHES["fakequant_lead"] += launched[0] + launched[1]
     if err != 0:
         raise RuntimeError(f"xbar_fakequant launch failed: CUDA error {err} "
                            f"(x {tuple(x.shape)}, w {tuple(w.shape)}, rows "
@@ -900,7 +904,8 @@ def fakequant_scale(x: Tensor, in_levels: int) -> Tensor:
 
 
 def fakequant_read(x: Tensor, w: Tensor, adc: AdcConfig,
-                   rows: int, sc: Optional[Tensor] = None) -> Tensor:
+                   rows: int, sc: Optional[Tensor] = None,
+                   instance: Optional[str] = None) -> Tensor:
     """Fused fakequant projection (port of ``fakequant_read_pallas``):
     x (T, K), w (K, N) → (T, N) float32, or an expert stack, x (L, T, K),
     w (L, K, N) → (L, T, N), forward only (``kernels.ops.FakequantRead``
@@ -914,7 +919,10 @@ def fakequant_read(x: Tensor, w: Tensor, adc: AdcConfig,
     :func:`fakequant_scale` and :func:`_fakequant_plain` (per lead matrix,
     :func:`_fakequant_plain_lead`).  ``sc``, one scale a lead matrix,
     replaces the scale of ``x`` (a row-split read takes the whole
-    drive's).
+    drive's, a rank's expert-stack read each expert's over the data
+    ranks); ``instance`` replaces :func:`fakequant_instance`'s choice on
+    the card (a rank's rows of a buffer read whole elsewhere take the
+    whole buffer's instance).
     """
     _deterministic(adc)
     if x.ndim not in (2, 3) or w.ndim != x.ndim \
@@ -924,8 +932,8 @@ def fakequant_read(x: Tensor, w: Tensor, adc: AdcConfig,
     xf, wf = x.float().contiguous(), w.float().contiguous()
     if x.is_cuda:
         if sc is None:
-            return _fakequant_cuda(xf, wf, adc, rows)[0]
-        return _fakequant_cuda(xf, wf, adc, rows, sc=sc)[0]
+            return _fakequant_cuda(xf, wf, adc, rows, instance)[0]
+        return _fakequant_cuda(xf, wf, adc, rows, instance, sc=sc)[0]
     if sc is None:
         sc = fakequant_scale(xf, adc.in_levels)
     if x.ndim == 3:

@@ -39,7 +39,13 @@ coords)``: the production meshes need 256 or 512 ranks, which
     training step on several
     ranks is the FSDP / tensor-parallel step of ``train_loop.
     make_train_step(mesh=)``, its layers' gathers, their backward
-    ``reduce_scatter``s and the tensor-parallel sums.  The exact-mode
+    ``reduce_scatter``s and the tensor-parallel sums; a MoE layer's
+    temporaries are this rank's: its rows of the global dispatch's
+    buffer and, under expert parallelism, its own experts' alone.  On
+    the card a data rank's buffer holds as many rows an expert as its
+    most kept pairs of one, which meta tensors cannot know: the dry run
+    takes their bound, ``min(capacity, local tokens)``, and over-reckons
+    the buffers (the balanced load is ``capacity / data ranks``).  The exact-mode
     combines of the sharded analog step apply only to device-mode
     training, which no cell of this grid runs.
 
@@ -85,11 +91,14 @@ from repro_torch.train.optimizer import adamw
 
 #: The meshes of the sweep: the reference's two production meshes and
 #: the layouts of this port's machines (one card; four cards, data
-#: parallel).
+#: parallel, data x model, or model parallel: tensor and expert
+#: parallelism).
 MESHES = {"16x16": PRODUCTION_SHAPES[False],
           "2x16x16": PRODUCTION_SHAPES[True],
           "1x1": ((1, 1), ("data", "model")),
-          "4x1": ((4, 1), ("data", "model"))}
+          "4x1": ((4, 1), ("data", "model")),
+          "2x2": ((2, 2), ("data", "model")),
+          "1x4": ((1, 4), ("data", "model"))}
 H100_GB = 80.0
 
 

@@ -432,11 +432,14 @@ def _walk(fn, tree, specs, path=()):
     return fn(path, tree, specs)
 
 
-def state_specs(state: dict, cfg: ModelConfig, mesh) -> dict:
+def state_specs(state: dict, cfg: ModelConfig, mesh, like=None) -> dict:
     """Specs of a numeric train state (``train_loop.init_state``): the
     parameters, adamw's ``m`` / ``v`` and the error-feedback residuals by
-    :func:`params_shardings`; the step counter and ``t`` replicated."""
-    p_sh = params_shardings(state["params"], cfg, mesh)
+    :func:`params_shardings`; the step counter and ``t`` replicated.
+    ``like``: the whole parameters (meta tensors will do) of a state that
+    holds blocks, whose own shapes would give other specs."""
+    p_sh = params_shardings(state["params"] if like is None else like, cfg,
+                            mesh)
     opt = state["opt"]
     if isinstance(opt, dict) and "m" in opt:
         opt_sh = {"m": p_sh, "v": p_sh, "t": ()}
@@ -536,13 +539,26 @@ class _FusedGather(torch.autograd.Function):
         return g.index_select(-1, cols.to(g.device)), None, None
 
 
-#: The leaves a tensor-parallel dense block keeps split, by their path in
-#: the block: the dim kept and the plan flag that allows it.
+#: The leaves a tensor-parallel dense or MoE block keeps split, by their
+#: path in the block: the dim kept and the plan flag that allows it.
 TP_KEPT = {("attn", "wqkv", "w"): (-1, "attn"),
+           ("attn", "wq", "w"): (-1, "mla"),
+           ("attn", "wkv_b", "w"): (-1, "mla"),
            ("attn", "wo", "w"): (-2, "attn_row"),
            ("ffn", "w_upgate", "w"): (-1, "ffn"),
            ("ffn", "w_up", "w"): (-1, "ffn"),
-           ("ffn", "w_down", "w"): (-2, "ffn_row")}
+           ("ffn", "w_down", "w"): (-2, "ffn_row"),
+           ("moe", "shared", "w_upgate", "w"): (-1, "ffn"),
+           ("moe", "shared", "w_up", "w"): (-1, "ffn"),
+           ("moe", "shared", "w_down", "w"): (-2, "ffn_row"),
+           ("moe", "experts", "w_up"): (-3, "ep"),
+           ("moe", "experts", "w_gate"): (-3, "ep"),
+           ("moe", "experts", "w_down"): (-3, "ep")}
+
+#: The plan flags of :class:`NumericParallel`, in the order they are
+#: reported.
+PLAN_FLAGS = ("attn", "mla", "attn_row", "ffn", "ffn_row", "ep", "vocab",
+              "seq")
 
 
 def _spec_at(specs, path):
@@ -559,26 +575,45 @@ class NumericParallel:
     Just before a layer runs, :meth:`layer` gathers its leaves over the
     axes its compute does not split: the FSDP axes always (backward: a
     ``reduce_scatter``, each data rank's gradient being partial), and
-    ``model`` unless the dense family's plan keeps the dim split (backward:
-    this rank's block of the gradient, the compute being replicated over
-    ``model``).  The plan (one flag each, ``model`` > 1, the dense family
-    only):
+    ``model`` unless the plan keeps the dim split (backward: this rank's
+    block of the gradient, the compute being replicated over ``model``).
+    The plan (one flag each, ``model`` > 1, the decoder families that
+    ``models.transformer.decoder_apply`` runs: dense and moe; each flag
+    off where its divisibility fails):
 
       * ``attn``: ``wqkv`` column-parallel and the heads split (whole
-        heads a rank); in fakequant mode also the kv heads;
+        heads a rank); in fakequant mode also the kv heads (GQA: the
+        dense family and llama4-scout's MoE blocks);
+      * ``mla``: MLA's ``wq`` and ``wkv_b`` column-parallel by whole
+        heads, ``wkv_a``, ``kv_norm`` and the shared rope key replicated
+        (every rank forms the whole latent); in fakequant mode each
+        rank's columns whole 64-column range blocks;
       * ``attn_row``: ``wo`` row-parallel (fakequant: its block owns whole
         ``analog_rows`` tiles, and every rank's tiles are gathered for the
         ADC and the tile sum, so the read is one device's), a digital
         read's partial outputs summed over ``model``; otherwise the heads'
         outputs are gathered and ``wo`` read whole;
       * ``ffn`` / ``ffn_row``: the same for ``w_upgate`` (or ``w_up``)
-        and ``w_down``;
+        and ``w_down``, of the dense FFN or of the MoE's shared experts
+        (``d_ff`` the width they split);
+      * ``ep``: the expert stacks keep their expert dim split over
+        ``model`` (gathered over the FSDP axes only); each rank runs its
+        own experts' rows of the dispatch buffer and the experts' outputs
+        are summed over ``model`` (``models.moe``);
       * ``vocab``: the embedding vocab-split (a rank looks up its rows,
         the partial embeddings summed) and the head vocab-parallel, the
         loss a vocab-parallel cross-entropy (``models.model.loss_fn``);
       * ``seq``: ``REPRO_SEQ_SHARD`` with every flag above, the
         activations split along the sequence at block boundaries
-        (Megatron-SP), for a sequence that divides over ``model``.
+        (Megatron-SP), for a sequence that divides over ``model``; the
+        dense family only (the MoE's dispatch would need an all-to-all).
+
+    Over data ranks the MoE layer is the reference's one dispatch over
+    the global batch (``models.moe``): the capacity of the global token
+    count, each pair's place in its expert's buffer after the pairs of
+    the data ranks before it (:meth:`data_gather` of the counts), the aux
+    loss's means over the global tokens and each expert's DAC scale the
+    max over the data ranks.
 
     ``counts["layer_gathers"]`` counts the layers gathered (a rematted
     layer's backward gathers again).
@@ -590,13 +625,15 @@ class NumericParallel:
         self.like = M.init_params(cfg, None, device="meta")
         self.specs = params_shardings(self.like, cfg, mesh)
         self.fsdp = tuple(a for a in dp_axes(mesh) if mesh.shape[a] > 1)
+        self.n_data = math.prod(mesh.shape[a] for a in self.fsdp)
         m = mesh.shape.get("model", 1)
         self.m = m = m if "model" not in dp_axes(mesh) else 1
         self.tp = ("model",) if m > 1 else ()
         self.counts = {"layer_gathers": 0}
         self.sp_on = False
         qat = resolve_analog_mode(cfg) is AnalogMode.FAKEQUANT
-        dense = cfg.family == "dense" and self.m > 1
+        decoder = cfg.family in ("dense", "moe") and self.m > 1
+        moe = decoder and cfg.family == "moe"
         hd, rows = cfg.resolved_head_dim, cfg.analog_rows
         lay = self.specs.get("layers", {})
 
@@ -606,33 +643,56 @@ class NumericParallel:
             except (KeyError, IndexError, TypeError):
                 return False
         self.kv_split = cfg.n_kv_heads % m == 0
+        # the FFN the ffn flags split: the dense FFN or the shared experts
+        ffn_path = ("moe", "shared") if moe else ("ffn",)
+        self.d_ff = (cfg.n_shared_experts * (cfg.d_ff_expert or cfg.d_ff)
+                     if moe else cfg.d_ff)
         # a fakequant read split by columns needs its range partials in
         # whole 64-column blocks (kernel 4's range pitch)
         w_qkv = (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+        w_q = cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim)
+        w_kv = cfg.n_heads * (cfg.qk_nope_dim + cfg.v_head_dim)
         self.blocks = {
             "wqkv": range_blocks(fused_parts(("wqkv",), w_qkv, cfg, m), m),
+            "wq": range_blocks([(w_q, True)], m),
+            "wkv_b": range_blocks([(w_kv, True)], m),
             "w_upgate": range_blocks(fused_parts(("w_upgate",),
-                                                 2 * cfg.d_ff, cfg, m), m),
-            "w_up": range_blocks([(cfg.d_ff, True)], m)}
-        self.attn = dense and cfg.n_heads % m == 0 \
+                                                 2 * self.d_ff, cfg, m), m),
+            "w_up": range_blocks([(self.d_ff, True)], m)}
+        self.attn = decoder and not cfg.use_mla and cfg.n_heads % m == 0 \
             and split(("attn", "wqkv", "w"), -1) \
             and fused_parts(("wqkv",), w_qkv, cfg, m)[0][1] \
             and (not qat or (self.kv_split
                              and self.blocks["wqkv"] is not None))
-        self.attn_row = self.attn and split(("attn", "wo", "w"), -2) and (
-            not qat or (cfg.n_heads * hd // m) % rows == 0)
-        up = ("ffn", "w_upgate" if cfg.gated else "w_up", "w")
-        self.ffn = dense and cfg.d_ff % m == 0 and split(up, -1) and (
-            not qat or self.blocks[up[1]] is not None)
-        self.ffn_row = self.ffn and split(("ffn", "w_down", "w"), -2) and (
-            not qat or (cfg.d_ff // m) % rows == 0)
+        self.mla = moe and cfg.use_mla and cfg.n_heads % m == 0 \
+            and split(("attn", "wq", "w"), -1) \
+            and split(("attn", "wkv_b", "w"), -1) \
+            and (not qat or (self.blocks["wq"] is not None
+                             and self.blocks["wkv_b"] is not None))
+        v_dim = cfg.v_head_dim if cfg.use_mla else hd
+        self.attn_row = (self.attn or self.mla) \
+            and split(("attn", "wo", "w"), -2) \
+            and (not qat or (cfg.n_heads * v_dim // m) % rows == 0)
+        up = ffn_path + ("w_upgate" if cfg.gated else "w_up", "w")
+        self.ffn = decoder and self.d_ff > 0 and self.d_ff % m == 0 \
+            and split(up, -1) and (not qat or self.blocks[up[-2]] is not None)
+        self.ffn_row = self.ffn and split(ffn_path + ("w_down", "w"), -2) \
+            and (not qat or (self.d_ff // m) % rows == 0)
+        self.ep = moe and cfg.n_experts % m == 0 and all(
+            split(("moe", "experts", k), -3)
+            for k in ("w_up", "w_gate", "w_down"))
         emb = self.specs.get("embed")
         head = self.specs.get("lm_head", {}).get("w")
-        self.vocab = dense and emb is not None and emb[0] == ("model",) \
+        self.vocab = decoder and emb is not None and emb[0] == ("model",) \
             and (cfg.tie_embeddings or (head is not None
                                         and head[-1] == ("model",)))
-        self.seq = bool(os.environ.get("REPRO_SEQ_SHARD")) and self.attn \
-            and self.attn_row and self.ffn and self.ffn_row and self.vocab
+        self.seq = bool(os.environ.get("REPRO_SEQ_SHARD")) \
+            and cfg.family == "dense" and self.attn and self.attn_row \
+            and self.ffn and self.ffn_row and self.vocab
+
+    def plan(self) -> Dict[str, bool]:
+        """The plan's flags (:data:`PLAN_FLAGS`), for reports."""
+        return {k: bool(getattr(self, k)) for k in PLAN_FLAGS}
 
     # ------------------------------------------------------------ leaves
 
@@ -732,6 +792,31 @@ class NumericParallel:
 
     def vocab_offset(self, local: int) -> int:
         return self.mesh.coords["model"] * local if self.tp else 0
+
+    # ------------------------------------------------------ the MoE layer
+
+    def data_index(self) -> int:
+        """This rank's place among the data ranks (the order of the
+        global batch's rows: ``batch_shardings``' row-major split)."""
+        return flat_index(self.mesh.shape, self.mesh.coords, self.fsdp)
+
+    def data_gather(self, t: Tensor) -> Tensor:
+        """``t`` (no gradient) of every data rank stacked along a new
+        leading dim, in data-rank order."""
+        return shardctx._collective(t[None], self.mesh, self.fsdp, 0,
+                                    "gather")
+
+    def data_sum(self, t: Tensor) -> Tensor:
+        """``t`` (no gradient) summed over the data ranks."""
+        return shardctx._collective(t, self.mesh, self.fsdp, 0, "all_reduce")
+
+    def expert_range(self, n_experts: int) -> Tuple[int, int]:
+        """``(first, count)``: the experts this rank runs, all of them but
+        under ``ep``."""
+        if not self.ep:
+            return 0, n_experts
+        loc = n_experts // self.m
+        return self.mesh.coords["model"] * loc, loc
 
     # --------------------------------------------------------- gradients
 

@@ -110,9 +110,9 @@ def main(argv=None, *, init_method=None, rank=None, world_size=None):
         state = train_loop.init_sharded_state(
             args.seed, cfg, opt, mesh, device,
             grad_compress=args.grad_compress)
-        specs = sharding.state_specs(state, cfg, mesh)
-        cut = sharding.leaf_cutter(specs, cfg, mesh)
         like = M.init_params(cfg, None, "meta")
+        specs = sharding.state_specs(state, cfg, mesh, like)
+        cut = sharding.leaf_cutter(specs, cfg, mesh)
         gather = sharding.leaf_gatherer(specs, {
             "params": like, "opt": {"m": like, "v": like},
             "err_fb": like}, cfg, mesh)

@@ -17,10 +17,11 @@ returns fresh arrays and its engines donate the old ones).
 
 Under the numeric step's tensor parallelism
 (``core.shardctx.numeric_context``, ``launch.sharding.NumericParallel``)
-the dense family's ``attention`` and ``ffn`` get this rank's blocks:
-``wqkv`` and ``w_upgate`` / ``w_up`` column-parallel (this rank's heads,
-its ff slice), ``wo`` and ``w_down`` row-parallel (or, where the plan
-keeps them whole, the heads' outputs gathered first); :func:`project`'s
+the dense and MoE families' ``attention``, ``mla_attention`` and ``ffn``
+(the MoE's shared experts) get this rank's blocks: ``wqkv``, ``wq`` /
+``wkv_b`` and ``w_upgate`` / ``w_up`` column-parallel (this rank's
+heads, its ff slice), ``wo`` and ``w_down`` row-parallel (or, where the
+plan keeps them whole, the heads' outputs gathered first); :func:`project`'s
 ``tp`` reads a split leaf: a digital row split sums its ranks' partial
 outputs over ``model``, the fakequant read takes its split form.
 """
@@ -42,7 +43,8 @@ from repro_torch.core.tiled_analog import (analog_project,
                                            is_analog_container,
                                            program_stacked, readout)
 from repro_torch.kernels.ops import _adc_fake_quant as _kernels_adc_fake_quant
-from repro_torch.kernels.ops import (fakequant_project,
+from repro_torch.kernels.ops import (fakequant_expert_project,
+                                     fakequant_project,
                                      fakequant_split_project)
 
 Tensor = torch.Tensor
@@ -154,7 +156,8 @@ def project(p: dict, x: Tensor, cfg: ModelConfig, tp=None) -> Tensor:
     return y.to(x.dtype)
 
 
-def expert_project(p, x: Tensor, cfg: ModelConfig) -> Tensor:
+def expert_project(p, x: Tensor, cfg: ModelConfig,
+                   tokens: Optional[int] = None) -> Tensor:
     """Expert-batched linear layer: ``x`` (E, T, K) -> (E, T, N).
 
     ``p`` is a raw (E, K, N) weight stack (digital and fakequant MoE) or
@@ -166,6 +169,13 @@ def expert_project(p, x: Tensor, cfg: ModelConfig) -> Tensor:
     on the card one fakequant read of the whole stack (the kernel with
     its lead dim), under autograd through ``kernels.ops.FakequantRead``
     so QAT's gradient is the reference's.
+
+    ``tokens``, in a numeric-parallel step over data ranks: ``x`` holds
+    this rank's rows of each expert's buffer of ``tokens`` rows (the
+    global dispatch, ``models.moe``); each expert's DAC scale is then
+    the max over the data ranks' rows and the read takes the whole
+    buffer's kernel instance (``kernels.ops.fakequant_expert_project``),
+    so its rows are the whole read's.
     """
     if is_analog_container(p):
         return analog_project(p, x, crossbar_from_model(cfg))
@@ -173,6 +183,11 @@ def expert_project(p, x: Tensor, cfg: ModelConfig) -> Tensor:
         return torch.einsum("etk,ekn->etn", x, p.to(x.dtype))
     adc = AdcConfig(in_bits=cfg.analog_in_bits,
                     out_bits=cfg.analog_out_bits)
+    npar = shardctx.numeric_context()
+    if npar is not None and npar.fsdp and tokens is not None:
+        y = fakequant_expert_project(x, p, adc, cfg.analog_rows, npar.mesh,
+                                     npar.fsdp, tokens)
+        return y.to(x.dtype)
     y = fakequant_project(x.float(), p.float(), adc, cfg.analog_rows)
     return y.to(x.dtype)
 
@@ -381,11 +396,18 @@ def attention(p: dict, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
                          "len": torch.full((b,), sq, dtype=torch.int32,
                                            device=x.device)}
     o = o.reshape(b, sq, -1)
-    if not tp:
-        return project(p["wo"], o, cfg), new_cache
+    return _out_project(p, o, cfg, npar if tp else None), new_cache
+
+
+def _out_project(p: dict, o: Tensor, cfg: ModelConfig, npar) -> Tensor:
+    """``wo`` of the heads' outputs ``o``: read whole outside tensor
+    parallelism (``npar`` None), row-parallel under the plan's
+    ``attn_row``, else after this rank's heads are gathered."""
+    if npar is None:
+        return project(p["wo"], o, cfg)
     if npar.attn_row:
-        return project(p["wo"], o, cfg, tp=("row", cfg.d_model)), new_cache
-    return project(p["wo"], npar.gather_heads(o), cfg), new_cache
+        return project(p["wo"], o, cfg, tp=("row", cfg.d_model))
+    return project(p["wo"], npar.gather_heads(o), cfg)
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -462,14 +484,29 @@ def mla_attention(p: dict, x: Tensor, cfg: ModelConfig, *,
     do.  A fresh prefill (cache given, no positions) expands the freshly
     computed latent and pads it into the cache.  The softmax scale is
     1/sqrt(qk_nope + qk_rope), the query's head dim; the values are
-    ``v_head_dim`` wide."""
+    ``v_head_dim`` wide.
+
+    Under the numeric step's ``mla`` plan (training: no cache) ``wq`` and
+    ``wkv_b`` are column-parallel by whole heads, ``wkv_a`` and
+    ``kv_norm`` replicated (every rank forms the whole latent), ``wo``
+    row-parallel over the heads' values (or read whole after the heads'
+    outputs are gathered, where the plan keeps it whole)."""
     b, sq = x.shape[0], x.shape[1]
     h = cfg.n_heads
     r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim
     append = cache is not None and (sq == 1 or positions is not None)
     if positions is None:
         positions = torch.arange(sq, device=x.device).expand(b, sq)
-    q = _split_heads(project(p["wq"], x, cfg), h)        # (b, s, h, dn+dr)
+    npar = shardctx.numeric_context()
+    tp = npar is not None and npar.mla and cache is None
+    col = {}
+    if tp:      # this rank's heads of wq and wkv_b (head-major columns)
+        h //= npar.m
+        col = {k: ("col", cfg.n_heads * width, npar.blocks.get(k))
+               for k, width in (("wq", dn + dr),
+                                ("wkv_b", dn + cfg.v_head_dim))}
+    q = _split_heads(project(p["wq"], npar.col_input(x) if tp else x, cfg,
+                             tp=col.get("wq")), h)       # (b, s, h, dn+dr)
     q_nope = q[..., :dn]
     q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
     kv_a = project(p["wkv_a"], x, cfg)
@@ -503,8 +540,14 @@ def mla_attention(p: dict, x: Tensor, cfg: ModelConfig, *,
                             kv_len)
         return out, new_cache
 
-    # expand the latent to per-head keys and values
-    kv = project(p["wkv_b"], c_all.to(x.dtype), cfg)
+    # expand the latent to per-head keys and values (under ``mla`` this
+    # rank's heads: the latent and the shared rope key feed every rank's
+    # heads, their gradients summed over ``model``)
+    c_in = c_all.to(x.dtype)
+    if tp:
+        c_in = npar.col_input(c_in)
+        kr_all = npar.col_input(kr_all)
+    kv = project(p["wkv_b"], c_in, cfg, tp=col.get("wkv_b"))
     kv = kv.reshape(b, -1, h, dn + cfg.v_head_dim)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     k_rope_b = kr_all[:, :, None, :].to(x.dtype).expand(
@@ -517,8 +560,8 @@ def mla_attention(p: dict, x: Tensor, cfg: ModelConfig, *,
         o = _cached_sdpa(q_full, k_full, v, positions)
     else:
         o = _chunked_sdpa(q_full, k_full, v, causal=True)
-    out = project(p["wo"], o.reshape(b, sq, -1), cfg)
-    return out, new_cache
+    o = o.reshape(b, sq, -1)
+    return _out_project(p, o, cfg, npar if tp else None), new_cache
 
 
 def make_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -560,14 +603,14 @@ def ffn(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
     if tp:
         x = npar.col_input(x)
     if "w_upgate" in p:
-        col = ("col", 2 * cfg.d_ff, npar.blocks.get("w_upgate")) if tp \
+        col = ("col", 2 * npar.d_ff, npar.blocks.get("w_upgate")) if tp \
             else None
         up, gate = torch.chunk(project(p["w_upgate"], x, cfg, tp=col), 2,
                                dim=-1)
         up = act(gate) * up
     else:
         up = act(project(p["w_up"], x, cfg, tp=(
-            "col", cfg.d_ff, npar.blocks.get("w_up")) if tp else None))
+            "col", npar.d_ff, npar.blocks.get("w_up")) if tp else None))
     if not tp:
         return project(p["w_down"], up, cfg)
     if npar.ffn_row:

@@ -20,10 +20,13 @@ reference's scatter-add over the expert-sorted pairs, with no atomics.
 
 ``REPRO_MOE_GROUPS=G`` dispatches within G batch groups, each with its
 own capacity (the reference's one-device grouped dispatch), outside
-device mode.  The sharded train step's expert parallelism needs no
-dispatch of its own: its expert stacks hold whole experts per rank and
-each rank's read takes only its own experts' rows of the replicated
-capacity buffer (``kernels.xbar_vmm.manual_collective_read``).
+device mode.  The sharded analog train step's expert parallelism needs
+no dispatch of its own: its expert stacks hold whole experts per rank
+and each rank's read takes only its own experts' rows of the replicated
+capacity buffer (``kernels.xbar_vmm.manual_collective_read``).  The
+numeric step over data ranks dispatches once over the global batch, and
+under its ``ep`` plan each ``model`` rank runs its own experts
+(:func:`_moe_apply_flat`).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import (AnalogMode, ModelConfig,
                                       resolve_analog_mode)
+from repro_torch.core import shardctx
 from repro_torch.core.analog_registry import expert_capacity
 from repro_torch.core.tiled_analog import (crossbar_from_model,
                                            is_analog_container,
@@ -109,11 +113,22 @@ def _float32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def route(p: dict, xt: Tensor, cfg: ModelConfig):
+def route(p: dict, xt: Tensor, cfg: ModelConfig, seq: int = 0):
     """Router probabilities and the top-k choice of the (T, d) tokens
-    ``xt``: ``(probs, top_p, top_i)``, gates renormalised over the k."""
+    ``xt``: ``(probs, top_p, top_i)``, gates renormalised over the k.
+    ``seq``: the tokens are whole sequences of this length, and the
+    product is taken one sequence at a time: on the card cuBLAS picks its
+    split of the contraction by the row count, so a token's logits would
+    otherwise hang on how many sequences share the product, and a data
+    rank's routing on its share of the global batch."""
+    x = xt.float()
     with _float32_matmul():
-        logits = project(p["router"], xt.float(), cfg.digital())
+        if 1 < seq < x.shape[0] and x.shape[0] % seq == 0:
+            w = p["router"]["w"]
+            logits = torch.cat([x[i:i + seq] @ w
+                                for i in range(0, x.shape[0], seq)])
+        else:
+            logits = project(p["router"], x, cfg.digital())
     probs = torch.softmax(logits, dim=-1)
     top_p, top_i = torch.topk(probs, cfg.top_k, dim=-1)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
@@ -133,37 +148,82 @@ def moe_apply(p: dict, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
     dispatch would apply each expert container once per group, against
     the one-application tape contract."""
     groups = int(os.environ.get("REPRO_MOE_GROUPS", "1"))
+    npar = shardctx.numeric_context()
+    n = npar.n_data if npar is not None else 1
     if resolve_analog_mode(cfg) is not AnalogMode.DEVICE and groups > 1 \
-            and x.shape[0] % groups == 0:
-        return _moe_apply_grouped(p, x, cfg, groups)
+            and groups % n == 0 and x.shape[0] % (groups // n) == 0:
+        # over data ranks each holds groups / n whole groups of the
+        # global batch: their dispatches are its own
+        return _moe_apply_grouped(p, x, cfg, groups // n)
     return _moe_apply_flat(p, x, cfg)
 
 
 def _moe_apply_grouped(p: dict, x: Tensor, cfg: ModelConfig, groups: int
                        ) -> Tuple[Tensor, Tensor]:
     """The flat dispatch within each of ``groups`` equal batch groups."""
-    outs = [_moe_apply_flat(p, xg, cfg)
+    outs = [_moe_apply_flat(p, xg, cfg, local=True)
             for xg in x.reshape(groups, -1, *x.shape[1:])]
     y = torch.stack([o[0] for o in outs]).reshape(x.shape)
     return y, torch.mean(torch.stack([o[1] for o in outs]))
 
 
-def _moe_apply_flat(p: dict, x: Tensor, cfg: ModelConfig
-                    ) -> Tuple[Tensor, Tensor]:
+#: The routed pairs dropped at their expert's capacity, summed over the
+#: MoE layers' forward calls since the caller last set it to 0 (a
+#: tensor on the activations' device; no host sync).  A rematted
+#: layer's backward replays its forward and adds again: count under
+#: ``torch.no_grad``.
+DROPPED = {"pairs": 0}
+
+
+def _count_dropped(n: Tensor) -> None:
+    prev = DROPPED["pairs"]
+    same = isinstance(prev, torch.Tensor) and prev.device == n.device
+    DROPPED["pairs"] = prev + n if same else n
+
+
+def _moe_apply_flat(p: dict, x: Tensor, cfg: ModelConfig,
+                    local: bool = False) -> Tuple[Tensor, Tensor]:
+    """The flat dispatch.  In a numeric-parallel step
+    (``core.shardctx.numeric_context``) it is the reference's one
+    dispatch over the global batch: ``x`` holds this data rank's rows,
+    the capacity is the global token count's, each routed pair takes its
+    place in its expert's buffer after the pairs of the data ranks
+    before this one (their per-expert counts gathered: integers, never
+    tokens), and the aux loss's means run over the global tokens.  This
+    rank's buffer holds its own kept pairs' rows of each expert's global
+    buffer, as many rows an expert as its most kept pairs of one (a host
+    sync; ``min(capacity, T)``, their bound, on meta tensors), and its
+    expert reads take the whole buffer's kernel instance.  Under the plan's
+    ``ep`` it runs only this ``model`` rank's experts: the tokens reach
+    them through ``copy_to`` (their gradient summed over ``model``), and
+    each pair's unweighted output is summed over ``model`` (one rank
+    holds it, the others exact zeros) before the gates and the combine,
+    which every rank applies alike.  ``local``: a batch group's
+    dispatch of this rank's rows alone (``REPRO_MOE_GROUPS``)."""
+    npar = shardctx.numeric_context()
+    dp = npar.fsdp if npar is not None and not local else ()
     b, s, d = x.shape
     t = b * s
     k, e = cfg.top_k, cfg.n_experts
     dev = x.device
     xt = x.reshape(t, d)
-    probs, top_p, top_i = route(p, xt, cfg)
+    probs, top_p, top_i = route(p, xt, cfg, s)
 
-    # load-balance aux (Switch): e * <f_i * p_i>
-    me = torch.mean(probs, dim=0)
-    ce = torch.mean(F.one_hot(top_i[:, 0], e).float(), dim=0)
+    # load-balance aux (Switch): e * <f_i * p_i>, the means over the
+    # global tokens
+    one = F.one_hot(top_i[:, 0], e).float()
+    if dp:
+        t_all = t * npar.n_data
+        me = shardctx.reduce_sum(torch.sum(probs, dim=0), npar.mesh,
+                                 dp) / t_all
+        ce = npar.data_sum(torch.sum(one, dim=0)) / t_all
+    else:
+        t_all = t
+        me, ce = torch.mean(probs, dim=0), torch.mean(one, dim=0)
     aux = e * torch.sum(me * ce)
 
-    # sort-based dispatch into (E, cap, d); a pair past its expert's
-    # capacity writes the spare row e * cap, which is cut off
+    # sort-based dispatch; a pair's place in its expert's global buffer
+    # follows the pairs of the data ranks before this one
     flat_e = top_i.reshape(-1)
     flat_w = top_p.reshape(-1).to(x.dtype)
     flat_t = torch.arange(t, device=dev).repeat_interleave(k)
@@ -172,24 +232,47 @@ def _moe_apply_flat(p: dict, x: Tensor, cfg: ModelConfig
     counts = torch.bincount(flat_e, minlength=e)
     offsets = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * k, device=dev) - offsets[se]
-    cap = expert_capacity(t, cfg)
-    keep = pos < cap
-    slot = torch.where(keep, se * cap + pos, torch.full_like(pos, e * cap))
-    buf = x.new_zeros((e * cap + 1, d)).index_put((slot,), xt[st])
-    buf = buf[:e * cap].view(e, cap, d)
+    cap = expert_capacity(t_all, cfg)
+    rows = cap
+    place = pos
+    e0, n_e = npar.expert_range(e) if npar is not None else (0, e)
+    if dp:
+        before = npar.data_gather(counts)[:npar.data_index()].sum(dim=0)
+        place = pos + before[se]
+        rows = min(cap, t)      # the bound; meta tensors (the dry run) keep it
+        if not x.is_meta:       # this rank's most kept pairs of an expert
+            kept = torch.minimum(torch.clamp(cap - before, min=0), counts)
+            rows = max(1, int(kept[e0:e0 + n_e].max()))
+    keep = place < cap
+    _count_dropped(t * k - keep.sum())
+
+    # this rank's experts' rows, (E_mine, rows, d); a pair past its
+    # expert's capacity or another rank's writes the spare row, cut off
+    mine = keep & (se >= e0) & (se < e0 + n_e)
+    slot = torch.where(mine, (se - e0) * rows + pos,
+                       torch.full_like(pos, n_e * rows))
+    xe = xt
+    if n_e < e:
+        xe = shardctx.copy_to(xt, npar.mesh, npar.tp)
+    buf = x.new_zeros((n_e * rows + 1, d)).index_put((slot,), xe[st])
+    buf = buf[:n_e * rows].view(n_e, rows, d)
 
     # expert FFN, batched over the expert dim
     ew = p["experts"]
-    up = expert_project(ew["w_up"], buf, cfg)
-    gate = expert_project(ew["w_gate"], buf, cfg)
-    out_buf = expert_project(ew["w_down"], _act(cfg)(gate) * up, cfg)
+    whole = cap if dp else None     # rows of each expert's global buffer
+    up = expert_project(ew["w_up"], buf, cfg, whole)
+    gate = expert_project(ew["w_gate"], buf, cfg, whole)
+    out_buf = expert_project(ew["w_down"], _act(cfg)(gate) * up, cfg, whole)
 
-    # combine: each pair's weighted output back in (token, slot) order,
-    # then each token's k contributions summed from zero in ascending
-    # expert order
-    out_flat = torch.cat([out_buf.reshape(e * cap, d),
+    # combine: each pair's output back in (token, slot) order, the gate
+    # applied, then each token's k contributions summed from zero in
+    # ascending expert order
+    out_flat = torch.cat([out_buf.reshape(n_e * rows, d),
                           out_buf.new_zeros((1, d))])
-    gathered = out_flat[slot] * (sw * keep.to(x.dtype))[:, None]
+    pair = out_flat[slot]
+    if n_e < e:
+        pair = shardctx.reduce_from(pair, npar.mesh, npar.tp)
+    gathered = pair * (sw * keep.to(x.dtype))[:, None]
     per_pair = gathered[torch.argsort(order)].view(t, k, d)
     by_expert = torch.argsort(top_i, dim=-1, stable=True)
     per_pair = torch.gather(per_pair, 1, by_expert[..., None].expand(t, k, d))

@@ -86,11 +86,11 @@ def unshard_state(state: dict, cfg: ModelConfig, mesh) -> dict:
     """The whole train state from every rank's blocks (ordered gathers,
     no arithmetic)."""
     from repro_torch.launch import sharding as S
-    like = M.init_params(cfg, None, "meta")
-    like = {"params": like, "opt": {"m": like, "v": like, "t": None},
-            "step": None, "err_fb": like}
-    return S.unshard_tree(state, S.state_specs(state, cfg, mesh), like,
-                          cfg, mesh)
+    params = M.init_params(cfg, None, "meta")
+    like = {"params": params, "opt": {"m": params, "v": params, "t": None},
+            "step": None, "err_fb": params}
+    return S.unshard_tree(state, S.state_specs(state, cfg, mesh, params),
+                          like, cfg, mesh)
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,

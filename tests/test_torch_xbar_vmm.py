@@ -230,8 +230,8 @@ def test_transpose_kernel_source_contracts_the_stored_columns():
     src = K.SOURCE.read_text()
     assert "_fused_mvm_kernel" in src and "kTranspose" in src
     assert set(K.LAUNCHES) == {
-        "fused_vmm", "fused_mvm", "fakequant", "fakequant_split",
-        "fakequant_tiles",
+        "fused_vmm", "fused_mvm", "fakequant", "fakequant_lead",
+        "fakequant_split", "fakequant_tiles",
         "fakequant_scale", "fakequant_prepare", "fakequant_fp32",
         "fakequant_tc", "fakequant_epilogue",
         *(f"{name}_{d}" for d in ("vmm", "mvm")
