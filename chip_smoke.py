@@ -341,16 +341,18 @@ any gate fails:
    ``tc_write_agrees``'s class, every FP32-instance write within
    ``update_bound`` of its plain version fed the same tapes.
 
-22. the audio encoder-decoder: whisper-medium at full size, not cut (24
-   encoder and 24 decoder layers, d 1024, 16 heads of 64, d_ff 4096 GELU,
-   1500 frames, vocab 51872; 704.6 M cells), random weights from
+22. the audio encoder-decoder: whisper-medium at full width cut to
+   ``AUDIO_LAYERS`` (8) of its 24 encoder and 24 decoder layers (d 1024,
+   16 heads of 64, d_ff 4096 GELU, 1500 frames, vocab 51872; 704.6 M
+   cells uncut; the cut keeps the script in its time limit since phase
+   29), random weights from
    torch.Generator seed 0, the frames seeded normals (B, 1500, 1024).
    (a) From ``taox-nonoise`` 64x64 crossbars served by the static
    scheduler with the frames as ``extras``: 4 prompts of 8-16 tokens, 16
    greedy tokens.  Gates: the prefill reads the 96 encoder containers
-   over 4 x 1500 rows and the 144 decoder ones (the cross ``wqkv`` over
+   over 4 x 1500 rows and the decoder ones (the cross ``wqkv`` over
    the prompt rows and the 6000 frame rows in one read), all on the
-   tensor-core instance; each decode call reads the 144 decoder
+   tensor-core instance; each decode call reads the decoder
    containers over 4 rows on the FP32 instance with its K-order sum and
    no encoder container; every read of a prefill and a decode step
    against its plain version on its own operands (phase 1's bound), its
@@ -363,8 +365,8 @@ any gate fails:
    one), one launch of each of its kernels, no plain version on the card;
    a prefill and a decode step held read by read (phase 8's bound),
    logits within 1e-3 of a CPU replay.  (c) one TaOx step (lr 0.1, 4 x
-   128 tokens with 4 x 1500 frames) at full depth: 240 + 240 tensor-core
-   reads and 10 tensor-core writes with their pre-passes (the encoder's
+   128 tokens with 4 x 1500 frames): every container read forward and
+   back on the tensor cores and 10 writes with their pre-passes (the encoder's
    four stacks over 6000 rows, the cross ``wqkv`` over 512 + 6000); each
    container's tapes one block a layer of its operand rows, its
    cotangent non-zero in every layer, no read of zeros; every read and
@@ -490,8 +492,9 @@ before remat existed.
    1x1 step's; on ``model`` ranks kernel 4's split-range (column split)
    and tiles (row split) reads against their plain versions and bit-equal
    to the whole read, both launched by the step.  (b) gemma-2b at full
-   size, digital bfloat16, FSDP on 4x1 over 4 x 1024 tokens: each rank's
-   held bytes equal the dry run's policy bytes, 36 layer gathers, the
+   width cut to 6 of 18 layers (since phase 29, for the time limit),
+   digital bfloat16, FSDP on 4x1 over 4 x 1024 tokens: each rank's held
+   bytes equal the dry run's policy bytes, two layer gathers a layer, the
    loss within bfloat16's class of the 1x1 forward's.  (c)
    ``exact=False`` on 2x4 (lm100m, device mode, phase 7's settings):
    every read of the four containers within the reassociation bound of
@@ -515,6 +518,29 @@ before remat existed.
    1e-2 of the 1x1 forward's, 2 layer gathers.  (c) (a)'s cut on 4x1 at
    capacity factor 1.0, where the 1x1 forward drops pairs: the loss
    within 1e-4 and the ranks' dropped pairs summing to the 1x1 count.
+
+29. Tensor parallelism of the SSM, hybrid and cross-attention families,
+   each rank its own process on this card as in phase 27.  (a)
+   mamba2-1.3b at full width cut to 2 layers, (b) zamba2-1.2b cut to 6
+   (one application of the shared block), (c) whisper-medium cut to 2
+   encoder and 2 decoder layers (over 8 x 1500 frames), each QAT at
+   128-row tiles, 8 x 256 tokens, one adamw step on 2x2, 1x4 and 4x1
+   against the 1x1 step from the same state: the loss within 1e-4, the
+   parameters in the test class, each rank's fakequant reads equal to the
+   1x1 step's (split-range and tiles reads among them on ``model``
+   ranks), no plain-version call, the plan's flags and the SSD norm's
+   gather counted; on ``model`` ranks ``in_proj``'s split read (B, C and
+   dt whole on every rank), ``out_proj``'s tiles read, the shared block's
+   ``wqkv`` / ``w_upgate`` split and ``wo`` / ``w_down`` tiles reads and
+   the cross ``wqkv``'s split read over a sequence's 256 + 1500 rows,
+   each bit-equal to the whole read and against its plain version, and
+   the scan probe (the SSD scan on the rank's heads against the
+   all-heads scan's, forward and backward) bit-equal.  (d)
+   llama-3.2-vision-90b at full width cut to 5 layers (a cross block and
+   four self blocks), digital bfloat16 with sgd, on 1x4 over 4 x 1024
+   tokens and 1024 vision tokens, the cross gates non-zero: each rank's
+   held parameter bytes equal the dry run's reckoning, the loss within
+   1e-2 of the 1x1 forward's, the layer gathers counted.
 
 Every phase prints its wall seconds on a line of its own.
 
@@ -3553,7 +3579,7 @@ def device_serve_cfg(cfg, n_layers=None):
     cfg = cfg.replace(dtype="float32", analog=True, analog_mode="device",
                       analog_device="taox-nonoise", analog_rows=64,
                       analog_cols=64)
-    return cfg if n_layers is None else cfg.replace(n_layers=n_layers)
+    return cut_depth(cfg, n_layers)
 
 
 def program_model(M, cfg):
@@ -5432,6 +5458,17 @@ VLM_ARCH = "llama-3.2-vision-90b"
 VLM_SERVE_LAYERS = 5
 VLM_FQ_LAYERS = 10
 VLM_TRAIN_LAYERS = 5
+#: whisper-medium's depth on the card, encoder and decoder each (of 24):
+#: cut for the script's time limit once phase 29 joined.
+AUDIO_LAYERS = 8
+
+
+def cut_depth(cfg, n_layers):
+    """``cfg`` at ``n_layers`` layers (the audio model's encoder too)."""
+    if not n_layers:
+        return cfg
+    enc = {"n_encoder_layers": n_layers} if cfg.n_encoder_layers else {}
+    return cfg.replace(n_layers=n_layers, **enc)
 #: The training steps' token batches (B, S): whisper-medium 4 x 128 with
 #: 4 x 1500 frames, the VLM 2 x 128 with 2 x 1024 vision tokens.
 CROSS_TRAIN_SHAPE = {AUDIO_ARCH: (4, 128), VLM_ARCH: (2, 128)}
@@ -5791,9 +5828,8 @@ def phase_cross_fq_serve(M, K, TT, TMoE, OPS, make_engine, SamplingParams,
     where cut), served by the static scheduler with its stream."""
     torch.cuda.empty_cache()
     full = get_config(arch)
-    cfg = full.replace(dtype="float32", analog=True, analog_mode="fakequant")
-    if n_layers:
-        cfg = cfg.replace(n_layers=n_layers)
+    cfg = cut_depth(full.replace(dtype="float32", analog=True,
+                                 analog_mode="fakequant"), n_layers)
     need = reckon(M, cfg)
     print(f"phase {label}: {arch} in fakequant mode at {cfg.n_layers} of "
           f"{full.n_layers} layers: reckoned {need['fakequant_gb']:.1f} GB "
@@ -5843,8 +5879,7 @@ def phase_cross_train(K, U, TA, M, syn, get_config, report, arch, n_layers,
     full = get_config(arch)
     cfg = full.replace(dtype="float32", analog=True, analog_mode="device",
                        analog_device="taox", analog_rows=64, analog_cols=64)
-    if n_layers:
-        cfg = cfg.replace(n_layers=n_layers)
+    cfg = cut_depth(cfg, n_layers)
     b, s = CROSS_TRAIN_SHAPE[arch]
     need = reckon(M, cfg, train_shape=(b, s))
     print(f"phase {label}: {arch} step at {cfg.n_layers} of "
@@ -7118,6 +7153,9 @@ TP_LR = 1e-3
 #: (4096 tokens; 4 x 2048 would hold the 1x1 step's float32 logits and
 #: their gradient at 8192 x 256000, too close to 80 GB beside its state).
 GEMMA_BATCH = (4, 1024)
+#: 27(b)'s depth: 6 of gemma-2b's 18 layers (cut for the script's time
+#: limit once phase 29 joined)
+GEMMA_TP_LAYERS = 6
 #: 27(c): the exact=False layout and its batches.
 INEXACT_LAYOUT = (2, 4)
 INEXACT_B = (4, 2048)
@@ -7142,6 +7180,11 @@ def tp_qat_cfg(get_config):
     return get_config("lm100m").replace(dtype="float32", analog=True,
                                         analog_mode="fakequant",
                                         analog_rows=128)
+
+
+def gemma_tp_cfg(get_config):
+    """27(b)'s gemma-2b: full width, GEMMA_TP_LAYERS of its 18 layers."""
+    return get_config("gemma-2b").replace(n_layers=GEMMA_TP_LAYERS)
 
 
 def tp_inexact_cfg(get_config):
@@ -7191,10 +7234,14 @@ def timed_step(step, state, batch, *args):
     return state, m, ev[0].elapsed_time(ev[1])
 
 
-def split_read_case(K, mesh, cfg, adc, k=None, n=None):
+def split_read_case(K, mesh, cfg, adc, k=None, n=None, parts=None, t=None):
     """One column-split fakequant read at 27(a)'s shapes (2048 tokens,
     lm100m's ``wqkv`` split over ``model``; ``k`` x ``n`` another leaf's,
-    28(a)'s MLA ``wq``): the kernels' split form (range
+    28(a)'s MLA ``wq``; ``parts`` a fused leaf's parts, each rank's
+    columns of them as ``launch.sharding.part_columns`` gives them and the
+    gathered range partials put in the whole width's order by
+    ``range_blocks``, a part whole on every rank taken from the first;
+    ``t`` tokens): the kernels' split form (range
     partials gathered over ``model``) bit-equal to the whole read's
     columns, and against the plain split version on the same inputs,
     whose partials are gathered in turn, in ``fq_agrees``' bound with the
@@ -7202,21 +7249,26 @@ def split_read_case(K, mesh, cfg, adc, k=None, n=None):
     this rank's columns (one rank's combine left out)."""
     from repro_torch.kernels.xbar_vmm import (_fakequant_plain_finish,
                                               _fakequant_plain_head)
+    from repro_torch.launch.sharding import part_columns, range_blocks
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    t, k = TP_BATCH[0] * TP_BATCH[1], k or cfg.d_model
+    t, k = t or TP_BATCH[0] * TP_BATCH[1], k or cfg.d_model
     n = n or (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.resolved_head_dim
     rows = cfg.analog_rows
     x = torch.randn((t, k), generator=gen, device="cuda")
     w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
     m, r = mesh.shape["model"], mesh.coords["model"]
-    c = n // m
-    wr = w[:, r * c:(r + 1) * c].contiguous()
+    parts = parts or [(n, True)]
+    cols = part_columns(parts, m, r).cuda()
+    blocks = range_blocks(parts, m)
+    c = len(cols)
+    wr = w.index_select(1, cols).contiguous()
 
-    def combine(s):     # contiguous columns: rank order is column order
-        return mesh.all_gather(s, "model", s.ndim - 1)
+    def combine(s):     # rank order, then the whole width's block order
+        s = mesh.all_gather(s, "model", s.ndim - 1)
+        return s if blocks is None else s.index_select(-1, blocks.cuda())
     y_k, _ = K.fakequant_split_read(x, wr, adc, rows, combine, n)
-    whole = K.fakequant_read(x, w, adc, rows)[:, r * c:(r + 1) * c]
+    whole = K.fakequant_read(x, w, adc, rows).index_select(1, cols)
     sc = K.fakequant_scale(x, adc.in_levels)
     q_p, ssq_p = _fakequant_plain_head(x, wr, sc, adc, rows)
     tot = combine(ssq_p).sum(dim=-1)
@@ -7247,10 +7299,11 @@ def split_read_case(K, mesh, cfg, adc, k=None, n=None):
             "ms": ms, "plain_ms": plain_ms, **fq_bounds(t, k, c)}
 
 
-def tiles_read_case(K, mesh, cfg, adc, k=None):
+def tiles_read_case(K, mesh, cfg, adc, k=None, n=None):
     """One row-split fakequant read at 27(a)'s shapes (2048 tokens,
     lm100m's ``w_down`` split over ``model`` at whole row tiles; ``k``
-    rows another leaf's, 28(a)'s MLA ``wo``): the
+    rows another leaf's, 28(a)'s MLA ``wo``; ``n`` its columns where they
+    are not ``d_model``): the
     kernels' tiles form (this rank's tiles' products and range partials
     gathered in tile order, the epilogue over every tile) bit-equal to
     the whole read, and against the plain version of the same steps in
@@ -7260,7 +7313,7 @@ def tiles_read_case(K, mesh, cfg, adc, k=None):
                                               _fakequant_plain_head)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    t, k, n = TP_BATCH[0] * TP_BATCH[1], k or cfg.d_ff, cfg.d_model
+    t, k, n = TP_BATCH[0] * TP_BATCH[1], k or cfg.d_ff, n or cfg.d_model
     rows = cfg.analog_rows
     x = torch.randn((t, k), generator=gen, device="cuda")
     w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
@@ -7399,7 +7452,7 @@ def tp_rank_gemma(rank, src):
     from repro_torch.configs import get_config
     from repro_torch.train import train_loop as TL
     from repro_torch.train.optimizer import adamw
-    cfg = get_config("gemma-2b")
+    cfg = gemma_tp_cfg(get_config)
     mesh = card_mesh((4, 1))
     opt = adamw(TP_LR)
     for turn in range(mesh.size):   # one whole draw on the card at a time
@@ -8026,10 +8079,468 @@ def phase_moe_scout(M, TL, DR, S, TM, get_config, report, gpu_line):
     return row
 
 
+# --------------------------------------------------------------------------
+# Phase 29: tensor parallelism of the SSM, hybrid and cross-attention
+# families
+# --------------------------------------------------------------------------
+
+#: 29(a)-(c): each model at full width cut to these depths (mamba2-1.3b 2
+#: SSD layers; zamba2-1.2b 6, one application of the shared block;
+#: whisper-medium 2 encoder and 2 decoder layers), QAT at 128-row tiles
+#: over 27(a)'s 8 x 256 tokens (whisper's over 8 x 1500 frames), on
+#: TP_LAYOUTS against the 1x1 step from the same state, and the seed
+FAMILY_CASES = (("29(a)", "mamba2-1.3b", dict(n_layers=2)),
+                ("29(b)", "zamba2-1.2b", dict(n_layers=6)),
+                ("29(c)", "whisper-medium", dict(n_layers=2,
+                                                 n_encoder_layers=2)))
+FAMILY_SEED = 29
+#: 29(d): llama-3.2-vision-90b at full width cut to one group (a cross
+#: block and four self blocks), digital bfloat16 with sgd on 1x4 over 4 x
+#: 1024 tokens and its 1024 vision tokens (28(b)'s setting)
+VLM_TP_LAYERS = 5
+VLM_TP_BATCH = (4, 1024)
+VLM_TP_LAYOUT = (1, 4)
+
+
+def family_ref(arch):
+    """Where the 1x1 step's parameters of ``arch`` go for the ranks."""
+    return ROOT / "build" / f"phase29-ref-{arch}.pt"
+
+
+def family_cfg(get_config, arch, cut):
+    return get_config(arch).replace(dtype="float32", analog=True,
+                                    analog_mode="fakequant", analog_rows=128,
+                                    **cut)
+
+
+def family_batch(cfg, rows=None):
+    """27(a)'s tokens, with whisper's frames (seeded normals, the global
+    batch's, then ``rows``)."""
+    batch = tp_tokens(cfg.vocab, *TP_BATCH, rows=rows)
+    if cfg.family == "audio":
+        extras = stream_extras(cfg, TP_BATCH[0], FAMILY_SEED)
+        batch.update({k: v if rows is None else v[rows].contiguous()
+                      for k, v in extras.items()})
+    return batch
+
+
+def family_plan(cfg):
+    """The flags 29's plan must hold on ``model`` ranks."""
+    on = {"vocab"}
+    if cfg.ssm_state:
+        on.add("ssm")
+    if cfg.n_heads:
+        on |= {"attn", "attn_row", "ffn", "ffn_row"}
+    return on
+
+
+def family_read_cases(K, S, mesh, cfg, adc):
+    """29's split reads on a ``model`` rank at the step's shapes, each
+    bit-equal to the whole read and against its plain version: the SSD
+    layers' ``in_proj`` (its parts: z and x by heads, B, C and dt whole)
+    and ``out_proj`` (tiles); the shared block's ``wqkv`` and ``w_upgate``
+    (parts) and ``wo`` and ``w_down`` (tiles); the cross-attention's
+    ``wqkv`` over this rank's sequences of 256 tokens and 1500 frames."""
+    m = mesh.shape["model"]
+    hd = cfg.resolved_head_dim
+    out = {}
+    if cfg.ssm_state:
+        d_in, h, gn = S.ssm_dims(cfg)
+        w_in = 2 * d_in + 2 * gn + h
+        out["in_proj"] = split_read_case(
+            K, mesh, cfg, adc, cfg.d_model, w_in,
+            S.fused_parts(("in_proj",), w_in, cfg, m))
+        out["out_proj"] = tiles_read_case(K, mesh, cfg, adc, d_in)
+    if cfg.n_heads:
+        w_qkv = (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+        qkv = S.fused_parts(("wqkv",), w_qkv, cfg, m)
+    if cfg.family == "hybrid":
+        out["shared_wqkv"] = split_read_case(K, mesh, cfg, adc, cfg.d_model,
+                                             w_qkv, qkv)
+        out["shared_w_upgate"] = split_read_case(
+            K, mesh, cfg, adc, cfg.d_model, 2 * cfg.d_ff,
+            S.fused_parts(("w_upgate",), 2 * cfg.d_ff, cfg, m))
+        out["shared_wo"] = tiles_read_case(K, mesh, cfg, adc,
+                                           cfg.n_heads * hd)
+        out["shared_w_down"] = tiles_read_case(K, mesh, cfg, adc, cfg.d_ff)
+    if cfg.family == "audio":
+        seqs = TP_BATCH[0] // mesh.shape["data"]
+        out["cross_wqkv"] = split_read_case(
+            K, mesh, cfg, adc, cfg.d_model, w_qkv, qkv,
+            t=seqs * (TP_BATCH[1] + cfg.n_audio_frames))
+    return out
+
+
+def scan_probe(S, mesh, cfg):
+    """29(a)'s scan probe on a ``model`` rank: the chunked SSD scan
+    (``models.ssm._ssd_chunked``) of one layer at the step's shapes (this
+    rank's 8 / data ranks sequences of 256 tokens, seeded normals) over
+    all the heads and over this rank's heads alone, forward and backward:
+    the rank's outputs, final states and its heads' input gradients
+    against the all-heads scan's, bit for bit (the heads ride in the batch
+    of the scan's strided products; their count differs)."""
+    from repro_torch.models.ssm import _softplus, _ssd_chunked
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(FAMILY_SEED)
+    d_in, h, _ = S.ssm_dims(cfg)
+    m, r = mesh.shape["model"], mesh.coords["model"]
+    b, s = TP_BATCH[0] // mesh.shape["data"], TP_BATCH[1]
+    g, n, p = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    xh, dt = rnd(b, s, h, p), _softplus(rnd(b, s, h) - 4.0)
+    bm, cm, dy = rnd(b, s, g, n), rnd(b, s, g, n), rnd(b, s, h, p)
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device="cuda"))
+    hr = h // m
+    heads = slice(r * hr, (r + 1) * hr)
+
+    def run(xh, dt, a_log, dy):
+        xh, dt = xh.clone().requires_grad_(), dt.clone().requires_grad_()
+        y, last = _ssd_chunked(xh, dt, a_log, bm, cm, cfg.ssm_chunk)
+        dx, ddt = torch.autograd.grad(y, (xh, dt), dy)
+        return y.detach(), last.detach(), dx, ddt
+    whole = run(xh, dt, a_log, dy)
+    mine = run(xh[:, :, heads].contiguous(), dt[..., heads].contiguous(),
+               a_log[heads], dy[:, :, heads].contiguous())
+    eq = {"y": torch.equal(mine[0], whole[0][:, :, heads]),
+          "state": torch.equal(mine[1], whole[1][:, heads]),
+          "dx": torch.equal(mine[2], whole[2][:, :, heads]),
+          "ddt": torch.equal(mine[3], whole[3][..., heads])}
+    err = float((mine[0] - whole[0][:, :, heads]).abs().max())
+    return {"equal": eq, "y_max_abs_err": err, "heads": hr,
+            "shape": [b, s, h, p]}
+
+
+def family_rank(rank, src):
+    """29(a)-(c) on one rank: for each model and layout, its cut drawn
+    whole in turns and cut to this rank's blocks; one warm-up step and one
+    timed QAT step (its launches counted, the plain versions' calls
+    counted), the parameters held against the 1x1 step's leaf by leaf
+    (rank 0); on ``model`` ranks the split and tiles reads and (the SSD
+    models) the scan probe."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.adc import AdcConfig
+    from repro_torch.kernels import xbar_vmm as K
+    from repro_torch.launch import sharding as S
+    from repro_torch.train import train_loop as TL
+    from repro_torch.train.optimizer import adamw
+    world = dist.get_world_size()
+    out = {}
+    for _, arch, cut in FAMILY_CASES:
+        cfg = family_cfg(get_config, arch, cut)
+        adc = AdcConfig(in_bits=cfg.analog_in_bits,
+                        out_bits=cfg.analog_out_bits)
+        ref = torch.load(family_ref(arch), mmap=True) if rank == 0 else None
+        for shape in TP_LAYOUTS:
+            mesh = card_mesh(shape)
+            opt = adamw(TP_LR)
+            state = draw_in_turns(lambda: TL.init_sharded_state(
+                FAMILY_SEED, cfg, opt, mesh, "cuda"), rank, world)
+            step = TL.make_train_step(cfg, opt, mesh=mesh)
+            npar = step.numeric
+            batch = family_batch(cfg, local_rows(mesh, TP_BATCH[0]))
+            step(state, batch)      # warm-up (the step leaves its input)
+            for name in K.LAUNCHES:
+                K.LAUNCHES[name] = 0
+            npar.counts.update(layer_gathers=0, norm_gather_bytes=0)
+            calls = []
+            torch.cuda.reset_peak_memory_stats()
+            with plain_counted(K, calls):
+                state, mets, ms = timed_step(step, state, batch)
+            launches, counts = dict(K.LAUNCHES), dict(npar.counts)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            loss = mesh.all_reduce(mets["loss"].reshape(1), "data") \
+                / mesh.shape["data"]
+            off, total, worst, by_leaf = params_against(
+                S, state["params"], npar, ref, rank == 0)
+            res = {"loss": float(loss), "grad_norm": float(mets["grad_norm"]),
+                   "ms": ms, "launches": launches, "counts": counts,
+                   "plain_calls": len(calls), "plan": npar.plan(),
+                   "peak_gb": peak, "params_off": off, "params": total,
+                   "params_worst": worst, "params_by_leaf": by_leaf}
+            del state
+            torch.cuda.empty_cache()
+            if mesh.shape["model"] > 1:
+                res["reads"] = family_read_cases(K, S, mesh, cfg, adc)
+                if cfg.ssm_state:
+                    res["scan"] = scan_probe(S, mesh, cfg)
+            out[arch, shape] = res
+            torch.cuda.empty_cache()
+        del ref
+    return out
+
+
+def vlm_tp_cfg(get_config):
+    return get_config("llama-3.2-vision-90b").replace(n_layers=VLM_TP_LAYERS)
+
+
+def vlm_tp_batch(cfg, rows=None):
+    batch = tp_tokens(cfg.vocab, *VLM_TP_BATCH, rows=rows)
+    extras = stream_extras(cfg, VLM_TP_BATCH[0], FAMILY_SEED)
+    batch.update({k: v if rows is None else v[rows].contiguous()
+                  for k, v in extras.items()})
+    return batch
+
+
+def vlm_tp_rank(rank, src):
+    """29(d) on one rank: the VLM's cut (sgd: the parameters alone) drawn
+    whole in turns and cut to this rank's blocks, the cross gates set
+    non-zero; its held bytes, one digital TP step over its rows, timed,
+    its layer gathers and peak."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import train_loop as TL
+    from repro_torch.train.optimizer import sgd
+    cfg = vlm_tp_cfg(get_config)
+    mesh = card_mesh(VLM_TP_LAYOUT)
+    opt = sgd(TP_LR)
+    state = draw_in_turns(lambda: TL.init_sharded_state(
+        TP_SEED, cfg, opt, mesh, "cuda"), rank, dist.get_world_size())
+    set_cross_gates(state["params"], cfg)
+    gates = [float(g) for p, v in leaves_of(state["params"])
+             if p[-1] in CROSS_GATES for g in v.reshape(-1)]
+    held = {"params": tree_nbytes(state["params"]),
+            "opt": tree_nbytes(state["opt"]),
+            "step": tree_nbytes(state["step"])}
+    step = TL.make_train_step(cfg, opt, mesh=mesh)
+    batch = vlm_tp_batch(cfg, local_rows(mesh, VLM_TP_BATCH[0]))
+    torch.cuda.reset_peak_memory_stats()
+    state, mets, ms = timed_step(step, state, batch)
+    loss = mesh.all_reduce(mets["loss"].reshape(1), "data") \
+        / mesh.shape["data"]
+    return {"coords": dict(mesh.coords), "held": held, "ms": ms,
+            "loss": float(loss), "grad_norm": float(mets["grad_norm"]),
+            "gates": gates,
+            "layer_gathers": step.numeric.counts["layer_gathers"],
+            "plan": step.numeric.plan(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_family_qat(K, TL, TO, get_config, report, gpu_line):
+    """29(a)-(c): mamba2-1.3b (d 2048, 64 SSD heads of 64, state 128, vocab
+    50288 tied) at 2 layers, zamba2-1.2b (the same SSD layers at state 64,
+    the shared block's 32 heads and d_ff 8192, vocab 32000) at 6 layers
+    and whisper-medium (d 1024, 16 heads, d_ff 4096, vocab 51872) at 2 +
+    2 layers, full width, QAT at 128-row tiles over 8 x 256 tokens
+    (whisper's over 8 x 1500 frames), adamw: one FSDP + TP step on 2x2,
+    1x4 and 4x1 (each rank its own process on this card) against the 1x1
+    step on the card from the same state.  Gates: the loss within 1e-4
+    relative; the parameters in satellite 1's class (off under 1e-3 of the
+    elements, by at most 2 lr); each rank's fakequant reads in its step
+    equal to the 1x1 step's, split-range and tiles reads among them on
+    ``model`` ranks, and no plain-version call; the plan's flags
+    (``family_plan``; none on 4x1) and the SSD norm's gather counted
+    where ``ssm`` is on; on ``model`` ranks every split read of
+    ``family_read_cases`` bit-equal to the whole read and in its plain
+    version's class, and the scan probe bit-equal."""
+    ones = {}
+    for label, arch, cut in FAMILY_CASES:
+        cfg = family_cfg(get_config, arch, cut)
+        opt = TO.adamw(TP_LR)
+        state = TL.init_state(FAMILY_SEED, cfg, opt, "cuda")
+        step = TL.make_train_step(cfg, opt)
+        batch = family_batch(cfg)
+        step(state, batch)      # warm-up (the step leaves its input state)
+        for name in K.LAUNCHES:
+            K.LAUNCHES[name] = 0
+        torch.cuda.reset_peak_memory_stats()
+        state, mets, ms1 = timed_step(step, state, batch)
+        ones[arch] = {"loss": float(mets["loss"]), "ms": ms1,
+                      "grad_norm": float(mets["grad_norm"]),
+                      "reads": K.LAUNCHES["fakequant"],
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        save_leaves(state["params"], family_ref(arch))
+        del state, step, batch
+        torch.cuda.empty_cache()
+    try:
+        ranks = spawn_layout(4, "family")
+    finally:
+        for _, arch, _ in FAMILY_CASES:
+            family_ref(arch).unlink(missing_ok=True)
+    for label, arch, _ in FAMILY_CASES:     # every figure before the gates
+        for shape in TP_LAYOUTS:
+            per = [r[arch, shape] for r in ranks]
+            print(f"{label} {arch} {shape}: losses "
+                  f"{[r['loss'] for r in per]}, grad norms "
+                  f"{[r['grad_norm'] for r in per]}, parameters off "
+                  f"{per[0]['params_off']} of {per[0]['params']} (by leaf "
+                  f"{per[0]['params_by_leaf']}); scan probes "
+                  f"{[r.get('scan', {}).get('equal') for r in per]}",
+                  flush=True)
+    rows = []
+    for label, arch, cut in FAMILY_CASES:
+        cfg = family_cfg(get_config, arch, cut)
+        one = ones[arch]
+        for shape in TP_LAYOUTS:
+            lay = "x".join(map(str, shape))
+            per = [r[arch, shape] for r in ranks]
+            want = family_plan(cfg) if shape[1] > 1 else set()
+            for i, r in enumerate(per):
+                where = f"{label} {lay} rank {i}"
+                if abs(r["loss"] - one["loss"]) > 1e-4 * abs(one["loss"]):
+                    fail(f"{where}: loss {r['loss']} against the 1x1 "
+                         f"step's {one['loss']}")
+                lc = r["launches"]
+                if lc["fakequant"] != one["reads"]:
+                    fail(f"{where}: {lc['fakequant']} fakequant reads in "
+                         f"its step, the 1x1 step {one['reads']}")
+                if r["plain_calls"]:
+                    fail(f"{where}: {r['plain_calls']} calls of a plain "
+                         "version in the step")
+                if {k for k, v in r["plan"].items() if v} != want:
+                    fail(f"{where}: plan {r['plan']}, expected {want}")
+                if ("ssm" in want) != (r["counts"]["norm_gather_bytes"] > 0):
+                    fail(f"{where}: norm gather counts {r['counts']}")
+                if shape[1] == 1:
+                    continue
+                if not lc["fakequant_split"] or not lc["fakequant_tiles"]:
+                    fail(f"{where}: no split-range or tiles read in the "
+                         f"step ({lc})")
+                for name, case in r["reads"].items():
+                    if not case["ok"] or not case["bit_equal_whole_read"]:
+                        fail(f"{where}: the {name} read is off its plain "
+                             f"version or the whole read: {case}")
+                if "scan" in r and not all(r["scan"]["equal"].values()):
+                    fail(f"{where}: the scan on the rank's heads is not the "
+                         f"all-heads scan's: {r['scan']}")
+            off, total, worst = (per[0]["params_off"], per[0]["params"],
+                                 per[0]["params_worst"])
+            if off > 1e-3 * total or worst > 2 * TP_LR * 1.01:
+                fail(f"{label} {lay}: {off} of {total} parameters off the "
+                     f"1x1 step's class (worst {worst:.3g}; by leaf "
+                     f"{per[0]['params_by_leaf']})")
+            row = {"case": label, "arch": arch, "layout": lay, **cut,
+                   "loss": per[0]["loss"],
+                   "losses_per_rank": [r["loss"] for r in per],
+                   "loss_1x1": one["loss"], "grad_norm": per[0]["grad_norm"],
+                   "grad_norm_1x1": one["grad_norm"],
+                   "ms_per_rank": [r["ms"] for r in per], "ms_1x1": one["ms"],
+                   "peak_gb_per_rank": [r["peak_gb"] for r in per],
+                   "peak_gb_1x1": one["peak_gb"],
+                   "reads_per_rank": one["reads"],
+                   "split_reads_per_rank": [r["launches"]["fakequant_split"]
+                                            for r in per],
+                   "tiles_reads_per_rank": [r["launches"]["fakequant_tiles"]
+                                            for r in per],
+                   "norm_gather_bytes_per_rank": per[0]["counts"][
+                       "norm_gather_bytes"],
+                   "layer_gathers_per_rank": per[0]["counts"][
+                       "layer_gathers"],
+                   "params_off": off, "params": total, "plan": per[0]["plan"],
+                   "reads": [r.get("reads", {}) for r in per],
+                   "scan": [r["scan"] for r in per if "scan" in r]}
+            reads = ", ".join(
+                f"{name} {c['ms']:.3f} ms (plain {c['plain_ms']:.3f})"
+                for name, c in per[0].get("reads", {}).items()) \
+                or "no model split"
+            print(f"{label} {arch} {lay}: loss {row['loss']!r} (1x1 "
+                  f"{one['loss']!r}), grad norm {row['grad_norm']!r} (1x1 "
+                  f"{one['grad_norm']!r}), step ms per rank "
+                  f"{[round(v, 1) for v in row['ms_per_rank']]} (1x1 "
+                  f"{one['ms']:.1f}; warm steps; each rank its own process "
+                  f"on this card), peak GB per rank "
+                  f"{[round(v, 2) for v in row['peak_gb_per_rank']]} (1x1 "
+                  f"{one['peak_gb']:.2f}), {one['reads']} fakequant reads a "
+                  f"rank ({row['split_reads_per_rank'][0]} split-range, "
+                  f"{row['tiles_reads_per_rank'][0]} tiles), SSD norm "
+                  f"gather {row['norm_gather_bytes_per_rank'] / 1e6:.1f} MB "
+                  f"a rank a step, {off} of {total} parameters off; rank 0's"
+                  f" reads: {reads} [{gpu_line}]")
+            report(row)
+            rows.append(row)
+    return rows
+
+
+def phase_family_vlm(M, DR, S, TM, get_config, report, gpu_line):
+    """29(d): llama-3.2-vision-90b at full width (d 8192, 64 heads over 8
+    kv heads, d_ff 28672, vocab 128256) cut to VLM_TP_LAYERS layers (one
+    cross block, four self blocks), digital bfloat16, TP on VLM_TP_LAYOUT
+    with sgd, each rank its own process on this card, after the 1x1
+    forward's loss from the same parameters with the same non-zero cross
+    gates (freed first), over 4 x 1024 tokens and the 1024 vision tokens.
+    Gates: the cross gates non-zero on every rank; each rank's held
+    parameter bytes equal the dry run's reckoning for its coordinates
+    (its policy bytes plus what the port holds beyond them), and it holds
+    no optimizer state; a finite loss within 1e-2 relative of the 1x1
+    forward's; the layer gathers (each self block twice under remat, the
+    cross block once); ``attn``, ``attn_row``, ``ffn``, ``ffn_row`` and
+    ``vocab`` in the plan."""
+    from repro_torch.models.transformer import remat_policy
+    cfg = vlm_tp_cfg(get_config)
+    layout = VLM_TP_LAYOUT
+    label = "x".join(map(str, layout))
+    params = M.init_params(cfg, TP_SEED, "cuda")
+    set_cross_gates(params, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with torch.no_grad():
+        ev[0].record()
+        loss, _ = M.loss_fn(params, vlm_tp_batch(cfg), cfg)
+        ev[1].record()
+    torch.cuda.synchronize()
+    one = {"loss": float(loss), "ms": ev[0].elapsed_time(ev[1]),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, loss
+    ranks = spawn_layout(layout[0] * layout[1], "vlm1x4")
+    like = M.init_params(cfg, None, "meta")
+    n_self = cfg.n_layers - cfg.n_layers // cfg.cross_attn_every
+    gathers = n_self * (1 if remat_policy() == "none" else 2) \
+        + cfg.n_layers // cfg.cross_attn_every
+    for i, r in enumerate(ranks):
+        mesh = TM.Mesh(layout, ("data", "model"),
+                       coords=(r["coords"]["data"], r["coords"]["model"]))
+        specs = S.params_shardings(like, cfg, mesh)
+        policy = DR.block_bytes(like, specs, mesh)
+        port = DR.tree_bytes(S.shard_tree(like, specs, cfg, mesh))
+        held = r["held"]
+        if held["params"] != port or held["opt"]:
+            fail(f"29(d) rank {i}: holds {held}, the dry run reckons {port} "
+                 f"bytes of parameters (policy {policy})")
+        if not r["gates"] or not all(r["gates"]):
+            fail(f"29(d) rank {i}: cross gates {r['gates']}")
+        if not math.isfinite(r["loss"]) \
+                or abs(r["loss"] - one["loss"]) > 1e-2 * abs(one["loss"]):
+            fail(f"29(d) rank {i}: loss {r['loss']}, the 1x1 forward's "
+                 f"{one['loss']}")
+        if r["layer_gathers"] != gathers:
+            fail(f"29(d) rank {i}: {r['layer_gathers']} layer gathers, "
+                 f"expected {gathers}")
+        if not all(r["plan"][k] for k in ("attn", "attn_row", "ffn",
+                                            "ffn_row", "vocab")):
+            fail(f"29(d) rank {i}: plan {r['plan']}")
+    row = {"layout": label, "ranks": len(ranks), "layers": cfg.n_layers,
+           "tokens": f"{VLM_TP_BATCH[0]} x {VLM_TP_BATCH[1]}",
+           "vision_tokens": cfg.n_vision_tokens,
+           "loss": ranks[0]["loss"], "loss_1x1": one["loss"],
+           "ms_per_rank": [r["ms"] for r in ranks], "ms_1x1": one["ms"],
+           "held_bytes_per_rank": ranks[0]["held"],
+           "policy_bytes_rank0": policy, "port_bytes_rank0": port,
+           "peak_gb_per_rank": [r["peak_gb"] for r in ranks],
+           "peak_gb_1x1": one["peak_gb"], "plan": ranks[0]["plan"],
+           "layer_gathers": ranks[0]["layer_gathers"]}
+    print(f"29(d) llama-3.2-vision-90b {label} TP over {row['tokens']} "
+          f"tokens and {cfg.n_vision_tokens} vision tokens, {cfg.n_layers} "
+          f"layers: loss {row['loss']:.5f} (1x1 forward {one['loss']:.5f}),"
+          f" step ms per rank {[round(v, 1) for v in row['ms_per_rank']]} "
+          f"(1x1 forward {one['ms']:.1f}), held "
+          f"{sum(ranks[0]['held'].values()) / 1e9:.3f} GB a rank (= the dry "
+          f"run's reckoning; policy {policy / 1e9:.3f}), peak "
+          f"{max(row['peak_gb_per_rank']):.2f} GB a rank (1x1 forward "
+          f"{one['peak_gb']:.2f}), {row['layer_gathers']} layer gathers; "
+          f"plan {row['plan']} [{gpu_line}]")
+    report(row)
+    return row
+
+
 TP_JOBS = {"qat": tp_rank_qat, "gemma": tp_rank_gemma,
            "inexact": tp_rank_inexact, "moe": moe_rank_qat,
            "scout1x4": lambda rank, src: scout_rank(rank, src, (1, 4)),
-           "scout1x2": lambda rank, src: scout_rank(rank, src, (1, 2))}
+           "scout1x2": lambda rank, src: scout_rank(rank, src, (1, 2)),
+           "family": family_rank, "vlm1x4": vlm_tp_rank}
 
 
 class CardTransport:
@@ -8321,16 +8832,17 @@ def phase_tp_qat(K, TL, TO, get_config, report, gpu_line):
 
 
 def phase_tp_gemma(M, TL, TO, DR, S, TM, get_config, report, gpu_line):
-    """27(b): gemma-2b at full size (18 layers, vocab 256000), digital
+    """27(b): gemma-2b at full width cut to GEMMA_TP_LAYERS of its 18
+    layers (vocab 256000), digital
     bfloat16, FSDP on 4x1 (each rank its own process on this card) after
     the 1x1 forward's loss from the same parameters (freed first; the
     1x1 step's adamw update does not fit one card), over 4 x 1024
     tokens.  Gates: each rank's held params, m and v bytes equal
     launch.dryrun's policy bytes for its coordinates, exactly; a finite
-    loss within 1e-2 relative of the 1x1 step's; 36 layer gathers a rank
-    (18 forward, 18 in the rematted backward)."""
+    loss within 1e-2 relative of the 1x1 step's; two layer gathers a
+    layer a rank (the forward and the rematted backward)."""
     from repro_torch.configs.base import ShapeSpec
-    cfg = get_config("gemma-2b")
+    cfg = gemma_tp_cfg(get_config)
     # the 1x1 step's loss (the step reports it before its update): its
     # whole adamw state and update (about 70 GB at this size: the tree-wide
     # m / v rebuild, PERF.md section 6) do not fit beside the activations
@@ -8681,6 +9193,16 @@ def tp_split_entry(rows, case="split"):
             "tc_floor_ms": main["tc_floor_ms"], "library_ms": None}
 
 
+def family_launches(rows, case):
+    """Phase 29(a)-(c)'s split-range (``case`` ``split``) or tiles reads
+    in the steps of every layout, summed over the ranks, by model."""
+    out = {}
+    for r in rows:
+        out[r["arch"]] = out.get(r["arch"], 0) + sum(
+            r[f"{case}_reads_per_rank"])
+    return out
+
+
 def mlp_read_entry(mlp, direction, names):
     """The kernels-line figures of the MLP's reads in one direction: the
     launches of phase 14(b)'s six runs (each kernel counted) and the
@@ -9002,14 +9524,14 @@ def main():
                                        HYBRID_TRAIN_LAYERS, "21(b)")
     serving = (M, K, TT, TMoE, OPS, make_engine, SamplingParams, get_config)
     with phase("22"):
-        audio_serve = phase_cross_serve(*serving, AUDIO_ARCH, None,
+        audio_serve = phase_cross_serve(*serving, AUDIO_ARCH, AUDIO_LAYERS,
                                         reporter("audio_serve"), "22(a)")
-        audio_fq = phase_cross_fq_serve(*serving, AUDIO_ARCH, None,
+        audio_fq = phase_cross_fq_serve(*serving, AUDIO_ARCH, AUDIO_LAYERS,
                                         reporter("audio_fakequant_serve"),
                                         "22(b)")
         audio_train = phase_cross_train(K, U, TA, M, syn, get_config,
                                         reporter("audio_train"), AUDIO_ARCH,
-                                        None, "22(c)")
+                                        AUDIO_LAYERS, "22(c)")
     with phase("23"):
         vlm_serve = phase_cross_serve(*serving, VLM_ARCH, VLM_SERVE_LAYERS,
                                       reporter("vlm_serve"), "23(a)")
@@ -9068,6 +9590,13 @@ def main():
                                     reporter("moe_scout"), gpu_line)
     details["moe_28"] = {"qat": moe_qat, "drop": moe_drop,
                          "scout": moe_scout}
+
+    with phase("29"):
+        family = phase_family_qat(K, TL, TO, get_config,
+                                  reporter("family_qat"), gpu_line)
+        family_vlm = phase_family_vlm(M, DR, S, TM, get_config,
+                                      reporter("family_vlm"), gpu_line)
+    details["family_29"] = {"qat": family, "vlm": family_vlm}
 
     def remat_launches(name):
         """The kernels-line figures of phase 26 for one launch count."""
@@ -9314,7 +9843,8 @@ def main():
                     "xbar_fakequant_split + xbar_fakequant_finish, the "
                     "per-token range over the whole width from the ranks' "
                     "gathered range partials)",
-        **tp_split_entry(tp_qat)}, {
+        **tp_split_entry(tp_qat),
+        "launches_family_29": family_launches(family, "split")}, {
         "name": "xbar_fakequant_tiles", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_fakequant.cu",
         "replaces": "src/repro/kernels/xbar_vmm.py:247 (the fakequant "
@@ -9322,7 +9852,8 @@ def main():
                     "xbar_fakequant_split with q copied out, the ranks' "
                     "tiles gathered in tile order, xbar_fakequant_tiles "
                     "the epilogue over every tile)",
-        **tp_split_entry(tp_qat, "tiles")}, {
+        **tp_split_entry(tp_qat, "tiles"),
+        "launches_family_29": family_launches(family, "tiles")}, {
         "name": "xbar_fakequant_expert_shared_scale", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_fakequant.cu",
         "replaces": "src/repro/kernels/xbar_vmm.py:247 (a data rank's rows "
@@ -9517,7 +10048,14 @@ def main():
         "each expert's buffer: launches counts the expert-stack reads of "
         "28(a)'s steps on 2x2, 1x4 and 4x1, summed over the ranks; ms, "
         "plain_ms and bound_ms one such read on rank 0 of 4x1; no PyTorch "
-        "call computes the function, so library_ms is null")
+        "call computes the function, so library_ms is null. Phase 29 "
+        "(tensor parallelism of the SSM, hybrid and cross-attention "
+        "families, QAT at full width: mamba2-1.3b at 2 layers, zamba2-1.2b "
+        "at 6, whisper-medium at 2 + 2): xbar_fakequant_split's and "
+        "xbar_fakequant_tiles' launches_family_29 count their reads in "
+        "29(a)-(c)'s steps on 2x2, 1x4 and 4x1, summed over the ranks, by "
+        "model (in_proj with B, C and dt whole on every rank, the shared "
+        "block, the cross wqkv over the tokens and the frames)")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1))

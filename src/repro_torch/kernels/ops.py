@@ -70,13 +70,17 @@ class _Split(NamedTuple):
     (``range_axes``, ``n_range`` columns in all; ``tot`` (T, tiles) the
     whole width's per-(token, row tile) sum of q²) and those sharing the
     DAC scale (``scale_axes``; ``sc`` the shared scale, (1,), or (L,) one
-    per lead matrix of an expert stack)."""
+    per lead matrix of an expert stack); ``own`` (N,), where a part of
+    the leaf is whole on every rank of ``range_axes``, is 1 at the columns
+    whose range term this rank counts (such a part's on the first rank
+    alone, as the whole width counts it once) and 0 elsewhere."""
     mesh: object
     range_axes: tuple
     scale_axes: tuple
     n_range: int
     sc: Optional[Tensor]
     tot: Optional[Tensor]
+    own: Optional[Tensor] = None
 
 
 def _adc_lsb(q: Tensor, adc: AdcConfig, split: Optional[_Split] = None):
@@ -85,16 +89,19 @@ def _adc_lsb(q: Tensor, adc: AdcConfig, split: Optional[_Split] = None):
     output width.  The lsb divides by ``core.adc.divisor``, the float32
     division the reference takes, on the card as on the CPU.  A column
     split's range is the whole width's: its value from ``split.tot``, its
-    gradient through this rank's q only (the others' sums constants), and
-    ``dL/dlsb`` summed over ``split.range_axes`` (each rank's codes
-    cover its own columns)."""
+    gradient through this rank's q only (the others' sums constants; a
+    part every rank holds whole through the first rank's alone,
+    ``split.own``), and ``dL/dlsb`` summed over ``split.range_axes`` (each
+    rank's codes cover its own columns, and a whole part's codes carry
+    this rank's share of their cotangent)."""
     if split is None or split.tot is None:
         sat = adc.sat_sigmas * torch.sqrt(
             torch.mean(q * q, dim=-1, keepdim=True) + 1e-12)
         return sat, sat / divisor(adc.out_levels, sat)
     n = torch.full((), float(split.n_range), device=q.device)
     tot = split.tot.reshape(*q.shape[:-1], 1)
-    own = torch.sum(q * q, dim=-1, keepdim=True)
+    sq = q * q if split.own is None else q * q * split.own
+    own = torch.sum(sq, dim=-1, keepdim=True)
     grad = adc.sat_sigmas * torch.sqrt((own + (tot - own.detach())) / n
                                        + 1e-12)
     sat = adc.sat_sigmas * torch.sqrt(tot / n + 1e-12) \
@@ -228,7 +235,9 @@ class FakequantSplitRead(torch.autograd.Function):
     split's per-(token, row tile) ADC range sums q² over the ranks of
     ``range_axes`` (the ranks holding the other columns, ``n_range``
     columns wide in all; ``blocks`` puts the gathered 64-column range
-    partials in the whole width's order).  A row split gathers the
+    partials in the whole width's order; where it takes a part from the
+    first rank alone, the part every rank holds whole, the other ranks'
+    columns of that part carry no range gradient).  A row split gathers the
     ranks of ``tile_axes``' row tiles and returns the whole read (one
     device's output on every rank).  An expert stack (``x`` (L, T, K),
     ``w`` (L, K, N)) shares each lead matrix's scale over ``scale_axes``
@@ -244,8 +253,10 @@ class FakequantSplitRead(torch.autograd.Function):
         if scale_axes:
             sc = _all_reduce(fakequant_scale(x, adc.in_levels), mesh,
                              scale_axes, "max")
-        tot = None
+        tot = own = None
         if range_axes:
+            own = _range_owned(w.shape[-1], mesh, range_axes, blocks,
+                               w.device)
             def combine(s):     # ordered gather, then the whole width's order
                 for a in reversed(range_axes):
                     s = mesh.all_gather(s, a, s.ndim - 1)
@@ -262,18 +273,35 @@ class FakequantSplitRead(torch.autograd.Function):
             y = fakequant_tiles_read(x, w, adc, rows, combine, sc)
         else:
             y = fakequant_read(x, w, adc, rows, sc=sc, instance=instance)
-        ctx.save_for_backward(x, w, sc, tot)
+        ctx.save_for_backward(x, w, sc, tot, own)
         ctx.args = (adc, rows, mesh, range_axes, scale_axes, n_range)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, w, sc, tot = ctx.saved_tensors
+        x, w, sc, tot, own = ctx.saved_tensors
         adc, rows, mesh, range_axes, scale_axes, n_range = ctx.args
         dx, dw = _fakequant_vjp(
             x, w, dy, adc, rows, ctx.needs_input_grad[:2],
-            _Split(mesh, range_axes, scale_axes, n_range, sc, tot))
+            _Split(mesh, range_axes, scale_axes, n_range, sc, tot, own))
         return (dx, dw) + (None,) * 9
+
+
+def _range_owned(n: int, mesh, range_axes, blocks, device,
+                 cols: int = 64) -> Optional[Tensor]:
+    """``_Split.own`` of a rank's ``n`` columns of a column split whose
+    gathered 64-column range blocks ``blocks`` puts in the whole width's
+    order: 1 where the whole width takes the block from this rank's, 0
+    at a whole part's blocks it takes from another rank; None when it
+    takes every block of every rank (no part is whole)."""
+    if blocks is None:
+        return None
+    per = n // cols
+    r = shardctx.flat_index(mesh.shape, mesh.coords, range_axes)
+    mine = torch.isin(r * per + torch.arange(per), blocks.cpu())
+    if bool(mine.all()):
+        return None
+    return mine.float().repeat_interleave(cols).to(device)
 
 
 def quantize_dequantize_at(x: Tensor, sc: Tensor, adc: AdcConfig) -> Tensor:

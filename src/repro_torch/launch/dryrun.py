@@ -12,7 +12,8 @@ coords)``: the production meshes need 256 or 512 ranks, which
     training cell on a mesh of several ranks its block of every numeric
     leaf and of adamw's ``m`` and ``v`` (``launch.sharding.state_specs``;
     a fused leaf's k and v stay whole on every ``model`` rank where the
-    kv heads do not divide over it), whole on one rank and in the serving
+    kv heads do not divide over it, and so do the SSD layers' ``in_proj``
+    B, C and dt), whole on one rank and in the serving
     cells (serving holds the whole model on every rank), the batch and
     the cache at this rank's share of the batch (over the data axes where
     they divide it).  Beside it, ``policy_argument_gb`` is what the
@@ -39,7 +40,10 @@ coords)``: the production meshes need 256 or 512 ranks, which
     training step on several
     ranks is the FSDP / tensor-parallel step of ``train_loop.
     make_train_step(mesh=)``, its layers' gathers, their backward
-    ``reduce_scatter``s and the tensor-parallel sums; a MoE layer's
+    ``reduce_scatter``s and the tensor-parallel sums (among them the SSD
+    layers' gathers of the gated norm's input; ``numeric`` holds the
+    step's ``NumericParallel.counts``: its layer gathers and
+    ``norm_gather_bytes``, that gather's bytes a step); a MoE layer's
     temporaries are this rank's: its rows of the global dispatch's
     buffer and, under expert parallelism, its own experts' alone.  On
     the card a data rank's buffer holds as many rows an expert as its
@@ -198,6 +202,9 @@ def reckon(cfg, shape: ShapeSpec, mesh: Mesh) -> dict:
     gb = 1e9
     arg = sum(held.values())
     temp = trace.peak_bytes
+    numeric = {}
+    if shape.kind == "train" and step.numeric is not None:
+        numeric = dict(step.numeric.counts)
     return {
         "devices": mesh.size,
         "local_batch": b,
@@ -214,6 +221,7 @@ def reckon(cfg, shape: ShapeSpec, mesh: Mesh) -> dict:
                                    for k in held},
         },
         "trace": trace.summary(),
+        "numeric": numeric,
         "argument_bytes": arg,
     }
 
@@ -336,6 +344,10 @@ def main(argv=None):
                           f"({m['argument_gb']:.2f} held, "
                           f"{m['replicated_by_port_gb']:.2f} replicated by "
                           f"the port), {rec['trace']['flops']:.3e} FLOPs")
+                if rec["numeric"].get("norm_gather_bytes"):
+                    status += (", SSD norm gathers "
+                               f"{rec['numeric']['norm_gather_bytes'] / 1e9:.2f}"
+                               " GB a step")
             else:
                 status = f"FAIL ({rec['error']})"
             print(f"[done] {tag}: {status} in {rec['total_s']}s",

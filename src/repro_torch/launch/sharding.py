@@ -330,12 +330,29 @@ def map_specs(fn, tree, specs):
 # The numeric step's rest layout: blocks of every leaf, fused leaves by part
 # --------------------------------------------------------------------------
 
+def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """``(d_in, heads, groups x state)`` of an SSD layer."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    return d_in, d_in // cfg.ssm_head_dim, cfg.ssm_groups * cfg.ssm_state
+
+
 def fused_parts(path, width: int, cfg: ModelConfig, n: int):
     """The parts of a fused leaf's output dim, ``[(width, split), ...]``,
     over ``n`` ranks of ``model``; None for any other leaf.  ``wqkv``: q,
     k and v, q split when the heads divide, k and v when the kv heads
-    do; ``w_upgate``: up and gate, each split when it divides."""
+    do; ``w_upgate``: up and gate, each split when it divides; the SSD
+    layer's ``in_proj``: z and x split when its heads divide (whole heads
+    a rank), B and C when its groups do, dt whole on every rank (a rank
+    slices its heads' dt after the read: split, its few columns would
+    not fill a 64-column range block)."""
     sp = [str(k) for k in path]
+    if "in_proj" in sp and cfg.ssm_state:
+        d_in, h, gn = ssm_dims(cfg)
+        if 2 * d_in + 2 * gn + h != width:
+            return None
+        heads, groups = h % n == 0, cfg.ssm_groups % n == 0
+        return [(d_in, heads), (d_in, heads), (gn, groups), (gn, groups),
+                (h, False)]
     if "wqkv" in sp:
         hd = cfg.resolved_head_dim
         nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
@@ -539,9 +556,13 @@ class _FusedGather(torch.autograd.Function):
         return g.index_select(-1, cols.to(g.device)), None, None
 
 
-#: The leaves a tensor-parallel dense or MoE block keeps split, by their
-#: path in the block: the dim kept and the plan flag that allows it.
-TP_KEPT = {("attn", "wqkv", "w"): (-1, "attn"),
+#: The leaves a tensor-parallel step keeps split, by their path in a
+#: block (a leaf outside the layer stacks by its path in the tree, read
+#: through :data:`TP_ALIAS`): the dim kept and the plan flag that allows
+#: it.
+TP_KEPT = {("embed",): (0, "vocab"),
+           ("lm_head", "w"): (-1, "vocab"),
+           ("attn", "wqkv", "w"): (-1, "attn"),
            ("attn", "wq", "w"): (-1, "mla"),
            ("attn", "wkv_b", "w"): (-1, "mla"),
            ("attn", "wo", "w"): (-2, "attn_row"),
@@ -553,12 +574,35 @@ TP_KEPT = {("attn", "wqkv", "w"): (-1, "attn"),
            ("moe", "shared", "w_down", "w"): (-2, "ffn_row"),
            ("moe", "experts", "w_up"): (-3, "ep"),
            ("moe", "experts", "w_gate"): (-3, "ep"),
-           ("moe", "experts", "w_down"): (-3, "ep")}
+           ("moe", "experts", "w_down"): (-3, "ep"),
+           ("ssm", "in_proj", "w"): (-1, "ssm"),
+           ("ssm", "out_proj", "w"): (-2, "ssm")}
+
+#: The layer stacks of every family's tree (a layer's path starts after
+#: its stack's key).
+STACKS = ("layers", "enc_layers", "dec_layers", "self_layers",
+          "cross_layers")
+
+#: Modules :data:`TP_KEPT` and the plan read as another: a cross-attention
+#: as an attention, the hybrid's shared block (at the top of the tree) as
+#: a block's attention and FFN.
+TP_ALIAS = {"xattn": "attn", "shared_attn": "attn", "shared_ffn": "ffn"}
+
+
+def block_path(path) -> Tuple[str, ...]:
+    """A parameter path as :data:`TP_KEPT` reads it: a layer's leaf by its
+    path in the block (the stack's key dropped), its first key through
+    :data:`TP_ALIAS`."""
+    path = tuple(str(k) for k in path)
+    if path and path[0] in STACKS:
+        path = path[1:]
+    return (TP_ALIAS.get(path[0], path[0]),) + path[1:] if path else path
+
 
 #: The plan flags of :class:`NumericParallel`, in the order they are
 #: reported.
-PLAN_FLAGS = ("attn", "mla", "attn_row", "ffn", "ffn_row", "ep", "vocab",
-              "seq")
+PLAN_FLAGS = ("attn", "mla", "attn_row", "ffn", "ffn_row", "ep", "ssm",
+              "vocab", "seq")
 
 
 def _spec_at(specs, path):
@@ -577,13 +621,18 @@ class NumericParallel:
     ``reduce_scatter``, each data rank's gradient being partial), and
     ``model`` unless the plan keeps the dim split (backward: this rank's
     block of the gradient, the compute being replicated over ``model``).
-    The plan (one flag each, ``model`` > 1, the decoder families that
-    ``models.transformer.decoder_apply`` runs: dense and moe; each flag
-    off where its divisibility fails):
+    The plan (one flag each, ``model`` > 1, each flag off where its
+    divisibility fails in any of the leaves it covers: a block's in every
+    layer stack, :data:`STACKS`, and the hybrid's shared block at the top
+    of the tree, :data:`TP_ALIAS`):
 
       * ``attn``: ``wqkv`` column-parallel and the heads split (whole
         heads a rank); in fakequant mode also the kv heads (GQA: the
-        dense family and llama4-scout's MoE blocks);
+        dense family, llama4-scout's MoE blocks, the hybrid's shared
+        block, the audio encoder's and decoder's self-attention and the
+        VLM's self blocks); a cross-attention's fused ``wqkv`` (``xattn``
+        of whisper's decoder and the VLM's cross blocks) the same, its
+        one read over both token streams;
       * ``mla``: MLA's ``wq`` and ``wkv_b`` column-parallel by whole
         heads, ``wkv_a``, ``kv_norm`` and the shared rope key replicated
         (every rank forms the whole latent); in fakequant mode each
@@ -594,12 +643,22 @@ class NumericParallel:
         read's partial outputs summed over ``model``; otherwise the heads'
         outputs are gathered and ``wo`` read whole;
       * ``ffn`` / ``ffn_row``: the same for ``w_upgate`` (or ``w_up``)
-        and ``w_down``, of the dense FFN or of the MoE's shared experts
-        (``d_ff`` the width they split);
+        and ``w_down``, of the dense FFN (every family's, the shared
+        block's too) or of the MoE's shared experts (``d_ff`` the width
+        they split);
       * ``ep``: the expert stacks keep their expert dim split over
         ``model`` (gathered over the FSDP axes only); each rank runs its
         own experts' rows of the dispatch buffer and the experts' outputs
         are summed over ``model`` (``models.moe``);
+      * ``ssm``: the SSD layers (the ssm and hybrid families) split by
+        heads (``models.ssm``): ``in_proj`` column-parallel (z and x by
+        whole heads, B and C whole on every rank unless the groups
+        divide, dt whole), the conv and the scan on the rank's channels
+        and heads, the gated norm whole on every rank over the gathered
+        ``d_in`` (``counts["norm_gather_bytes"]``), ``out_proj``
+        row-parallel; in fakequant mode each rank's ``in_proj`` columns
+        whole 64-column range blocks and its ``out_proj`` rows whole
+        tiles;
       * ``vocab``: the embedding vocab-split (a rank looks up its rows,
         the partial embeddings summed) and the head vocab-parallel, the
         loss a vocab-parallel cross-entropy (``models.model.loss_fn``);
@@ -615,8 +674,9 @@ class NumericParallel:
     loss's means over the global tokens and each expert's DAC scale the
     max over the data ranks.
 
-    ``counts["layer_gathers"]`` counts the layers gathered (a rematted
-    layer's backward gathers again).
+    ``counts["layer_gathers"]`` counts the layers gathered and
+    ``counts["norm_gather_bytes"]`` the bytes of the SSD norm's gathered
+    input (a rematted layer's backward gathers both again).
     """
 
     def __init__(self, cfg: ModelConfig, mesh):
@@ -629,19 +689,22 @@ class NumericParallel:
         m = mesh.shape.get("model", 1)
         self.m = m = m if "model" not in dp_axes(mesh) else 1
         self.tp = ("model",) if m > 1 else ()
-        self.counts = {"layer_gathers": 0}
+        self.counts = {"layer_gathers": 0, "norm_gather_bytes": 0}
         self.sp_on = False
         qat = resolve_analog_mode(cfg) is AnalogMode.FAKEQUANT
-        decoder = cfg.family in ("dense", "moe") and self.m > 1
-        moe = decoder and cfg.family == "moe"
+        on = m > 1
+        moe = on and cfg.family == "moe"
         hd, rows = cfg.resolved_head_dim, cfg.analog_rows
-        lay = self.specs.get("layers", {})
+        by_block: Dict[Tuple[str, ...], list] = {}
+        for path, spec in _flat_paths(self.specs):
+            by_block.setdefault(block_path(path), []).append(spec)
 
         def split(path, dim):
-            try:
-                return _spec_at(lay, path)[dim] == ("model",)
-            except (KeyError, IndexError, TypeError):
-                return False
+            """Every leaf at block path ``path`` (in any stack, or the
+            shared block's) splits ``dim`` over ``model``."""
+            found = by_block.get(tuple(path), [])
+            return bool(found) and all(
+                len(sp) >= -dim and sp[dim] == ("model",) for sp in found)
         self.kv_split = cfg.n_kv_heads % m == 0
         # the FFN the ffn flags split: the dense FFN or the shared experts
         ffn_path = ("moe", "shared") if moe else ("ffn",)
@@ -652,15 +715,21 @@ class NumericParallel:
         w_qkv = (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
         w_q = cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim)
         w_kv = cfg.n_heads * (cfg.qk_nope_dim + cfg.v_head_dim)
+        d_in, h_ssm, gn = ssm_dims(cfg) if cfg.ssm_state else (0, 0, 0)
+        w_in = 2 * d_in + 2 * gn + h_ssm
+
+        def blocks(path, width):
+            parts = fused_parts(path, width, cfg, m)
+            return None if parts is None else range_blocks(parts, m)
         self.blocks = {
-            "wqkv": range_blocks(fused_parts(("wqkv",), w_qkv, cfg, m), m),
+            "wqkv": blocks(("wqkv",), w_qkv),
             "wq": range_blocks([(w_q, True)], m),
             "wkv_b": range_blocks([(w_kv, True)], m),
-            "w_upgate": range_blocks(fused_parts(("w_upgate",),
-                                                 2 * self.d_ff, cfg, m), m),
-            "w_up": range_blocks([(self.d_ff, True)], m)}
-        self.attn = decoder and not cfg.use_mla and cfg.n_heads % m == 0 \
-            and split(("attn", "wqkv", "w"), -1) \
+            "w_upgate": blocks(("w_upgate",), 2 * self.d_ff),
+            "w_up": range_blocks([(self.d_ff, True)], m),
+            "in_proj": blocks(("in_proj",), w_in)}
+        self.attn = on and cfg.n_heads > 0 and not cfg.use_mla \
+            and cfg.n_heads % m == 0 and split(("attn", "wqkv", "w"), -1) \
             and fused_parts(("wqkv",), w_qkv, cfg, m)[0][1] \
             and (not qat or (self.kv_split
                              and self.blocks["wqkv"] is not None))
@@ -674,16 +743,23 @@ class NumericParallel:
             and split(("attn", "wo", "w"), -2) \
             and (not qat or (cfg.n_heads * v_dim // m) % rows == 0)
         up = ffn_path + ("w_upgate" if cfg.gated else "w_up", "w")
-        self.ffn = decoder and self.d_ff > 0 and self.d_ff % m == 0 \
+        self.ffn = on and self.d_ff > 0 and self.d_ff % m == 0 \
             and split(up, -1) and (not qat or self.blocks[up[-2]] is not None)
         self.ffn_row = self.ffn and split(ffn_path + ("w_down", "w"), -2) \
             and (not qat or (self.d_ff // m) % rows == 0)
         self.ep = moe and cfg.n_experts % m == 0 and all(
             split(("moe", "experts", k), -3)
             for k in ("w_up", "w_gate", "w_down"))
+        self.ssm = on and cfg.family in ("ssm", "hybrid") \
+            and h_ssm % m == 0 \
+            and (cfg.ssm_groups == 1 or cfg.ssm_groups % m == 0) \
+            and split(("ssm", "in_proj", "w"), -1) \
+            and split(("ssm", "out_proj", "w"), -2) \
+            and (not qat or (self.blocks["in_proj"] is not None
+                             and (d_in // m) % rows == 0))
         emb = self.specs.get("embed")
         head = self.specs.get("lm_head", {}).get("w")
-        self.vocab = decoder and emb is not None and emb[0] == ("model",) \
+        self.vocab = on and emb is not None and emb[0] == ("model",) \
             and (cfg.tie_embeddings or (head is not None
                                         and head[-1] == ("model",)))
         self.seq = bool(os.environ.get("REPRO_SEQ_SHARD")) \
@@ -719,44 +795,42 @@ class NumericParallel:
                 t = shardctx.gather(t, self.mesh, (a,), d, grad)
         return t
 
-    def tree(self, tree, specs, like, path=(), lead: int = 0, kept=None):
-        """Every leaf of ``tree`` gathered by :meth:`leaf` (``like``: the
-        whole tree on the meta device; a layer's specs and ``like`` carry
-        ``lead`` stacking dims first); ``kept`` maps a leaf's path to the
-        dim it keeps split."""
+    def kept(self, path) -> Optional[int]:
+        """The dim the leaf at ``path`` (its path in the tree) keeps split
+        over ``model`` under the plan (:data:`TP_KEPT`), else None."""
+        hit = TP_KEPT.get(block_path(path))
+        return hit[0] if hit is not None and getattr(self, hit[1]) else None
+
+    def tree(self, tree, specs, like, path=(), lead: int = 0):
+        """Every leaf of ``tree`` (at ``path`` in the parameter tree)
+        gathered by :meth:`leaf`, the split the plan keeps left in place
+        (``like``: the whole tree on the meta device; a layer's specs and
+        ``like`` carry ``lead`` stacking dims first)."""
         if isinstance(tree, dict):
-            return {k: self.tree(v, specs[k], like[k], path + (k,), lead,
-                                 kept) for k, v in tree.items()}
+            return {k: self.tree(v, specs[k], like[k], path + (k,), lead)
+                    for k, v in tree.items()}
         if not isinstance(tree, torch.Tensor):
             return tree
-        return self.leaf(tree, tuple(specs)[lead:], path,
-                         (kept or {}).get(path), like.shape[-1])
+        return self.leaf(tree, tuple(specs)[lead:], path, self.kept(path),
+                         like.shape[-1])
 
     def layer(self, lp: dict, stack) -> dict:
         """A layer's leaves of the stack ``stack`` (a key of the parameter
         tree, a tuple for nested stacks), gathered for its block."""
         self.counts["layer_gathers"] += 1
         stack = (stack,) if isinstance(stack, str) else tuple(stack)
-        kept = {path: dim for path, (dim, flag) in TP_KEPT.items()
-                if getattr(self, flag)} if stack == ("layers",) else None
         return self.tree(lp, _spec_at(self.specs, stack),
-                         _spec_at(self.like, stack), (), 1, kept)
+                         _spec_at(self.like, stack), stack, 1)
 
     def top(self, t, path):
         """A leaf or subtree outside the layer stacks (the embedding, the
         head, the final norm, the audio encoder's positions, the hybrid's
-        shared block), gathered; the vocab-split dim of the embedding and
-        the head kept under ``vocab``."""
+        shared block), gathered but for the splits the plan keeps (the
+        vocab split of the embedding and the head, the shared block's
+        attention and FFN)."""
         path = (path,) if isinstance(path, str) else tuple(path)
-        specs, like = _spec_at(self.specs, path), _spec_at(self.like, path)
-        if not isinstance(t, torch.Tensor):
-            return self.tree(t, specs, like, path, 0, None)
-        keep = None
-        if self.vocab and path == ("embed",):
-            keep = 0
-        elif self.vocab and path == ("lm_head", "w"):
-            keep = -1
-        return self.leaf(t, tuple(specs), path, keep, like.shape[-1])
+        return self.tree(t, _spec_at(self.specs, path),
+                         _spec_at(self.like, path), path, 0)
 
     # ------------------------------------------------------- activations
 

@@ -17,8 +17,9 @@ returns fresh arrays and its engines donate the old ones).
 
 Under the numeric step's tensor parallelism
 (``core.shardctx.numeric_context``, ``launch.sharding.NumericParallel``)
-the dense and MoE families' ``attention``, ``mla_attention`` and ``ffn``
-(the MoE's shared experts) get this rank's blocks: ``wqkv``, ``wq`` /
+every family's ``attention`` (a cross-attention's one fused read too),
+``mla_attention`` and ``ffn`` (the MoE's shared experts, the hybrid's
+shared block) get this rank's blocks: ``wqkv``, ``wq`` /
 ``wkv_b`` and ``w_upgate`` / ``w_up`` column-parallel (this rank's
 heads, its ff slice), ``wo`` and ``w_down`` row-parallel (or, where the
 plan keeps them whole, the heads' outputs gathered first); :func:`project`'s
@@ -337,37 +338,12 @@ def attention(p: dict, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
     unused column blocks of each stream carry zero cotangents).  No rope,
     no causal mask, and the cache is not touched.
     """
-    hd = cfg.resolved_head_dim
     npar = shardctx.numeric_context()
-    tp = npar is not None and npar.attn and x_kv is None and cache is None
-    n_h, n_kvh = cfg.n_heads, cfg.n_kv_heads
-    wqkv, col = p["wqkv"], None
-    if tp:
-        x = npar.col_input(x)
-        n_h //= npar.m
-        col = ("col", (cfg.n_heads + 2 * cfg.n_kv_heads) * hd,
-               npar.blocks.get("wqkv"))
-        if npar.kv_split:
-            n_kvh //= npar.m
-        else:   # MQA: k and v whole on every rank, their gradient summed
-            w = wqkv["w"]
-            wqkv = {"w": torch.cat([w[..., :n_h * hd], shardctx.copy_to(
-                w[..., n_h * hd:], npar.mesh, npar.tp)], dim=-1)}
-    b, sq = x.shape[0], x.shape[1]
+    tp = npar is not None and npar.attn and cache is None
+    q, k, v = fused_qkv(p, x, cfg, tp, x_kv)
+    b, sq = q.shape[0], q.shape[1]   # the whole sequence under ``seq``
     append = cache is not None and x_kv is None and (
         sq == 1 or positions is not None)
-    nq, nkv = n_h * hd, n_kvh * hd
-    if x_kv is None:
-        qkv = project(wqkv, x, cfg, tp=col)
-        q = _split_heads(qkv[..., :nq], n_h)
-        k = _split_heads(qkv[..., nq:nq + nkv], n_kvh)
-        v = _split_heads(qkv[..., nq + nkv:], n_kvh)
-    else:
-        qkv = project(p["wqkv"], torch.cat([x, x_kv.to(x.dtype)], dim=1),
-                      cfg)
-        q = _split_heads(qkv[:, :sq, :nq], cfg.n_heads)
-        k = _split_heads(qkv[:, sq:, nq:nq + nkv], cfg.n_kv_heads)
-        v = _split_heads(qkv[:, sq:, nq + nkv:], cfg.n_kv_heads)
     if positions is None:
         positions = torch.arange(sq, device=x.device).expand(b, sq)
     if use_rope and x_kv is None:
@@ -397,6 +373,44 @@ def attention(p: dict, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
                                            device=x.device)}
     o = o.reshape(b, sq, -1)
     return _out_project(p, o, cfg, npar if tp else None), new_cache
+
+
+def fused_qkv(p: dict, x: Tensor, cfg: ModelConfig, tp: bool,
+              x_kv: Optional[Tensor] = None
+              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """q, k and v (B, S, heads, hd) of one read of the fused ``wqkv``: of
+    ``x``, or for a cross-attention q of ``x`` and k and v of ``x_kv``
+    from one read of the two streams concatenated along the tokens (see
+    :func:`attention`).  ``tp`` (the numeric step's ``attn`` plan): this
+    rank's heads, a column-parallel read of its q, k and v columns in
+    the split-range form (one DAC scale and one range a token over both
+    streams, as the whole read's); under MQA k and v whole on every rank,
+    their gradient summed over ``model``."""
+    hd = cfg.resolved_head_dim
+    n_h, n_kvh = cfg.n_heads, cfg.n_kv_heads
+    wqkv, col = p["wqkv"], None
+    sq = x.shape[1]
+    if x_kv is not None:
+        x = torch.cat([x, x_kv.to(x.dtype)], dim=1)
+    if tp:
+        npar = shardctx.numeric_context()
+        x = npar.col_input(x)
+        n_h //= npar.m
+        col = ("col", (cfg.n_heads + 2 * cfg.n_kv_heads) * hd,
+               npar.blocks.get("wqkv"))
+        if npar.kv_split:
+            n_kvh //= npar.m
+        else:   # MQA: k and v whole on every rank, their gradient summed
+            w = wqkv["w"]
+            wqkv = {"w": torch.cat([w[..., :n_h * hd], shardctx.copy_to(
+                w[..., n_h * hd:], npar.mesh, npar.tp)], dim=-1)}
+    nq, nkv = n_h * hd, n_kvh * hd
+    qkv = project(wqkv, x, cfg, tp=col)
+    q_rows, kv_rows = (slice(None), slice(None)) if x_kv is None \
+        else (slice(None, sq), slice(sq, None))
+    return (_split_heads(qkv[:, q_rows, :nq], n_h),
+            _split_heads(qkv[:, kv_rows, nq:nq + nkv], n_kvh),
+            _split_heads(qkv[:, kv_rows, nq + nkv:], n_kvh))
 
 
 def _out_project(p: dict, o: Tensor, cfg: ModelConfig, npar) -> Tensor:

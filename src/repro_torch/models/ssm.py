@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import shardctx
 
 from .layers import proj_init, project, rmsnorm, rmsnorm_init
 
@@ -83,11 +84,6 @@ def _causal_conv(x: Tensor, w: Tensor, b: Tensor,
     return F.silu(y + b.to(x.dtype)), new_state
 
 
-def _split_proj(zxbcdt: Tensor, cfg: ModelConfig):
-    d_in, h, n, g = _dims(cfg)
-    return torch.split(zxbcdt, [d_in, d_in + 2 * g * n, h], dim=-1)
-
-
 def _ssd_chunked(xh: Tensor, dt: Tensor, a_log: Tensor, bmat: Tensor,
                  cmat: Tensor, chunk: int,
                  h0: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
@@ -146,6 +142,42 @@ def _ssd_chunked(xh: Tensor, dt: Tensor, a_log: Tensor, bmat: Tensor,
     return y, hc
 
 
+def _rank_layer(p: dict, cfg: ModelConfig, npar):
+    """This ``model`` rank's view of an SSD layer under the numeric step's
+    ``ssm`` plan: its block of ``in_proj`` (z and x of its heads, B and C
+    whole unless the groups split, dt whole) with the whole parts' columns
+    through ``copy_to`` (their gradient summed over ``model``), and its
+    entries of the replicated leaves a rank uses in part (the conv's x
+    channels of its heads and the B / C channels; ``a_log``, ``dt_bias``,
+    ``d_skip`` of its heads), each sliced after a ``copy_to``: each rank's
+    gradient of such a leaf is 0 outside its slice, and ``reduce_grads``
+    sums no replicated leaf over ``model``.  Returns the layer and its
+    local ``(d_in, heads, groups)``."""
+    mesh, tp, m = npar.mesh, npar.tp, npar.m
+    r = mesh.coords["model"]
+    d_in, h, n, g = _dims(cfg)
+    dr, hr = d_in // m, h // m
+    gr = g // m if g % m == 0 else g
+    g0 = r * gr if g % m == 0 else 0
+    w = p["in_proj"]["w"]
+    dev = w.device
+    lead = 2 * dr + (2 * gr * n if g % m == 0 else 0)   # the split parts
+
+    def mine(t, idx):
+        return shardctx.copy_to(t, mesh, tp).index_select(-1, idx.to(dev))
+    gc = torch.arange(g0 * n, (g0 + gr) * n)
+    chans = torch.cat([torch.arange(r * dr, (r + 1) * dr), d_in + gc,
+                       d_in + g * n + gc])
+    out = dict(p)
+    out["in_proj"] = {"w": torch.cat(
+        [w[..., :lead], shardctx.copy_to(w[..., lead:], mesh, tp)], dim=-1)}
+    out["conv_w"], out["conv_b"] = mine(p["conv_w"], chans), \
+        mine(p["conv_b"], chans)
+    for k in ("a_log", "dt_bias", "d_skip"):
+        out[k] = shardctx.copy_to(p[k], mesh, tp).narrow(-1, r * hr, hr)
+    return out, (dr, hr, gr)
+
+
 def ssm_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
               state: Optional[dict] = None
               ) -> Tuple[Tensor, Optional[dict]]:
@@ -156,11 +188,31 @@ def ssm_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
     given: a prefill), padded to a multiple of ``ssm_chunk``; one token
     with a state is the O(1) recurrent step.  Returns ``(y, new_state)``,
     ``new_state`` fresh tensors (None without a conv state).
+
+    Under the numeric step's ``ssm`` plan (training: no state) the layer
+    splits over ``model`` by heads (:func:`_rank_layer`): ``in_proj``
+    column-parallel (this rank's z and x, B, C and dt whole), the conv on
+    the rank's channels, the scan on its heads; the gated norm over the
+    whole ``d_in`` runs whole on every rank, after ``y * silu(z)`` is
+    gathered along ``d_in`` (backward the rank's slice), so that its
+    forward and backward are one device's; the rank's columns of it then
+    feed ``out_proj`` row-parallel (backward gathered).
     """
     b, s, _ = x.shape
     d_in, h, n, g = _dims(cfg)
-    zxbcdt = project(p["in_proj"], x, cfg)
-    z, xbc, dt = _split_proj(zxbcdt, cfg)
+    npar = shardctx.numeric_context()
+    tp = npar is not None and npar.ssm and state is None
+    col = None
+    if tp:
+        col = ("col", 2 * d_in + 2 * g * n + h, npar.blocks.get("in_proj"))
+        p, (d_in, h, g) = _rank_layer(p, cfg, npar)
+        x = npar.col_input(x)
+    zxbcdt = project(p["in_proj"], x, cfg, tp=col)
+    z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * g * n,
+                                      zxbcdt.shape[-1] - 2 * d_in
+                                      - 2 * g * n], dim=-1)
+    if tp:      # dt is whole on every rank: this rank's heads
+        dt = dt.narrow(-1, npar.mesh.coords["model"] * h, h)
     dt = _softplus(dt.float() + p["dt_bias"][None, None, :])
 
     if state is None or s > 1:
@@ -202,9 +254,16 @@ def ssm_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
         new_state = {"h": hx, "conv": conv_state}
 
     y = y + p["d_skip"][None, None, :, None] * xh.float()
-    y = y.reshape(b, s, d_in).to(x.dtype)
-    y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
-    return project(p["out_proj"], y, cfg), new_state
+    y = y.reshape(b, s, d_in).to(x.dtype) * F.silu(z)
+    if not tp:
+        y = rmsnorm(p["norm"], y, cfg.norm_eps)
+        return project(p["out_proj"], y, cfg), new_state
+    y = shardctx.gather(y, npar.mesh, npar.tp, y.ndim - 1, "slice")
+    npar.counts["norm_gather_bytes"] += y.numel() * y.element_size()
+    y = shardctx.split_to(rmsnorm(p["norm"], y, cfg.norm_eps), npar.mesh,
+                          npar.tp, y.ndim - 1)
+    return project(p["out_proj"], y, cfg, tp=("row", cfg.d_model)), \
+        new_state
 
 
 def make_ssm_state(cfg: ModelConfig, batch: int, device=None) -> dict:

@@ -27,12 +27,13 @@ Under the numeric step's FSDP and tensor parallelism
 (``core.shardctx.numeric_context``) every layer's leaves are gathered
 just before its block runs (:func:`_layered`, inside the remat boundary:
 a rematted block's backward gathers again instead of keeping the layer
-alive), and so is every leaf outside the stacks at its use.  The dense
-family's embedding is then vocab-split (each rank looks up its rows, the
-partial embeddings summed over ``model``) and its head vocab-parallel;
-``REPRO_SEQ_SHARD`` splits the activations along the sequence between
-blocks, and ``REPRO_EMBED_BF16`` casts the table before the lookup (the
-reference's flags).
+alive), and so is every leaf outside the stacks at its use (the splits
+the plan keeps left in place: the hybrid's shared block's).  The
+embedding is then vocab-split (each rank looks up its rows, the partial
+embeddings summed over ``model``) and the head vocab-parallel;
+``REPRO_SEQ_SHARD`` splits the dense family's activations along the
+sequence between blocks, and ``REPRO_EMBED_BF16`` casts the table before
+the lookup (the reference's flags).
 
 The cross-attention families take a second token stream (the stub
 frontends' ``(B, n_vision_tokens | n_audio_frames, d_model)`` inputs).
@@ -58,10 +59,10 @@ from repro_torch.core.tiled_analog import pop_tapes, push_tapes, stack_trees
 
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import (_chunked_sdpa, _split_heads, attention, attn_init,
-                     cdtype, dense_init, embed_init, ffn, ffn_init,
-                     mla_attention, mla_init, proj_init, project, rmsnorm,
-                     rmsnorm_init)
+from .layers import (_chunked_sdpa, _out_project, _split_heads, attention,
+                     attn_init, cdtype, dense_init, embed_init, ffn,
+                     ffn_init, fused_qkv, mla_attention, mla_init, proj_init,
+                     project, rmsnorm, rmsnorm_init)
 
 Tensor = torch.Tensor
 
@@ -423,29 +424,26 @@ def _dec_block(lp: dict, x: Tensor, enc: Optional[Tensor], cfg: ModelConfig,
     """A decoder block (see :func:`audio_decode`): cached self-attention,
     the fused cross-attention, the FFN.  Fills ``c``'s cross keys and
     values in place when ``enc`` is given; returns the new self cache."""
-    hd = cfg.resolved_head_dim
-    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    nq = cfg.n_heads * cfg.resolved_head_dim
     h, nc_self = attention(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps),
                            cfg, positions=positions,
                            cache=c["self"] if c is not None else None)
     x = x + h
     hn = rmsnorm(lp["lnx"], x, cfg.norm_eps)
     xp = lp["xattn"]
+    npar = shardctx.numeric_context()
+    tp = npar is not None and npar.attn and c is None
     if enc is None:
         ck, cv = c["ck"].to(x.dtype), c["cv"].to(x.dtype)
         q = _split_heads(project(xp["wqkv"], hn, cfg)[..., :nq], cfg.n_heads)
     else:
-        sq = x.shape[1]
-        qkv = project(xp["wqkv"], torch.cat([hn, enc.to(hn.dtype)], dim=1),
-                      cfg)
-        q = _split_heads(qkv[:, :sq, :nq], cfg.n_heads)
-        ck = _split_heads(qkv[:, sq:, nq:nq + nkv], cfg.n_kv_heads)
-        cv = _split_heads(qkv[:, sq:, nq + nkv:], cfg.n_kv_heads)
+        q, ck, cv = fused_qkv(xp, hn, cfg, tp, enc)
         if c is not None:
             c["ck"].copy_(ck)
             c["cv"].copy_(cv)
     o = _chunked_sdpa(q, ck, cv, causal=False)
-    x = x + project(xp["wo"], o.reshape(*x.shape[:-1], -1), cfg)
+    x = x + _out_project(xp, o.reshape(*x.shape[:-1], -1), cfg,
+                         npar if tp else None)
     x = x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg)
     return x, nc_self
 

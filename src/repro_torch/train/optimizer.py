@@ -56,11 +56,17 @@ def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
             return ()
         return tree_map(torch.zeros_like, params)
 
-    def update(grads, state, params, **_):
+    def update(grads, state, params, consume: bool = False, **_):
+        """The new parameters and state.  ``consume``: ``grads`` is used
+        up, so plain sgd forms each new leaf in its gradient's memory
+        (``-(lr g) + p``, the bits of ``p - lr g``) and allocates
+        nothing."""
         if momentum == 0.0:
-            new = tree_map(lambda p, g: p - lr * g.to(p.dtype), params,
-                           grads)
-            return new, state
+            def leaf(p, g):
+                if consume and g.dtype == p.dtype:
+                    return g.mul_(-lr).add_(p)
+                return p - lr * g.to(p.dtype)
+            return tree_map(leaf, params, grads), state
         vel = tree_map(lambda v, g: momentum * v + g, state, grads)
         new = tree_map(lambda p, v: p - lr * v.to(p.dtype), params, vel)
         return new, vel

@@ -142,8 +142,9 @@ def test_train_cell_flops_within_reference_window(arch, smoke):
     (``tests/test_dryrun_artifacts.py``), the work summed over the data
     ranks: each computes its share of the batch.  A smoke attention model
     at 4096 tokens spends 7-13x 6 N D in attention (d_model 64), so the
-    smoke cell is the attention-free SSM's (on 16x16: the SSM family runs
-    no tensor parallelism); gemma-2b's at full size on the four-card
+    smoke cell is the attention-free SSM's (on 16x16 its 8 smoke SSD heads
+    do not split over 16 ``model`` ranks, so its layers run replicated
+    there); gemma-2b's at full size on the four-card
     layout 4x1 (FSDP alone: on 16x16 its 8 heads do not split over 16
     ``model`` ranks, so its attention runs replicated there)."""
     mesh = "16x16" if smoke else "4x1"
