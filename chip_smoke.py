@@ -485,14 +485,16 @@ before remat existed.
    on this one card, in a gloo group whose collectives move through
    slots on the card that every rank maps by CUDA IPC
    (:class:`CardTransport`, the meshes' exchange hook).  (a) lm100m at
-   full width, QAT at 128-row tiles (so that ``wo`` and ``w_down`` split
+   full width cut to 6 of its 12 layers (since phase 30, for the time
+   limit), QAT at 128-row tiles (so that ``wo`` and ``w_down`` split
    by rows), 8 x 256 tokens, one step on 2x2, 1x4 and 4x1 against
    the 1x1 step from the same state: the loss within 1e-4, the
    parameters in the test class, the fakequant reads a rank equal to the
    1x1 step's; on ``model`` ranks kernel 4's split-range (column split)
    and tiles (row split) reads against their plain versions and bit-equal
    to the whole read, both launched by the step.  (b) gemma-2b at full
-   width cut to 6 of 18 layers (since phase 29, for the time limit),
+   width cut to 3 of 18 layers (6 since phase 29, 3 since phase 30, for
+   the time limit),
    digital bfloat16, FSDP on 4x1 over 4 x 1024 tokens: each rank's held
    bytes equal the dry run's policy bytes, two layer gathers a layer, the
    loss within bfloat16's class of the 1x1 forward's.  (c)
@@ -504,7 +506,8 @@ before remat existed.
 
 28. Tensor and expert parallelism of the MoE family, each rank its own
    process on this card as in phase 27.  (a) deepseek-v2-lite at full
-   width cut to 2 layers, QAT at 128-row tiles, 8 x 256 tokens, one step
+   width cut to 1 layer (2 before phase 30, cut for the time limit), QAT
+   at 128-row tiles, 8 x 256 tokens, one step
    on 2x2, 1x4 and 4x1 against the 1x1 step from the same state: the loss
    within 1e-4, the parameters in the test class, each data rank's
    expert-stack read (kernel 4's lead form with the DAC scales shared
@@ -541,6 +544,23 @@ before remat existed.
    tokens and 1024 vision tokens, the cross gates non-zero: each rank's
    held parameter bytes equal the dry run's reckoning, the loss within
    1e-2 of the 1x1 forward's, the layer gathers counted.
+30. ``REPRO_SEQ_SHARD`` (the sequence split over ``model`` between the
+   blocks) on the other families, each rank its own process on this card
+   as in phase 27: (a) phase 28(a)'s deepseek-v2-lite on 2x2 and 1x4,
+   (b)-(d) phase 29(a)-(c)'s mamba2, zamba2 and whisper on 1x4, each one
+   QAT step against the 1x1 step of phases 28-29 (whose parameters they
+   keep for this phase) and against the same layout's step without the
+   flag: ``seq`` on, each column-parallel read's input the tokens' (and
+   the frames') chunk gathered whole, the loss within 1e-4, the
+   parameters in the test class, each rank's fakequant, split, tiles and
+   expert reads equal to the layout's count without the flag, no
+   plain-version call, and the reads of a whole leaf on a chunk (MLA's
+   ``wkv_a``, the hybrid's shared ``in``: the DAC scale shared over
+   ``model``) bit-equal to their rows of the whole read; (e) phase 29(d)'s
+   VLM step under the flag, its loss within 1e-2 of the 1x1 forward's.
+   Printed beside the layouts without the flag: the bytes each rank
+   receives a step through the numeric step's collectives, peak GB and
+   step ms a rank.
 
 Every phase prints its wall seconds on a line of its own.
 
@@ -7155,7 +7175,7 @@ TP_LR = 1e-3
 GEMMA_BATCH = (4, 1024)
 #: 27(b)'s depth: 6 of gemma-2b's 18 layers (cut for the script's time
 #: limit once phase 29 joined)
-GEMMA_TP_LAYERS = 6
+GEMMA_TP_LAYERS = 3
 #: 27(c): the exact=False layout and its batches.
 INEXACT_LAYOUT = (2, 4)
 INEXACT_B = (4, 2048)
@@ -7172,6 +7192,10 @@ FAULT_RANK = 1
 WRITE_LIMIT = 1.15
 
 
+#: 27(a)'s depth: lm100m cut to 6 of its 12 layers (for the time limit)
+TP_QAT_LAYERS = 6
+
+
 def tp_qat_cfg(get_config):
     """lm100m's QAT cell at 128-row tiles (phase 17's 1024-row tiles
     leave ``wo`` and ``w_down`` whole on every layout): ``w_down`` then
@@ -7179,7 +7203,8 @@ def tp_qat_cfg(get_config):
     runs kernel 4's row-split (tiles) form beside its column split."""
     return get_config("lm100m").replace(dtype="float32", analog=True,
                                         analog_mode="fakequant",
-                                        analog_rows=128)
+                                        analog_rows=128,
+                                        n_layers=TP_QAT_LAYERS)
 
 
 def gemma_tp_cfg(get_config):
@@ -7232,6 +7257,18 @@ def timed_step(step, state, batch, *args):
     ev[1].record()
     torch.cuda.synchronize()
     return state, m, ev[0].elapsed_time(ev[1])
+
+
+def collective_bytes(before=None):
+    """The bytes this rank received through the numeric step's collectives
+    (``core.shardctx.GATHERED["numeric"]``, by mesh axis, as a ring moves
+    them) since ``before``, or (``before`` None) a copy of the counts to
+    take the difference from."""
+    from repro_torch.core import shardctx
+    now = dict(shardctx.GATHERED["numeric"])
+    if before is None:
+        return now
+    return {a: now[a] - before.get(a, 0) for a in now}
 
 
 def split_read_case(K, mesh, cfg, adc, k=None, n=None, parts=None, t=None):
@@ -7562,7 +7599,7 @@ def tp_rank_inexact(rank, src):
 #: (the dry run reckons the 1x1 step at 46 GB and each rank of the
 #: layouts at well under 20: the phase prints its reckoning), its layouts
 #: and seed; the global batch is 27(a)'s, 8 x 256 tokens.
-MOE_LAYERS = 2
+MOE_LAYERS = 1
 MOE_LAYOUTS = ((2, 2), (1, 4), (4, 1))
 MOE_SEED = 28
 #: 28(c): its layout and a capacity factor at which the 1x1 dispatch
@@ -7792,9 +7829,11 @@ def moe_rank_qat(rank, src):
             K.LAUNCHES[name] = 0
         calls = []
         torch.cuda.reset_peak_memory_stats()
+        before = collective_bytes()
         with plain_counted(K, calls):
             state, mets, ms = timed_step(step, state, batch)
         launches = dict(K.LAUNCHES)
+        moved = collective_bytes(before)
         peak = torch.cuda.max_memory_allocated() / 1e9
         loss = mesh.all_reduce(mets["loss"].reshape(1), "data") \
             / mesh.shape["data"]
@@ -7803,7 +7842,7 @@ def moe_rank_qat(rank, src):
         res.update({
             "loss": float(loss), "grad_norm": float(mets["grad_norm"]),
             "ms": ms, "launches": launches, "plain_calls": len(calls),
-            "plan": npar.plan(), "peak_gb": peak,
+            "plan": npar.plan(), "peak_gb": peak, "collective_bytes": moved,
             "params_off": off, "params": total, "params_worst": worst,
             "params_by_leaf": by_leaf})
         del state
@@ -7854,7 +7893,8 @@ def scout_rank(rank, src, shape):
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
-def phase_moe_qat(M, K, TL, TO, get_config, report, gpu_line):
+def phase_moe_qat(M, K, TL, TO, get_config, report, gpu_line,
+                  keep_ref=False, then=()):
     """28(a) and 28(c): deepseek-v2-lite at full width (d 2048, 16 MLA
     heads, 64 experts of 2048 x 1408 top-6, 2 shared, vocab 102400) cut
     to MOE_LAYERS layers, QAT at 128-row tiles, 8 x 256 tokens: one FSDP
@@ -7871,7 +7911,10 @@ def phase_moe_qat(M, K, TL, TO, get_config, report, gpu_line):
     plan printed per layout (``ep``, ``mla`` and ``attn_row``, ``ffn``,
     ``vocab`` on model ranks).  28(c) at capacity factor MOE_DROP_CF on
     4x1: the 1x1 forward drops pairs, the loss within 1e-4 relative of
-    its, and the four ranks' dropped pairs sum to its count."""
+    its, and the four ranks' dropped pairs sum to its count.  With
+    ``keep_ref`` the 1x1 step's parameters stay in MOE_REF for phase 30
+    (which removes them); the jobs ``then`` run in the ranks' processes
+    after 28(a)'s (:func:`spawn_layout`)."""
     from repro_torch.models import moe
     cfg = moe_qat_cfg(get_config)
     opt = TO.adamw(TP_LR)
@@ -7896,9 +7939,10 @@ def phase_moe_qat(M, K, TL, TO, get_config, report, gpu_line):
     save_leaves(state["params"], MOE_REF)
     del state
     try:
-        ranks = spawn_layout(4, "moe")
+        ranks = spawn_layout(4, "moe", then)
     finally:
-        MOE_REF.unlink(missing_ok=True)
+        if not keep_ref:
+            MOE_REF.unlink(missing_ok=True)
     if not one["lead_reads"]:
         fail("28(a): the 1x1 step read no expert stack")
     if not drop_one["dropped"]:
@@ -7967,6 +8011,8 @@ def phase_moe_qat(M, K, TL, TO, get_config, report, gpu_line):
                                         for r in per],
                "tiles_reads_per_rank": [r["launches"]["fakequant_tiles"]
                                         for r in per],
+               "collective_bytes_per_rank": [r["collective_bytes"]
+                                             for r in per],
                "params_off": off, "params": total, "plan": per[0]["plan"],
                "expert": [r["expert"] for r in per if "expert" in r],
                "split": [r["split"] for r in per if "split" in r],
@@ -8248,9 +8294,11 @@ def family_rank(rank, src):
             npar.counts.update(layer_gathers=0, norm_gather_bytes=0)
             calls = []
             torch.cuda.reset_peak_memory_stats()
+            before = collective_bytes()
             with plain_counted(K, calls):
                 state, mets, ms = timed_step(step, state, batch)
             launches, counts = dict(K.LAUNCHES), dict(npar.counts)
+            moved = collective_bytes(before)
             peak = torch.cuda.max_memory_allocated() / 1e9
             loss = mesh.all_reduce(mets["loss"].reshape(1), "data") \
                 / mesh.shape["data"]
@@ -8259,7 +8307,8 @@ def family_rank(rank, src):
             res = {"loss": float(loss), "grad_norm": float(mets["grad_norm"]),
                    "ms": ms, "launches": launches, "counts": counts,
                    "plain_calls": len(calls), "plan": npar.plan(),
-                   "peak_gb": peak, "params_off": off, "params": total,
+                   "peak_gb": peak, "collective_bytes": moved,
+                   "params_off": off, "params": total,
                    "params_worst": worst, "params_by_leaf": by_leaf}
             del state
             torch.cuda.empty_cache()
@@ -8309,18 +8358,22 @@ def vlm_tp_rank(rank, src):
     step = TL.make_train_step(cfg, opt, mesh=mesh)
     batch = vlm_tp_batch(cfg, local_rows(mesh, VLM_TP_BATCH[0]))
     torch.cuda.reset_peak_memory_stats()
+    before = collective_bytes()
     state, mets, ms = timed_step(step, state, batch)
+    moved = collective_bytes(before)
     loss = mesh.all_reduce(mets["loss"].reshape(1), "data") \
         / mesh.shape["data"]
     return {"coords": dict(mesh.coords), "held": held, "ms": ms,
             "loss": float(loss), "grad_norm": float(mets["grad_norm"]),
-            "gates": gates,
+            "gates": gates, "collective_bytes": moved,
+            "sp": step.numeric.sp_on,
             "layer_gathers": step.numeric.counts["layer_gathers"],
             "plan": step.numeric.plan(),
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
-def phase_family_qat(K, TL, TO, get_config, report, gpu_line):
+def phase_family_qat(K, TL, TO, get_config, report, gpu_line,
+                     keep_ref=False, then=()):
     """29(a)-(c): mamba2-1.3b (d 2048, 64 SSD heads of 64, state 128, vocab
     50288 tied) at 2 layers, zamba2-1.2b (the same SSD layers at state 64,
     the shared block's 32 heads and d_ff 8192, vocab 32000) at 6 layers
@@ -8336,7 +8389,10 @@ def phase_family_qat(K, TL, TO, get_config, report, gpu_line):
     (``family_plan``; none on 4x1) and the SSD norm's gather counted
     where ``ssm`` is on; on ``model`` ranks every split read of
     ``family_read_cases`` bit-equal to the whole read and in its plain
-    version's class, and the scan probe bit-equal."""
+    version's class, and the scan probe bit-equal.  With ``keep_ref`` the
+    1x1 steps' parameters stay in ``family_ref`` for phase 30 (which
+    removes them); the jobs ``then`` run in the ranks' processes after
+    29(a)-(c)'s (:func:`spawn_layout`)."""
     ones = {}
     for label, arch, cut in FAMILY_CASES:
         cfg = family_cfg(get_config, arch, cut)
@@ -8357,9 +8413,9 @@ def phase_family_qat(K, TL, TO, get_config, report, gpu_line):
         del state, step, batch
         torch.cuda.empty_cache()
     try:
-        ranks = spawn_layout(4, "family")
+        ranks = spawn_layout(4, "family", then)
     finally:
-        for _, arch, _ in FAMILY_CASES:
+        for _, arch, _ in FAMILY_CASES if not keep_ref else ():
             family_ref(arch).unlink(missing_ok=True)
     for label, arch, _ in FAMILY_CASES:     # every figure before the gates
         for shape in TP_LAYOUTS:
@@ -8428,6 +8484,8 @@ def phase_family_qat(K, TL, TO, get_config, report, gpu_line):
                                             for r in per],
                    "norm_gather_bytes_per_rank": per[0]["counts"][
                        "norm_gather_bytes"],
+                   "collective_bytes_per_rank": [r["collective_bytes"]
+                                                 for r in per],
                    "layer_gathers_per_rank": per[0]["counts"][
                        "layer_gathers"],
                    "params_off": off, "params": total, "plan": per[0]["plan"],
@@ -8521,7 +8579,9 @@ def phase_family_vlm(M, DR, S, TM, get_config, report, gpu_line):
            "policy_bytes_rank0": policy, "port_bytes_rank0": port,
            "peak_gb_per_rank": [r["peak_gb"] for r in ranks],
            "peak_gb_1x1": one["peak_gb"], "plan": ranks[0]["plan"],
-           "layer_gathers": ranks[0]["layer_gathers"]}
+           "layer_gathers": ranks[0]["layer_gathers"],
+           "collective_bytes_per_rank": [r["collective_bytes"]
+                                         for r in ranks]}
     print(f"29(d) llama-3.2-vision-90b {label} TP over {row['tokens']} "
           f"tokens and {cfg.n_vision_tokens} vision tokens, {cfg.n_layers} "
           f"layers: loss {row['loss']:.5f} (1x1 forward {one['loss']:.5f}),"
@@ -8536,11 +8596,350 @@ def phase_family_vlm(M, DR, S, TM, get_config, report, gpu_line):
     return row
 
 
+#: Phase 30: ``REPRO_SEQ_SHARD`` on the MoE, SSM, hybrid and cross-attention
+#: families, each case's QAT step under the flag on its layout against the
+#: 1x1 step of phase 28(a) / 29(a)-(c) (its parameters kept for this
+#: phase) and the same layout's step without the flag (its reads,
+#: collective bytes, peak and ms from those phases' rows); 30(e) the VLM's
+#: 29(d) step under the flag
+SEQ_CASES = (("30(a)", "deepseek-v2-lite-16b", (2, 2)),
+             ("30(a)", "deepseek-v2-lite-16b", (1, 4)),
+             ("30(b)", "mamba2-1.3b", (1, 4)),
+             ("30(c)", "zamba2-1.2b", (1, 4)),
+             ("30(d)", "whisper-medium", (1, 4)))
+SEQ_READ_SEED = 30
+
+
+def seq_cfg(get_config, arch):
+    """30's cut of ``arch``: 28(a)'s for deepseek-v2-lite, 29's for the
+    others."""
+    if arch == "deepseek-v2-lite-16b":
+        return moe_qat_cfg(get_config)
+    return family_cfg(get_config, arch,
+                      next(c for _, a, c in FAMILY_CASES if a == arch))
+
+
+@contextlib.contextmanager
+def sequence_lengths(npar, seen):
+    """Record each column-parallel read's input sequence length and its
+    gathered one (``NumericParallel.col_input``) into ``seen``."""
+    col = npar.col_input
+
+    def recorded(x):
+        y = col(x)
+        seen.append((int(x.shape[1]), int(y.shape[1])))
+        return y
+    npar.col_input = recorded
+    try:
+        yield
+    finally:
+        del npar.col_input
+
+
+def chunk_read_case(K, L, shardctx, mesh, npar, cfg, adc, k, n):
+    """A whole leaf read on this rank's chunk of the sequence (MLA's
+    ``wkv_a``, the hybrid's shared ``in``) at the step's shapes: seeded
+    normals, the global batch's 8 x 256 tokens by ``k``, through ``k`` x
+    ``n`` weights; this rank's rows and chunk read by
+    ``models.layers.project`` under sequence parallelism (the DAC scale
+    the max over the data and ``model`` ranks, the whole read's kernel
+    instance) against the rows of the whole read, bit for bit.  Times
+    both (the chunk read's scale exchange included)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEQ_READ_SEED)
+    b, s = TP_BATCH
+    x = torch.randn(b, s, k, generator=gen, device="cuda")
+    w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+    m, r = mesh.shape["model"], mesh.coords["model"]
+    c = s // m
+    rows = local_rows(mesh, b)
+    mine = x[rows, r * c:(r + 1) * c].contiguous()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.no_grad():
+        ev[0].record()
+        whole = K.fakequant_read(x.reshape(-1, k), w, adc, cfg.analog_rows)
+        ev[1].record()
+        npar.sp_on = True
+        with shardctx.numeric_parallel(npar):
+            ev[2].record()
+            y = L.project({"w": w}, mine, cfg, tp=L.SEQ)
+            ev[3].record()
+    torch.cuda.synchronize()
+    want = whole.reshape(b, s, n)[rows, r * c:(r + 1) * c]
+    return {"k": k, "n": n, "rows": int(mine.shape[0] * mine.shape[1]),
+            "bit_equal_whole_rows": bool(torch.equal(y, want)),
+            "max_abs_err": float((y - want).abs().max()),
+            "ms": ev[2].elapsed_time(ev[3]),
+            "whole_ms": ev[0].elapsed_time(ev[1])}
+
+
+def seq_rank(rank, src):
+    """30(a)-(e) on one rank under ``REPRO_SEQ_SHARD``: for each case its
+    cut drawn whole in turns and cut to this rank's blocks; one warm-up
+    step and one timed QAT step (its launches, the plain versions' calls,
+    its collective bytes and each column-parallel read's sequence lengths
+    recorded), the parameters held against the 1x1 step's leaf by leaf
+    (rank 0), and the chunk read of MLA's ``wkv_a`` or the hybrid's shared
+    ``in``; then 29(d)'s VLM step."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import shardctx
+    from repro_torch.core.adc import AdcConfig
+    from repro_torch.kernels import xbar_vmm as K
+    from repro_torch.launch import sharding as S
+    from repro_torch.models import layers as L
+    from repro_torch.train import train_loop as TL
+    from repro_torch.train.optimizer import adamw
+    os.environ["REPRO_SEQ_SHARD"] = "1"
+    t0 = time.perf_counter()
+    world = dist.get_world_size()
+    out = {}
+    for label, arch, shape in SEQ_CASES:
+        cfg = seq_cfg(get_config, arch)
+        adc = AdcConfig(in_bits=cfg.analog_in_bits,
+                        out_bits=cfg.analog_out_bits)
+        moe = cfg.family == "moe"
+        ref = torch.load(MOE_REF if moe else family_ref(arch), mmap=True) \
+            if rank == 0 else None
+        mesh = card_mesh(shape)
+        opt = adamw(TP_LR)
+        state = draw_in_turns(lambda: TL.init_sharded_state(
+            MOE_SEED if moe else FAMILY_SEED, cfg, opt, mesh, "cuda"), rank,
+            world)
+        rows = local_rows(mesh, TP_BATCH[0])
+        batch = tp_tokens(cfg.vocab, *TP_BATCH, rows=rows) if moe \
+            else family_batch(cfg, rows)
+        step = TL.make_train_step(cfg, opt, mesh=mesh)
+        npar = step.numeric
+        step(state, batch)      # warm-up (the step leaves its input state)
+        for name in K.LAUNCHES:
+            K.LAUNCHES[name] = 0
+        calls, seen = [], []
+        torch.cuda.reset_peak_memory_stats()
+        before = collective_bytes()
+        with plain_counted(K, calls), sequence_lengths(npar, seen):
+            state, mets, ms = timed_step(step, state, batch)
+        launches = dict(K.LAUNCHES)
+        moved = collective_bytes(before)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        loss = mesh.all_reduce(mets["loss"].reshape(1), "data") \
+            / mesh.shape["data"]
+        off, total, worst, by_leaf = params_against(
+            S, state["params"], npar, ref, rank == 0)
+        res = {"loss": float(loss), "grad_norm": float(mets["grad_norm"]),
+               "ms": ms, "launches": launches, "plain_calls": len(calls),
+               "plan": npar.plan(), "sp": npar.sp_on, "peak_gb": peak,
+               "collective_bytes": moved,
+               "seq_lengths": sorted(set(seen)),
+               "params_off": off, "params": total, "params_worst": worst,
+               "params_by_leaf": by_leaf}
+        del state, ref
+        torch.cuda.empty_cache()
+        if moe:
+            res["chunk_read"] = chunk_read_case(
+                K, L, shardctx, mesh, npar, cfg, adc, cfg.d_model,
+                cfg.kv_lora_rank + cfg.qk_rope_dim)
+        elif cfg.family == "hybrid":
+            res["chunk_read"] = chunk_read_case(
+                K, L, shardctx, mesh, npar, cfg, adc, 2 * cfg.d_model,
+                cfg.d_model)
+        out[label, arch, shape] = res
+        torch.cuda.empty_cache()
+    out["vlm"] = vlm_tp_rank(rank, src)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def seq_split_ok(lengths, cfg, m):
+    """Whether a step's column-parallel reads saw the sequence split: the
+    tokens' chunk (and whisper's frames') gathered whole, and no read's
+    input a chunk left as it is (the MoE layer's shared experts read the
+    gathered sequence's tokens, flattened: a dim 1 of ``d_model``)."""
+    whole = {TP_BATCH[1]} | ({cfg.n_audio_frames}
+                             if cfg.family == "audio" else set())
+    chunks = {n // m for n in whole}
+    return all((n // m, n) in lengths for n in whole) and all(
+        b == a * m or (a == b and a not in chunks) for a, b in lengths)
+
+
+def phase_seq(get_config, moe_rows, family_rows, vlm_row, report, gpu_line):
+    """30: ``REPRO_SEQ_SHARD`` (Megatron sequence parallelism between the
+    blocks) on deepseek-v2-lite's MOE_LAYERS-layer QAT step (MLA, EP, the
+    global dispatch) on 2x2 and 1x4, mamba2's (2 layers), zamba2's (6) and
+    whisper's (2 + 2, 8 x 1500 frames) on 1x4, full width at 128-row
+    tiles over 8 x 256 tokens, each rank its own process on this card,
+    and (30(e)) the VLM's 29(d) step on 1x4.  Gates: ``seq`` in the plan
+    and on in the step, the sequence split (``seq_split_ok``); the loss
+    within 1e-4 relative of the 1x1 step's (1e-2 of the 1x1 forward's for
+    30(e), 29(d)'s class); the parameters in satellite 1's class (off
+    under 1e-3 of the elements, by at most 2 lr); each rank's fakequant
+    reads, split-range, tiles and expert-stack reads in its step equal to
+    the same layout's without the flag (phases 28-29), and no
+    plain-version call; the chunk reads (``wkv_a``, the shared ``in``)
+    bit-equal to their rows of the whole read; 30(e)'s layer gathers
+    equal to 29(d)'s.  Printed beside the same layout without the flag:
+    the bytes each rank receives a step through the numeric step's
+    collectives (``core.shardctx.GATHERED``), peak GB and step ms a
+    rank."""
+    try:
+        ranks = spawn_layout(4, "seq30")
+    finally:
+        MOE_REF.unlink(missing_ok=True)
+        for _, arch, _ in FAMILY_CASES:
+            family_ref(arch).unlink(missing_ok=True)
+    base = {("deepseek-v2-lite-16b", r["layout"]): r for r in moe_rows}
+    base.update({(r["arch"], r["layout"]): r for r in family_rows})
+    for label, arch, shape in SEQ_CASES:   # every figure before the gates
+        per = [r[label, arch, shape] for r in ranks]
+        print(f"{label} {arch} {shape} under REPRO_SEQ_SHARD: losses "
+              f"{[r['loss'] for r in per]}, parameters off "
+              f"{per[0]['params_off']} of {per[0]['params']} (by leaf "
+              f"{per[0]['params_by_leaf']}), sequence lengths "
+              f"{per[0]['seq_lengths']}", flush=True)
+
+    def mb(d):
+        return round(d.get("model", 0) / 1e6, 3)
+    rows = []
+    for label, arch, shape in SEQ_CASES:
+        cfg = seq_cfg(get_config, arch)
+        lay = "x".join(map(str, shape))
+        b0 = base[arch, lay]
+        per = [r[label, arch, shape] for r in ranks]
+        for i, r in enumerate(per):
+            where = f"{label} {arch} {lay} rank {i}"
+            if not (r["plan"]["seq"] and r["sp"]):
+                fail(f"{where}: seq {r['plan']['seq']}, on in the step "
+                     f"{r['sp']}")
+            if not seq_split_ok(r["seq_lengths"], cfg, shape[1]):
+                fail(f"{where}: the column-parallel reads saw sequence "
+                     f"lengths {r['seq_lengths']}")
+            if abs(r["loss"] - b0["loss_1x1"]) > 1e-4 * abs(b0["loss_1x1"]):
+                fail(f"{where}: loss {r['loss']} against the 1x1 step's "
+                     f"{b0['loss_1x1']}")
+            lc = r["launches"]
+            want = {"fakequant": b0["reads_per_rank"],
+                    "fakequant_split": b0["split_reads_per_rank"][i],
+                    "fakequant_tiles": b0["tiles_reads_per_rank"][i]}
+            if "expert_reads_per_rank" in b0:
+                want["fakequant_lead"] = b0["expert_reads_per_rank"]
+            if any(lc[k] != v for k, v in want.items()):
+                fail(f"{where}: reads {lc}, without the flag {want}")
+            if r["plain_calls"]:
+                fail(f"{where}: {r['plain_calls']} calls of a plain version "
+                     "in the step")
+            if "chunk_read" in r and not r["chunk_read"][
+                    "bit_equal_whole_rows"]:
+                fail(f"{where}: the chunk read is off the whole read's rows:"
+                     f" {r['chunk_read']}")
+        off, total, worst = (per[0]["params_off"], per[0]["params"],
+                             per[0]["params_worst"])
+        if off > 1e-3 * total or worst > 2 * TP_LR * 1.01:
+            fail(f"{label} {lay}: {off} of {total} parameters off the 1x1 "
+                 f"step's class (worst {worst:.3g}; by leaf "
+                 f"{per[0]['params_by_leaf']})")
+        row = {"case": label, "arch": arch, "layout": lay,
+               "loss": per[0]["loss"], "loss_1x1": b0["loss_1x1"],
+               "loss_without": b0["loss"],
+               "ms_per_rank": [r["ms"] for r in per],
+               "ms_per_rank_without": b0["ms_per_rank"],
+               "peak_gb_per_rank": [r["peak_gb"] for r in per],
+               "peak_gb_per_rank_without": b0["peak_gb_per_rank"],
+               "collective_bytes_per_rank": [r["collective_bytes"]
+                                             for r in per],
+               "collective_bytes_per_rank_without":
+                   b0["collective_bytes_per_rank"],
+               "reads_per_rank": per[0]["launches"]["fakequant"],
+               "split_reads_per_rank": [r["launches"]["fakequant_split"]
+                                        for r in per],
+               "tiles_reads_per_rank": [r["launches"]["fakequant_tiles"]
+                                        for r in per],
+               "params_off": off, "params": total,
+               "seq_lengths": per[0]["seq_lengths"],
+               "chunk_read": [r["chunk_read"] for r in per
+                              if "chunk_read" in r]}
+        chunk = row["chunk_read"]
+        ch = (f"; chunk read ({chunk[0]['rows']} of "
+              f"{TP_BATCH[0] * TP_BATCH[1]} rows, {chunk[0]['k']} x "
+              f"{chunk[0]['n']}) bit-equal on every rank, "
+              f"{chunk[0]['ms']:.3f} ms against the whole read's "
+              f"{chunk[0]['whole_ms']:.3f}") if chunk else ""
+        print(f"{label} {arch} {lay} REPRO_SEQ_SHARD: loss {row['loss']!r} "
+              f"(1x1 {b0['loss_1x1']!r}, without the flag "
+              f"{b0['loss']!r}); model-axis collective MB a rank a step "
+              f"{[mb(d) for d in row['collective_bytes_per_rank']]} "
+              f"(without {[mb(d) for d in b0['collective_bytes_per_rank']]})"
+              f"; peak GB a rank "
+              f"{[round(v, 2) for v in row['peak_gb_per_rank']]} (without "
+              f"{[round(v, 2) for v in b0['peak_gb_per_rank']]}); step ms a "
+              f"rank {[round(v, 1) for v in row['ms_per_rank']]} (without "
+              f"{[round(v, 1) for v in b0['ms_per_rank']]}; warm steps, "
+              f"each rank its own process on this card); "
+              f"{row['reads_per_rank']} fakequant reads a rank as without "
+              f"the flag; {off} of {total} parameters off{ch} [{gpu_line}]")
+        report(row)
+        rows.append(row)
+    print(f"30: the ranks' work took {max(r['seconds'] for r in ranks):.1f} "
+          "s of wall time (in the processes it ran in)", flush=True)
+    vlm = [r["vlm"] for r in ranks]
+    for i, r in enumerate(vlm):
+        where = f"30(e) rank {i}"
+        if not (r["plan"]["seq"] and r["sp"]):
+            fail(f"{where}: seq {r['plan']['seq']}, on in the step "
+                 f"{r['sp']}")
+        if not math.isfinite(r["loss"]) or abs(
+                r["loss"] - vlm_row["loss_1x1"]) > 1e-2 * abs(
+                vlm_row["loss_1x1"]):
+            fail(f"{where}: loss {r['loss']}, the 1x1 forward's "
+                 f"{vlm_row['loss_1x1']}")
+        if r["layer_gathers"] != vlm_row["layer_gathers"]:
+            fail(f"{where}: {r['layer_gathers']} layer gathers, without the "
+                 f"flag {vlm_row['layer_gathers']}")
+    vrow = {"case": "30(e)", "arch": "llama-3.2-vision-90b",
+            "layout": vlm_row["layout"], "loss": vlm[0]["loss"],
+            "loss_1x1": vlm_row["loss_1x1"], "loss_without": vlm_row["loss"],
+            "ms_per_rank": [r["ms"] for r in vlm],
+            "ms_per_rank_without": vlm_row["ms_per_rank"],
+            "peak_gb_per_rank": [r["peak_gb"] for r in vlm],
+            "peak_gb_per_rank_without": vlm_row["peak_gb_per_rank"],
+            "collective_bytes_per_rank": [r["collective_bytes"] for r in vlm],
+            "collective_bytes_per_rank_without":
+                vlm_row["collective_bytes_per_rank"],
+            "plan": vlm[0]["plan"]}
+    print(f"30(e) llama-3.2-vision-90b {vrow['layout']} REPRO_SEQ_SHARD "
+          f"(bfloat16 digital, sgd, {VLM_TP_LAYERS} layers): loss "
+          f"{vrow['loss']:.5f} (1x1 forward {vlm_row['loss_1x1']:.5f}, "
+          f"without the flag {vlm_row['loss']:.5f}); model-axis collective "
+          f"MB a rank a step "
+          f"{[mb(d) for d in vrow['collective_bytes_per_rank']]} (without "
+          f"{[mb(d) for d in vlm_row['collective_bytes_per_rank']]}); peak "
+          f"GB a rank {[round(v, 2) for v in vrow['peak_gb_per_rank']]} "
+          f"(without "
+          f"{[round(v, 2) for v in vlm_row['peak_gb_per_rank']]}); step ms "
+          f"a rank {[round(v, 1) for v in vrow['ms_per_rank']]} (without "
+          f"{[round(v, 1) for v in vlm_row['ms_per_rank']]}) [{gpu_line}]")
+    report(vrow)
+    return rows, vrow
+
+
+def seq_launches(rows, case):
+    """Phase 30's reads of one kind (``case``: ``fakequant``, ``split`` or
+    ``tiles``) in each case's step, summed over the ranks."""
+    out = {}
+    for r in rows:
+        key = f"{r['arch']} {r['layout']}"
+        if case == "fakequant":
+            out[key] = r["reads_per_rank"] * len(r["ms_per_rank"])
+        else:
+            out[key] = sum(r[f"{case}_reads_per_rank"])
+    return out
+
+
 TP_JOBS = {"qat": tp_rank_qat, "gemma": tp_rank_gemma,
            "inexact": tp_rank_inexact, "moe": moe_rank_qat,
            "scout1x4": lambda rank, src: scout_rank(rank, src, (1, 4)),
            "scout1x2": lambda rank, src: scout_rank(rank, src, (1, 2)),
-           "family": family_rank, "vlm1x4": vlm_tp_rank}
+           "family": family_rank, "vlm1x4": vlm_tp_rank, "seq30": seq_rank}
 
 
 class CardTransport:
@@ -8661,10 +9060,11 @@ def card_mesh(shape):
     return mesh
 
 
-def tp_rank(rank, world, rdv, job, out, src):
+def tp_rank(rank, world, rdv, jobs, out, src):
     """One rank of a layout on this card: its own process, a gloo group
-    whose collectives go through :class:`CardTransport`,
-    ``TP_JOBS[job]``'s result saved for the parent."""
+    whose collectives go through :class:`CardTransport`, each of
+    ``TP_JOBS[job]`` for ``jobs`` in turn, their results saved for the
+    parent."""
     sys.path.insert(0, src)
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -8673,24 +9073,36 @@ def tp_rank(rank, world, rdv, job, out, src):
 
     from repro_torch.launch.mesh import init_distributed
     init_distributed("cpu", f"file://{rdv}", rank, world)
-    res = TP_JOBS[job](rank, src)
+    res = {job: TP_JOBS[job](rank, src) for job in jobs}
     torch.save(res, f"{out}.{rank}")
     dist.barrier()
     dist.destroy_process_group()
 
 
-def spawn_layout(world, job):
+#: The results of jobs that ran in the processes of an earlier job
+#: (:func:`spawn_layout`), by (world, job), until their phase asks.
+_RAN = {}
+
+
+def spawn_layout(world, job, then=()):
     """``world`` ranks of ``job`` on this card (``torch.multiprocessing``,
     a file rendezvous under build/); their results in rank order.  Every
-    process is joined (mp.spawn ends the others when one fails)."""
+    process is joined (mp.spawn ends the others when one fails).  The
+    jobs ``then`` run after ``job`` in the same processes (each process's
+    start and its card's setup, 10-25 s, paid once), their results kept
+    for their own phase's ``spawn_layout(world, job)``, which returns
+    them without spawning."""
     import gc
     import shutil
     import tempfile
     import torch.multiprocessing as mp
+    if (world, job) in _RAN:
+        return _RAN.pop((world, job))
+    jobs = (job, *then)
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    print(f"{job}: {world} ranks; this process holds "
+    print(f"{' + '.join(jobs)}: {world} ranks; this process holds "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card "
           f"({torch.cuda.memory_reserved() / 1e9:.2f} reserved)", flush=True)
     (ROOT / "build").mkdir(exist_ok=True)
@@ -8700,11 +9112,14 @@ def spawn_layout(world, job):
     prev = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
-        mp.spawn(tp_rank, args=(world, str(tmp / "rdv"), job,
+        mp.spawn(tp_rank, args=(world, str(tmp / "rdv"), jobs,
                                 str(tmp / "res"), str(ROOT / "src")),
                  nprocs=world, join=True)
-        return [torch.load(f"{tmp / 'res'}.{r}", weights_only=False,
-                           map_location="cpu") for r in range(world)]
+        ranks = [torch.load(f"{tmp / 'res'}.{r}", weights_only=False,
+                            map_location="cpu") for r in range(world)]
+        for later in then:
+            _RAN[world, later] = [r[later] for r in ranks]
+        return [r[job] for r in ranks]
     finally:
         if prev is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
@@ -8733,8 +9148,9 @@ def params_class(got, want, lr):
     return off, total, worst, by_leaf
 
 
-def phase_tp_qat(K, TL, TO, get_config, report, gpu_line):
-    """27(a): lm100m at full width, QAT at 128-row tiles, 8 x 256 tokens:
+def phase_tp_qat(K, TL, TO, get_config, report, gpu_line, then=()):
+    """27(a): lm100m at full width cut to TP_QAT_LAYERS layers, QAT at
+    128-row tiles, 8 x 256 tokens:
     one FSDP + TP step on the 2x2, 1x4 and 4x1 layouts (each rank its own process on this
     card) against the 1x1 step on the card from the same state.  Gates:
     the loss within 1e-4 relative; on ``model`` ranks every rank's
@@ -8743,7 +9159,9 @@ def phase_tp_qat(K, TL, TO, get_config, report, gpu_line):
     across ranks) and bit-equal to the whole read, and the step launching
     both; each rank's fakequant reads in its step equal to the 1x1
     step's; the parameters after the step, unsharded, in satellite 1's
-    class (off under 1e-3 of the elements, by at most 2 lr)."""
+    class (off under 1e-3 of the elements, by at most 2 lr).  The jobs
+    ``then`` run in the ranks' processes after 27(a)'s
+    (:func:`spawn_layout`)."""
     from repro_torch.convert import params_to_numpy
     from repro_torch.core.adc import AdcConfig
     cfg = tp_qat_cfg(get_config)
@@ -8763,7 +9181,7 @@ def phase_tp_qat(K, TL, TO, get_config, report, gpu_line):
            "reads": K.LAUNCHES["fakequant"],
            "params": params_to_numpy(state["params"])}
     del state
-    ranks = spawn_layout(4, "qat")
+    ranks = spawn_layout(4, "qat", then)
     rows = []
     for shape in TP_LAYOUTS:
         label = "x".join(map(str, shape))
@@ -9573,7 +9991,7 @@ def main():
 
     with phase("27"):
         tp_qat = phase_tp_qat(K, TL, TO, get_config, reporter("tp_qat"),
-                              gpu_line)
+                              gpu_line, then=("gemma",))
         tp_gemma = phase_tp_gemma(M, TL, TO, DR, S, TM, get_config,
                                   reporter("tp_gemma"), gpu_line)
         tp_inexact = phase_tp_inexact(K, S, TM, TA, syn, get_config,
@@ -9583,20 +10001,36 @@ def main():
                         "gemma": tp_gemma,
                         "inexact": {k: v for k, v in tp_inexact.items()}}
 
-    with phase("28"):
-        moe_qat, moe_drop = phase_moe_qat(M, K, TL, TO, get_config,
-                                          reporter("moe_qat"), gpu_line)
-        moe_scout = phase_moe_scout(M, TL, DR, S, TM, get_config,
-                                    reporter("moe_scout"), gpu_line)
-    details["moe_28"] = {"qat": moe_qat, "drop": moe_drop,
-                         "scout": moe_scout}
+    # phases 28 and 29 keep their 1x1 steps' parameters for phase 30
+    refs = contextlib.ExitStack()
+    refs.callback(lambda: [path.unlink(missing_ok=True) for path in
+                           [MOE_REF] + [family_ref(a)
+                                        for _, a, _ in FAMILY_CASES]])
+    with refs:
+        with phase("28"):
+            moe_qat, moe_drop = phase_moe_qat(
+                M, K, TL, TO, get_config, reporter("moe_qat"), gpu_line,
+                keep_ref=True,
+                then=(f"scout{'x'.join(map(str, SCOUT_LAYOUT))}",))
+            moe_scout = phase_moe_scout(M, TL, DR, S, TM, get_config,
+                                        reporter("moe_scout"), gpu_line)
+        details["moe_28"] = {"qat": moe_qat, "drop": moe_drop,
+                             "scout": moe_scout}
 
-    with phase("29"):
-        family = phase_family_qat(K, TL, TO, get_config,
-                                  reporter("family_qat"), gpu_line)
-        family_vlm = phase_family_vlm(M, DR, S, TM, get_config,
-                                      reporter("family_vlm"), gpu_line)
-    details["family_29"] = {"qat": family, "vlm": family_vlm}
+        with phase("29"):
+            family = phase_family_qat(K, TL, TO, get_config,
+                                      reporter("family_qat"), gpu_line,
+                                      keep_ref=True,
+                                      then=("vlm1x4", "seq30"))
+            family_vlm = phase_family_vlm(M, DR, S, TM, get_config,
+                                          reporter("family_vlm"), gpu_line)
+        details["family_29"] = {"qat": family, "vlm": family_vlm}
+
+        with phase("30"):
+            seq_rows, seq_vlm = phase_seq(get_config, moe_qat, family,
+                                          family_vlm, reporter("seq"),
+                                          gpu_line)
+        details["seq_30"] = {"qat": seq_rows, "vlm": seq_vlm}
 
     def remat_launches(name):
         """The kernels-line figures of phase 26 for one launch count."""
@@ -9803,6 +10237,7 @@ def main():
         "launches_mamba2_1_3b": ssm_fq["reads"],
         **cross_launches("fakequant"),
         "launches_cli_qat_per_step": shard_cli["fakequant_reads_per_step"],
+        "launches_seq_30": seq_launches(seq_rows, "fakequant"),
         "lead_dim": [{key: r.get(key) for key in (
             "case", "E", "T", "K", "N", "instance", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "tc_floor_ms")}
@@ -9844,7 +10279,8 @@ def main():
                     "per-token range over the whole width from the ranks' "
                     "gathered range partials)",
         **tp_split_entry(tp_qat),
-        "launches_family_29": family_launches(family, "split")}, {
+        "launches_family_29": family_launches(family, "split"),
+        "launches_seq_30": seq_launches(seq_rows, "split")}, {
         "name": "xbar_fakequant_tiles", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_fakequant.cu",
         "replaces": "src/repro/kernels/xbar_vmm.py:247 (the fakequant "
@@ -9853,7 +10289,8 @@ def main():
                     "tiles gathered in tile order, xbar_fakequant_tiles "
                     "the epilogue over every tile)",
         **tp_split_entry(tp_qat, "tiles"),
-        "launches_family_29": family_launches(family, "tiles")}, {
+        "launches_family_29": family_launches(family, "tiles"),
+        "launches_seq_30": seq_launches(seq_rows, "tiles")}, {
         "name": "xbar_fakequant_expert_shared_scale", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_fakequant.cu",
         "replaces": "src/repro/kernels/xbar_vmm.py:247 (a data rank's rows "
@@ -10055,7 +10492,12 @@ def main():
         "xbar_fakequant_tiles' launches_family_29 count their reads in "
         "29(a)-(c)'s steps on 2x2, 1x4 and 4x1, summed over the ranks, by "
         "model (in_proj with B, C and dt whole on every rank, the shared "
-        "block, the cross wqkv over the tokens and the frames)")
+        "block, the cross wqkv over the tokens and the frames). Phase 30 "
+        "(REPRO_SEQ_SHARD, deepseek-v2-lite on 2x2 and 1x4, mamba2, "
+        "zamba2 and whisper-medium on 1x4, QAT): launches_seq_30 counts "
+        "each case's reads in its step, summed over the ranks "
+        "(xbar_fakequant_read every read, the chunk reads of wkv_a and the "
+        "shared in among them; _split and _tiles their split forms)")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1))

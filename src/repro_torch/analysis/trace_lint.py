@@ -288,7 +288,7 @@ def _sharded_rank(rank: int, world: int, shape, arch: str, rdv: str,
         step = TA.AnalogTrainStep(cfg, lr=1e-3, mesh=mesh)
         state = step.shard_state(TA.init_state(0, cfg, device="cpu"))
         entry = f"train_step[{arch},exact,{tag}]"
-        before = dict(shardctx.GATHERED)
+        before = {k: shardctx.GATHERED[k] for k in ("gathers", "bytes")}
         with tracing() as trace:
             state, _ = step(state, _batch(cfg), 1234)
         gathered = {k: shardctx.GATHERED[k] - before[k] for k in before}

@@ -53,8 +53,13 @@ _NUMERIC = threading.local()
 
 #: The ordered gathers this process took part in, and the bytes it
 #: received from other ranks through them (only
-#: :func:`combine_partials_exact` adds to it).
-GATHERED = {"gathers": 0, "bytes": 0}
+#: :func:`combine_partials_exact` adds to these two); ``"numeric"``: by
+#: mesh axis, the bytes it receives through the numeric step's
+#: collectives (:func:`_collective`: the differentiable ones, forward and
+#: backward, and the MoE's count exchanges) as a ring moves them, a
+#: gather its ``n - 1`` other blocks, a reduce-scatter ``(n - 1) / n`` of
+#: its operand and an all-reduce twice that.
+GATHERED = {"gathers": 0, "bytes": 0, "numeric": {}}
 
 
 def set_shard_context(mesh, dp_axes, tp_axis: str = "model") -> None:
@@ -184,6 +189,11 @@ def combine_partials_exact(q: Tensor, names: Sequence[str], axis: int,
 # The numeric step's differentiable collectives
 # --------------------------------------------------------------------------
 
+def _count(axis: str, nbytes: float) -> None:
+    by = GATHERED["numeric"]
+    by[axis] = by.get(axis, 0) + int(nbytes)
+
+
 def _collective(x: Tensor, mesh, axes: Sequence[str], dim: int,
                 kind: str) -> Tensor:
     """One collective over ``axes`` in turn: ``gather`` (minor axis first,
@@ -194,10 +204,13 @@ def _collective(x: Tensor, mesh, axes: Sequence[str], dim: int,
         return x
     if kind == "gather":
         for a in reversed(tuple(axes)):
+            _count(a, (mesh.shape[a] - 1) * x.numel() * x.element_size())
             x = mesh.all_gather(x, a, dim)
         return x
     for a in axes:
         n = mesh.shape[a]
+        ring = {"all_reduce": 2.0, "reduce_scatter": 1.0}.get(kind, 0.0)
+        _count(a, ring * (n - 1) / n * x.numel() * x.element_size())
         if kind == "all_reduce":
             x = mesh.all_reduce(x, a)
         elif kind == "reduce_scatter":

@@ -313,14 +313,19 @@ def quantize_dequantize_at(x: Tensor, sc: Tensor, adc: AdcConfig) -> Tensor:
 
 def fakequant_split_project(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
                             mesh, range_axes, scale_axes, n_range: int,
-                            blocks=None, tile_axes=()) -> Tensor:
+                            blocks=None, tile_axes=(),
+                            tokens: Optional[int] = None) -> Tensor:
     """:class:`FakequantSplitRead` of ``x`` (..., K) (the reads' tokens
-    flattened), in float32."""
+    flattened), in float32; ``tokens``: the rows of the whole read this
+    rank's rows belong to, whose kernel instance the read takes (a read
+    of a sequence chunk)."""
     lead = x.shape[:-1]
+    instance = None if tokens is None \
+        else fakequant_instance(tokens, adc.in_levels)
     y = FakequantSplitRead.apply(x.reshape(-1, x.shape[-1]).float(),
                                  w.float(), adc, rows, mesh,
                                  tuple(range_axes), tuple(scale_axes),
-                                 n_range, blocks, tuple(tile_axes))
+                                 n_range, blocks, tuple(tile_axes), instance)
     return y.reshape(*lead, w.shape[-1])
 
 

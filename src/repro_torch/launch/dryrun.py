@@ -43,7 +43,11 @@ coords)``: the production meshes need 256 or 512 ranks, which
     ``reduce_scatter``s and the tensor-parallel sums (among them the SSD
     layers' gathers of the gated norm's input; ``numeric`` holds the
     step's ``NumericParallel.counts``: its layer gathers and
-    ``norm_gather_bytes``, that gather's bytes a step); a MoE layer's
+    ``norm_gather_bytes``, that gather's bytes a step, and ``seq``, whether
+    the step ran sequence parallel under ``REPRO_SEQ_SHARD``: its
+    activations between blocks then are this rank's chunk of the sequence
+    in the trace too, the dry mesh's gathers and reduce-scatters giving
+    their outputs the collectives' shapes); a MoE layer's
     temporaries are this rank's: its rows of the global dispatch's
     buffer and, under expert parallelism, its own experts' alone.  On
     the card a data rank's buffer holds as many rows an expert as its
@@ -204,7 +208,7 @@ def reckon(cfg, shape: ShapeSpec, mesh: Mesh) -> dict:
     temp = trace.peak_bytes
     numeric = {}
     if shape.kind == "train" and step.numeric is not None:
-        numeric = dict(step.numeric.counts)
+        numeric = dict(step.numeric.counts, seq=step.numeric.sp_on)
     return {
         "devices": mesh.size,
         "local_batch": b,
@@ -344,6 +348,8 @@ def main(argv=None):
                           f"({m['argument_gb']:.2f} held, "
                           f"{m['replicated_by_port_gb']:.2f} replicated by "
                           f"the port), {rec['trace']['flops']:.3e} FLOPs")
+                if rec["numeric"].get("seq"):
+                    status += ", the sequence split over model"
                 if rec["numeric"].get("norm_gather_bytes"):
                     status += (", SSD norm gathers "
                                f"{rec['numeric']['norm_gather_bytes'] / 1e9:.2f}"

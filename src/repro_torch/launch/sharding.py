@@ -30,6 +30,7 @@ tensors in the reference's layout.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from typing import Dict, Optional, Sequence, Tuple
@@ -578,6 +579,40 @@ TP_KEPT = {("embed",): (0, "vocab"),
            ("ssm", "in_proj", "w"): (-1, "ssm"),
            ("ssm", "out_proj", "w"): (-2, "ssm")}
 
+#: Under sequence parallelism (the plan's ``seq``) every leaf that the plan
+#: may leave unsplit over ``model``, by its path as :data:`TP_KEPT` reads
+#: it: ``"chunk"`` where it acts on this rank's chunk of the sequence (its
+#: gradient a partial sum over the chunk's tokens, summed over ``model``),
+#: ``"whole"`` where it acts on the gathered whole sequence alike on every
+#: ``model`` rank (its gradient whole already: the MoE router and shared
+#: experts, the SSD layer's replicated leaves, which a ``copy_to`` sums,
+#: and its gated norm, run whole on every rank; a block of such a leaf
+#: gathered whole for its compute takes its slice of that gradient).
+#: :meth:`NumericParallel.reduce_grads` raises for a leaf missing here.
+SEQ_GRAD = {("ln", "scale"): "chunk",
+            ("ln1", "scale"): "chunk",
+            ("ln2", "scale"): "chunk",
+            ("lnx", "scale"): "chunk",
+            ("final_ln", "scale"): "chunk",
+            ("enc_ln", "scale"): "chunk",
+            ("shared_ln", "scale"): "chunk",
+            ("shared_ln2", "scale"): "chunk",
+            ("gate_attn",): "chunk",
+            ("gate_ffn",): "chunk",
+            ("enc_pos",): "chunk",
+            ("shared_in", "w"): "chunk",
+            ("attn", "wkv_a", "w"): "chunk",
+            ("attn", "kv_norm", "scale"): "chunk",
+            ("moe", "router", "w"): "whole",
+            ("moe", "shared", "w_upgate", "w"): "whole",
+            ("moe", "shared", "w_down", "w"): "whole",
+            ("ssm", "conv_w"): "whole",
+            ("ssm", "conv_b"): "whole",
+            ("ssm", "a_log"): "whole",
+            ("ssm", "dt_bias"): "whole",
+            ("ssm", "d_skip"): "whole",
+            ("ssm", "norm", "scale"): "whole"}
+
 #: The layer stacks of every family's tree (a layer's path starts after
 #: its stack's key).
 STACKS = ("layers", "enc_layers", "dec_layers", "self_layers",
@@ -662,10 +697,24 @@ class NumericParallel:
       * ``vocab``: the embedding vocab-split (a rank looks up its rows,
         the partial embeddings summed) and the head vocab-parallel, the
         loss a vocab-parallel cross-entropy (``models.model.loss_fn``);
-      * ``seq``: ``REPRO_SEQ_SHARD`` with every flag above, the
-        activations split along the sequence at block boundaries
-        (Megatron-SP), for a sequence that divides over ``model``; the
-        dense family only (the MoE's dispatch would need an all-to-all).
+      * ``seq``: ``REPRO_SEQ_SHARD`` with ``vocab`` and every flag of the
+        family's blocks (:meth:`_seq_plan`), the activations split along
+        the sequence at block boundaries (Megatron-SP), for a step whose
+        sequences (the tokens, and whisper's frames) divide over
+        ``model`` (``sp_on``, set by ``models.transformer`` as the step
+        starts).  A column-parallel read gathers its input's sequence
+        and a row-parallel read scatters its output's, so the SSD scan,
+        the attention and the MoE dispatch see the data rank's whole
+        sequences: the MoE layer gathers them before the router, runs
+        the global dispatch unchanged and keeps its chunk of the output
+        (:meth:`seq_gather`, :meth:`seq_split`); whisper's encoder takes
+        its chunk of the frames and gathers its output once for the
+        decoder's cross reads.  A read of a leaf that ``model`` does not
+        split on a chunk (MLA's ``wkv_a``, the hybrid's ``shared_in``)
+        shares its fakequant DAC scale over ``model`` too, so its rows
+        are the whole read's (``models.layers.project``'s ``seq``).
+        Each leaf that no flag splits is summed over ``model`` or not
+        by :data:`SEQ_GRAD`.
 
     Over data ranks the MoE layer is the reference's one dispatch over
     the global batch (``models.moe``): the capacity of the global token
@@ -762,9 +811,27 @@ class NumericParallel:
         self.vocab = on and emb is not None and emb[0] == ("model",) \
             and (cfg.tie_embeddings or (head is not None
                                         and head[-1] == ("model",)))
-        self.seq = bool(os.environ.get("REPRO_SEQ_SHARD")) \
-            and cfg.family == "dense" and self.attn and self.attn_row \
-            and self.ffn and self.ffn_row and self.vocab
+        self.seq = bool(os.environ.get("REPRO_SEQ_SHARD")) and self.vocab \
+            and self._seq_plan()
+
+    def _seq_plan(self) -> bool:
+        """Every flag of the family's blocks on (``seq``'s condition
+        beside ``vocab``): the dense plan of the attention and FFN
+        blocks; the MoE's attention (GQA or MLA), ``attn_row`` and
+        ``ep`` (its shared experts run inside the MoE layer on the
+        gathered whole sequence, so their flags do not bear on it:
+        deepseek-v2-lite's 704 rows a rank on 1x4 are no whole 128-row
+        tiles); the SSD layers' ``ssm`` (and the hybrid's shared block on
+        the dense plan)."""
+        dense = self.attn and self.attn_row and self.ffn and self.ffn_row
+        fam = self.cfg.family
+        if fam == "moe":
+            return (self.attn or self.mla) and self.attn_row and self.ep
+        if fam == "ssm":
+            return self.ssm
+        if fam == "hybrid":
+            return self.ssm and dense
+        return dense
 
     def plan(self) -> Dict[str, bool]:
         """The plan's flags (:data:`PLAN_FLAGS`), for reports."""
@@ -859,6 +926,34 @@ class NumericParallel:
             return shardctx.split_to(y, self.mesh, self.tp, 1)
         return y
 
+    def seq_gather(self, x: Tensor) -> Tensor:
+        """The data rank's whole sequences from this rank's chunk, for
+        compute that then runs alike on every ``model`` rank (the MoE
+        layer, the decoder's view of the encoder output): backward this
+        rank's chunk of the gradient, which every rank forms whole."""
+        return shardctx.gather(x, self.mesh, self.tp, 1, "slice")
+
+    def seq_split(self, y: Tensor) -> Tensor:
+        """This rank's chunk of a whole-sequence ``y`` that every
+        ``model`` rank holds alike (backward the chunks' gradients
+        gathered)."""
+        return shardctx.split_to(y, self.mesh, self.tp, 1)
+
+    def seq_offset(self, chunk: int) -> int:
+        """The position of this rank's chunk of ``chunk`` tokens in its
+        sequences."""
+        return self.mesh.coords["model"] * chunk
+
+    @contextlib.contextmanager
+    def whole_sequence(self):
+        """Compute on the whole sequences inside a sequence-parallel step
+        (the MoE layer's shared experts): ``sp_on`` off for the block."""
+        prev, self.sp_on = self.sp_on, False
+        try:
+            yield
+        finally:
+            self.sp_on = prev
+
     def gather_heads(self, o: Tensor) -> Tensor:
         """This rank's heads' (or ff slice's) outputs gathered along the
         last dim for a read made whole on every rank."""
@@ -904,9 +999,9 @@ class NumericParallel:
         over the FSDP axes had its gradient summed over them by its
         gather's ``reduce_scatter``; the others are ``all_reduce``d over
         the FSDP axes they do not split; all are divided by the data
-        ranks' count.  Under sequence parallelism a leaf not split over
-        ``model`` (the norms, which ran on this rank's tokens) is summed
-        over ``model``."""
+        ranks' count.  Under sequence parallelism a leaf that ``model``
+        does not split is summed over ``model`` where it acted on this
+        rank's chunk of the sequence (:meth:`seq_grad`)."""
         from repro_torch.core.adc import divisor
         n = math.prod(self.mesh.shape[a] for a in self.fsdp) or 1
 
@@ -915,10 +1010,29 @@ class NumericParallel:
             for a in self.fsdp:
                 if a not in axes:
                     g = self.mesh.all_reduce(g, a)
-            if self.sp_on and "model" not in axes:
+            if self.sp_on and self.seq_grad(path, axes) == "chunk":
                 g = self.mesh.all_reduce(g, "model")
             return g / divisor(n, g) if n > 1 else g
         return _walk(one, grads, self.specs)
+
+    def seq_grad(self, path, axes) -> str:
+        """Under sequence parallelism, how the leaf at ``path`` (split
+        over ``axes``) acted: ``"split"`` (its block kept split over
+        ``model``), else :data:`SEQ_GRAD`'s ``"chunk"`` or ``"whole"``.
+        A leaf missing from the table raises, and so does a block split
+        over ``model`` at rest and gathered whole for a chunk's compute
+        (its gather's backward slice of a partial gradient would be
+        wrong): its gradient has no rule."""
+        if "model" in axes and self.kept(path) is not None:
+            return "split"
+        key = block_path(path)
+        if key not in SEQ_GRAD:
+            raise KeyError(f"{'/'.join(path)} ({key}): no sequence-"
+                           "parallel gradient rule in SEQ_GRAD")
+        if "model" in axes and SEQ_GRAD[key] != "whole":
+            raise ValueError(f"{'/'.join(path)}: split over 'model' at rest "
+                             "and gathered whole for a sequence chunk")
+        return SEQ_GRAD[key]
 
     def leaf_max(self, path, t: Tensor) -> Tensor:
         """``t`` (a max over a block) maxed over the axes the leaf at

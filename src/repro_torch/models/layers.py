@@ -120,6 +120,10 @@ def rmsnorm(p: dict, x: Tensor, eps: float = 1e-5) -> Tensor:
 # Projection
 # --------------------------------------------------------------------------
 
+#: :func:`project`'s ``tp`` for a whole leaf read on a sequence chunk.
+SEQ = ("seq",)
+
+
 def project(p: dict, x: Tensor, cfg: ModelConfig, tp=None) -> Tensor:
     """Linear layer.  A crossbar container is read in-array (VMM through
     the fused read); a digital ``{"w"}`` dict is a plain matmul, or in
@@ -134,24 +138,35 @@ def project(p: dict, x: Tensor, cfg: ModelConfig, tp=None) -> Tensor:
     rank's tiles, so its output is one device's), a digital row split
     sums the ranks' partial products.  In a numeric-parallel step every
     fakequant read's DAC scale is the max over the data ranks' tokens,
-    as the reference's over its one global batch."""
+    as the reference's over its one global batch.  ``tp`` :data:`SEQ`
+    marks a whole leaf read on ``x`` that is this rank's chunk of the
+    sequence when sequence parallelism is on (``NumericParallel.sp_on``;
+    otherwise a plain read): its DAC scale is then the max over
+    ``model`` too and its kernel instance the whole sequence's, so its
+    rows are the whole read's bit for bit."""
     if is_analog_container(p):
         return analog_project(p, x, crossbar_from_model(cfg))
     w = p["w"].to(x.dtype)
     npar = shardctx.numeric_context()
+    seq = tp is not None and tp[0] == SEQ[0]
+    chunk = seq and npar is not None and npar.sp_on
+    tp = None if seq else tp
     row = tp is not None and tp[0] == "row"
     if resolve_analog_mode(cfg) is AnalogMode.DIGITAL:
         return npar.row_output(x @ w) if row else x @ w
     adc = AdcConfig(in_bits=cfg.analog_in_bits,
                     out_bits=cfg.analog_out_bits)
-    if npar is not None and w.ndim == 2 and (npar.fsdp or tp is not None):
+    if npar is not None and w.ndim == 2 \
+            and (npar.fsdp or tp is not None or chunk):
         # one global batch over the data ranks: one DAC scale over them
+        # (and over the ``model`` ranks' chunks of its sequences)
         col = tp is not None and tp[0] == "col"
+        tokens = x.numel() // x.shape[-1] * npar.m if chunk else None
         y = fakequant_split_project(
             x, w, adc, cfg.analog_rows, npar.mesh, npar.tp if col else (),
-            npar.fsdp + (npar.tp if row else ()),
+            npar.fsdp + (npar.tp if row or chunk else ()),
             tp[1] if tp is not None else w.shape[-1],
-            tp[2] if col else None, npar.tp if row else ())
+            tp[2] if col else None, npar.tp if row else (), tokens)
         return npar.row_whole(y.to(x.dtype)) if row else y.to(x.dtype)
     y = fakequant_project(x.float(), w.float(), adc, cfg.analog_rows)
     return y.to(x.dtype)
@@ -385,16 +400,27 @@ def fused_qkv(p: dict, x: Tensor, cfg: ModelConfig, tp: bool,
     rank's heads, a column-parallel read of its q, k and v columns in
     the split-range form (one DAC scale and one range a token over both
     streams, as the whole read's); under MQA k and v whole on every rank,
-    their gradient summed over ``model``."""
+    their gradient summed over ``model``.  Under sequence parallelism
+    ``x`` is this rank's chunk: its whole sequence is gathered before
+    the stream joins it (``[x_whole, x_kv]``, the one-device read's rows),
+    and the stream's cotangent from this rank's heads is summed over
+    ``model`` by a ``copy_to`` (the stream is whole on every rank)."""
     hd = cfg.resolved_head_dim
     n_h, n_kvh = cfg.n_heads, cfg.n_kv_heads
     wqkv, col = p["wqkv"], None
+    npar = shardctx.numeric_context() if tp else None
+    sp = npar is not None and npar.sp_on
+    if sp:      # the whole sequence first, then the stream after it
+        x = npar.col_input(x)
     sq = x.shape[1]
     if x_kv is not None:
-        x = torch.cat([x, x_kv.to(x.dtype)], dim=1)
+        kv = x_kv.to(x.dtype)
+        if sp:  # this rank's heads' share of its cotangent, summed once
+            kv = shardctx.copy_to(kv, npar.mesh, npar.tp)
+        x = torch.cat([x, kv], dim=1)
     if tp:
-        npar = shardctx.numeric_context()
-        x = npar.col_input(x)
+        if not sp:
+            x = npar.col_input(x)
         n_h //= npar.m
         col = ("col", (cfg.n_heads + 2 * cfg.n_kv_heads) * hd,
                npar.blocks.get("wqkv"))
@@ -504,15 +530,21 @@ def mla_attention(p: dict, x: Tensor, cfg: ModelConfig, *,
     ``wkv_b`` are column-parallel by whole heads, ``wkv_a`` and
     ``kv_norm`` replicated (every rank forms the whole latent), ``wo``
     row-parallel over the heads' values (or read whole after the heads'
-    outputs are gathered, where the plan keeps it whole)."""
-    b, sq = x.shape[0], x.shape[1]
+    outputs are gathered, where the plan keeps it whole).  Under sequence
+    parallelism ``x`` is this rank's chunk: ``wq`` reads the gathered
+    whole sequence, ``wkv_a`` (its DAC scale shared over ``model``,
+    :data:`SEQ`), ``kv_norm`` and the shared rope key act on the chunk
+    at its positions, and the latent and the rope key are gathered
+    before ``wkv_b``."""
+    npar = shardctx.numeric_context()
+    tp = npar is not None and npar.mla and cache is None
+    sp = tp and npar.sp_on
+    b, sq = x.shape[0], x.shape[1] * (npar.m if sp else 1)
     h = cfg.n_heads
     r, dn, dr = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim
     append = cache is not None and (sq == 1 or positions is not None)
     if positions is None:
         positions = torch.arange(sq, device=x.device).expand(b, sq)
-    npar = shardctx.numeric_context()
-    tp = npar is not None and npar.mla and cache is None
     col = {}
     if tp:      # this rank's heads of wq and wkv_b (head-major columns)
         h //= npar.m
@@ -523,9 +555,11 @@ def mla_attention(p: dict, x: Tensor, cfg: ModelConfig, *,
                              tp=col.get("wq")), h)       # (b, s, h, dn+dr)
     q_nope = q[..., :dn]
     q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
-    kv_a = project(p["wkv_a"], x, cfg)
+    kv_a = project(p["wkv_a"], x, cfg, tp=SEQ)
     c_kv = rmsnorm(p["kv_norm"], kv_a[..., :r], cfg.norm_eps)
-    k_rope = apply_rope(kv_a[..., None, r:], positions,
+    own = positions.narrow(1, npar.seq_offset(x.shape[1]), x.shape[1]) \
+        if sp else positions
+    k_rope = apply_rope(kv_a[..., None, r:], own,
                         cfg.rope_theta)[:, :, 0]         # one shared head
 
     new_cache, kv_len = None, None

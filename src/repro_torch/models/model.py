@@ -124,7 +124,8 @@ def _forward(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig,
         return logits, caches, None, aux
     if cfg.family == "audio":
         enc = None if caches is not None and tokens.shape[1] == 1 \
-            else tf.audio_encode(params, batch["audio"], cfg)
+            else tf.audio_encode(params, batch["audio"], cfg,
+                                 tokens.shape[1])
         logits, caches, aux = tf.audio_decode(params, tokens, enc, cfg,
                                               caches=caches, **kw)
         return logits, caches, None, aux

@@ -146,9 +146,19 @@ def moe_apply(p: dict, x: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
     only in the sharding constraints on its buffers, which eager torch
     does not have).  Device mode always dispatches globally: a grouped
     dispatch would apply each expert container once per group, against
-    the one-application tape contract."""
+    the one-application tape contract.
+
+    Under a numeric step's sequence parallelism ``x`` is this rank's
+    chunk of the sequence: the data rank's whole sequences are gathered
+    first, the dispatch runs on them as without it (alike on every
+    ``model`` rank: the global capacity, drop order, aux loss and DAC
+    scales), and this rank keeps its chunk of the output."""
     groups = int(os.environ.get("REPRO_MOE_GROUPS", "1"))
     npar = shardctx.numeric_context()
+    if npar is not None and npar.sp_on:
+        with npar.whole_sequence():
+            y, aux = moe_apply(p, npar.seq_gather(x), cfg)
+        return npar.seq_split(y), aux
     n = npar.n_data if npar is not None else 1
     if resolve_analog_mode(cfg) is not AnalogMode.DEVICE and groups > 1 \
             and groups % n == 0 and x.shape[0] % (groups // n) == 0:

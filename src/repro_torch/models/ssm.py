@@ -196,7 +196,11 @@ def ssm_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
     whole ``d_in`` runs whole on every rank, after ``y * silu(z)`` is
     gathered along ``d_in`` (backward the rank's slice), so that its
     forward and backward are one device's; the rank's columns of it then
-    feed ``out_proj`` row-parallel (backward gathered).
+    feed ``out_proj`` row-parallel (backward gathered).  Under sequence
+    parallelism ``x`` is this rank's chunk of the sequence: ``in_proj``'s
+    input is gathered along it, so the conv and the scan run over the
+    whole sequences, and ``out_proj``'s output is reduce-scattered along
+    it back to the chunk.
     """
     b, s, _ = x.shape
     d_in, h, n, g = _dims(cfg)
@@ -206,7 +210,8 @@ def ssm_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
     if tp:
         col = ("col", 2 * d_in + 2 * g * n + h, npar.blocks.get("in_proj"))
         p, (d_in, h, g) = _rank_layer(p, cfg, npar)
-        x = npar.col_input(x)
+        x = npar.col_input(x)       # the whole sequence under ``seq``
+        s = x.shape[1]
     zxbcdt = project(p["in_proj"], x, cfg, tp=col)
     z, xbc, dt = torch.split(zxbcdt, [d_in, d_in + 2 * g * n,
                                       zxbcdt.shape[-1] - 2 * d_in

@@ -31,8 +31,10 @@ alive), and so is every leaf outside the stacks at its use (the splits
 the plan keeps left in place: the hybrid's shared block's).  The
 embedding is then vocab-split (each rank looks up its rows, the partial
 embeddings summed over ``model``) and the head vocab-parallel;
-``REPRO_SEQ_SHARD`` splits the dense family's activations along the
-sequence between blocks, and ``REPRO_EMBED_BF16`` casts the table before
+``REPRO_SEQ_SHARD`` splits every family's activations along the sequence
+between blocks (the tokens from the embedding's sum on, whisper's frames
+from the encoder's entry to its final norm, whose output is gathered
+once for the decoder), and ``REPRO_EMBED_BF16`` casts the table before
 the lookup (the reference's flags).
 
 The cross-attention families take a second token stream (the stub
@@ -59,10 +61,10 @@ from repro_torch.core.tiled_analog import pop_tapes, push_tapes, stack_trees
 
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import (_chunked_sdpa, _out_project, _split_heads, attention,
-                     attn_init, cdtype, dense_init, embed_init, ffn,
-                     ffn_init, fused_qkv, mla_attention, mla_init, proj_init,
-                     project, rmsnorm, rmsnorm_init)
+from .layers import (SEQ, _chunked_sdpa, _out_project, _split_heads,
+                     attention, attn_init, cdtype, dense_init, embed_init,
+                     ffn, ffn_init, fused_qkv, mla_attention, mla_init,
+                     proj_init, project, rmsnorm, rmsnorm_init)
 
 Tensor = torch.Tensor
 
@@ -268,14 +270,24 @@ def _logits(p: dict, x: Tensor, cfg: ModelConfig,
     return (x @ _top(p, ("lm_head", "w")).to(x.dtype)).float()
 
 
-def _embed_lookup(p: dict, tokens: Tensor, cfg: ModelConfig) -> Tensor:
+def _seq_on(npar, *lengths: int) -> bool:
+    """Whether a step of the numeric context ``npar`` runs sequence
+    parallel: its plan's ``seq``, and every sequence of the step (the
+    tokens, whisper's frames) dividing over ``model``.  One answer for the
+    whole step, however many stacks it runs."""
+    return bool(npar.seq) and all(n % npar.m == 0 for n in lengths)
+
+
+def _embed_lookup(p: dict, tokens: Tensor, cfg: ModelConfig,
+                  frames: int = 0) -> Tensor:
     """The embedding of ``tokens``.  ``REPRO_EMBED_BF16`` casts the table
     to the compute dtype before the lookup (the reference's flag: a
     vocab-split lookup's sum then moves 2 bytes an element; each output
     element has one nonzero term, so the values are the same).  Under a
     numeric step's ``vocab`` plan each rank looks up the tokens of its
     vocab slice, zeros elsewhere, and the partial embeddings are summed
-    over ``model`` (split along the sequence under ``seq``)."""
+    over ``model`` (split along the sequence under ``seq``; ``frames``:
+    the encoder's sequence, which must divide too)."""
     table = _top(p, "embed")
     if os.environ.get("REPRO_EMBED_BF16"):
         table = table.to(cdtype(cfg))
@@ -291,7 +303,7 @@ def _embed_lookup(p: dict, tokens: Tensor, cfg: ModelConfig) -> Tensor:
     e = torch.where(mine[..., None], e, torch.zeros((), dtype=e.dtype,
                                                     device=e.device))
     e = e.to(cdtype(cfg))
-    npar.sp_on = npar.seq and e.ndim == 3 and e.shape[1] % npar.m == 0
+    npar.sp_on = e.ndim == 3 and _seq_on(npar, e.shape[1], frames)
     return npar.row_output(e)
 
 
@@ -409,14 +421,31 @@ def _enc_block(lp: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
     return x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg)
 
 
-def audio_encode(p: dict, frames: Tensor, cfg: ModelConfig) -> Tensor:
+def audio_encode(p: dict, frames: Tensor, cfg: ModelConfig,
+                 n_tokens: int = 0) -> Tensor:
     """frames: (B, n_audio_frames, d_model), the stub conv frontend's
-    output; non-causal, rope-free attention."""
-    x = frames.to(cdtype(cfg)) + _top(p, "enc_pos").to(cdtype(cfg))
+    output; non-causal, rope-free attention.  Under a numeric step's
+    sequence parallelism (the frames and the decoder's ``n_tokens``
+    dividing over ``model``) the encoder runs on this rank's chunk of the
+    frames, ``enc_pos``'s rows of it added, and its output is gathered
+    along the frames once, so that every decoder layer's cross read sees
+    the whole stream."""
+    x = frames.to(cdtype(cfg))
+    pos = _top(p, "enc_pos").to(cdtype(cfg))
+    npar = shardctx.numeric_context()
+    sp = npar is not None and _seq_on(npar, x.shape[1], n_tokens)
+    if npar is not None:
+        npar.sp_on = sp
+    if sp:
+        c = x.shape[1] // npar.m
+        x = npar.seq_split(x)
+        pos = pos.narrow(0, npar.seq_offset(c), c)
+    x = x + pos
     block = _remat(_layered(_enc_block, "enc_layers"))
     for i in range(cfg.n_encoder_layers):
         x = block(tree_index(p["enc_layers"], i), x, cfg)
-    return rmsnorm(_top(p, "enc_ln"), x, cfg.norm_eps)
+    x = rmsnorm(_top(p, "enc_ln"), x, cfg.norm_eps)
+    return npar.seq_gather(x) if sp else x
 
 
 def _dec_block(lp: dict, x: Tensor, enc: Optional[Tensor], cfg: ModelConfig,
@@ -442,7 +471,7 @@ def _dec_block(lp: dict, x: Tensor, enc: Optional[Tensor], cfg: ModelConfig,
             c["ck"].copy_(ck)
             c["cv"].copy_(cv)
     o = _chunked_sdpa(q, ck, cv, causal=False)
-    x = x + _out_project(xp, o.reshape(*x.shape[:-1], -1), cfg,
+    x = x + _out_project(xp, o.reshape(*o.shape[:2], -1), cfg,
                          npar if tp else None)
     x = x + ffn(lp["ffn"], rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg)
     return x, nc_self
@@ -461,7 +490,7 @@ def audio_decode(p: dict, tokens: Tensor, enc: Optional[Tensor],
     read.  The caches (``{"self", "ck", "cv"}`` stacked (L, B, ...)) are
     updated in place.  Only the fused ``wqkv`` layout exists (the
     reference's split layout has no initialiser)."""
-    x = _embed_lookup(p, tokens, cfg)
+    x = _embed_lookup(p, tokens, cfg, 0 if enc is None else enc.shape[1])
     block = _layered(_dec_block, "dec_layers")
     if caches is None:
         block = _remat(block)
@@ -542,7 +571,7 @@ def ssm_stack_apply(p: dict, tokens: Tensor, cfg: ModelConfig, *,
             if has_tapes else shared_clean
         cache = tree_index(shared_caches, gi) \
             if shared_caches is not None else None
-        h_in = project(sp["in"], torch.cat([x, x0], dim=-1), cfg)
+        h_in = project(sp["in"], torch.cat([x, x0], dim=-1), cfg, tp=SEQ)
         h1, new_cache = attention(
             sp["attn"], rmsnorm(_top(p, "shared_ln"), h_in, cfg.norm_eps),
             cfg, positions=positions, cache=cache)

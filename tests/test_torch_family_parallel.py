@@ -54,6 +54,15 @@ get (the reference's start at 0).  Tolerances:
     ``model`` rank bit-equal to the one-device forward's (a digital
     row-split ``out_proj`` sums the ranks' partial products, so only the
     first layer's input would be one device's there);
+  * ``REPRO_SEQ_SHARD`` on 2x2 and 1x4 (the tokens, and whisper's
+    frames in its encoder, split over ``model`` between blocks; asserted
+    split): digital against the reference's jitted step and QAT against
+    the port's 1x1 QAT step, in the classes above; mamba2's SSD
+    gradients under it against ``jax.grad`` as above, the leaves that act
+    on a rank's chunk (the block norms, ``final_ln``: summed over
+    ``model``) and on the gathered whole sequence (``conv_w``,
+    ``conv_b``, ``a_log``, ``dt_bias``, ``d_skip``, the gated norm: not
+    summed, ``launch.sharding.SEQ_GRAD``) checked apart;
   * a column split of a leaf with parts whole on every rank (``in_proj``'s
     B, C, dt) read on 1x4: ``dx`` and ``dw`` (each rank's whole parts'
     cotangent its share of the whole, as the SSD scan gives it) against
@@ -71,6 +80,7 @@ get (the reference's start at 0).  Tolerances:
 """
 import contextlib
 import json
+import os
 import shutil
 
 import numpy as np
@@ -96,8 +106,8 @@ QAT = {"mamba2-1.3b": dict(_Q, **_SSD),
        "zamba2-1.2b": dict(_Q, **_SSD, **_ATT),
        "whisper-medium": dict(_Q, **_ATT),
        "llama-3.2-vision-90b": dict(_Q, **_ATT)}
-JOBS = {(2, 2): ("digital", "qat", "grads"),
-        (1, 4): ("digital", "qat", "grads", "read"),
+JOBS = {(2, 2): ("digital", "qat", "grads", "sp", "qat_sp"),
+        (1, 4): ("digital", "qat", "grads", "read", "sp", "qat_sp"),
         (4, 1): ("digital", "qat"),
         (2, 1): ("digital",)}
 
@@ -193,10 +203,30 @@ def _held_shape(w, path, spec, cfg, mesh):
     return tuple(shape)
 
 
-def _numeric_run(arch, extra, params_np, mesh, n_steps):
+@contextlib.contextmanager
+def _env(name):
+    """``name`` set to 1 for a block (None: nothing set)."""
+    if name is None:
+        yield
+        return
+    os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(name)
+
+
+def _numeric_run(arch, extra, params_np, mesh, n_steps, env=None):
     """``n_steps`` adamw steps of the FSDP / TP step from whole numpy
-    parameters: the global losses and grad norms, the whole parameters
-    after them, the plan and whether the held blocks are the policy's."""
+    parameters (``env``: an environment flag set for them): the global
+    losses and grad norms, the whole parameters after them, the plan,
+    whether the held blocks are the policy's and whether the sequence was
+    split."""
+    with _env(env):
+        return _numeric_steps(arch, extra, params_np, mesh, n_steps)
+
+
+def _numeric_steps(arch, extra, params_np, mesh, n_steps):
     from repro_torch.convert import params_from_numpy, params_to_numpy
     from repro_torch.launch import sharding as S_
     from repro_torch.train import train_loop as TL
@@ -215,8 +245,10 @@ def _numeric_run(arch, extra, params_np, mesh, n_steps):
                for p, w in _leaves(params))
     batches = _batches(cfg)
     losses, norms = [], []
+    sp = True
     for i in range(n_steps):
         st, m = step(st, _batch(batches, i, _rows(mesh)))
+        sp = sp and step.numeric.sp_on
         loss = mesh.all_reduce(m["loss"].reshape(1), "data") \
             / mesh.shape["data"]
         losses.append(float(loss))
@@ -224,7 +256,7 @@ def _numeric_run(arch, extra, params_np, mesh, n_steps):
     whole = TL.unshard_state(st, cfg, mesh)
     return {"losses": losses, "norms": norms, "plan": step.numeric.plan(),
             "params": params_to_numpy(whole["params"]), "held": held,
-            "counts": dict(step.numeric.counts)}
+            "counts": dict(step.numeric.counts), "sp": sp}
 
 
 @contextlib.contextmanager
@@ -265,7 +297,8 @@ def _ssm_grads(params_np, mesh):
         lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
         blocks))
     return {"grads": params_to_numpy(S_.unshard_tree(grads, npar.specs,
-                                                     npar.like, cfg, mesh))}
+                                                     npar.like, cfg, mesh)),
+            "sp": npar.sp_on}
 
 
 def _ssm_norms(params_np, mesh):
@@ -356,17 +389,22 @@ def _rank(rank, world, rdv, inp, out):
                 got[job] = _ssm_grads(data["params"][SSM_ARCH], mesh)
                 got["norms"] = _ssm_norms(data["params_qat"][SSM_ARCH],
                                           mesh)
+                with _env("REPRO_SEQ_SHARD"):
+                    got["sp_grads"] = _ssm_grads(data["params"][SSM_ARCH],
+                                                 mesh)
             elif job == "read":
                 got[job] = _whole_part_read(mesh)
-            for arch in ARCHS if job in ("digital", "qat") else ():
-                if job == "digital":
+            steps = ("digital", "qat", "sp", "qat_sp")
+            env = "REPRO_SEQ_SHARD" if job in ("sp", "qat_sp") else None
+            for arch in ARCHS if job in steps else ():
+                if job in ("digital", "sp"):
                     got[job, arch] = _numeric_run(
-                        arch, DIG, data["params"][arch], mesh, STEPS)
+                        arch, DIG, data["params"][arch], mesh, STEPS, env)
                 else:
                     with card_route():
                         got[job, arch] = _numeric_run(
                             arch, QAT[arch], data["params_qat"][arch], mesh,
-                            1)
+                            1, env)
     torch.save(res, f"{out}.{rank}")
     dist.barrier()
     dist.destroy_process_group()
@@ -627,6 +665,73 @@ def test_ssm_gated_norm_is_one_devices(runs, shape):
         assert len(norms) == len(one) > 0
         for a, b in zip(norms, one):
             assert torch.equal(a, b)
+
+
+SP_LAYOUTS = [(2, 2), (1, 4)]
+SP_IDS = ["2x2", "1x4"]
+
+
+@pytest.mark.parametrize("arch", ARCHS, ids=IDS)
+@pytest.mark.parametrize("shape", SP_LAYOUTS, ids=SP_IDS)
+def test_family_sequence_sharding_matches_reference(runs, shape, arch):
+    """``REPRO_SEQ_SHARD``: the SSD layers gather the sequence at
+    ``in_proj`` and reduce-scatter it at ``out_proj``, whisper's encoder
+    runs on its chunk of the frames and gathers its output once, the
+    cross reads join the stream to the whole sequence: the reference's
+    step over the global batch, ``seq`` in the plan."""
+    ref = runs["ref"][arch]
+    for r in runs["ranks"][shape]:
+        got = r["sp", arch]
+        assert got["sp"], "REPRO_SEQ_SHARD did not split the sequence"
+        assert got["plan"]["seq"], got["plan"]
+        assert got["held"]
+        assert _close(got["losses"], ref["losses"]), (got["losses"],
+                                                      ref["losses"])
+        assert _close(got["norms"], ref["norms"]), (got["norms"],
+                                                    ref["norms"])
+        _close_params(got["params"], ref["params"], LR, STEPS)
+
+
+@pytest.mark.parametrize("arch", ARCHS, ids=IDS)
+@pytest.mark.parametrize("shape", SP_LAYOUTS, ids=SP_IDS)
+def test_family_qat_sequence_sharding_matches_one_device(runs, shape, arch):
+    """QAT under ``REPRO_SEQ_SHARD`` (the card's route): zamba2's shared
+    ``in`` read on the chunk with its DAC scale shared over ``model``,
+    the row splits' whole output cut to the chunk; the QAT class."""
+    one = runs["one_qat"][arch]
+    for r in runs["ranks"][shape]:
+        got = r["qat_sp", arch]
+        assert got["sp"], "REPRO_SEQ_SHARD did not split the sequence"
+        assert _close(got["losses"], one["losses"]), (got["losses"],
+                                                      one["losses"])
+        assert _close(got["norms"], one["norms"]), (got["norms"],
+                                                    one["norms"])
+        _close_params(got["params"], one["params"], LR, 1)
+
+
+@pytest.mark.parametrize("shape", SP_LAYOUTS, ids=SP_IDS)
+def test_ssm_gradients_match_jax_grad_under_seq(runs, shape):
+    """Under ``REPRO_SEQ_SHARD`` every leaf's gradient within 1e-5
+    relative in norm of ``jax.grad``; the leaves that act on a rank's
+    chunk (summed over ``model``) and those that act on the gathered
+    whole sequence on every rank (the SSD layer's replicated leaves and
+    its gated norm: not summed, or they come out ``model`` times over)
+    checked apart."""
+    from repro_torch.launch import sharding as S_
+    want = runs["ref"][SSM_ARCH]["grads"]
+    kinds = {"chunk": 0, "whole": 0}
+    for r in runs["ranks"][shape]:
+        got = r["sp_grads"]
+        assert got["sp"], "REPRO_SEQ_SHARD did not split the sequence"
+        for path, w in _leaves(want):
+            g = np.asarray(_get(got["grads"], path))
+            err = np.linalg.norm(g - w) / (np.linalg.norm(w) + 1e-30)
+            assert err <= 1e-5, (path, err)
+            kind = S_.SEQ_GRAD.get(S_.block_path(path))
+            if kind is not None:
+                assert np.linalg.norm(w) > 0, path
+                kinds[kind] += 1
+    assert kinds["chunk"] and kinds["whole"], kinds
 
 
 def test_whole_part_read_gradient(runs):

@@ -51,6 +51,16 @@ which the one-device dispatch drops pairs (asserted).  Tolerances:
     ``jax.grad`` of the reference's aux over the global batch: every
     leaf within 1e-5 relative in norm (a per-rank mean, or the gradient
     of a sum with an identity backward, is off by the data ranks' count);
+  * ``REPRO_SEQ_SHARD`` on 2x2 and 1x4 (the sequence split over
+    ``model`` between blocks, gathered before the router; asserted
+    split): digital against the reference's jitted step in the digital
+    class, QAT against the port's 1x1 QAT step in the model's QAT class,
+    and the loss's gradient against ``jax.grad`` of the reference's loss:
+    every leaf within 1e-5 relative in norm, the leaves that act on a
+    rank's chunk (norms, MLA's ``wkv_a`` and ``kv_norm``: summed over
+    ``model``) and on the gathered whole (the router: not summed)
+    checked apart (``launch.sharding.SEQ_GRAD``; summing the router too
+    puts its gradient ``model`` times over);
   * each rank holds the policy's block of every leaf of ``params``, ``m``
     and ``v``, shapes exactly, and the plan's flags are as the layout
     allows (``ep``, ``mla`` or ``attn``, ``attn_row``, ``ffn``,
@@ -59,7 +69,9 @@ which the one-device dispatch drops pairs (asserted).  Tolerances:
     and resumed on 1x1: the same batches bit for bit and the
     uninterrupted run's losses within 1e-5 relative.
 """
+import contextlib
 import json
+import os
 import shutil
 
 import numpy as np
@@ -81,10 +93,24 @@ QAT = {"llama4-scout-17b-a16e": dict(
            DIG, analog=True, analog_mode="fakequant", analog_rows=16,
            qk_nope_dim=48, qk_rope_dim=16, v_head_dim=16,
            d_ff_expert=128)}
-JOBS = {(2, 2): ("digital", "qat", "reads", "aux"),
-        (1, 4): ("digital", "qat"),
+JOBS = {(2, 2): ("digital", "qat", "reads", "aux", "sp", "qat_sp",
+                 "sp_grads"),
+        (1, 4): ("digital", "qat", "sp", "qat_sp", "sp_grads"),
         (4, 1): ("digital", "qat", "reads", "aux"),
         (2, 1): ("digital", "aux")}
+
+
+@contextlib.contextmanager
+def _env(name):
+    """``name`` set to 1 for a block (None: nothing set)."""
+    if name is None:
+        yield
+        return
+    os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(name)
 
 
 def _cfg(arch, extra):
@@ -131,10 +157,16 @@ def _dropped(params, cfg, tokens, npar=None):
     return int(moe.DROPPED["pairs"])
 
 
-def _numeric_run(arch, extra, params_np, mesh, n_steps):
+def _numeric_run(arch, extra, params_np, mesh, n_steps, env=None):
     """``n_steps`` adamw steps of the FSDP / TP / EP step from whole numpy
-    parameters: the global losses and grad norms, the whole parameters
-    after them, the plan, the held blocks and the dropped pairs."""
+    parameters (``env``: an environment flag set for them): the global
+    losses and grad norms, the whole parameters after them, the plan, the
+    held blocks, the dropped pairs and whether the sequence was split."""
+    with _env(env):
+        return _numeric_steps(arch, extra, params_np, mesh, n_steps)
+
+
+def _numeric_steps(arch, extra, params_np, mesh, n_steps):
     from repro_torch.convert import params_from_numpy, params_to_numpy
     from repro_torch.launch import sharding as S_
     from repro_torch.train import train_loop as TL
@@ -159,9 +191,11 @@ def _numeric_run(arch, extra, params_np, mesh, n_steps):
     dropped = _dropped(st["params"], cfg, torch.from_numpy(x[0, rows]).long(),
                        step.numeric)
     losses, norms = [], []
+    sp = True
     for i in range(n_steps):
         st, m = step(st, {"tokens": torch.from_numpy(x[i, rows]).long(),
                           "labels": torch.from_numpy(y[i, rows]).long()})
+        sp = sp and step.numeric.sp_on
         loss = mesh.all_reduce(m["loss"].reshape(1), "data") \
             / mesh.shape["data"]
         losses.append(float(loss))
@@ -169,12 +203,13 @@ def _numeric_run(arch, extra, params_np, mesh, n_steps):
     whole = TL.unshard_state(st, cfg, mesh)
     return {"losses": losses, "norms": norms, "plan": step.numeric.plan(),
             "params": params_to_numpy(whole["params"]), "held": held,
-            "dropped": dropped}
+            "dropped": dropped, "sp": sp}
 
 
-def _aux_grads(arch, params_np, mesh):
-    """The gradient of ``metrics["aux"]`` alone, data-parallel mean over
-    the blocks (``reduce_grads``), unsharded whole."""
+def _aux_grads(arch, params_np, mesh, key="aux"):
+    """The gradient of ``metrics["aux"]`` alone (``key`` "loss": of the
+    loss), data-parallel mean over the blocks (``reduce_grads``),
+    unsharded whole."""
     from repro_torch.convert import params_from_numpy, params_to_numpy
     from repro_torch.core import shardctx
     from repro_torch.launch import sharding as S_
@@ -189,15 +224,16 @@ def _aux_grads(arch, params_np, mesh):
     x, y = _batches(cfg.vocab)
     rows = _rows(mesh)
     with shardctx.numeric_parallel(npar):
-        _, mets = M.loss_fn(blocks, {
+        loss, mets = M.loss_fn(blocks, {
             "tokens": torch.from_numpy(x[0, rows]).long(),
             "labels": torch.from_numpy(y[0, rows]).long()}, cfg)
-        mets["aux"].backward()
+        (loss if key == "loss" else mets[key]).backward()
     grads = tree_map(lambda p: p.grad if p.grad is not None
                      else torch.zeros_like(p), blocks)
     grads = npar.reduce_grads(grads)
-    return params_to_numpy(S_.unshard_tree(grads, npar.specs, npar.like,
-                                           cfg, mesh))
+    out = params_to_numpy(S_.unshard_tree(grads, npar.specs, npar.like,
+                                          cfg, mesh))
+    return out if key == "aux" else {"grads": out, "sp": npar.sp_on}
 
 
 def _expert_read_checks(mesh):
@@ -259,6 +295,18 @@ def _rank(rank, world, rdv, inp, out):
                 elif job == "aux":
                     got[job, arch] = _aux_grads(arch, data["params"][arch],
                                                 mesh)
+                elif job == "sp":
+                    got[job, arch] = _numeric_run(
+                        arch, DIG, data["params"][arch], mesh, STEPS,
+                        env="REPRO_SEQ_SHARD")
+                elif job == "qat_sp":
+                    got[job, arch] = _numeric_run(
+                        arch, QAT[arch], data["params_qat"][arch], mesh, 1,
+                        env="REPRO_SEQ_SHARD")
+                elif job == "sp_grads":
+                    with _env("REPRO_SEQ_SHARD"):
+                        got[job, arch] = _aux_grads(
+                            arch, data["params"][arch], mesh, "loss")
             if job == "reads":
                 got[job] = _expert_read_checks(mesh)
     torch.save(res, f"{out}.{rank}")
@@ -306,9 +354,12 @@ def _reference(arch, params):
     batch = {"tokens": jnp.asarray(x[0]), "labels": jnp.asarray(y[0])}
     aux = jax.jit(jax.grad(lambda p: JM.loss_fn(p, batch, cfg)[1]["aux"]))(
         jparams)
+    grads = jax.jit(jax.grad(lambda p: JM.loss_fn(p, batch, cfg)[0]))(
+        jparams)
     return {"losses": losses, "norms": norms,
             "params": jax.tree.map(np.asarray, state["params"]),
-            "aux_grads": jax.tree.map(np.asarray, aux)}
+            "aux_grads": jax.tree.map(np.asarray, aux),
+            "grads": jax.tree.map(np.asarray, grads)}
 
 
 def _port_one_device(arch, extra, params_np, n):
@@ -423,7 +474,8 @@ def test_moe_digital_step_matches_reference(runs, shape, arch):
 def test_moe_plan_on_model_ranks(runs, arch):
     """``ep`` and the attention (GQA's ``attn`` or MLA's ``mla``), the
     shared experts' FFN and the vocab split on 2x2 and 1x4; nothing on
-    4x1 and 2x1 (FSDP alone); ``seq`` never (the dense family's)."""
+    4x1 and 2x1 (FSDP alone); ``seq`` off without ``REPRO_SEQ_SHARD``
+    and on with it."""
     attn = "mla" if arch.startswith("deepseek") else "attn"
     on = {"ep", attn, "attn_row", "ffn", "ffn_row", "vocab"}
     for shape in LAYOUTS:
@@ -432,6 +484,11 @@ def test_moe_plan_on_model_ranks(runs, arch):
             want = on if shape[1] > 1 else set()
             assert {k for k, v in plan.items() if v} == want, (shape, job,
                                                                plan)
+    for shape in [(2, 2), (1, 4)]:
+        for job in ("sp", "qat_sp"):
+            plan = runs["ranks"][shape][0][job, arch]["plan"]
+            assert {k for k, v in plan.items() if v} == on | {"seq"}, (
+                shape, job, plan)
 
 
 @pytest.mark.parametrize("arch", ARCHS, ids=["llama4", "deepseek"])
@@ -475,6 +532,75 @@ def test_aux_gradient_matches_reference(runs, shape, arch):
             g = np.asarray(_get(got, path))
             err = np.linalg.norm(g - w) / (np.linalg.norm(w) + 1e-30)
             assert err <= 1e-5 or np.linalg.norm(w) < 1e-12, (path, err)
+
+
+SP_LAYOUTS = [(2, 2), (1, 4)]
+SP_IDS = ["2x2", "1x4"]
+
+
+@pytest.mark.parametrize("arch", ARCHS, ids=["llama4", "deepseek"])
+@pytest.mark.parametrize("shape", SP_LAYOUTS, ids=SP_IDS)
+def test_moe_sequence_sharding_matches_reference(runs, shape, arch):
+    """``REPRO_SEQ_SHARD``: the sequence split between blocks, gathered
+    whole before the router and the global dispatch, the output cut back
+    to the rank's chunk: the reference's step over the global batch."""
+    ref = runs["ref"][arch]
+    one = runs["one"][arch]
+    per = runs["ranks"][shape]
+    assert sum(r["sp", arch]["dropped"] for r in per) \
+        == one["dropped"] * shape[1]
+    for r in per:
+        got = r["sp", arch]
+        assert got["sp"], "REPRO_SEQ_SHARD did not split the sequence"
+        assert got["held"]
+        assert _close(got["losses"], ref["losses"]), (got["losses"],
+                                                      ref["losses"])
+        assert _close(got["norms"], ref["norms"]), (got["norms"],
+                                                    ref["norms"])
+        _close_params(got["params"], ref["params"], LR, STEPS)
+
+
+@pytest.mark.parametrize("arch", ARCHS, ids=["llama4", "deepseek"])
+@pytest.mark.parametrize("shape", SP_LAYOUTS, ids=SP_IDS)
+def test_moe_qat_sequence_sharding_matches_one_device(runs, shape, arch):
+    """QAT under ``REPRO_SEQ_SHARD``: MLA's ``wkv_a`` read on the chunk
+    with its DAC scale shared over ``model``, the row splits' whole
+    output cut to the chunk; the model's QAT class."""
+    one = runs["one_qat"][arch]
+    rel, share = QAT_CLASS[arch]
+    for r in runs["ranks"][shape]:
+        got = r["qat_sp", arch]
+        assert got["sp"], "REPRO_SEQ_SHARD did not split the sequence"
+        assert _close(got["losses"], one["losses"], rel), (got["losses"],
+                                                           one["losses"])
+        assert _close(got["norms"], one["norms"], rel), (got["norms"],
+                                                         one["norms"])
+        _close_params(got["params"], one["params"], LR, 1, share)
+
+
+@pytest.mark.parametrize("arch", ARCHS, ids=["llama4", "deepseek"])
+@pytest.mark.parametrize("shape", SP_LAYOUTS, ids=SP_IDS)
+def test_moe_sequence_gradients_match_jax_grad(runs, shape, arch):
+    """Under ``REPRO_SEQ_SHARD`` every leaf's gradient within 1e-5
+    relative in norm of ``jax.grad``; the leaves summed over ``model``
+    (``SEQ_GRAD``'s chunk leaves) and the router, which acts on the
+    gathered whole sequence on every rank, checked apart."""
+    from repro_torch.launch import sharding as S_
+    want = runs["ref"][arch]["grads"]
+    kinds = {"chunk": 0, "whole": 0}
+    for r in runs["ranks"][shape]:
+        got = r["sp_grads", arch]
+        assert got["sp"], "REPRO_SEQ_SHARD did not split the sequence"
+        for path, w in _leaves(want):
+            g = np.asarray(_get(got["grads"], path))
+            err = np.linalg.norm(g - w) / (np.linalg.norm(w) + 1e-30)
+            assert err <= 1e-5 or np.linalg.norm(w) < 1e-12, (path, err)
+            kind = S_.SEQ_GRAD.get(S_.block_path(path))
+            if kind is not None:
+                assert np.linalg.norm(w) > 0, path
+                assert err <= 1e-5, (kind, path, err)
+                kinds[kind] += 1
+    assert kinds["chunk"] and kinds["whole"], kinds
 
 
 # ------------------------------------------------------------------ the CLI
