@@ -561,6 +561,24 @@ before remat existed.
    Printed beside the layouts without the flag: the bytes each rank
    receives a step through the numeric step's collectives, peak GB and
    step ms a rank.
+31. The reference's last public entry points, in the main process at
+   lm100m's full-width container shapes (12, 768, 2304) and (12, 3072,
+   768), 64x64 tiles: (a) with ``stochastic_round=True`` the forward and
+   transpose reads at B = 4 (FP32 instance) and B = 2048 (tensor-core
+   instance) and the fakequant read at T = 4 and T = 2048 (one layer's
+   matrix, 1024-row tiles) bit-equal to the same reads with the flag off
+   (no library read passes a uniform field, as no reference read passes a
+   key); (b) ``kind="lut"`` writes, outer and pulse-train, on the
+   tensor-core and FP32 instances at T = 2048 with counter-PRNG noise,
+   bit-equal to ``kind="taox"`` at the same seed; (c)
+   ``kernels.ops.outer_update`` (float operands quantised on the card,
+   then the tensor-core write) in host and kernel noise modes within the
+   write's class of its plain version (``tc_write_agrees``), one
+   tensor-core write and one pre-pass a call, its CUDA-event ms printed
+   beside the direct ``xbar_outer_update`` of the same quantised
+   operands; (d) ``kernels.ops.vmm`` / ``mvm`` bit-equal to
+   ``core.xbar_ops.vmm`` / ``mvm`` at both batch sizes.  Every gate counts
+   its kernels' launches.
 
 Every phase prints its wall seconds on a line of its own.
 
@@ -9593,6 +9611,231 @@ def phase_tp_inexact(K, S, TM, TA, syn, get_config, report, gpu_line):
     return row
 
 
+API_CONTAINERS = (("wqkv", 768, 2304), ("w_down", 3072, 768))
+API_LAYERS = 12
+API_READ_B = (4, 2048)
+API_T = 2048
+API_FQ_ROWS = 1024
+API_SEED = 0x31313131
+
+
+def launched(module, before, *names):
+    """Launches of ``names`` in ``module.LAUNCHES`` since ``before``."""
+    return {n: module.LAUNCHES[n] - before[n] for n in names}
+
+
+def api_reads(K, OPS, XO, CrossbarConfig, AdcConfig, TAOX_NONOISE, gen):
+    """Phase 31(a) and (d): reads with the flag against the reads without
+    it, and ``kernels.ops`` against ``core.xbar_ops``, bit for bit."""
+    rows = []
+    adc = AdcConfig(range_mode="dynamic")
+    cfg = CrossbarConfig(rows=64, cols=64, adc=adc, device=TAOX_NONOISE)
+    sr = cfg.replace(adc=AdcConfig(range_mode="dynamic",
+                                   stochastic_round=True))
+    for name, k, n in API_CONTAINERS:
+        w = torch.randn((API_LAYERS, k, n), generator=gen,
+                        device="cuda") / math.sqrt(k)
+        w_max = w.abs().amax(dim=(1, 2))
+        g = 0.5 + w * (0.5 / w_max)[:, None, None]
+        ref = torch.full_like(g, 0.5)
+        ws = 0.5 / w_max
+        for b in API_READ_B:
+            for transpose in (False, True):
+                x = torch.randn((API_LAYERS, b, k if not transpose else n),
+                                generator=gen, device="cuda")
+                d = "mvm" if transpose else "vmm"
+                before = dict(K.LAUNCHES)
+                on = K.xbar_fused_read(x, g, ref, ws, sr, transpose=transpose)
+                one = launched(K, before, f"fused_{d}")[f"fused_{d}"]
+                off = K.xbar_fused_read(x, g, ref, ws, cfg,
+                                        transpose=transpose)
+                core = (XO.mvm if transpose else XO.vmm)(x, g, ref, ws, cfg)
+                ops = (OPS.mvm if transpose else OPS.vmm)(x, g, ref, ws, cfg)
+                torch.cuda.synchronize()
+                count = launched(K, before, f"fused_{d}")[f"fused_{d}"]
+                row = {"gate": "31(a,d)", "container": name, "B": b,
+                       "transpose": transpose, "instance":
+                       K.read_instance(b, adc.in_levels),
+                       "flag_bit_equal": torch.equal(on, off),
+                       "ops_bit_equal": torch.equal(ops, core)
+                       and torch.equal(ops, off), "launches": count}
+                rows.append(row)
+                if not (row["flag_bit_equal"] and row["ops_bit_equal"]) \
+                        or one < 1 or count != 4 * one:
+                    fail(f"phase 31(a)/(d): {row}")
+        del w, g, ref
+    for name, k, n in API_CONTAINERS:
+        w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
+        for t in API_READ_B:
+            x = torch.randn((t, k), generator=gen, device="cuda")
+            before = dict(K.LAUNCHES)
+            on = K.fakequant_read(x, w, AdcConfig(stochastic_round=True),
+                                  API_FQ_ROWS)
+            off = K.fakequant_read(x, w, AdcConfig(), API_FQ_ROWS)
+            torch.cuda.synchronize()
+            count = launched(K, before, "fakequant")["fakequant"]
+            row = {"gate": "31(a)", "container": name, "T": t,
+                   "fakequant": True, "instance":
+                   K.fakequant_instance(t, AdcConfig().in_levels),
+                   "flag_bit_equal": torch.equal(on, off),
+                   "launches": count}
+            rows.append(row)
+            if not row["flag_bit_equal"] or count != 2:
+                fail(f"phase 31(a): {row}")
+    return rows
+
+
+def api_lut_writes(U, CrossbarConfig, TAOX, gen):
+    """Phase 31(b): ``kind="lut"`` writes bit-equal to ``kind="taox"``
+    at the same seed, both modes, both instances."""
+    rows = []
+    lut = TAOX.replace(kind="lut")
+    for name, k, n in API_CONTAINERS:
+        g, x_q, d_q, scale, xs, ds = update_operands(API_LAYERS, k, n, API_T,
+                                                     gen, False)
+        for mode in ("outer", "pulse_train"):
+            for inst in ("tensor_core", "fp32"):
+                scales = dict(x_scale=xs, d_scale=ds) \
+                    if inst == "tensor_core" else {}
+                outs = []
+                before = dict(U.LAUNCHES)
+                for dev in (lut, TAOX):
+                    cfg = CrossbarConfig(rows=64, cols=64, device=dev,
+                                         update_mode=mode)
+                    outs.append(U.xbar_outer_update(
+                        g, x_q, d_q, scale, cfg, seed=API_SEED,
+                        noise_mode="kernel", **scales))
+                torch.cuda.synchronize()
+                kern = "update_tc" if inst == "tensor_core" else "update_fp32"
+                count = launched(U, before, kern)[kern]
+                row = {"gate": "31(b)", "container": name, "mode": mode,
+                       "instance": inst,
+                       "bit_equal": torch.equal(outs[0], outs[1]),
+                       "moved": (outs[0] - g).abs().max().item(),
+                       "launches": count}
+                rows.append(row)
+                if not row["bit_equal"] or count != 2:
+                    fail(f"phase 31(b): {row}")
+                del outs
+        del g, x_q, d_q
+    return rows
+
+
+def api_outer_update(U, OPS, XO, CrossbarConfig, TAOX, gen):
+    """Phase 31(c): ``kernels.ops.outer_update`` on float operands, host
+    and kernel noise, against its plain version in the write's class, and
+    timed beside the direct write of the same quantised operands."""
+    rows = []
+    sync = torch.cuda.synchronize
+    cfg = CrossbarConfig(rows=64, cols=64, device=TAOX)
+    lr = 0.1
+    for name, k, n in API_CONTAINERS:
+        g = (0.5 + 0.1 * torch.randn((API_LAYERS, k, n), generator=gen,
+                                     device="cuda")).clamp(0, 1)
+        x = torch.randn((API_LAYERS, API_T, k), generator=gen, device="cuda")
+        d = 1e-3 * torch.randn((API_LAYERS, API_T, n), generator=gen,
+                               device="cuda")
+        ws = 1.5 + 0.5 * torch.rand((API_LAYERS,), generator=gen,
+                                    device="cuda")
+        x_int, xs, d_int, ds = XO.quantize_update_codes(x, d, cfg)
+        x_q, d_q = x_int * xs, d_int * ds
+        scale = torch.as_tensor(-lr, dtype=torch.float32, device="cuda") * ws
+        xs_l, ds_l = xs.expand(API_LAYERS), ds.expand(API_LAYERS)
+        for mode in ("host", "kernel"):
+            z = torch.randn(g.shape, generator=gen, device="cuda") \
+                if mode == "host" else None
+            noise = dict(noise=z) if mode == "host" else dict(seed=API_SEED)
+            before = dict(U.LAUNCHES)
+            g_k = OPS.outer_update(g, x, d, lr, ws, cfg, noise_mode=mode,
+                                   **noise)
+            sync()
+            count = launched(U, before, "update_tc", "update_prepare",
+                             "update_fp32")
+            seed = API_SEED if mode == "kernel" else None
+            g_p = U._update_plain(g, x_q, d_q, scale, z, seed, cfg, mode)
+            g_x = U._update_tc_plain(g, x_q, d_q, scale, z, seed, cfg, mode,
+                                     xs_l, ds_l)
+            field = z if mode == "host" else U.field_normals(
+                seed, g.shape, cfg, device="cuda")
+            ok, err, over, share = tc_write_agrees(g_k, g_p, g_x, g, x_q,
+                                                   d_q, scale, cfg, field)
+            del g_p, g_x, field
+            row = {"gate": "31(c)", "container": name, "noise_mode": mode,
+                   "L": API_LAYERS, "K": k, "N": n, "T": API_T,
+                   "ok": ok and share < SUM_TIE_SHARE,
+                   "max_abs_err": err, "max_err_over_twin_bound": over,
+                   "allowance_share": share, "launches": count,
+                   "moved": (g_k - g).abs().max().item()}
+            del g_k
+            if not row["ok"] or count != {"update_tc": 1,
+                                          "update_prepare": 1,
+                                          "update_fp32": 0}:
+                fail(f"phase 31(c): ops.outer_update disagrees with its "
+                     f"plain version or left the tensor-core instance: "
+                     f"{row}")
+            row["ms"] = cuda_ms(lambda i: OPS.outer_update(
+                g, x, d, lr, ws, cfg, noise_mode=mode, **noise), 5, sync)
+            row["direct_ms"] = cuda_ms(lambda i: U.xbar_outer_update(
+                g, x_q, d_q, scale, cfg, noise_mode=mode, x_scale=xs,
+                d_scale=ds, **noise), 5, sync)
+            row["quantise_ms"] = cuda_ms(
+                lambda i: XO.quantize_update_codes(x, d, cfg), 5, sync)
+            rows.append(row)
+            print(f"  ops.outer_update {name} (L {API_LAYERS}, K {k}, N {n}) "
+                  f"T={API_T} {mode} noise: {row['ms']:.3f} ms; direct "
+                  f"xbar_outer_update of the quantised operands "
+                  f"{row['direct_ms']:.3f} ms; the quantisation alone "
+                  f"{row['quantise_ms']:.3f} ms; max abs err "
+                  f"{row['max_abs_err']:.3g} (cells moved up to "
+                  f"{row['moved']:.3g}), allowance share {share:.2g}")
+            del z
+        del g, x, d, x_q, d_q
+    return rows
+
+
+def phase_api(K, U, OPS, XO, CrossbarConfig, AdcConfig, TAOX, TAOX_NONOISE,
+              report, gpu_line):
+    """Phase 31 (see the module docstring): every gate fails the run."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    out = {"reads": api_reads(K, OPS, XO, CrossbarConfig, AdcConfig,
+                              TAOX_NONOISE, gen),
+           "lut": api_lut_writes(U, CrossbarConfig, TAOX, gen),
+           "ops_outer_update": api_outer_update(U, OPS, XO, CrossbarConfig,
+                                                TAOX, gen)}
+    for rows in out.values():
+        for r in rows:
+            report(r)
+    n_reads = sum(r["flag_bit_equal"] for r in out["reads"])
+    print(f"phase 31: {n_reads} reads with stochastic_round bit-equal to "
+          f"the flag off, {sum(r['bit_equal'] for r in out['lut'])} lut "
+          f"writes bit-equal to taox, {len(out['ops_outer_update'])} "
+          f"ops.outer_update cases in the write's class ({gpu_line})")
+    return out
+
+
+def api_entry(api, kernel):
+    """The kernels-line figures of phase 31 for one kernel."""
+    if kernel == "fakequant":
+        return {"stochastic_round_31a": sum(
+            r["flag_bit_equal"] for r in api["reads"] if r.get("fakequant"))}
+    if kernel in ("vmm", "mvm"):
+        rs = [r for r in api["reads"] if not r.get("fakequant")
+              and r["transpose"] == (kernel == "mvm")]
+        return {"stochastic_round_31a": sum(r["flag_bit_equal"] for r in rs),
+                "ops_bit_equal_31d": sum(r["ops_bit_equal"] for r in rs)}
+    mode = "pulse_train" if kernel == "pulse" else "outer"
+    out = {"lut_bit_equal_31b": sum(r["bit_equal"] for r in api["lut"]
+                                    if r["mode"] == mode)}
+    if kernel == "outer":
+        out["ops_outer_update_31c"] = [
+            {key: r[key] for key in ("container", "noise_mode", "ms",
+                                     "direct_ms", "quantise_ms",
+                                     "max_abs_err", "allowance_share")}
+            for r in api["ops_outer_update"]]
+    return out
+
+
 def tp_split_entry(rows, case="split"):
     """The kernels-line figures of the split-range read (``case``
     ``split``) or the tiles read (``tiles``) of phase 27(a): its
@@ -9758,6 +10001,7 @@ def main():
     from repro_torch.kernels import ref as REF
     from repro_torch.analysis import kernel_lint as KL
     from repro_torch.launch import dryrun as DR
+    from repro_torch.core import xbar_ops as XO
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -10032,6 +10276,10 @@ def main():
                                           gpu_line)
         details["seq_30"] = {"qat": seq_rows, "vlm": seq_vlm}
 
+    with phase("31"):
+        api = phase_api(K, U, OPS, XO, CrossbarConfig, AdcConfig, TAOX,
+                        TAOX_NONOISE, reporter("api"), gpu_line)
+
     def remat_launches(name):
         """The kernels-line figures of phase 26 for one launch count."""
         return {"launches_lm100m_train_remat_26a": {
@@ -10153,7 +10401,8 @@ def main():
         "bitplane_oracle_25a": bitplane_cases(False),
         "coverage_25b": covered("xbar_fused_vmm"),
         **remat_launches("fused_vmm"),
-        **mlp_read_entry(mlp, "vmm", ("l1_vmm", "l2_vmm"))}, {
+        **mlp_read_entry(mlp, "vmm", ("l1_vmm", "l2_vmm")),
+        **api_entry(api, "vmm")}, {
         "name": "xbar_fused_mvm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_vmm.cu",
         "replaces": "src/repro/kernels/xbar_vmm.py:171",
@@ -10178,7 +10427,8 @@ def main():
         "bitplane_oracle_25a": bitplane_cases(True),
         "coverage_25b": covered("xbar_fused_mvm"),
         **remat_launches("fused_mvm"),
-        **mlp_read_entry(mlp, "mvm", ("l2_mvm",))}, {
+        **mlp_read_entry(mlp, "mvm", ("l2_mvm",)),
+        **api_entry(api, "mvm")}, {
         "name": "xbar_outer_update", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
         "replaces": "src/repro/kernels/xbar_update.py:281",
@@ -10195,7 +10445,7 @@ def main():
         **cross_launches("update_tc"),
         "tile_offsets_24a": sharded_writes("outer"),
         "coverage_25b": covered("xbar_outer_update"),
-        **remat_launches("update_tc")},
+        **remat_launches("update_tc"), **api_entry(api, "outer")},
         {
         "name": "xbar_update_prepare", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_update.cu",
@@ -10244,6 +10494,7 @@ def main():
             for r in moe_fq_rows if "ms" in r],
         **fq_entry(fq_decode), "library_ms": None,
         "coverage_25b": covered("xbar_fakequant_read"),
+        **api_entry(api, "fakequant"),
         "launches_qat_remat_26b": {
             r["remat"]: r["fakequant_launches"]["fakequant_tc_kernel"]
             for r in remat_dry if r.get("case", "").startswith("qat")
@@ -10321,7 +10572,8 @@ def main():
         **write_entry(t_pulse, total(carry["launches_per_step"],
                                      "update_tc"), None),
         "tile_offsets_24a": sharded_writes("pulse_train"),
-        "coverage_25b": covered("xbar_pulse_update")}]
+        "coverage_25b": covered("xbar_pulse_update"),
+        **api_entry(api, "pulse")}]
     details["tie_recounts"] = TIE_RECOUNTS
     details["kernels_line_note"] = (
         "xbar_fused_vmm: launches counts the serving run's reads (each one "
@@ -10497,7 +10749,18 @@ def main():
         "zamba2 and whisper-medium on 1x4, QAT): launches_seq_30 counts "
         "each case's reads in its step, summed over the ranks "
         "(xbar_fakequant_read every read, the chunk reads of wkv_a and the "
-        "shared in among them; _split and _tiles their split forms)")
+        "shared in among them; _split and _tiles their split forms). "
+        "Phase 31 (the reference's last entry points at lm100m's "
+        "containers): stochastic_round_31a counts the reads (B=4 and "
+        "2048; the fakequant read at T=4 and 2048) with "
+        "stochastic_round=True bit-equal to the flag off, "
+        "ops_bit_equal_31d the kernels.ops reads bit-equal to "
+        "core.xbar_ops', lut_bit_equal_31b the kind=\"lut\" writes (both "
+        "instances) bit-equal to kind=\"taox\" at the same seed; "
+        "ops_outer_update_31c lists kernels.ops.outer_update's CUDA-event "
+        "ms per container and noise mode beside the direct "
+        "xbar_outer_update of the same quantised operands (direct_ms) and "
+        "the quantisation alone (quantise_ms)")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(details, indent=1))

@@ -158,6 +158,11 @@ class ModelConfig:
     def resolved_analog_mode(self) -> AnalogMode:
         return resolve_analog_mode(self)
 
+    @property
+    def analog_training(self) -> bool:
+        """Whether the config trains in device mode (the in-situ writes)."""
+        return resolve_analog_mode(self) is AnalogMode.DEVICE
+
     def digital(self) -> "ModelConfig":
         """Digital-execution view of this config (analog path fully off).
 

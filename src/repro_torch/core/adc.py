@@ -5,7 +5,9 @@ Port of ``repro.core.adc``.  Digital inputs are encoded into pulse trains
 on each column is the integer dot product ``q_j = sum_i x_int_i G_ij``.
 The integrator saturates at a finite range and the ramp ADC digitises to
 ``out_bits`` levels.  All quantisers are symmetric mid-tread, so zero is
-exactly representable.  Rounding is round-half-to-even (``torch.round``).
+exactly representable.  Rounding is round-half-to-even (``torch.round``);
+with ``stochastic_round`` and a uniform field ``u`` it is stochastic, as
+the reference's with a key.
 """
 from __future__ import annotations
 
@@ -35,8 +37,10 @@ class AdcConfig:
     fraction of the worst-case column charge ``in_levels * n_rows *
     g_max`` (``range_mode="fixed"``).  ``range_mode="dynamic"`` sets the
     range to ``sat_sigmas`` times the rms of the column charge per tile.
-    ``stochastic_round`` is the reference's training-time option; the
-    port's forward read rejects it (see ``ROADMAP.md``).
+    ``stochastic_round`` rounds stochastically where a caller hands
+    :func:`quantize_input` or :func:`adc_quantize` a uniform field ``u``
+    (the reference's ``key``); no library read does, so every read rounds
+    half to even with the flag set or not, as the reference's do.
     """
 
     in_bits: int = 8
@@ -72,16 +76,15 @@ def divisor(value: float, like: Tensor) -> Tensor:
     return _DIVISORS[key]
 
 
-def _round(x: Tensor) -> Tensor:
-    """Round half to even, as ``lax.round(TO_NEAREST_EVEN)``."""
-    return torch.round(x)
-
-
-def _deterministic(cfg: AdcConfig) -> None:
-    if cfg.stochastic_round:
-        raise NotImplementedError(
-            "stochastic rounding waits for the training slice of the port "
-            "(ROADMAP.md)")
+def _round(x: Tensor, u: Optional[Tensor] = None) -> Tensor:
+    """Round half to even, as ``lax.round(TO_NEAREST_EVEN)``; with a
+    uniform [0, 1) field ``u`` of ``x``'s shape, stochastically:
+    ``floor(x) + (u < x - floor(x))``, the reference's ``_round`` with a
+    key (``u`` is its ``jax.random.uniform(key, x.shape)``)."""
+    if u is None:
+        return torch.round(x)
+    f = torch.floor(x)
+    return f + (u < x - f).to(x.dtype)
 
 
 def fixed_saturation(cfg: AdcConfig, n_rows: int, g_max: float) -> float:
@@ -92,23 +95,25 @@ def fixed_saturation(cfg: AdcConfig, n_rows: int, g_max: float) -> float:
 
 def quantize_input(x: Tensor, cfg: AdcConfig,
                    scale: Optional[Tensor] = None,
-                   lead: int = 0) -> Tuple[Tensor, Tensor]:
+                   lead: int = 0,
+                   u: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """Quantise activations to signed integers for temporal coding.
 
     Returns ``(x_int, scale)`` with ``x ≈ x_int * scale`` and ``x_int`` in
     ``[-L, L]``, ``L = 2^{in_bits-1} - 1``.  ``scale`` defaults to the
     per-call full scale ``max|x| / L``; with ``lead`` > 0 it is one full
     scale per matrix of the first ``lead`` dims (shape ``x.shape[:lead]``),
-    as the reference's quantiser vmapped over them gives it.
+    as the reference's quantiser vmapped over them gives it.  ``u``, a
+    uniform [0, 1) field of ``x``'s shape, rounds stochastically when
+    ``cfg.stochastic_round`` is set (:func:`_round`).
     """
-    _deterministic(cfg)
     levels = cfg.in_levels
     if scale is None:
         scale = torch.clamp(x.abs().amax(dim=tuple(range(lead, x.ndim))),
                             min=1e-12) / divisor(levels, x)
     per = scale.reshape(*scale.shape, *[1] * (x.ndim - lead)) if lead \
         else scale
-    x_int = _round(x / per)
+    x_int = _round(x / per, u if cfg.stochastic_round else None)
     return _clip(x_int, float(-levels), float(levels)), scale
 
 
@@ -136,13 +141,14 @@ def integrator_saturation(q: Tensor, cfg: AdcConfig, n_rows: int,
     return _clip(q, -sat, sat), sat
 
 
-def adc_quantize(q: Tensor, sat: Tensor, cfg: AdcConfig) -> Tensor:
+def adc_quantize(q: Tensor, sat: Tensor, cfg: AdcConfig,
+                 u: Optional[Tensor] = None) -> Tensor:
     """Ramp ADC: uniform quantisation of ``[-sat, sat]`` to ``out_bits``
-    levels, returned in charge units (``lsb * round(q / lsb)``)."""
-    _deterministic(cfg)
+    levels, returned in charge units (``lsb * round(q / lsb)``); ``u`` as
+    in :func:`quantize_input`."""
     lsb = sat / divisor(cfg.out_levels, sat)
-    code = _clip(_round(q / lsb), float(-cfg.out_levels),
-                 float(cfg.out_levels))
+    code = _clip(_round(q / lsb, u if cfg.stochastic_round else None),
+                 float(-cfg.out_levels), float(cfg.out_levels))
     return code * lsb
 
 

@@ -72,6 +72,13 @@ def weights_to_conductance(w: Tensor, cfg: CrossbarConfig,
     return g, w_scale.to(w.dtype)
 
 
+def conductance_to_weights(g: Tensor, w_scale,
+                           cfg: CrossbarConfig) -> Tensor:
+    """Inverse of :func:`weights_to_conductance`: ``(g - g_mid) /
+    w_scale``."""
+    return (g - cfg.g_mid) / w_scale
+
+
 def make_reference(shape: Tuple[int, ...], cfg: CrossbarConfig,
                    generator: Optional[torch.Generator] = None,
                    device=None) -> Tensor:

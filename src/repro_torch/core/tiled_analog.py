@@ -35,7 +35,8 @@ from typing import Dict, Optional
 import torch
 
 from .adc import AdcConfig
-from .crossbar import CrossbarConfig, make_reference, weights_to_conductance
+from .crossbar import (CrossbarConfig, make_reference, tile_grid,
+                       weights_to_conductance)
 from .device import IDEAL, LINEARIZED, TAOX, TAOX_NONOISE, DeviceConfig
 from .xbar_ops import mvm, quantize_update_codes, vmm
 
@@ -156,6 +157,13 @@ def readout(p: dict, cfg: CrossbarConfig) -> Tensor:
     return (effective_g(p, cfg) - p["ref"]) / w_scale
 
 
+def tile_info(p: dict, cfg: CrossbarConfig):
+    """(tiles_k, tiles_n, fill fraction) of the grid holding this layer."""
+    k, n = p["g"].shape[-2:]
+    tk, tn = tile_grid(k, n, cfg)
+    return tk, tn, (k * n) / (tk * tn * cfg.rows * cfg.cols)
+
+
 class TapedMatmul(torch.autograd.Function):
     """The in-situ training primitive: ``y = vmm(x)`` forward; backward
     ``dx = mvm(dy)`` through the same conductances, and the write drivers'
@@ -248,6 +256,20 @@ def analog_project(p: dict, x: Tensor, cfg: CrossbarConfig) -> Tensor:
     return y.reshape(*x.shape[:-1], n).to(x.dtype)
 
 
+def analog_project_batched(p: dict, x: Tensor,
+                           cfg: CrossbarConfig) -> Tensor:
+    """Apply an expert-batched container (``g``: (E, K, N)) to
+    expert-batched activations ``x``: (E, T, K) -> (E, T, N): the
+    reference's name for :func:`analog_project` of a stack, with its shape
+    check (a ``ValueError`` on a mismatched E or K)."""
+    meta = p.get("tp_meta")
+    e, k, _ = meta.view(3) if meta is not None else p["g"].shape
+    if x.shape[0] != e or x.shape[-1] != k:
+        raise ValueError(f"expert-batched x {tuple(x.shape)} does not match "
+                         f"container {tuple(p['g'].shape)}")
+    return analog_project(p, x, cfg)
+
+
 def make_tapes(p: dict, n_tokens) -> dict:
     """Tape slots for one container: zero operands, shapes (lead..., T, K)
     and (lead..., T, N), and their scales, (lead...,) ones.  ``n_tokens``
@@ -271,6 +293,23 @@ def make_tapes(p: dict, n_tokens) -> dict:
             "d_tape": torch.zeros((*lead, *rows, n), **f32),
             "x_tape_scale": torch.ones((*lead, *rows[:-1]), **f32),
             "d_tape_scale": torch.ones((*lead, *rows[:-1]), **f32)}
+
+
+def with_tapes(params, n_tokens, tokens_for=None, path=()):
+    """Recursively inject tape slots (:func:`make_tapes`) next to every
+    analog container.  ``tokens_for(path, g_shape)`` optionally resolves
+    a container's operand-row shape (``analog_registry.tape_lead``); the
+    default is ``n_tokens`` rows everywhere.  Training code takes
+    :func:`split_tapes`, which keeps the conductances out of the
+    differentiated tree."""
+    if is_analog_container(params):
+        rows = tokens_for(path, params["g"].shape) if tokens_for \
+            else n_tokens
+        return {**params, **make_tapes(params, rows)}
+    if isinstance(params, dict):
+        return {k: with_tapes(v, n_tokens, tokens_for, path + (k,))
+                for k, v in params.items()}
+    return params
 
 
 def split_tapes(params, n_tokens, tokens_for=None, path=()):

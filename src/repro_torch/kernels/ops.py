@@ -1,5 +1,13 @@
-"""The fakequant projection (port of ``repro.kernels.ops``, the fakequant
-part).
+"""Kernel-routed entry points (port of ``repro.kernels.ops``): the reads
+``vmm`` / ``mvm`` and the rank-k write ``outer_update`` through the
+crossbar kernels, and the fakequant projection.
+
+``vmm`` / ``mvm`` are ``kernels.xbar_vmm.xbar_fused_read``, plain or
+transposed.  ``outer_update`` quantises float operands as the write
+drivers do (``core.xbar_ops.quantize_update_codes``) and writes them
+through ``kernels.xbar_update.xbar_outer_update`` with their scales, so
+that on the card the write takes the tensor-core instance where it can
+(kernels 3 and 3p by ``cfg.update_mode``); on the CPU the plain version.
 
 ``fakequant_project`` is the matmul of ``analog_mode="fakequant"``: a DAC
 round trip on the activations, the digital product tiled at the crossbar
@@ -56,10 +64,13 @@ import torch
 
 from repro_torch.core import shardctx
 from repro_torch.core.adc import AdcConfig, divisor, quantize_dequantize
+from repro_torch.core.crossbar import CrossbarConfig
+from repro_torch.core.xbar_ops import quantize_update_codes
 
+from .xbar_update import xbar_outer_update
 from .xbar_vmm import (fakequant_instance, fakequant_read, fakequant_scale,
                        fakequant_split_read, fakequant_tiles_read,
-                       resolve_impl)
+                       resolve_impl, xbar_fused_read)
 
 Tensor = torch.Tensor
 
@@ -359,3 +370,59 @@ def fakequant_project(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
     else:
         y = fakequant_read(x2, w, adc, rows)
     return y.reshape(*lead, w.shape[-1])
+
+
+def vmm(x: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
+        impl: Optional[str] = None) -> Tensor:
+    """Kernel-routed counterpart of ``core.xbar_ops.vmm``: the fused read
+    ``y ≈ x @ (g - g_ref) / w_scale`` (``impl`` as in
+    ``kernels.xbar_vmm.xbar_fused_read``)."""
+    return xbar_fused_read(x, g, g_ref, w_scale, cfg, impl=impl)
+
+
+def mvm(d: Tensor, g: Tensor, g_ref: Tensor, w_scale, cfg: CrossbarConfig,
+        impl: Optional[str] = None) -> Tensor:
+    """Kernel-routed counterpart of ``core.xbar_ops.mvm``: the fused
+    transpose read ``y ≈ d @ ((g - g_ref) / w_scale).T``."""
+    return xbar_fused_read(d, g, g_ref, w_scale, cfg, impl=impl,
+                           transpose=True)
+
+
+def outer_update(g: Tensor, x: Tensor, d: Tensor, lr, w_scale,
+                 cfg: CrossbarConfig, noise: Optional[Tensor] = None,
+                 seed=None, noise_mode: Optional[str] = None,
+                 impl: Optional[str] = None) -> Tensor:
+    """Kernel-routed counterpart of ``core.xbar_ops.outer_update``:
+    ``G <- device(G, -lr w_scale sum_t outer(x_q_t, d_q_t))``.
+
+    ``g`` (K, N) or (L, K, N); ``x`` (T, K) or (L, T, K), ``d`` (T, N) or
+    (L, T, N), float.  The operands are quantised as the write drivers do
+    (one full scale for all of ``x`` and one for ``d``, as the reference's
+    ``quantize_update_operands``) and written through
+    ``kernels.xbar_update.xbar_outer_update`` with their scales; ``scale =
+    -lr * w_scale`` in float32.  Write noise (``noise_mode``): ``"host"``,
+    the N(0, 1) field ``noise`` of ``g``'s shape (the reference's
+    ``jax.random.normal(key, g.shape)``); ``"kernel"``, the counter PRNG
+    from the uint32 ``seed`` (the reference's ``jax.random.bits(key)``);
+    ``"none"`` for a noiseless run.  ``None`` takes ``"host"`` when a field
+    is given, else ``"kernel"`` when a seed is; a noiseless device always
+    takes ``"none"``.  A stochastic device with neither raises.  A build or
+    launch failure of the write kernel propagates."""
+    x_int, x_scale, d_int, d_scale = quantize_update_codes(x.float(),
+                                                           d.float(), cfg)
+    if cfg.device.write_noise <= 0.0:
+        noise_mode = "none"
+    elif noise_mode is None:
+        noise_mode = "host" if noise is not None \
+            else "kernel" if seed is not None else None
+    if noise_mode is None or (noise_mode == "host" and noise is None) \
+            or (noise_mode == "kernel" and seed is None):
+        raise ValueError("stochastic device model requires a noise field "
+                         "(noise_mode='host') or a seed "
+                         "(noise_mode='kernel')")
+    scale = torch.as_tensor(-lr, dtype=torch.float32, device=g.device) \
+        * torch.as_tensor(w_scale, dtype=torch.float32, device=g.device)
+    return xbar_outer_update(g, x_int * x_scale, d_int * d_scale, scale,
+                             cfg, noise=noise, seed=seed,
+                             noise_mode=noise_mode, impl=impl,
+                             x_scale=x_scale, d_scale=d_scale)

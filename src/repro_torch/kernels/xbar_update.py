@@ -374,7 +374,10 @@ class _DeviceParams(ctypes.Structure):
 
 def device_params(dev: DeviceConfig, noise_mode: str) -> _DeviceParams:
     """The kernel's constants, formed in Python doubles as the reference
-    forms them and rounded to float32 once (by ctypes)."""
+    forms them and rounded to float32 once (by ctypes).  ``ideal`` and
+    ``linearized`` are linear (kind 0); every other kind (``taox``,
+    ``lut``) takes the TaOx slope, as in the reference's kernel: kind 1
+    with one ``exp`` for equal nonlinearities, else kind 2."""
     p = _DeviceParams()
     if dev.kind in ("ideal", "linearized"):
         p.kind = 0
@@ -625,9 +628,6 @@ def xbar_outer_update(g: Tensor, x_q: Tensor, d_q: Tensor, scale,
         raise ValueError(f"update_mode must be one of {UPDATE_MODES}, got "
                          f"{cfg.update_mode!r}")
     dev = cfg.device
-    if dev.kind not in ("ideal", "linearized", "taox"):
-        raise NotImplementedError(
-            f"device kind {dev.kind!r} is not ported yet (ROADMAP.md)")
     impl = _resolve_impl(impl, g)
     if noise_mode is None:
         if dev.write_noise <= 0.0:

@@ -72,8 +72,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core import shardctx
-from repro_torch.core.adc import (AdcConfig, _clip, _deterministic, _round,
-                                  divisor, fixed_saturation)
+from repro_torch.core.adc import (AdcConfig, _clip, _round, divisor,
+                                  fixed_saturation)
 from repro_torch.core.crossbar import CrossbarConfig
 from repro_torch.core.xbar_ops import _tile_partials, _tiled_read
 
@@ -352,7 +352,6 @@ def xbar_fused_read(x: Tensor, g: Tensor, ref: Tensor, w_scale,
     (..., B, K) transposed, in ``x.dtype``.
     """
     impl = resolve_read_impl(impl, x)
-    _deterministic(cfg.adc)
     lead = g.shape[:-2]
     if ref.shape != g.shape:
         raise ValueError(f"ref {tuple(ref.shape)} does not match g "
@@ -428,7 +427,6 @@ def manual_collective_read(x: Tensor, g: Tensor, ref: Tensor, w_scale,
     exact read.  Output and lead blocks are still gathered.
     """
     impl = resolve_read_impl(impl, x)
-    _deterministic(cfg.adc)
     nlead = g.ndim - 2
     lead_loc = tuple(g.shape[:-2])
     gview = meta.view(g.ndim)
@@ -856,7 +854,6 @@ def fakequant_split_read(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
     launches with the finish), whose range is then the whole read's bit
     for bit; on the CPU the plain halves.  Returns ``(y, ssq_all)``, the
     read and the whole width's partials."""
-    _deterministic(adc)
     xf, wf = x.float().contiguous(), w.float().contiguous()
     if x.is_cuda:
         head, ssq = _fakequant_split_cuda(xf, wf, adc, rows, sc)
@@ -881,7 +878,6 @@ def fakequant_tiles_read(x: Tensor, w: Tensor, adc: AdcConfig, rows: int,
     split form with its q copied out and ``xbar_fakequant_tiles`` (three
     launches: the read on every rank is the whole read's bit for bit); on
     the CPU the plain halves."""
-    _deterministic(adc)
     xf, wf = x.float().contiguous(), w.float().contiguous()
     if x.is_cuda:
         _, ssq, q = _fakequant_split_cuda(xf, wf, adc, rows, sc, q_out=True)
@@ -924,7 +920,6 @@ def fakequant_read(x: Tensor, w: Tensor, adc: AdcConfig,
     the card (a rank's rows of a buffer read whole elsewhere take the
     whole buffer's instance).
     """
-    _deterministic(adc)
     if x.ndim not in (2, 3) or w.ndim != x.ndim \
             or x.shape[-1] != w.shape[-2] or x.shape[:-2] != w.shape[:-2]:
         raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)} are not "

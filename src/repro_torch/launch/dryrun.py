@@ -234,6 +234,8 @@ def run_cell(arch: str, shape_name: str, mesh_name: str,
              smoke: bool = False) -> dict:
     t0 = time.time()
     cfg = get_config(arch, smoke=smoke)
+    if os.environ.get("REPRO_SSM_CHUNK"):  # the SSD chunk length
+        cfg = cfg.replace(ssm_chunk=int(os.environ["REPRO_SSM_CHUNK"]))
     if os.environ.get("REPRO_ANALOG"):     # the fakequant projections
         cfg = cfg.replace(analog=True)
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,

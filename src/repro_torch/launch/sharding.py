@@ -134,10 +134,6 @@ def analog_update_specs(path: Sequence[str], g_shape, cfg: ModelConfig,
             "scale": w_scale_spec, "w_scale": w_scale_spec}
 
 
-def _analog_training(cfg: ModelConfig) -> bool:
-    return resolve_analog_mode(cfg) is AnalogMode.DEVICE
-
-
 def param_pspec(path: Sequence, shape, cfg: ModelConfig, mesh) -> Spec:
     """Spec of one parameter leaf of shape ``shape`` at tree path
     ``path`` (the reference's digital rules; containers by tiles)."""
@@ -160,7 +156,7 @@ def param_pspec(path: Sequence, shape, cfg: ModelConfig, mesh) -> Spec:
         return tuple(out)
 
     last_key = sp[-1] if sp else ""
-    if _analog_training(cfg) and last_key in ANALOG_LEAVES:
+    if cfg.analog_training and last_key in ANALOG_LEAVES:
         return analog_container_pspec(sp, shape, cfg, mesh, last_key)
     if os.environ.get("REPRO_FLAT_DP"):
         out = [None] * len(shape)

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -477,6 +478,28 @@ class Engine:
             if done.all():
                 break
         return out
+
+    # ------------------------------------------------------- deprecated
+    def continuous(self, n_slots: int) -> ContinuousEngine:
+        """Deprecated: build with ``make_engine(cfg, state, n_slots=n)``
+        and use the engine's own ``submit``/``step`` streaming surface
+        (or the ``stream`` property)."""
+        warnings.warn(
+            "Engine.continuous(n_slots) is deprecated; pass n_slots to "
+            "make_engine(...) and use the engine's submit/step/generate "
+            "surface", DeprecationWarning, stacklevel=2)
+        return self._continuous(n_slots)
+
+    def generate_static(self, prompts: Sequence[Sequence[int]],
+                        sp: SamplingParams = SamplingParams(),
+                        seed: int = 0) -> List[List[int]]:
+        """Deprecated: build with ``make_engine(..., scheduler="static")``
+        and call ``generate``."""
+        warnings.warn(
+            "Engine.generate_static is deprecated; build the engine with "
+            "make_engine(..., scheduler='static') and call generate()",
+            DeprecationWarning, stacklevel=2)
+        return self._generate_static(prompts, sp, seed)
 
     def _continuous(self, n_slots: int) -> ContinuousEngine:
         """The (cached) continuous scheduler for a slot count."""

@@ -5,6 +5,7 @@ Fixed range: bit-equal (the bound is one float32 constant, and every
 step is a single IEEE operation).  Dynamic range: the rms is a float
 reduction summed in another order, so a few ulp (rtol 1e-6).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -78,6 +79,26 @@ def test_quantize_dequantize_matches():
 
 
 def test_stochastic_rounding_is_not_ported():
-    cfg = tadc.AdcConfig(stochastic_round=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tadc.quantize_input(torch.ones(3), cfg)
+    """The flag as the reference runs it (the name is the refusal this
+    test held before the port took the flag): without a field the
+    quantiser rounds half to even, bit-equal to the reference's call
+    without a key; with ``u`` drawn as the reference's keyed call draws
+    it (``jax.random.uniform(key, shape)``), bit-equal to that call."""
+    kw = dict(in_bits=6, stochastic_round=True)
+    jcfg, tcfg = _pair(kw)
+    x = np.random.default_rng(3).standard_normal((6, 21)).astype(np.float32)
+    key = jax.random.PRNGKey(11)
+    xj, _ = jadc.quantize_input(jnp.asarray(x), jcfg)
+    xt, _ = tadc.quantize_input(torch.from_numpy(x), tcfg)
+    np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
+    np.testing.assert_array_equal(
+        xt.numpy(), tadc.quantize_input(torch.from_numpy(x),
+                                        _pair({"in_bits": 6})[1])[0].numpy())
+    u = np.array(jax.random.uniform(key, x.shape, dtype=jnp.float32))
+    xj, sj = jadc.quantize_input(jnp.asarray(x), jcfg, key=key)
+    xt, st = tadc.quantize_input(torch.from_numpy(x), tcfg,
+                                 u=torch.from_numpy(u))
+    np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
+    assert st.item() == float(sj)
+    assert not np.array_equal(xt.numpy(), np.asarray(
+        jadc.quantize_input(jnp.asarray(x), jcfg)[0]))   # u was used

@@ -192,12 +192,21 @@ def test_eager_path_is_differentiable_on_cpu():
     assert w.grad is not None and torch.isfinite(w.grad).all()
 
 
-def test_stochastic_rounding_raises():
-    x, w = (torch.from_numpy(a) for a in _float_operands((), 8, 40, 24))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.fakequant_project(x, w, AdcConfig(stochastic_round=True), 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K.fakequant_read(x, w, AdcConfig(stochastic_round=True), 16)
+@pytest.mark.parametrize("lead,t,k,n,rows", EXACT_CASES[:2])
+def test_stochastic_rounding_raises(lead, t, k, n, rows):
+    """``stochastic_round=True`` as the reference runs it (the name is
+    the refusal this test held before the port took the flag): the
+    reference's fakequant projection passes no key, so it rounds half to
+    even with the flag set; the port's projection and read are bit-equal
+    to the reference's jnp path with the flag and to their own reads
+    without it (exact class)."""
+    x, w = _exact_operands(lead, t, k, n)
+    want = _reference(x, w, rows, "jnp", stochastic_round=True)
+    got = _port(x, w, rows, stochastic_round=True)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _port(x, w, rows))
+    np.testing.assert_array_equal(
+        _port_read(x, w, rows, stochastic_round=True), got)
 
 
 def test_fakequant_read_rejects_bad_shapes():
