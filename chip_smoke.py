@@ -187,8 +187,10 @@ any gate fails:
    one evaluation of the 2000 test digits, 2 (analog) or 6 (pc) reads on
    the tensor-core instance, checked alike, its accuracy equal to the
    replay's.  The B = 10 reads are timed against their byte bound.  (b)
-   the six runs of ``launch.accuracy`` (Figs. 14 and 15) at the
-   ``MLPRun`` defaults through ``train_mlp``: per-epoch accuracy beside
+   the six runs of ``launch.accuracy`` (Figs. 14 and 15) on its
+   ``--fast`` protocol (1 epoch of 4000 digits; the ``MLPRun`` defaults'
+   four epochs of 8000 until phase 32 joined) through ``train_mlp``:
+   per-epoch accuracy beside
    the reference's documented figures, wall seconds, steps/s, profiled
    device ms per step and the reads' share; each run's launches counted
    and gated; the paper's claim lines printed, not gated.  (c) the port's
@@ -579,6 +581,41 @@ before remat existed.
    operands; (d) ``kernels.ops.vmm`` / ``mvm`` bit-equal to
    ``core.xbar_ops.vmm`` / ``mvm`` at both batch sizes.  Every gate counts
    its kernels' launches.
+32. Serving under the sharding policy (``models.model.prefill`` /
+   ``decode_step`` with ``mesh=``, ``launch.sharding.ServeParallel``),
+   float32, digital and fakequant (128-row tiles): (a) before phase 27,
+   the decode attention's chunk sum on the card (one cumsum) bit-equal to
+   the chunks added in order; gemma-2b (18 layers, vocab 256000),
+   mamba2-1.3b (48) and zamba2-1.2b served on this card alone, a prefill
+   of 4 x 1024 tokens into a 1040-slot cache and ``SERVE_STEPS`` greedy
+   decode steps (16 gemma-2b, 3 the others), their logits and tokens
+   kept under build/ and the models freed; (b) in phase 27(a)'s rank
+   processes, each model drawn whole one rank at a time and cut into
+   each layout's serving blocks, then served on its layouts (gemma-2b
+   1x4, where its one kv head puts the cache along the sequence, 2x2 and
+   4x1; mamba2 1x4 and 4x1; zamba2 1x4) with the same prompts, each rank
+   its rows, each decode step fed the one-device run's greedy token:
+   each rank's held parameter and cache bytes equal the dry
+   run's (``launch.dryrun.serving_state``) at its coordinates, gemma-2b's
+   the policy's exactly and the SSM family's beyond it only the named
+   whole parts; the logits of the prefill and of every step finite and
+   within ``SERVE_CLASS`` of the one-device run's; the same greedy
+   tokens but where the one-device run's top two lie within
+   ``SERVE_TIE`` classes of the step's scale; in fakequant mode every
+   shared DAC scale the max of its ranks' own (checked apart from the
+   read's reduce) and on data ranks one a read; gemma-2b's 4x1 served
+   once more with a planted fault (each data rank's scale over its own
+   rows), which that gate must catch, its logits' reading printed;
+   gemma-2b's sequence-split decode attention once a layer a step on
+   1x4 and 2x2; in fakequant mode no plain-version call, a decode step's
+   reads the one-device step's, on ``model`` ranks its column splits on
+   kernel 4's split form and its row splits on the tiles form; kernel
+   4's split and tiles forms at 4 decode rows (gemma-2b's ``wqkv`` by
+   its parts, its ``w_down`` by row tiles) against their plain versions
+   and bit-equal to the whole read, timed beside the whole read.
+   Printed: prefill ms and decode ms a step per rank (events), held GB
+   per rank, the bytes a rank receives through the collectives a decode
+   step.
 
 Every phase prints its wall seconds on a line of its own.
 
@@ -7252,6 +7289,8 @@ def local_rows(mesh, b):
 
 
 def tree_nbytes(tree):
+    if tree is None:
+        return 0
     if isinstance(tree, dict):
         return sum(tree_nbytes(v) for v in tree.values())
     if isinstance(tree, (tuple, list)):
@@ -7354,11 +7393,11 @@ def split_read_case(K, mesh, cfg, adc, k=None, n=None, parts=None, t=None):
             "ms": ms, "plain_ms": plain_ms, **fq_bounds(t, k, c)}
 
 
-def tiles_read_case(K, mesh, cfg, adc, k=None, n=None):
+def tiles_read_case(K, mesh, cfg, adc, k=None, n=None, t=None):
     """One row-split fakequant read at 27(a)'s shapes (2048 tokens,
     lm100m's ``w_down`` split over ``model`` at whole row tiles; ``k``
     rows another leaf's, 28(a)'s MLA ``wo``; ``n`` its columns where they
-    are not ``d_model``): the
+    are not ``d_model``; ``t`` tokens): the
     kernels' tiles form (this rank's tiles' products and range partials
     gathered in tile order, the epilogue over every tile) bit-equal to
     the whole read, and against the plain version of the same steps in
@@ -7368,7 +7407,7 @@ def tiles_read_case(K, mesh, cfg, adc, k=None, n=None):
                                               _fakequant_plain_head)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    t, k, n = TP_BATCH[0] * TP_BATCH[1], k or cfg.d_ff, n or cfg.d_model
+    t, k, n = t or TP_BATCH[0] * TP_BATCH[1], k or cfg.d_ff, n or cfg.d_model
     rows = cfg.analog_rows
     x = torch.randn((t, k), generator=gen, device="cuda")
     w = torch.randn((k, n), generator=gen, device="cuda") / math.sqrt(k)
@@ -8953,11 +8992,630 @@ def seq_launches(rows, case):
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 32: serving under the sharding policy
+# --------------------------------------------------------------------------
+
+#: 32's models and the layouts each is served on after its one-device run
+SERVE_ARCHS = (("gemma-2b", ((1, 4), (2, 2), (4, 1))),
+               ("mamba2-1.3b", ((1, 4), (4, 1))),
+               ("zamba2-1.2b", ((1, 4),)))
+SERVE_MODES = ("digital", "fakequant")
+SERVE_SEED = 32
+#: prompts x tokens of the prefill, then SERVE_STEPS greedy decode steps
+#: a model: gemma-2b's 16; mamba2's and zamba2's 3 (each layout's decode
+#: step takes 0.5-1.2 s a rank through CardTransport, six or more ordered
+#: collectives a layer, and the script's budget holds 16 for one model)
+SERVE_BATCH = (4, 1024)
+SERVE_STEPS = {"gemma-2b": 16, "mamba2-1.3b": 3, "zamba2-1.2b": 3}
+#: the cache's slots: 1024 + 16, 16 flash-decoding chunks of 65 slots,
+#: whole chunks a rank of a sequence split over 2 or 4 model ranks
+SERVE_MAX_LEN = 1040
+#: 32's classes against the one-device run of the same weights, the
+#: largest |logit difference| over the step's largest |logit|: digital,
+#: float32 reassociation (a row-parallel read's partial products summed
+#: over model; the attention's batched products, the SSD decode's and
+#: the head's matmul, which cuBLAS computes otherwise at another count of
+#: rows, heads or vocab rows); fakequant, those differences moving DAC and
+#: ADC codes (8-bit: one code 1/255 of a read's range) where a value sits
+#: on a rounding boundary, the flips carried through 18-48 layers
+#: (0.0102-0.0739 measured on the sound layouts, PERF.md section 6).
+#: Each decode step is fed the one-device run's greedy token, so a token
+#: that flips at a near tie does not change every later step's input.
+#: The fakequant class is a bound on gross faults (k or v columns, a
+#: cache slot or a tile out of place move the logits by their own
+#: scale); a DAC scale not shared over the data ranks reads inside it
+#: (PERF.md section 6: the planted fault of 32(b)), and the shared-scale
+#: gate catches that one
+SERVE_CLASS = {"digital": 1e-4, "fakequant": 1e-1}
+#: a row's greedy token may differ from the one-device run's only where
+#: that run's two best logits lie within SERVE_TIE times the mode's class
+#: of the step's largest |logit|: a fixed band, not the layout's own
+#: reading (each flip's gap is recorded)
+SERVE_TIE = 1.0
+
+
+def serve_cfg(get_config, arch, mode):
+    """32's config of ``arch``: full size, float32, fakequant at 128-row
+    tiles (every row split whole tiles on 1x4 and 2x2)."""
+    cfg = get_config(arch).replace(dtype="float32")
+    if mode == "fakequant":
+        cfg = cfg.replace(analog=True, analog_mode="fakequant",
+                          analog_rows=128)
+    return cfg
+
+
+def serve_ref(arch):
+    """The one-device run's logits and tokens of ``arch`` (32(a)), for the
+    ranks."""
+    return ROOT / "build" / f"phase32-ref-{arch}.pt"
+
+
+def serve_prompts(vocab):
+    rng = np.random.default_rng(SERVE_SEED)
+    return torch.from_numpy(rng.integers(0, vocab, SERVE_BATCH)).long().cuda()
+
+
+SERVE_LAUNCHES = ("fakequant", "fakequant_split", "fakequant_tiles")
+#: the model and layout 32(b) serves once more in fakequant mode with a
+#: planted fault (``shared_scale_probe``): each data rank's DAC scale over
+#: its own rows, which the shared-scale gate must catch
+SERVE_FAULT = ("gemma-2b", (4, 1))
+
+
+def serve_run(M, K, cfg, params, tokens, steps, mesh=None, feed=None):
+    """A prefill of ``tokens`` into a SERVE_MAX_LEN cache, then ``steps``
+    decode steps (``mesh``: under the policy), each fed the greedy token
+    of the step before or, with ``feed`` (steps, rows), its row of
+    ``feed``; timed with CUDA events: the logits (1 + steps, rows, V) on
+    the card, the greedy tokens, the prefill's ms and each step's, the
+    fakequant launches and the collectives' bytes of the prefill and of a
+    decode step."""
+    for name in K.LAUNCHES:
+        K.LAUNCHES[name] = 0
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(2 + steps)]
+    moved = collective_bytes()
+    with torch.no_grad():
+        ev[0].record()
+        lg, cache = M.prefill(params, {"tokens": tokens}, cfg,
+                              SERVE_MAX_LEN, mesh=mesh)
+        ev[1].record()
+        torch.cuda.synchronize()
+        pre = {k: K.LAUNCHES[k] for k in SERVE_LAUNCHES}
+        moved_pre = collective_bytes(moved)
+        moved = collective_bytes()
+        logits, toks = [lg], []
+        for i in range(steps):
+            toks.append(lg.argmax(-1))
+            t = toks[-1] if feed is None else feed[i]
+            lg, cache = M.decode_step(params, cache, t, cfg, mesh=mesh)
+            ev[2 + i].record()
+            logits.append(lg)
+    torch.cuda.synchronize()
+    return {"logits": torch.stack(logits), "tokens": torch.stack(toks),
+            "cache": cache, "prefill_ms": ev[0].elapsed_time(ev[1]),
+            "decode_ms": [ev[1 + i].elapsed_time(ev[2 + i])
+                          for i in range(steps)],
+            "launches_prefill": pre,
+            "launches_decode_step": {
+                k: (K.LAUNCHES[k] - pre[k]) / steps
+                for k in SERVE_LAUNCHES},
+            "collective_bytes_prefill": moved_pre,
+            "collective_bytes_decode_step": {
+                a: v / steps
+                for a, v in collective_bytes(moved).items()}}
+
+
+def serve_off(got, want):
+    """Each step's largest |logit difference| over its largest |logit|,
+    of ``got`` against ``want`` (1 + steps, rows, V)."""
+    err = (got - want).abs().amax(dim=(1, 2))
+    return (err / want.abs().amax(dim=(1, 2))).tolist(), float(err.max())
+
+
+def phase_serve_one(M, K, get_config, report, gpu_line):
+    """32(a), before phase 27's ranks start: each model of SERVE_ARCHS on
+    this card alone (the port's 1x1 serving), digital and fakequant: a
+    prefill of SERVE_BATCH tokens, SERVE_STEPS greedy decode steps.  Its
+    logits and tokens go to build/ for the ranks of 32(b), which hold
+    themselves against them; the parameters are freed.  Gates: finite
+    logits; no plain version of the fakequant read called; the decode
+    attention's chunk sum on the card (``models.layers._chunk_sum``, one
+    cumsum) bit-equal to the chunks added one after another, at gemma-2b's
+    partials' shapes of 4 and 2 rows."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SERVE_SEED)
+    for b in (4, 2):
+        t = torch.randn((b, L.DECODE_KV_CHUNKS, 1, 8, 257), generator=gen,
+                        device="cuda") * 10.0 ** torch.randint(
+            -3, 4, (b, L.DECODE_KV_CHUNKS, 1, 8, 1), generator=gen,
+            device="cuda")
+        adds = t[:, 0]
+        for i in range(1, t.shape[1]):
+            adds = adds + t[:, i]
+        if not torch.equal(L._chunk_sum(t), adds):
+            fail(f"32(a) the chunk sum on the card is not the chunks added "
+                 f"in order at {tuple(t.shape)}")
+    print(f"32(a) the decode attention's chunk sum (one cumsum) bit-equal to "
+          f"the chunks added in order at 4 and 2 rows [{gpu_line}]")
+    rows = []
+    for arch, _ in SERVE_ARCHS:
+        ref = {}
+        params = M.init_params(serve_cfg(get_config, arch, "digital"),
+                               SERVE_SEED, "cuda")
+        for mode in SERVE_MODES:
+            cfg = serve_cfg(get_config, arch, mode)
+            calls = []
+            with plain_counted(K, calls):
+                run = serve_run(M, K, cfg, params, serve_prompts(cfg.vocab),
+                                SERVE_STEPS[arch])
+            if calls or not bool(torch.isfinite(run["logits"]).all()):
+                fail(f"32(a) {arch} {mode}: {len(calls)} plain-version "
+                     "calls, or logits not finite")
+            ref[mode] = {"logits": run["logits"].cpu(),
+                         "tokens": run["tokens"].cpu()}
+            row = {"arch": arch, "mode": mode, "layers": cfg.n_layers,
+                   "prefill_ms": run["prefill_ms"],
+                   "decode_ms_per_step": float(np.median(run["decode_ms"])),
+                   "launches_prefill": run["launches_prefill"],
+                   "launches_decode_step": run["launches_decode_step"],
+                   "held_gb": {"params": tree_nbytes(params) / 1e9,
+                               "cache": tree_nbytes(run["cache"]) / 1e9}}
+            print(f"32(a) {arch} {mode} 1x1: prefill {SERVE_BATCH[0]} x "
+                  f"{SERVE_BATCH[1]} in {row['prefill_ms']:.1f} ms, decode "
+                  f"{row['decode_ms_per_step']:.2f} ms a step (median of "
+                  f"{SERVE_STEPS[arch]}), {run['launches_decode_step']['fakequant']:.0f}"
+                  f" fakequant reads a step, held {row['held_gb']} GB "
+                  f"[{gpu_line}]")
+            report(row)
+            rows.append(row)
+            del run
+        del params
+        serve_ref(arch).parent.mkdir(exist_ok=True)
+        torch.save(ref, serve_ref(arch))
+        del ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def seq_split_probe(rec):
+    """The sequence-split decode attention (``models.layers.
+    _decode_sdpa_split``: q gathered over ``model``, every head's chunk
+    partials over the rank's slots, gathered and combined in chunk order;
+    plain torch) wrapped for a block: ``rec`` gets its calls, their CUDA
+    event ms and the bytes this rank received through their gathers."""
+    from repro_torch.models import layers as L
+    inner, evs = L._decode_sdpa_split, []
+
+    def probed(*a, **k):
+        before = collective_bytes()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        o = inner(*a, **k)
+        ev[1].record()
+        evs.append(ev)
+        rec["bytes"] += sum(collective_bytes(before).values())
+        return o
+    L._decode_sdpa_split = probed
+    try:
+        yield rec
+    finally:
+        L._decode_sdpa_split = inner
+        torch.cuda.synchronize()
+        rec["calls"] = len(evs)
+        rec["ms"] = sum(a.elapsed_time(b) for a, b in evs)
+
+
+@contextlib.contextmanager
+def shared_scale_probe(rec, fault=False):
+    """Every max-reduce of a fakequant read's DAC scale over ranks
+    (``kernels.ops._all_reduce`` with ``op="max"``, the one
+    ``FakequantSplitRead`` makes) wrapped for a block: ``rec`` gets each
+    call's axes, this rank's own scale and the reduced one.  ``fault``
+    plants a fault first: the reduce skips the data axis (each data
+    rank's scale over its own rows)."""
+    from repro_torch.kernels import ops as OPS
+    inner = OPS._all_reduce
+
+    def planted(t, mesh, axes, op="sum"):
+        if op == "max":
+            axes = tuple(a for a in axes if a != "data")
+        return inner(t, mesh, axes, op)
+    base = planted if fault else inner
+
+    def probed(t, mesh, axes, op="sum"):
+        out = base(t, mesh, axes, op)
+        if op == "max":
+            rec.append((tuple(axes), t.detach().reshape(-1).clone(),
+                        out.detach().reshape(-1).clone()))
+        return out
+    OPS._all_reduce = probed
+    try:
+        yield rec
+    finally:
+        OPS._all_reduce = inner
+
+
+def shared_scale_check(rec, mesh):
+    """Of ``shared_scale_probe``'s calls: the scales that differ from the
+    max over the ranks of the call's axes of each rank's own scale
+    (gathered here, apart from the read's reduce), and the calls that
+    reduce over the data axis."""
+    groups = {}
+    for axes, own, got in rec:
+        groups.setdefault(axes, []).append((own, got))
+    off = 0
+    for axes, calls in groups.items():     # in the same order on every rank
+        want = torch.cat([o for o, _ in calls])
+        for a in axes:
+            want = mesh.all_gather(want[None], a, 0).amax(0)
+        off += int((want != torch.cat([g for _, g in calls])).sum())
+    return off, sum(len(c) for a, c in groups.items() if "data" in a)
+
+
+def serve_layout(M, K, cfg, params, mesh, ref, mode, steps, fault=False):
+    """32(b) on one rank of one layout: this rank's rows served under the
+    policy, each decode step fed the one-device run's greedy token, held
+    against the one-device run's ``ref``; every shared DAC scale checked
+    (``fault``: with the planted fault of ``shared_scale_probe``)."""
+    from repro_torch.launch import sharding as S
+    rows = local_rows(mesh, SERVE_BATCH[0])
+    calls, scales = [], []
+    probe = {"bytes": 0}
+    with plain_counted(K, calls), seq_split_probe(probe), \
+            shared_scale_probe(scales, fault):
+        run = serve_run(M, K, cfg, params, serve_prompts(cfg.vocab)[rows],
+                        steps, mesh, feed=ref["tokens"][:, rows].cuda())
+    scale_off, scale_data = shared_scale_check(scales, mesh)
+    want = ref["logits"][:, rows].cuda()
+    got = run["logits"]
+    off, worst = serve_off(got, want)
+    best = want.topk(2, dim=-1).values
+    scale = want.abs().amax(dim=(1, 2))[:, None]
+    tie = best[..., 0] - best[..., 1] <= SERVE_TIE * SERVE_CLASS[mode] * scale
+    same = got.argmax(-1) == want.argmax(-1)
+    gaps = ((best[..., 0] - best[..., 1]) / scale)[~same]
+    return {"coords": dict(mesh.coords),
+            "plan": S.serve_parallel(cfg, mesh).plan(),
+            "held": {"params": tree_nbytes(params),
+                     "cache": tree_nbytes(run["cache"])},
+            "finite": bool(torch.isfinite(got).all()),
+            "err_over_scale": off,
+            "max_abs_err": worst,
+            "bit_equal_steps": sum(bool(torch.equal(a, b))
+                                   for a, b in zip(got, want)),
+            "tokens_off": int((~same).sum()),
+            "near_ties": int(tie.sum()),
+            "tokens_off_clear": int((~same & ~tie).sum()),
+            "flip_gaps_over_scale": gaps.tolist(),
+            "plain_calls": len(calls),
+            "shared_scales": len(scales),
+            "shared_scales_off": scale_off,
+            "shared_scales_over_data": scale_data,
+            "seq_split_attention_decode_step": {
+                "calls": probe["calls"] / steps,
+                "ms": probe["ms"] / steps,
+                "bytes": probe["bytes"] / steps},
+            **{k: run[k] for k in ("prefill_ms", "decode_ms",
+                                   "launches_prefill",
+                                   "launches_decode_step",
+                                   "collective_bytes_prefill",
+                                   "collective_bytes_decode_step")}}
+
+
+def decode_read_cases(K, S, mesh, cfg):
+    """Kernel 4's split and tiles forms at decode rows (SERVE_BATCH[0]
+    tokens) on this rank of 1x4: gemma-2b's wqkv by its serving parts
+    (k and v by columns) and its w_down by whole row tiles, each against
+    its plain version and bit-equal to the whole read, timed beside the
+    whole read of the same leaf at the same rows."""
+    from repro_torch.core.adc import AdcConfig
+    adc = AdcConfig(in_bits=cfg.analog_in_bits, out_bits=cfg.analog_out_bits)
+    t, m = SERVE_BATCH[0], mesh.shape["model"]
+    n = (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.resolved_head_dim
+    before = dict(K.LAUNCHES)
+    split = split_read_case(K, mesh, cfg, adc, parts=S.fused_parts(
+        ("wqkv",), n, cfg, m), t=t)
+    tiles = tiles_read_case(K, mesh, cfg, adc, t=t)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    sync = torch.cuda.synchronize
+    for case, (k, width) in ((split, (cfg.d_model, n)),
+                             (tiles, (cfg.d_ff, cfg.d_model))):
+        x = torch.randn((t, k), generator=gen, device="cuda")
+        w = torch.randn((k, width), generator=gen, device="cuda") / k ** 0.5
+        case["whole_ms"] = cuda_ms(
+            lambda i: K.fakequant_read(x, w, adc, cfg.analog_rows), 5, sync)
+    K.LAUNCHES.update(before)       # the timing launches not counted
+    return {"split": split, "tiles": tiles}
+
+
+def serve_rank(rank, src):
+    """32(b) on one rank: each model of SERVE_ARCHS drawn whole on the
+    card one rank at a time and cut into every layout's serving blocks,
+    then each layout served in both modes against 32(a)'s run; on
+    gemma-2b's 1x4 kernel 4's split and tiles reads at decode rows."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import xbar_vmm as K
+    from repro_torch.launch import sharding as S
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    world = dist.get_world_size()
+    meshes = {shape: card_mesh(shape)
+              for shape in dict.fromkeys(s for _, ls in SERVE_ARCHS
+                                         for s in ls)}
+    out = {}
+    for arch, layouts in SERVE_ARCHS:
+        ref = torch.load(serve_ref(arch), weights_only=False)
+        base = serve_cfg(get_config, arch, "digital")
+
+        def cut():
+            whole = M.init_params(base, SERVE_SEED, "cuda")
+            return {shape: S.serve_parallel(base, meshes[shape])
+                    .shard_params(whole) for shape in layouts}
+        blocks = draw_in_turns(cut, rank, world)
+        for shape in layouts:
+            for mode in SERVE_MODES:
+                out[arch, shape, mode] = serve_layout(
+                    M, K, serve_cfg(get_config, arch, mode), blocks[shape],
+                    meshes[shape], ref[mode], mode, SERVE_STEPS[arch])
+            if (arch, shape) == SERVE_FAULT:
+                out["fault"] = serve_layout(
+                    M, K, serve_cfg(get_config, arch, "fakequant"),
+                    blocks[shape], meshes[shape], ref["fakequant"],
+                    "fakequant", SERVE_STEPS[arch], fault=True)
+            del blocks[shape]
+            torch.cuda.empty_cache()
+        del ref
+    out["reads"] = decode_read_cases(K, S, meshes[(1, 4)], serve_cfg(
+        get_config, "gemma-2b", "fakequant"))
+    out["seconds"] = time.perf_counter() - t0
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def serve_expected(cfg, shape):
+    """The fakequant reads of one decode step on a rank of ``shape``:
+    (all, column splits, row splits)."""
+    n = cfg.n_layers
+    if cfg.family == "ssm":
+        reads, col = 2 * n, n
+    elif cfg.family == "hybrid":
+        g = n // cfg.attn_every
+        reads, col = 2 * n + 5 * g, n + 2 * g
+    else:
+        reads, col = 4 * n, 2 * n
+    return (reads, col, col) if shape[1] > 1 else (reads, 0, 0)
+
+
+def serve_seq_calls(cfg, shape):
+    """The sequence-split decode attentions of one decode step on a rank
+    of ``shape``: one a layer where the dense family's kv heads do not
+    divide over ``model``."""
+    m = shape[1]
+    return cfg.n_layers if cfg.family == "dense" and m > 1 \
+        and cfg.n_kv_heads % m else 0
+
+
+def phase_serve_parallel(DR, TM, get_config, one, report, gpu_line):
+    """32(b): each model of SERVE_ARCHS served under the sharding policy
+    on its layouts, each rank its own process on this card (phase 27(a)'s
+    ranks, ``then=``), against 32(a)'s one-device run of the same
+    weights.  Gates, each rank: its held parameter and cache bytes equal
+    ``launch.dryrun.serving_state``'s for its coordinates, and for
+    gemma-2b the policy's exactly (the SSM family's beyond it only
+    ``in_proj``'s and the conv state's whole B / C / dt parts, as the
+    dry run names them); finite logits of the prefill and every decode
+    step (each fed the one-device run's token) within SERVE_CLASS of the
+    one-device run's; the same greedy tokens but at a near tie
+    (SERVE_TIE); on gemma-2b's 1x4 and 2x2 the sequence-split decode
+    attention once a layer a step; in fakequant mode no plain-version
+    call, each decode step's
+    fakequant reads the one-device step's, on model ranks its column
+    splits on kernel 4's split form and its row splits on the tiles
+    form (``serve_expected``); kernel 4's split and tiles reads at
+    decode rows against their plain versions and bit-equal to the whole
+    read."""
+    from repro_torch.configs.base import ShapeSpec
+    ranks = spawn_layout(4, "serve32")
+    cell = ShapeSpec("serve32", "decode", SERVE_MAX_LEN, SERVE_BATCH[0])
+    by_one = {(r["arch"], r["mode"]): r for r in one}
+    rows, dry_of = [], {}
+    for arch, layouts in SERVE_ARCHS:
+        for shape in layouts:
+            label = "x".join(map(str, shape))
+            for mode in SERVE_MODES:
+                cfg = serve_cfg(get_config, arch, mode)
+                base = by_one[arch, mode]
+                per = [r[arch, shape, mode] for r in ranks]
+                want = serve_expected(cfg, shape)
+                for i, r in enumerate(per):
+                    at = (r["coords"]["data"], r["coords"]["model"])
+                    if (arch, shape, at) not in dry_of:  # either mode's
+                        dry_of[arch, shape, at] = DR.serving_state(
+                            cfg, cell, DR.DryMesh(shape, ("data", "model"),
+                                                  coords=at))[3]
+                    dry = dry_of[arch, shape, at]
+                    what = f"32(b) {arch} {mode} {label} rank {i}"
+                    if r["held"] != dry["held"]:
+                        fail(f"{what}: holds {r['held']}, the dry run "
+                             f"{dry['held']}")
+                    extra = {k: r["held"][k] - dry["policy"][k]
+                             for k in r["held"]}
+                    parts = set(dry["excess"])
+                    if sum(extra.values()) != sum(dry["excess"].values()) \
+                            or (cfg.family == "dense" and parts) \
+                            or not parts <= {"params/layers/ssm/in_proj/w",
+                                             "cache/0/conv"}:
+                        fail(f"{what}: {extra} bytes beyond the policy, the "
+                             f"dry run's named parts {dry['excess']}")
+                    worst = max(r["err_over_scale"])
+                    if not r["finite"] or worst > SERVE_CLASS[mode] \
+                            or r["tokens_off_clear"]:
+                        fail(f"{what}: finite {r['finite']}, logits off the "
+                             f"1x1 run's by {worst:.3g} of their scale "
+                             f"(class {SERVE_CLASS[mode]}), greedy tokens "
+                             f"off {r['tokens_off']} ({r['tokens_off_clear']}"
+                             f" beyond a near tie; the 1x1's top-two gaps of "
+                             f"the flips over the scale "
+                             f"{r['flip_gaps_over_scale']})")
+                    if mode == "fakequant" and (r["shared_scales_off"] or (
+                            shape[0] > 1 and r["shared_scales_over_data"]
+                            != r["launches_prefill"]["fakequant"]
+                            + SERVE_STEPS[arch] * r["launches_decode_step"][
+                                "fakequant"])):
+                        fail(f"{what}: {r['shared_scales_off']} of "
+                             f"{r['shared_scales']} shared DAC scales not the "
+                             "max over their ranks' own, "
+                             f"{r['shared_scales_over_data']} shared over "
+                             "the data ranks")
+                    seq = r["seq_split_attention_decode_step"]["calls"]
+                    if seq != serve_seq_calls(cfg, shape):
+                        fail(f"{what}: {seq} sequence-split decode "
+                             f"attentions a step, expected "
+                             f"{serve_seq_calls(cfg, shape)}")
+                    if mode != "fakequant":
+                        continue
+                    got = r["launches_decode_step"]
+                    split = (got["fakequant_split"] - got["fakequant_tiles"],
+                             got["fakequant_tiles"])
+                    if r["plain_calls"] or (got["fakequant"], *split) != want \
+                            or got["fakequant"] != \
+                            base["launches_decode_step"]["fakequant"]:
+                        fail(f"{what}: {r['plain_calls']} plain calls, reads "
+                             f"a decode step {got} (all, split, tiles "
+                             f"expected {want}; 1x1 "
+                             f"{base['launches_decode_step']})")
+                row = {"arch": arch, "mode": mode, "layout": label,
+                       "layers": cfg.n_layers, "plan": per[0]["plan"],
+                       "held_gb_per_rank": [
+                           {k: v / 1e9 for k, v in r["held"].items()}
+                           for r in per],
+                       "prefill_ms_per_rank": [r["prefill_ms"] for r in per],
+                       "decode_ms_per_rank": [float(np.median(r["decode_ms"]))
+                                              for r in per],
+                       "prefill_ms_1x1": base["prefill_ms"],
+                       "decode_ms_1x1": base["decode_ms_per_step"],
+                       "err_over_scale": max(max(r["err_over_scale"])
+                                             for r in per),
+                       "err_over_scale_per_step": np.max(
+                           [r["err_over_scale"] for r in per], 0).tolist(),
+                       "max_abs_err": max(r["max_abs_err"] for r in per),
+                       "tokens_off": [r["tokens_off"] for r in per],
+                       "near_ties": [r["near_ties"] for r in per],
+                       "flip_gaps_over_scale": [r["flip_gaps_over_scale"]
+                                                for r in per],
+                       "bit_equal_steps_per_rank": [r["bit_equal_steps"]
+                                                    for r in per],
+                       "launches_decode_step": per[0]["launches_decode_step"],
+                       "shared_scales_per_rank": [r["shared_scales"]
+                                                  for r in per],
+                       "launches_prefill": per[0]["launches_prefill"],
+                       "collective_bytes_decode_step":
+                           per[0]["collective_bytes_decode_step"],
+                       "collective_bytes_prefill":
+                           per[0]["collective_bytes_prefill"],
+                       "seq_split_attention_decode_step": [
+                           r["seq_split_attention_decode_step"]
+                           for r in per]}
+                print(f"32(b) {arch} {mode} {label}: prefill ms per rank "
+                      f"{[round(v, 1) for v in row['prefill_ms_per_rank']]}"
+                      f" (1x1 {base['prefill_ms']:.1f}), decode ms a step "
+                      f"per rank {[round(v, 2) for v in row['decode_ms_per_rank']]}"
+                      f" (1x1 {base['decode_ms_per_step']:.2f}), held GB "
+                      f"per rank {[round(sum(h.values()), 3) for h in row['held_gb_per_rank']]}"
+                      f", logits within {row['err_over_scale']:.3g} of the "
+                      f"1x1's scale, greedy tokens off a rank "
+                      f"{row['tokens_off']} (near ties {row['near_ties']}; "
+                      f"the flips' 1x1 gaps over the scale "
+                      f"{row['flip_gaps_over_scale']}), "
+                      f"bit-equal steps "
+                      f"{row['bit_equal_steps_per_rank']} of "
+                      f"{1 + SERVE_STEPS[arch]}, reads a decode step "
+                      f"{row['launches_decode_step']}, collective bytes a "
+                      f"decode step {row['collective_bytes_decode_step']} "
+                      f"[{gpu_line}]")
+                seq = row["seq_split_attention_decode_step"]
+                if seq[0]["calls"]:
+                    print(f"32(b) {arch} {mode} {label}: the sequence-split "
+                          f"decode attention, {seq[0]['calls']:.0f} a step, "
+                          f"ms a step per rank "
+                          f"{[round(q['ms'], 2) for q in seq]}, bytes "
+                          f"received a step per rank "
+                          f"{[q['bytes'] for q in seq]} [{gpu_line}]")
+                report(row)
+                rows.append(row)
+    fault = [r["fault"] for r in ranks]
+    caught = sum(f["shared_scales_off"] for f in fault)
+    if not caught:
+        fail("32(b) the planted fault (each data rank's DAC scale over its "
+             "own rows) was not caught by the shared-scale gate")
+    worst = max(max(f["err_over_scale"]) for f in fault)
+    label = "x".join(map(str, SERVE_FAULT[1]))
+    print(f"32(b) planted fault, {SERVE_FAULT[0]} fakequant {label} with each "
+          f"data rank's DAC scale over its own rows: {caught} of "
+          f"{sum(f['shared_scales'] for f in fault)} shared scales off the "
+          f"ranks' max (caught); logits within {worst:.3g} of the 1x1's scale "
+          f"(class {SERVE_CLASS['fakequant']}), per step "
+          f"{[round(v, 4) for v in np.max([f['err_over_scale'] for f in fault], 0)]}"
+          f", greedy tokens off a rank {[f['tokens_off'] for f in fault]} "
+          f"(near ties {[f['near_ties'] for f in fault]}) [{gpu_line}]")
+    report({"fault": {"arch": SERVE_FAULT[0], "layout": label,
+                      "shared_scales_off": caught,
+                      "err_over_scale": worst,
+                      "err_over_scale_per_step": np.max(
+                          [f["err_over_scale"] for f in fault], 0).tolist(),
+                      "tokens_off": [f["tokens_off"] for f in fault],
+                      "near_ties": [f["near_ties"] for f in fault]}})
+    reads = ranks[0]["reads"]
+    for i, r in enumerate(ranks):
+        for case in ("split", "tiles"):
+            c = r["reads"][case]
+            if not c["ok"] or not c["bit_equal_whole_read"]:
+                fail(f"32(b) rank {i}: kernel 4's {case} form at decode rows "
+                     f"is off its plain version or the whole read: {c}")
+    print(f"32(b) kernel 4 at {SERVE_BATCH[0]} decode rows on rank 0 of "
+          f"1x4 (gemma-2b): split form {1e3 * reads['split']['ms']:.1f} us "
+          f"(plain {1e3 * reads['split']['plain_ms']:.1f}, the whole wqkv "
+          f"read {1e3 * reads['split']['whole_ms']:.1f}), tiles form "
+          f"{1e3 * reads['tiles']['ms']:.1f} us (plain "
+          f"{1e3 * reads['tiles']['plain_ms']:.1f}, the whole w_down read "
+          f"{1e3 * reads['tiles']['whole_ms']:.1f}); the ranks' job took "
+          f"{max(r['seconds'] for r in ranks):.1f} s, peak "
+          f"{max(r['peak_gb'] for r in ranks):.2f} GB a rank [{gpu_line}]")
+    report({"reads": reads, "seconds": [r["seconds"] for r in ranks],
+            "peak_gb": [r["peak_gb"] for r in ranks]})
+    return rows, reads
+
+
+def serve_entry(rows, reads, case):
+    """The kernels-line figures of 32(b) for kernel 4's split (``case``
+    ``split``) or tiles form: its reads a decode step a rank by model,
+    mode and layout, and its read at decode rows."""
+    c = reads[case]
+    key = "fakequant_tiles"
+    return {"launches_decode_step_serve_32": {
+        f"{r['arch']} {r['layout']}": (
+            r["launches_decode_step"][key] if case == "tiles" else
+            r["launches_decode_step"]["fakequant_split"]
+            - r["launches_decode_step"][key])
+        for r in rows if r["mode"] == "fakequant"},
+        "decode_rows_32": {k: c[k] for k in (
+            "T", "max_abs_err", "ms", "plain_ms", "whole_ms", "bound_ms",
+            "bound_by")}}
+
+
 TP_JOBS = {"qat": tp_rank_qat, "gemma": tp_rank_gemma,
            "inexact": tp_rank_inexact, "moe": moe_rank_qat,
            "scout1x4": lambda rank, src: scout_rank(rank, src, (1, 4)),
            "scout1x2": lambda rank, src: scout_rank(rank, src, (1, 2)),
-           "family": family_rank, "vlm1x4": vlm_tp_rank, "seq30": seq_rank}
+           "family": family_rank, "vlm1x4": vlm_tp_rank, "seq30": seq_rank,
+           "serve32": serve_rank}
 
 
 class CardTransport:
@@ -10125,7 +10783,10 @@ def main():
         phase_nonideality(U, K, TA, TL, TO, M, syn, tcfg,
                           reporter("nonideality"), steps=30)
     with phase("14"):
-        mlp = phase_mlp(K, U, MLP, ACC, CMP, syn, reporter("mlp"), train)
+        # 14(b) on launch.accuracy's --fast protocol since phase 32 joined
+        # (the six full-protocol runs took 105-152 s of host time)
+        mlp = phase_mlp(K, U, MLP, ACC, CMP, syn, reporter("mlp"), train,
+                        fast=True)
     del params, aparams
     with phase("15"):
         gemma = phase_gemma(M, K, E, make_engine, SamplingParams, get_config,
@@ -10233,9 +10894,20 @@ def main():
         phase_prefill_head(M, get_config, reporter("prefill_head"),
                            gpu_line)
 
-    with phase("27"):
-        tp_qat = phase_tp_qat(K, TL, TO, get_config, reporter("tp_qat"),
-                              gpu_line, then=("gemma",))
+    # 32(a): the one-device serving runs whose logits and tokens phase
+    # 32(b)'s ranks (started by 27(a), then=) hold themselves against
+    try:
+        with phase("32a"):
+            serve_one = phase_serve_one(M, K, get_config,
+                                        reporter("serve_one"), gpu_line)
+        # 27(a)'s ranks go on to 27(b) and 32(b) (their seconds here too)
+        with phase("27a"):
+            tp_qat = phase_tp_qat(K, TL, TO, get_config, reporter("tp_qat"),
+                                  gpu_line, then=("gemma", "serve32"))
+    finally:
+        for arch, _ in SERVE_ARCHS:
+            serve_ref(arch).unlink(missing_ok=True)
+    with phase("27bc"):
         tp_gemma = phase_tp_gemma(M, TL, TO, DR, S, TM, get_config,
                                   reporter("tp_gemma"), gpu_line)
         tp_inexact = phase_tp_inexact(K, S, TM, TA, syn, get_config,
@@ -10279,6 +10951,12 @@ def main():
     with phase("31"):
         api = phase_api(K, U, OPS, XO, CrossbarConfig, AdcConfig, TAOX,
                         TAOX_NONOISE, reporter("api"), gpu_line)
+    with phase("32"):
+        serve_rows, serve_reads = phase_serve_parallel(
+            DR, TM, get_config, serve_one, reporter("serve_parallel"),
+            gpu_line)
+    details["serve_32"] = {"one": serve_one, "layouts": serve_rows,
+                           "reads": serve_reads}
 
     def remat_launches(name):
         """The kernels-line figures of phase 26 for one launch count."""
@@ -10488,6 +11166,9 @@ def main():
         **cross_launches("fakequant"),
         "launches_cli_qat_per_step": shard_cli["fakequant_reads_per_step"],
         "launches_seq_30": seq_launches(seq_rows, "fakequant"),
+        "launches_decode_step_serve_32": {
+            f"{r['arch']} {r['layout']}": r["launches_decode_step"][
+                "fakequant"] for r in serve_rows if r["mode"] == "fakequant"},
         "lead_dim": [{key: r.get(key) for key in (
             "case", "E", "T", "K", "N", "instance", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "tc_floor_ms")}
@@ -10531,7 +11212,8 @@ def main():
                     "gathered range partials)",
         **tp_split_entry(tp_qat),
         "launches_family_29": family_launches(family, "split"),
-        "launches_seq_30": seq_launches(seq_rows, "split")}, {
+        "launches_seq_30": seq_launches(seq_rows, "split"),
+        **serve_entry(serve_rows, serve_reads, "split")}, {
         "name": "xbar_fakequant_tiles", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_fakequant.cu",
         "replaces": "src/repro/kernels/xbar_vmm.py:247 (the fakequant "
@@ -10541,7 +11223,8 @@ def main():
                     "the epilogue over every tile)",
         **tp_split_entry(tp_qat, "tiles"),
         "launches_family_29": family_launches(family, "tiles"),
-        "launches_seq_30": seq_launches(seq_rows, "tiles")}, {
+        "launches_seq_30": seq_launches(seq_rows, "tiles"),
+        **serve_entry(serve_rows, serve_reads, "tiles")}, {
         "name": "xbar_fakequant_expert_shared_scale", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xbar_fakequant.cu",
         "replaces": "src/repro/kernels/xbar_vmm.py:247 (a data rank's rows "

@@ -11,16 +11,24 @@ coords)``: the production meshes need 256 or 512 ranks, which
   * ``mem``: the bytes one rank holds, as the port holds them: in a
     training cell on a mesh of several ranks its block of every numeric
     leaf and of adamw's ``m`` and ``v`` (``launch.sharding.state_specs``;
-    a fused leaf's k and v stay whole on every ``model`` rank where the
-    kv heads do not divide over it, and so do the SSD layers' ``in_proj``
-    B, C and dt), whole on one rank and in the serving
-    cells (serving holds the whole model on every rank), the batch and
+    a fused ``wqkv``'s k and v cut by columns where the kv heads do not
+    divide over ``model``; the SSD layers' ``in_proj`` B, C and dt whole
+    on every ``model`` rank), whole on one rank; in the serving cells of
+    the dense, SSM and hybrid families on a mesh of several ranks its
+    serving blocks (``launch.sharding.ServeParallel``: the parameters'
+    blocks as in training; the cache's block, split by kv heads or along
+    the sequence, the SSD state by heads and the conv state by the
+    channels the rank's conv reads), and the whole model on every rank in
+    the MoE and cross-attention families' serving cells; the batch and
     the cache at this rank's share of the batch (over the data axes where
     they divide it).  Beside it, ``policy_argument_gb`` is what the
     sharding policy (``launch.sharding.params_shardings`` /
     ``cache_shardings``, each leaf's block by ``block_slices``) gives the
-    rank, and ``replicated_by_port_gb`` the difference: what the port
-    holds beyond the policy.
+    rank, ``replicated_by_port_gb`` the difference, what the port holds
+    beyond the policy, and ``replicated_by_port_leaves`` the leaves that
+    make it up, by path (the SSM family's ``in_proj`` B, C and dt and its
+    conv state's B and C channels, whole on every ``model`` rank where
+    the groups do not divide).
     ``temp_gb`` is the step's peak of live bytes it allocates and
     ``fits_h100`` compares arguments plus temporaries with the H100's 80
     GB;
@@ -32,7 +40,8 @@ coords)``: the production meshes need 256 or 512 ranks, which
     ``launch.trace_analysis`` over the step as it runs on ``meta``
     tensors (the train step of ``train_loop.make_train_step`` with
     ``adamw``, ``prefill`` or one ``decode_step`` against a ``seq_len``
-    cache; ``REPRO_ANALOG=1`` puts every projection through the
+    cache, under the policy where the cell holds its blocks;
+    ``REPRO_ANALOG=1`` puts every projection through the
     fakequant read, as the reference's flag does), and the collective
     link-bytes the port's own step sends (the ``torch.distributed``
     calls of :class:`DryMesh`, whose groups are their sizes, recorded
@@ -156,6 +165,53 @@ def block_bytes(tree, specs, mesh: Mesh) -> int:
     return total
 
 
+def leaf_excess(held_tree, whole_tree, specs, mesh: Mesh, prefix: str
+                ) -> Dict[str, int]:
+    """The bytes each leaf of ``held_tree`` (this rank's) holds beyond its
+    policy block of the same leaf of ``whole_tree`` under ``specs``, by
+    ``prefix/path``, for the leaves where they differ."""
+    held = dict(M._leaves(held_tree))
+    out = {}
+    for path, t in M._leaves(whole_tree):
+        spec = specs
+        for k in path:
+            spec = spec[k if isinstance(spec, dict) else int(k)]
+        pol = block_bytes(t, spec, mesh)
+        mine = held[path].numel() * held[path].element_size()
+        if mine != pol:
+            out["/".join([prefix, *map(str, path)])] = mine - pol
+    return out
+
+
+def serving_state(cfg, shape: ShapeSpec, mesh: Mesh):
+    """A serving cell's parameters and (a decode cell) cache as this rank
+    of ``mesh`` holds them, on the ``meta`` device: ``(params, cache,
+    kw, bytes)``, ``kw`` the serving functions' ``mesh`` keyword (empty
+    where the cell holds the whole model) and ``bytes`` this rank's
+    ``held`` and ``policy`` bytes by key (``params``, ``cache``) and the
+    ``excess`` by leaf (:func:`leaf_excess`)."""
+    whole = M.init_params(cfg, None, device="meta")
+    specs = sharding.params_shardings(whole, cfg, mesh)
+    sharded = mesh.size > 1 and cfg.family in sharding.ServeParallel.FAMILIES
+    kw = {"mesh": mesh} if sharded else {}
+    params = sharding.serve_parallel(cfg, mesh).shard_params(whole) \
+        if kw else whole
+    out = {"held": {"params": tree_bytes(params)},
+           "policy": {"params": block_bytes(whole, specs, mesh)},
+           "excess": leaf_excess(params, whole, specs, mesh, "params")}
+    cache = None
+    if shape.kind == "decode":
+        cache = M.cache_specs(cfg, local_batch(shape.global_batch, mesh),
+                              shape.seq_len, **kw)
+        whole = M.cache_specs(cfg, shape.global_batch, shape.seq_len)
+        cspecs = sharding.cache_shardings(whole, cfg, mesh)
+        out["held"]["cache"] = tree_bytes(cache)
+        out["policy"]["cache"] = block_bytes(whole, cspecs, mesh)
+        out["excess"].update(leaf_excess(cache, whole, cspecs, mesh,
+                                         "cache"))
+    return params, cache, kw, out
+
+
 def reckon(cfg, shape: ShapeSpec, mesh: Mesh) -> dict:
     """The memory and trace record of one cell on one rank of ``mesh``
     (see the module docstring)."""
@@ -164,6 +220,7 @@ def reckon(cfg, shape: ShapeSpec, mesh: Mesh) -> dict:
     batch = M.input_specs(cfg, shape, batch=b)
     held: Dict[str, int] = {"batch": tree_bytes(batch)}
     policy: Dict[str, int] = {"batch": held["batch"]}
+    excess: Dict[str, int] = {}
     if shape.kind == "train":
         opt = adamw(3e-4)
         whole = train_loop.abstract_state(cfg, opt)
@@ -177,32 +234,27 @@ def reckon(cfg, shape: ShapeSpec, mesh: Mesh) -> dict:
             step(state, batch)
         held["params"] = tree_bytes(state["params"])
         held["opt"] = tree_bytes(state["opt"]) + tree_bytes(state["step"])
-        policy["params"] = block_bytes(params, sharding.params_shardings(
-            params, cfg, mesh), mesh)
+        specs = sharding.params_shardings(params, cfg, mesh)
+        policy["params"] = block_bytes(params, specs, mesh)
+        excess.update(leaf_excess(state["params"], params, specs, mesh,
+                                  "params"))
         policy["opt"] = 2 * block_bytes(whole["opt"]["m"],
                                         sharding.params_shardings(
                                             whole["opt"]["m"], cfg, mesh),
                                         mesh) \
             + tree_bytes(whole["opt"]["t"]) + tree_bytes(whole["step"])
     else:
-        params = M.init_params(cfg, None, device="meta")
-        held["params"] = tree_bytes(params)
-        policy["params"] = block_bytes(params, sharding.params_shardings(
-            params, cfg, mesh), mesh)
-        if shape.kind == "decode":
-            cache = M.cache_specs(cfg, b, shape.seq_len)
+        params, cache, kw, served = serving_state(cfg, shape, mesh)
+        held.update(served["held"])
+        policy.update(served["policy"])
+        excess.update(served["excess"])
         with torch.no_grad(), tracing(dry=True, group_size=dp) as trace:
             if shape.kind == "prefill":     # its cache is an output
-                M.prefill(params, batch, cfg, max_len=shape.seq_len)
+                M.prefill(params, batch, cfg, max_len=shape.seq_len, **kw)
             else:
                 extras = {k: v for k, v in batch.items() if k != "tokens"}
                 M.decode_step(params, cache, batch["tokens"], cfg,
-                              batch_extras=extras or None)
-        if shape.kind == "decode":
-            held["cache"] = tree_bytes(cache)
-            whole = M.cache_specs(cfg, shape.global_batch, shape.seq_len)
-            policy["cache"] = block_bytes(whole, sharding.cache_shardings(
-                whole, cfg, mesh), mesh)
+                              batch_extras=extras or None, **kw)
     gb = 1e9
     arg = sum(held.values())
     temp = trace.peak_bytes
@@ -223,6 +275,8 @@ def reckon(cfg, shape: ShapeSpec, mesh: Mesh) -> dict:
             "replicated_by_port_gb": (arg - sum(policy.values())) / gb,
             "replicated_by_port": {k: (held[k] - policy[k]) / gb
                                    for k in held},
+            "replicated_by_port_leaves": {k: v / gb
+                                          for k, v in excess.items()},
         },
         "trace": trace.summary(),
         "numeric": numeric,

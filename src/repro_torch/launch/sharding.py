@@ -24,13 +24,14 @@ computes through :class:`NumericParallel`.  A fused leaf (``wqkv``,
 ``w_upgate``) whose output dim splits over ``model`` is cut per part
 (:func:`fused_parts`): rank r holds its heads' q, k and v columns, its
 slice of up and of gate, so a tensor-parallel rank reads its own heads
-from its own block; k and v stay whole on every rank of ``model`` where
-the kv heads do not divide over it (MQA).  Checkpoints hold whole
-tensors in the reference's layout.
+from its own block; where the kv heads do not divide over ``model``
+(MQA) it holds its slice of the k and v columns, gathered whole after
+the read.  Checkpoints hold whole tensors in the reference's layout.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import os
 from typing import Dict, Optional, Sequence, Tuple
@@ -336,12 +337,14 @@ def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
 def fused_parts(path, width: int, cfg: ModelConfig, n: int):
     """The parts of a fused leaf's output dim, ``[(width, split), ...]``,
     over ``n`` ranks of ``model``; None for any other leaf.  ``wqkv``: q,
-    k and v, q split when the heads divide, k and v when the kv heads
-    do; ``w_upgate``: up and gate, each split when it divides; the SSD
-    layer's ``in_proj``: z and x split when its heads divide (whole heads
-    a rank), B and C when its groups do, dt whole on every rank (a rank
-    slices its heads' dt after the read: split, its few columns would
-    not fill a 64-column range block)."""
+    k and v, q split when the heads divide, k and v when their columns
+    do (by kv heads where those divide, else each rank its slice of the
+    shared kv heads' columns, gathered after the read: the leaf's block
+    is then the policy's even one); ``w_upgate``: up and gate, each split
+    when it divides; the SSD layer's ``in_proj``: z and x split when its
+    heads divide (whole heads a rank), B and C when its groups do, dt
+    whole on every rank (a rank slices its heads' dt after the read:
+    split, its few columns would not fill a 64-column range block)."""
     sp = [str(k) for k in path]
     if "in_proj" in sp and cfg.ssm_state:
         d_in, h, gn = ssm_dims(cfg)
@@ -355,7 +358,7 @@ def fused_parts(path, width: int, cfg: ModelConfig, n: int):
         nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
         if nq + 2 * nkv != width:
             return None
-        kv = cfg.n_kv_heads % n == 0
+        kv = nkv % n == 0
         return [(nq, cfg.n_heads % n == 0), (nkv, kv), (nkv, kv)]
     if "w_upgate" in sp and width % 2 == 0:
         half = width // 2
@@ -724,6 +727,10 @@ class NumericParallel:
     input (a rematted layer's backward gathers both again).
     """
 
+    #: Serving (:class:`ServeParallel`): a cache or a state split over
+    #: the mesh beside the parameters.
+    serve = False
+
     def __init__(self, cfg: ModelConfig, mesh):
         from repro_torch.models import model as M
         self.cfg, self.mesh = cfg, mesh
@@ -775,9 +782,8 @@ class NumericParallel:
             "in_proj": blocks(("in_proj",), w_in)}
         self.attn = on and cfg.n_heads > 0 and not cfg.use_mla \
             and cfg.n_heads % m == 0 and split(("attn", "wqkv", "w"), -1) \
-            and fused_parts(("wqkv",), w_qkv, cfg, m)[0][1] \
-            and (not qat or (self.kv_split
-                             and self.blocks["wqkv"] is not None))
+            and all(s for _, s in fused_parts(("wqkv",), w_qkv, cfg, m)) \
+            and (not qat or self.blocks["wqkv"] is not None)
         self.mla = moe and cfg.use_mla and cfg.n_heads % m == 0 \
             and split(("attn", "wq", "w"), -1) \
             and split(("attn", "wkv_b", "w"), -1) \
@@ -1044,7 +1050,8 @@ class NumericParallel:
         the axes their leaf is split along, each group summed over its
         axes in one ``all_reduce``; a replicated leaf counts once, and so
         does a fused leaf's part that every ``model`` rank holds whole
-        (MQA's k and v): only ``model`` rank 0 counts it."""
+        (``in_proj``'s dt; k and v where their columns do not divide):
+        only ``model`` rank 0 counts it."""
         groups: Dict[Tuple[str, ...], Tensor] = {}
         for path, t in _flat_paths(tree):
             spec = _spec_at(self.specs, path)
@@ -1066,3 +1073,69 @@ class NumericParallel:
                 s = self.mesh.all_reduce(s, a)
             total = s if total is None else total + s
         return total
+
+
+class ServeParallel(NumericParallel):
+    """Serving under the sharding policy (the reference's ``prefill`` and
+    ``decode_step`` jitted with ``params_shardings`` / ``cache_shardings``
+    as their ``in_shardings``): the dense, SSM and hybrid families on a
+    ``data`` x ``model`` mesh, with grad disabled.
+
+    Each rank holds its policy block of every parameter
+    (:meth:`shard_params`: :func:`shard_tree`, as the training step's, a
+    fused ``wqkv``'s k and v cut by columns where the kv heads do not
+    divide ``model``) and its block of
+    the cache (``models.model.init_cache`` under this context): its rows
+    of the batch (over the data axes where they divide it), and over
+    ``model`` its kv heads (:attr:`kv_split`), or else its run of whole
+    slots of every head (the sequence split: ``max_len / model`` slots,
+    ``DECODE_KV_CHUNKS / model`` whole flash-decoding chunks), the SSD
+    state ``h`` by heads and the conv state by the rank's channels (its
+    heads' x channels and B / C whole where the groups do not divide:
+    more than the policy's even split, which the dry run reports).
+
+    Layers are gathered as the numeric step gathers them (the FSDP axes
+    always, ``model`` where the plan keeps no split) and the plan's
+    ``attn``, ``attn_row``, ``ffn``, ``ffn_row``, ``ssm`` and ``vocab``
+    splits compute as in training; ``seq`` is off.  The attention's
+    cache split is the cache's, whatever the plan: a rank attends with
+    its heads over its kv heads, or, the sequence split, forms every
+    head's flash-decoding partials over its chunks and combines every
+    rank's in chunk order (``models.layers``).  The head's logits are
+    gathered over the vocab blocks, whole on every rank."""
+
+    serve = True
+    #: The families served under the policy (the MoE and cross-attention
+    #: families replicate the model on every rank).
+    FAMILIES = ("dense", "ssm", "hybrid")
+
+    def __init__(self, cfg: ModelConfig, mesh):
+        if cfg.family not in self.FAMILIES:
+            raise NotImplementedError(
+                f"serving under the sharding policy covers the "
+                f"{', '.join(self.FAMILIES)} families, not {cfg.family!r} "
+                "(ROADMAP: the MoE and cross-attention families next)")
+        super().__init__(cfg, mesh)
+        self.seq = False
+        if self.m > 1 and cfg.ssm_state and not self.ssm:
+            raise ValueError(
+                f"{cfg.name}: the SSD state splits by heads over {self.m} "
+                "model ranks, but the plan's ssm split is off (heads, "
+                "groups or, in fakequant mode, whole range blocks and row "
+                "tiles do not divide)")
+
+    def shard_params(self, params):
+        """This rank's blocks of a whole parameter tree."""
+        return shard_tree(params, self.specs, self.cfg, self.mesh)
+
+    def gather_model(self, t: Tensor, dim: int) -> Tensor:
+        """The ``model`` ranks' ``t`` concatenated along ``dim`` in rank
+        order (bits moved, nothing added)."""
+        return shardctx.gather(t, self.mesh, self.tp, dim, "slice")
+
+
+@functools.lru_cache(maxsize=16)
+def serve_parallel(cfg: ModelConfig, mesh) -> ServeParallel:
+    """The :class:`ServeParallel` of ``cfg`` on ``mesh`` (a mesh hashes by
+    identity), made once for each of the last few pairs served."""
+    return ServeParallel(cfg, mesh)

@@ -282,33 +282,105 @@ def _chunked_sdpa(q: Tensor, k: Tensor, v: Tensor, causal: bool,
     return out.to(q.dtype)
 
 
-def _decode_sdpa(q: Tensor, k: Tensor, v: Tensor, kv_len: Tensor) -> Tensor:
-    """One-token attention against the cache, flash-decoding style: the
-    cache is viewed as DECODE_KV_CHUNKS chunks whose partial softmax
-    statistics combine exactly.  q: (B, 1, H, hd); k/v: (B, S, KVH, hd)."""
+def _decode_partials(q: Tensor, k: Tensor, v: Tensor, kv_len: Tensor,
+                     chunks: Optional[int] = None, first: int = 0):
+    """The flash-decoding partials of one token's attention over the
+    cache ``k`` / ``v`` (B, S, KVH, hd), viewed as ``chunks`` chunks
+    (default DECODE_KV_CHUNKS where they divide S, else one) whose
+    slots start at position ``first``: each chunk's score max, its sum of
+    exponentials and its unnormalised output, ``(m_c, l_c, o_c)`` of
+    shapes (B, C, KVH, G) and (B, C, KVH, G, hd).  q: (B, 1, H, hd)."""
     b, _, h, hd = q.shape
     s, kvh = k.shape[1], k.shape[2]
     group = h // kvh
     scale = 1.0 / np.sqrt(hd)
-    c = DECODE_KV_CHUNKS if s % DECODE_KV_CHUNKS == 0 else 1
+    c = chunks or (DECODE_KV_CHUNKS if s % DECODE_KV_CHUNKS == 0 else 1)
     sl = s // c
     kc = k.reshape(b, c, sl, kvh, hd)
     vc = v.reshape(b, c, sl, kvh, v.shape[-1])
     qg = q.reshape(b, kvh, group, hd)
     scores = torch.einsum("bkgd,bcskd->bckgs", qg.float(),
                           kc.float()) * scale
-    pos = torch.arange(s, device=q.device).reshape(c, sl)
+    pos = first + torch.arange(s, device=q.device).reshape(c, sl)
     valid = pos[None, :, :] < kv_len[:, None, None]           # (b, c, sl)
     scores = scores.masked_fill(~valid[:, :, None, None, :], -1e30)
     m_c = torch.amax(scores, dim=-1)                           # (b,c,kvh,g)
     e = torch.exp(scores - m_c[..., None])
     l_c = torch.sum(e, dim=-1)
     o_c = torch.einsum("bckgs,bcskd->bckgd", e, vc.float())
+    return m_c, l_c, o_c
+
+
+def _chunk_sum(t: Tensor) -> Tensor:
+    """``t`` summed over dim 1 chunk after chunk, in its dtype: values that
+    do not depend on how many rows or heads ``t`` holds (a reduction over
+    the dim is vectorised or split by the tensor's shape).  On the card
+    one launch: ``cumsum`` along a dim that is not the innermost runs each
+    output's chunks in order in the tensor's dtype (chip_smoke phase 32
+    holds it bit-equal to the adds); on the CPU, whose ``cumsum``
+    accumulates in double, the adds one after another."""
+    if t.is_cuda:
+        return torch.cumsum(t, dim=1)[:, -1]
+    acc = t[:, 0]
+    for i in range(1, t.shape[1]):
+        acc = acc + t[:, i]
+    return acc
+
+
+def _decode_combine(m_c: Tensor, l_c: Tensor, o_c: Tensor,
+                    dtype) -> Tensor:
+    """The chunks' partials combined in chunk order: (B, 1, H, hd), the
+    weighted outputs and weights summed by :func:`_chunk_sum`, so a rank's
+    heads or rows combine as one device's."""
+    b, c, kvh, g, hd = o_c.shape
     m = torch.amax(m_c, dim=1, keepdim=True)                   # (b,1,kvh,g)
-    w = torch.exp(m_c - m) * l_c                               # (b,c,kvh,g)
-    o = torch.sum(o_c * torch.exp(m_c - m)[..., None], dim=1) \
-        / torch.clamp(torch.sum(w, dim=1), min=1e-30)[..., None]
-    return o.reshape(b, 1, h, v.shape[-1]).to(q.dtype)
+    e = torch.exp(m_c - m)
+    acc = _chunk_sum(torch.cat([o_c * e[..., None], (e * l_c)[..., None]],
+                               dim=-1))
+    o = acc[..., :hd] / torch.clamp(acc[..., hd:], min=1e-30)
+    return o.reshape(b, 1, kvh * g, hd).to(dtype)
+
+
+def _decode_sdpa(q: Tensor, k: Tensor, v: Tensor, kv_len: Tensor) -> Tensor:
+    """One-token attention against the cache, flash-decoding style: the
+    cache is viewed as DECODE_KV_CHUNKS chunks whose partial softmax
+    statistics combine exactly.  q: (B, 1, H, hd); k/v: (B, S, KVH, hd)."""
+    return _decode_combine(*_decode_partials(q, k, v, kv_len), q.dtype)
+
+
+def _decode_sdpa_split(q: Tensor, k: Tensor, v: Tensor, kv_len: Tensor,
+                       npar, tp: bool = False) -> Tensor:
+    """:func:`_decode_sdpa` over a cache split along the sequence over
+    ``model`` (the serving context ``npar``): this rank's slots ``k`` /
+    ``v`` are whole chunks of the whole cache's DECODE_KV_CHUNKS; every
+    head's partials over them are gathered over the ``model`` ranks in
+    rank order, which is chunk order, and combined as the one-device
+    decode combines them.  ``q`` holds every head, or (``tp``) the
+    rank's run of heads, gathered over ``model`` first and the rank's
+    heads of the output returned."""
+    m, s, own = npar.m, k.shape[1], q.shape[2]
+    r = npar.mesh.coords["model"]
+    if tp:
+        q = npar.gather_model(q, 2)
+    parts = _decode_partials(q, k, v, kv_len, DECODE_KV_CHUNKS // m, r * s)
+    o = _decode_combine(*(npar.gather_model(t, 1) for t in parts),
+                        q.dtype)
+    return o.narrow(2, r * own, own) if tp else o
+
+
+def seq_slots(max_len: int, m: int) -> int:
+    """The slots a rank holds of a KV cache split along the sequence over
+    ``m`` model ranks: whole flash-decoding chunks of the whole cache's
+    (``max_len`` a multiple of DECODE_KV_CHUNKS, which ``m`` divides), or
+    ValueError: no quiet fallback to a replicated cache."""
+    if max_len % DECODE_KV_CHUNKS or DECODE_KV_CHUNKS % m:
+        raise ValueError(
+            f"the KV cache splits along the sequence over {m} model ranks "
+            f"(its kv heads do not divide over them): each rank's slots "
+            f"must be whole chunks of the {DECODE_KV_CHUNKS} flash-decoding "
+            f"chunks, so max_len ({max_len}) must be a multiple of "
+            f"{DECODE_KV_CHUNKS} and {m} must divide {DECODE_KV_CHUNKS}")
+    return max_len // m
 
 
 def _cached_sdpa(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor) -> Tensor:
@@ -327,6 +399,24 @@ def _cached_sdpa(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor) -> Tensor:
     p = torch.softmax(scores, dim=-1)
     o = torch.einsum("bqkgs,bskd->bqkgd", p, v.float())
     return o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+def _kv_for_heads(k: Tensor, v: Tensor, first: int, n_q: int,
+                  n_heads: int) -> Tuple[Tensor, Tensor]:
+    """The kv heads of ``k`` / ``v`` (B, S, KVH, hd, every kv head) that
+    the query heads ``first`` .. ``first + n_q`` of ``n_heads`` attend
+    to, laid out for the grouped einsums (query head j with kv head
+    j // group): a rank's heads of a whole-k/v split (MQA, and GQA whose
+    kv heads do not divide over ``model``)."""
+    group = n_heads // k.shape[2]
+    if n_q == n_heads:
+        return k, v
+    lo, hi = first // group, (first + n_q - 1) // group + 1
+    if hi - lo == 1 or (first % group == 0 and n_q % group == 0):
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    idx = torch.div(first + torch.arange(n_q, device=k.device), group,
+                    rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def attention(p: dict, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
@@ -352,11 +442,32 @@ def attention(p: dict, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
     training step's tape takes one operand block per container (the
     unused column blocks of each stream carry zero cotangents).  No rope,
     no causal mask, and the cache is not touched.
+
+    Serving under the sharding policy (``launch.sharding.ServeParallel``
+    on ``model`` > 1) the cache is this rank's block.  Split by kv heads,
+    the rank attends with its heads over its kv heads, as one device
+    does.  Split along the sequence (the kv heads do not divide over
+    ``model``): a prefill computes every kv head's k and v, attends with
+    the rank's heads over all of them and writes the rank's run of
+    slots; a decode step writes the new token on the rank that owns slot
+    ``len``, forms every head's flash-decoding partials over the rank's
+    chunks (q gathered over ``model``) and combines every rank's in chunk
+    order (:func:`_decode_sdpa_split`); a chunked prefill raises.
     """
     npar = shardctx.numeric_context()
-    tp = npar is not None and npar.attn and cache is None
+    serve = npar is not None and npar.serve and npar.m > 1 \
+        and cache is not None and x_kv is None
+    tp = npar is not None and npar.attn and (cache is None or serve)
     q, k, v = fused_qkv(p, x, cfg, tp, x_kv)
     b, sq = q.shape[0], q.shape[1]   # the whole sequence under ``seq``
+    split = None if not serve else ("heads" if npar.kv_split else "seq")
+    h0 = npar.mesh.coords["model"] * (cfg.n_heads // npar.m) \
+        if npar is not None and npar.m > 1 else 0
+    if split == "heads" and not tp:     # the plan reads whole: own heads
+        n_q, n_kv = cfg.n_heads // npar.m, cfg.n_kv_heads // npar.m
+        q = q.narrow(2, h0, n_q)
+        k = k.narrow(2, npar.mesh.coords["model"] * n_kv, n_kv)
+        v = v.narrow(2, npar.mesh.coords["model"] * n_kv, n_kv)
     append = cache is not None and x_kv is None and (
         sq == 1 or positions is not None)
     if positions is None:
@@ -365,7 +476,26 @@ def attention(p: dict, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     new_cache = None
-    if append:
+    if append and split == "seq":
+        if sq != 1:
+            raise ValueError(
+                "a chunked prefill (prefill_chunk) against a KV cache split "
+                "along the sequence over model ranks is not supported; "
+                "prefill the whole prompt")
+        idx = cache["len"]
+        rows = torch.arange(b, device=x.device)
+        s_loc = cache["k"].shape[1]
+        at = idx.long() - npar.mesh.coords["model"] * s_loc
+        mine = ((at >= 0) & (at < s_loc))[:, None, None]
+        at = at.clamp(0, s_loc - 1)
+        for key, new in (("k", k), ("v", v)):
+            c = cache[key]
+            c[rows, at] = torch.where(mine, new[:, 0].to(c.dtype),
+                                      c[rows, at])
+        o = _decode_sdpa_split(q, cache["k"], cache["v"], idx + 1, npar,
+                               tp)
+        new_cache = {"k": cache["k"], "v": cache["v"], "len": idx + sq}
+    elif append:
         idx = cache["len"]
         rows = torch.arange(b, device=x.device)[:, None]
         slots = idx.long()[:, None] + torch.arange(sq, device=x.device)
@@ -377,15 +507,21 @@ def attention(p: dict, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
             o = _cached_sdpa(q, cache["k"], cache["v"], positions)
         new_cache = {"k": cache["k"], "v": cache["v"], "len": idx + sq}
     else:
-        o = _chunked_sdpa(q, k, v, causal=causal and x_kv is None)
+        kk, vv = (k, v) if not tp or k.shape[2] != cfg.n_kv_heads \
+            else _kv_for_heads(k, v, h0, q.shape[2], cfg.n_heads)
+        o = _chunked_sdpa(q, kk, vv, causal=causal and x_kv is None)
         if cache is not None and x_kv is None:  # prefill fills the cache
-            cache["k"][:, :sq] = k.to(cache["k"].dtype)
-            cache["k"][:, sq:] = 0
-            cache["v"][:, :sq] = v.to(cache["v"].dtype)
-            cache["v"][:, sq:] = 0
+            s_loc = cache["k"].shape[1]
+            lo = npar.mesh.coords["model"] * s_loc if split == "seq" else 0
+            n = max(0, min(sq - lo, s_loc))
+            for key, new in (("k", k), ("v", v)):
+                cache[key][:, :n] = new[:, lo:lo + n].to(cache[key].dtype)
+                cache[key][:, n:] = 0
             new_cache = {"k": cache["k"], "v": cache["v"],
                          "len": torch.full((b,), sq, dtype=torch.int32,
                                            device=x.device)}
+    if split == "heads" and not tp:     # every head's output, for wo whole
+        o = npar.gather_model(o, 2)
     o = o.reshape(b, sq, -1)
     return _out_project(p, o, cfg, npar if tp else None), new_cache
 
@@ -399,15 +535,18 @@ def fused_qkv(p: dict, x: Tensor, cfg: ModelConfig, tp: bool,
     :func:`attention`).  ``tp`` (the numeric step's ``attn`` plan): this
     rank's heads, a column-parallel read of its q, k and v columns in
     the split-range form (one DAC scale and one range a token over both
-    streams, as the whole read's); under MQA k and v whole on every rank,
-    their gradient summed over ``model``.  Under sequence parallelism
+    streams, as the whole read's); where the kv heads do not divide over
+    ``model`` (MQA) each rank reads its slice of the k and v columns,
+    gathered whole over ``model`` after the read (backward: the ranks'
+    cotangents summed and scattered to their columns; the plan is off
+    where even the columns do not divide).  Under sequence parallelism
     ``x`` is this rank's chunk: its whole sequence is gathered before
     the stream joins it (``[x_whole, x_kv]``, the one-device read's rows),
     and the stream's cotangent from this rank's heads is summed over
     ``model`` by a ``copy_to`` (the stream is whole on every rank)."""
     hd = cfg.resolved_head_dim
     n_h, n_kvh = cfg.n_heads, cfg.n_kv_heads
-    wqkv, col = p["wqkv"], None
+    wqkv, col, kv_cols = p["wqkv"], None, False
     npar = shardctx.numeric_context() if tp else None
     sp = npar is not None and npar.sp_on
     if sp:      # the whole sequence first, then the stream after it
@@ -426,12 +565,15 @@ def fused_qkv(p: dict, x: Tensor, cfg: ModelConfig, tp: bool,
                npar.blocks.get("wqkv"))
         if npar.kv_split:
             n_kvh //= npar.m
-        else:   # MQA: k and v whole on every rank, their gradient summed
-            w = wqkv["w"]
-            wqkv = {"w": torch.cat([w[..., :n_h * hd], shardctx.copy_to(
-                w[..., n_h * hd:], npar.mesh, npar.tp)], dim=-1)}
+        else:           # MQA: k and v by columns
+            kv_cols = True
     nq, nkv = n_h * hd, n_kvh * hd
     qkv = project(wqkv, x, cfg, tp=col)
+    if kv_cols:     # this rank's k and v columns gathered in column order
+        loc = nkv // npar.m
+        qkv = torch.cat([qkv[..., :nq]] + [shardctx.gather(
+            qkv[..., nq + i * loc:nq + (i + 1) * loc], npar.mesh, npar.tp,
+            -1) for i in range(2)], dim=-1)
     q_rows, kv_rows = (slice(None), slice(None)) if x_kv is None \
         else (slice(None, sq), slice(sq, None))
     return (_split_heads(qkv[:, q_rows, :nq], n_h),
@@ -452,8 +594,19 @@ def _out_project(p: dict, o: Tensor, cfg: ModelConfig, npar) -> Tensor:
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
+    """A K/V cache of ``batch`` rows and ``max_len`` slots; under a
+    serving context (``launch.sharding.ServeParallel``, ``model`` > 1)
+    this rank's block of it: its kv heads, or its slots
+    (:func:`seq_slots`)."""
     hd = cfg.resolved_head_dim
-    shape = (batch, max_len, cfg.n_kv_heads, hd)
+    kvh = cfg.n_kv_heads
+    npar = shardctx.numeric_context()
+    if npar is not None and npar.serve and npar.m > 1:
+        if npar.kv_split:
+            kvh //= npar.m
+        else:
+            max_len = seq_slots(max_len, npar.m)
+    shape = (batch, max_len, kvh, hd)
     return {"k": torch.zeros(shape, dtype=cdtype(cfg), device=device),
             "v": torch.zeros(shape, dtype=cdtype(cfg), device=device),
             "len": torch.zeros((batch,), dtype=torch.int32, device=device)}

@@ -4,10 +4,11 @@ the audio encoder-decoder, the SSM (Mamba-2) and hybrid (Zamba-2) stacks
 
     params         = init_params(cfg, generator, device="cuda")
     loss, metrics  = loss_fn(params, batch, cfg)
-    logits, cache  = prefill(params, batch, cfg, max_len)
-    logits, cache  = decode_step(params, cache, tokens, cfg, batch_extras)
+    logits, cache  = prefill(params, batch, cfg, max_len, mesh=None)
+    logits, cache  = decode_step(params, cache, tokens, cfg, batch_extras,
+                                 mesh=None)
     logits, cache  = prefill_chunk(params, cache, tokens, cfg, batch_extras)
-    cache          = init_cache(cfg, batch, max_len, device)
+    cache          = init_cache(cfg, batch, max_len, device, mesh=None)
     batch          = input_specs(cfg, shape)          # meta tensors
     cache          = cache_specs(cfg, batch, max_len)  # meta tensors
 
@@ -25,9 +26,20 @@ stacked (L, B, ...); and the hybrid's shared-block K/V caches stacked
 updated in place by the functions that take it, which return it for the
 caller's convenience.  The SSM family has no positions (``cache_lens``
 is None) and no chunked prefill.
+
+With ``mesh`` (a ``launch.mesh.Mesh`` over ``data`` / ``model``) the
+serving functions run under the sharding policy, as the reference's
+dry run jits ``prefill`` and ``decode_step`` with the policy's
+``in_shardings`` (the dense, SSM and hybrid families; see
+``launch.sharding.ServeParallel``): ``params`` is this rank's blocks
+(``ServeParallel.shard_params``), ``batch`` / ``tokens`` this rank's rows
+(the batch over the data axes where they divide it, else every row), the
+cache this rank's block, and the logits this rank's rows over the whole
+vocab, the same on every ``model`` rank.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Union
 
 import torch
@@ -189,14 +201,33 @@ def _vocab_parallel_ce(logits: Tensor, labels: Tensor, npar):
 # caches / serving
 # --------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+@contextlib.contextmanager
+def serving(cfg: ModelConfig, mesh):
+    """The serving context of ``cfg`` on ``mesh``
+    (``launch.sharding.serve_parallel``) installed for a block; nothing
+    with ``mesh`` None."""
+    if mesh is None:
+        yield None
+        return
+    from repro_torch.launch.sharding import serve_parallel
+    with shardctx.numeric_parallel(serve_parallel(cfg, mesh)) as npar:
+        yield npar
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda",
+               mesh=None):
     """``(caches, shared)``: K/V caches stacked (L, B, ...) per leaf (with
     MLA the latent ``c_kv`` and the shared rope key ``k_rope``), the
     VLM's self caches stacked (n_groups, cross_attn_every - 1, B, ...),
     the audio decoder's ``{"self": K/V, "ck", "cv"}`` stacked (L, B,
     ...) with the cross K/V over ``n_audio_frames``, or the SSM states
     ``h`` and ``conv``; ``shared`` the hybrid's shared-block K/V caches
-    stacked (n_groups, B, ...), else None."""
+    stacked (n_groups, B, ...), else None.  With ``mesh``, this rank's
+    block of it (``batch`` its rows): see the module docstring."""
+    if mesh is not None:
+        with serving(cfg, mesh):
+            return init_cache(cfg, batch, max_len, device)
+
     def stack(one, *lead):
         if isinstance(one, dict):
             return {k: stack(v, *lead) for k, v in one.items()}
@@ -245,50 +276,58 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec,
     return out
 
 
-def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, mesh=None):
     """The cache :func:`init_cache` allocates, on the ``meta`` device."""
-    return init_cache(cfg, batch, max_len, "meta")
+    return init_cache(cfg, batch, max_len, "meta", mesh)
 
 
 def prefill(params: dict, batch: Dict[str, Tensor], cfg: ModelConfig,
-            max_len: int):
+            max_len: int, mesh=None):
     """Run the prompt (and the batch's stream, for the cross-attention
     families) through the model: last-token logits and a cache sized
     ``max_len``.  The head reads the last position alone (B rows, not B
     x S: the reference's forms every position's logits and keeps the
-    last)."""
-    b = batch["tokens"].shape[0]
-    caches, shared = init_cache(cfg, b, max_len, batch["tokens"].device)
-    logits, caches, shared, _ = _forward(params, batch, cfg, caches=caches,
-                                         shared_caches=shared,
-                                         last_only=True)
+    last).  ``mesh``: under the sharding policy (module docstring)."""
+    with serving(cfg, mesh):
+        b = batch["tokens"].shape[0]
+        caches, shared = init_cache(cfg, b, max_len,
+                                    batch["tokens"].device)
+        logits, caches, shared, _ = _forward(params, batch, cfg,
+                                             caches=caches,
+                                             shared_caches=shared,
+                                             last_only=True)
     return logits[:, -1], (caches, shared)
 
 
 def decode_step(params: dict, cache, tokens: Tensor, cfg: ModelConfig,
-                batch_extras: Optional[Dict[str, Tensor]] = None):
+                batch_extras: Optional[Dict[str, Tensor]] = None,
+                mesh=None):
     """One decode step.  tokens: (B,).  Returns (logits, cache).  The
     positions are the cache's lengths (None for the SSM family).
     ``batch_extras`` carries the stream of a cross-attention family (the
     VLM re-reads it every step; the audio decoder reads its cached cross
-    keys and values instead)."""
+    keys and values instead).  ``mesh``: under the sharding policy
+    (module docstring)."""
     caches, shared = cache
     lens = cache_lens(cache, cfg)
     positions = None if lens is None else lens[:, None]
-    logits, caches, shared, _ = _forward(
-        params, {"tokens": tokens[:, None], **(batch_extras or {})}, cfg,
-        caches=caches, positions=positions, shared_caches=shared)
+    with serving(cfg, mesh):
+        logits, caches, shared, _ = _forward(
+            params, {"tokens": tokens[:, None], **(batch_extras or {})},
+            cfg, caches=caches, positions=positions, shared_caches=shared)
     return logits[:, -1], (caches, shared)
 
 
 def prefill_chunk(params: dict, cache, tokens: Tensor, cfg: ModelConfig,
-                  batch_extras: Optional[Dict[str, Tensor]] = None):
+                  batch_extras: Optional[Dict[str, Tensor]] = None,
+                  mesh=None):
     """Append a chunk of prompt tokens (B, S) to an existing cache; each
     row's chunk is written at its current length and attends causally to
     the filled prefix.  Returns (chunk logits (B, S, V), cache); rows
     advance by S (``cache_with_lens`` fixes a padded final chunk).  The
     SSM family has no positional cache and raises, as the reference
-    does."""
+    does.  ``mesh``: under the sharding policy (module docstring), a
+    cache split by kv heads; one split along the sequence raises."""
     caches, shared = cache
     lens = cache_lens(cache, cfg)
     if lens is None:
@@ -297,9 +336,10 @@ def prefill_chunk(params: dict, cache, tokens: Tensor, cfg: ModelConfig,
             "chunked prefill is unsupported — use prefill()")
     positions = lens[:, None] + torch.arange(tokens.shape[1],
                                              device=tokens.device)[None, :]
-    logits, caches, shared, _ = _forward(
-        params, {"tokens": tokens, **(batch_extras or {})}, cfg,
-        caches=caches, positions=positions, shared_caches=shared)
+    with serving(cfg, mesh):
+        logits, caches, shared, _ = _forward(
+            params, {"tokens": tokens, **(batch_extras or {})}, cfg,
+            caches=caches, positions=positions, shared_caches=shared)
     return logits, (caches, shared)
 
 

@@ -192,8 +192,10 @@ def ssm_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
     Under the numeric step's ``ssm`` plan (training: no state) the layer
     splits over ``model`` by heads (:func:`_rank_layer`): ``in_proj``
     column-parallel (this rank's z and x, B, C and dt whole), the conv on
-    the rank's channels, the scan on its heads; the gated norm over the
-    whole ``d_in`` runs whole on every rank, after ``y * silu(z)`` is
+    the rank's channels, the scan on its heads (serving under the policy,
+    ``launch.sharding.ServeParallel``, with this rank's block of the
+    state: ``h`` its heads, the conv state its channels); the gated norm
+    over the whole ``d_in`` runs whole on every rank, after ``y * silu(z)`` is
     gathered along ``d_in`` (backward the rank's slice), so that its
     forward and backward are one device's; the rank's columns of it then
     feed ``out_proj`` row-parallel (backward gathered).  Under sequence
@@ -205,7 +207,7 @@ def ssm_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
     b, s, _ = x.shape
     d_in, h, n, g = _dims(cfg)
     npar = shardctx.numeric_context()
-    tp = npar is not None and npar.ssm and state is None
+    tp = npar is not None and npar.ssm and (state is None or npar.serve)
     col = None
     if tp:
         col = ("col", 2 * d_in + 2 * g * n + h, npar.blocks.get("in_proj"))
@@ -272,7 +274,17 @@ def ssm_apply(p: dict, x: Tensor, cfg: ModelConfig, *,
 
 
 def make_ssm_state(cfg: ModelConfig, batch: int, device=None) -> dict:
+    """An SSD layer's zero state for ``batch`` rows; under a serving
+    context (``launch.sharding.ServeParallel``, ``model`` > 1) this
+    rank's block of it: ``h`` its heads, the conv state the channels its
+    conv reads (its heads' x channels, and B and C: its groups', or whole
+    where the groups do not divide over ``model``)."""
     d_in, h, n, g = _dims(cfg)
+    npar = shardctx.numeric_context()
+    if npar is not None and npar.serve and npar.m > 1:
+        m = npar.m
+        d_in, h = d_in // m, h // m
+        g = g // m if g % m == 0 else g
     conv_dim = d_in + 2 * g * n
     f32 = dict(dtype=torch.float32, device=device)
     return {"h": torch.zeros((batch, h, n, cfg.ssm_head_dim), **f32),

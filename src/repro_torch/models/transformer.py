@@ -257,7 +257,8 @@ def _logits(p: dict, x: Tensor, cfg: ModelConfig,
             last_only: bool = False) -> Tensor:
     """The head's logits, of every position or (``last_only``, a prefill)
     of the last one alone: the norm and the head act per position.  Under
-    a numeric step's ``vocab`` plan, this rank's vocab slice of them."""
+    a numeric step's ``vocab`` plan, this rank's vocab slice of them
+    (serving: gathered in vocab order, whole on every rank)."""
     if last_only:
         x = x[:, -1:]
     x = rmsnorm(_top(p, "final_ln"), x, cfg.norm_eps)
@@ -266,8 +267,12 @@ def _logits(p: dict, x: Tensor, cfg: ModelConfig,
         x = npar.col_input(x)
     if cfg.tie_embeddings:
         # the scale keeps init logits O(1) (embeddings are unit-variance)
-        return x.float() @ _top(p, "embed").T / (cfg.d_model ** 0.5)
-    return (x @ _top(p, ("lm_head", "w")).to(x.dtype)).float()
+        y = x.float() @ _top(p, "embed").T / (cfg.d_model ** 0.5)
+    else:
+        y = (x @ _top(p, ("lm_head", "w")).to(x.dtype)).float()
+    if npar is not None and npar.vocab and npar.serve:
+        y = npar.gather_model(y, -1)    # served whole: the vocab blocks
+    return y
 
 
 def _seq_on(npar, *lengths: int) -> bool:

@@ -193,6 +193,30 @@ def test_full_size_decode_cell_argument_bytes():
     assert set(rec) >= {"ok", "devices", "mem", "model", "trace"}
 
 
+@pytest.mark.parametrize("mesh", ["4x1", "1x4"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "starcoder2-3b",
+                                  "mamba2-1.3b"])
+def test_serving_cells_hold_the_policy_blocks(arch, mesh):
+    """The decode_32k cells served under the policy at full size: the
+    dense family's (gemma-2b's cache split along the sequence on 1x4,
+    starcoder2-3b's too: 2 kv heads) hold nothing beyond it; mamba2's
+    only ``in_proj``'s B, C and dt columns and the conv state's B and C
+    channels on ``model`` ranks (one group: whole on every rank); the
+    sharded step's collectives are recorded."""
+    rec = DR.run_cell(arch, "decode_32k", mesh)
+    assert rec["ok"], rec.get("error")
+    mem = rec["mem"]
+    leaves = mem["replicated_by_port_leaves"]
+    if arch == "mamba2-1.3b" and mesh == "1x4":
+        assert set(leaves) == {"params/layers/ssm/in_proj/w",
+                               "cache/0/conv"}
+        assert mem["replicated_by_port_gb"] == pytest.approx(
+            sum(leaves.values()), rel=1e-12)
+    else:
+        assert mem["replicated_by_port_gb"] == 0.0 and not leaves
+    assert rec["trace"]["collectives"]["total"] > 0
+
+
 def test_failed_cell_records_its_error():
     rec = DR.run_cell("gemma-2b", "no_such_shape", "1x1")
     assert rec["ok"] is False and "KeyError" in rec["error"]

@@ -21,10 +21,10 @@ Tolerances:
     float32 rounding of 0, where adamw's ``m / sqrt(v)`` is a ratio of
     rounding errors and may move by up to ``2 lr`` a step: those are
     counted (at most 1e-3 of the elements) and bounded by ``4 lr``;
-  * gemma-2b digital on 1x2 and 1x4 (k and v whole on every ``model``
-    rank, their gradient summed over ``model`` and counted once in the
-    norm) against the reference's jitted one-device step: the class
-    above;
+  * gemma-2b digital on 1x2 and 1x4 (each ``model`` rank its slice of
+    k's and v's columns, gathered whole after the read, their gradient
+    summed over ``model`` and scattered back to the columns) against the
+    reference's jitted one-device step: the class above;
   * QAT (the fakequant read), on 2x2, 1x4 and 4x1 (the column splits'
     range partials gathered, the row splits' tiles gathered, so every
     read's codes are one device's; 4x1 splits nothing over ``model`` and
@@ -97,7 +97,7 @@ JOBS = {(2, 2): ("digital", "qat", "sp", "qat_sp", "bf16", "reads", "ties",
         (1, 2): ("mqa",),
         (2, 4): ("inexact",)}
 #: gemma-2b's smoke config: 4 query heads over one kv head (MQA), so on
-#: ``model`` ranks k and v stay whole on every rank
+#: ``model`` ranks each holds a slice of k's and v's columns
 MQA = "gemma-2b"
 
 
@@ -158,8 +158,7 @@ def _numeric_run(extra, params_np, mesh, n_steps=STEPS, env=None,
                                              mesh)))
             for tree in (st["params"], st["opt"]["m"], st["opt"]["v"])
             for p, w in _leaves(params))
-        # the port's own blocks: a fused leaf cut per part (MQA's k and v
-        # whole on every model rank)
+        # the port's own blocks: a fused leaf cut per part
         held_port = all(
             tuple(_get(tree, p).shape) == tuple(S_.leaf_block(
                 w, p, _get(policy, p), cfg, mesh).shape)
@@ -567,14 +566,17 @@ def test_tensor_parallel_plan_on_model_ranks(runs):
 
 @pytest.mark.parametrize("shape", [(1, 2), (1, 4)], ids=["1x2", "1x4"])
 def test_mqa_step_matches_reference(runs, shape):
-    """gemma-2b's smoke config (one kv head) tensor-parallel: k and v
-    whole on every ``model`` rank, their gradient summed over ``model``
-    and counted once in ``grad_norm`` (the clip scales every update by
-    it)."""
+    """gemma-2b's smoke config (one kv head) tensor-parallel: each
+    ``model`` rank holds the policy's even block of ``wqkv`` (its q heads'
+    columns and its slice of k's and v's, gathered whole after the read),
+    the k and v gradient summed over ``model`` and scattered back to the
+    columns, each column counted once in ``grad_norm`` (the clip scales
+    every update by it)."""
     ref = runs["ref_mqa"]
     for r in runs["ranks"][shape]:
         got = r["mqa"]
         assert got["held_port"] and got["plan"]["attn"], got["plan"]
+        assert got["held"]
         assert _close(got["losses"], ref["losses"]), got["losses"]
         assert _close(got["norms"], ref["norms"]), (got["norms"],
                                                     ref["norms"])
